@@ -12,8 +12,11 @@ Phases; each raises on failure and the script then exits non-zero:
 2. build: the hand-written kernels of the serving path are compiled from
    ``tts_tpu_torch/csrc`` (ptxas register / shared-memory use printed);
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   decode shapes (B 1 and 4, S 685 and 1024, H 16, dh 64, fp32 and bf16
-   caches, per-row and scalar lengths), then timed;
+   decode shapes (B 1 and 4, S 685, 720 and 1024, H 16, dh 64, fp32 and
+   bf16 caches, per-row, scalar and the real decode's lengths), each call
+   made twice and the two results required bit-identical; then timed
+   beside its bound, its plain version and one PyTorch library call
+   (``scaled_dot_product_attention``) computing the same function;
 4. slice: XTTS v2 at full width (``XttsConfig()``; fp32 weights drawn from a
    seed) conditions on a reference wav and decodes 40 greedy tokens twice,
    through the kernel and through the plain attention; tokens must match
@@ -26,8 +29,10 @@ Phases; each raises on failure and the script then exits non-zero:
    Then one stream on the idle server, and its time to first audio split
    into conditioning, prefill, one chunk's decode and its vocoding.
 
-It prints ``{"kernels": [...]}`` on the line before the last and, as the
-last line, ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
+It prints the card's name and power limit, then ``{"kernels": [...]}`` on
+the line before the last and, as the last line, ``{"ok": true, "device":
+{...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax or
+``tokenizers`` by then. Without CUDA, or outside a
 checkout, it exits 2 and prints no result.
 """
 
@@ -124,6 +129,21 @@ def plain_decode_attention():
         gpt_core.decode_attention = decode_attention
 
 
+@contextlib.contextmanager
+def forced_splits(keys: int, splits: int):
+    """The kernel's wrapper cuts ``keys`` keys into ``splits`` splits in
+    place of its plan's count, for one measurement only."""
+    import importlib
+
+    dec = importlib.import_module("tts_tpu_torch.ops.decode_attention")
+    plan = dec.split_plan
+    dec.split_plan = lambda *args: dec.cut_keys(keys, splits)
+    try:
+        yield
+    finally:
+        dec.split_plan = plan
+
+
 def sync(device) -> None:
     import torch
 
@@ -167,76 +187,149 @@ def phase_build() -> None:
     built = load_library("decode_attention")
     log(f"built {os.path.relpath(built.path, REPO)} in {time.time() - t0:.1f} s")
     for line in built.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line:
+            kind = "bf16" if "bfloat16" in line else "fp32" if "IfE" in line else "?"
+            log(f"  ptxas: {line.strip().split(' for ')[0]} ({kind} instance)")
+        elif "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
 
-def phase_kernels(card: str) -> dict:
-    """K1 against its plain version at the decode shapes, then timed."""
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet, at 700 W
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+
+
+def attention_bound_ms(B: int, n: int, dtype) -> tuple:
+    """Least time for one decode-attention call: each input read once (q and
+    the valid K/V rows), the fp32 output written once, over the memory rate;
+    ~4 flops per K/V element (q.k and p.v) over the fp32 rate. Returns
+    ``(ms, "bytes" or "operations", bytes)``."""
     import torch
 
-    from tts_tpu_torch.ops.decode_attention import decode_attention, decode_attention_torch
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = 2 * B * n * H * DH * elt + B * H * DH * elt + B * H * DH * 4
+    flops = 4 * B * n * H * DH
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def phase_kernels(card: str) -> dict:
+    """K1 against its plain version at the decode shapes (and repeated calls
+    bit-identical), then timed beside its bound, the plain version and one
+    library call computing the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from tts_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_torch,
+        split_plan,
+    )
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     tol = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_checks = 0
+
+    def check(B, S, dtype, lengths):
+        nonlocal n_checks
+        q = torch.randn(B, H, DH, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype)
+        for cache_len in lengths:
+            got = decode_attention(q, k, v, cache_len)
+            again = decode_attention(q, k, v, cache_len)
+            # bf16: the plain version runs in fp32 on the same bf16 values
+            want = decode_attention_torch(q.float(), k.float(), v.float(), cache_len)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            worst[dtype] = max(worst[dtype], err)
+            n_checks += 1
+            if not err <= tol[dtype]:
+                raise AssertionError(
+                    f"decode_attention B={B} S={S} {dtype} cache_len={cache_len}: "
+                    f"max abs err {err} > {tol[dtype]}"
+                )
+            if not torch.equal(got, again):
+                raise AssertionError(
+                    f"decode_attention B={B} S={S} {dtype} cache_len={cache_len}: two calls on "
+                    f"the same inputs differ by {(got - again).abs().max().item()}"
+                )
+
     for B in (1, 4):
         for S in (685, 1024):
             for dtype in (torch.float32, torch.bfloat16):
-                q = torch.randn(B, H, DH, generator=gen, device=dev).to(dtype)
-                k = torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype)
-                v = torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype)
                 lengths = [
                     torch.tensor([(1, 37, S)[(b + r) % 3] for b in range(B)],
                                  dtype=torch.int32, device=dev)
                     for r in range(3)
                 ] + [S - 3, torch.tensor(37, device=dev)]
-                for cache_len in lengths:
-                    got = decode_attention(q, k, v, cache_len)
-                    # bf16: the plain version runs in fp32 on the same bf16 values
-                    want = decode_attention_torch(q.float(), k.float(), v.float(), cache_len)
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    worst[dtype] = max(worst[dtype], err)
-                    n_checks += 1
-                    if not err <= tol[dtype]:
-                        raise AssertionError(
-                            f"decode_attention B={B} S={S} {dtype} cache_len={cache_len}: "
-                            f"max abs err {err} > {tol[dtype]}"
-                        )
-    log(f"decode_attention: {n_checks} cases agree with the plain version; max abs err "
-        f"fp32 {worst[torch.float32]:.3g} (tol 1e-5), bf16 {worst[torch.bfloat16]:.3g} (tol 1e-3)")
+                check(B, S, dtype, lengths)
+    # the cache lengths of a real decode (20-token chunks after a ~33-token
+    # prefix), at the streaming capacity S=720 and at S=1024 with B=4
+    for B, S in ((1, 720), (4, 720), (4, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(B, S, dtype, [33, 95, 300])
+    log(f"decode_attention: {n_checks} cases agree with the plain version, each called twice "
+        f"with bit-identical results; max abs err fp32 {worst[torch.float32]:.3g} (tol 1e-5), "
+        f"bf16 {worst[torch.bfloat16]:.3g} (tol 1e-3)")
 
     # timing: 32 caches, one per layer as in the model (more bytes than the
     # 50 MB L2 holds at B=1), so each call reads its cache from device memory
     times = {}
-    for B in (1, 4):
-        for dtype in (torch.bfloat16, torch.float32):
-            S = 685
-            q = torch.randn(B, H, DH, generator=gen, device=dev).to(dtype)
-            caches = [(torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype),
-                       torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype))
-                      for _ in range(32)]
-            lens = torch.full((B,), S, dtype=torch.int32, device=dev)
-            kern = [lambda k=k, v=v: decode_attention(q, k, v, S) for k, v in caches]
-            plain = [lambda k=k, v=v: decode_attention_torch(q, k, v, lens) for k, v in caches]
-            t = {
-                "kernel": time_device(kern),
-                "plain": time_device(plain),
-                "kernel2": time_device(kern),
-                "kernel_call": time_host(kern[0]),
-                "plain_call": time_host(plain[0]),
-            }
-            times[(B, dtype)] = t
-            mb = 2 * B * S * H * DH * torch.finfo(dtype).bits / 8 / 1e6
-            log(f"decode_attention {str(dtype)[6:]} B={B} S={S}: device {t['kernel'] * 1e3:.2f} / "
-                f"{t['kernel2'] * 1e3:.2f} us kernel, {t['plain'] * 1e3:.2f} us plain "
-                f"({mb:.2f} MB K/V: {mb / t['kernel'] / 1e3:.3f} TB/s); per call with launch "
-                f"{t['kernel_call'] * 1e3:.2f} us kernel, {t['plain_call'] * 1e3:.2f} us plain "
-                f"| {card}")
-    t = times[(1, torch.bfloat16)]
+    shapes = [(B, dtype, 685, 685) for B in (1, 4) for dtype in (torch.bfloat16, torch.float32)]
+    shapes += [(1, torch.bfloat16, 720, 95), (1, torch.bfloat16, 720, 300)]
+    for B, dtype, S, n in shapes:
+        q = torch.randn(B, H, DH, generator=gen, device=dev).to(dtype)
+        caches = [(torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype),
+                   torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype))
+                  for _ in range(32)]
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        kern = [lambda k=k, v=v: decode_attention(q, k, v, n) for k, v in caches]
+        plain = [lambda k=k, v=v: decode_attention_torch(q, k, v, lens) for k, v in caches]
+        # the library yardstick: q as [B, H, 1, dh], the caches as [B, H, S, dh]
+        # views, a [B, 1, 1, S] mask made here, outside the timed calls
+        mask = (torch.arange(S, device=dev) < n)[None, None, None, :].expand(B, 1, 1, S)
+        lib = [lambda k=k, v=v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+            for k, v in caches]
+        lib_out = lib[0]()[:, :, 0].float()
+        lib_err = (lib_out - decode_attention_torch(q.float(), caches[0][0].float(),
+                                                    caches[0][1].float(), n)).abs().max().item()
+        t = {"kernel": time_device(kern), "plain": time_device(plain), "library": time_device(lib)}
+        t["kernel2"] = time_device(kern)
+        t["kernel_call"] = time_host(kern[0])
+        t["plain_call"] = time_host(plain[0])
+        bound, bound_by, nbytes = attention_bound_ms(B, n, dtype)
+        t.update(bound=bound, bound_by=bound_by, bytes=nbytes)
+        times[(B, dtype, S, n)] = t
+        splits, chunk = split_plan(B, H, S, n, sms)
+        log(f"decode_attention {str(dtype)[6:]} B={B} S={S} n={n} ({splits} splits of {chunk} "
+            f"keys, {splits * B * H} blocks): device {t['kernel'] * 1e3:.2f} / "
+            f"{t['kernel2'] * 1e3:.2f} us kernel, {t['plain'] * 1e3:.2f} us plain, "
+            f"{t['library'] * 1e3:.2f} us library (SDPA, max abs diff {lib_err:.2g}); "
+            f"bound {bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {bound_by}): "
+            f"{100 * bound / t['kernel']:.1f} % of bound, {nbytes / t['kernel'] / 1e9:.3f} TB/s; "
+            f"per call with launch {t['kernel_call'] * 1e3:.2f} us kernel, "
+            f"{t['plain_call'] * 1e3:.2f} us plain | {card}")
+    # the split plan against other split counts, at the main path's shape
+    q = torch.randn(1, H, DH, generator=gen, device=dev).to(torch.bfloat16)
+    caches = [(torch.randn(1, 685, H, DH, generator=gen, device=dev).to(torch.bfloat16),
+               torch.randn(1, 685, H, DH, generator=gen, device=dev).to(torch.bfloat16))
+              for _ in range(32)]
+    fns = [lambda k=k, v=v: decode_attention(q, k, v, 685) for k, v in caches]
+    planned = split_plan(1, H, 685, 685, sms)[0]
+    plan_us = {}
+    for splits in sorted({planned, 1, 6, 9, 16}):
+        with forced_splits(685, splits):
+            plan_us[splits] = time_device(fns) * 1e3
+    log(f"decode_attention split plan on {sms} SMs, bf16 B=1 n=685, device us by split count "
+        f"(blocks = 16 x splits): " + ", ".join(f"{s}{' (plan)' if s == planned else ''} "
+                                                f"{us:.2f}" for s, us in plan_us.items())
+        + f" | {card}")
+
+    t = times[(1, torch.bfloat16, 685, 685)]
     return {
         "name": "decode_attention",
         "route": "cuda",
@@ -245,6 +338,10 @@ def phase_kernels(card: str) -> dict:
         "max_abs_err": max(worst.values()),
         "ms": t["kernel"],
         "plain_ms": t["plain"],
+        "bound_ms": t["bound"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library"],
+        "tb_per_s": t["bytes"] / t["kernel"] / 1e9,
     }
 
 
@@ -526,8 +623,10 @@ def main() -> int:
     kernel = phase_kernels(card)
     model = phase_slice(card)
     kernel["launches"] = phase_serving(model, card)
-    if "jax" in sys.modules or "flax" in sys.modules:
-        raise AssertionError("the port pulled in JAX")
+    leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
+                    or m.startswith("tts_tpu."))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked}")
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({
         "ok": True,

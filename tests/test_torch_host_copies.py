@@ -1,0 +1,105 @@
+"""The port's own copies of the JAX package's jax-free host modules.
+
+``tts_tpu_torch`` imports nothing of ``tts_tpu``: it keeps copies of the
+config classes (``config/base.py``, ``config/shared.py``,
+``read_json_with_comments``), the text normalisation the XTTS tokenizer
+calls (``text/``) and the reference → flax-layout XTTS converter
+(``utils/convert.py``). Each copy must behave exactly as its source: the
+config dicts, the normalised text and the converted leaves are compared for
+equality, no tolerance.
+"""
+
+import numpy as np
+import pytest
+from helpers import tiny_xtts_config
+from test_torch_convert import reference_state
+
+from tts_tpu.config import read_json_with_comments as jax_read_json
+from tts_tpu.models.xtts.config import XttsConfig as JaxXttsConfig
+from tts_tpu.models.xtts.tokenizer import VoiceBpeTokenizer as JaxTokenizer
+from tts_tpu.utils.convert import convert_xtts as jax_convert_xtts
+from tts_tpu_torch.config import read_json_with_comments
+from tts_tpu_torch.models.xtts.config import XttsConfig
+from tts_tpu_torch.models.xtts.tokenizer import VoiceBpeTokenizer
+from tts_tpu_torch.utils.convert import convert_xtts
+
+
+def test_xtts_config_to_dict_matches_jax():
+    assert XttsConfig().to_dict() == JaxXttsConfig().to_dict()
+    tiny = tiny_xtts_config().to_dict()
+    assert XttsConfig.from_dict(tiny).to_dict() == tiny
+
+
+def test_json_with_comments_round_trips_through_both(tmp_path):
+    config = JaxXttsConfig()
+    config.top_k = 7
+    config.model_args.gpt_layers = 3
+    body = config.to_json()
+    commented = (
+        "// an XTTS config with comments\n"
+        + body.replace('"top_k": 7,', '"top_k": 7, // greedy-ish\n', 1)
+        .replace('"model": "xtts",', '/* the model name,\n   on two lines */ "model": "xtts",', 1)
+    )
+    assert commented.count("//") == 2 and "/*" in commented
+    path = tmp_path / "config.json"
+    path.write_text(commented, encoding="utf-8")
+    got, want = read_json_with_comments(str(path)), jax_read_json(str(path))
+    assert got == want
+    assert got["top_k"] == 7 and got["model_args"]["gpt_layers"] == 3
+    assert XttsConfig.from_dict(got).to_dict() == JaxXttsConfig.from_dict(want).to_dict()
+
+
+# every language of the XTTS tokenizer, with numbers, ordinals, currency,
+# abbreviations, times and mixed whitespace
+TEXTS = [
+    ("en", "Dr. Smith paid $12.50 on the 3rd of May 2021 at 10:30,\t with  2,500 friends & 50% more."),
+    ("en", "Mr. and Mrs. Jones  owe £1,000.05 and ¥300 since 1999; the 21st item costs 0.75."),
+    ("es", "El Sr. García pagó 1250,75 € el 2º día a las 10:30  con 21 amigos & 5% más."),
+    ("fr", "M. Dupont a payé 99,99 € le 1er mai à 14h30,\tavec 80 amis @ 71 %."),
+    ("de", "Herr Dr. Müller zahlte 1234,56 € am 3. Mai um 10:30 Uhr  mit 21 Freunden + 97."),
+    ("it", "Il sig. Rossi ha pagato 13,50 € il 2° giorno alle 10:30 con 33 amici."),
+    ("pt", "O Sr. Silva pagou R$ 25,90 no 1º dia às 10:30   com 71 amigos."),
+    ("pl", "Pan Kowalski zapłacił 125 zł 3 maja o 10:30 z 22 przyjaciółmi."),
+    ("tr", "İstanbul'da Dr. Öztürk 1500 TL ödedi, saat 10:30'da 3. kez Ümit ile."),
+    ("ru", "Доктор Иванов заплатил 1234 рубля 3-го мая в 10:30  с 21 другом."),
+    ("nl", "Dhr. de Vries betaalde € 45,50 op de 2e dag om 10:30 met 99 vrienden."),
+    ("cs", "Pan Novák zaplatil 250 Kč 3. května v 10:30 s 42 přáteli."),
+    ("ar", "دفع الدكتور أحمد ١٢٣ دولارا في الساعة 10:30 مع 5 أصدقاء."),
+    ("hu", "Dr. Kovács 1500 Ft-ot fizetett május 3-án 10:30-kor  21 barátjával."),
+    ("zh-cn", "我在2021年5月3日10:30花了12.5元，和 3 个朋友。"),
+    ("ja", "東京で3人の友達と10時30分に1500円を払いました。"),
+    ("ja", "こんにちは、すしを 2 つ ください。"),
+    ("ko", "저는 3명의 친구와 10시 30분에 1500원을 냈어요."),
+    ("hi", "मैंने 10:30 बजे ३ दोस्तों के साथ 1500 रुपये दिए।"),
+]
+
+
+@pytest.mark.parametrize("lang,text", TEXTS, ids=[f"{lang}{i}" for i, (lang, _) in enumerate(TEXTS)])
+def test_tokenizer_normalisation_matches_jax(lang, text):
+    want = JaxTokenizer().preprocess_text(text, lang)
+    got = VoiceBpeTokenizer().preprocess_text(text, lang)
+    assert got == want
+    assert got.strip() and "  " not in got
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], path + (key,))
+    else:
+        yield "/".join(path), tree
+
+
+def test_convert_xtts_matches_jax_leaf_for_leaf():
+    args = tiny_xtts_config().model_args
+    state = {k: v for k, v in reference_state(args).items() if k != "mel_stats"}
+    kw = dict(layers=args.gpt_layers, heads=args.gpt_n_heads)
+    got = [dict(_leaves(tree)) for tree in convert_xtts(dict(state), **kw)]
+    want = [dict(_leaves(tree)) for tree in jax_convert_xtts(dict(state), **kw)]
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for key in w:
+            a, b = np.asarray(g[key]), np.asarray(w[key])
+            assert a.dtype == b.dtype and a.shape == b.shape, key
+            np.testing.assert_array_equal(a, b, err_msg=key)
+    assert sum(len(g) for g in got) > 100

@@ -208,23 +208,19 @@ def test_server_streams_through_batcher_and_matches_jax(port_tts, model_dir, jax
 
 
 def test_port_imports_no_jax_flax_or_tokenizers():
-    """Checked in a fresh interpreter: this test process has JAX loaded
-    already (tests/conftest.py)."""
-    modules = [
-        "tts_tpu_torch", "tts_tpu_torch.api", "tts_tpu_torch.ops.decode_attention",
-        "tts_tpu_torch.audio.torch_transforms", "tts_tpu_torch.audio.numpy_transforms",
-        "tts_tpu_torch.models", "tts_tpu_torch.models.xtts.model",
-        "tts_tpu_torch.models.xtts.tokenizer", "tts_tpu_torch.encoder.model",
-        "tts_tpu_torch.vocoder.models.hifigan_generator", "tts_tpu_torch.utils.convert",
-        "tts_tpu_torch.utils.synthesizer", "tts_tpu_torch.server.server",
-        "tts_tpu_torch.server.stream_batching",
-    ]
+    """The port imports nothing of ``tts_tpu`` (not even its jax-free
+    modules), nor ``jax``, ``flax`` or ``tokenizers``. Checked in a fresh
+    interpreter, after importing every module of the port: this test process
+    has JAX and ``tts_tpu`` loaded already (tests/conftest.py)."""
     code = (
-        "import importlib, sys\n"
-        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import importlib, pkgutil, sys\n"
+        "import tts_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(tts_tpu_torch.__path__, 'tts_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
         "from tts_tpu_torch.utils.convert import load_reference_xtts\n"
-        "import tts_tpu.utils.convert\n"
-        "bad = sorted(m for m in ('jax', 'flax', 'tokenizers') if m in sys.modules)\n"
+        "assert len(mods) > 30 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
+        "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

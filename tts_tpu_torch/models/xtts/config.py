@@ -1,7 +1,7 @@
 """XTTS config (port of ``tts_tpu/models/xtts/config.py``).
 
-Redeclared on ``tts_tpu.config.base.Config`` (jax-free) because the
-``tts_tpu.models.xtts`` package imports flax. The fields and defaults are the
+Redeclared on the port's own ``config.base.Config`` (a copy of
+``tts_tpu/config/base.py``): the port imports nothing of ``tts_tpu``. The fields and defaults are the
 JAX package's, so a ``config.json`` written by either package loads in the
 other. Fields for work the port does not do yet (remat, sequence-parallel
 fine-tuning, int8 serving) are kept for that compatibility and ignored.
@@ -12,8 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from tts_tpu.config.base import Config
-from tts_tpu.config.shared import BaseTTSConfig
+from tts_tpu_torch.config.base import Config
+from tts_tpu_torch.config.shared import BaseTTSConfig
 
 
 @dataclass

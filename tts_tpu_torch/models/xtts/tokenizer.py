@@ -15,10 +15,13 @@ import json
 import re
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from tts_tpu.text.cleaners import collapse_whitespace, lowercase
-from tts_tpu.text.english import normalize_numbers
-from tts_tpu.text.numbers_multilingual import (
+from tts_tpu_torch.text.cleaners import collapse_whitespace, lowercase
+from tts_tpu_torch.text.english import normalize_numbers
+from tts_tpu_torch.text.japanese import japanese_to_romaji
+from tts_tpu_torch.text.korean_romanize import korean_transliterate
+from tts_tpu_torch.text.numbers_multilingual import (
     expand_abbreviations_multilingual,
+    expand_numbers_hi,
     expand_numbers_ko,
     expand_numbers_multilingual,
     expand_numbers_zh,
@@ -62,8 +65,6 @@ def multilingual_cleaners(text: str, lang: str) -> str:
     elif lang == "ja":
         pass  # numbers expand inside japanese_to_romaji
     elif lang == "hi":
-        from tts_tpu.text.numbers_multilingual import expand_numbers_hi
-
         text = expand_numbers_hi(text)
     else:
         text = expand_numbers_multilingual(text, lang)
@@ -72,12 +73,8 @@ def multilingual_cleaners(text: str, lang: str) -> str:
     if lang == "zh":
         text = _chinese_transliterate(text)
     elif lang == "ko":
-        from tts_tpu.text.korean_romanize import korean_transliterate
-
         text = korean_transliterate(text)
     elif lang == "ja":
-        from tts_tpu.text.japanese import japanese_to_romaji
-
         text = japanese_to_romaji(text)
     return text
 

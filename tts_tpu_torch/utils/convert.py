@@ -16,9 +16,13 @@ a handful of rules rather than a table:
 * norm ``scale``/``shift`` → ``weight``/``bias`` (folded BatchNorm included);
   ``embedding`` → ``weight``; other leaves keep their names.
 
-``load_reference_xtts`` reads a reference-layout ``model.pth`` and goes
-through ``tts_tpu.utils.convert.convert_xtts`` (numpy only), so the
-reference → port mapping lives in one place: the JAX package's converter.
+``load_reference_xtts`` reads a reference-layout (coqui) ``model.pth``,
+maps it to the flax-layout tree with ``convert_xtts`` and from there into the
+port by the rules above. ``convert_xtts`` and what it calls are the port's
+own copy of the XTTS parts of ``tts_tpu/utils/convert.py`` (numpy only;
+the port imports nothing of ``tts_tpu``): a parity test holds the copy equal
+to the JAX package's converter, leaf for leaf
+(``tests/test_torch_host_copies.py``).
 """
 
 from __future__ import annotations
@@ -90,6 +94,320 @@ def xtts_from_jax_params(gpt_params: Mapping, decoder_params: Mapping) -> Dict[s
     return state
 
 
+
+# ---------------------------------------------------------------------------
+# Reference (coqui) XTTS state dict → flax-layout tree. Copied from
+# ``tts_tpu/utils/convert.py``: the weight-norm and kernel-layout helpers
+# (``:58-99``), ``convert_hifigan_generator`` (``:102``), the VITS-section
+# leaf helpers ``_dense``/``_plain_conv``/``_layernorm``/``_subdict``, and the
+# XTTS converters (``:439-609``), unchanged.
+# ---------------------------------------------------------------------------
+
+
+def fold_weight_norm(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Fold ``weight_g``/``weight_v`` (old API) or
+    ``parametrizations.weight.original{0,1}`` (new API) into plain weights."""
+    out: Dict[str, np.ndarray] = {}
+    handled = set()
+    for key in list(state.keys()):
+        if key.endswith("weight_v"):
+            base = key[: -len("weight_v")]
+            g, v = state[base + "weight_g"], state[base + "weight_v"]
+            norm = np.sqrt((v**2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+            out[base + "weight"] = g * v / np.maximum(norm, 1e-12)
+            handled |= {base + "weight_g", base + "weight_v"}
+        elif key.endswith("parametrizations.weight.original1"):
+            base = key[: -len("parametrizations.weight.original1")]
+            g = state[base + "parametrizations.weight.original0"]
+            v = state[key]
+            norm = np.sqrt((v**2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+            out[base.rstrip(".") + ".weight"] = g * v / np.maximum(norm, 1e-12)
+            handled |= {
+                base + "parametrizations.weight.original0",
+                base + "parametrizations.weight.original1",
+            }
+    for k, v in state.items():
+        if k not in handled and k not in out:
+            out[k] = v
+    return out
+
+
+def conv1d_kernel(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 1, 0))
+
+
+def convtranspose1d_kernel(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w[:, :, ::-1], (2, 0, 1))
+
+
+def conv2d_kernel(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def linear_kernel(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w)
+
+
+def convert_hifigan_generator(state: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Reference ``HifiganGenerator`` state dict → flax params for
+    ``tts_tpu.vocoder.models.hifigan_generator.HifiganGenerator``."""
+    state = fold_weight_norm(state)
+    params: Dict[str, Any] = {}
+
+    def put(path: str, leaf: Dict[str, np.ndarray]):
+        node = params
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    # conv_pre / conv_post (wrapped Conv1d -> child "Conv_0")
+    put("conv_pre/Conv_0", {"kernel": conv1d_kernel(state["conv_pre.weight"]),
+                            "bias": state["conv_pre.bias"]})
+    post = {"kernel": conv1d_kernel(state["conv_post.weight"])}
+    if "conv_post.bias" in state:
+        post["bias"] = state["conv_post.bias"]
+    put("conv_post/Conv_0", post)
+    if "cond_layer.weight" in state:
+        put("cond_layer", {
+            "kernel": linear_kernel(state["cond_layer.weight"][:, :, 0]),
+            "bias": state["cond_layer.bias"],
+        })
+
+    n_ups = len([k for k in state if k.startswith("ups.") and k.endswith(".weight")])
+    for i in range(n_ups):
+        put(f"ups_{i}", {
+            "kernel": convtranspose1d_kernel(state[f"ups.{i}.weight"]),
+            "bias": state[f"ups.{i}.bias"],
+        })
+        # per-upsample cond convs: "conds.{i}" in the XTTS decoder variant
+        # (xtts/hifigan_decoder.py:261), "cond_in_each_up_layer.{i}" elsewhere
+        for cname in (f"conds.{i}", f"cond_in_each_up_layer.{i}"):
+            if f"{cname}.weight" in state:
+                put(f"cond_up_{i}", {
+                    "kernel": linear_kernel(state[f"{cname}.weight"][:, :, 0]),
+                    "bias": state[f"{cname}.bias"],
+                })
+                break
+
+    n_res = len({k.split(".")[1] for k in state if k.startswith("resblocks.")})
+    for r in range(n_res):
+        for conv_group in ("convs1", "convs2", "convs"):
+            n_convs = len(
+                {k.split(".")[3] for k in state if k.startswith(f"resblocks.{r}.{conv_group}.")}
+            )
+            for c in range(n_convs):
+                w = state.get(f"resblocks.{r}.{conv_group}.{c}.weight")
+                if w is None:
+                    continue
+                b = state[f"resblocks.{r}.{conv_group}.{c}.bias"]
+                put(
+                    f"resblocks_{r}/{conv_group}_{c}/Conv_0",
+                    {"kernel": conv1d_kernel(w), "bias": b},
+                )
+    return {"params": params}
+
+
+def _dense(state, key):
+    """torch 1x1 Conv1d or Linear → flax Dense leaf."""
+    w = state[f"{key}.weight"]
+    if w.ndim == 3:  # [out, in, 1] conv1x1
+        w = w[:, :, 0]
+    leaf = {"kernel": linear_kernel(w)}
+    if f"{key}.bias" in state:
+        leaf["bias"] = state[f"{key}.bias"]
+    return leaf
+
+
+def _plain_conv(state, key):
+    """torch Conv1d → bare nn.Conv leaf (no wrapper)."""
+    leaf = {"kernel": conv1d_kernel(state[f"{key}.weight"])}
+    if f"{key}.bias" in state:
+        leaf["bias"] = state[f"{key}.bias"]
+    return leaf
+
+
+def _layernorm(state, key):
+    """glow_tts LayerNorm (gamma/beta) or LayerNorm2 (weight/bias) → flax."""
+    if f"{key}.gamma" in state:
+        scale, bias = state[f"{key}.gamma"], state[f"{key}.beta"]
+    else:
+        scale, bias = state[f"{key}.weight"], state[f"{key}.bias"]
+    return {"scale": scale.reshape(-1), "bias": bias.reshape(-1)}
+
+
+def _subdict(state, prefix):
+    return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def _qkv_interleaved_dense(state, key, heads):
+    """Conditioning-encoder qkv conv1x1 → flax Dense.
+
+    The reference QKVAttention (latent_encoder.py:43) lays out the 3C output
+    channels head-major ``[H, (q,k,v), dh]``; our AttentionBlock reshapes
+    ``[.., 3, H, dh]`` — permute out-channels accordingly."""
+    w = state[f"{key}.weight"][:, :, 0]  # [3D, D]
+    b = state[f"{key}.bias"]
+    d = w.shape[1]
+    dh = d // heads
+    w = w.reshape(heads, 3, dh, d).transpose(1, 0, 2, 3).reshape(3 * d, d)
+    b = b.reshape(heads, 3, dh).transpose(1, 0, 2).reshape(3 * d)
+    return {"kernel": linear_kernel(w), "bias": b}
+
+
+def convert_conditioning_encoder(state, prefix="", heads=16, attn_blocks=6):
+    """ConditioningEncoder (reference latent_encoder.py:119)."""
+    p = {"init": _dense(state, f"{prefix}init")}
+    for i in range(attn_blocks):
+        k = f"{prefix}attn.{i}"
+        p[f"attn_{i}"] = {
+            "norm": _layernorm(state, f"{k}.norm"),
+            "qkv": _qkv_interleaved_dense(state, f"{k}.qkv", heads),
+            "proj_out": _dense(state, f"{k}.proj_out"),
+        }
+    return p
+
+
+def convert_perceiver_resampler(state, prefix="", depth=2):
+    """PerceiverResampler (reference perceiver_encoder.py:225).
+
+    Reference FeedForward is ``Sequential(Linear, GEGLU, Linear)`` →
+    torch keys ``layers.{i}.1.{0,2}``; attention projections are bias-free."""
+    p = {"latents": state[f"{prefix}latents"], "norm_gamma": state[f"{prefix}norm.gamma"]}
+    for i in range(depth):
+        a = f"{prefix}layers.{i}.0"
+        f = f"{prefix}layers.{i}.1"
+        p[f"to_q_{i}"] = {"kernel": linear_kernel(state[f"{a}.to_q.weight"])}
+        p[f"to_kv_{i}"] = {"kernel": linear_kernel(state[f"{a}.to_kv.weight"])}
+        p[f"to_out_{i}"] = {"kernel": linear_kernel(state[f"{a}.to_out.weight"])}
+        p[f"ff1_{i}"] = _dense(state, f"{f}.0")
+        p[f"ff2_{i}"] = _dense(state, f"{f}.2")
+    return p
+
+
+def convert_gpt2_core(state, prefix="", layers=30):
+    """HF GPT2Model → GPT2Core.  HF Conv1D weights are already ``[in, out]``
+    (no transpose); gate order q,k,v matches our ``jnp.split``."""
+
+    def hf_dense(key):
+        leaf = {"kernel": state[f"{key}.weight"]}
+        if f"{key}.bias" in state:
+            leaf["bias"] = state[f"{key}.bias"]
+        return leaf
+
+    p = {"ln_f": _layernorm(state, f"{prefix}ln_f")}
+    for i in range(layers):
+        k = f"{prefix}h.{i}"
+        p[f"h_{i}"] = {
+            "ln_1": _layernorm(state, f"{k}.ln_1"),
+            "ln_2": _layernorm(state, f"{k}.ln_2"),
+            "attn": {"c_attn": hf_dense(f"{k}.attn.c_attn"), "c_proj": hf_dense(f"{k}.attn.c_proj")},
+            "mlp_fc": hf_dense(f"{k}.mlp.c_fc"),
+            "mlp_proj": hf_dense(f"{k}.mlp.c_proj"),
+        }
+    return p
+
+
+def convert_xtts_gpt(
+    state,
+    layers=30,
+    heads=16,
+    cond_attn_blocks=6,
+    perceiver_depth=2,
+    use_perceiver=True,
+    prefix="gpt.",
+):
+    """Full XTTS GPT stack (reference gpt.py:88 GPT).  ``state`` is the
+    checkpoint dict; ``prefix`` is where the GPT lives (``"gpt."`` inside a
+    full XTTS checkpoint, ``""`` for a bare GPT state dict)."""
+    s = _subdict(state, prefix) if prefix else dict(state)
+    p = {
+        "conditioning_encoder": convert_conditioning_encoder(
+            s, "conditioning_encoder.", heads, cond_attn_blocks
+        ),
+        "text_embedding": {"embedding": s["text_embedding.weight"]},
+        "mel_embedding": {"embedding": s["mel_embedding.weight"]},
+        "text_pos_embedding": s["text_pos_embedding.emb.weight"],
+        "mel_pos_embedding": s["mel_pos_embedding.emb.weight"],
+        "gpt": convert_gpt2_core(s, "gpt.", layers),
+        "final_norm": _layernorm(s, "final_norm"),
+        "text_head": _dense(s, "text_head"),
+        "mel_head": _dense(s, "mel_head"),
+    }
+    if use_perceiver:
+        p["conditioning_perceiver"] = convert_perceiver_resampler(
+            s, "conditioning_perceiver.", perceiver_depth
+        )
+    return {"params": p}
+
+
+def _fold_bn(state, key, eps=1e-5):
+    """Eval-mode BatchNorm → elementwise affine (``_Norm2d`` "folded")."""
+    mean, var = state[f"{key}.running_mean"], state[f"{key}.running_var"]
+    w = state.get(f"{key}.weight", np.ones_like(var))
+    b = state.get(f"{key}.bias", np.zeros_like(mean))
+    scale = w / np.sqrt(var + eps)
+    return {"scale": scale, "shift": b - mean * scale}
+
+
+def _conv2d_tm(state, key):
+    """torch Conv2d over (mel, time) → our Conv over (time, mel): swap the
+    kernel's spatial axes on top of the layout transpose."""
+    leaf = {"kernel": conv2d_kernel(state[f"{key}.weight"]).transpose(1, 0, 2, 3)}
+    if f"{key}.bias" in state:
+        leaf["bias"] = state[f"{key}.bias"]
+    return leaf
+
+
+def convert_resnet_speaker_encoder(state, prefix="", layers=(3, 4, 6, 3)):
+    """ResNetSpeakerEncoder → flax params (use with ``norm_type="folded"``)."""
+    s = _subdict(state, prefix) if prefix else dict(state)
+    p = {
+        "conv1": _conv2d_tm(s, "conv1"),
+        "bn1": _fold_bn(s, "bn1"),
+        "attn_conv1": _plain_conv(s, "attention.0"),
+        "attn_bn": _fold_bn(s, "attention.2"),
+        "attn_conv2": _plain_conv(s, "attention.3"),
+        "fc": _dense(s, "fc"),
+    }
+    for li, n_blocks in enumerate(layers):
+        for bi in range(n_blocks):
+            k = f"layer{li + 1}.{bi}"
+            blk = {
+                "conv1": _conv2d_tm(s, f"{k}.conv1"),
+                "bn1": _fold_bn(s, f"{k}.bn1"),
+                "conv2": _conv2d_tm(s, f"{k}.conv2"),
+                "bn2": _fold_bn(s, f"{k}.bn2"),
+                "se": {"fc1": _dense(s, f"{k}.se.fc.0"), "fc2": _dense(s, f"{k}.se.fc.2")},
+            }
+            if f"{k}.downsample.0.weight" in s:
+                blk["downsample_conv"] = _conv2d_tm(s, f"{k}.downsample.0")
+                blk["downsample_bn"] = _fold_bn(s, f"{k}.downsample.1")
+            p[f"layer{li + 1}_{bi}"] = blk
+    return p
+
+
+def convert_hifi_decoder(state, prefix="hifigan_decoder."):
+    """XTTS HifiDecoder (waveform decoder + speaker encoder)."""
+    s = _subdict(state, prefix) if prefix else dict(state)
+    return {
+        "params": {
+            "waveform_decoder": convert_hifigan_generator(
+                _subdict(s, "waveform_decoder.")
+            )["params"],
+            "speaker_encoder": convert_resnet_speaker_encoder(s, "speaker_encoder."),
+        }
+    }
+
+
+def convert_xtts(state, layers=30, heads=16):
+    """Full XTTS v2 checkpoint → (gpt_params, decoder_params) pair for
+    :class:`tts_tpu.models.xtts.model.Xtts`."""
+    gpt_params = convert_xtts_gpt(state, layers=layers, heads=heads, prefix="gpt.")
+    decoder_params = convert_hifi_decoder(state, prefix="hifigan_decoder.")
+    return gpt_params, decoder_params
+
+
 def _to_numpy(value: Any):
     if isinstance(value, torch.Tensor):
         return value.float().numpy() if value.is_floating_point() else value.numpy()
@@ -99,8 +417,6 @@ def _to_numpy(value: Any):
 def load_reference_xtts(path: str, layers: int = 30, heads: int = 16) -> Dict[str, torch.Tensor]:
     """Reference-layout XTTS ``model.pth`` → port state_dict (plus
     ``mel_stats`` when the checkpoint has them)."""
-    from tts_tpu.utils.convert import convert_xtts
-
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "model" in state:
         state = state["model"]

@@ -16,9 +16,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tts_tpu.config import read_json_with_comments
 from tts_tpu_torch import resolve_device
 from tts_tpu_torch.audio.numpy_transforms import save_wav
+from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models import config_from_dict, setup_model
 
 _SENTENCE_RE = re.compile(r"(?<=[.!?;:])\s+(?=[^\s])")
