@@ -27,7 +27,18 @@ Phases; each raises on failure and the script then exits non-zero:
    ``/api/tts`` request clone the reference voice. The decode-attention
    launch count of this phase proves the decode went through the kernel.
    Then one stream on the idle server, and its time to first audio split
-   into conditioning, prefill, one chunk's decode and its vocoding.
+   into conditioning, prefill, one chunk's decode and its vocoding;
+6. VITS: the LJSpeech VITS recipe at its published widths (graphemes in
+   place of phonemes; fp32 weights drawn from seed 0, TF32 off) synthesizes
+   three sentences on the card and, on the same weights and the same noise
+   (drawn once on the host, by shape), on the CPU: ``y_lengths`` must be
+   equal and the waveforms agree within 1e-4. Then three concurrent
+   ``/api/tts`` requests through the server, one file through
+   ``TTS.tts_to_file``, and the timings: real-time factor at B=1 for a
+   short, a medium and a long sentence, the time of each stage of the
+   medium one, the device busy share and top kernels under
+   ``torch.profiler``, and the peak device memory. VITS runs no
+   hand-written kernel (the JAX package reaches no Pallas kernel there).
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -39,6 +50,7 @@ checkout, it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -424,9 +436,28 @@ def phase_slice(card: str, device="cuda", config=None):
     return model
 
 
+def log_profile(prof, what: str, wall_us: float, card: str, top: int = 6) -> None:
+    """Device busy share and top kernels of a profiled window. Only the
+    kernel rows count: an operator's row repeats the device time of the
+    kernels it launched."""
+    from torch.autograd import DeviceType
+
+    rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+    if not rows:
+        log(f"profile, {what}: the profiler reported no device time (busy share not measured)")
+        return
+    busy_us = sum(e.self_device_time_total for e in rows)
+    all_rows_us = sum(e.self_device_time_total for e in prof.key_averages())
+    log(f"profile, {what}: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
+        f"({100 * busy_us / wall_us:.1f} % busy; {sum(e.count for e in rows)} kernels; the sum "
+        f"over operator and kernel rows together is {all_rows_us / 1e3:.2f} ms) | {card}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
 def profile_decode(model, cond, text, lengths, card: str, device="cuda") -> None:
     """Device busy share of a bf16 B=1 decode chunk, from torch.profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     state = model.gpt.prefill(cond, text, lengths, max_new_tokens=60)
@@ -437,16 +468,7 @@ def profile_decode(model, cond, text, lengths, card: str, device="cuda") -> None
         model.gpt.decode_chunk(state, None, chunk_size=20, top_k=1)
         sync(device)
         wall_us = (time.perf_counter() - t1) * 1e6
-    rows = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    if not rows:
-        log("profile: the profiler reported no device time (device busy share not measured)")
-        return
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"profile, bf16 B=1, 20 decode steps: device busy {busy_us / 1e3:.2f} ms of "
-        f"{wall_us / 1e3:.2f} ms wall ({100 * busy_us / wall_us:.1f} % busy) | {card}")
-    for e in top:
-        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
+    log_profile(prof, "bf16 B=1, 20 decode steps", wall_us, card)
 
 
 def ttfa_parts(model, wav_path: str, text: str, device) -> dict:
@@ -603,6 +625,297 @@ def phase_serving(model, card: str, device="cuda") -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+VITS_SENTENCES = {
+    "short": "Be a voice, not an echo.",
+    "medium": "It took me quite a long time to develop a voice, and now that I have it "
+              "I'm not going to be silent.",
+    "long": "The Commission has not been able to find any credible evidence that the "
+            "assassin had any help in planning or carrying out the shooting. On November "
+            "22, 1963, at 12:30 p.m., the motorcade turned onto Elm Street, and within "
+            "seconds three shots had been fired from the sixth floor of the depository.",
+}
+VITS_WAV_TOL = 1e-4  # card vs CPU, fp32 with TF32 off
+
+
+def vits_recipe_config():
+    """``recipes/ljspeech/vits/train_vits.py``'s inference fields at the
+    ``VitsArgs`` defaults, with graphemes in place of phonemes."""
+    from tts_tpu_torch.models.vits import VitsConfig
+
+    return VitsConfig(text_cleaner="english_cleaners", use_phonemes=False, add_blank=True)
+
+
+@contextlib.contextmanager
+def host_noise(seed: int = 0):
+    """Every VITS noise draw comes from one table on the host, keyed by
+    shape and drawn on first use from a CPU generator, then copied to the
+    generator's device: a card run and a CPU run get the same noise, and a
+    durations pass gets the draw of the inference after it."""
+    import torch
+
+    from tts_tpu_torch.models.vits import modules
+
+    gen = torch.Generator().manual_seed(seed)
+    table = {}
+
+    def normal(shape, generator):
+        key = tuple(shape)
+        if key not in table:
+            table[key] = torch.randn(key, generator=gen)
+        return table[key].to(generator.device)
+
+    real = modules.normal
+    modules.normal = normal
+    try:
+        yield
+    finally:
+        modules.normal = real
+
+
+def hifigan_gflop(args, frames: int) -> float:
+    """Operations (2 per multiply-add) of VITS's HiFiGAN decoder for
+    ``frames`` latent frames: ``conv_pre``, each transposed conv (every
+    input frame meets ``k`` taps), each ResBlock1's two convs per dilation
+    at the upsampled rate, and ``conv_post``."""
+    ch = args.upsample_initial_channel_decoder
+    flops = 2 * args.hidden_channels * ch * 7 * frames
+    n = frames
+    for i, (u, k) in enumerate(zip(args.upsample_rates_decoder,
+                                   args.upsample_kernel_sizes_decoder)):
+        cin, cout = ch // 2**i, ch // 2 ** (i + 1)
+        flops += 2 * cin * cout * k * n
+        n *= u
+        for kr, dils in zip(args.resblock_kernel_sizes_decoder,
+                            args.resblock_dilation_sizes_decoder):
+            flops += 2 * len(dils) * 2 * cout * cout * kr * n
+    flops += 2 * cout * 7 * n
+    return flops / 1e9
+
+
+def vits_stage_ms(model, text: str, device, reps: int = 5) -> dict:
+    """Milliseconds of each stage of one sentence's inference on the card
+    (host clock around synchronized calls, median of ``reps``), and of the
+    whole ``synthesis`` call."""
+    import torch
+
+    from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
+    from tts_tpu_torch.utils.synthesis import synthesis
+
+    vm = model.module
+    a = model.args
+    ids = model.tokenizer.text_to_ids(text)
+    T = ((len(ids) + 15) // 16) * 16
+    x = torch.zeros(1, T, dtype=torch.long, device=device)
+    x[0, : len(ids)] = torch.tensor(ids, device=device)
+    xl = torch.tensor([len(ids)], device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    times: dict = {}
+
+    def timed(name, fn):
+        runs = []
+        for _ in range(reps):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(device)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        times[name] = sorted(runs)[reps // 2]
+        return out
+
+    with torch.no_grad():
+        h, m_p, logs_p, x_mask = timed("text encoder", lambda: vm.text_encoder(x, xl))
+        logw = timed("duration predictor", lambda: vm.duration_predictor(
+            h, x_mask, gen.manual_seed(0), noise_scale=a.inference_noise_scale_dp))
+        w_ceil = torch.ceil(torch.exp(logw) * x_mask * a.length_scale) * x_mask
+        frames = int(w_ceil.sum())
+        budget = ((frames + 31) // 32) * 32
+
+        def expand():
+            y_mask = sequence_mask(torch.tensor([frames], device=device), budget)[:, :, None]
+            attn = generate_path(w_ceil[:, :, 0], x_mask * y_mask.transpose(1, 2).float())
+            m = torch.bmm(attn.transpose(1, 2), m_p)
+            lg = torch.bmm(attn.transpose(1, 2), logs_p)
+            noise = torch.randn(m.shape, generator=gen, device=device)
+            return (m + noise * torch.exp(lg) * a.inference_noise_scale), y_mask.float()
+
+        z_p, y_mask = timed("path + prior", expand)
+        z = timed("flow", lambda: vm.flow(z_p * y_mask, y_mask))
+        timed("HiFiGAN", lambda: vm.waveform_decoder(z * y_mask))
+        # the decoder alone, device-bound: CUDA events around 10 calls
+        hifigan_ms = time_host(lambda: vm.waveform_decoder(z * y_mask), iters=10,
+                               warmup=2) if torch.device(device).type == "cuda" else None
+    timed("synthesis (all, incl. durations pass)", lambda: synthesis(model, text))
+    return {"times": times, "frames": frames, "budget": budget, "tokens": len(ids),
+            "hifigan_ms": hifigan_ms}
+
+
+def profile_vits(model, text: str, card: str) -> None:
+    """Device busy share of one ``synthesis`` call, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.utils.synthesis import synthesis
+
+    synthesis(model, text)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        synthesis(model, text)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    log_profile(prof, "VITS, one medium sentence through synthesis()", wall_us, card, top=8)
+
+
+def phase_vits(card: str, device="cuda", config=None) -> None:
+    """Full-width single-speaker VITS on the card: card against CPU on three
+    sentences, three served ``/api/tts`` requests, one file through the API,
+    then RTF, stage times, busy share and peak memory."""
+    import io
+
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.server.server import build_parser, close_server, server_from_args
+    from tts_tpu_torch.utils.synthesis import synthesis
+    from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP
+
+    cuda = torch.device(device).type == "cuda"
+    config = config or vits_recipe_config()
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()  # what earlier phases left in reference cycles (their server)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    t0 = time.time()
+    model = Vits.init_from_config(config).init_params(seed=0, device=device)
+    a = model.args
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"VITS (LJSpeech recipe, graphemes): hidden {a.hidden_channels}, FFN "
+        f"{a.hidden_channels_ffn_text_encoder}, {a.num_layers_text_encoder} encoder layers, "
+        f"{a.num_heads_text_encoder} heads, 4 flows of {a.num_layers_flow} WN layers, "
+        f"stochastic durations, HiFiGAN {a.upsample_initial_channel_decoder} ch x "
+        f"{a.upsample_rates_decoder}; {n_params / 1e6:.2f} M parameters (random, seed 0), "
+        f"ready in {time.time() - t0:.1f} s")
+
+    # card against CPU: same weights (drawn on the host), same host noise
+    texts = list(VITS_SENTENCES.values())
+    cpu_model = Vits.init_from_config(config).init_params(seed=0, device="cpu")
+    worst, lengths = 0.0, []
+    with host_noise(seed=0):
+        for text in texts:
+            got = synthesis(model, text)
+            want = synthesis(cpu_model, text)
+            g_len, w_len = got["outputs"]["y_lengths"].cpu(), want["outputs"]["y_lengths"]
+            if not torch.equal(g_len, w_len):
+                raise AssertionError(f"VITS y_lengths card {g_len.tolist()} != CPU "
+                                     f"{w_len.tolist()} for {text!r}")
+            if got["wav"].shape != want["wav"].shape or not np.isfinite(got["wav"]).all():
+                raise AssertionError(f"VITS waveform {got['wav'].shape} vs {want['wav'].shape}")
+            err = float(np.abs(got["wav"] - want["wav"]).max())
+            worst = max(worst, err)
+            lengths.append(int(g_len[0]))
+            if not err <= VITS_WAV_TOL:
+                raise AssertionError(f"VITS card vs CPU: max abs diff {err} > {VITS_WAV_TOL} "
+                                     f"for {text!r}")
+    del cpu_model
+    log(f"VITS card vs CPU, three sentences on host noise: y_lengths {lengths} equal, "
+        f"waveform max abs diff {worst:.3g} (tol {VITS_WAV_TOL})")
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(model.config.to_dict(), f)
+        torch.save(model.module.state_dict(), os.path.join(d, "model_torch.pt"))
+        # three concurrent /api/tts requests through the server's command line
+        args = build_parser().parse_args(["--model_path", d, "--port", "0",
+                                          "--device", str(device)])
+        srv = server_from_args(args)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        results: dict = {}
+        try:
+            t1 = time.perf_counter()
+            clients = [threading.Thread(target=_fetch, args=(
+                f"{base}/api/tts?text={urllib.parse.quote(t)}", results, k))
+                for k, t in VITS_SENTENCES.items()]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            served_s = time.perf_counter() - t1
+        finally:
+            close_server(srv)
+            thread.join(timeout=60)
+        if set(results) != set(VITS_SENTENCES):
+            raise AssertionError(f"VITS requests unanswered: "
+                                 f"{sorted(set(VITS_SENTENCES) - set(results))}")
+        audio_s = 0.0
+        for key, res in results.items():
+            body = res["body"]
+            if res["status"] != 200 or body[:4] != b"RIFF":
+                raise AssertionError(f"VITS /api/tts {key!r}: HTTP {res['status']}")
+            sr, pcm = scipy.io.wavfile.read(io.BytesIO(body))
+            if sr != 22050 or len(pcm) <= SENTENCE_GAP or pcm[:-SENTENCE_GAP].std() < 30:
+                raise AssertionError(f"VITS /api/tts {key!r}: {sr} Hz, {len(pcm)} samples")
+            audio_s += len(pcm) / sr
+        log(f"VITS serving: 3 concurrent /api/tts requests, {audio_s:.2f} s of audio in "
+            f"{served_s:.2f} s (one lock: served one after another) | {card}")
+
+        tts = TTS(model_path=d, device=device)
+        path = tts.tts_to_file(VITS_SENTENCES["short"], file_path=os.path.join(d, "out.wav"))
+        sr, pcm = scipy.io.wavfile.read(path)
+        if sr != 22050 or len(pcm) <= SENTENCE_GAP:
+            raise AssertionError(f"TTS.tts_to_file wrote {len(pcm)} samples at {sr} Hz")
+        log(f"VITS TTS.tts_to_file: {len(pcm)} samples at {sr} Hz")
+        del tts
+
+    # real-time factor at B=1: audio seconds per wall second, median of 5
+    synthesis(model, VITS_SENTENCES["medium"])
+    sync(device)
+    for key, text in VITS_SENTENCES.items():
+        runs = []
+        for _ in range(5):
+            sync(device)
+            t1 = time.perf_counter()
+            out = synthesis(model, text)
+            sync(device)
+            runs.append(time.perf_counter() - t1)
+        wall = sorted(runs)[2]
+        seconds = len(out["wav"]) / 22050
+        log(f"VITS RTF {key}: {seconds:.2f} s of audio ({int(out['outputs']['y_lengths'][0])} "
+            f"frames, {out['text_inputs'].shape[1]} padded tokens) in {wall * 1e3:.1f} ms "
+            f"(median of 5; {min(runs) * 1e3:.1f}-{max(runs) * 1e3:.1f}), RTF "
+            f"{seconds / wall:.1f} x real time | {card}")
+    stages = vits_stage_ms(model, VITS_SENTENCES["medium"], device)
+    log(f"VITS stages, medium sentence ({stages['tokens']} tokens, {stages['frames']} frames, "
+        f"budget {stages['budget']}), ms (host clock, synchronized, median of 5): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages["times"].items()) + f" | {card}")
+    gflop = hifigan_gflop(model.args, stages["budget"])
+    per_s = hifigan_gflop(model.args, 1) * model.config.audio.sample_rate / model.hop_length
+    line = (f"VITS HiFiGAN: {gflop:.1f} GFLOP for the {stages['budget']}-frame budget "
+            f"({per_s:.2f} GFLOP per second of audio); fp32 bound "
+            f"{gflop / FP32_FLOPS_PER_S * 1e12:.2f} ms at 67 TFLOP/s")
+    if stages["hifigan_ms"] is not None:
+        ms = stages["hifigan_ms"]
+        line += (f"; {ms:.2f} ms per call (CUDA events, 10 calls), {gflop / ms:.1f} TFLOP/s, "
+                 f"{100 * gflop / ms * 1e12 / FP32_FLOPS_PER_S:.1f} % of the fp32 peak")
+    log(line + f" | {card}")
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the VITS phase")
+    log("VITS: no hand-written kernel on this path (decode_attention launches 0)")
+    if cuda:
+        profile_vits(model, VITS_SENTENCES["medium"], card)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"VITS peak device memory {peak / 1e9:.3f} GB allocated, {(peak - resident) / 1e9:.3f} "
+            f"GB above the {resident / 1e9:.3f} GB resident before the phase | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -623,6 +936,8 @@ def main() -> int:
     kernel = phase_kernels(card)
     model = phase_slice(card)
     kernel["launches"] = phase_serving(model, card)
+    del model
+    phase_vits(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:

@@ -2,26 +2,33 @@
 
 ``tts_tpu_torch`` imports nothing of ``tts_tpu``: it keeps copies of the
 config classes (``config/base.py``, ``config/shared.py``,
-``read_json_with_comments``), the text normalisation the XTTS tokenizer
-calls (``text/``) and the reference → flax-layout XTTS converter
-(``utils/convert.py``). Each copy must behave exactly as its source: the
-config dicts, the normalised text and the converted leaves are compared for
-equality, no tolerance.
+``read_json_with_comments``, the VITS configs), the text front ends (the XTTS
+tokenizer's normalisation; the VITS grapheme tokenizer with
+``english_cleaners``) and the reference → flax-layout XTTS and VITS
+converters (``utils/convert.py``). Each copy must behave exactly as its
+source: the config dicts, the normalised text, the token ids and the
+converted leaves are compared for equality, no tolerance.
 """
 
 import numpy as np
 import pytest
 from helpers import tiny_xtts_config
+from test_fidelity_corpus import _load as load_fidelity_fixture
 from test_torch_convert import reference_state
 
 from tts_tpu.config import read_json_with_comments as jax_read_json
 from tts_tpu.models.xtts.config import XttsConfig as JaxXttsConfig
 from tts_tpu.models.xtts.tokenizer import VoiceBpeTokenizer as JaxTokenizer
+from tts_tpu.models.vits import VitsConfig as JaxVitsConfig
+from tts_tpu.text import TTSTokenizer as JaxTTSTokenizer
+from tts_tpu.utils.convert import convert_vits_generator as jax_convert_vits_generator
 from tts_tpu.utils.convert import convert_xtts as jax_convert_xtts
 from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models.xtts.config import XttsConfig
 from tts_tpu_torch.models.xtts.tokenizer import VoiceBpeTokenizer
-from tts_tpu_torch.utils.convert import convert_xtts
+from tts_tpu_torch.models.vits import VitsConfig
+from tts_tpu_torch.text.tokenizer import TTSTokenizer
+from tts_tpu_torch.utils.convert import convert_vits_generator, convert_xtts
 
 
 def test_xtts_config_to_dict_matches_jax():
@@ -103,3 +110,61 @@ def test_convert_xtts_matches_jax_leaf_for_leaf():
             assert a.dtype == b.dtype and a.shape == b.shape, key
             np.testing.assert_array_equal(a, b, err_msg=key)
     assert sum(len(g) for g in got) > 100
+
+
+def test_vits_config_to_dict_matches_jax():
+    assert VitsConfig().to_dict() == JaxVitsConfig().to_dict()
+    recipe = JaxVitsConfig(text_cleaner="english_cleaners", use_phonemes=False)
+    recipe.model_args.num_layers_flow = 3
+    assert VitsConfig.from_dict(recipe.to_dict()).to_dict() == recipe.to_dict()
+
+
+# English text through english_cleaners: numbers, ordinals, currency, times,
+# abbreviations, symbols, brackets, quotes, case and characters outside the
+# vocabulary (dropped)
+VITS_TEXTS = [
+    "Prior to November 22, 1963.",
+    "It took me quite a long time to develop a voice, and now that I have it I'm not going to be silent.",
+    "Dr. Smith and Mrs. Jones met at 10:30 pm with Lt. Col. Brown, Esq.",
+    "He paid $12.50, then £3 & 45% more; the 21st item was 0.75 of a 1,000-pound lot.",
+    "At 7:05 a.m. the St. Louis Co. train (No. 9) left — on time!",
+    "\"Quoted\" [bracketed] <angled> text: semi; colon: hyphen-ated.",
+    "Be a voice,   not an echo?!",
+    "Café naïve façade — über résumé 東京 ☃",
+    "I'm sorry Dave. I'm afraid I can't do that.",
+    "The 1990s ended in 2000, and 1,234,567 people counted 3.14159 twice.",
+]
+
+
+@pytest.mark.parametrize("text", VITS_TEXTS, ids=[f"t{i}" for i in range(len(VITS_TEXTS))])
+def test_vits_tokenizer_matches_jax(text):
+    """The LJSpeech VITS recipe's front end, graphemes in place of phonemes."""
+    fields = dict(text_cleaner="english_cleaners", use_phonemes=False, add_blank=True)
+    want_tok, want_cfg = JaxTTSTokenizer.init_from_config(JaxVitsConfig(**fields))
+    got_tok, got_cfg = TTSTokenizer.init_from_config(VitsConfig(**fields))
+    want = want_tok.text_to_ids(text)
+    assert got_tok.text_to_ids(text) == want
+    assert len(want) > 20 and want[0] == want_tok.characters.blank_id
+    got_chars, want_chars = got_cfg.characters.to_dict(), want_cfg.characters.to_dict()
+    assert got_chars.pop("characters_class").endswith(".Graphemes")
+    assert want_chars.pop("characters_class").endswith(".Graphemes")
+    assert got_chars == want_chars
+
+
+def test_convert_vits_generator_matches_jax_leaf_for_leaf():
+    """The reference-layout VITS state dict of ``vits.npz`` (weight norm in
+    the new parametrization API) through both converters."""
+    state, _, _, meta = load_fidelity_fixture("vits")
+    args = VitsConfig().model_args
+    jax_args = JaxVitsConfig().model_args
+    for k, v in meta["args"].items():
+        setattr(args, k, v)
+        setattr(jax_args, k, v)
+    got = dict(_leaves(convert_vits_generator(dict(state), args)))
+    want = dict(_leaves(jax_convert_vits_generator(dict(state), jax_args)))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        np.testing.assert_array_equal(a, b, err_msg=key)
+    assert len(got) > 300

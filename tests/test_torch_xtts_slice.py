@@ -210,15 +210,18 @@ def test_server_streams_through_batcher_and_matches_jax(port_tts, model_dir, jax
 def test_port_imports_no_jax_flax_or_tokenizers():
     """The port imports nothing of ``tts_tpu`` (not even its jax-free
     modules), nor ``jax``, ``flax`` or ``tokenizers``. Checked in a fresh
-    interpreter, after importing every module of the port: this test process
-    has JAX and ``tts_tpu`` loaded already (tests/conftest.py)."""
+    interpreter, after importing every module of the port, the XTTS and VITS
+    slices included: this test process has JAX and ``tts_tpu`` loaded
+    already (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tts_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tts_tpu_torch.__path__, 'tts_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "from tts_tpu_torch.utils.convert import load_reference_xtts\n"
-        "assert len(mods) > 30 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "from tts_tpu_torch.utils.convert import load_reference_vits, load_reference_xtts\n"
+        "import tts_tpu_torch.models.vits.model, tts_tpu_torch.utils.synthesis\n"
+        "assert len(mods) > 45 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "assert 'tts_tpu_torch.models.vits.model' in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

@@ -3,9 +3,10 @@
 Mirrors ``tts_tpu/``'s file tree, one port file per counterpart. Plain
 tensor code is PyTorch; each Pallas kernel of ``tts_tpu`` becomes a kernel
 written by hand for Hopper (``csrc/``), built from source at first use. The
-package imports ``torch`` and never ``jax``, ``flax`` or ``tokenizers``; it
-reuses only the jax-free host modules of ``tts_tpu`` (``tts_tpu.text``,
-``tts_tpu.config.base``/``shared``, ``tts_tpu.utils.convert``).
+package imports ``torch`` and never ``jax``, ``flax`` or ``tokenizers``, and
+nothing of ``tts_tpu`` either: what it needs of the JAX package's jax-free
+host modules (config classes, text front ends, checkpoint converters) it
+keeps as its own copies, each docstring naming the source.
 
 The API, synthesizer and server take a ``device`` that defaults to
 ``"cuda"`` and raise when CUDA is missing; nothing picks the CPU by itself.

@@ -6,6 +6,8 @@ Example::
     >>> tts = TTS(model_path="xtts_v2/")  # config.json, vocab.json, weights
     >>> tts.tts_to_file("Hello world.", speaker_wav="ref.wav", language="en",
     ...                 file_path="out.wav")
+    >>> vits = TTS(model_path="vits/model_torch.pt", config_path="vits/config.json")
+    >>> vits.tts_to_file("Hello world.", file_path="out.wav")
 """
 
 from __future__ import annotations
@@ -16,13 +18,16 @@ from tts_tpu_torch.utils.synthesizer import Synthesizer
 
 
 class TTS:
-    """Facade over :class:`Synthesizer` for a model directory. ``device``
-    defaults to ``"cuda"`` and must exist."""
+    """Facade over :class:`Synthesizer`. ``model_path`` is a model directory
+    or a checkpoint file with its ``config_path``. ``device`` defaults to
+    ``"cuda"`` and must exist."""
 
-    def __init__(self, model_path: Optional[str] = None, device="cuda"):
+    def __init__(self, model_path: Optional[str] = None, config_path: Optional[str] = None,
+                 device="cuda"):
         self.synthesizer: Optional[Synthesizer] = None
         if model_path:
-            self.synthesizer = Synthesizer(model_dir=model_path, device=device)
+            self.synthesizer = Synthesizer(tts_checkpoint=model_path,
+                                           tts_config_path=config_path or "", device=device)
 
     def _require_model(self) -> Synthesizer:
         if self.synthesizer is None:

@@ -1,6 +1,6 @@
 """Model registry of the port: config name → (config class, model class).
 
-Only XTTS is ported so far; other names raise.
+XTTS and VITS are ported so far; other names raise.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from typing import Dict
 
 _MODELS = {
     "xtts": ("tts_tpu_torch.models.xtts.config:XttsConfig", "tts_tpu_torch.models.xtts.model:Xtts"),
+    "vits": ("tts_tpu_torch.models.vits.config:VitsConfig", "tts_tpu_torch.models.vits.model:Vits"),
 }
 
 

@@ -12,7 +12,9 @@ Routes:
 thread batches up to N concurrent streams.
 
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
-[--stream_batch 4] [--port 5002]``.
+[--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
+config.json`` for a VITS checkpoint file. A VITS model serves ``/api/tts``
+(its streaming route answers 501).
 """
 
 from __future__ import annotations
@@ -109,6 +111,9 @@ def create_handler(synthesizer, lock: threading.Lock, stream_batcher=None):
             except ValueError as e:
                 self._send(400, str(e).encode())
                 return
+            except NotImplementedError as e:  # a model without a streaming path
+                self._send(501, str(e).encode())
+                return
 
             self.send_response(200)
             self.send_header("Content-Type", "audio/wav")
@@ -187,7 +192,10 @@ def close_server(server: ThreadingHTTPServer) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="tts_tpu_torch HTTP server")
     parser.add_argument("--model_path", required=True,
-                        help="model directory: config.json, vocab.json, model_torch.pt or model.pth")
+                        help="model directory (config.json, model_torch.pt or model.pth; XTTS "
+                             "also vocab.json), or a VITS checkpoint file")
+    parser.add_argument("--config_path", default=None,
+                        help="config.json of a checkpoint file given as --model_path")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument("--port", type=int, default=5002, help="0 picks a free port")
     parser.add_argument("--stream_batch", type=int, default=1,
@@ -201,7 +209,7 @@ def server_from_args(args: argparse.Namespace) -> ThreadingHTTPServer:
     """Load the model directory and build the (not yet serving) server."""
     from tts_tpu_torch.api import TTS
 
-    tts = TTS(model_path=args.model_path, device=args.device)
+    tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device)
     return create_server(tts.synthesizer, args.port, stream_batch=args.stream_batch,
                          stream_window_ms=args.stream_window_ms)
 

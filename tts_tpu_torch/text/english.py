@@ -1,6 +1,7 @@
 """Copied from ``tts_tpu/text/english.py`` (the port imports nothing of ``tts_tpu``):
 the number verbalizer up to ``normalize_numbers``, which the XTTS
-tokenizer calls; the time and abbreviation parts are left out.
+tokenizer calls, the time expansion and the English abbreviations, which
+``english_cleaners`` calls; the French abbreviations are left out.
 
 English text normalization: numbers, times, abbreviations.
 
@@ -186,3 +187,62 @@ def normalize_numbers(text: str) -> str:
     text = re.sub(_ordinal_re, _expand_ordinal, text)
     text = re.sub(_number_re, _expand_number, text)
     return text
+
+
+# ---------------------------------------------------------------------------
+# time ("3:30pm" → "three thirty pm"; reference time_norm.py)
+# ---------------------------------------------------------------------------
+
+_time_re = re.compile(
+    r"\b((0?[0-9])|(1[0-1])|(1[2-9])|(2[0-3]))" r":([0-5][0-9])\s*(a\.m\.|am|pm|p\.m\.|a\.m|p\.m)?\b"
+)
+
+
+def _expand_time(m):
+    hour = int(m.group(1))
+    minute = int(m.group(6))
+    ampm = m.group(7)
+    parts = [number_to_words(hour)]
+    if minute == 0:
+        if not ampm:
+            parts.append("o'clock")
+    elif minute < 10:
+        parts.append("oh " + _ONES[minute])
+    else:
+        parts.append(_two_digit(minute))
+    if ampm:
+        parts.append(ampm.replace(".", " ").strip())
+    return " ".join(parts)
+
+
+def expand_time_english(text: str) -> str:
+    return re.sub(_time_re, _expand_time, text)
+
+
+# ---------------------------------------------------------------------------
+# abbreviations (reference english/abbreviations.py, french/abbreviations.py)
+# ---------------------------------------------------------------------------
+
+abbreviations_en = [
+    (re.compile(r"\b%s\." % abbr, re.IGNORECASE), full)
+    for abbr, full in [
+        ("mrs", "misess"),
+        ("mr", "mister"),
+        ("dr", "doctor"),
+        ("st", "saint"),
+        ("co", "company"),
+        ("jr", "junior"),
+        ("maj", "major"),
+        ("gen", "general"),
+        ("drs", "doctors"),
+        ("rev", "reverend"),
+        ("lt", "lieutenant"),
+        ("hon", "honorable"),
+        ("sgt", "sergeant"),
+        ("capt", "captain"),
+        ("esq", "esquire"),
+        ("ltd", "limited"),
+        ("col", "colonel"),
+        ("ft", "fort"),
+    ]
+]

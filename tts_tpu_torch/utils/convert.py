@@ -4,9 +4,9 @@
 port's ``state_dict``. The port's modules carry the flax names, so the map is
 a handful of rules rather than a table:
 
-* ``name_<i>`` of a module list (``h_3``, ``resblocks_7``, ``layer2_0``, …)
-  → ``name.<i>``; the ``Conv_0`` wrapper level of ``layers.common.Conv1d``
-  is dropped;
+* ``name_<i>`` of a module list (``h_3``, ``resblocks_7``, ``flow_0``, …)
+  → ``name.<i>``; the ``Conv_0`` / ``LayerNorm_0`` wrapper level of
+  ``layers.common.Conv1d`` / ``LayerNorm`` is dropped;
 * Dense ``kernel [in, out]`` → ``weight [out, in]``;
 * Conv ``kernel [k, in, out]`` → ``weight [out, in, k]``, 2-D
   ``[kh, kw, in, out]`` → ``[out, in, kh, kw]``;
@@ -16,13 +16,13 @@ a handful of rules rather than a table:
 * norm ``scale``/``shift`` → ``weight``/``bias`` (folded BatchNorm included);
   ``embedding`` → ``weight``; other leaves keep their names.
 
-``load_reference_xtts`` reads a reference-layout (coqui) ``model.pth``,
-maps it to the flax-layout tree with ``convert_xtts`` and from there into the
-port by the rules above. ``convert_xtts`` and what it calls are the port's
-own copy of the XTTS parts of ``tts_tpu/utils/convert.py`` (numpy only;
-the port imports nothing of ``tts_tpu``): a parity test holds the copy equal
-to the JAX package's converter, leaf for leaf
-(``tests/test_torch_host_copies.py``).
+``load_reference_xtts`` / ``load_reference_vits`` read a reference-layout
+(coqui) checkpoint, map it to the flax-layout tree with ``convert_xtts`` /
+``convert_vits_generator`` and from there into the port by the rules above.
+Those converters and what they call are the port's own copy of the XTTS and
+VITS parts of ``tts_tpu/utils/convert.py`` (numpy only; the port imports
+nothing of ``tts_tpu``): parity tests hold the copy equal to the JAX
+package's converters, leaf for leaf (``tests/test_torch_host_copies.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,11 @@ _LISTS = {
     "h", "attn", "to_q", "to_kv", "to_out", "ff1", "ff2",  # GPT, conditioning
     "ups", "cond_up", "resblocks", "convs1", "convs2", "convs",  # HiFiGAN
     "layer1", "layer2", "layer3", "layer4",  # speaker encoder
+    "norm1", "norm2", "ffn",  # relative-position transformer
+    "in_layer", "res_skip_layer",  # WaveNet
+    "flow", "post_flow", "conv_sep", "conv_1x1",  # VITS flows, duration predictor
 }
+_WRAPPERS = {"Conv_0", "LayerNorm_0"}  # layers.common.Conv1d / LayerNorm in flax
 _LEAF = {"scale": "weight", "shift": "bias", "embedding": "weight", "kernel": "weight"}
 _INDEXED = re.compile(r"(.+)_(\d+)")
 
@@ -53,7 +57,7 @@ def _flatten(tree: Mapping, path: Tuple[str, ...] = ()):
 def _torch_key(path: Tuple[str, ...]) -> str:
     parts = []
     for name in path[:-1]:
-        if name == "Conv_0":
+        if name in _WRAPPERS:
             continue
         m = _INDEXED.fullmatch(name)
         parts += [m.group(1), m.group(2)] if m and m.group(1) in _LISTS else [name]
@@ -94,13 +98,18 @@ def xtts_from_jax_params(gpt_params: Mapping, decoder_params: Mapping) -> Dict[s
     return state
 
 
+def vits_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``VitsModule`` params (numpy or JAX arrays) → the
+    state_dict of ``tts_tpu_torch.models.vits.model.VitsModule``."""
+    return flax_to_state_dict(params)
+
+
 
 # ---------------------------------------------------------------------------
 # Reference (coqui) XTTS state dict → flax-layout tree. Copied from
 # ``tts_tpu/utils/convert.py``: the weight-norm and kernel-layout helpers
-# (``:58-99``), ``convert_hifigan_generator`` (``:102``), the VITS-section
-# leaf helpers ``_dense``/``_plain_conv``/``_layernorm``/``_subdict``, and the
-# XTTS converters (``:439-609``), unchanged.
+# (``:58-99``), ``convert_hifigan_generator`` (``:102``), the VITS converters
+# (``:167-362``) and the XTTS converters (``:439-609``), unchanged.
 # ---------------------------------------------------------------------------
 
 
@@ -219,6 +228,14 @@ def _dense(state, key):
     return leaf
 
 
+def _conv(state, key):
+    """torch Conv1d → wrapped Conv1d (child "Conv_0")."""
+    leaf = {"kernel": conv1d_kernel(state[f"{key}.weight"])}
+    if f"{key}.bias" in state:
+        leaf["bias"] = state[f"{key}.bias"]
+    return {"Conv_0": leaf}
+
+
 def _plain_conv(state, key):
     """torch Conv1d → bare nn.Conv leaf (no wrapper)."""
     leaf = {"kernel": conv1d_kernel(state[f"{key}.weight"])}
@@ -236,8 +253,159 @@ def _layernorm(state, key):
     return {"scale": scale.reshape(-1), "bias": bias.reshape(-1)}
 
 
+def convert_rel_pos_transformer(state, prefix, num_layers):
+    """Reference ``glow_tts/transformer.py`` RelativePositionTransformer →
+    ``tts_tpu.layers.transformer.RelativePositionTransformer`` params."""
+    p = {}
+    for i in range(num_layers):
+        attn = {
+            "conv_q": _dense(state, f"{prefix}attn_layers.{i}.conv_q"),
+            "conv_k": _dense(state, f"{prefix}attn_layers.{i}.conv_k"),
+            "conv_v": _dense(state, f"{prefix}attn_layers.{i}.conv_v"),
+            "conv_o": _dense(state, f"{prefix}attn_layers.{i}.conv_o"),
+        }
+        if f"{prefix}attn_layers.{i}.emb_rel_k" in state:
+            attn["emb_rel_k"] = state[f"{prefix}attn_layers.{i}.emb_rel_k"]
+            attn["emb_rel_v"] = state[f"{prefix}attn_layers.{i}.emb_rel_v"]
+        p[f"attn_{i}"] = attn
+        p[f"norm1_{i}"] = {"LayerNorm_0": _layernorm(state, f"{prefix}norm_layers_1.{i}")}
+        p[f"ffn_{i}"] = {
+            "conv_1": _conv(state, f"{prefix}ffn_layers.{i}.conv_1"),
+            "conv_2": _conv(state, f"{prefix}ffn_layers.{i}.conv_2"),
+        }
+        p[f"norm2_{i}"] = {"LayerNorm_0": _layernorm(state, f"{prefix}norm_layers_2.{i}")}
+    return p
+
+
+def convert_wn(state, prefix, num_layers, has_cond=False):
+    """Reference ``generic/wavenet.py`` WN → ``tts_tpu.layers.wavenet.WN``."""
+    state = fold_weight_norm(state)
+    p = {}
+    for i in range(num_layers):
+        p[f"in_layer_{i}"] = _conv(state, f"{prefix}in_layers.{i}")
+        p[f"res_skip_layer_{i}"] = _dense(state, f"{prefix}res_skip_layers.{i}")
+    if has_cond and f"{prefix}cond_layer.weight" in state:
+        p["cond_layer"] = _dense(state, f"{prefix}cond_layer")
+    return p
+
+
+def convert_vits_text_encoder(state, num_layers=6):
+    """Reference ``vits/networks.py`` TextEncoder →
+    ``tts_tpu.models.vits.modules.TextEncoder``."""
+    p = {
+        "emb": {"embedding": state["emb.weight"]},
+        "encoder": convert_rel_pos_transformer(state, "encoder.", num_layers),
+        "proj": _dense(state, "proj"),
+    }
+    return {"params": p}
+
+
+def convert_vits_posterior(state, num_layers=16, has_cond=False):
+    """Reference PosteriorEncoder → ``tts_tpu`` PosteriorEncoder."""
+    return {
+        "params": {
+            "pre": _dense(state, "pre"),
+            "enc": convert_wn(state, "enc.", num_layers, has_cond),
+            "proj": _dense(state, "proj"),
+        }
+    }
+
+
+def convert_vits_flow(state, num_flows=4, num_layers=4, has_cond=False):
+    """Reference ResidualCouplingBlocks → ``tts_tpu`` ResidualCouplingBlocks."""
+    p = {}
+    for i in range(num_flows):
+        p[f"flow_{i}"] = {
+            "pre": _dense(state, f"flows.{i}.pre"),
+            "enc": convert_wn(state, f"flows.{i}.enc.", num_layers, has_cond),
+            "post": _dense(state, f"flows.{i}.post"),
+        }
+    return {"params": p}
+
+
+def _convert_dds(state, prefix, num_layers=3):
+    """DilatedDepthSeparableConv (reference ``stochastic_duration_predictor.py:9``)."""
+    p = {}
+    for i in range(num_layers):
+        p[f"conv_sep_{i}"] = _plain_conv(state, f"{prefix}convs_sep.{i}")
+        p[f"conv_1x1_{i}"] = _dense(state, f"{prefix}convs_1x1.{i}")
+        p[f"norm1_{i}"] = {"LayerNorm_0": _layernorm(state, f"{prefix}norms_1.{i}")}
+        p[f"norm2_{i}"] = {"LayerNorm_0": _layernorm(state, f"{prefix}norms_2.{i}")}
+    return p
+
+
+def _convert_conv_flow(state, prefix):
+    return {
+        "pre": _dense(state, f"{prefix}pre"),
+        "convs": _convert_dds(state, f"{prefix}convs."),
+        "proj": _dense(state, f"{prefix}proj"),
+    }
+
+
+def _convert_affine_flow(state, prefix):
+    return {
+        "translation": state[f"{prefix}translation"].reshape(-1),
+        "log_scale": state[f"{prefix}log_scale"].reshape(-1),
+    }
+
+
+def convert_vits_sdp(state, num_flows=4, has_cond=False):
+    """StochasticDurationPredictor → ``tts_tpu`` SDP params."""
+    p = {
+        "pre": _dense(state, "pre"),
+        "convs": _convert_dds(state, "convs."),
+        "proj": _dense(state, "proj"),
+        "post_pre": _dense(state, "post_pre"),
+        "post_convs": _convert_dds(state, "post_convs."),
+        "post_proj": _dense(state, "post_proj"),
+        "flow_affine": _convert_affine_flow(state, "flows.0."),
+        "post_flow_affine": _convert_affine_flow(state, "post_flows.0."),
+    }
+    for i in range(num_flows):
+        p[f"flow_{i}"] = _convert_conv_flow(state, f"flows.{i + 1}.")
+        p[f"post_flow_{i}"] = _convert_conv_flow(state, f"post_flows.{i + 1}.")
+    if has_cond and "cond.weight" in state:
+        p["cond"] = _dense(state, "cond")
+    return {"params": p}
+
+
 def _subdict(state, prefix):
     return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def convert_vits_generator(state, args) -> Dict[str, Any]:
+    """Full reference ``Vits`` state dict → ``tts_tpu`` VitsModule params.
+
+    ``args`` is a ``VitsArgs`` (layer counts drive the name maps).
+    """
+    state = fold_weight_norm(state)
+    has_cond = bool(args.use_speaker_embedding or args.use_d_vector_file)
+    p = {
+        "text_encoder": convert_vits_text_encoder(
+            _subdict(state, "text_encoder."), num_layers=args.num_layers_text_encoder
+        )["params"],
+        "posterior_encoder": convert_vits_posterior(
+            _subdict(state, "posterior_encoder."),
+            num_layers=args.num_layers_posterior_encoder, has_cond=has_cond,
+        )["params"],
+        "flow": convert_vits_flow(
+            _subdict(state, "flow."), num_flows=4,
+            num_layers=args.num_layers_flow, has_cond=has_cond,
+        )["params"],
+        "waveform_decoder": convert_hifigan_generator(_subdict(state, "waveform_decoder."))[
+            "params"
+        ],
+    }
+    if args.use_sdp:
+        p["duration_predictor"] = convert_vits_sdp(
+            _subdict(state, "duration_predictor."), num_flows=4,
+            has_cond=has_cond and args.condition_dp_on_speaker,
+        )["params"]
+    if "emb_g.weight" in state:
+        p["emb_g"] = {"embedding": state["emb_g.weight"]}
+    if "emb_l.weight" in state:
+        p["emb_l"] = {"embedding": state["emb_l.weight"]}
+    return {"params": p}
 
 
 def _qkv_interleaved_dense(state, key, heads):
@@ -427,3 +595,10 @@ def load_reference_xtts(path: str, layers: int = 30, heads: int = 16) -> Dict[st
     if mel_stats is not None:
         out["mel_stats"] = torch.from_numpy(np.asarray(mel_stats, np.float32))
     return out
+
+
+def load_reference_vits(state: Mapping, args) -> Dict[str, torch.Tensor]:
+    """A reference-layout VITS state dict (tensors or arrays) → the
+    state_dict of ``VitsModule``; ``args`` is the model's ``VitsArgs``."""
+    state = {k: _to_numpy(v) for k, v in state.items()}
+    return vits_from_jax_params(convert_vits_generator(state, args))

@@ -1,9 +1,17 @@
-"""Synthesizer: load a model directory once, render text many times (port of
-``tts_tpu/utils/synthesizer.py`` for the model-directory families, XTTS so
-far).
+"""Synthesizer: load a model once, render text many times (port of
+``tts_tpu/utils/synthesizer.py`` for XTTS and VITS).
 
-A model directory holds ``config.json``, ``vocab.json`` and weights: the
-port's ``model_torch.pt`` or a reference-layout ``model.pth``.
+A model loads from a directory (``config.json`` plus weights: the port's
+``model_torch.pt`` or a reference-layout ``model.pth``; XTTS also needs its
+``vocab.json``) or, for VITS, from a checkpoint file and its
+``config.json``.
+
+Models with their own ``synthesize`` (XTTS) render each sentence through
+it. The others (VITS) go through :func:`~tts_tpu_torch.utils.synthesis.synthesis`
+one sentence at a time. That serial loop is what the JAX package's
+``Synthesizer`` runs for a vocoder-less VITS by default: its sequence-packed
+multi-sentence path is gated on ``not use_gl``, which its default
+``use_griffin_lim=True`` makes false (ROADMAP.md fault F1).
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ from tts_tpu_torch import resolve_device
 from tts_tpu_torch.audio.numpy_transforms import save_wav
 from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models import config_from_dict, setup_model
+from tts_tpu_torch.utils.synthesis import synthesis
 
 _SENTENCE_RE = re.compile(r"(?<=[.!?;:])\s+(?=[^\s])")
+SENTENCE_GAP = 10000  # zero samples after each sentence (reference synthesizer.py:441)
 
 
 def split_into_sentences(text: str) -> List[str]:
@@ -33,23 +43,37 @@ def split_into_sentences(text: str) -> List[str]:
 
 
 class Synthesizer:
-    def __init__(self, model_dir: str = "", device="cuda"):
+    def __init__(self, tts_checkpoint: str = "", tts_config_path: str = "", model_dir: str = "",
+                 device="cuda"):
         self.device = resolve_device(device)
         self.tts_model = None
         self.tts_config = None
         self.output_sample_rate = 24000
-        if model_dir:
-            self._load_tts_from_dir(model_dir)
+        path = model_dir or tts_checkpoint
+        if path:
+            if not tts_config_path:
+                if not os.path.isdir(path):
+                    raise ValueError("a checkpoint file needs its config.json (tts_config_path)")
+                tts_config_path = os.path.join(path, "config.json")
+            self._load_tts(path, tts_config_path)
 
-    def _load_tts_from_dir(self, model_dir: str) -> None:
-        config = config_from_dict(read_json_with_comments(os.path.join(model_dir, "config.json")))
+    def _load_tts(self, path: str, config_path: str) -> None:
+        """A model directory, or a VITS checkpoint file, with its config."""
+        config = config_from_dict(read_json_with_comments(config_path))
         # build on the meta device: the checkpoint's tensors are assigned,
         # so nothing is allocated twice
         with torch.device("meta"):
             model = setup_model(config)
-        self.tts_model = model.load_checkpoint(config, checkpoint_dir=model_dir, device=self.device)
-        self.tts_config = config
-        self.output_sample_rate = config.model_args.output_sample_rate
+        if os.path.isdir(path):
+            model = model.load_checkpoint(config, checkpoint_dir=path, device=self.device)
+        elif config.model == "vits":
+            model = model.load_checkpoint(config, checkpoint_path=path, device=self.device)
+        else:
+            raise ValueError(f"{config.model!r} loads from a model directory, not a file")
+        self.tts_model = model
+        self.tts_config = model.config
+        self.output_sample_rate = (getattr(config.model_args, "output_sample_rate", None)
+                                   or config.audio.sample_rate)
 
     # ------------------------------------------------------------------
     def tts(
@@ -69,14 +93,26 @@ class Synthesizer:
         sens = split_into_sentences(text) if split_sentences else [text.strip()]
         if not sens:
             raise ValueError("No text to speak.")
+        model = self.tts_model
         wavs: List[float] = []
-        for sen in sens:
-            outputs = self.tts_model.synthesize(
-                text=sen, config=self.tts_config, speaker_id=speaker_name,
-                speaker_wav=speaker_wav, language=language_name or "en", **kwargs,
-            )
-            wavs += list(np.asarray(outputs["wav"], np.float32))
-            wavs += [0] * 10000
+        if hasattr(model, "synthesize"):
+            for sen in sens:
+                outputs = model.synthesize(
+                    text=sen, config=self.tts_config, speaker_id=speaker_name,
+                    speaker_wav=speaker_wav, language=language_name or "en", **kwargs,
+                )
+                wavs += list(np.asarray(outputs["wav"], np.float32))
+                wavs += [0] * SENTENCE_GAP
+        else:
+            given = {"speaker_name": speaker_name, "language_name": language_name,
+                     "speaker_wav": speaker_wav, **kwargs}
+            given = sorted(k for k, v in given.items() if v is not None)
+            if given:
+                raise ValueError(f"{self.tts_config.model!r} is a single-speaker, "
+                                 f"single-language model: {', '.join(given)} not taken")
+            for sen in sens:
+                wavs += list(synthesis(model, sen)["wav"])
+                wavs += [0] * SENTENCE_GAP
         process_time = time.time() - start
         audio_time = len(wavs) / self.output_sample_rate
         print(f" > Processing time: {process_time}")
@@ -92,7 +128,12 @@ class Synthesizer:
         split_sentences: bool = True,
         **kwargs,
     ):
-        """Yield float32 audio chunks as they decode, sentence by sentence."""
+        """Yield float32 audio chunks as they decode, sentence by sentence
+        (streaming models only, XTTS)."""
+        if not hasattr(self.tts_model, "synthesize_stream"):
+            raise NotImplementedError(
+                f"Model {self.tts_config.model!r} has no streaming path; use tts() instead."
+            )
         sens = split_into_sentences(text) if split_sentences else [text.strip()]
         if not any(sens):
             raise ValueError("No text to speak.")
