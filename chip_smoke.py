@@ -27,15 +27,22 @@ Phases; each raises on failure and the script then exits non-zero:
    ``/api/tts`` request clone the reference voice. The decode-attention
    launch count of this phase proves the decode went through the kernel.
    Then one stream on the idle server, and its time to first audio split
-   into conditioning, prefill, one chunk's decode and its vocoding;
-6. VITS: the LJSpeech VITS recipe at its published widths (graphemes in
-   place of phonemes; fp32 weights drawn from seed 0, TF32 off) synthesizes
-   three sentences on the card and, on the same weights and the same noise
+   into conditioning, prefill, one chunk's decode and its vocoding. Last,
+   one call of the ``tts`` command line (``tts_tpu_torch.bin.synthesize``)
+   on the same model directory clones the voice into a file; the kernel's
+   launches in that call must be 30 x its decode steps;
+6. VITS: the LJSpeech VITS recipe as published, phonemes from the rule G2P
+   (``english_cleaners``, ``use_phonemes=True``, ``phoneme_language="en-us"``,
+   blanks; the ``VitsArgs`` defaults, the embedding sized by the phoneme
+   set; fp32 weights drawn from seed 0, TF32 off) synthesizes three
+   sentences on the card and, on the same weights and the same noise
    (drawn once on the host, by shape), on the CPU: ``y_lengths`` must be
    equal and the waveforms agree within 1e-4. Then three concurrent
-   ``/api/tts`` requests through the server, one file through
-   ``TTS.tts_to_file``, and the timings: real-time factor at B=1 for a
-   short, a medium and a long sentence, the time of each stage of the
+   ``/api/tts`` requests through the server, ``/details``, ``/locales``,
+   ``/voices`` and a ``POST /process``, one file through
+   ``TTS.tts_to_file`` and one through the ``tts`` command line (the same
+   samples within one int16 step), and the timings: real-time factor at B=1
+   for a short, a medium and a long sentence, the time of each stage of the
    medium one, the device busy share and top kernels under
    ``torch.profiler``, and the peak device memory. VITS runs no
    hand-written kernel (the JAX package reaches no Pallas kernel there).
@@ -58,6 +65,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.parse
 import urllib.request
 
@@ -510,6 +518,51 @@ def _fetch(url: str, out: dict, key: str) -> None:
     out[key] = {"status": status, "body": body, "ttfa": ttfa, "total": time.perf_counter() - t0}
 
 
+def xtts_cli_call(model_dir: str, text: str, n_layers: int, card: str, device="cuda") -> None:
+    """One ``tts`` command-line call on the XTTS model directory, cloning its
+    reference voice into a file: a new model loads and decodes to the token
+    limit (the stop token is suppressed). The decode-attention launches of
+    the call must be ``n_layers`` x its decode steps, counted by the GPT of
+    the model the command line built."""
+    import scipy.io.wavfile
+
+    import tts_tpu_torch.api as api
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+
+    built = []
+
+    class RecordedTTS(api.TTS):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    out = os.path.join(model_dir, "cli.wav")
+    real, api.TTS = api.TTS, RecordedTTS
+    try:
+        decode_attention.launches = 0
+        t0 = time.perf_counter()
+        synthesize_cli(["--text", text, "--model_path", model_dir, "--speaker_wav",
+                        os.path.join(model_dir, "ref.wav"), "--language_idx", "en",
+                        "--out_path", out, "--device", str(device)])
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = decode_attention.launches
+    finally:
+        api.TTS = real
+    steps = built[0].synthesizer.tts_model.gpt.decode_steps
+    sr, pcm = scipy.io.wavfile.read(out)
+    if sr != 24000 or len(pcm) < STREAM_CHUNK * 1024 or pcm.std() < 30:
+        raise AssertionError(f"tts command line (XTTS): {len(pcm)} samples at {sr} Hz, "
+                             f"std {pcm.std():.1f}")
+    if steps == 0 or (device == "cuda" and launches != n_layers * steps):
+        raise AssertionError(f"tts command line (XTTS): decode_attention launched {launches} "
+                             f"times for {steps} decode steps of {n_layers} layers")
+    log(f"tts command line (XTTS, --speaker_wav, --language_idx en): {len(pcm) / sr:.1f} s of "
+        f"audio in {seconds:.2f} s including the model's load; {steps} decode steps, "
+        f"decode_attention launches {launches} = {n_layers} x {steps} | {card}")
+
+
 def phase_serving(model, card: str, device="cuda") -> int:
     """Serve 4 concurrent streams and one full request through the port's
     HTTP server; returns the decode-attention launches of this phase."""
@@ -586,6 +639,7 @@ def phase_serving(model, card: str, device="cuda") -> int:
         finally:
             close_server(srv)
             thread.join(timeout=60)
+        xtts_cli_call(d, texts[0], n_layers, card, device)
 
     sr = served.config.model_args.output_sample_rate
     min_samples = STREAM_CHUNK * 1024
@@ -639,11 +693,17 @@ VITS_WAV_TOL = 1e-4  # card vs CPU, fp32 with TF32 off
 
 
 def vits_recipe_config():
-    """``recipes/ljspeech/vits/train_vits.py``'s inference fields at the
-    ``VitsArgs`` defaults, with graphemes in place of phonemes."""
+    """``recipes/ljspeech/vits/train_vits.py``'s inference fields (its
+    ``add_blank`` is ``VitsConfig``'s default) at the ``VitsArgs`` defaults.
+    ``num_chars`` is left to the tokenizer, which sizes the embedding to the
+    131 IPA symbols as the reference's VITS does (the default 100 would
+    leave the punctuation ids past the table, ROADMAP.md F7)."""
     from tts_tpu_torch.models.vits import VitsConfig
 
-    return VitsConfig(text_cleaner="english_cleaners", use_phonemes=False, add_blank=True)
+    config = VitsConfig(text_cleaner="english_cleaners", use_phonemes=True,
+                        phoneme_language="en-us")
+    config.model_args.num_chars = None
+    return config
 
 
 @contextlib.contextmanager
@@ -767,6 +827,45 @@ def profile_vits(model, text: str, card: str) -> None:
     log_profile(prof, "VITS, one medium sentence through synthesis()", wall_us, card, top=8)
 
 
+def _http(url: str, data: bytes = None) -> tuple:
+    """``(status, content type, body)`` of one request; ``data`` makes it a
+    POST of a form body."""
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=600) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def check_vits_routes(routes: dict, short_tts_body: bytes) -> None:
+    """``/details`` names the recipe's model and phoneme language, the
+    MaryTTS routes answer as the JAX server does, and ``POST /process``
+    gives a wav of ``/api/tts``'s length for the same text."""
+    import io
+
+    import scipy.io.wavfile
+
+    status, ctype, body = routes["/details"]
+    details = json.loads(body) if status == 200 else {}
+    config = details.get("tts_config") or {}
+    if (ctype, config.get("model"), config.get("phoneme_language")) != (
+            "application/json", "vits", "en-us") or details.get("speakers") != []:
+        raise AssertionError(f"/details: HTTP {status} {ctype}, model {config.get('model')!r}, "
+                             f"phoneme_language {config.get('phoneme_language')!r}")
+    for path, want in (("/locales", b"en_US\n"), ("/voices", b"default en_US u\n")):
+        if routes[path] != (200, "text/plain", want):
+            raise AssertionError(f"{path}: {routes[path]!r}")
+    status, ctype, body = routes["POST /process"]
+    want = scipy.io.wavfile.read(io.BytesIO(short_tts_body))[1]
+    if status != 200 or ctype != "audio/wav":
+        raise AssertionError(f"POST /process: HTTP {status} {ctype}")
+    got = scipy.io.wavfile.read(io.BytesIO(body))[1]
+    if got.shape != want.shape or got.std() < 30:
+        raise AssertionError(f"POST /process: {got.shape} samples, /api/tts {want.shape}")
+    log(f"VITS routes: /details (model vits, phoneme_language en-us), /locales, /voices as the "
+        f"JAX server; POST /process {len(got)} samples = /api/tts's")
+
+
 def phase_vits(card: str, device="cuda", config=None) -> None:
     """Full-width single-speaker VITS on the card: card against CPU on three
     sentences, three served ``/api/tts`` requests, one file through the API,
@@ -777,6 +876,7 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
     import torch
 
     from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
     from tts_tpu_torch.models.vits import Vits
     from tts_tpu_torch.ops.decode_attention import decode_attention
     from tts_tpu_torch.server.server import build_parser, close_server, server_from_args
@@ -795,7 +895,12 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
     model = Vits.init_from_config(config).init_params(seed=0, device=device)
     a = model.args
     n_params = sum(p.numel() for p in model.module.parameters())
-    log(f"VITS (LJSpeech recipe, graphemes): hidden {a.hidden_channels}, FFN "
+    tokens = {k: len(model.tokenizer.text_to_ids(t)) for k, t in VITS_SENTENCES.items()}
+    log(f"VITS text front end: {config.text_cleaner}, phonemizer "
+        f"{model.tokenizer.phonemizer.name()} ({config.phoneme_language}), "
+        f"{type(model.tokenizer.characters).__name__} with num_chars {a.num_chars}, blanks "
+        f"{config.add_blank}; token counts " + ", ".join(f"{k} {n}" for k, n in tokens.items()))
+    log(f"VITS (LJSpeech recipe, phonemes): hidden {a.hidden_channels}, FFN "
         f"{a.hidden_channels_ffn_text_encoder}, {a.num_layers_text_encoder} encoder layers, "
         f"{a.num_heads_text_encoder} heads, 4 flows of {a.num_layers_flow} WN layers, "
         f"stochastic durations, HiFiGAN {a.upsample_initial_channel_decoder} ch x "
@@ -848,6 +953,9 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
             for c in clients:
                 c.join(timeout=600)
             served_s = time.perf_counter() - t1
+            routes = {path: _http(base + path) for path in ("/details", "/locales", "/voices")}
+            form = urllib.parse.urlencode({"INPUT_TEXT": VITS_SENTENCES["short"]}).encode()
+            routes["POST /process"] = _http(base + "/process", data=form)
         finally:
             close_server(srv)
             thread.join(timeout=60)
@@ -865,14 +973,26 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
             audio_s += len(pcm) / sr
         log(f"VITS serving: 3 concurrent /api/tts requests, {audio_s:.2f} s of audio in "
             f"{served_s:.2f} s (one lock: served one after another) | {card}")
+        check_vits_routes(routes, results["short"]["body"])
 
+        # one file through the API, one through the command line: same noise
+        # (each call seeds its generator), same samples
         tts = TTS(model_path=d, device=device)
-        path = tts.tts_to_file(VITS_SENTENCES["short"], file_path=os.path.join(d, "out.wav"))
+        path = tts.tts_to_file(VITS_SENTENCES["medium"], file_path=os.path.join(d, "api.wav"))
         sr, pcm = scipy.io.wavfile.read(path)
         if sr != 22050 or len(pcm) <= SENTENCE_GAP:
             raise AssertionError(f"TTS.tts_to_file wrote {len(pcm)} samples at {sr} Hz")
-        log(f"VITS TTS.tts_to_file: {len(pcm)} samples at {sr} Hz")
         del tts
+        cli_path = os.path.join(d, "cli.wav")
+        synthesize_cli(["--text", VITS_SENTENCES["medium"], "--model_path", d,
+                        "--out_path", cli_path, "--device", str(device)])
+        cli_sr, cli_pcm = scipy.io.wavfile.read(cli_path)
+        step = np.abs(cli_pcm.astype(np.int32) - pcm.astype(np.int32)).max()
+        if cli_sr != sr or cli_pcm.shape != pcm.shape or pcm.dtype != np.int16 or step > 1:
+            raise AssertionError(f"tts command line {cli_pcm.shape} {cli_pcm.dtype} at {cli_sr} Hz "
+                                 f"vs TTS.tts_to_file {pcm.shape} {pcm.dtype}: {step} int16 steps")
+        log(f"VITS TTS.tts_to_file and the tts command line: {len(pcm)} 16-bit samples at {sr} Hz "
+            f"each, at most {step} int16 step apart")
 
     # real-time factor at B=1: audio seconds per wall second, median of 5
     synthesis(model, VITS_SENTENCES["medium"])

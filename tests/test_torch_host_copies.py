@@ -3,11 +3,15 @@
 ``tts_tpu_torch`` imports nothing of ``tts_tpu``: it keeps copies of the
 config classes (``config/base.py``, ``config/shared.py``,
 ``read_json_with_comments``, the VITS configs), the text front ends (the XTTS
-tokenizer's normalisation; the VITS grapheme tokenizer with
-``english_cleaners``) and the reference → flax-layout XTTS and VITS
-converters (``utils/convert.py``). Each copy must behave exactly as its
-source: the config dicts, the normalised text, the token ids and the
-converted leaves are compared for equality, no tolerance.
+tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
+``cleaners.py`` and ``english.py``; the phoneme front end: ``punctuation``,
+``cmudict``, ``en_g2p``, ``latin_g2p`` with ``rule_g2p_ext`` and
+``rule_g2p_ext3``, ``belarusian``, ``phonemizers``, ``IPAPhonemes`` and
+``VitsCharacters``) and the reference → flax-layout XTTS and VITS converters
+(``utils/convert.py``). Each copy must behave exactly as its source: the
+config dicts, the normalised text, the token ids and the converted leaves
+are compared for equality, no tolerance. The grapheme path is held here; the
+phoneme front end in ``tests/test_torch_phonemes.py``.
 """
 
 import numpy as np

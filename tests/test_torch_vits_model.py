@@ -332,5 +332,3 @@ def test_unported_paths_raise(pair):
     _, _, port = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.voice_conversion(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="phonemes"):
-        Vits.init_from_config(VitsConfig(use_phonemes=True, phoneme_language="en-us"))

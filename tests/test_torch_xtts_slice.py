@@ -146,6 +146,50 @@ def test_speaker_bank_speaks_like_its_clip(port_tts, model_dir, tmp_path):
         banked.tts(TEXTS[0], speaker="nobody", language="en")
 
 
+def test_cli_clones_a_voice_like_jax(model_dir, jax_reference, tmp_path, capsys):
+    """``tts --speaker_wav … --language_idx en`` writes the JAX synthesizer's
+    audio as a peak-normalised 16-bit wav. A model with several built-in
+    speakers needs ``--speaker_idx`` or ``--speaker_wav``."""
+    import scipy.io.wavfile
+
+    from tts_tpu_torch.bin.synthesize import main as cli
+
+    _, full = jax_reference
+    out = tmp_path / "cli.wav"
+    cli(["--text", TEXTS[0], "--model_path", str(model_dir), "--speaker_wav",
+         str(model_dir / "ref.wav"), "--language_idx", "en", "--out_path", str(out),
+         "--device", "cpu"])
+    sr, pcm = scipy.io.wavfile.read(out)
+    want = full * (32767 / max(0.01, float(np.abs(full).max())))
+    assert sr == 24000 and pcm.shape == want.shape
+    np.testing.assert_allclose(pcm, want, atol=1.0 + ATOL * 32767 / np.abs(full).max())
+
+    banked = tmp_path / "banked"
+    banked.mkdir()
+    for name in ("config.json", "vocab.json", "model_torch.pt"):
+        (banked / name).symlink_to(model_dir / name)
+    spk = TTS(model_path=str(model_dir), device="cpu").synthesizer.tts_model.resolve_conditioning(
+        XttsConfig(), speaker_wav=str(model_dir / "ref.wav"))
+    entry = {"gpt_cond_latent": spk[0], "speaker_embedding": spk[1][..., None]}
+    torch.save({"one": entry, "two": entry}, banked / "speakers_xtts.pth")
+    args = ["--text", TEXTS[0], "--model_path", str(banked), "--language_idx", "en",
+            "--out_path", str(tmp_path / "banked.wav"), "--device", "cpu"]
+    with pytest.raises(SystemExit) as exit_info:
+        cli(args)
+    assert exit_info.value.code == 1 and "multi-speaker model" in capsys.readouterr().err
+    cli(args + ["--speaker_idx", "two"])
+    assert np.array_equal(scipy.io.wavfile.read(tmp_path / "banked.wav")[1], pcm)
+
+
+def test_int8_weights_raise_until_ported():
+    """ROADMAP.md F6: the JAX package quantizes the GPT on this flag, so
+    full-precision weights under it would give other audio."""
+    config = XttsConfig.from_dict(tiny_xtts_config().to_dict())
+    config.model_args.gpt_int8_weights = True
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 11"):
+        Xtts(config)
+
+
 def _fetch(url, bodies, key):
     with urllib.request.urlopen(url, timeout=120) as r:
         bodies[key] = (r.status, r.read())
@@ -211,8 +255,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     """The port imports nothing of ``tts_tpu`` (not even its jax-free
     modules), nor ``jax``, ``flax`` or ``tokenizers``. Checked in a fresh
     interpreter, after importing every module of the port, the XTTS and VITS
-    slices included: this test process has JAX and ``tts_tpu`` loaded
-    already (tests/conftest.py)."""
+    slices, the phonemizers, the ``tts`` command line and the server
+    included: this test process has JAX and ``tts_tpu`` loaded already
+    (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tts_tpu_torch\n"
@@ -220,7 +265,11 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "for m in mods: importlib.import_module(m)\n"
         "from tts_tpu_torch.utils.convert import load_reference_vits, load_reference_xtts\n"
         "import tts_tpu_torch.models.vits.model, tts_tpu_torch.utils.synthesis\n"
-        "assert len(mods) > 45 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "import tts_tpu_torch.text.phonemizers, tts_tpu_torch.text.en_g2p\n"
+        "import tts_tpu_torch.text.latin_g2p, tts_tpu_torch.bin.synthesize\n"
+        "import tts_tpu_torch.server.server\n"
+        "assert len(mods) > 55 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "assert 'tts_tpu_torch.bin.synthesize' in mods, mods\n"
         "assert 'tts_tpu_torch.models.vits.model' in mods, mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"

@@ -29,6 +29,14 @@ class TTS:
             self.synthesizer = Synthesizer(tts_checkpoint=model_path,
                                            tts_config_path=config_path or "", device=device)
 
+    @property
+    def is_multi_speaker(self) -> bool:
+        """Whether the model holds more than one speaker to choose from: an
+        XTTS model with its built-in speakers (``speakers_xtts.pth``). The
+        port's VITS is single-speaker."""
+        model = self.synthesizer.tts_model if self.synthesizer else None
+        return len(getattr(model, "speaker_manager", None) or {}) > 1
+
     def _require_model(self) -> Synthesizer:
         if self.synthesizer is None:
             raise RuntimeError("No model loaded.")

@@ -1,0 +1,105 @@
+"""The ``tts`` command line of the port (counterpart of
+``tts_tpu/bin/synthesize.py``): text → wav file, or wav bytes on stdout.
+
+Examples::
+
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_path vits_dir/ --out_path out.wav
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_path vits/model_torch.pt --config_path vits/config.json --device cpu
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_path xtts_dir/ --speaker_wav ref.wav --language_idx en
+
+``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
+runs the plain PyTorch path. ``--use_cuda``, ``--save_spectogram`` and
+``--progress_bar`` are accepted for compatibility with the reference
+command line and change nothing. With ``--pipe_out`` the wav bytes are the
+only thing written to stdout: the log lines go to stderr (the JAX
+command line prints them into the same stream).
+
+The JAX command line's other flags wait for the paths they select, and
+argparse rejects them until then (ROADMAP.md §1):
+
+* the model zoo (``--list_models``, ``--model_info_by_idx``,
+  ``--model_info_by_name``, ``--model_name``, ``--vocoder_name``): item 6;
+* speaker and language files (``--speakers_file_path``,
+  ``--language_ids_file_path``, ``--list_speaker_idxs``,
+  ``--list_language_idxs``): item 7;
+* voice conversion (``--source_wav``, ``--target_wav``) and same-model voice
+  transfer (``--reference_wav``, ``--reference_speaker_idx``): item 8;
+* vocoder and speaker-encoder checkpoints (``--vocoder_path``,
+  ``--vocoder_config_path``, ``--encoder_path``, ``--encoder_config_path``):
+  slice 3, items 13–15;
+* style references (``--style_wav`` and its aliases,
+  ``--capacitron_style_text``) and the voice directory (``--voice_dir``):
+  slice 3, item 16.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import sys
+
+
+def str2bool(v):
+    if isinstance(v, bool):
+        return v
+    return v.lower() in ("yes", "true", "t", "y", "1")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="tts_tpu_torch synthesis command line")
+    parser.add_argument("--text", type=str, default=None, help="Text to synthesize.")
+    parser.add_argument("--model_path", type=str, default=None,
+                        help="model directory, or a VITS checkpoint file with --config_path")
+    parser.add_argument("--config_path", type=str, default=None,
+                        help="config.json of a checkpoint file given as --model_path")
+    parser.add_argument("--out_path", type=str, default="tts_output.wav")
+    parser.add_argument("--pipe_out", action="store_true", help="also write the wav to stdout")
+    parser.add_argument("--speaker_idx", type=str, default=None)
+    parser.add_argument("--language_idx", type=str, default=None)
+    parser.add_argument("--speaker_wav", nargs="+", default=None)
+    parser.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
+    # accepted for compatibility with the reference command line
+    parser.add_argument("--use_cuda", action="store_true",
+                        help="accepted for compatibility; --device selects the device")
+    parser.add_argument("--save_spectogram", action="store_true",
+                        help="accepted for compatibility (a no-op in the reference too)")
+    parser.add_argument("--progress_bar", type=str2bool, nargs="?", const=True, default=True,
+                        help="accepted for compatibility (the port downloads nothing)")
+    return parser
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
+    pipe_out = sys.stdout if args.pipe_out else None
+    with contextlib.redirect_stdout(sys.stderr if pipe_out else sys.stdout):
+        from tts_tpu_torch.api import TTS
+
+        tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device)
+
+        if args.text is None:
+            print(" [!] Provide --text", file=sys.stderr)
+            sys.exit(1)
+
+        # guard: multi-speaker model with no speaker selected (reference
+        # synthesize.py:456-461)
+        if tts.is_multi_speaker and not (args.speaker_idx or args.speaker_wav):
+            print(" [!] This is a multi-speaker model: set --speaker_idx or --speaker_wav.",
+                  file=sys.stderr)
+            sys.exit(1)
+
+        tts.tts_to_file(
+            args.text,
+            speaker=args.speaker_idx,
+            language=args.language_idx,
+            speaker_wav=args.speaker_wav,
+            file_path=args.out_path,
+            pipe_out=pipe_out,
+        )
+        print(f" > Saving output to {args.out_path}")
+
+
+if __name__ == "__main__":
+    main()

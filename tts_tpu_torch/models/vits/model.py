@@ -174,8 +174,16 @@ class Vits:
     @classmethod
     def init_from_config(cls, config: VitsConfig) -> "Vits":
         tokenizer, config = TTSTokenizer.init_from_config(config)
+        n_symbols = tokenizer.characters.num_chars
         if config.model_args.num_chars is None:
-            config.model_args.num_chars = tokenizer.characters.num_chars
+            config.model_args.num_chars = n_symbols
+        if config.model_args.num_chars < n_symbols:
+            # the JAX package embeds the ids past the table as NaN (ROADMAP.md F7)
+            raise ValueError(
+                f"model_args.num_chars={config.model_args.num_chars} is smaller than the "
+                f"{n_symbols} symbols of {type(tokenizer.characters).__name__}: set it to "
+                f"{n_symbols}, or to None to take the vocabulary's size"
+            )
         model = cls(config)
         model.tokenizer = tokenizer
         return model

@@ -3,8 +3,9 @@
 Redeclared on the port's own ``config.base.Config`` (a copy of
 ``tts_tpu/config/base.py``): the port imports nothing of ``tts_tpu``. The fields and defaults are the
 JAX package's, so a ``config.json`` written by either package loads in the
-other. Fields for work the port does not do yet (remat, sequence-parallel
-fine-tuning, int8 serving) are kept for that compatibility and ignored.
+other. The training-only fields for work the port does not do yet (remat,
+sequence-parallel fine-tuning) are kept for that compatibility and ignored;
+``gpt_int8_weights=True`` makes ``Xtts`` raise until int8 serving is ported.
 """
 
 from __future__ import annotations
@@ -50,9 +51,10 @@ class XttsArgs(Config):
     gpt_code_stride_len: int = 1024
     gpt_use_masking_gt_prompt_approach: bool = True
     gpt_use_perceiver_resampler: bool = True
-    # training and int8 serving options of the JAX package (not ported yet)
+    # training options of the JAX package (not ported yet, ignored)
     gpt_use_remat: bool = False
     gpt_seq_parallel: bool = False
+    # int8 serving (not ported yet): True raises in Xtts
     gpt_int8_weights: bool = False
 
     # fine-tune dataset limits

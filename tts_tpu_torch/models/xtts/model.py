@@ -63,6 +63,11 @@ class Xtts(nn.Module):
             raise NotImplementedError(
                 "the XTTS v1 layout (no perceiver resampler) is not ported yet"
             )
+        if a.gpt_int8_weights:
+            raise NotImplementedError(
+                "int8 GPT weights (gpt_int8_weights=True) are not ported to tts_tpu_torch yet "
+                "(ROADMAP.md item 11); full-precision weights would give other audio"
+            )
         self.gpt = XttsGPT(
             layers=a.gpt_layers,
             model_dim=a.gpt_n_model_channels,

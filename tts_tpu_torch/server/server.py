@@ -6,10 +6,16 @@ Routes:
   GET /api/tts          ?text=…&speaker_id=…&language_id=…&speaker_wav=… → wav
   GET /api/tts-stream   same parameters → progressive WAV, written per
                         decoded chunk
+  GET /details          the model's config as JSON, with its speakers and
+                        languages (empty for a model without managers)
+  MaryTTS compatibility: GET /locales, GET /voices, GET and POST /process
+                        (``INPUT_TEXT`` → wav)
 
-``/api/tts`` runs under one lock. With ``--stream_batch N > 1``
-``/api/tts-stream`` goes through the :class:`StreamBatcher`, whose worker
-thread batches up to N concurrent streams.
+Status codes, content types and bodies are the JAX server's; any other
+route answers 404. ``/api/tts`` and ``/process`` run under one lock. With
+``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
+:class:`StreamBatcher`, whose worker thread batches up to N concurrent
+streams.
 
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
 [--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
@@ -22,6 +28,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import json
 import struct
 import threading
 import urllib.parse
@@ -155,8 +162,42 @@ def create_handler(synthesizer, lock: threading.Lock, stream_batcher=None):
                     self._send(400, str(e).encode())
                     return
                 self._send(200, wav, "audio/wav")
+            elif route == "/details":
+                self._details()
+            elif route == "/locales":  # MaryTTS compatibility
+                self._send(200, b"en_US\n", "text/plain")
+            elif route == "/voices":  # MaryTTS compatibility
+                self._send(200, b"default en_US u\n", "text/plain")
+            elif route == "/process":  # MaryTTS compatibility
+                self._process(qs)
             else:
                 self._send(404, b"not found")
+
+        def do_POST(self):
+            parsed = urllib.parse.urlparse(self.path)
+            if parsed.path == "/process":  # MaryTTS compatibility: a form body
+                length = int(self.headers.get("Content-Length", "0"))
+                self._process(urllib.parse.parse_qs(self.rfile.read(length).decode()))
+            else:
+                self._send(404, b"not found")
+
+        def _process(self, qs):
+            try:
+                wav = self._synthesize((qs.get("INPUT_TEXT") or [""])[0])
+            except ValueError as e:
+                self._send(400, str(e).encode())
+                return
+            self._send(200, wav, "audio/wav")
+
+        def _details(self):
+            sm = getattr(synthesizer.tts_model, "speaker_manager", None)
+            lm = getattr(synthesizer.tts_model, "language_manager", None)
+            details = {
+                "tts_config": synthesizer.tts_config.to_dict(),
+                "speakers": list(getattr(sm, "name_to_id", {}) or {}) if sm else [],
+                "languages": list(getattr(lm, "name_to_id", {}) or {}) if lm else [],
+            }
+            self._send(200, json.dumps(details, default=str).encode(), "application/json")
 
     return TTSHandler
 

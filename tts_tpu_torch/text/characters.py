@@ -1,8 +1,9 @@
 """Copied from ``tts_tpu/text/characters.py`` (the port imports nothing of
-``tts_tpu``): ``BaseVocabulary``, ``BaseCharacters``, ``Graphemes`` and
-``_chars_kwargs``, unchanged apart from this docstring and import paths. The
-phoneme and fairseq vocabularies (``IPAPhonemes``, ``FairseqVocab``,
-``VitsCharacters``) are not ported yet (ROADMAP.md, slice 2b).
+``tts_tpu``): the grapheme and IPA phoneme symbol sets with
+``parse_symbols``, ``BaseVocabulary``, ``BaseCharacters``, ``IPAPhonemes``,
+``Graphemes``, ``VitsCharacters`` and ``_chars_kwargs``, unchanged apart
+from this docstring and import paths. ``FairseqVocab`` is left out until the
+MMS loader is ported (ROADMAP.md).
 
 Vocab construction order matches the reference exactly ([pad][eos][bos]
 [blank] + sorted characters + punctuations) so token ids are interchangeable
@@ -23,6 +24,33 @@ _bos = "<BOS>"
 _blank = "<BLNK>"
 _characters = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
 _punctuations = "!'(),-.:;? "
+
+# default IPA phoneme set (reference characters.py:29-35)
+_vowels = "iyɨʉɯuɪʏʊeøɘəɵɤoɛœɜɞʌɔæɐaɶɑɒᵻ"
+_non_pulmonic_consonants = "ʘɓǀɗǃʄǂɠǁʛ"
+_pulmonic_consonants = "pbtdʈɖcɟkɡqɢʔɴŋɲɳnɱmʙrʀⱱɾɽɸβfvθðszʃʒʂʐçʝxɣχʁħʕhɦɬɮʋɹɻjɰlɭʎʟ"
+_suprasegmentals = "ˈˌːˑ"
+_other_symbols = "ʍwɥʜʢʡɕʑɺɧʲ"
+_diacrilics = "ɚ˞ɫ"
+_phonemes = (
+    _vowels
+    + _non_pulmonic_consonants
+    + _pulmonic_consonants
+    + _suprasegmentals
+    + _other_symbols
+    + _diacrilics
+)
+
+
+def parse_symbols():
+    return {
+        "pad": _pad,
+        "eos": _eos,
+        "bos": _bos,
+        "characters": _characters,
+        "punctuations": _punctuations,
+        "phonemes": _phonemes,
+    }
 
 
 class BaseVocabulary:
@@ -238,6 +266,34 @@ def _chars_kwargs(cc: CharactersConfig) -> dict:
     )
 
 
+class IPAPhonemes(BaseCharacters):
+    """IPA phoneme vocabulary (reference ``characters.py:348``)."""
+
+    def __init__(
+        self,
+        characters: str = _phonemes,
+        punctuations: str = _punctuations,
+        pad: str = _pad,
+        eos: str = _eos,
+        bos: str = _bos,
+        blank: str = _blank,
+        is_unique: bool = False,
+        is_sorted: bool = True,
+    ) -> None:
+        super().__init__(characters, punctuations, pad, eos, bos, blank, is_unique, is_sorted)
+
+    @staticmethod
+    def init_from_config(config):
+        if config.characters is not None:
+            cc = config.characters
+            # legacy configs store the phoneme set under "phonemes"
+            if getattr(cc, "phonemes", None):
+                cc.characters = cc.phonemes
+            return IPAPhonemes(**_chars_kwargs(cc)), config
+        characters = IPAPhonemes()
+        return characters, replace(config, characters=characters.to_config())
+
+
 class Graphemes(BaseCharacters):
     """Raw grapheme vocabulary (reference ``characters.py:426``)."""
 
@@ -260,3 +316,53 @@ class Graphemes(BaseCharacters):
             return Graphemes(**_chars_kwargs(config.characters)), config
         characters = Graphemes()
         return characters, replace(config, characters=characters.to_config())
+
+
+class VitsCharacters(BaseCharacters):
+    """VITS-compatible vocab: ``[pad] + punctuations + characters + [blank]``
+    (reference ``vits.py:1934`` — pretrained-checkpoint embedding indices
+    depend on this exact order)."""
+
+    def __init__(
+        self,
+        graphemes: str = _characters,
+        punctuations: str = _punctuations,
+        pad: str = _pad,
+        ipa_characters: str = _phonemes,
+    ) -> None:
+        if ipa_characters is not None:
+            graphemes += ipa_characters
+        super().__init__(graphemes, punctuations, pad, None, None, "<BLNK>", is_unique=False, is_sorted=True)
+
+    def _create_vocab(self):
+        self._vocab = [self._pad] + list(self._punctuations) + list(self._characters) + [self._blank]
+        self._char_to_id = {char: idx for idx, char in enumerate(self._vocab)}
+        self._id_to_char = {idx: char for idx, char in enumerate(self._vocab)}
+
+    @staticmethod
+    def init_from_config(config):
+        if config.characters is not None:
+            cc = config.characters
+            return (
+                VitsCharacters(
+                    graphemes=cc.characters,
+                    ipa_characters=cc.phonemes,
+                    punctuations=cc.punctuations,
+                    pad=cc.pad,
+                ),
+                config,
+            )
+        characters = VitsCharacters()
+        return characters, replace(config, characters=characters.to_config())
+
+    def to_config(self) -> CharactersConfig:
+        return CharactersConfig(
+            characters=self._characters,
+            punctuations=self._punctuations,
+            pad=self._pad,
+            eos=None,
+            bos=None,
+            blank=self._blank,
+            is_unique=False,
+            is_sorted=True,
+        )

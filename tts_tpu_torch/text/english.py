@@ -1,7 +1,5 @@
-"""Copied from ``tts_tpu/text/english.py`` (the port imports nothing of ``tts_tpu``):
-the number verbalizer up to ``normalize_numbers``, which the XTTS
-tokenizer calls, the time expansion and the English abbreviations, which
-``english_cleaners`` calls; the French abbreviations are left out.
+"""Copied from ``tts_tpu/text/english.py`` (the port imports nothing of ``tts_tpu``);
+unchanged apart from this line.
 
 English text normalization: numbers, times, abbreviations.
 
@@ -244,5 +242,51 @@ abbreviations_en = [
         ("ltd", "limited"),
         ("col", "colonel"),
         ("ft", "fort"),
+    ]
+]
+
+abbreviations_fr = [
+    (re.compile(r"\b%s\." % abbr, re.IGNORECASE), full)
+    for abbr, full in [
+        ("M", "monsieur"),
+        ("Mlle", "mademoiselle"),
+        ("Mlles", "mesdemoiselles"),
+        ("Mme", "Madame"),
+        ("Mmes", "Mesdames"),
+        ("N.B", "nota bene"),
+        ("p.c.q", "parce que"),
+        ("Pr", "professeur"),
+        ("qqch", "quelque chose"),
+        ("rdv", "rendez-vous"),
+        ("max", "maximum"),
+        ("min", "minimum"),
+        ("no", "numéro"),
+        ("adr", "adresse"),
+        ("dr", "docteur"),
+        ("st", "saint"),
+        ("co", "companie"),
+        ("jr", "junior"),
+        ("sgt", "sergent"),
+        ("capt", "capitain"),
+        ("col", "colonel"),
+        ("av", "avenue"),
+        ("av. J.-C", "avant Jésus-Christ"),
+        ("apr. J.-C", "après Jésus-Christ"),
+        ("art", "article"),
+        ("boul", "boulevard"),
+        ("c.-à-d", "c’est-à-dire"),
+        ("etc", "et cetera"),
+        ("ex", "exemple"),
+        ("excl", "exclusivement"),
+    ]
+] + [
+    # titles also expand without a trailing dot (reference
+    # french/abbreviations.py:41-48)
+    (re.compile(r"\b%s" % abbr), full)
+    for abbr, full in [
+        ("Mlles", "mesdemoiselles"),
+        ("Mlle", "mademoiselle"),
+        ("Mmes", "Mesdames"),
+        ("Mme", "Madame"),
     ]
 ]

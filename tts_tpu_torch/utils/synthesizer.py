@@ -71,7 +71,7 @@ class Synthesizer:
         else:
             raise ValueError(f"{config.model!r} loads from a model directory, not a file")
         self.tts_model = model
-        self.tts_config = model.config
+        self.tts_config = config  # as loaded, as the JAX package keeps it (/details shows it)
         self.output_sample_rate = (getattr(config.model_args, "output_sample_rate", None)
                                    or config.audio.sample_rate)
 
