@@ -45,7 +45,19 @@ Phases; each raises on failure and the script then exits non-zero:
    for a short, a medium and a long sentence, the time of each stage of the
    medium one, the device busy share and top kernels under
    ``torch.profiler``, and the peak device memory. VITS runs no
-   hand-written kernel (the JAX package reaches no Pallas kernel there).
+   hand-written kernel (the JAX package reaches no Pallas kernel there);
+7. batched VITS: the same recipe and seed from a model directory. A
+   three-sentence request through the ``Synthesizer``'s packed path on the
+   card and on the CPU on host noise (plans and ``y_lengths`` equal,
+   waveform within 1e-4); on the card, each packed segment (batch noise
+   layout) against its sentence decoded alone with masks (within 1e-4);
+   the request's wall time packed against the serial loop, with kernels
+   and busy share under ``torch.profiler``; the packed decode timed under
+   plans billing rows by eights (the JAX package's) and by ones; the
+   server from its command line with ``--max_batch 1`` and ``--max_batch
+   4`` answering 8 concurrent ``/api/tts`` requests (2 short, 4 medium,
+   2 long), with the batch sizes its worker formed and the plans'
+   utilization; peak memory. ``decode_attention`` must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -1036,6 +1048,366 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
             f"GB above the {resident / 1e9:.3f} GB resident before the phase | {card}")
 
 
+# ---------------------------------------------------------------------------
+VITS_MASKED_TOL = 1e-4  # packed segment vs its own masked decode, both on the card
+# the serving mix: requests by sentence length, as (key, count); "long" is two sentences
+VITS_MIX = (("short", 2), ("medium", 4), ("long", 2))
+
+
+def vits_request() -> str:
+    """Three sentences of phase 6's: the short, the medium, and the long
+    one's first."""
+    from tts_tpu_torch.utils.synthesizer import split_into_sentences
+
+    first = split_into_sentences(VITS_SENTENCES["long"])[0]
+    return " ".join([VITS_SENTENCES["short"], VITS_SENTENCES["medium"], first])
+
+
+@contextlib.contextmanager
+def recorded_plans():
+    """Every pack plan ``decode_packed`` makes inside, in order."""
+    from tts_tpu_torch.utils import synthesis as synthesis_module
+
+    plans = []
+    real = synthesis_module.plan_pack_layout
+
+    def recording(*args, **kwargs):
+        plans.append(real(*args, **kwargs))
+        return plans[-1]
+
+    synthesis_module.plan_pack_layout = recording
+    try:
+        yield plans
+    finally:
+        synthesis_module.plan_pack_layout = real
+
+
+@contextlib.contextmanager
+def recorded_y_lengths(model):
+    """``y_lengths`` of every ``inference_packed`` call of ``model`` inside."""
+    seen = []
+    real = model.inference_packed
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out["y_lengths"].cpu().tolist())
+        return out
+
+    model.inference_packed = recording
+    try:
+        yield seen
+    finally:
+        del model.inference_packed
+
+
+def padded_ids(model, sentences, rows: int):
+    """Token ids of ``sentences`` in ``rows`` rows (rows past them length
+    1), padded to a multiple of 16: ``(x, x_lengths)`` on the model's
+    device, as the batcher pads them."""
+    import torch
+
+    ids = [model.tokenizer.text_to_ids(s) for s in sentences]
+    width = ((max(len(i) for i in ids) + 15) // 16) * 16
+    x = torch.zeros(rows, width, dtype=torch.long)
+    x_lengths = torch.ones(rows, dtype=torch.long)
+    for row, i in enumerate(ids):
+        x[row, : len(i)] = torch.tensor(i)
+        x_lengths[row] = len(i)
+    return x.to(model.device), x_lengths.to(model.device)
+
+
+def masked_decodes(model, x, x_lengths, noise_frames: int) -> list:
+    """Each row of ``x`` decoded alone at its own length, zero-padded by 16
+    frames and masked after every layer and conv, on the noise
+    ``inference_packed(noise_layout="batch")`` draws from a generator seeded
+    0 on the model's device: the reference each packed segment must equal."""
+    import torch
+
+    from tts_tpu_torch.models.vits import modules
+    from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
+
+    vm, a, dev = model.module, model.args, model.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wavs = []
+    with torch.no_grad():
+        w_ceil, m_p, logs_p, x_mask = vm._durations(x, x_lengths, gen)
+        noise = modules.normal((x.shape[0], noise_frames, m_p.shape[-1]), gen)
+        for i in range(x.shape[0]):
+            frames = int(w_ceil[i].sum())
+            y_mask = sequence_mask(torch.tensor([frames], device=dev),
+                                   frames + 16)[:, :, None].float()
+            attn = generate_path(w_ceil[i : i + 1, :, 0],
+                                 x_mask[i : i + 1] * y_mask.transpose(1, 2))
+            mean = torch.bmm(attn.transpose(1, 2), m_p[i : i + 1])
+            log_scale = torch.bmm(attn.transpose(1, 2), logs_p[i : i + 1])
+            eps = torch.zeros_like(mean)
+            eps[0, :frames] = noise[i, :frames]
+            z_p = (mean + eps * torch.exp(log_scale) * a.inference_noise_scale) * y_mask
+            z = vm.flow(z_p, y_mask)
+            o = vm.waveform_decoder(z * y_mask, x_mask=y_mask)
+            wavs.append(o[0, : frames * model.hop_length, 0].cpu().numpy())
+    return wavs
+
+
+def median_ms(fn, device, reps: int = 5) -> tuple:
+    """``(median, min, max)`` milliseconds of ``reps`` synchronized calls."""
+    runs = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    runs.sort()
+    return runs[reps // 2], runs[0], runs[-1]
+
+
+def profile_call(fn, what: str, card: str) -> None:
+    """Kernels launched and device busy share of one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    log_profile(prof, what, wall_us, card, top=4)
+
+
+def serve_mix(model_dir: str, max_batch: int, device) -> dict:
+    """The serving mix as concurrent ``/api/tts`` requests to a server
+    started from its command line with ``--max_batch``: audio seconds, wall
+    seconds, the batch sizes its worker formed (read by wrapping the
+    batcher's ``_dispatch``) and the plans made."""
+    import io
+
+    import scipy.io.wavfile
+
+    from tts_tpu_torch.server.server import build_parser, close_server, server_from_args
+    from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP
+
+    args = build_parser().parse_args(["--model_path", model_dir, "--port", "0", "--max_batch",
+                                      str(max_batch), "--device", str(device)])
+    srv = server_from_args(args)
+    sizes = []
+    if max_batch > 1:
+        real = srv.batcher._dispatch
+
+        def dispatch(batch):
+            sizes.append(len(batch))
+            real(batch)
+
+        srv.batcher._dispatch = dispatch
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    urls = {f"{key}{n}": f"{base}/api/tts?text={urllib.parse.quote(VITS_SENTENCES[key])}"
+            for key, count in VITS_MIX for n in range(count)}
+    results: dict = {}
+    try:
+        with recorded_plans() as plans:
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=_fetch, args=(u, results, k))
+                       for k, u in urls.items()]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            wall = time.perf_counter() - t0
+    finally:
+        close_server(srv)
+        thread.join(timeout=60)
+    if set(results) != set(urls):
+        raise AssertionError(f"--max_batch {max_batch}: unanswered {sorted(set(urls) - set(results))}")
+    audio_s = 0.0
+    for key, res in results.items():
+        sr, pcm = scipy.io.wavfile.read(io.BytesIO(res["body"]))
+        if res["status"] != 200 or sr != 22050 or len(pcm) <= SENTENCE_GAP \
+                or pcm[:-SENTENCE_GAP].std() < 30:
+            raise AssertionError(f"--max_batch {max_batch} {key!r}: HTTP {res['status']}, "
+                                 f"{len(pcm)} samples")
+        audio_s += len(pcm) / sr
+    return {"audio_s": audio_s, "wall_s": wall, "sizes": sizes, "plans": list(plans)}
+
+
+def time_row_billing(model, name: str, sentences, rows: int, card: str, device) -> dict:
+    """The packed decode of ``sentences`` (``rows`` padded rows) under plans
+    billed by eights and by ones: milliseconds (synchronized host clock,
+    median of 5 each, in turns 8, 1, 1, 8, ...), rows, row length and
+    utilization of each plan."""
+    from tts_tpu_torch.utils.packing import plan_pack_layout
+    from tts_tpu_torch.utils.synthesis import _frame_budget
+
+    x, x_lengths = padded_ids(model, sentences, rows)
+    budget = _frame_budget(max(len(model.tokenizer.text_to_ids(s)) for s in sentences))
+    lens = model.infer_durations(x, x_lengths)[: len(sentences)].cpu().numpy()
+    plans = {m: plan_pack_layout(lens, row_pad_multiple=m) for m in (8, 1)}
+
+    def decode(plan):
+        return model.inference_packed(x, x_lengths, plan.seg_sample, plan.seg_pos,
+                                      noise_frames=budget, noise_layout="packed")
+
+    for plan in plans.values():
+        decode(plan)  # first call of each grid shape
+    runs = {8: [], 1: []}
+    for m in (8, 1, 1, 8, 8, 1, 1, 8, 8, 1):
+        runs[m].append(median_ms(lambda: decode(plans[m]), device, reps=1)[0])
+    out = {}
+    for m, plan in plans.items():
+        ms = sorted(runs[m])[2]
+        out[m] = ms
+        log(f"VITS row billing, {name} ({len(sentences)} sentences, {sum(lens)} frames): "
+            f"row_pad_multiple {m}: {plan.n_rows} x {plan.row_len} grid, utilization "
+            f"{plan.utilization:.3f}, packed decode {ms:.2f} ms (median of 5; "
+            f"{min(runs[m]):.2f}-{max(runs[m]):.2f}) | {card}")
+    return out
+
+
+def phase_batched_vits(card: str, device="cuda", config=None) -> None:
+    """Batched VITS serving at full width: card against CPU on one
+    three-sentence request through the packed path, packed segments against
+    their own masked decodes on the card, packed against serial wall time,
+    the server's ``--max_batch 4`` against ``--max_batch 1`` on the serving
+    mix, the row-billing timings and peak memory."""
+    import torch
+
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.utils.packing import ROW_PAD_MULTIPLE, plan_pack_layout
+    from tts_tpu_torch.utils.synthesis import _frame_budget, synthesis
+    from tts_tpu_torch.utils.synthesizer import Synthesizer, split_into_sentences
+
+    cuda = torch.device(device).type == "cuda"
+    config = config or vits_recipe_config()
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    request = vits_request()
+    sens = split_into_sentences(request)
+    with tempfile.TemporaryDirectory() as d:
+        # random fp32 weights from seed 0, drawn on the host, into a model directory
+        model = Vits.init_from_config(config).init_params(seed=0, device="cpu")
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(model.config.to_dict(), f)
+        torch.save(model.module.state_dict(), os.path.join(d, "model_torch.pt"))
+        del model
+        synth = Synthesizer(model_dir=d, device=device)
+        model = synth.tts_model
+        cpu_synth = Synthesizer(model_dir=d, device="cpu")
+
+        # card against CPU, one three-sentence request on host noise
+        with host_noise(seed=0), recorded_plans() as plans, recorded_y_lengths(model) as got_y, \
+                recorded_y_lengths(cpu_synth.tts_model) as want_y:
+            got = np.asarray(synth.tts(request), np.float32)
+            want = np.asarray(cpu_synth.tts(request), np.float32)
+        del cpu_synth
+        if len(sens) != 3 or len(plans) != 2 or len(got_y) != 1 or got_y != want_y:
+            raise AssertionError(f"packed request: {len(sens)} sentences, {len(plans)} plans, "
+                                 f"y_lengths card {got_y} CPU {want_y}")
+        a, b = plans
+        if (a.slices, a.n_rows, a.row_len) != (b.slices, b.n_rows, b.row_len) or not (
+                np.array_equal(a.seg_sample, b.seg_sample) and np.array_equal(a.seg_pos, b.seg_pos)):
+            raise AssertionError(f"pack plans differ: card {a.slices} vs CPU {b.slices}")
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        if not np.isfinite(got).all() or not err <= VITS_WAV_TOL:
+            raise AssertionError(f"packed request card vs CPU: {got.shape} vs {want.shape}, "
+                                 f"max abs diff {err}")
+        tokens = [len(model.tokenizer.text_to_ids(sen)) for sen in sens]
+        log(f"VITS packed request ({len(sens)} sentences of {tokens} tokens, one decode): "
+            f"card vs CPU on host "
+            f"noise: plans equal ({a.n_rows} x {a.row_len} grid, utilization "
+            f"{a.utilization:.3f}, row_pad_multiple {ROW_PAD_MULTIPLE}), y_lengths {got_y[0]} "
+            f"equal, waveform max abs diff {err:.3g} (tol {VITS_WAV_TOL}); "
+            f"{len(got) / 22050:.2f} s of audio")
+
+        # on the card: packed segments (batch noise layout) vs their own masked decodes
+        x, x_lengths = padded_ids(model, sens, len(sens))
+        budget = _frame_budget(x.shape[1])
+        lens = model.infer_durations(x, x_lengths).cpu().numpy()
+        plan = plan_pack_layout(lens)
+        grid = model.inference_packed(x, x_lengths, plan.seg_sample, plan.seg_pos,
+                                      noise_frames=budget, noise_layout="batch")["model_outputs"]
+        hop = model.hop_length
+        grid = grid[..., 0].cpu().numpy()
+        worst = 0.0
+        for (row, start, n), ref in zip(plan.slices, masked_decodes(model, x, x_lengths, budget)):
+            seg = grid[row, start * hop : (start + n) * hop]
+            if seg.shape != ref.shape:
+                raise AssertionError(f"packed segment {seg.shape} vs masked decode {ref.shape}")
+            worst = max(worst, float(np.abs(seg - ref).max()))
+        if not worst <= VITS_MASKED_TOL:
+            raise AssertionError(f"packed vs masked decodes: max abs diff {worst}")
+        log(f"VITS packed (batch noise layout) vs each sentence's own masked decode, on the "
+            f"card: lengths {lens.tolist()}, max abs diff {worst:.3g} (tol {VITS_MASKED_TOL})")
+
+        # packed against the serial loop: the request's sentences to waveforms
+        def packed():
+            return synth._tts_sentences_packed(sens)
+
+        def serial():
+            return [synthesis(model, sen)["wav"] for sen in sens]
+
+        audio_s = sum(len(w) for w in packed()) / 22050
+        times = {"packed": [], "serial": []}
+        for name in ("packed", "serial", "serial", "packed", "packed", "serial"):
+            times[name].append(median_ms(packed if name == "packed" else serial, device)[0])
+        for name, runs in times.items():
+            log(f"VITS {name} three-sentence request: {audio_s:.2f} s of audio, {sorted(runs)[1]:.1f} "
+                f"ms (median of 3 medians of 5; {min(runs):.1f}-{max(runs):.1f}) | {card}")
+        if cuda:
+            profile_call(packed, "VITS three-sentence request, packed (one decode)", card)
+            profile_call(serial, "VITS three-sentence request, serial loop (three decodes)", card)
+
+        # row billing: by eights (the JAX package's) against by ones
+        short, medium = VITS_SENTENCES["short"], VITS_SENTENCES["medium"]
+        long_a, long_b = split_into_sentences(VITS_SENTENCES["long"])
+        mix = [short] * 2 + [medium] * 4 + [long_a, long_b] * 2
+        billing = {"request": time_row_billing(model, "the three-sentence request", sens, 3,
+                                               card, device),
+                   "batch of 4": time_row_billing(model, "a batch of 4", [short, medium, long_a,
+                                                                          long_b], 4, card, device),
+                   "mix": time_row_billing(model, "the serving mix as one batch", mix, 16,
+                                           card, device)}
+        log("VITS row billing: faster by "
+            + ", ".join(f"{k}: {'ones' if v[1] < v[8] else 'eights'} ({v[8]:.2f} vs {v[1]:.2f} ms)"
+                        for k, v in billing.items())
+            + f"; the port bills by {ROW_PAD_MULTIPLE} | {card}")
+
+        # the server: --max_batch 1 and 4 on the serving mix, in turns 1, 4, 4, 1
+        served = {1: [], 4: []}
+        for max_batch in (1, 4, 4, 1):
+            served[max_batch].append(serve_mix(d, max_batch, device))
+        for max_batch, runs in served.items():
+            rates = [r["audio_s"] / r["wall_s"] for r in runs]
+            line = (f"VITS serving mix ({sum(c for _, c in VITS_MIX)} concurrent /api/tts: "
+                    + ", ".join(f"{c} {k}" for k, c in VITS_MIX) + f"), --max_batch {max_batch}: "
+                    + "; ".join(f"{r['audio_s']:.2f} s of audio in {r['wall_s']:.3f} s" for r in runs)
+                    + f", {' and '.join(f'{v:.1f}' for v in rates)} audio s per wall s")
+            if max_batch > 1:
+                line += (f"; batch sizes formed {[r['sizes'] for r in runs]}; plan utilization "
+                         + str([[round(p.utilization, 3) for p in r["plans"]] for r in runs]))
+            log(line + f" | {card}")
+        for r in served[4]:
+            if sum(r["sizes"]) != sum(len(split_into_sentences(VITS_SENTENCES[k])) * c
+                                      for k, c in VITS_MIX):
+                raise AssertionError(f"--max_batch 4: batch sizes {r['sizes']}")
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the batched VITS phase")
+    log("VITS batched: no hand-written kernel on this path (decode_attention launches 0)")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        log(f"VITS batched peak device memory {peak / 1e9:.3f} GB allocated, "
+            f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident before "
+            f"the phase | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1058,6 +1430,7 @@ def main() -> int:
     kernel["launches"] = phase_serving(model, card)
     del model
     phase_vits(card)
+    phase_batched_vits(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:

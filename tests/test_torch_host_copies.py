@@ -7,10 +7,12 @@ tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
 ``cleaners.py`` and ``english.py``; the phoneme front end: ``punctuation``,
 ``cmudict``, ``en_g2p``, ``latin_g2p`` with ``rule_g2p_ext`` and
 ``rule_g2p_ext3``, ``belarusian``, ``phonemizers``, ``IPAPhonemes`` and
-``VitsCharacters``) and the reference → flax-layout XTTS and VITS converters
-(``utils/convert.py``). Each copy must behave exactly as its source: the
-config dicts, the normalised text, the token ids and the converted leaves
-are compared for equality, no tolerance. The grapheme path is held here; the
+``VitsCharacters``), the reference → flax-layout XTTS and VITS converters
+(``utils/convert.py``), the pack planner (``utils/packing.py``) and the
+trailing-silence endpoint (``db_to_amp``, ``find_endpoint``). Each copy must
+behave exactly as its source: the config dicts, the normalised text, the
+token ids, the converted leaves, the plans and the endpoints are compared
+for equality, no tolerance. The grapheme path is held here; the
 phoneme front end in ``tests/test_torch_phonemes.py``.
 """
 
@@ -172,3 +174,53 @@ def test_convert_vits_generator_matches_jax_leaf_for_leaf():
         assert a.dtype == b.dtype and a.shape == b.shape, key
         np.testing.assert_array_equal(a, b, err_msg=key)
     assert len(got) > 300
+
+
+def test_db_to_amp_and_find_endpoint_match_jax():
+    """Seeded waveforms with quiet stretches (near zero, and far below zero:
+    the endpoint tests the window's maximum, not its magnitude) at two
+    rates, two thresholds and both log bases."""
+    from tts_tpu.audio import numpy_transforms as jax_nt
+    from tts_tpu_torch.audio import numpy_transforms as nt
+
+    rs = np.random.RandomState(0)
+    for base in (10, np.e):
+        for gain in (20.0, 10.0):
+            x = rs.randn(7) * 40
+            np.testing.assert_array_equal(nt.db_to_amp(x=x, gain=gain, base=base),
+                                          jax_nt.db_to_amp(x=x, gain=gain, base=base))
+    cut = 0
+    for trial in range(24):
+        sr = (22050, 16000)[trial % 2]
+        wav = (0.3 * rs.randn(int(sr * rs.uniform(0.5, 4.0)))).astype(np.float32)
+        if trial % 3:
+            start = rs.randint(0, max(1, len(wav) - sr // 2))
+            level = -0.5 if trial % 3 == 2 else 1e-4
+            wav[start : start + int(sr * rs.uniform(0.5, 1.5))] = level * np.abs(rs.randn())
+        kw = dict(wav=wav, trim_db=(45, 60)[trial % 4 // 2], sample_rate=sr, gain=20.0,
+                  base=(10, np.e)[trial % 5 == 0])
+        got = nt.find_endpoint(**kw)
+        assert got == jax_nt.find_endpoint(**kw)
+        cut += got < len(wav)
+    assert cut >= 4  # some stretches are long enough to be found
+
+
+def test_pack_planner_edge_cases_match_jax():
+    """A fixed row length, one utterance, zero lengths (billed as one
+    frame), other gaps and row multiples, and the refusal of an utterance
+    longer than a row."""
+    import tts_tpu.utils.packing as jax_packing
+    from tts_tpu_torch.utils import packing
+
+    cases = [([300, 120, 77, 260], dict(row_len=256)), ([5], {}), ([0, 3, 0], {}),
+             ([100] * 9, dict(gap=16, row_pad_multiple=4)),
+             ([4000, 4000, 10], dict(max_row_len=4096, len_multiple=128))]
+    for lens, kw in cases:
+        got, want = packing.plan_pack_layout(lens, **kw), jax_packing.plan_pack_layout(lens, **kw)
+        np.testing.assert_array_equal(got.seg_sample, want.seg_sample)
+        np.testing.assert_array_equal(got.seg_pos, want.seg_pos)
+        assert (got.slices, got.row_len, got.n_rows, got.lengths, got.utilization) == (
+            want.slices, want.row_len, want.n_rows, want.lengths, want.utilization)
+    for module in (packing, jax_packing):
+        with pytest.raises(ValueError, match="exceeds max_row_len=4096"):
+            module.plan_pack_layout([10, 9000], max_row_len=4096)

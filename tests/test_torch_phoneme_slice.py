@@ -11,7 +11,11 @@ JAX package's ``model.msgpack`` and the port's ``model_torch.pt`` with the
 same weights. As in ``test_torch_vits_slice.py``, the JAX runs are made with
 jit disabled and their ``jax.random.normal`` draws are replayed into the
 port: lengths must be equal and samples agree within 1e-4, or within one
-int16 step where they went through a peak-normalised 16-bit wav.
+int16 step where they went through a peak-normalised 16-bit wav. The port
+decodes a two-sentence text as one sequence-packed grid, so the JAX runs of
+TEXT take the JAX ``Synthesizer``'s packed path (``use_griffin_lim=False``,
+which its default gates off: ROADMAP.md F1), planned with the port's row
+billing; one-sentence texts keep the serial loop in both.
 
 Both packages' phonemizer registries hold what a fresh interpreter reads
 on this machine while these tests run (``test_torch_phonemes.
@@ -36,6 +40,7 @@ import numpy as np
 import pytest
 import scipy.io.wavfile
 import torch
+from test_torch_packed_serving import jax_packing_as_port
 from test_torch_phonemes import machine_registries
 from test_torch_vits_model import record_jax_normals, replay_normals, tiny_jax_vits
 
@@ -77,8 +82,9 @@ def model_dir(tmp_path_factory):
 
 @contextlib.contextmanager
 def jax_eager_draws():
-    """Jit off in this thread, and every ``jax.random.normal`` draw recorded."""
-    with jax.disable_jit(), record_jax_normals() as draws:
+    """Jit off in this thread, packed grids planned as the port plans them,
+    and every ``jax.random.normal`` draw recorded."""
+    with jax.disable_jit(), jax_packing_as_port(), record_jax_normals() as draws:
         yield draws
 
 
@@ -87,7 +93,8 @@ def jax_reference(model_dir):
     from tts_tpu.utils.synthesizer import Synthesizer as JaxSynthesizer
 
     synth = JaxSynthesizer(tts_checkpoint=str(model_dir / "model.msgpack"),
-                           tts_config_path=str(model_dir / "config.json"))
+                           tts_config_path=str(model_dir / "config.json"),
+                           use_griffin_lim=False)  # its packed path (F1)
     assert synth.tts_model.tokenizer.phonemizer.name() == "en_g2p"
     with jax_eager_draws() as draws:
         wav = np.asarray(synth.tts(TEXT), np.float32)
@@ -106,7 +113,7 @@ def test_tts_api_speaks_phonemes_like_jax(model_dir, jax_reference):
     tokenizer = tts.synthesizer.tts_model.tokenizer
     assert tokenizer.use_phonemes and tokenizer.phonemizer.name() == "en_g2p"
     assert tts.synthesizer.tts_model.config.phonemizer == "en_g2p"  # written back
-    assert len(draws) == 6  # two sentences: durations, durations, prior noise each
+    assert len(draws) == 3  # two sentences packed: durations, durations, grid noise
     with replay_normals(draws):
         wav = np.asarray(tts.tts(TEXT), np.float32)
     assert wav.shape == want.shape
@@ -115,8 +122,16 @@ def test_tts_api_speaks_phonemes_like_jax(model_dir, jax_reference):
 
 
 def test_cli_writes_the_jax_clis_wav(model_dir, jax_reference, tmp_path, monkeypatch):
+    """The JAX command line builds its ``Synthesizer`` with
+    ``use_griffin_lim=False`` here, so that it packs TEXT as the port's
+    does (F1)."""
+    import functools
+
+    import tts_tpu.api as jax_api
     from tts_tpu.bin.synthesize import main as jax_cli
 
+    monkeypatch.setattr(jax_api, "Synthesizer",
+                        functools.partial(jax_api.Synthesizer, use_griffin_lim=False))
     jax_out, port_out = tmp_path / "jax.wav", tmp_path / "port.wav"
     monkeypatch.setattr(sys, "argv", [
         "tts", "--text", TEXT, "--model_path", str(model_dir / "model.msgpack"),

@@ -7,15 +7,17 @@ LJSpeech recipe minus phonemes) holds ``config.json``, the JAX package's
 
 A three-sentence text goes through the JAX ``Synthesizer.tts`` (checkpoint
 file + config) and through the port's ``TTS.tts`` (model directory) and
-``Synthesizer.tts`` (checkpoint file + config). For a vocoder-less VITS the
-JAX ``Synthesizer`` decodes sentence by sentence through
-``utils/synthesis.py``: its packed multi-sentence path is gated off by its
-default ``use_griffin_lim=True`` (ROADMAP.md fault F1). That serial loop is
-what the port runs, so the audio is held sample for sample, within 1e-4,
-with 10000 zero samples after each sentence. The JAX run is made with jit
-disabled so that its ``jax.random.normal`` draws (per sentence: the
-durations pass, then the inference's duration and prior noise) can be
-recorded and replayed into the port.
+``Synthesizer.tts`` (checkpoint file + config). The port decodes the three
+sentences as one sequence-packed grid. The JAX ``Synthesizer`` does so only
+with ``use_griffin_lim=False``: its default ``use_griffin_lim=True`` gates
+the packed path off for a vocoder-less VITS and decodes sentence by
+sentence (ROADMAP.md fault F1). So the reference is the JAX packed path,
+planned with the port's row billing
+(``test_torch_packed_serving.jax_packing_as_port``), and the audio is held
+sample for sample, within 1e-4, with 10000 zero samples after each
+sentence. The JAX run is made with jit disabled so that its
+``jax.random.normal`` draws (the durations pass, then the packed decode's
+duration and prior noise) can be recorded and replayed into the port.
 
 The port's HTTP server answers ``/api/tts`` for VITS with the synthesizer's
 own audio; its streaming route answers 501.
@@ -33,6 +35,7 @@ import numpy as np
 import pytest
 import scipy.io.wavfile
 import torch
+from test_torch_packed_serving import jax_eager_draws
 from test_torch_vits_model import record_jax_normals, replay_normals, tiny_jax_vits
 
 from tts_tpu_torch.api import TTS
@@ -64,12 +67,14 @@ def model_dir(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_reference(model_dir):
-    """The JAX ``Synthesizer.tts`` of TEXT and its noise draws, in order."""
+    """The JAX ``Synthesizer.tts`` of TEXT on its packed path (F1) and its
+    noise draws, in order."""
     from tts_tpu.utils.synthesizer import Synthesizer as JaxSynthesizer
 
     synth = JaxSynthesizer(tts_checkpoint=str(model_dir / "model.msgpack"),
-                           tts_config_path=str(model_dir / "config.json"))
-    with jax.disable_jit(), record_jax_normals() as draws:
+                           tts_config_path=str(model_dir / "config.json"),
+                           use_griffin_lim=False)
+    with jax_eager_draws() as draws:
         wav = np.asarray(synth.tts(TEXT), np.float32)
     assert synth.output_sample_rate == 22050
     return wav, draws
@@ -82,15 +87,26 @@ def _check_against_jax(wav, jax_reference):
     np.testing.assert_allclose(wav, want, rtol=0, atol=ATOL)
 
 
-def test_three_sentences_decode_serially_in_both(jax_reference):
-    """Three sentences, three durations passes and three decodes: the JAX
-    package drew (durations, durations, prior) noise for each."""
+def test_three_sentences_decode_serially_in_both(model_dir, jax_reference):
+    """F1: the JAX ``Synthesizer`` with its default ``use_griffin_lim=True``
+    decodes the three sentences one by one, drawing (durations, durations,
+    prior) noise for each. The packed path that gate was meant to allow,
+    which the port runs, draws once for all three: the durations pass and
+    the decode's duration noise over three rows, then the grid's prior
+    noise."""
+    from tts_tpu.utils.synthesizer import Synthesizer as JaxSynthesizer
+
     want, draws = jax_reference
     assert len(split_into_sentences(TEXT)) == 3
-    assert len(draws) == 9
-    assert [d.shape[-1] for d in draws] == [2, 2, 32] * 3
+    default = JaxSynthesizer(tts_checkpoint=str(model_dir / "model.msgpack"),
+                             tts_config_path=str(model_dir / "config.json"))
+    with jax.disable_jit(), record_jax_normals() as serial_draws:
+        default.tts(TEXT)
+    assert [d.shape[-1] for d in serial_draws] == [2, 2, 32] * 3
     for i in range(3):
-        assert np.array_equal(draws[3 * i], draws[3 * i + 1])  # same rng, same draw
+        assert np.array_equal(serial_draws[3 * i], serial_draws[3 * i + 1])  # same rng
+    assert [d.shape[-1] for d in draws] == [2, 2, 32]
+    assert draws[0].shape[0] == 3 and np.array_equal(draws[0], draws[1])
     # each sentence is followed by the silence gap, and none is silent itself
     assert np.all(want[-SENTENCE_GAP:] == 0)
     assert np.abs(want[: -SENTENCE_GAP]).max() > 0.01

@@ -255,9 +255,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     """The port imports nothing of ``tts_tpu`` (not even its jax-free
     modules), nor ``jax``, ``flax`` or ``tokenizers``. Checked in a fresh
     interpreter, after importing every module of the port, the XTTS and VITS
-    slices, the phonemizers, the ``tts`` command line and the server
-    included: this test process has JAX and ``tts_tpu`` loaded already
-    (tests/conftest.py)."""
+    slices, the phonemizers, the ``tts`` command line, the server, its
+    batcher and the pack planner included: this test process has JAX and
+    ``tts_tpu`` loaded already (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tts_tpu_torch\n"
@@ -267,10 +267,12 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "import tts_tpu_torch.models.vits.model, tts_tpu_torch.utils.synthesis\n"
         "import tts_tpu_torch.text.phonemizers, tts_tpu_torch.text.en_g2p\n"
         "import tts_tpu_torch.text.latin_g2p, tts_tpu_torch.bin.synthesize\n"
-        "import tts_tpu_torch.server.server\n"
+        "import tts_tpu_torch.server.server, tts_tpu_torch.server.batching\n"
+        "import tts_tpu_torch.utils.packing\n"
         "assert len(mods) > 55 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
         "assert 'tts_tpu_torch.bin.synthesize' in mods, mods\n"
         "assert 'tts_tpu_torch.models.vits.model' in mods, mods\n"
+        "assert {'tts_tpu_torch.utils.packing', 'tts_tpu_torch.server.batching'} <= set(mods)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

@@ -1,6 +1,7 @@
-"""Host-side wav I/O and resampling (port of the I/O part of
-``tts_tpu/audio/numpy_transforms.py``: ``load_wav``, ``save_wav``,
-``resample_wav``; numpy and scipy only)."""
+"""Host-side wav I/O, resampling and the trailing-silence endpoint (port
+of part of ``tts_tpu/audio/numpy_transforms.py``: ``load_wav``,
+``save_wav``, ``resample_wav``, and ``db_to_amp`` and ``find_endpoint``
+copied verbatim with ``_exp``; numpy and scipy only)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,30 @@ def save_wav(*, wav: np.ndarray, path: str, sample_rate: int = None, pipe_out=No
         wav_buffer.seek(0)
         pipe_out.buffer.write(wav_buffer.read())
     scipy.io.wavfile.write(path, sample_rate, wav_norm)
+
+
+def _exp(x, base):
+    return np.power(10, x) if base == 10 else np.exp(x)
+
+
+def db_to_amp(*, x: np.ndarray = None, gain: float = 1, base: int = 10, **kwargs) -> np.ndarray:
+    return _exp(x / gain, base)
+
+
+def find_endpoint(
+    *,
+    wav: np.ndarray = None,
+    trim_db: float = -40,
+    sample_rate: int = None,
+    min_silence_sec=0.8,
+    gain: float = None,
+    base: int = None,
+    **kwargs,
+) -> int:
+    window_length = int(sample_rate * min_silence_sec)
+    hop_length = int(window_length / 4)
+    threshold = db_to_amp(x=-trim_db, gain=gain, base=base)
+    for x in range(hop_length, len(wav) - window_length, hop_length):
+        if np.max(wav[x : x + window_length]) < threshold:
+            return x + hop_length
+    return len(wav)

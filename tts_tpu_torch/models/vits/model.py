@@ -3,16 +3,17 @@
 flow, HiFiGAN decoder; the posterior encoder is built so weights load
 strictly) and the ``Vits`` host wrapper (tokenizer, weights, noise).
 
-The port runs the single-speaker HiFiGAN variant. The multi-speaker and
-multi-language fields, ``encoder_sample_rate`` (``interpolate_z``), the
-``istft`` decoder, voice conversion, the sequence-packed decode and training
+The port runs the single-speaker HiFiGAN variant, one utterance per row
+(``inference``) or many packed into a few rows (``inference_packed``). The
+multi-speaker and multi-language fields, ``encoder_sample_rate``
+(``interpolate_z``), the ``istft`` decoder, voice conversion and training
 raise ``NotImplementedError`` (ROADMAP.md, slice 2b and later).
 
-Noise: each ``inference``/``infer_durations`` call draws from a
-``torch.Generator`` on the model's device, seeded 0 unless the caller passes
-one, as the JAX package draws from ``PRNGKey(0)`` by default. Both calls
-make the same first draw, so a durations pass and the inference after it
-agree, as in the JAX package.
+Noise: each ``inference``/``inference_packed``/``infer_durations`` call
+draws from a ``torch.Generator`` on the model's device, seeded 0 unless the
+caller passes one, as the JAX package draws from ``PRNGKey(0)`` by default.
+All three make the same first draw, so a durations pass and the decode
+after it agree, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +55,18 @@ def check_supported(config: VitsConfig) -> None:
         raise NotImplementedError(f"VITS with encoder_sample_rate (interpolate_z) {_ROADMAP}")
     if a.decoder_type != "hifigan":
         raise NotImplementedError(f"VITS decoder_type={a.decoder_type!r} {_ROADMAP}")
+
+
+def supports_packed_decode(config: VitsConfig) -> bool:
+    """Whether ``config``'s model may decode sequence-packed rows: not with
+    the ``istft`` decoder, which masks no conv, and not where the latent is
+    interpolated to the output rate (``encoder_sample_rate`` with
+    ``interpolate_z``), which blurs the segments' edges into the gaps. The
+    JAX package checks only the first (ROADMAP.md F2)."""
+    a = config.model_args
+    interpolates = (bool(a.encoder_sample_rate) and a.interpolate_z
+                    and config.audio.sample_rate != a.encoder_sample_rate)
+    return a.decoder_type != "istft" and not interpolates
 
 
 class VitsModule(nn.Module):
@@ -160,9 +173,57 @@ class VitsModule(nn.Module):
             "logs_p": logs_p_e,
         }
 
+    @torch.no_grad()
+    def inference_packed(self, x, x_lengths, seg_sample, seg_pos, generator: torch.Generator,
+                         noise_frames: int = 1000, noise_layout: str = "batch") -> Dict[str, Any]:
+        """Many utterances decoded in a few dense rows (``utils/packing.py``).
+
+        ``seg_sample``/``seg_pos`` ``[R, L]`` map each slot of the grid to
+        its utterance (a row of ``x``; ``-1`` marks a gap) and to its frame
+        within that utterance. The plan must come from the durations this
+        call predicts, that is from :meth:`infer_durations` with the same
+        generator state. Frame f of an utterance takes the prior of token t
+        where ``cum[t-1] <= f < cum[t]`` over its cumulative durations: the
+        alignment ``generate_path`` expands in :meth:`inference`, as a
+        gather. The flow masks after every layer and the decoder after
+        every conv with the grid's mask, so each segment decodes as it
+        would alone, zero-padded.
+
+        ``noise_layout="batch"`` draws the prior noise ``[B, noise_frames,
+        C]`` and gathers it into the grid, so segment i gets the noise
+        :meth:`inference` with ``max_frames=noise_frames`` gives row i;
+        ``"packed"`` draws ``[R, L, C]`` straight in the grid's layout."""
+        a = self.args
+        w_ceil, m_p, logs_p, _ = self._durations(x, x_lengths, generator)
+        y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)
+
+        valid = seg_sample >= 0
+        s = torch.clamp(seg_sample, min=0).long()
+        cum = torch.cumsum(w_ceil[:, :, 0], dim=1)  # [B, T_x]
+        tok = torch.sum(cum[s] <= seg_pos[..., None].to(cum.dtype), dim=-1)
+        tok = torch.clamp(tok, 0, m_p.shape[1] - 1)
+        m_pk, logs_pk = m_p[s, tok], logs_p[s, tok]  # [R, L, C]
+        if noise_layout == "packed":
+            noise = modules.normal(m_pk.shape, generator)
+        elif noise_layout == "batch":
+            noise = modules.normal((x.shape[0], noise_frames, m_p.shape[-1]), generator)
+            noise = noise[s, torch.clamp(seg_pos, max=noise_frames - 1).long()]
+        else:
+            raise ValueError(f"noise_layout must be 'batch' or 'packed', not {noise_layout!r}")
+        mask = valid[..., None].to(m_pk.dtype)
+        z_p = (m_pk + noise * torch.exp(logs_pk) * a.inference_noise_scale) * mask
+        z = self.flow(z_p, mask)
+        o = self.waveform_decoder(z * mask, x_mask=mask)
+        return {"model_outputs": o, "y_lengths": y_lengths, "packed_mask": valid,
+                "durations": w_ceil}
+
 
 class Vits:
     """Host wrapper: tokenizer, weights and noise around :class:`VitsModule`."""
+
+    # inference() returns a waveform [B, T, 1] directly (no vocoder stage),
+    # which the server's DynamicBatcher asks of a model
+    emits_waveform = True
 
     def __init__(self, config: VitsConfig):
         check_supported(config)
@@ -281,6 +342,24 @@ class Vits:
             max_frames = min(max_frames, int(self.args.max_inference_len))
         return self.module.inference(x, x_lengths, self._generator(generator),
                                      max_frames=max_frames)
+
+    @property
+    def supports_packed_decode(self) -> bool:
+        return supports_packed_decode(self.config)
+
+    def inference_packed(self, x, x_lengths, seg_sample, seg_pos, noise_frames: int = 1000,
+                         noise_layout: str = "batch",
+                         generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Sequence-packed decode (:meth:`VitsModule.inference_packed`) of a
+        plan from ``utils.packing.plan_pack_layout`` (numpy or tensors) over
+        :meth:`infer_durations`' lengths, made with the same generator
+        state."""
+        seg_sample = torch.as_tensor(seg_sample, device=self.device)
+        seg_pos = torch.as_tensor(seg_pos, device=self.device)
+        return self.module.inference_packed(x, x_lengths, seg_sample, seg_pos,
+                                            self._generator(generator),
+                                            noise_frames=noise_frames,
+                                            noise_layout=noise_layout)
 
     def voice_conversion(self, *args, **kwargs):
         raise NotImplementedError(f"VITS voice_conversion {_ROADMAP}")

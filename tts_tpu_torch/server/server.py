@@ -13,14 +13,19 @@ Routes:
 
 Status codes, content types and bodies are the JAX server's; any other
 route answers 404. ``/api/tts`` and ``/process`` run under one lock. With
-``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
-:class:`StreamBatcher`, whose worker thread batches up to N concurrent
-streams.
+``--max_batch N > 1`` and a VITS model they go through the
+:class:`DynamicBatcher` instead, whose worker thread decodes up to N
+queued sentences of concurrent requests in one dispatch; a request it
+refuses with ``ValueError`` (a speaker or language named) goes to the
+serial path under the lock. A model the batcher cannot take (XTTS) is
+served serially, with one line said. With ``--stream_batch N > 1``
+``/api/tts-stream`` goes through the :class:`StreamBatcher`, whose worker
+thread batches up to N concurrent streams.
 
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
-[--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
-config.json`` for a VITS checkpoint file. A VITS model serves ``/api/tts``
-(its streaming route answers 501).
+[--max_batch 4] [--batch_window_ms 10] [--stream_batch 4] [--port 5002]``,
+or ``--model_path FILE --config_path config.json`` for a VITS checkpoint
+file. A VITS model serves ``/api/tts`` (its streaming route answers 501).
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ function speak() {
 </body></html>"""
 
 
-def create_handler(synthesizer, lock: threading.Lock, stream_batcher=None):
+def create_handler(synthesizer, lock: threading.Lock, batcher=None, stream_batcher=None):
     class TTSHandler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
             print(" > %s" % (fmt % args))
@@ -86,8 +91,16 @@ def create_handler(synthesizer, lock: threading.Lock, stream_batcher=None):
             )
 
         def _synthesize(self, text: str, **params) -> bytes:
-            with lock:
-                wav = synthesizer.tts(text, **params)
+            wav = None
+            if batcher is not None and params.get("speaker_wav") is None:
+                try:  # no lock: the batch worker owns the dispatch
+                    wav = batcher.tts(text, speaker_name=params.get("speaker_name"),
+                                      language_name=params.get("language_name"))
+                except ValueError:
+                    wav = None  # a request the batcher refuses: the serial path answers
+            if wav is None:
+                with lock:
+                    wav = synthesizer.tts(text, **params)
             arr = np.asarray(wav, np.float32)
             arr = (arr * (32767 / max(0.01, float(np.abs(arr).max())))).astype(np.int16)
             buf = io.BytesIO()
@@ -203,11 +216,27 @@ def create_handler(synthesizer, lock: threading.Lock, stream_batcher=None):
 
 
 def create_server(
-    synthesizer, port: int = 5002, stream_batch: int = 1, stream_window_ms: float = 50.0
+    synthesizer,
+    port: int = 5002,
+    max_batch: int = 1,
+    batch_window_ms: float = 10.0,
+    stream_batch: int = 1,
+    stream_window_ms: float = 50.0,
 ) -> ThreadingHTTPServer:
-    """HTTP server over ``synthesizer``; with ``stream_batch > 1`` the
-    streaming route goes through a :class:`StreamBatcher` (closed with the
-    server by :func:`close_server`)."""
+    """HTTP server over ``synthesizer``; with ``max_batch > 1`` ``/api/tts``
+    and ``/process`` go through a :class:`DynamicBatcher` where the model
+    takes one, with ``stream_batch > 1`` the streaming route through a
+    :class:`StreamBatcher` (both closed with the server by
+    :func:`close_server`)."""
+    batcher = None
+    if max_batch and max_batch > 1:
+        from tts_tpu_torch.server.batching import DynamicBatcher
+
+        try:
+            batcher = DynamicBatcher(synthesizer, max_batch=max_batch, window_ms=batch_window_ms)
+            print(f" > Dynamic batching on: up to {max_batch} sentences per dispatch")
+        except ValueError as e:
+            print(f" [!] dynamic batching unavailable for this model ({e}); serving serially")
     stream_batcher = None
     if stream_batch and stream_batch > 1:
         from tts_tpu_torch.server.stream_batching import StreamBatcher
@@ -216,18 +245,20 @@ def create_server(
                                        window_ms=stream_window_ms)
         print(f" > Batched streaming on: up to {stream_batch} concurrent streams per decode")
     server = ThreadingHTTPServer(
-        ("0.0.0.0", port), create_handler(synthesizer, threading.Lock(), stream_batcher)
+        ("0.0.0.0", port), create_handler(synthesizer, threading.Lock(), batcher, stream_batcher)
     )
+    server.batcher = batcher
     server.stream_batcher = stream_batcher
     return server
 
 
 def close_server(server: ThreadingHTTPServer) -> None:
-    """Stop serving, close the socket and the stream batcher's worker."""
+    """Stop serving, close the socket and the batchers' workers."""
     server.shutdown()
     server.server_close()
-    if server.stream_batcher is not None:
-        server.stream_batcher.close()
+    for batcher in (server.batcher, server.stream_batcher):
+        if batcher is not None:
+            batcher.close()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -239,6 +270,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="config.json of a checkpoint file given as --model_path")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument("--port", type=int, default=5002, help="0 picks a free port")
+    parser.add_argument("--max_batch", type=int, default=1,
+                        help="dynamic batching: max queued /api/tts sentences per dispatch")
+    parser.add_argument("--batch_window_ms", type=float, default=10.0,
+                        help="how long the first queued sentence waits for batch mates")
     parser.add_argument("--stream_batch", type=int, default=1,
                         help="max concurrent /api/tts-stream clients decoded in one batch")
     parser.add_argument("--stream_window_ms", type=float, default=50.0,
@@ -251,7 +286,8 @@ def server_from_args(args: argparse.Namespace) -> ThreadingHTTPServer:
     from tts_tpu_torch.api import TTS
 
     tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device)
-    return create_server(tts.synthesizer, args.port, stream_batch=args.stream_batch,
+    return create_server(tts.synthesizer, args.port, max_batch=args.max_batch,
+                         batch_window_ms=args.batch_window_ms, stream_batch=args.stream_batch,
                          stream_window_ms=args.stream_window_ms)
 
 

@@ -7,11 +7,22 @@ A model loads from a directory (``config.json`` plus weights: the port's
 ``config.json``.
 
 Models with their own ``synthesize`` (XTTS) render each sentence through
-it. The others (VITS) go through :func:`~tts_tpu_torch.utils.synthesis.synthesis`
-one sentence at a time. That serial loop is what the JAX package's
-``Synthesizer`` runs for a vocoder-less VITS by default: its sequence-packed
-multi-sentence path is gated on ``not use_gl``, which its default
-``use_griffin_lim=True`` makes false (ROADMAP.md fault F1).
+it. For the others (VITS), a request of two or more sentences is decoded
+as one sequence-packed grid (:func:`~tts_tpu_torch.utils.synthesis.decode_packed`),
+and a single sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`.
+The JAX package's ``Synthesizer`` gates its packed path on ``not use_gl``
+as well, which its default ``use_griffin_lim=True`` makes false for a
+vocoder-less VITS, so by default it decodes sentence by sentence; the port
+takes the packed path that gate was meant to allow (ROADMAP.md F1). An
+error in the packed decode reaches the caller: there is no fallback to the
+serial loop.
+
+A model loaded from a checkpoint file has each sentence cut at its first
+long quiet stretch when its audio config has ``do_trim_silence`` on, as
+the JAX package's does (:func:`~tts_tpu_torch.utils.synthesis.trim_silence`);
+one loaded from a model directory is not trimmed. A VITS config's audio
+section (``VitsAudioConfig``) has no such field, so VITS is trimmed by
+neither package.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ from tts_tpu_torch import resolve_device
 from tts_tpu_torch.audio.numpy_transforms import save_wav
 from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models import config_from_dict, setup_model
-from tts_tpu_torch.utils.synthesis import synthesis
+from tts_tpu_torch.utils.synthesis import _frame_budget, decode_packed, synthesis, trim_silence
 
 _SENTENCE_RE = re.compile(r"(?<=[.!?;:])\s+(?=[^\s])")
 SENTENCE_GAP = 10000  # zero samples after each sentence (reference synthesizer.py:441)
@@ -48,6 +59,7 @@ class Synthesizer:
         self.device = resolve_device(device)
         self.tts_model = None
         self.tts_config = None
+        self.from_file = False  # loaded from a checkpoint file: may trim silence
         self.output_sample_rate = 24000
         path = model_dir or tts_checkpoint
         if path:
@@ -72,6 +84,7 @@ class Synthesizer:
             raise ValueError(f"{config.model!r} loads from a model directory, not a file")
         self.tts_model = model
         self.tts_config = config  # as loaded, as the JAX package keeps it (/details shows it)
+        self.from_file = not os.path.isdir(path)
         self.output_sample_rate = (getattr(config.model_args, "output_sample_rate", None)
                                    or config.audio.sample_rate)
 
@@ -85,8 +98,8 @@ class Synthesizer:
         split_sentences: bool = True,
         **kwargs,
     ) -> List[float]:
-        """Text → waveform samples, sentence by sentence, with 10000 zero
-        samples after each sentence."""
+        """Text → waveform samples, with 10000 zero samples after each
+        sentence."""
         start = time.time()
         if not text:
             raise ValueError("You need to define `text` to use the TTS API.")
@@ -110,14 +123,41 @@ class Synthesizer:
             if given:
                 raise ValueError(f"{self.tts_config.model!r} is a single-speaker, "
                                  f"single-language model: {', '.join(given)} not taken")
-            for sen in sens:
-                wavs += list(synthesis(model, sen)["wav"])
+            if len(sens) > 1 and model.supports_packed_decode:
+                pieces = self._tts_sentences_packed(sens)
+            else:
+                pieces = [synthesis(model, sen)["wav"] for sen in sens]
+            audio = self.tts_config.audio
+            trim = self.from_file and getattr(audio, "do_trim_silence", False)
+            for wav in pieces:
+                if trim:
+                    wav = trim_silence(wav, audio)
+                wavs += list(wav)
                 wavs += [0] * SENTENCE_GAP
         process_time = time.time() - start
         audio_time = len(wavs) / self.output_sample_rate
         print(f" > Processing time: {process_time}")
         print(f" > Real-time factor: {process_time / max(audio_time, 1e-9)}")
         return wavs
+
+    def _tts_sentences_packed(self, sens: List[str]) -> List[np.ndarray]:
+        """All sentences of a request in one packed decode: one row of ids
+        per sentence, padded to a multiple of ``pad_to_multiple_text``, at
+        the frame budget of the padded width, as the JAX package pads
+        them."""
+        model = self.tts_model
+        rows = [model.tokenizer.text_to_ids(sen) for sen in sens]
+        bucket = int(getattr(self.tts_config, "pad_to_multiple_text", 16) or 16)
+        width = max(max(len(r) for r in rows), 1)
+        width = ((width + bucket - 1) // bucket) * bucket
+        ids = np.zeros((len(rows), width), np.int64)
+        lengths = np.ones((len(rows),), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            lengths[i] = max(1, len(r))
+        x = torch.from_numpy(ids).to(model.device)
+        x_lengths = torch.from_numpy(lengths).to(model.device)
+        return decode_packed(model, x, x_lengths, len(rows), _frame_budget(width))
 
     def tts_stream(
         self,
