@@ -25,8 +25,9 @@ Phases; each raises on failure and the script then exits non-zero:
    port's HTTP server starts from its command line (``--stream_batch 4``) on
    a free local port, and 4 concurrent ``/api/tts-stream`` requests and one
    ``/api/tts`` request clone the reference voice. The decode-attention
-   launch count of this phase proves the decode went through the kernel.
-   Then one stream on the idle server, and its time to first audio split
+   launch count of this phase proves the decode went through the kernel,
+   and each request decodes ``max_mel_tokens - 3`` tokens (602), a
+   stream's last chunk cut short there. Then one stream on the idle server, and its time to first audio split
    into conditioning, prefill, one chunk's decode and its vocoding. Last,
    one call of the ``tts`` command line (``tts_tpu_torch.bin.synthesize``)
    on the same model directory clones the voice into a file; the kernel's
@@ -57,7 +58,23 @@ Phases; each raises on failure and the script then exits non-zero:
    server from its command line with ``--max_batch 1`` and ``--max_batch
    4`` answering 8 concurrent ``/api/tts`` requests (2 short, 4 medium,
    2 long), with the batch sizes its worker formed and the plans'
-   utilization; peak memory. ``decode_attention`` must not launch.
+   utilization; peak memory. ``decode_attention`` must not launch;
+8. multi-speaker VITS: the VCTK recipe (109 speakers, the flags set on
+   ``model_args``), the multilingual recipe (16 kHz, the multi-phonemizer,
+   language and speaker embeddings, the M-AILABS language codes) and a
+   512-wide d-vector model, full width from seed 0. VCTK card against CPU
+   on host noise for two speakers, on one sentence and on one packed
+   three-sentence request (``y_lengths`` and plans equal, waveform within
+   1e-4; the two speakers differ); one packed grid of four speakers, each
+   segment within 1e-4 of its own masked decode; ``/api/tts`` with
+   ``speaker_id`` (an unknown one answered 400), ``/details`` listing the
+   109 speakers, ``tts --list_speaker_idxs`` and a ``--speaker_idx`` file
+   within one int16 step of ``TTS.tts_to_file``'s; the serving mix over
+   four speakers with ``--max_batch 1`` and ``4``; the medium sentence's
+   latency beside phase 6's, busy share, peak memory. Multilingual: card
+   against CPU for each language a phonemizer here serves, and one batched
+   turn mixing them and their speakers. d-vectors: card against CPU.
+   ``decode_attention`` must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -675,11 +692,17 @@ def phase_serving(model, card: str, device="cuda") -> int:
             f"decode_attention launched {launches} times for {steps} decode steps of "
             f"{n_layers} layers ({tokens} tokens)"
         )
+    # every request decodes to the bound of every decode, max_mel_tokens - 3
+    # tokens: a stream's last chunk is cut short there (ROADMAP.md F5)
+    max_new = served.gpt.max_mel_tokens - 3
+    if tokens != len(urls) * max_new:
+        raise AssertionError(f"{tokens} tokens decoded for {len(urls)} requests, want "
+                             f"{len(urls)} x {max_new}")
     ttfa = sorted(results[t]["ttfa"] for t in texts)
     audio_s = sum(r["seconds"] for k, r in results.items() if k != "alone")
     log(f"serving: {len(texts)} concurrent /api/tts-stream + 1 /api/tts, {audio_s:.1f} s of "
-        f"audio in {elapsed:.2f} s; {steps} decode steps, {tokens} tokens, decode_attention "
-        f"launches {launches} = {n_layers} x {steps}")
+        f"audio in {elapsed:.2f} s; {steps} decode steps, {tokens} tokens = {len(urls)} x "
+        f"{max_new}, decode_attention launches {launches} = {n_layers} x {steps}")
     log(f"serving: TTFA median {ttfa[len(ttfa) // 2] * 1e3:.0f} ms, max {ttfa[-1] * 1e3:.0f} ms "
         f"under load, {results['alone']['ttfa'] * 1e3:.0f} ms alone (300 ms batching window "
         f"included); aggregate decode {tokens / elapsed:.1f} tokens/s; /api/tts "
@@ -878,10 +901,11 @@ def check_vits_routes(routes: dict, short_tts_body: bytes) -> None:
         f"JAX server; POST /process {len(got)} samples = /api/tts's")
 
 
-def phase_vits(card: str, device="cuda", config=None) -> None:
+def phase_vits(card: str, device="cuda", config=None) -> dict:
     """Full-width single-speaker VITS on the card: card against CPU on three
     sentences, three served ``/api/tts`` requests, one file through the API,
-    then RTF, stage times, busy share and peak memory."""
+    then RTF, stage times, busy share and peak memory. Returns each
+    sentence's median latency in ms."""
     import io
 
     import scipy.io.wavfile
@@ -1009,6 +1033,7 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
     # real-time factor at B=1: audio seconds per wall second, median of 5
     synthesis(model, VITS_SENTENCES["medium"])
     sync(device)
+    latency_ms = {}
     for key, text in VITS_SENTENCES.items():
         runs = []
         for _ in range(5):
@@ -1018,6 +1043,7 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
             sync(device)
             runs.append(time.perf_counter() - t1)
         wall = sorted(runs)[2]
+        latency_ms[key] = wall * 1e3
         seconds = len(out["wav"]) / 22050
         log(f"VITS RTF {key}: {seconds:.2f} s of audio ({int(out['outputs']['y_lengths'][0])} "
             f"frames, {out['text_inputs'].shape[1]} padded tokens) in {wall * 1e3:.1f} ms "
@@ -1046,6 +1072,7 @@ def phase_vits(card: str, device="cuda", config=None) -> None:
         peak = torch.cuda.max_memory_allocated()
         log(f"VITS peak device memory {peak / 1e9:.3f} GB allocated, {(peak - resident) / 1e9:.3f} "
             f"GB above the {resident / 1e9:.3f} GB resident before the phase | {card}")
+    return latency_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1083,21 +1110,24 @@ def recorded_plans():
 
 
 @contextlib.contextmanager
-def recorded_y_lengths(model):
-    """``y_lengths`` of every ``inference_packed`` call of ``model`` inside."""
+def recorded_y_lengths(model, methods=("inference_packed",)):
+    """``y_lengths`` of every call of ``model``'s ``methods`` inside."""
     seen = []
-    real = model.inference_packed
 
-    def recording(*args, **kwargs):
-        out = real(*args, **kwargs)
-        seen.append(out["y_lengths"].cpu().tolist())
-        return out
+    def recording(real):
+        def call(*args, **kwargs):
+            out = real(*args, **kwargs)
+            seen.append(out["y_lengths"].cpu().tolist())
+            return out
+        return call
 
-    model.inference_packed = recording
+    for name in methods:
+        setattr(model, name, recording(getattr(model, name)))
     try:
         yield seen
     finally:
-        del model.inference_packed
+        for name in methods:
+            delattr(model, name)
 
 
 def padded_ids(model, sentences, rows: int):
@@ -1116,9 +1146,10 @@ def padded_ids(model, sentences, rows: int):
     return x.to(model.device), x_lengths.to(model.device)
 
 
-def masked_decodes(model, x, x_lengths, noise_frames: int) -> list:
-    """Each row of ``x`` decoded alone at its own length, zero-padded by 16
-    frames and masked after every layer and conv, on the noise
+def masked_decodes(model, x, x_lengths, noise_frames: int, aux=None) -> list:
+    """Each row of ``x`` decoded alone at its own length, with its own
+    speaker from ``aux`` (``aux_input``), zero-padded by 16 frames and
+    masked after every layer and conv, on the noise
     ``inference_packed(noise_layout="batch")`` draws from a generator seeded
     0 on the model's device: the reference each packed segment must equal."""
     import torch
@@ -1130,7 +1161,8 @@ def masked_decodes(model, x, x_lengths, noise_frames: int) -> list:
     gen = torch.Generator(device=dev).manual_seed(0)
     wavs = []
     with torch.no_grad():
-        w_ceil, m_p, logs_p, x_mask = vm._durations(x, x_lengths, gen)
+        g, lang = vm._cond_vectors(aux)
+        w_ceil, m_p, logs_p, x_mask = vm._durations(x, x_lengths, gen, g, lang)
         noise = modules.normal((x.shape[0], noise_frames, m_p.shape[-1]), gen)
         for i in range(x.shape[0]):
             frames = int(w_ceil[i].sum())
@@ -1143,8 +1175,9 @@ def masked_decodes(model, x, x_lengths, noise_frames: int) -> list:
             eps = torch.zeros_like(mean)
             eps[0, :frames] = noise[i, :frames]
             z_p = (mean + eps * torch.exp(log_scale) * a.inference_noise_scale) * y_mask
-            z = vm.flow(z_p, y_mask)
-            o = vm.waveform_decoder(z * y_mask, x_mask=y_mask)
+            g_i = None if g is None else g[i : i + 1]
+            z = vm.flow(z_p, y_mask, g=g_i)
+            o = vm.waveform_decoder(z * y_mask, g=g_i, x_mask=y_mask)
             wavs.append(o[0, : frames * model.hop_length, 0].cpu().numpy())
     return wavs
 
@@ -1177,9 +1210,10 @@ def profile_call(fn, what: str, card: str) -> None:
     log_profile(prof, what, wall_us, card, top=4)
 
 
-def serve_mix(model_dir: str, max_batch: int, device) -> dict:
+def serve_mix(model_dir: str, max_batch: int, device, speakers=()) -> dict:
     """The serving mix as concurrent ``/api/tts`` requests to a server
-    started from its command line with ``--max_batch``: audio seconds, wall
+    started from its command line with ``--max_batch``, the requests'
+    ``speaker_id`` taken from ``speakers`` in turn: audio seconds, wall
     seconds, the batch sizes its worker formed (read by wrapping the
     batcher's ``_dispatch``) and the plans made."""
     import io
@@ -1206,6 +1240,8 @@ def serve_mix(model_dir: str, max_batch: int, device) -> dict:
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     urls = {f"{key}{n}": f"{base}/api/tts?text={urllib.parse.quote(VITS_SENTENCES[key])}"
             for key, count in VITS_MIX for n in range(count)}
+    for i, key in enumerate(urls if speakers else ()):
+        urls[key] += f"&speaker_id={speakers[i % len(speakers)]}"
     results: dict = {}
     try:
         with recorded_plans() as plans:
@@ -1266,6 +1302,44 @@ def time_row_billing(model, name: str, sentences, rows: int, card: str, device) 
     return out
 
 
+def save_model_dir(config, d: str) -> None:
+    """Random fp32 weights from seed 0, drawn on the host, and the config
+    into the model directory ``d``."""
+    import torch
+
+    from tts_tpu_torch.models.vits import Vits
+
+    model = Vits.init_from_config(config).init_params(seed=0, device="cpu")
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(model.config.to_dict(), f)
+    torch.save(model.module.state_dict(), os.path.join(d, "model_torch.pt"))
+
+
+def card_against_cpu(synth, cpu_synth, text: str, **names) -> tuple:
+    """One request through the card's and the CPU's ``Synthesizer`` on host
+    noise: ``(samples, max abs diff, y_lengths, plans)``; raises unless the
+    plans and ``y_lengths`` are equal and the waveforms within
+    ``VITS_WAV_TOL``."""
+    both = ("inference", "inference_packed")
+    with host_noise(seed=0), recorded_plans() as plans, \
+            recorded_y_lengths(synth.tts_model, both) as got_y, \
+            recorded_y_lengths(cpu_synth.tts_model, both) as want_y:
+        got = np.asarray(synth.tts(text, **names), np.float32)
+        want = np.asarray(cpu_synth.tts(text, **names), np.float32)
+    if plans:
+        a, b = plans
+        if (a.slices, a.n_rows, a.row_len) != (b.slices, b.n_rows, b.row_len) or not (
+                np.array_equal(a.seg_sample, b.seg_sample) and np.array_equal(a.seg_pos, b.seg_pos)):
+            raise AssertionError(f"{names}: pack plans differ, card {a.slices} CPU {b.slices}")
+    if not got_y or got_y != want_y:
+        raise AssertionError(f"{names}: y_lengths card {got_y} CPU {want_y}")
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    if not np.isfinite(got).all() or not err <= VITS_WAV_TOL:
+        raise AssertionError(f"{names} card vs CPU: {got.shape} vs {want.shape}, "
+                             f"max abs diff {err} (tol {VITS_WAV_TOL})")
+    return got, err, got_y, plans
+
+
 def phase_batched_vits(card: str, device="cuda", config=None) -> None:
     """Batched VITS serving at full width: card against CPU on one
     three-sentence request through the packed path, packed segments against
@@ -1274,7 +1348,6 @@ def phase_batched_vits(card: str, device="cuda", config=None) -> None:
     mix, the row-billing timings and peak memory."""
     import torch
 
-    from tts_tpu_torch.models.vits import Vits
     from tts_tpu_torch.ops.decode_attention import decode_attention
     from tts_tpu_torch.utils.packing import ROW_PAD_MULTIPLE, plan_pack_layout
     from tts_tpu_torch.utils.synthesis import _frame_budget, synthesis
@@ -1291,33 +1364,18 @@ def phase_batched_vits(card: str, device="cuda", config=None) -> None:
     request = vits_request()
     sens = split_into_sentences(request)
     with tempfile.TemporaryDirectory() as d:
-        # random fp32 weights from seed 0, drawn on the host, into a model directory
-        model = Vits.init_from_config(config).init_params(seed=0, device="cpu")
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump(model.config.to_dict(), f)
-        torch.save(model.module.state_dict(), os.path.join(d, "model_torch.pt"))
-        del model
+        save_model_dir(config, d)
         synth = Synthesizer(model_dir=d, device=device)
         model = synth.tts_model
         cpu_synth = Synthesizer(model_dir=d, device="cpu")
 
         # card against CPU, one three-sentence request on host noise
-        with host_noise(seed=0), recorded_plans() as plans, recorded_y_lengths(model) as got_y, \
-                recorded_y_lengths(cpu_synth.tts_model) as want_y:
-            got = np.asarray(synth.tts(request), np.float32)
-            want = np.asarray(cpu_synth.tts(request), np.float32)
+        got, err, got_y, plans = card_against_cpu(synth, cpu_synth, request)
         del cpu_synth
-        if len(sens) != 3 or len(plans) != 2 or len(got_y) != 1 or got_y != want_y:
+        if len(sens) != 3 or len(plans) != 2 or len(got_y) != 1:
             raise AssertionError(f"packed request: {len(sens)} sentences, {len(plans)} plans, "
-                                 f"y_lengths card {got_y} CPU {want_y}")
-        a, b = plans
-        if (a.slices, a.n_rows, a.row_len) != (b.slices, b.n_rows, b.row_len) or not (
-                np.array_equal(a.seg_sample, b.seg_sample) and np.array_equal(a.seg_pos, b.seg_pos)):
-            raise AssertionError(f"pack plans differ: card {a.slices} vs CPU {b.slices}")
-        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
-        if not np.isfinite(got).all() or not err <= VITS_WAV_TOL:
-            raise AssertionError(f"packed request card vs CPU: {got.shape} vs {want.shape}, "
-                                 f"max abs diff {err}")
+                                 f"y_lengths {got_y}")
+        a = plans[0]
         tokens = [len(model.tokenizer.text_to_ids(sen)) for sen in sens]
         log(f"VITS packed request ({len(sens)} sentences of {tokens} tokens, one decode): "
             f"card vs CPU on host "
@@ -1408,6 +1466,337 @@ def phase_batched_vits(card: str, device="cuda", config=None) -> None:
             f"the phase | {card}")
 
 
+# ---------------------------------------------------------------------------
+# VCTK's speakers as the recipe counts them: 109 names in VCTK's style (the
+# corpus, and so its own list, is not in the repository)
+VCTK_SPEAKERS = [f"p{n}" for n in range(225, 334)]
+# the M-AILABS folders the multilingual recipe reads its languages from
+# (``os.path.basename(path).split("_")[0]``); its speakers come from the
+# data, which the repository lacks: ten stand-in names
+MAILABS_FOLDERS = ("de_DE", "en_UK", "en_US", "es_ES", "fr_FR", "it_IT", "pl_PL", "ru_RU",
+                   "uk_UK")
+MAILABS_SPEAKERS = [f"speaker_{n}" for n in range(10)]
+MULTI_SENTENCES = {
+    "de": "Die Brücke über den Fluss wurde vor hundert Jahren gebaut.",
+    "en": "The bridge over the river was built a hundred years ago.",
+    "es": "El puente sobre el río fue construido hace cien años.",
+    "fr": "Le pont sur la rivière a été construit il y a cent ans.",
+    "it": "Il ponte sul fiume fu costruito cento anni fa.",
+    "pl": "Most na rzece zbudowano sto lat temu.",
+    "ru": "Мост через реку построили сто лет назад.",
+    "uk": "Міст через річку збудували сто років тому.",
+}
+MIX_SPEAKERS = ("p225", "p243", "p270", "p301")  # the serving mix, in turn
+
+
+def write_json(path: str, obj) -> str:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+def vctk_recipe_config(speakers_file: str):
+    """``recipes/vctk/vits/train_vits.py:23-37``'s inference fields at the
+    ``VitsArgs`` defaults: ``english_cleaners``, phonemes for
+    ``phoneme_language="en"`` (the rule G2P ``en_g2p``), blanks, 22.05 kHz;
+    ``use_speaker_embedding`` set on ``model_args``, as the recipe sets it
+    (ROADMAP.md F11), with 256 speaker channels and the duration predictor
+    conditioned on the speaker (both defaults); the speakers from
+    ``speakers_file``. ``num_chars`` is left to the tokenizer."""
+    from tts_tpu_torch.models.vits import VitsConfig
+
+    config = VitsConfig(text_cleaner="english_cleaners", use_phonemes=True, phoneme_language="en")
+    a = config.model_args
+    a.num_chars = None
+    a.use_speaker_embedding = True
+    a.speakers_file = speakers_file
+    return config
+
+
+def multilingual_recipe_config(d: str):
+    """``recipes/multilingual/vits_tts/train_vits_tts_phonemes.py:30-54``:
+    16 kHz, ``multilingual_cleaners``, the ``multi_phonemizer``, language
+    embeddings of 4 channels, speaker embeddings, the deterministic duration
+    predictor; the languages of its M-AILABS folders in a
+    ``language_ids.json``, all of them in the embedding, and datasets (which
+    pick the phonemizers) for the languages a phonemizer on this machine
+    serves. Returns ``(config, served languages)``."""
+    from tts_tpu_torch.config.shared import BaseDatasetConfig
+    from tts_tpu_torch.models.vits import VitsConfig
+    from tts_tpu_torch.text.phonemizers import DEF_LANG_TO_PHONEMIZER
+
+    codes = sorted({folder.split("_")[0] for folder in MAILABS_FOLDERS})
+    served = [c for c in codes if c in DEF_LANG_TO_PHONEMIZER]
+    datasets = [BaseDatasetConfig(formatter="mailabs", dataset_name="mailabs",
+                                  path=os.path.join(d, folder), language=folder.split("_")[0])
+                for folder in MAILABS_FOLDERS if folder.split("_")[0] in served]
+    config = VitsConfig(text_cleaner="multilingual_cleaners", use_phonemes=True,
+                        phoneme_language=None, phonemizer="multi_phonemizer", datasets=datasets)
+    config.audio.sample_rate = 16000
+    a = config.model_args
+    a.num_chars = None
+    a.use_language_embedding = True
+    a.embedded_language_dim = 4
+    a.use_speaker_embedding = True
+    a.use_sdp = False
+    a.speakers_file = write_json(os.path.join(d, "speakers.json"),
+                                 {n: i for i, n in enumerate(MAILABS_SPEAKERS)})
+    a.language_ids_file = write_json(os.path.join(d, "language_ids.json"),
+                                     {c: i for i, c in enumerate(codes)})
+    return config, served
+
+
+def batched_turn(synth, requests) -> list:
+    """One ``DynamicBatcher`` dispatch of ``requests`` ``(text, speaker,
+    language)``, each resolved and tokenized as the batcher's ``tts`` does:
+    the items, with their waveforms."""
+    from tts_tpu_torch.server.batching import DynamicBatcher, _Pending
+
+    batcher = DynamicBatcher(synth, max_batch=len(requests))
+    try:
+        items = []
+        for text, speaker, language in requests:
+            speaker_id, _ = synth._resolve_speaker(speaker)
+            language_id = synth._resolve_language(language)
+            ids = synth.tts_model.tokenizer.text_to_ids(text, synth._language_name(language_id))
+            items.append(_Pending(np.asarray(ids, np.int64), speaker_id, language_id))
+        batcher._dispatch(items)
+    finally:
+        batcher.close()
+    return items
+
+
+def phase_multispeaker(card: str, single_ms: dict = None, device="cuda", cut=None) -> None:
+    """Multi-speaker and multi-language VITS at the recipes' full widths on
+    the card: VCTK (109 speakers) card against CPU for two speakers on one
+    sentence and one packed request; a packed grid of four speakers against
+    their own masked decodes; ``/api/tts`` with speakers, ``/details`` and
+    the ``tts`` command line's speaker flags; the serving mix over four
+    speakers, ``--max_batch 4`` against 1; the latency, busy share and peak
+    memory of a medium sentence; then the multilingual recipe card against
+    CPU for each language served, with one batched turn of mixed languages
+    and speakers; and d-vectors, card against CPU. ``cut`` shrinks each
+    config in place, for rehearsals on the CPU."""
+    import io
+
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.server.server import build_parser, close_server, server_from_args
+    from tts_tpu_torch.utils.managers import save_file
+    from tts_tpu_torch.utils.packing import plan_pack_layout
+    from tts_tpu_torch.utils.synthesis import _frame_budget, aux_input, synthesis
+    from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, Synthesizer, split_into_sentences
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    cut = cut or (lambda config: config)
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    medium = VITS_SENTENCES["medium"]
+    request = vits_request()
+    with tempfile.TemporaryDirectory() as d:
+        speakers_file = write_json(os.path.join(d, "speakers.json"),
+                                   {n: i for i, n in enumerate(VCTK_SPEAKERS)})
+        save_model_dir(cut(vctk_recipe_config(speakers_file)), d)
+        synth = Synthesizer(model_dir=d, device=device)
+        cpu_synth = Synthesizer(model_dir=d, device="cpu")
+        model = synth.tts_model
+        a = model.args
+        log(f"VITS VCTK recipe: {model.speaker_manager.num_speakers} speakers (speakers_file "
+            f"on model_args), emb_g {tuple(model.module.emb_g.weight.shape)}, duration predictor "
+            f"conditioned {a.condition_dp_on_speaker}; hidden {a.hidden_channels}, "
+            f"{sum(p.numel() for p in model.module.parameters()) / 1e6:.2f} M parameters "
+            f"(random, seed 0), phonemizer {model.tokenizer.phonemizer.name()}")
+
+        # card against CPU: two speakers, one sentence and one packed request each
+        worst, lines, wavs = 0.0, [], {}
+        for speaker in ("p225", "p226"):
+            for what, text in (("one sentence", medium), ("3-sentence request", request)):
+                wav, err, y, plans = card_against_cpu(synth, cpu_synth, text, speaker_name=speaker)
+                worst = max(worst, err)
+                wavs[(speaker, what)] = wav
+                lines.append(f"{speaker} {what}: y_lengths {y}"
+                             + (f", plan {plans[0].n_rows} x {plans[0].row_len}" if plans else ""))
+        del cpu_synth
+        for what in ("one sentence", "3-sentence request"):
+            x, y = wavs[("p225", what)], wavs[("p226", what)]
+            n = min(len(x), len(y)) - SENTENCE_GAP
+            if not np.abs(x[:n] - y[:n]).max() > 1e-3:
+                raise AssertionError(f"speakers p225 and p226 speak the {what} alike")
+        log(f"VITS VCTK card vs CPU on host noise, plans and y_lengths equal: " + "; ".join(lines)
+            + f"; waveform max abs diff {worst:.3g} (tol {VITS_WAV_TOL}); p225 and p226 differ")
+
+        # one packed grid, four sentences of four speakers, against their own decodes
+        short, (long_a, long_b) = VITS_SENTENCES["short"], split_into_sentences(
+            VITS_SENTENCES["long"])
+        sens = [short, medium, long_a, long_b]
+        x, x_lengths = padded_ids(model, sens, len(sens))
+        ids = [model.speaker_manager.name_to_id[s] for s in MIX_SPEAKERS]
+        aux = aux_input(model.device, len(sens), speaker_ids=ids)
+        budget = _frame_budget(x.shape[1])
+        lens = model.infer_durations(x, x_lengths, aux_input=aux).cpu().numpy()
+        plan = plan_pack_layout(lens)
+        grid = model.inference_packed(x, x_lengths, plan.seg_sample, plan.seg_pos,
+                                      noise_frames=budget, noise_layout="batch",
+                                      aux_input=aux)["model_outputs"][..., 0].cpu().numpy()
+        hop, worst = model.hop_length, 0.0
+        for (row, start, n), ref in zip(plan.slices, masked_decodes(model, x, x_lengths, budget,
+                                                                    aux)):
+            seg = grid[row, start * hop : (start + n) * hop]
+            if seg.shape != ref.shape:
+                raise AssertionError(f"packed segment {seg.shape} vs masked decode {ref.shape}")
+            worst = max(worst, float(np.abs(seg - ref).max()))
+        if not worst <= VITS_MASKED_TOL:
+            raise AssertionError(f"mixed-speaker packed vs masked decodes: max abs diff {worst}")
+        log(f"VITS packed grid of 4 speakers {list(MIX_SPEAKERS)} ({plan.n_rows} x "
+            f"{plan.row_len}, lengths {lens.tolist()}) vs each one's own masked decode on the "
+            f"card: max abs diff {worst:.3g} (tol {VITS_MASKED_TOL})")
+
+        # HTTP: speakers through /api/tts, an unknown one refused, /details
+        srv = server_from_args(build_parser().parse_args(
+            ["--model_path", d, "--port", "0", "--device", str(device)]))
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            spoken = _http(f"{base}/api/tts?text={urllib.parse.quote(medium)}&speaker_id=p226")
+            unknown = _http(f"{base}/api/tts?text=hello&speaker_id=p999")
+            details = json.loads(_http(f"{base}/details")[2])
+        finally:
+            close_server(srv)
+            thread.join(timeout=60)
+        if spoken[:2] != (200, "audio/wav") or unknown[0] != 400 or \
+                b"not in the available speakers" not in unknown[2]:
+            raise AssertionError(f"/api/tts with speakers: HTTP {spoken[0]}, unknown speaker "
+                                 f"HTTP {unknown[0]} {unknown[2][:80]!r}")
+        if details["speakers"] != VCTK_SPEAKERS:
+            raise AssertionError(f"/details: {len(details['speakers'])} speakers")
+        pcm = scipy.io.wavfile.read(io.BytesIO(spoken[2]))[1]
+        log(f"VITS VCTK server: /api/tts?speaker_id=p226 {len(pcm)} samples; unknown speaker "
+            f"HTTP 400; /details lists {len(details['speakers'])} speakers")
+
+        # the tts command line: --list_speaker_idxs, then a file per --speaker_idx
+        listed = io.StringIO()
+        with contextlib.redirect_stdout(listed):
+            synthesize_cli(["--model_path", d, "--list_speaker_idxs", "--device", str(device)])
+        if str(VCTK_SPEAKERS) not in listed.getvalue():
+            raise AssertionError("tts --list_speaker_idxs does not list the 109 speakers")
+        cli_path, api_path = os.path.join(d, "cli.wav"), os.path.join(d, "api.wav")
+        synthesize_cli(["--text", medium, "--model_path", d, "--speaker_idx", "p226",
+                        "--out_path", cli_path, "--device", str(device)])
+        TTS(model_path=d, device=device).tts_to_file(medium, speaker="p226", file_path=api_path)
+        (sr, cli_pcm), (_, api_pcm) = (scipy.io.wavfile.read(p) for p in (cli_path, api_path))
+        step = (np.abs(cli_pcm.astype(np.int32) - api_pcm.astype(np.int32)).max()
+                if cli_pcm.shape == api_pcm.shape else None)
+        if step is None or step > 1:
+            raise AssertionError(f"tts --speaker_idx {cli_pcm.shape} vs TTS.tts_to_file "
+                                 f"{api_pcm.shape}: {step} int16 steps")
+        log(f"VITS VCTK tts command line: --list_speaker_idxs lists 109; --speaker_idx p226 "
+            f"{len(cli_pcm)} samples at {sr} Hz, at most {step} int16 step from "
+            f"TTS.tts_to_file's")
+
+        # the serving mix over four speakers: --max_batch 1 and 4, in turns 1, 4, 4, 1
+        served = {1: [], 4: []}
+        for max_batch in (1, 4, 4, 1):
+            served[max_batch].append(serve_mix(d, max_batch, device, MIX_SPEAKERS))
+        for max_batch, runs in served.items():
+            rates = [r["audio_s"] / r["wall_s"] for r in runs]
+            line = (f"VITS VCTK serving mix over speakers {list(MIX_SPEAKERS)}, --max_batch "
+                    f"{max_batch}: " + "; ".join(f"{r['audio_s']:.2f} s of audio in "
+                                                 f"{r['wall_s']:.3f} s" for r in runs)
+                    + f", {' and '.join(f'{v:.1f}' for v in rates)} audio s per wall s")
+            if max_batch > 1:
+                line += f"; batch sizes formed {[r['sizes'] for r in runs]}"
+            log(line + f" | {card}")
+        n_sentences = sum(len(split_into_sentences(VITS_SENTENCES[k])) * c for k, c in VITS_MIX)
+        for r in served[4]:
+            if sum(r["sizes"]) != n_sentences or max(r["sizes"]) < 2:
+                raise AssertionError(f"--max_batch 4 with speakers: batch sizes {r['sizes']}")
+
+        # the medium sentence of one speaker: latency, busy share
+        synthesis(model, medium, speaker_id=1)
+        ms, lo, hi = median_ms(lambda: synthesis(model, medium, speaker_id=1), device)
+        single = f"; phase 6's single-speaker medium sentence {single_ms['medium']:.1f} ms" \
+            if single_ms else ""
+        log(f"VITS VCTK medium sentence, speaker p226: {ms:.1f} ms (median of 5; "
+            f"{lo:.1f}-{hi:.1f}){single} | {card}")
+        if cuda:
+            profile_call(lambda: synthesis(model, medium, speaker_id=1),
+                         "VITS VCTK, one medium sentence of one speaker", card)
+        del synth, model
+
+    with tempfile.TemporaryDirectory() as d:
+        config, served_languages = multilingual_recipe_config(d)
+        save_model_dir(cut(config), d)
+        synth = Synthesizer(model_dir=d, device=device)
+        cpu_synth = Synthesizer(model_dir=d, device="cpu")
+        model = synth.tts_model
+        log(f"VITS multilingual recipe: languages {model.language_manager.language_names} "
+            f"(emb_l {tuple(model.module.emb_l.weight.shape)}), served by this machine's "
+            f"phonemizers {served_languages}; {model.speaker_manager.num_speakers} speakers; "
+            f"{model.config.audio.sample_rate} Hz, duration predictor "
+            f"{type(model.module.duration_predictor).__name__}")
+        worst, lengths = 0.0, {}
+        for n, language in enumerate(served_languages):
+            speaker = MAILABS_SPEAKERS[n % len(MAILABS_SPEAKERS)]
+            _, err, y, _ = card_against_cpu(synth, cpu_synth, MULTI_SENTENCES[language],
+                                            speaker_name=speaker, language_name=language)
+            worst = max(worst, err)
+            lengths[language] = y[0]
+        requests = [(MULTI_SENTENCES[lang], MAILABS_SPEAKERS[n], lang)
+                    for n, lang in enumerate(served_languages)]
+        with host_noise(seed=0):
+            got, want = batched_turn(synth, requests), batched_turn(cpu_synth, requests)
+        turn = max(float(np.abs(g.wav - w.wav).max()) if g.wav.shape == w.wav.shape
+                   else float("inf") for g, w in zip(got, want))
+        if not turn <= VITS_WAV_TOL or any(g.wav.std() == 0 for g in got):
+            raise AssertionError(f"multilingual batched turn card vs CPU: max abs diff {turn}")
+        del cpu_synth, synth, model
+        log(f"VITS multilingual card vs CPU on host noise, one sentence per language "
+            f"{served_languages}: waveform max abs diff {worst:.3g}; one batched turn of "
+            f"{len(requests)} sentences in {len(requests)} languages and speakers: max abs diff "
+            f"{turn:.3g} (tol {VITS_WAV_TOL})")
+
+    with tempfile.TemporaryDirectory() as d:
+        rs = np.random.RandomState(0)
+        clips = {f"{s}_{n}.wav": {"name": s, "embedding": rs.randn(512).tolist()}
+                 for s in VCTK_SPEAKERS[:8] for n in range(2)}
+        save_file(clips, os.path.join(d, "d_vectors.npz"))
+        config = vctk_recipe_config(None)
+        a = config.model_args
+        a.use_speaker_embedding, a.use_d_vector_file, a.d_vector_dim = False, True, 512
+        a.d_vector_file = os.path.join(d, "d_vectors.npz")
+        save_model_dir(cut(config), d)
+        synth = Synthesizer(model_dir=d, device=device)
+        cpu_synth = Synthesizer(model_dir=d, device="cpu")
+        worst = 0.0
+        for text in (medium, request):
+            worst = max(worst, card_against_cpu(synth, cpu_synth, text, speaker_name="p226")[1])
+        log(f"VITS d-vectors (512 wide, 8 speakers of 2 clips, VCTK widths) card vs CPU on host "
+            f"noise, one sentence and one packed request: max abs diff {worst:.3g} "
+            f"(tol {VITS_WAV_TOL})")
+        del cpu_synth, synth
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the multi-speaker phase")
+    log(f"VITS multi-speaker: no hand-written kernel on this path (decode_attention launches "
+        f"0); phase 8 took {time.time() - t_phase:.1f} s")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        log(f"VITS multi-speaker peak device memory {peak / 1e9:.3f} GB allocated, "
+            f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident "
+            f"before the phase | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1429,8 +1818,9 @@ def main() -> int:
     model = phase_slice(card)
     kernel["launches"] = phase_serving(model, card)
     del model
-    phase_vits(card)
+    single_ms = phase_vits(card)
     phase_batched_vits(card)
+    phase_multispeaker(card, single_ms)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:

@@ -8,8 +8,11 @@ tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
 ``cmudict``, ``en_g2p``, ``latin_g2p`` with ``rule_g2p_ext`` and
 ``rule_g2p_ext3``, ``belarusian``, ``phonemizers``, ``IPAPhonemes`` and
 ``VitsCharacters``), the reference → flax-layout XTTS and VITS converters
-(``utils/convert.py``), the pack planner (``utils/packing.py``) and the
-trailing-silence endpoint (``db_to_amp``, ``find_endpoint``). Each copy must
+(``utils/convert.py``), the pack planner (``utils/packing.py``), the
+trailing-silence endpoint (``db_to_amp``, ``find_endpoint``) and the
+speaker and language managers (``utils/managers.py``, apart from their
+``init_from_config``, which reads ``model_args`` too: ROADMAP.md F11, held
+in ``tests/test_torch_multispeaker.py``). Each copy must
 behave exactly as its source: the config dicts, the normalised text, the
 token ids, the converted leaves, the plans and the endpoints are compared
 for equality, no tolerance. The grapheme path is held here; the
@@ -224,3 +227,64 @@ def test_pack_planner_edge_cases_match_jax():
     for module in (packing, jax_packing):
         with pytest.raises(ValueError, match="exceeds max_row_len=4096"):
             module.plan_pack_layout([10, 9000], max_row_len=4096)
+
+
+def _speaker_files(tmp_path):
+    """A speakers JSON, and d-vector files as JSON and as npz (three speakers,
+    one to three clips each), written by the JAX package's ``save_file``."""
+    from tts_tpu.utils.managers import save_file
+
+    rs = np.random.RandomState(0)
+    speakers = {"p225": 0, "p226": 1, "p227": 2}
+    clips = {f"{name}_{n}.wav": {"name": name, "embedding": rs.randn(8).tolist()}
+             for i, name in enumerate(speakers) for n in range(i + 1)}
+    paths = {"ids": str(tmp_path / "speakers.json"), "json": str(tmp_path / "d_vectors.json"),
+             "npz": str(tmp_path / "d_vectors.npz")}
+    save_file(speakers, paths["ids"])
+    save_file(clips, paths["json"])
+    save_file(clips, paths["npz"])
+    return paths
+
+
+@pytest.mark.parametrize("kind", ["ids", "json", "npz", "both"])
+def test_speaker_managers_match_jax(tmp_path, kind):
+    """Speaker ids, and d-vectors from JSON and npz files (one file, or a
+    list of both): names, ids, clips, dimension and mean embeddings (all
+    clips and the first one) equal the JAX package's."""
+    from tts_tpu.utils.managers import SpeakerManager as JaxSpeakerManager
+    from tts_tpu_torch.utils.managers import SpeakerManager
+
+    paths = _speaker_files(tmp_path)
+    kw = ({"speaker_id_file_path": paths["ids"]} if kind == "ids" else
+          {"d_vectors_file_path": [paths["json"], paths["npz"]] if kind == "both"
+           else paths[kind]})
+    got, want = SpeakerManager(**kw), JaxSpeakerManager(**kw)
+    assert got.name_to_id == want.name_to_id and got.num_speakers == want.num_speakers == 3
+    assert (got.speaker_names, got.embedding_dim, got.get_clips(), sorted(got.clip_ids)) == (
+        want.speaker_names, want.embedding_dim, want.get_clips(), sorted(want.clip_ids))
+    for name in got.embedding_names:
+        for n in (None, 1):
+            np.testing.assert_array_equal(got.get_mean_embedding(name, num_samples=n),
+                                          want.get_mean_embedding(name, num_samples=n))
+
+
+def test_language_managers_match_jax(tmp_path):
+    """Language ids from a JSON file and from datasets (the multilingual
+    recipe's way, codes from M-AILABS folder names), and the same error
+    for a dataset without a language."""
+    from tts_tpu.utils.managers import LanguageManager as JaxLanguageManager
+    from tts_tpu.utils.managers import save_file
+    from tts_tpu_torch.utils.managers import LanguageManager
+
+    path = str(tmp_path / "language_ids.json")
+    save_file({"de": 0, "en": 1, "es": 2, "fr": 3}, path)
+    got, want = LanguageManager(language_ids_file_path=path), JaxLanguageManager(path)
+    assert got.name_to_id == want.name_to_id and got.num_languages == want.num_languages == 4
+    datasets = [{"language": f.split("_")[0]} for f in ("de_DE", "en_US", "en_UK", "pl_PL")]
+    config = type("C", (), {"datasets": datasets})()
+    got, want = LanguageManager(config=config), JaxLanguageManager(config=config)
+    assert got.language_names == want.language_names == ["de", "en", "pl"]
+    config.datasets = datasets + [{"language": ""}]
+    for manager in (LanguageManager, JaxLanguageManager):
+        with pytest.raises(ValueError, match="has no language"):
+            manager(config=config)

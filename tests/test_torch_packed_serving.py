@@ -196,9 +196,10 @@ def test_inference_packed_matches_jax(pair, noise_layout):
     assert np.abs(out).max() > 0.05
 
 
-def masked_decode(port, x, xl, generator_seed, noise_frames):
-    """Each utterance of ``x`` decoded alone at its own length, zero-padded
-    by 16 frames and masked after every layer and conv, on the noise that
+def masked_decode(port, x, xl, generator_seed, noise_frames, aux=None):
+    """Each utterance of ``x`` decoded alone at its own length, with its own
+    speaker and language from ``aux`` (``aux_input``), zero-padded by 16
+    frames and masked after every layer and conv, on the noise that
     ``inference_packed(noise_layout="batch")`` draws from the same seed."""
     from tts_tpu_torch.models.vits import modules
     from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
@@ -206,7 +207,8 @@ def masked_decode(port, x, xl, generator_seed, noise_frames):
     m = port.module
     gen = torch.Generator().manual_seed(generator_seed)
     with torch.no_grad():
-        w_ceil, m_p, logs_p, x_mask = m._durations(x, xl, gen)
+        g, lang = m._cond_vectors(aux)
+        w_ceil, m_p, logs_p, x_mask = m._durations(x, xl, gen, g, lang)
         noise = modules.normal((x.shape[0], noise_frames, m_p.shape[-1]), gen)
         wavs = []
         for i in range(x.shape[0]):
@@ -218,8 +220,9 @@ def masked_decode(port, x, xl, generator_seed, noise_frames):
             eps = torch.zeros_like(mean)
             eps[0, :frames] = noise[i, :frames]
             z_p = (mean + eps * torch.exp(log_scale) * port.args.inference_noise_scale) * y_mask
-            z = m.flow(z_p, y_mask)
-            wavs.append(m.waveform_decoder(z * y_mask, x_mask=y_mask)[0, : frames * HOP, 0])
+            g_i = None if g is None else g[i : i + 1]
+            z = m.flow(z_p, y_mask, g=g_i)
+            wavs.append(m.waveform_decoder(z * y_mask, g=g_i, x_mask=y_mask)[0, : frames * HOP, 0])
     return wavs
 
 
@@ -428,9 +431,9 @@ def test_batcher_under_many_threads(model_dir):
 
 def test_batcher_refuses_xtts_and_speakers(model_dir, capsys):
     """XTTS (its own ``synthesize``) gets no batcher: the server serves it
-    serially and says so. A single-speaker VITS request naming a speaker
-    or a language is refused, and the server answers it from the serial
-    path (400)."""
+    serially and says so. A request naming a speaker or a language to a
+    VITS model without speakers or languages is refused, as the
+    ``Synthesizer`` refuses it (the server answers 400)."""
     from tts_tpu_torch.models.xtts.config import XttsConfig
     from tts_tpu_torch.models.xtts.model import Xtts
 
@@ -447,8 +450,9 @@ def test_batcher_refuses_xtts_and_speakers(model_dir, capsys):
 
     batcher = DynamicBatcher(port_synth(model_dir), max_batch=4)
     try:
-        for kw in ({"speaker_name": "p225"}, {"language_name": "en"}):
-            with pytest.raises(ValueError, match="single-speaker"):
+        for kw, message in (({"speaker_name": "p225"}, "single-speaker"),
+                            ({"language_name": "en"}, "single-language")):
+            with pytest.raises(ValueError, match=message):
                 batcher.tts("Hello there.", **kw)
     finally:
         batcher.close()

@@ -164,7 +164,7 @@ def test_cli_needs_text_and_rejects_unported_flags(model_dir, capsys):
         port_cli(["--model_path", str(model_dir), "--device", "cpu"])
     assert exit_info.value.code == 1 and "Provide --text" in capsys.readouterr().err
     for flag, value in [("--model_name", "tts_models/en/ljspeech/vits"),
-                        ("--vocoder_path", "v.pth"), ("--speakers_file_path", "s.json"),
+                        ("--vocoder_path", "v.pth"), ("--encoder_path", "e.pth"),
                         ("--source_wav", "a.wav"), ("--style_wav", "s.wav")]:
         with pytest.raises(SystemExit) as exit_info:
             port_cli(["--text", "hi", "--model_path", str(model_dir), flag, value])

@@ -315,9 +315,6 @@ def test_fidelity_replay_through_the_ports_converter(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_speaker_embedding", True),
-    ("use_d_vector_file", True),
-    ("use_language_embedding", True),
     ("encoder_sample_rate", 11025),
     ("decoder_type", "istft"),
 ])

@@ -204,3 +204,24 @@ def test_nucleus_keeps_top_token():
         toks = {int(sample_logits(logits, gen, temperature=1.0, top_k=top_k, top_p=0.01)[0])
                 for _ in range(20)}
         assert toks == {1}
+
+
+def test_decode_stops_at_the_position_table(pair):
+    """ROADMAP.md F5: a decode of ``max_mel_tokens - 3`` tokens, the bound
+    of every decode of the port, reads its last mel position inside the
+    table; one position more raises where the JAX package's
+    ``dynamic_slice`` would clamp to the last row."""
+    _, tm = pair
+    gpt = tm.gpt
+    rows = gpt.mel_pos_embedding.shape[0]
+    assert rows == gpt.max_mel_tokens + 3
+    cond, text, lengths = _prefill_inputs()
+    max_new = gpt.max_mel_tokens - 3
+    out = gpt.generate(torch.from_numpy(cond), torch.from_numpy(text),
+                       torch.from_numpy(lengths), None, max_new_tokens=max_new, top_k=1)
+    assert out["codes"].shape == (2, max_new)
+    torch.testing.assert_close(gpt._mel_pos(rows - 1, 1), gpt.mel_pos_embedding[rows - 1:])
+    with pytest.raises(ValueError, match="position table"):
+        gpt._mel_pos(rows - 1, 2)
+    with pytest.raises(ValueError, match="position table"):
+        gpt._mel_pos(rows, 1)

@@ -39,6 +39,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-4
 PCM_STEP = 1.0 / 32767
 TEXTS = ["hello there.", "hello where."]  # same token count: batching cannot pad either
+STREAM_CHUNK = 20  # tokens per streamed chunk (the default)
+OVERLAP = 1024  # crossfaded samples between chunks (the default)
 
 
 @pytest.fixture(scope="module")
@@ -78,11 +80,16 @@ def model_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_reference(model_dir):
-    """The JAX package's outputs for TEXTS: streamed chunks and full wavs."""
+def jax_synth(model_dir):
     from tts_tpu.utils.synthesizer import Synthesizer
 
-    synth = Synthesizer(model_dir=str(model_dir))
+    return Synthesizer(model_dir=str(model_dir))
+
+
+@pytest.fixture(scope="module")
+def jax_reference(model_dir, jax_synth):
+    """The JAX package's outputs for TEXTS: streamed chunks and full wavs."""
+    synth = jax_synth
     ref = str(model_dir / "ref.wav")
     stream = {t: [np.asarray(c, np.float32) for c in
                   synth.tts_stream(t, language_name="en", speaker_wav=ref)] for t in TEXTS}
@@ -103,15 +110,46 @@ def test_device_defaults_to_cuda(model_dir):
         TTS(model_path=str(model_dir))
 
 
-def test_tts_stream_matches_jax(port_tts, model_dir, jax_reference):
+def test_tts_stream_matches_jax(port_tts, model_dir, jax_synth, jax_reference):
+    """ROADMAP.md F5: the port's stream stops at ``max_mel_tokens - 3``
+    tokens (61 here), the bound of the non-streaming decode, and cuts its
+    last chunk short (one token); the JAX stream rounds up to whole chunks
+    (80 tokens), so its last positions pass the 67-row position table,
+    which its ``dynamic_slice`` clamps. Up to the cut the two streams are
+    the same: every whole chunk within 1e-4 of the JAX one, and the short
+    last chunk is the JAX decoder's audio for the same latents, crossfaded
+    with the chunk before as the JAX stream crossfades."""
     stream, _ = jax_reference
-    chunks = list(port_tts.tts_stream(TEXTS[0], language="en",
-                                      speaker_wav=str(model_dir / "ref.wav")))
+    model = port_tts.synthesizer.tts_model
+    vocoded = []
+    real = model.hifigan_decoder.forward
+
+    def recording(latents, speaker_embedding, *args, **kwargs):
+        vocoded.append((latents.numpy().copy(), speaker_embedding.numpy().copy()))
+        return real(latents, speaker_embedding, *args, **kwargs)
+
+    model.hifigan_decoder.forward = recording
+    try:
+        chunks = list(port_tts.tts_stream(TEXTS[0], language="en",
+                                          speaker_wav=str(model_dir / "ref.wav")))
+    finally:
+        del model.hifigan_decoder.forward
     want = stream[TEXTS[0]]
-    assert len(chunks) == len(want) >= 3
-    for got, w in zip(chunks, want):
+    max_new = model.gpt.max_mel_tokens - 3
+    n_last = max_new % STREAM_CHUNK
+    assert n_last and len(chunks) == len(want) == -(-max_new // STREAM_CHUNK) >= 3
+    assert [lat.shape[1] for lat, _ in vocoded] == [STREAM_CHUNK] * (len(chunks) - 1) + [n_last]
+    for got, w in zip(chunks[:-1], want[:-1]):
         assert got.shape == w.shape
         np.testing.assert_allclose(got, w, atol=ATOL)
+    jm = jax_synth.tts_model
+    latents, spk = vocoded[-1]
+    last = np.asarray(jm.hifigan_decoder.apply(jm.decoder_params, jnp.asarray(latents),
+                                               jnp.asarray(spk)), np.float32)[0, :, 0].copy()
+    fade = np.linspace(0, 1, OVERLAP, dtype=np.float32)
+    last[:OVERLAP] = last[:OVERLAP] * fade + want[-2][-OVERLAP:] * (1 - fade)
+    assert chunks[-1].shape == last.shape and want[-1].shape[0] > last.shape[0]
+    np.testing.assert_allclose(chunks[-1], last, atol=ATOL)
     audio = np.abs(np.concatenate(want))
     assert 0.05 < audio.max() and np.mean(audio > 0.99) < 0.01  # neither silent nor clipped
 
@@ -240,7 +278,11 @@ def test_server_streams_through_batcher_and_matches_jax(port_tts, model_dir, jax
         code, body = bodies[t]
         assert code == 200 and body[:4] == b"RIFF"
         pcm = np.frombuffer(body[44:], dtype="<i2").astype(np.float32) / 32767
-        want = np.clip(np.concatenate(stream[t]), -1, 1)
+        # F5: the JAX stream's whole chunks, then the port's short last chunk
+        # (held against the JAX decoder in test_tts_stream_matches_jax)
+        last = list(port_tts.tts_stream(t, language="en",
+                                        speaker_wav=str(model_dir / "ref.wav")))[-1]
+        want = np.clip(np.concatenate(stream[t][:-1] + [last]), -1, 1)
         assert pcm.shape == want.shape
         np.testing.assert_allclose(pcm, want, atol=ATOL + PCM_STEP)
     code, body = bodies["full"]
@@ -256,8 +298,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     modules), nor ``jax``, ``flax`` or ``tokenizers``. Checked in a fresh
     interpreter, after importing every module of the port, the XTTS and VITS
     slices, the phonemizers, the ``tts`` command line, the server, its
-    batcher and the pack planner included: this test process has JAX and
-    ``tts_tpu`` loaded already (tests/conftest.py)."""
+    batcher, the pack planner and the speaker and language managers
+    included: this test process has JAX and ``tts_tpu`` loaded already
+    (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tts_tpu_torch\n"
@@ -268,8 +311,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "import tts_tpu_torch.text.phonemizers, tts_tpu_torch.text.en_g2p\n"
         "import tts_tpu_torch.text.latin_g2p, tts_tpu_torch.bin.synthesize\n"
         "import tts_tpu_torch.server.server, tts_tpu_torch.server.batching\n"
-        "import tts_tpu_torch.utils.packing\n"
+        "import tts_tpu_torch.utils.packing, tts_tpu_torch.utils.managers\n"
         "assert len(mods) > 55 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "assert 'tts_tpu_torch.utils.managers' in mods, mods\n"
         "assert 'tts_tpu_torch.bin.synthesize' in mods, mods\n"
         "assert 'tts_tpu_torch.models.vits.model' in mods, mods\n"
         "assert {'tts_tpu_torch.utils.packing', 'tts_tpu_torch.server.batching'} <= set(mods)\n"

@@ -8,34 +8,71 @@ Example::
     ...                 file_path="out.wav")
     >>> vits = TTS(model_path="vits/model_torch.pt", config_path="vits/config.json")
     >>> vits.tts_to_file("Hello world.", file_path="out.wav")
+    >>> vctk = TTS(model_path="vctk/", speakers_file_path="vctk/speakers.json")
+    >>> vctk.speakers[:2]
+    ['p225', 'p226']
+    >>> vctk.tts_to_file("Hello world.", speaker="p226", file_path="out.wav")
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 from tts_tpu_torch.utils.synthesizer import Synthesizer
 
 
 class TTS:
     """Facade over :class:`Synthesizer`. ``model_path`` is a model directory
-    or a checkpoint file with its ``config_path``. ``device`` defaults to
-    ``"cuda"`` and must exist."""
+    or a checkpoint file with its ``config_path``; ``speakers_file_path`` and
+    ``language_ids_file_path`` replace the config's speaker and language
+    files. ``device`` defaults to ``"cuda"`` and must exist."""
 
     def __init__(self, model_path: Optional[str] = None, config_path: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", speakers_file_path: Optional[str] = None,
+                 language_ids_file_path: Optional[str] = None):
         self.synthesizer: Optional[Synthesizer] = None
         if model_path:
-            self.synthesizer = Synthesizer(tts_checkpoint=model_path,
-                                           tts_config_path=config_path or "", device=device)
+            self.synthesizer = Synthesizer(
+                tts_checkpoint=model_path, tts_config_path=config_path or "", device=device,
+                speakers_file_path=speakers_file_path or "",
+                language_ids_file_path=language_ids_file_path or "",
+            )
+
+    def _manager(self, name: str):
+        model = self.synthesizer.tts_model if self.synthesizer else None
+        return getattr(model, name, None)
+
+    def _is_xtts(self) -> bool:
+        return self.synthesizer is not None and self.synthesizer.tts_config.model == "xtts"
 
     @property
     def is_multi_speaker(self) -> bool:
-        """Whether the model holds more than one speaker to choose from: an
-        XTTS model with its built-in speakers (``speakers_xtts.pth``). The
-        port's VITS is single-speaker."""
-        model = self.synthesizer.tts_model if self.synthesizer else None
-        return len(getattr(model, "speaker_manager", None) or {}) > 1
+        """Whether the model holds more than one speaker to choose from: a
+        multi-speaker VITS, or an XTTS model with its built-in speakers
+        (``speakers_xtts.pth``)."""
+        return len(self.speakers) > 1
+
+    @property
+    def speakers(self) -> List[str]:
+        """The speaker names of the model's speaker manager."""
+        sm = self._manager("speaker_manager")
+        if self._is_xtts():
+            return list(sm or {})
+        return list(sm.name_to_id) if sm is not None else []
+
+    @property
+    def is_multi_lingual(self) -> bool:
+        """XTTS, or a VITS model with more than one language."""
+        return self._is_xtts() or len(self.languages) > 1
+
+    @property
+    def languages(self) -> List[str]:
+        """XTTS's languages (its config's ``languages``), or the names of a
+        VITS model's language manager."""
+        if self._is_xtts():
+            return list(self.synthesizer.tts_config.languages or [])
+        lm = self._manager("language_manager")
+        return list(lm.name_to_id) if lm is not None else []
 
     def _require_model(self) -> Synthesizer:
         if self.synthesizer is None:

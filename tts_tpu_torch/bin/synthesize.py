@@ -9,6 +9,10 @@ Examples::
         --model_path vits/model_torch.pt --config_path vits/config.json --device cpu
     python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
         --model_path xtts_dir/ --speaker_wav ref.wav --language_idx en
+    python -m tts_tpu_torch.bin.synthesize --model_path vctk_dir/ \\
+        --speakers_file_path vctk_dir/speakers.json --list_speaker_idxs
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_path vctk_dir/ --speaker_idx p226 --out_path out.wav
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
 runs the plain PyTorch path. ``--use_cuda``, ``--save_spectogram`` and
@@ -22,9 +26,6 @@ argparse rejects them until then (ROADMAP.md §1):
 
 * the model zoo (``--list_models``, ``--model_info_by_idx``,
   ``--model_info_by_name``, ``--model_name``, ``--vocoder_name``): item 6;
-* speaker and language files (``--speakers_file_path``,
-  ``--language_ids_file_path``, ``--list_speaker_idxs``,
-  ``--list_language_idxs``): item 7;
 * voice conversion (``--source_wav``, ``--target_wav``) and same-model voice
   transfer (``--reference_wav``, ``--reference_speaker_idx``): item 8;
 * vocoder and speaker-encoder checkpoints (``--vocoder_path``,
@@ -60,6 +61,16 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--speaker_idx", type=str, default=None)
     parser.add_argument("--language_idx", type=str, default=None)
     parser.add_argument("--speaker_wav", nargs="+", default=None)
+    parser.add_argument("--speakers_file_path", type=str, default=None,
+                        help="JSON speakers file for a multi-speaker model (replaces the "
+                             "config's)")
+    parser.add_argument("--language_ids_file_path", type=str, default=None,
+                        help="JSON language-ids file for a multi-lingual model (replaces the "
+                             "config's)")
+    parser.add_argument("--list_speaker_idxs", action="store_true",
+                        help="print the model's speaker names and exit")
+    parser.add_argument("--list_language_idxs", action="store_true",
+                        help="print the model's language names and exit")
     parser.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
     # accepted for compatibility with the reference command line
     parser.add_argument("--use_cuda", action="store_true",
@@ -77,7 +88,18 @@ def main(argv=None):
     with contextlib.redirect_stdout(sys.stderr if pipe_out else sys.stdout):
         from tts_tpu_torch.api import TTS
 
-        tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device)
+        tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device,
+                  speakers_file_path=args.speakers_file_path,
+                  language_ids_file_path=args.language_ids_file_path)
+
+        if args.list_speaker_idxs:
+            print(" > Available speaker ids: (set --speaker_idx to one of these):")
+            print(tts.speakers)
+            return
+        if args.list_language_idxs:
+            print(" > Available language ids: (set --language_idx to one of these):")
+            print(tts.languages)
+            return
 
         if args.text is None:
             print(" [!] Provide --text", file=sys.stderr)
@@ -86,8 +108,8 @@ def main(argv=None):
         # guard: multi-speaker model with no speaker selected (reference
         # synthesize.py:456-461)
         if tts.is_multi_speaker and not (args.speaker_idx or args.speaker_wav):
-            print(" [!] This is a multi-speaker model: set --speaker_idx or --speaker_wav.",
-                  file=sys.stderr)
+            print(" [!] This is a multi-speaker model: set --speaker_idx (see "
+                  "--list_speaker_idxs) or --speaker_wav.", file=sys.stderr)
             sys.exit(1)
 
         tts.tts_to_file(

@@ -10,6 +10,8 @@ drops the ``Conv_0``/``LayerNorm_0`` wrapper level of their flax trees).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -35,18 +37,25 @@ class LayerNorm(nn.LayerNorm):
 
 class DurationPredictor(nn.Module):
     """Token log-duration regressor: conv-relu-norm ×2 → 1 channel
-    (the ``use_sdp=False`` predictor of single-speaker VITS). ``[B, T, C]``
-    in, ``[B, T, 1]`` out."""
+    (the ``use_sdp=False`` predictor of VITS). ``[B, T, C]`` in, ``[B, T, 1]``
+    out. With ``cond_channels`` a speaker vector ``g [B, C_g]`` is added to
+    every frame of the input through the linear ``cond``."""
 
-    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int):
+    def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int,
+                 cond_channels: int = 0):
         super().__init__()
+        if cond_channels:
+            self.cond = nn.Linear(cond_channels, in_channels)
         self.conv_1 = Conv1d(in_channels, hidden_channels, kernel_size)
         self.norm_1 = LayerNorm(hidden_channels)
         self.conv_2 = Conv1d(hidden_channels, hidden_channels, kernel_size)
         self.norm_2 = LayerNorm(hidden_channels)
         self.proj = nn.Conv1d(hidden_channels, 1, 1)
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if g is not None:
+            x = x + self.cond(g)[:, None, :]
         x, mask = x.transpose(1, 2), x_mask.transpose(1, 2)  # [B, C, T]
         for conv, norm in ((self.conv_1, self.norm_1), (self.conv_2, self.norm_2)):
             x = F.relu(conv(x * mask))

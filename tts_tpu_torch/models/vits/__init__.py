@@ -1,4 +1,4 @@
-"""VITS in PyTorch (port of ``tts_tpu.models.vits``), single-speaker inference."""
+"""VITS in PyTorch (port of ``tts_tpu.models.vits``): inference, speakers and languages."""
 
 from .config import VitsArgs, VitsAudioConfig, VitsConfig  # noqa: F401
 from .model import Vits, VitsModule  # noqa: F401

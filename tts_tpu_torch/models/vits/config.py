@@ -2,8 +2,9 @@
 of ``tts_tpu``), unchanged apart from this docstring and import paths:
 ``VitsArgs``, ``VitsAudioConfig`` and ``VitsConfig`` (reference
 ``TTS/tts/models/vits.py:366`` VitsArgs + ``TTS/tts/configs/vits_config.py``).
-The port runs the single-speaker HiFiGAN variant; ``models.vits.model.Vits``
-raises on the fields of the variants it does not run yet."""
+The port runs the HiFiGAN variant, with speakers and languages;
+``models.vits.model.Vits`` raises on the fields of the variants it does not
+run yet."""
 
 from __future__ import annotations
 

@@ -3,11 +3,19 @@
 flow, HiFiGAN decoder; the posterior encoder is built so weights load
 strictly) and the ``Vits`` host wrapper (tokenizer, weights, noise).
 
-The port runs the single-speaker HiFiGAN variant, one utterance per row
-(``inference``) or many packed into a few rows (``inference_packed``). The
-multi-speaker and multi-language fields, ``encoder_sample_rate``
+The port runs the HiFiGAN variant, one utterance per row (``inference``) or
+many packed into a few rows (``inference_packed``), for one speaker or many
+(a learned speaker embedding ``emb_g`` or d-vectors) and one language or
+many (``emb_l``): ``aux_input`` carries ``speaker_ids``, ``d_vectors`` and
+``language_ids`` per row, as in the JAX package. ``encoder_sample_rate``
 (``interpolate_z``), the ``istft`` decoder, voice conversion and training
-raise ``NotImplementedError`` (ROADMAP.md, slice 2b and later).
+raise ``NotImplementedError`` (ROADMAP.md, item 8 and later).
+
+``Vits.init_from_config`` attaches the speaker and language managers
+(``utils/managers.py``), reading their fields from the config's top level or
+from ``model_args``, whichever sets them; the JAX package reads the top
+level only, and so builds no manager for the repo's multi-speaker recipes
+(ROADMAP.md F11).
 
 Noise: each ``inference``/``inference_packed``/``infer_durations`` call
 draws from a ``torch.Generator`` on the model's device, seeded 0 unless the
@@ -19,6 +27,7 @@ after it agree, as in the JAX package.
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -29,6 +38,7 @@ from tts_tpu_torch import resolve_device
 from tts_tpu_torch.layers.common import DurationPredictor
 from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
 from tts_tpu_torch.text.tokenizer import TTSTokenizer
+from tts_tpu_torch.utils.managers import init_speaker_manager
 from tts_tpu_torch.vocoder.models.hifigan_generator import HifiganGenerator
 
 from . import modules
@@ -37,20 +47,12 @@ from .config import VitsArgs, VitsConfig
 PORT_WEIGHTS = "model_torch.pt"  # the port's state_dict of VitsModule
 REFERENCE_WEIGHTS = "model.pth"  # a reference-layout (coqui) checkpoint
 
-_ROADMAP = "is not ported to tts_tpu_torch yet (ROADMAP.md, slice 2b)"
+_ROADMAP = "is not ported to tts_tpu_torch yet (ROADMAP.md, item 8)"
 
 
 def check_supported(config: VitsConfig) -> None:
     """Raise on every VITS variant the port does not run yet."""
     a = config.model_args
-    multi = {
-        "use_speaker_embedding": a.use_speaker_embedding or config.use_speaker_embedding,
-        "use_d_vector_file": a.use_d_vector_file or config.use_d_vector_file,
-        "use_language_embedding": a.use_language_embedding,
-    }
-    for name, on in multi.items():
-        if on:
-            raise NotImplementedError(f"multi-speaker/-language VITS ({name}=True) {_ROADMAP}")
     if a.encoder_sample_rate:
         raise NotImplementedError(f"VITS with encoder_sample_rate (interpolate_z) {_ROADMAP}")
     if a.decoder_type != "hifigan":
@@ -70,12 +72,29 @@ def supports_packed_decode(config: VitsConfig) -> bool:
 
 
 class VitsModule(nn.Module):
-    """The VITS generator (everything except the discriminator), for one
-    speaker."""
+    """The VITS generator (everything except the discriminator). With
+    speakers, the speaker vector ``g`` (``emb_g`` of the ids, or the
+    d-vectors) conditions the posterior encoder, the flow, the decoder and,
+    under ``condition_dp_on_speaker``, the duration predictor; with
+    languages, ``emb_l`` of the ids joins the text encoder's input and
+    conditions the stochastic duration predictor."""
 
     def __init__(self, args: VitsArgs):
         super().__init__()
         self.args = args
+        if args.use_d_vector_file and not args.d_vector_dim:
+            raise ValueError("use_d_vector_file needs d_vector_dim, the d-vectors' width")
+        if args.use_language_embedding and not args.num_languages:
+            raise ValueError("use_language_embedding needs num_languages > 0: give a "
+                             "language_ids_file (or language_ids_file_path)")
+        speaker_dim = (args.d_vector_dim if args.use_d_vector_file else
+                       args.speaker_embedding_channels if args.use_speaker_embedding else 0)
+        lang_dim = args.embedded_language_dim if args.use_language_embedding else 0
+        dp_cond = speaker_dim if args.condition_dp_on_speaker else 0
+        if args.use_speaker_embedding and args.num_speakers > 0:
+            self.emb_g = nn.Embedding(args.num_speakers, args.speaker_embedding_channels)
+        if lang_dim:
+            self.emb_l = nn.Embedding(args.num_languages, lang_dim)
         self.text_encoder = modules.TextEncoder(
             n_vocab=args.num_chars,
             out_channels=args.hidden_channels,
@@ -84,6 +103,7 @@ class VitsModule(nn.Module):
             num_heads=args.num_heads_text_encoder,
             num_layers=args.num_layers_text_encoder,
             kernel_size=args.kernel_size_text_encoder,
+            language_emb_dim=lang_dim,
         )
         self.posterior_encoder = modules.PosteriorEncoder(
             in_channels=args.out_channels,
@@ -92,6 +112,7 @@ class VitsModule(nn.Module):
             kernel_size=args.kernel_size_posterior_encoder,
             dilation_rate=args.dilation_rate_posterior_encoder,
             num_layers=args.num_layers_posterior_encoder,
+            cond_channels=speaker_dim,
         )
         self.flow = modules.ResidualCouplingBlocks(
             channels=args.hidden_channels,
@@ -99,15 +120,18 @@ class VitsModule(nn.Module):
             kernel_size=args.kernel_size_flow,
             dilation_rate=args.dilation_rate_flow,
             num_layers=args.num_layers_flow,
+            cond_channels=speaker_dim,
         )
+        # the duration predictors read the text encoder's output (ROADMAP.md F12)
         if args.use_sdp:
             self.duration_predictor = modules.StochasticDurationPredictor(
-                in_channels=args.hidden_channels, hidden_channels=192, kernel_size=3,
-                num_flows=4,
+                in_channels=args.hidden_channels + lang_dim, hidden_channels=192,
+                kernel_size=3, num_flows=4, cond_channels=dp_cond, language_emb_dim=lang_dim,
             )
         else:
             self.duration_predictor = DurationPredictor(
-                in_channels=args.hidden_channels, hidden_channels=256, kernel_size=3
+                in_channels=args.hidden_channels + lang_dim, hidden_channels=256,
+                kernel_size=3, cond_channels=dp_cond,
             )
         self.waveform_decoder = HifiganGenerator(
             in_channels=args.hidden_channels,
@@ -119,37 +143,57 @@ class VitsModule(nn.Module):
             upsample_initial_channel=args.upsample_initial_channel_decoder,
             upsample_factors=tuple(args.upsample_rates_decoder),
             conv_post_bias=False,
+            cond_channels=speaker_dim,
         )
 
-    def _durations(self, x, x_lengths, generator):
+    def _cond_vectors(self, aux_input: Optional[Dict]):
+        """``(g [B, C_g] or None, lang [B, C_l] or None)`` from ``aux_input``'s
+        ``d_vectors`` (d-vector models), else ``speaker_ids``, and
+        ``language_ids``, each taken only by a model built for it."""
+        a = self.args
+        g = lang = None
+        if aux_input:
+            if aux_input.get("d_vectors") is not None and a.use_d_vector_file:
+                g = aux_input["d_vectors"]
+            elif aux_input.get("speaker_ids") is not None and a.use_speaker_embedding:
+                g = self.emb_g(aux_input["speaker_ids"])
+            if aux_input.get("language_ids") is not None and a.use_language_embedding:
+                lang = self.emb_l(aux_input["language_ids"])
+        return g, lang
+
+    def _durations(self, x, x_lengths, generator, g=None, lang=None):
         """Text encoder and duration predictor: ``(w_ceil [B, T_x, 1], m_p,
         logs_p, x_mask)``. With the stochastic predictor this makes the
         call's first noise draw."""
         a = self.args
-        x_hid, m_p, logs_p, x_mask = self.text_encoder(x, x_lengths)
+        x_hid, m_p, logs_p, x_mask = self.text_encoder(x, x_lengths, lang)
+        dp_g = g if a.condition_dp_on_speaker else None
         if a.use_sdp:
             logw = self.duration_predictor(x_hid, x_mask, generator,
-                                           noise_scale=a.inference_noise_scale_dp)
+                                           noise_scale=a.inference_noise_scale_dp, g=dp_g,
+                                           lang_emb=lang)
         else:
-            logw = self.duration_predictor(x_hid, x_mask)
+            logw = self.duration_predictor(x_hid, x_mask, g=dp_g)
         w = torch.exp(logw) * x_mask * a.length_scale
         return torch.ceil(w) * x_mask, m_p, logs_p, x_mask
 
     @torch.no_grad()
-    def infer_durations(self, x, x_lengths, generator: torch.Generator) -> torch.Tensor:
+    def infer_durations(self, x, x_lengths, generator: torch.Generator,
+                        aux_input: Optional[Dict] = None) -> torch.Tensor:
         """Predicted output frame counts ``[B]`` (int32, at least 1)."""
-        w_ceil = self._durations(x, x_lengths, generator)[0]
+        w_ceil = self._durations(x, x_lengths, generator, *self._cond_vectors(aux_input))[0]
         return torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)
 
     @torch.no_grad()
-    def inference(self, x, x_lengths, generator: torch.Generator,
-                  max_frames: int = 1000) -> Dict[str, Any]:
+    def inference(self, x, x_lengths, generator: torch.Generator, max_frames: int = 1000,
+                  aux_input: Optional[Dict] = None) -> Dict[str, Any]:
         """Text ids ``[B, T_x]`` → waveform ``[B, max_frames * hop, 1]``. The
         whole frame budget is decoded, as in the JAX package: frames past
         ``y_lengths`` are zero going into the decoder, but its convolutions
         reach over the boundary."""
         a = self.args
-        w_ceil, m_p, logs_p, x_mask = self._durations(x, x_lengths, generator)
+        g, lang = self._cond_vectors(aux_input)
+        w_ceil, m_p, logs_p, x_mask = self._durations(x, x_lengths, generator, g, lang)
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), 1, max_frames).to(torch.int32)
         y_mask = sequence_mask(y_lengths, max_frames)[:, :, None].to(x_mask.dtype)
         attn_mask = x_mask * y_mask.transpose(1, 2)
@@ -159,8 +203,8 @@ class VitsModule(nn.Module):
         logs_p_e = torch.bmm(attn.transpose(1, 2), logs_p)
         noise = modules.normal(m_p_e.shape, generator)
         z_p = m_p_e + noise * torch.exp(logs_p_e) * a.inference_noise_scale
-        z = self.flow(z_p * y_mask, y_mask)
-        o = self.waveform_decoder(z * y_mask)
+        z = self.flow(z_p * y_mask, y_mask, g=g)
+        o = self.waveform_decoder(z * y_mask, g=g)
         return {
             "model_outputs": o,
             "alignments": attn.transpose(1, 2),
@@ -175,7 +219,8 @@ class VitsModule(nn.Module):
 
     @torch.no_grad()
     def inference_packed(self, x, x_lengths, seg_sample, seg_pos, generator: torch.Generator,
-                         noise_frames: int = 1000, noise_layout: str = "batch") -> Dict[str, Any]:
+                         noise_frames: int = 1000, noise_layout: str = "batch",
+                         aux_input: Optional[Dict] = None) -> Dict[str, Any]:
         """Many utterances decoded in a few dense rows (``utils/packing.py``).
 
         ``seg_sample``/``seg_pos`` ``[R, L]`` map each slot of the grid to
@@ -192,9 +237,15 @@ class VitsModule(nn.Module):
         ``noise_layout="batch"`` draws the prior noise ``[B, noise_frames,
         C]`` and gathers it into the grid, so segment i gets the noise
         :meth:`inference` with ``max_frames=noise_frames`` gives row i;
-        ``"packed"`` draws ``[R, L, C]`` straight in the grid's layout."""
+        ``"packed"`` draws ``[R, L, C]`` straight in the grid's layout.
+
+        ``aux_input`` holds one speaker and language per row of ``x``; each
+        slot of the grid takes its utterance's speaker vector, so the flow
+        and the decoder condition frame by frame and rows may mix speakers
+        and languages."""
         a = self.args
-        w_ceil, m_p, logs_p, _ = self._durations(x, x_lengths, generator)
+        g, lang = self._cond_vectors(aux_input)
+        w_ceil, m_p, logs_p, _ = self._durations(x, x_lengths, generator, g, lang)
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)
 
         valid = seg_sample >= 0
@@ -212,8 +263,9 @@ class VitsModule(nn.Module):
             raise ValueError(f"noise_layout must be 'batch' or 'packed', not {noise_layout!r}")
         mask = valid[..., None].to(m_pk.dtype)
         z_p = (m_pk + noise * torch.exp(logs_pk) * a.inference_noise_scale) * mask
-        z = self.flow(z_p, mask)
-        o = self.waveform_decoder(z * mask, x_mask=mask)
+        g_pk = g[s] if g is not None else None  # per-slot conditioning [R, L, C_g]
+        z = self.flow(z_p, mask, g=g_pk)
+        o = self.waveform_decoder(z * mask, g=g_pk, x_mask=mask)
         return {"model_outputs": o, "y_lengths": y_lengths, "packed_mask": valid,
                 "durations": w_ceil}
 
@@ -231,9 +283,16 @@ class Vits:
         self.args = config.model_args
         self.module = VitsModule(self.args)
         self.tokenizer: Optional[TTSTokenizer] = None
+        self.speaker_manager = None
+        self.language_manager = None
 
     @classmethod
     def init_from_config(cls, config: VitsConfig) -> "Vits":
+        """Tokenizer, managers and model for ``config``. The top level's
+        speaker fields are mirrored into ``model_args`` (reference
+        ``Vits.init_multispeaker``); the managers read each field from the
+        top level or from ``model_args`` (ROADMAP.md F11) and write their
+        counts into both."""
         tokenizer, config = TTSTokenizer.init_from_config(config)
         n_symbols = tokenizer.characters.num_chars
         if config.model_args.num_chars is None:
@@ -245,13 +304,24 @@ class Vits:
                 f"{n_symbols} symbols of {type(tokenizer.characters).__name__}: set it to "
                 f"{n_symbols}, or to None to take the vocabulary's size"
             )
+        for f in ("num_speakers", "use_speaker_embedding", "use_d_vector_file", "d_vector_dim"):
+            if getattr(config, f, None):
+                setattr(config.model_args, f, getattr(config, f))
+        managers = init_speaker_manager(SimpleNamespace(), config)
         model = cls(config)
         model.tokenizer = tokenizer
+        model.speaker_manager = managers.speaker_manager
+        model.language_manager = managers.language_manager
         return model
 
     @property
     def device(self) -> torch.device:
         return self.module.text_encoder.emb.weight.device
+
+    @property
+    def uses_d_vectors(self) -> bool:
+        """Whether speakers are given as d-vectors (``use_d_vector_file``)."""
+        return bool(self.args.use_d_vector_file)
 
     @property
     def hop_length(self) -> int:
@@ -329,19 +399,24 @@ class Vits:
             generator = torch.Generator(device=self.device).manual_seed(0)
         return generator
 
-    def infer_durations(self, x, x_lengths,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def infer_durations(self, x, x_lengths, generator: Optional[torch.Generator] = None,
+                        aux_input: Optional[Dict] = None) -> torch.Tensor:
         """Predicted frame counts ``[B]``. Pass the generator state that the
         following :meth:`inference` call starts from to get its durations."""
-        return self.module.infer_durations(x, x_lengths, self._generator(generator))
+        return self.module.infer_durations(x, x_lengths, self._generator(generator),
+                                           aux_input=aux_input)
 
     def inference(self, x, x_lengths, max_frames: int = 1000,
-                  generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                  generator: Optional[torch.Generator] = None,
+                  aux_input: Optional[Dict] = None) -> Dict[str, Any]:
+        """``aux_input``: ``speaker_ids [B]``, ``d_vectors [B, C]`` and
+        ``language_ids [B]`` on the model's device, as the model takes
+        them."""
         if self.args.max_inference_len:
             # cap the decoder length (reference vits.py:650,1167)
             max_frames = min(max_frames, int(self.args.max_inference_len))
         return self.module.inference(x, x_lengths, self._generator(generator),
-                                     max_frames=max_frames)
+                                     max_frames=max_frames, aux_input=aux_input)
 
     @property
     def supports_packed_decode(self) -> bool:
@@ -349,17 +424,18 @@ class Vits:
 
     def inference_packed(self, x, x_lengths, seg_sample, seg_pos, noise_frames: int = 1000,
                          noise_layout: str = "batch",
-                         generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                         generator: Optional[torch.Generator] = None,
+                         aux_input: Optional[Dict] = None) -> Dict[str, Any]:
         """Sequence-packed decode (:meth:`VitsModule.inference_packed`) of a
         plan from ``utils.packing.plan_pack_layout`` (numpy or tensors) over
         :meth:`infer_durations`' lengths, made with the same generator
-        state."""
+        state and ``aux_input``."""
         seg_sample = torch.as_tensor(seg_sample, device=self.device)
         seg_pos = torch.as_tensor(seg_pos, device=self.device)
         return self.module.inference_packed(x, x_lengths, seg_sample, seg_pos,
                                             self._generator(generator),
                                             noise_frames=noise_frames,
-                                            noise_layout=noise_layout)
+                                            noise_layout=noise_layout, aux_input=aux_input)
 
     def voice_conversion(self, *args, **kwargs):
         raise NotImplementedError(f"VITS voice_conversion {_ROADMAP}")

@@ -1,12 +1,20 @@
 """VITS network modules (port of ``tts_tpu/models/vits/modules.py``) for
-single-speaker inference, time-major ``[B, T, C]`` like the JAX package.
+inference, time-major ``[B, T, C]`` like the JAX package, with the speaker
+(``g``) and language (``lang_emb``) conditioning of multi-speaker and
+multi-language models.
 
-Every parameter of the single-speaker JAX modules has its counterpart here,
-under the same name, so converted weights load strictly. The flows'
+Every parameter of the JAX modules' inference path has its counterpart
+here, under the same name, so converted weights load strictly. The flows'
 ``forward`` runs their inverse (``reverse=True``) direction, the one
 inference takes. Their training direction, the stochastic duration
-predictor's posterior flows and the discriminator wait for training; the
-speaker and language conditioning waits for multi-speaker VITS.
+predictor's posterior flows and the discriminator wait for training.
+
+The duration predictors read the text encoder's output, whose width is
+``hidden_channels`` plus the language embedding's, as the reference's do
+and as the JAX package's inference feeds them; the JAX package sizes their
+input layer from its training forward, which feeds the prior means
+(``hidden_channels`` wide), so a JAX multi-language model cannot run
+inference on its own initial parameters (ROADMAP.md F12).
 
 All noise comes from :func:`normal`, one draw per call, in the JAX package's
 order: the duration predictor's ``[B, T_x, 2]`` first, then the prior's
@@ -47,18 +55,23 @@ class TextEncoder(nn.Module):
     (reference ``networks.py:29``)."""
 
     def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int,
-                 hidden_channels_ffn: int, num_heads: int, num_layers: int, kernel_size: int):
+                 hidden_channels_ffn: int, num_heads: int, num_layers: int, kernel_size: int,
+                 language_emb_dim: int = 0):
         super().__init__()
         self.hidden_channels = hidden_channels
+        width = hidden_channels + language_emb_dim  # the language joins every token
         self.emb = nn.Embedding(n_vocab, hidden_channels)
         self.encoder = RelativePositionTransformer(
-            hidden_channels, hidden_channels_ffn, num_heads, num_layers, kernel_size,
+            width, hidden_channels_ffn, num_heads, num_layers, kernel_size,
             rel_attn_window_size=4,
         )
-        self.proj = nn.Linear(hidden_channels, out_channels * 2)
+        self.proj = nn.Linear(width, out_channels * 2)
 
-    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor):
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor,
+                lang_emb: Optional[torch.Tensor] = None):
         h = self.emb(x) * math.sqrt(self.hidden_channels)
+        if lang_emb is not None:  # [B, C_l] → concatenated to every token
+            h = torch.cat([h, lang_emb[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)
         x_mask = sequence_mask(x_lengths, x.shape[1])[:, :, None].to(h.dtype)
         h = self.encoder(h * x_mask, x_mask)
         m, logs = torch.chunk(self.proj(h) * x_mask, 2, dim=-1)
@@ -69,15 +82,16 @@ class PosteriorEncoder(nn.Module):
     """Linear-spec → latent posterior via WaveNet (reference ``networks.py:235``)."""
 
     def __init__(self, in_channels: int, out_channels: int, hidden_channels: int,
-                 kernel_size: int, dilation_rate: int, num_layers: int):
+                 kernel_size: int, dilation_rate: int, num_layers: int, cond_channels: int = 0):
         super().__init__()
         self.pre = nn.Linear(in_channels, hidden_channels)
-        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
         self.proj = nn.Linear(hidden_channels, out_channels * 2)
 
-    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, generator: torch.Generator):
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, generator: torch.Generator,
+                g: Optional[torch.Tensor] = None):
         x_mask = sequence_mask(x_lengths, x.shape[1])[:, :, None].to(x.dtype)
-        h = self.enc(self.pre(x) * x_mask, x_mask)
+        h = self.enc(self.pre(x) * x_mask, x_mask, g=g)
         mean, log_scale = torch.chunk(self.proj(h) * x_mask, 2, dim=-1)
         z = (mean + normal(mean.shape, generator) * torch.exp(log_scale)) * x_mask
         return z, mean, log_scale, x_mask
@@ -88,16 +102,17 @@ class ResidualCouplingBlock(nn.Module):
     inverse direction."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
-                 dilation_rate: int, num_layers: int):
+                 dilation_rate: int, num_layers: int, cond_channels: int = 0):
         super().__init__()
         self.half = channels // 2
         self.pre = nn.Linear(self.half, hidden_channels)
-        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
         self.post = nn.Linear(hidden_channels, self.half)
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
         x0, x1 = x[..., : self.half], x[..., self.half :]
-        m = self.post(self.enc(self.pre(x0) * x_mask, x_mask)) * x_mask
+        m = self.post(self.enc(self.pre(x0) * x_mask, x_mask, g=g)) * x_mask
         return torch.cat([x0, (x1 - m) * x_mask], dim=-1)
 
 
@@ -106,17 +121,20 @@ class ResidualCouplingBlocks(nn.Module):
     inverse direction: the blocks in reverse order, each after a flip."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
-                 dilation_rate: int, num_layers: int, num_flows: int = 4):
+                 dilation_rate: int, num_layers: int, num_flows: int = 4,
+                 cond_channels: int = 0):
         super().__init__()
         self.flow = nn.ModuleList(
             ResidualCouplingBlock(channels, hidden_channels, kernel_size, dilation_rate,
-                                  num_layers)
+                                  num_layers, cond_channels)
             for _ in range(num_flows)
         )
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``g``: ``[B, C_g]`` or per frame ``[B, T, C_g]`` (a packed grid)."""
         for block in reversed(self.flow):
-            x = block(torch.flip(x, dims=[-1]), x_mask)
+            x = block(torch.flip(x, dims=[-1]), x_mask, g=g)
         return x
 
 
@@ -194,11 +212,17 @@ class ConvFlow(nn.Module):
 
 class StochasticDurationPredictor(nn.Module):
     """Flow-based duration model (reference ``:133``): inference samples
-    log-durations from noise through the inverted flows."""
+    log-durations from noise through the inverted flows. A speaker vector
+    ``g`` (``cond_channels``) and a language embedding (``language_emb_dim``)
+    are added to every frame after ``pre``, each through its own linear."""
 
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int,
-                 num_flows: int = 4):
+                 num_flows: int = 4, cond_channels: int = 0, language_emb_dim: int = 0):
         super().__init__()
+        if cond_channels:
+            self.cond = nn.Linear(cond_channels, hidden_channels)
+        if language_emb_dim:
+            self.cond_lang = nn.Linear(language_emb_dim, hidden_channels)
         self.pre = nn.Linear(in_channels, hidden_channels)
         self.convs = DilatedDepthSeparableConv(hidden_channels, kernel_size, 3)
         self.proj = nn.Linear(hidden_channels, hidden_channels)
@@ -214,8 +238,14 @@ class StochasticDurationPredictor(nn.Module):
                                        for _ in range(num_flows))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor, generator: torch.Generator,
-                noise_scale: float = 1.0) -> torch.Tensor:
-        x = self.proj(self.convs(self.pre(x), x_mask)) * x_mask
+                noise_scale: float = 1.0, g: Optional[torch.Tensor] = None,
+                lang_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.pre(x)
+        if g is not None:
+            x = x + self.cond(g)[:, None, :]
+        if lang_emb is not None:
+            x = x + self.cond_lang(lang_emb)[:, None, :]
+        x = self.proj(self.convs(x, x_mask)) * x_mask
         # the flows run backwards from noise, without the extra flow
         # ``flow[0]`` (reference :224)
         flows = list(reversed(self.flow))[:-1] + [self.flow_affine]

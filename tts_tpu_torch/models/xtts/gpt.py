@@ -173,10 +173,12 @@ class XttsGPT(nn.Module):
         return self.text_embedding(text_ids) + self.text_pos_embedding[None, : text_ids.shape[1]]
 
     def _mel_pos(self, start: int, length: int) -> torch.Tensor:
-        # positions past the table clamp to its last row, as the JAX
-        # package's dynamic_slice does (streaming rounds the decode length
-        # up to whole chunks, which can pass max_mel_tokens + 3)
-        start = min(start, self.mel_pos_embedding.shape[0] - length)
+        # no decode reaches past the table (streaming stops at
+        # max_mel_tokens - 3, as the full decode does); the JAX package's
+        # dynamic_slice would clamp instead (ROADMAP.md F5)
+        if start + length > self.mel_pos_embedding.shape[0]:
+            raise ValueError(f"mel positions {start}..{start + length - 1} pass the "
+                             f"{self.mel_pos_embedding.shape[0]}-row position table")
         return self.mel_pos_embedding[start : start + length]
 
     def _embed_mel(self, mel_ids, offset: int = 0):

@@ -365,17 +365,19 @@ class Xtts(nn.Module):
         tokens, lengths = self._text_batch(texts, language)
         cond = gpt_cond_latent.expand(B, *gpt_cond_latent.shape[1:])
         spk = speaker_embedding.expand(B, *speaker_embedding.shape[1:])
+        # at most the non-streaming bound; the last chunk is cut short rather
+        # than rounded up, so no mel position passes the table
         max_new = max_new_tokens or self.gpt.max_mel_tokens - 3
-        n_chunks = -(-max_new // stream_chunk_size)  # whole chunks
         generator = self._generator(generator)
         stop_tok = float(self.gpt.stop_audio_token)
 
-        state = self.gpt.prefill(cond, tokens, lengths, max_new_tokens=n_chunks * stream_chunk_size)
+        state = self.gpt.prefill(cond, tokens, lengths, max_new_tokens=max_new)
         tails: List[Optional[np.ndarray]] = [None] * B
         finished = [False] * B
-        for _ in range(n_chunks):
+        for first in range(0, max_new, stream_chunk_size):
+            chunk_size = min(stream_chunk_size, max_new - first)
             state, toks, latents = self.gpt.decode_chunk(
-                state, generator, chunk_size=stream_chunk_size, temperature=temperature,
+                state, generator, chunk_size=chunk_size, temperature=temperature,
                 top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty,
             )
             wav = self.hifigan_decoder(latents, spk)
@@ -384,8 +386,8 @@ class Xtts(nn.Module):
             packed = torch.cat(
                 [wav[:, :, 0].float(), toks.float(), state["done"][:, None].float()], dim=1
             ).cpu().numpy()
-            wavs = packed[:, : -stream_chunk_size - 1]
-            toks_np = packed[:, -stream_chunk_size - 1 : -1]
+            wavs = packed[:, : -chunk_size - 1]
+            toks_np = packed[:, -chunk_size - 1 : -1]
             done_np = packed[:, -1] > 0.5
             samples_per_code = wavs.shape[1] // latents.shape[1]
             out: List[Optional[np.ndarray]] = []

@@ -13,11 +13,15 @@ its sentences' waveforms joined with the serial path's 10000-sample gap.
 
 Serves end-to-end waveform models with a packed decode (VITS). Models with
 their own ``synthesize`` (XTTS) and models without a waveform output are
-refused; the server then serves serially. A request naming a speaker or a
-language raises ``ValueError``, as the single-speaker ``Synthesizer``
-does. An error in a dispatch is raised to every caller in it: no other
-path is tried. The batcher does not trim silence, as the JAX batcher does
-not (ROADMAP.md F10).
+refused; the server then serves serially. Each request's speaker and
+language are resolved by the ``Synthesizer``'s rules before it is queued
+(an unknown name raises ``ValueError`` there) and ride with each of its
+sentences as that row's ids, so one dispatch mixes speakers and languages.
+Speakers given as d-vectors are not batched, as in the JAX batcher: the
+server sends them to the serial path before calling :meth:`tts`, which
+raises ``ValueError`` on one. An error in a dispatch is raised to every
+caller in it: no other path is tried. The batcher does not trim silence, as
+the JAX batcher does not (ROADMAP.md F10).
 """
 
 from __future__ import annotations
@@ -30,15 +34,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tts_tpu_torch.utils.synthesis import _frame_budget, decode_packed
+from tts_tpu_torch.utils.synthesis import _frame_budget, aux_input, decode_packed
 from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, split_into_sentences
 
 
 class _Pending:
-    __slots__ = ("ids", "done", "wav", "error")
+    __slots__ = ("ids", "speaker_id", "language_id", "done", "wav", "error")
 
-    def __init__(self, ids: np.ndarray):
+    def __init__(self, ids: np.ndarray, speaker_id: Optional[int] = None,
+                 language_id: Optional[int] = None):
         self.ids = ids
+        self.speaker_id = speaker_id
+        self.language_id = language_id
         self.done = threading.Event()
         self.wav: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
@@ -79,20 +86,20 @@ class DynamicBatcher:
     # ------------------------------------------------------------------
     def tts(self, text: str, speaker_name: Optional[str] = None,
             language_name: Optional[str] = None) -> List[float]:
-        """Blocking per-request entry: split into sentences as the serial
-        path does, enqueue each, wait for the worker, join with the serial
-        path's gap."""
-        given = sorted(k for k, v in (("speaker_name", speaker_name),
-                                      ("language_name", language_name)) if v is not None)
-        if given:
-            raise ValueError(f"{self.synthesizer.tts_config.model!r} is a single-speaker, "
-                             f"single-language model: {', '.join(given)} not taken")
+        """Blocking per-request entry: resolve the speaker and language,
+        split into sentences as the serial path does, enqueue each, wait for
+        the worker, join with the serial path's gap."""
+        speaker_id, d_vector = self.synthesizer._resolve_speaker(speaker_name)
+        if d_vector is not None:
+            raise ValueError("d-vector speakers are served by the serial path")
+        language_id = self.synthesizer._resolve_language(language_name)
+        language = self.synthesizer._language_name(language_id)
         sens = split_into_sentences(text) or [text.strip()]
         items = []
         for sen in sens:
-            ids = self.model.tokenizer.text_to_ids(sen)
+            ids = self.model.tokenizer.text_to_ids(sen, language)
             if ids:
-                items.append(_Pending(np.asarray(ids, np.int64)))
+                items.append(_Pending(np.asarray(ids, np.int64), speaker_id, language_id))
         if not items:
             raise ValueError("No text to speak.")
         with self._cond:
@@ -147,12 +154,13 @@ class DynamicBatcher:
         model = self.model
         budget = _frame_budget(max(len(it.ids) for it in batch))
         x, x_lengths = self._pad(batch)
+        aux = self._aux(batch, x.shape[0])
         if len(batch) == 1:
-            out = model.inference(x, x_lengths, max_frames=budget)
+            out = model.inference(x, x_lengths, max_frames=budget, aux_input=aux)
             frames = int(out["y_lengths"][0])
             wavs = [out["model_outputs"][0, : frames * model.hop_length, 0].float().cpu().numpy()]
         else:
-            wavs = decode_packed(model, x, x_lengths, len(batch), budget)
+            wavs = decode_packed(model, x, x_lengths, len(batch), budget, aux)
         for it, wav in zip(batch, wavs):
             it.wav = wav
             it.done.set()
@@ -173,3 +181,16 @@ class DynamicBatcher:
             x_lengths[row] = len(it.ids)
         device = self.model.device
         return torch.from_numpy(x).to(device), torch.from_numpy(x_lengths).to(device)
+
+    def _aux(self, batch: List[_Pending], rows: int):
+        """Each row's speaker and language ids (``aux_input``), or ``None``
+        for a model without either; rows past the batch take id 0, as in
+        the JAX batcher."""
+        def per_row(ids):
+            if all(i is None for i in ids):
+                return None
+            return [i or 0 for i in ids] + [0] * (rows - len(batch))
+
+        return aux_input(self.model.device, rows,
+                         speaker_ids=per_row([it.speaker_id for it in batch]),
+                         language_ids=per_row([it.language_id for it in batch]))

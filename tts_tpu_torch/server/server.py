@@ -15,17 +15,22 @@ Status codes, content types and bodies are the JAX server's; any other
 route answers 404. ``/api/tts`` and ``/process`` run under one lock. With
 ``--max_batch N > 1`` and a VITS model they go through the
 :class:`DynamicBatcher` instead, whose worker thread decodes up to N
-queued sentences of concurrent requests in one dispatch; a request it
-refuses with ``ValueError`` (a speaker or language named) goes to the
-serial path under the lock. A model the batcher cannot take (XTTS) is
-served serially, with one line said. With ``--stream_batch N > 1``
-``/api/tts-stream`` goes through the :class:`StreamBatcher`, whose worker
-thread batches up to N concurrent streams.
+queued sentences of concurrent requests, of any speakers and languages, in
+one dispatch. Two kinds of request take the serial path under the lock,
+chosen before anything is queued: one with a ``speaker_wav``, and every
+request to a model whose speakers are d-vectors (the JAX server catches the
+batcher's ``ValueError`` to the same end). A request the batcher refuses
+(an unknown speaker) is answered 400, as the serial path would answer it.
+A model the batcher cannot take (XTTS) is served serially, with one line
+said. With ``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
+:class:`StreamBatcher`, whose worker thread batches up to N concurrent
+streams.
 
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
-[--max_batch 4] [--batch_window_ms 10] [--stream_batch 4] [--port 5002]``,
-or ``--model_path FILE --config_path config.json`` for a VITS checkpoint
-file. A VITS model serves ``/api/tts`` (its streaming route answers 501).
+[--speakers_file_path speakers.json] [--max_batch 4] [--batch_window_ms 10]
+[--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
+config.json`` for a VITS checkpoint file. A VITS model serves ``/api/tts``
+(its streaming route answers 501).
 """
 
 from __future__ import annotations
@@ -52,19 +57,28 @@ _INDEX_HTML = """<!DOCTYPE html>
   <button onclick="speak()">Speak</button>
 </div>
 <div style="margin-top: 0.6em;">
-  <label>language <input id="language_id" size="6" value="en"/></label>
+  <label>speaker <select id="speaker_id"><option value=""></option></select></label>
+  <label>language <select id="language_id"><option value=""></option></select></label>
   <label>speaker wav <input id="speaker_wav" size="24" placeholder="(server path)"/></label>
 </div>
 <audio id="audio" controls style="margin-top: 1em; width: 100%;"></audio>
 <script>
+let streams = true;  // a model without a streaming path answers /api/tts
+fetch('/details').then(r => r.json()).then(d => {
+  streams = d.tts_config.model === 'xtts';
+  for (const [id, names] of [["speaker_id", d.speakers || []], ["language_id", d.languages || []]]) {
+    const el = document.getElementById(id);
+    for (const n of names) { const o = document.createElement('option'); o.value = o.text = n; el.add(o); }
+  }
+});
 function speak() {
   const p = new URLSearchParams({text: document.getElementById('text').value});
-  for (const k of ["language_id", "speaker_wav"]) {
+  for (const k of ["speaker_id", "language_id", "speaker_wav"]) {
     const v = document.getElementById(k).value;
     if (v) p.set(k, v);
   }
   const a = document.getElementById('audio');
-  a.src = '/api/tts-stream?' + p.toString();
+  a.src = (streams ? '/api/tts-stream?' : '/api/tts?') + p.toString();
   a.play();
 }
 </script>
@@ -91,14 +105,12 @@ def create_handler(synthesizer, lock: threading.Lock, batcher=None, stream_batch
             )
 
         def _synthesize(self, text: str, **params) -> bytes:
-            wav = None
-            if batcher is not None and params.get("speaker_wav") is None:
-                try:  # no lock: the batch worker owns the dispatch
-                    wav = batcher.tts(text, speaker_name=params.get("speaker_name"),
-                                      language_name=params.get("language_name"))
-                except ValueError:
-                    wav = None  # a request the batcher refuses: the serial path answers
-            if wav is None:
+            if batcher is not None and params.get("speaker_wav") is None \
+                    and not getattr(synthesizer.tts_model, "uses_d_vectors", False):
+                # no lock: the batch worker owns the dispatch
+                wav = batcher.tts(text, speaker_name=params.get("speaker_name"),
+                                  language_name=params.get("language_name"))
+            else:
                 with lock:
                     wav = synthesizer.tts(text, **params)
             arr = np.asarray(wav, np.float32)
@@ -173,6 +185,9 @@ def create_handler(synthesizer, lock: threading.Lock, batcher=None, stream_batch
                     wav = self._synthesize(text, **self._params(qs))
                 except ValueError as e:
                     self._send(400, str(e).encode())
+                    return
+                except NotImplementedError as e:  # e.g. speaker_wav for VITS
+                    self._send(501, str(e).encode())
                     return
                 self._send(200, wav, "audio/wav")
             elif route == "/details":
@@ -268,6 +283,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "also vocab.json), or a VITS checkpoint file")
     parser.add_argument("--config_path", default=None,
                         help="config.json of a checkpoint file given as --model_path")
+    parser.add_argument("--speakers_file_path", default=None,
+                        help="JSON speakers file for a multi-speaker model (replaces the "
+                             "config's)")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument("--port", type=int, default=5002, help="0 picks a free port")
     parser.add_argument("--max_batch", type=int, default=1,
@@ -285,7 +303,8 @@ def server_from_args(args: argparse.Namespace) -> ThreadingHTTPServer:
     """Load the model directory and build the (not yet serving) server."""
     from tts_tpu_torch.api import TTS
 
-    tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device)
+    tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device,
+              speakers_file_path=args.speakers_file_path)
     return create_server(tts.synthesizer, args.port, max_batch=args.max_batch,
                          batch_window_ms=args.batch_window_ms, stream_batch=args.stream_batch,
                          stream_window_ms=args.stream_window_ms)

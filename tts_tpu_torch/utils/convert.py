@@ -23,6 +23,10 @@ Those converters and what they call are the port's own copy of the XTTS and
 VITS parts of ``tts_tpu/utils/convert.py`` (numpy only; the port imports
 nothing of ``tts_tpu``): parity tests hold the copy equal to the JAX
 package's converters, leaf for leaf (``tests/test_torch_host_copies.py``).
+Two additions, for multi-language and deterministic-duration checkpoints,
+which the JAX package's converter drops (ROADMAP.md F13): the stochastic
+duration predictor's ``cond_lang`` and the whole ``use_sdp=False``
+duration predictor (``convert_vits_dp``).
 """
 
 from __future__ import annotations
@@ -366,6 +370,29 @@ def convert_vits_sdp(state, num_flows=4, has_cond=False):
         p[f"post_flow_{i}"] = _convert_conv_flow(state, f"post_flows.{i + 1}.")
     if has_cond and "cond.weight" in state:
         p["cond"] = _dense(state, "cond")
+    if "cond_lang.weight" in state:  # not in the JAX package's copy (F13)
+        p["cond_lang"] = _dense(state, "cond_lang")
+    return {"params": p}
+
+
+def convert_vits_dp(state, has_cond=False):
+    """Reference ``glow_tts/duration_predictor.py`` DurationPredictor (the
+    ``use_sdp=False`` predictor) → the port's flax-layout names. Not in the
+    JAX package (F13). Its ``DurationPredictor`` has no language input, so
+    a checkpoint with ``cond_lang`` is refused."""
+    if "cond_lang.weight" in state:
+        raise NotImplementedError(
+            "the deterministic duration predictor's language conditioning (cond_lang) has no "
+            "counterpart in the JAX package's DurationPredictor and is not ported")
+    p = {
+        "conv_1": _conv(state, "conv_1"),
+        "norm_1": {"LayerNorm_0": _layernorm(state, "norm_1")},
+        "conv_2": _conv(state, "conv_2"),
+        "norm_2": {"LayerNorm_0": _layernorm(state, "norm_2")},
+        "proj": _plain_conv(state, "proj"),
+    }
+    if has_cond and "cond.weight" in state:
+        p["cond"] = _dense(state, "cond")
     return {"params": p}
 
 
@@ -399,6 +426,11 @@ def convert_vits_generator(state, args) -> Dict[str, Any]:
     if args.use_sdp:
         p["duration_predictor"] = convert_vits_sdp(
             _subdict(state, "duration_predictor."), num_flows=4,
+            has_cond=has_cond and args.condition_dp_on_speaker,
+        )["params"]
+    else:  # not in the JAX package's copy (F13)
+        p["duration_predictor"] = convert_vits_dp(
+            _subdict(state, "duration_predictor."),
             has_cond=has_cond and args.condition_dp_on_speaker,
         )["params"]
     if "emb_g.weight" in state:

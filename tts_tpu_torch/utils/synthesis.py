@@ -23,7 +23,7 @@ There is no compile step and no cache: each call runs eagerly.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,14 +40,39 @@ def _frame_budget(n_tokens: int) -> int:
     return min(((est + 127) // 128) * 128, 4096)
 
 
-def synthesis(model, text: str) -> Dict[str, Any]:
+def aux_input(device, rows: int, speaker_ids=None, d_vectors=None,
+              language_ids=None) -> Optional[Dict[str, torch.Tensor]]:
+    """The model's conditioning inputs for ``rows`` rows on ``device``:
+    ``speaker_ids`` and ``language_ids`` (one int each, or one per row),
+    ``d_vectors`` (one vector, or one per row; a given d-vector takes the
+    place of a speaker id, as in the JAX package). ``None`` when nothing is
+    given."""
+    aux = {}
+    if d_vectors is not None:
+        d = torch.as_tensor(np.asarray(d_vectors, np.float32))
+        aux["d_vectors"] = d.reshape(-1, d.shape[-1]).expand(rows, -1).to(device)
+    elif speaker_ids is not None:
+        aux["speaker_ids"] = torch.as_tensor(speaker_ids).expand(rows).long().to(device)
+    if language_ids is not None:
+        aux["language_ids"] = torch.as_tensor(language_ids).expand(rows).long().to(device)
+    return aux or None
+
+
+def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
+              language_id: Optional[int] = None, language: Optional[str] = None
+              ) -> Dict[str, Any]:
     """Tokenize → durations → decode → cut. ``model`` is a host wrapper with
     ``tokenizer``, ``config``, ``device``, ``hop_length``,
     ``infer_durations`` and ``inference`` (:class:`~tts_tpu_torch.models.vits.model.Vits`),
     each call of which seeds its own generator: the durations pass draws the
-    noise that the decode after it draws. Returns the float32 ``wav``
-    (numpy), the model's ``outputs`` and the padded ``text_inputs``."""
-    token_ids = model.tokenizer.text_to_ids(text)
+    noise that the decode after it draws. ``speaker_id``, ``d_vector`` and
+    ``language_id`` condition a multi-speaker or multi-language model;
+    ``language``, the language's name, goes to the tokenizer, whose
+    ``multi_phonemizer`` picks its phonemizer by it (the JAX package passes
+    none, so its multi-phonemizer models cannot synthesize: ROADMAP.md F14).
+    Returns the float32 ``wav`` (numpy), the model's ``outputs`` and the
+    padded ``text_inputs``."""
+    token_ids = model.tokenizer.text_to_ids(text, language)
     bucket = int(getattr(model.config, "pad_to_multiple_text", 16) or 16)
     n_tokens = max(1, len(token_ids))
     padded_len = ((n_tokens + bucket - 1) // bucket) * bucket
@@ -55,10 +80,11 @@ def synthesis(model, text: str) -> Dict[str, Any]:
     ids[0, : len(token_ids)] = token_ids
     x = torch.from_numpy(ids).to(model.device)
     x_lengths = torch.tensor([n_tokens], device=model.device)
+    aux = aux_input(model.device, 1, speaker_id, d_vector, language_id)
 
-    y_len = int(model.infer_durations(x, x_lengths).max())
+    y_len = int(model.infer_durations(x, x_lengths, aux_input=aux).max())
     budget = min(_frame_budget(len(token_ids)), ((y_len + 31) // 32) * 32)
-    outputs = model.inference(x, x_lengths, max_frames=budget)
+    outputs = model.inference(x, x_lengths, max_frames=budget, aux_input=aux)
     valid_frames = int(outputs["y_lengths"][0])
     wav = outputs["model_outputs"][0, : valid_frames * model.hop_length, 0]
     return {
@@ -68,18 +94,20 @@ def synthesis(model, text: str) -> Dict[str, Any]:
     }
 
 
-def decode_packed(model, x: torch.Tensor, x_lengths: torch.Tensor, n: int,
-                  budget: int) -> List[np.ndarray]:
+def decode_packed(model, x: torch.Tensor, x_lengths: torch.Tensor, n: int, budget: int,
+                  aux: Optional[Dict[str, torch.Tensor]] = None) -> List[np.ndarray]:
     """The first ``n`` rows of the padded id batch ``x`` in one
     sequence-packed decode: durations pass, plan, ``inference_packed`` with
-    noise drawn in the grid's layout, unpack. Each utterance's frames are
-    capped at ``budget`` and at ``max_inference_len``, as ``Vits.inference``
-    caps its frames. Returns the float32 waveforms (numpy)."""
-    durations = model.infer_durations(x, x_lengths)[:n].cpu().numpy()
+    noise drawn in the grid's layout, unpack. ``aux`` (:func:`aux_input`)
+    holds each row's speaker and language; rows of one grid may differ in
+    both. Each utterance's frames are capped at ``budget`` and at
+    ``max_inference_len``, as ``Vits.inference`` caps its frames. Returns
+    the float32 waveforms (numpy)."""
+    durations = model.infer_durations(x, x_lengths, aux_input=aux)[:n].cpu().numpy()
     cap = min(budget, int(model.args.max_inference_len or budget))
     plan = plan_pack_layout(np.minimum(durations, cap))
     out = model.inference_packed(x, x_lengths, plan.seg_sample, plan.seg_pos,
-                                 noise_frames=budget, noise_layout="packed")
+                                 noise_frames=budget, noise_layout="packed", aux_input=aux)
     grid = out["model_outputs"][..., 0].float().cpu().numpy()  # [R, L * hop]
     return unpack_outputs(grid, plan, upsample=model.hop_length)
 

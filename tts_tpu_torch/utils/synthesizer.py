@@ -23,6 +23,17 @@ the JAX package's does (:func:`~tts_tpu_torch.utils.synthesis.trim_silence`);
 one loaded from a model directory is not trimmed. A VITS config's audio
 section (``VitsAudioConfig``) has no such field, so VITS is trimmed by
 neither package.
+
+Speakers and languages of a VITS model are named through its managers
+(``utils/managers.py``), with the JAX ``Synthesizer``'s errors: an unknown
+name, no speaker for a multi-speaker model or no language for a
+multi-language model raise ``ValueError``; a manager of one entry is taken
+when none is named. ``speakers_file_path`` and ``language_ids_file_path``
+override the config's files, on its top level and in ``model_args``. A model
+without a speaker (or language) manager takes no speaker (or language)
+name. ``speaker_wav`` needs the speaker encoder, which is not ported for
+VITS: it raises ``NotImplementedError``, where the JAX ``Synthesizer``
+decodes without the voice.
 """
 
 from __future__ import annotations
@@ -39,7 +50,13 @@ from tts_tpu_torch import resolve_device
 from tts_tpu_torch.audio.numpy_transforms import save_wav
 from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models import config_from_dict, setup_model
-from tts_tpu_torch.utils.synthesis import _frame_budget, decode_packed, synthesis, trim_silence
+from tts_tpu_torch.utils.synthesis import (
+    _frame_budget,
+    aux_input,
+    decode_packed,
+    synthesis,
+    trim_silence,
+)
 
 _SENTENCE_RE = re.compile(r"(?<=[.!?;:])\s+(?=[^\s])")
 SENTENCE_GAP = 10000  # zero samples after each sentence (reference synthesizer.py:441)
@@ -53,10 +70,16 @@ def split_into_sentences(text: str) -> List[str]:
     return [p.strip() for p in _SENTENCE_RE.split(text) if p.strip()]
 
 
+_ENCODER = ("speaker_wav needs the speaker encoder, which is not ported for VITS "
+            "(ROADMAP.md slice 3, item 15)")
+
+
 class Synthesizer:
     def __init__(self, tts_checkpoint: str = "", tts_config_path: str = "", model_dir: str = "",
-                 device="cuda"):
+                 device="cuda", speakers_file_path: str = "", language_ids_file_path: str = ""):
         self.device = resolve_device(device)
+        self.speakers_file_path = speakers_file_path
+        self.language_ids_file_path = language_ids_file_path
         self.tts_model = None
         self.tts_config = None
         self.from_file = False  # loaded from a checkpoint file: may trim silence
@@ -72,6 +95,11 @@ class Synthesizer:
     def _load_tts(self, path: str, config_path: str) -> None:
         """A model directory, or a VITS checkpoint file, with its config."""
         config = config_from_dict(read_json_with_comments(config_path))
+        for target in (config, getattr(config, "model_args", None)):
+            if self.speakers_file_path and hasattr(target, "speakers_file"):
+                target.speakers_file = self.speakers_file_path
+            if self.language_ids_file_path and hasattr(target, "language_ids_file"):
+                target.language_ids_file = self.language_ids_file_path
         # build on the meta device: the checkpoint's tensors are assigned,
         # so nothing is allocated twice
         with torch.device("meta"):
@@ -117,16 +145,17 @@ class Synthesizer:
                 wavs += list(np.asarray(outputs["wav"], np.float32))
                 wavs += [0] * SENTENCE_GAP
         else:
-            given = {"speaker_name": speaker_name, "language_name": language_name,
-                     "speaker_wav": speaker_wav, **kwargs}
-            given = sorted(k for k, v in given.items() if v is not None)
+            given = sorted(k for k, v in kwargs.items() if v is not None)
             if given:
-                raise ValueError(f"{self.tts_config.model!r} is a single-speaker, "
-                                 f"single-language model: {', '.join(given)} not taken")
+                raise ValueError(f"{self.tts_config.model!r} takes no {', '.join(given)}")
+            speaker_id, d_vector = self._resolve_speaker(speaker_name, speaker_wav)
+            language_id = self._resolve_language(language_name)
             if len(sens) > 1 and model.supports_packed_decode:
-                pieces = self._tts_sentences_packed(sens)
+                pieces = self._tts_sentences_packed(sens, speaker_id, d_vector, language_id)
             else:
-                pieces = [synthesis(model, sen)["wav"] for sen in sens]
+                language = self._language_name(language_id)
+                pieces = [synthesis(model, sen, speaker_id, d_vector, language_id,
+                                    language)["wav"] for sen in sens]
             audio = self.tts_config.audio
             trim = self.from_file and getattr(audio, "do_trim_silence", False)
             for wav in pieces:
@@ -140,13 +169,67 @@ class Synthesizer:
         print(f" > Real-time factor: {process_time / max(audio_time, 1e-9)}")
         return wavs
 
-    def _tts_sentences_packed(self, sens: List[str]) -> List[np.ndarray]:
+    # ------------------------------------------------------------------
+    def _resolve_speaker(self, speaker_name: Optional[str], speaker_wav=None):
+        """A speaker name → ``(speaker_id, d_vector)``, one of them ``None``
+        (both for a model without speakers), with the JAX ``Synthesizer``'s
+        errors."""
+        if speaker_wav is not None:
+            raise NotImplementedError(_ENCODER)
+        sm = getattr(self.tts_model, "speaker_manager", None)
+        if sm is None or not sm.name_to_id:
+            if speaker_name is not None:
+                raise ValueError(f"{self.tts_config.model!r} is a single-speaker model "
+                                 f"(no speakers file): speaker_name not taken")
+            return None, None
+        if speaker_name is None:
+            if len(sm.name_to_id) != 1:
+                raise ValueError(" [!] Looks like you are using a multi-speaker model. "
+                                 "You need to define either a `speaker_idx` or a `speaker_wav`.")
+            speaker_name = next(iter(sm.name_to_id))
+        if speaker_name not in sm.name_to_id:
+            raise ValueError(f" [!] Speaker {speaker_name!r} not in the available "
+                             f"speakers: {sorted(sm.name_to_id)[:16]}…")
+        if self.tts_model.uses_d_vectors:
+            return None, np.asarray(sm.get_mean_embedding(speaker_name), np.float32)
+        return sm.name_to_id[speaker_name], None
+
+    def _resolve_language(self, language_name: Optional[str]) -> Optional[int]:
+        """A language name → its id (``None`` for a model without languages),
+        with the JAX ``Synthesizer``'s errors."""
+        lm = getattr(self.tts_model, "language_manager", None)
+        if lm is None or not lm.name_to_id:
+            if language_name is not None:
+                raise ValueError(f"{self.tts_config.model!r} is a single-language model "
+                                 f"(no language ids file): language_name not taken")
+            return None
+        if len(lm.name_to_id) == 1:
+            return next(iter(lm.name_to_id.values()))
+        if language_name is None:
+            raise ValueError(" [!] Looks like you are using a multi-lingual model. "
+                             "You need to define a `language_name`.")
+        if language_name not in lm.name_to_id:
+            raise ValueError(f" [!] Language {language_name!r} is not in the available "
+                             f"languages: {sorted(lm.name_to_id)}.")
+        return lm.name_to_id[language_name]
+
+    def _language_name(self, language_id: Optional[int]) -> Optional[str]:
+        """The name of ``language_id`` (``None`` for none), for the tokenizer:
+        a ``multi_phonemizer`` picks its phonemizer by it."""
+        if language_id is None:
+            return None
+        lm = self.tts_model.language_manager
+        return next(name for name, i in lm.name_to_id.items() if i == language_id)
+
+    def _tts_sentences_packed(self, sens: List[str], speaker_id=None, d_vector=None,
+                              language_id=None) -> List[np.ndarray]:
         """All sentences of a request in one packed decode: one row of ids
         per sentence, padded to a multiple of ``pad_to_multiple_text``, at
         the frame budget of the padded width, as the JAX package pads
-        them."""
+        them; every row takes the request's speaker and language."""
         model = self.tts_model
-        rows = [model.tokenizer.text_to_ids(sen) for sen in sens]
+        language = self._language_name(language_id)
+        rows = [model.tokenizer.text_to_ids(sen, language) for sen in sens]
         bucket = int(getattr(self.tts_config, "pad_to_multiple_text", 16) or 16)
         width = max(max(len(r) for r in rows), 1)
         width = ((width + bucket - 1) // bucket) * bucket
@@ -157,7 +240,8 @@ class Synthesizer:
             lengths[i] = max(1, len(r))
         x = torch.from_numpy(ids).to(model.device)
         x_lengths = torch.from_numpy(lengths).to(model.device)
-        return decode_packed(model, x, x_lengths, len(rows), _frame_budget(width))
+        aux = aux_input(model.device, len(rows), speaker_id, d_vector, language_id)
+        return decode_packed(model, x, x_lengths, len(rows), _frame_budget(width), aux)
 
     def tts_stream(
         self,
