@@ -74,7 +74,22 @@ Phases; each raises on failure and the script then exits non-zero:
    latency beside phase 6's, busy share, peak memory. Multilingual: card
    against CPU for each language a phonemizer here serves, and one batched
    turn mixing them and their speakers. d-vectors: card against CPU.
-   ``decode_attention`` must not launch.
+   ``decode_attention`` must not launch;
+9. zoo, voice conversion and VITS variants, full width from seed 0: the
+   VCTK recipe saved as a zoo directory (reference-layout
+   ``model_file.pth``, ``config.json``, ``speakers.pth``) under a temporary
+   ``TTS_HOME`` with a copy of the catalog as ``TTS_TPU_MODELS_FILE``
+   (any fetch raises); ``TTS(model_name=...)`` and ``tts --model_name``
+   against the same files loaded by path; a p225 recording the port speaks
+   converted to p226, card against CPU on host noise; the MB-iSTFT-VITS
+   decoder (arXiv:2210.15975's widths) and an encoder-rate model (44.1 kHz
+   out, encoders at 22.05 kHz, ``interpolate_z``), card against CPU on three
+   sentences, the medium sentence's latency and RTF; the grouped
+   dispatch's ``overhead`` fitted on the iSTFT model (a dispatch's floor
+   over its marginal ms per frame·row); one grouped batcher turn card
+   against CPU and the serving mix with ``--max_batch 1`` and 4 on the
+   iSTFT model, with the groups formed. ``decode_attention`` must not
+   launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -86,6 +101,7 @@ checkout, it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -1797,6 +1813,366 @@ def phase_multispeaker(card: str, single_ms: dict = None, device="cuda", cut=Non
             f"before the phase | {card}")
 
 
+# ---------------------------------------------------------------------------
+ZOO_VCTK = "tts_models/en/vctk/vits"
+GROUP_FIT_ROWS = (2, 4, 8)
+GROUP_FIT_FRAMES = (512, 1024, 2048)
+
+
+def mb_istft_config():
+    """Phase 6's LJSpeech recipe with the MB-iSTFT-VITS decoder as published
+    (arXiv:2210.15975, its ``ljs_mb_istft_vits`` config): a HiFiGAN trunk of
+    [4, 4] with kernels [16, 16] from 512 channels, then a 16-point iSTFT at
+    hop 4 in each of 4 PQMF bands: 4 x 4 x 4 x 4 = the hop of 256."""
+    config = vits_recipe_config()
+    a = config.model_args
+    a.decoder_type = "istft"
+    a.upsample_rates_decoder = [4, 4]
+    a.upsample_kernel_sizes_decoder = [16, 16]
+    a.istft_n_fft_decoder, a.istft_hop_decoder, a.istft_subbands_decoder = 16, 4, 4
+    return config
+
+
+def encoder_rate_config():
+    """Phase 6's LJSpeech recipe at a 44.1 kHz output, its text encoder,
+    durations, posterior encoder and flow at 22.05 kHz (the reference's
+    ``VitsArgs.encoder_sample_rate``), the latent upsampled twice
+    (``interpolate_z``) into the default HiFiGAN (hop 256). No published
+    checkpoint fixes the pair: the factor of 2 is the JAX package's own
+    test's (``tests/test_vits_upsampling.py``), here at full width."""
+    config = vits_recipe_config()
+    config.audio.sample_rate = 44100
+    config.model_args.encoder_sample_rate = 22050
+    config.model_args.interpolate_z = True
+    return config
+
+
+@contextlib.contextmanager
+def offline_zoo(home: str):
+    """``TTS_HOME`` at ``home`` and ``TTS_TPU_MODELS_FILE`` at a copy of the
+    port's catalog there; any fetch raises."""
+    import shutil
+    import urllib.request as request
+
+    from tts_tpu_torch.utils import manage
+
+    models_file = os.path.join(home, "models.json")
+    shutil.copy(manage._DEFAULT_MODELS_FILE, models_file)
+    saved = {k: os.environ.get(k) for k in ("TTS_HOME", "TTS_TPU_MODELS_FILE")}
+    real = request.urlretrieve
+
+    def no_fetch(url, *args, **kwargs):
+        raise AssertionError(f"the zoo phase tried to fetch {url}")
+
+    os.environ.update(TTS_HOME=home, TTS_TPU_MODELS_FILE=models_file)
+    request.urlretrieve = no_fetch
+    try:
+        yield
+    finally:
+        request.urlretrieve = real
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+@contextlib.contextmanager
+def recorded_groups(plans=None):
+    """Every group plan the batcher's grouped dispatch makes inside: the
+    sizes and buckets of each (and, into ``plans``, the predicted lengths
+    and the plan)."""
+    from tts_tpu_torch.server import batching
+
+    groups = []
+    real = batching.plan_decode_groups
+
+    def recording(y_preds, *args, **kwargs):
+        plan = real(y_preds, *args, **kwargs)
+        groups.append([(len(idx), frames) for idx, frames in plan])
+        if plans is not None:
+            plans.append((list(y_preds), plan))
+        return plan
+
+    batching.plan_decode_groups = recording
+    try:
+        yield groups
+    finally:
+        batching.plan_decode_groups = real
+
+
+def planned_against_decoded(plan_record, decoded) -> str:
+    """The lengths the grouped dispatch planned against those its groups'
+    decodes drew, and how many were cut at their group's bucket."""
+    y_preds, plan = plan_record
+    planned = [int(y_preds[i]) for idx, _ in plan for i in idx]
+    lengths = [n for (idx, _), ys in zip(plan, decoded) for n in ys[: len(idx)]]
+    cut_at = sum(n == frames for (idx, frames), ys in zip(plan, decoded) for n in ys[: len(idx)])
+    return f"planned lengths {planned}, decoded {lengths} ({cut_at} cut at their bucket)"
+
+
+def fit_group_overhead(model, device) -> dict:
+    """``plan_decode_groups``' ``overhead``, in frame·row units: one decode
+    dispatch's fixed floor (``inference`` of one row at 32 frames, median of
+    5) over its marginal cost per latent frame of one row (the least-squares
+    slope of ``inference`` timed at ``GROUP_FIT_ROWS`` x ``GROUP_FIT_FRAMES``,
+    median of 3 each, sizes at which the device's work outlasts the host's
+    dispatch). Each row holds the medium sentence."""
+    rows_max = max(GROUP_FIT_ROWS)
+    x, x_lengths = padded_ids(model, [VITS_SENTENCES["medium"]] * rows_max, rows_max)
+
+    def timed(rows, frames, reps):
+        def call():
+            model.inference(x[:rows], x_lengths[:rows], max_frames=frames)
+        call()
+        return median_ms(call, device, reps=reps)[0]
+
+    floor = timed(1, 32, 5)
+    points = [(rows * frames, timed(rows, frames, 3))
+              for rows in GROUP_FIT_ROWS for frames in GROUP_FIT_FRAMES]
+    units = np.array([u for u, _ in points], np.float64)
+    ms = np.array([t for _, t in points], np.float64)
+    (intercept, slope), *_ = np.linalg.lstsq(np.stack([np.ones_like(units), units], 1), ms,
+                                             rcond=None)
+    resid = ms - (intercept + slope * units)
+    return {"floor_ms": floor, "slope_ms": float(slope), "intercept_ms": float(intercept),
+            "overhead": float(floor / slope), "points": points,
+            "max_resid_ms": float(np.abs(resid).max())}
+
+
+def phase_zoo_and_variants(card: str, device="cuda", cut=None) -> None:
+    """The zoo, voice conversion and the iSTFT and encoder-rate variants at
+    full width: (a) the VCTK recipe (phase 8) saved as a zoo directory in
+    the reference layout under a temporary ``TTS_HOME``, loaded by name
+    through ``TTS`` and ``tts --model_name`` against the same files loaded
+    by path; (b) a wav the port speaks as p225 converted to p226, card
+    against CPU on host noise; (c) the MB-iSTFT-VITS decoder and an
+    encoder-rate model, card against CPU on three sentences, the medium
+    sentence's latency and RTF, and the grouped dispatch's overhead fitted
+    on the iSTFT model; (d) the iSTFT model behind the batcher: one grouped
+    turn card against CPU, and the serving mix with ``--max_batch 1`` and 4
+    with the groups formed. ``cut`` shrinks each config in place, for
+    rehearsals on the CPU."""
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.audio.numpy_transforms import load_wav
+    from tts_tpu_torch.audio.torch_transforms import wav_to_spec
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.server import batching
+    from tts_tpu_torch.utils.convert import reference_vits_state
+    from tts_tpu_torch.utils.synthesis import DECODE_GROUP_OVERHEAD, synthesis
+    from tts_tpu_torch.utils.synthesizer import Synthesizer, split_into_sentences
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    cut = cut or (lambda config: config)
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    medium = VITS_SENTENCES["medium"]
+
+    # (a) the zoo: the VCTK recipe as a zoo directory, by name against by path
+    with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+        d = os.path.join(home, "tts_tpu", ZOO_VCTK.replace("/", "--"))
+        os.makedirs(d)
+        torch.save({n: i for i, n in enumerate(VCTK_SPEAKERS)}, os.path.join(d, "speakers.pth"))
+        model = Vits.init_from_config(cut(vctk_recipe_config(os.path.join(d, "speakers.pth")))
+                                      ).init_params(seed=0, device="cpu")
+        saved = model.config.to_dict()
+        saved["model_args"]["speakers_file"] = "/published/vctk/speakers.pth"
+        write_json(os.path.join(d, "config.json"), saved)
+        weights = os.path.join(d, "model_file.pth")
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                              reference_vits_state(model.module.state_dict()).items()}}, weights)
+        del model
+        t0 = time.time()
+        by_name = TTS(model_name=ZOO_VCTK, device=device)
+        load_s = time.time() - t0
+        config_path = os.path.join(d, "config.json")
+        by_path = TTS(model_path=weights, config_path=config_path, device=device)
+        if by_name.speakers != VCTK_SPEAKERS:
+            raise AssertionError(f"zoo load: {len(by_name.speakers)} speakers")
+        a = np.asarray(by_name.tts(medium, speaker="p226"), np.float32)
+        b = np.asarray(by_path.tts(medium, speaker="p226"), np.float32)
+        err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+        if not err <= VITS_WAV_TOL or a.std() == 0:
+            raise AssertionError(f"TTS(model_name) vs path load: {a.shape} vs {b.shape}, {err}")
+        del by_name
+        cli_path, api_path = os.path.join(home, "cli.wav"), os.path.join(home, "api.wav")
+        synthesize_cli(["--text", medium, "--model_name", ZOO_VCTK, "--speaker_idx", "p226",
+                        "--out_path", cli_path, "--device", str(device)])
+        by_path.tts_to_file(medium, speaker="p226", file_path=api_path)
+        (sr, cli_pcm), (_, api_pcm) = (scipy.io.wavfile.read(p) for p in (cli_path, api_path))
+        step = (np.abs(cli_pcm.astype(np.int32) - api_pcm.astype(np.int32)).max()
+                if cli_pcm.shape == api_pcm.shape else None)
+        if step is None or step > 1:
+            raise AssertionError(f"tts --model_name {cli_pcm.shape} vs path load "
+                                 f"{api_pcm.shape}: {step} int16 steps")
+        log(f"zoo: {ZOO_VCTK} from a TTS_HOME holding model_file.pth (reference layout), "
+            f"config.json (speakers path rewritten) and speakers.pth ({len(VCTK_SPEAKERS)} "
+            f"speakers), nothing fetched; TTS(model_name) loaded in {load_s:.1f} s and speaks "
+            f"the path-loaded model's medium sentence (p226) within {err:.3g}; tts --model_name "
+            f"{len(cli_pcm)} samples at {sr} Hz, at most {step} int16 step from the path load")
+
+        # (b) voice conversion: the port's own p225 recording into p226's voice
+        ref_wav = os.path.join(home, "p225.wav")
+        by_path.tts_to_file(medium, speaker="p225", file_path=ref_wav)
+        synth = by_path.synthesizer
+        cpu_synth = Synthesizer(tts_checkpoint=weights, tts_config_path=config_path,
+                                device="cpu")
+
+        def convert(s):
+            return np.asarray(s.tts(reference_wav=ref_wav, speaker_name="p226",
+                                    reference_speaker_name="p225"), np.float32)
+
+        with host_noise(seed=0):
+            got, want = convert(synth), convert(cpu_synth)
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        if not err <= VITS_WAV_TOL or not np.isfinite(got).all() or got.std() == 0:
+            raise AssertionError(f"voice conversion card vs CPU: {got.shape} vs {want.shape}, "
+                                 f"max abs diff {err}")
+        ms, lo, hi = median_ms(lambda: convert(synth), device)
+        seconds = len(got) / 22050
+        # the sizes the posterior meets: the spectrogram, its log-scale, its sample
+        audio = synth.tts_config.audio
+        wav = torch.from_numpy(load_wav(filename=ref_wav, sample_rate=22050)[None]).to(device)
+        spec = wav_to_spec(wav, audio.fft_size, audio.hop_length, audio.win_length)
+        with host_noise(seed=0):
+            z, _, logs, _ = synth.tts_model.module.posterior_encoder(
+                spec.transpose(1, 2), torch.tensor([spec.shape[2]], device=device),
+                torch.Generator(device=device), g=synth.tts_model.module.emb_g(
+                    torch.tensor([0], device=device)))
+        sizes = (f"max |spectrogram| {float(spec.abs().max()):.1f}, max log-scale "
+                 f"{float(logs.max()):.2f}, max |z| {float(z.abs().max()):.1f}")
+        log(f"voice conversion p225 -> p226 of the port's own {seconds:.2f} s recording, card "
+            f"vs CPU on host noise: {len(got)} samples each, max abs diff {err:.3g} (tol "
+            f"{VITS_WAV_TOL}); {ms:.1f} ms on {device} (median of 5; {lo:.1f}-{hi:.1f}), RTF "
+            f"{seconds / ms * 1e3:.1f}; posterior of random weights: {sizes} | {card}")
+        del cpu_synth, synth, by_path
+
+    # (c) the variants, card against CPU, latency, and the grouped dispatch's overhead
+    fit = None
+    for name, config in (("MB-iSTFT", mb_istft_config()), ("encoder rate", encoder_rate_config())):
+        config = cut(config)
+        model = Vits.init_from_config(config).init_params(seed=0, device=device)
+        cpu_model = Vits.init_from_config(config).init_params(seed=0, device="cpu")
+        a, sr = model.args, model.config.audio.sample_rate
+        worst, lengths = 0.0, []
+        with host_noise(seed=0):
+            for text in VITS_SENTENCES.values():
+                g, w = synthesis(model, text), synthesis(cpu_model, text)
+                g_len, w_len = g["outputs"]["y_lengths"].cpu(), w["outputs"]["y_lengths"]
+                if not torch.equal(g_len, w_len) or g["wav"].shape != w["wav"].shape:
+                    raise AssertionError(f"{name}: y_lengths card {g_len.tolist()} CPU "
+                                         f"{w_len.tolist()}")
+                err = float(np.abs(g["wav"] - w["wav"]).max())
+                if not err <= VITS_WAV_TOL or not np.isfinite(g["wav"]).all():
+                    raise AssertionError(f"{name} card vs CPU: max abs diff {err}")
+                worst, lengths = max(worst, err), lengths + [int(g_len[0])]
+        del cpu_model
+        synthesis(model, medium)
+        ms, lo, hi = median_ms(lambda: synthesis(model, medium), device)
+        seconds = len(synthesis(model, medium)["wav"]) / sr
+        log(f"VITS {name} ({a.decoder_type} decoder, upsampling {a.upsample_rates_decoder}"
+            + (f", iSTFT n_fft {a.istft_n_fft_decoder} hop {a.istft_hop_decoder} x "
+               f"{a.istft_subbands_decoder} bands" if a.decoder_type == "istft" else "")
+            + f"; {sr} Hz out, encoder rate {a.encoder_sample_rate}, {model.hop_length} samples "
+            f"per latent frame; {sum(p.numel() for p in model.module.parameters()) / 1e6:.2f} M "
+            f"parameters, seed 0): card vs CPU on host noise, y_lengths {lengths} equal, "
+            f"waveform max abs diff {worst:.3g} (tol {VITS_WAV_TOL}); medium sentence "
+            f"{seconds:.2f} s of audio in {ms:.1f} ms (median of 5; {lo:.1f}-{hi:.1f}), RTF "
+            f"{seconds / ms * 1e3:.1f} | {card}")
+        if cuda:
+            profile_call(lambda: synthesis(model, medium), f"VITS {name}, one medium sentence",
+                         card)
+        if a.decoder_type == "istft":
+            fit = fit_group_overhead(model, device)
+            log(f"grouped-dispatch overhead fit on the {name} VITS (inference of the medium "
+                f"sentence): floor {fit['floor_ms']:.2f} ms per dispatch (1 row x 32 frames, "
+                f"median of 5); slope {fit['slope_ms'] * 1e3:.3f} us per frame-row "
+                f"(least squares over rows {list(GROUP_FIT_ROWS)} x frames "
+                f"{list(GROUP_FIT_FRAMES)}, median of 3 each; intercept "
+                f"{fit['intercept_ms']:.2f} ms, largest residual {fit['max_resid_ms']:.2f} ms); "
+                f"overhead = floor / slope = {fit['overhead']:.0f} frame-rows "
+                f"(DECODE_GROUP_OVERHEAD in the port: {DECODE_GROUP_OVERHEAD}); points "
+                f"(frame-rows, ms) " + ", ".join(f"({u}, {t:.2f})" for u, t in fit["points"])
+                + f" | {card}")
+        del model
+
+    # (d) the iSTFT model behind the batcher: the grouped dispatch
+    with tempfile.TemporaryDirectory() as d:
+        save_model_dir(cut(mb_istft_config()), d)
+        synth = Synthesizer(model_dir=d, device=device)
+        cpu_synth = Synthesizer(model_dir=d, device="cpu")
+        long_a, long_b = split_into_sentences(VITS_SENTENCES["long"])
+        requests = [(t, None, None) for t in (VITS_SENTENCES["short"], medium, long_a, long_b)]
+        plans = []
+        with host_noise(seed=0), recorded_groups(plans) as groups, \
+                recorded_y_lengths(synth.tts_model, ("inference",)) as decoded:
+            got, want = batched_turn(synth, requests), batched_turn(cpu_synth, requests)
+        turn = max(float(np.abs(g.wav - w.wav).max()) if g.wav.shape == w.wav.shape
+                   else float("inf") for g, w in zip(got, want))
+        if not turn <= VITS_WAV_TOL or groups[0] != groups[1] or any(
+                g.wav.std() == 0 for g in got):
+            raise AssertionError(f"grouped turn card vs CPU: max abs diff {turn}, groups {groups}")
+        log(f"VITS MB-iSTFT grouped dispatch of 4 sentences, card vs CPU on host noise: groups "
+            f"(size, bucket) {groups[0]} on both, max abs diff {turn:.3g} (tol {VITS_WAV_TOL}); "
+            + planned_against_decoded(plans[0], decoded))
+        # two groups (a dispatch priced at 0): each group's decode redraws its durations
+        # with another shape than the plan's pass (ROADMAP.md F16)
+        plans, real = [], batching.plan_decode_groups
+        batching.plan_decode_groups = functools.partial(real, overhead=0)
+        try:
+            with recorded_groups(plans), \
+                    recorded_y_lengths(synth.tts_model, ("inference",)) as decoded:
+                batched_turn(synth, requests)
+        finally:
+            batching.plan_decode_groups = real
+        log(f"VITS MB-iSTFT grouped dispatch priced at overhead 0, on the card: groups "
+            f"{[(len(idx), frames) for idx, frames in plans[0][1]]}; "
+            + planned_against_decoded(plans[0], decoded))
+        del cpu_synth, synth
+        served = {1: [], 4: []}
+        for max_batch in (1, 4, 4, 1):
+            with recorded_groups() as groups:
+                run = serve_mix(d, max_batch, device)
+            run["groups"] = list(groups)
+            served[max_batch].append(run)
+        n_sentences = sum(len(split_into_sentences(VITS_SENTENCES[k])) * c for k, c in VITS_MIX)
+        for max_batch, runs in served.items():
+            rates = [r["audio_s"] / r["wall_s"] for r in runs]
+            line = (f"VITS MB-iSTFT serving mix, --max_batch {max_batch}: "
+                    + "; ".join(f"{r['audio_s']:.2f} s of audio in {r['wall_s']:.3f} s"
+                                for r in runs)
+                    + f", {' and '.join(f'{v:.1f}' for v in rates)} audio s per wall s")
+            if max_batch > 1:
+                line += (f"; batch sizes {[r['sizes'] for r in runs]}, groups (size, bucket) "
+                         f"{[r['groups'] for r in runs]}")
+                for r in runs:
+                    if sum(r["sizes"]) != n_sentences or not r["groups"]:
+                        raise AssertionError(f"--max_batch 4 on the iSTFT model: batch sizes "
+                                             f"{r['sizes']}, groups {r['groups']}")
+            log(line + f" | {card}")
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the zoo and variants phase")
+    log(f"zoo, voice conversion and VITS variants: no hand-written kernel on this path "
+        f"(decode_attention launches 0); phase 9 took {time.time() - t_phase:.1f} s")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase 9 peak device memory {peak / 1e9:.3f} GB allocated, "
+            f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident "
+            f"before the phase | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1821,6 +2197,7 @@ def main() -> int:
     single_ms = phase_vits(card)
     phase_batched_vits(card)
     phase_multispeaker(card, single_ms)
+    phase_zoo_and_variants(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:

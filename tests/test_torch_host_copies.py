@@ -12,12 +12,17 @@ tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
 trailing-silence endpoint (``db_to_amp``, ``find_endpoint``) and the
 speaker and language managers (``utils/managers.py``, apart from their
 ``init_from_config``, which reads ``model_args`` too: ROADMAP.md F11, held
-in ``tests/test_torch_multispeaker.py``). Each copy must
+in ``tests/test_torch_multispeaker.py``), the zoo catalog
+(``zoo/models.json``) and the zoo manager (``utils/manage.py``; its
+listing, files and fetching are held in ``tests/test_torch_zoo.py``). Each
+copy must
 behave exactly as its source: the config dicts, the normalised text, the
 token ids, the converted leaves, the plans and the endpoints are compared
 for equality, no tolerance. The grapheme path is held here; the
 phoneme front end in ``tests/test_torch_phonemes.py``.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -288,3 +293,46 @@ def test_language_managers_match_jax(tmp_path):
     for manager in (LanguageManager, JaxLanguageManager):
         with pytest.raises(ValueError, match="has no language"):
             manager(config=config)
+
+
+def test_zoo_catalog_copy_equals_jax():
+    """``tts_tpu_torch/zoo/models.json`` is the JAX package's catalog, byte
+    for byte (88 entries)."""
+    from tts_tpu.utils import manage as jax_manage
+    from tts_tpu_torch.utils import manage
+
+    with open(manage._DEFAULT_MODELS_FILE, "rb") as f:
+        ours = f.read()
+    with open(jax_manage._DEFAULT_MODELS_FILE, "rb") as f:
+        assert ours == f.read()
+    assert os.path.realpath(manage._DEFAULT_MODELS_FILE) != os.path.realpath(
+        jax_manage._DEFAULT_MODELS_FILE)
+    assert len(manage.ModelManager().list_models()) == 88
+
+
+def test_manage_copies_match_jax(tmp_path):
+    """The copied parts of ``utils/manage.py``: the checkpoint names and
+    directory markers ``_find_files`` reads, ``_set_model_item`` for every
+    entry, ``_flatten`` on one nested directory and on two, and the catalog
+    queries, against the JAX package's."""
+    from tts_tpu.utils import manage as jax_manage
+    from tts_tpu_torch.utils import manage
+
+    ours, theirs = manage.ModelManager(output_prefix=str(tmp_path)), jax_manage.ModelManager(
+        output_prefix=str(tmp_path))
+    assert ours._MODEL_FILE_NAMES == theirs._MODEL_FILE_NAMES
+    assert ours._DIR_MARKERS == theirs._DIR_MARKERS
+    for name in ours.list_models():
+        assert ours._set_model_item(name) == theirs._set_model_item(name)
+        assert ours.model_info_by_full_name(name) == theirs.model_info_by_full_name(name)
+    for cls in (manage.ModelManager, jax_manage.ModelManager):
+        for dirs in (["only"], ["one", "two"]):
+            d = tmp_path / f"{cls.__module__}-{len(dirs)}"
+            for sub in dirs:
+                (d / sub).mkdir(parents=True)
+                (d / sub / f"{sub}.pth").write_bytes(b"x")
+            cls._flatten(str(d))
+    for n in (1, 2):
+        assert sorted(os.listdir(tmp_path / f"{manage.__name__}-{n}")) == sorted(
+            os.listdir(tmp_path / f"{jax_manage.__name__}-{n}"))
+    assert sorted(os.listdir(tmp_path / f"{manage.__name__}-1")) == ["only.pth"]

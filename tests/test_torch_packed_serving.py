@@ -466,8 +466,8 @@ def test_batcher_refuses_xtts_and_speakers(model_dir, capsys):
 def test_packed_decode_refused_for_istft_and_interpolate_z():
     """F2: the JAX ``supports_packed_decode`` checks only for ``istft``, so
     it lets an ``interpolate_z`` model pack; the port's property refuses
-    both, and the port's ``Vits`` raises on both configs until they are
-    ported (ROADMAP.md item 8)."""
+    both, and the port's ``inference_packed`` raises on both (the batcher
+    serves them through its grouped path)."""
     from tts_tpu.models.vits import Vits as JaxVits
     from tts_tpu.models.vits import VitsArgs as JaxVitsArgs
     from tts_tpu.models.vits import VitsConfig as JaxVitsConfig
@@ -479,8 +479,10 @@ def test_packed_decode_refused_for_istft_and_interpolate_z():
         assert JaxVits(jax_config).supports_packed_decode is jax_says
         config = VitsConfig.from_dict(jax_config.to_dict())
         assert supports_packed_decode(config) is False
-        with pytest.raises(NotImplementedError):
-            Vits(config)
+        with torch.device("meta"):
+            model = Vits(config)
+        with pytest.raises(ValueError, match="F2"):
+            model.inference_packed(None, None, None, None)
     plain = VitsConfig()
     assert supports_packed_decode(plain) and Vits(plain).supports_packed_decode
     same_rate = VitsConfig()

@@ -319,13 +319,28 @@ def test_fidelity_replay_through_the_ports_converter(tmp_path):
     ("decoder_type", "istft"),
 ])
 def test_unported_variants_raise(field, value):
+    """The ``encoder_sample_rate`` and ``istft`` variants are built (their
+    inference is held against the JAX package in
+    ``test_torch_vits_variants.py``), but the sequence-packed decode still
+    refuses them (ROADMAP.md F2)."""
     config = VitsConfig()
     setattr(config.model_args, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Vits(config)
+    with torch.device("meta"):
+        model = Vits(config)
+    assert not model.supports_packed_decode
+    with pytest.raises(ValueError, match="ROADMAP"):
+        model.inference_packed(None, None, None, None)
 
 
 def test_unported_paths_raise(pair):
+    """What VITS still refuses: ``speaker_wav`` (the speaker encoder, ROADMAP.md
+    item 15) and voice conversion on a model without speakers."""
+    from tts_tpu_torch.utils.synthesizer import Synthesizer
+
     _, _, port = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    synth = Synthesizer(device="cpu")
+    synth.tts_model, synth.tts_config = port, port.config
+    with pytest.raises(NotImplementedError, match="item 15"):
+        synth.tts("Hello.", speaker_wav="ref.wav")
+    with pytest.raises(ValueError, match="multi-speaker"):
         port.voice_conversion(None, None, None, None)

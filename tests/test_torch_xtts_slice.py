@@ -298,9 +298,10 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     modules), nor ``jax``, ``flax`` or ``tokenizers``. Checked in a fresh
     interpreter, after importing every module of the port, the XTTS and VITS
     slices, the phonemizers, the ``tts`` command line, the server, its
-    batcher, the pack planner and the speaker and language managers
-    included: this test process has JAX and ``tts_tpu`` loaded already
-    (tests/conftest.py)."""
+    batcher, the pack planner, the speaker and language managers, the zoo
+    manager, the iSTFT decoder and the PQMF bank included: this test process
+    has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
+    manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tts_tpu_torch\n"
@@ -312,7 +313,13 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "import tts_tpu_torch.text.latin_g2p, tts_tpu_torch.bin.synthesize\n"
         "import tts_tpu_torch.server.server, tts_tpu_torch.server.batching\n"
         "import tts_tpu_torch.utils.packing, tts_tpu_torch.utils.managers\n"
-        "assert len(mods) > 55 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "from tts_tpu_torch.utils.manage import ModelManager\n"
+        "import tts_tpu_torch.vocoder.layers, tts_tpu_torch.vocoder.models.istft_hifigan\n"
+        "assert len(mods) > 58 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
+        "assert {'tts_tpu_torch.utils.manage', 'tts_tpu_torch.vocoder.layers',\n"
+        "        'tts_tpu_torch.vocoder.models.istft_hifigan'} <= set(mods), mods\n"
+        "catalog = ModelManager().models_file\n"
+        "assert catalog.endswith('tts_tpu_torch/zoo/models.json'), catalog\n"
         "assert 'tts_tpu_torch.utils.managers' in mods, mods\n"
         "assert 'tts_tpu_torch.bin.synthesize' in mods, mods\n"
         "assert 'tts_tpu_torch.models.vits.model' in mods, mods\n"

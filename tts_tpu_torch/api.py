@@ -12,31 +12,67 @@ Example::
     >>> vctk.speakers[:2]
     ['p225', 'p226']
     >>> vctk.tts_to_file("Hello world.", speaker="p226", file_path="out.wav")
+    >>> TTS.list_models()[:1]
+    ['tts_models/multilingual/multi-dataset/xtts_v2']
+    >>> zoo = TTS("tts_models/en/vctk/vits")  # from $TTS_HOME/tts_tpu/, fetched if absent
+
+A zoo name loads through ``utils.manage.ModelManager``: a VITS entry from its
+reference-layout checkpoint file and ``config.json``, XTTS v2 from its
+directory. Every other family raises ``NotImplementedError`` naming its
+ROADMAP.md item before anything is fetched (``utils.manage.unported_reason``).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from tts_tpu_torch.utils.manage import ModelManager, unported_reason
 from tts_tpu_torch.utils.synthesizer import Synthesizer
 
 
 class TTS:
-    """Facade over :class:`Synthesizer`. ``model_path`` is a model directory
-    or a checkpoint file with its ``config_path``; ``speakers_file_path`` and
-    ``language_ids_file_path`` replace the config's speaker and language
-    files. ``device`` defaults to ``"cuda"`` and must exist."""
+    """Facade over :class:`Synthesizer`. ``model_name`` is a zoo name;
+    ``model_path`` a model directory or a checkpoint file with its
+    ``config_path``; ``speakers_file_path`` and ``language_ids_file_path``
+    replace the config's speaker and language files. ``device`` defaults to
+    ``"cuda"`` and must exist."""
 
-    def __init__(self, model_path: Optional[str] = None, config_path: Optional[str] = None,
-                 device="cuda", speakers_file_path: Optional[str] = None,
+    def __init__(self, model_name: str = "", model_path: Optional[str] = None,
+                 config_path: Optional[str] = None, device="cuda",
+                 speakers_file_path: Optional[str] = None,
                  language_ids_file_path: Optional[str] = None):
         self.synthesizer: Optional[Synthesizer] = None
-        if model_path:
-            self.synthesizer = Synthesizer(
-                tts_checkpoint=model_path, tts_config_path=config_path or "", device=device,
-                speakers_file_path=speakers_file_path or "",
-                language_ids_file_path=language_ids_file_path or "",
-            )
+        self.model_name = model_name
+        self.device = device
+        self._speakers_file_path = speakers_file_path or ""
+        self._language_ids_file_path = language_ids_file_path or ""
+        if model_name:
+            self.load_tts_model_by_name(model_name)
+        elif model_path:
+            self.load_tts_model_by_path(model_path, config_path)
+
+    @staticmethod
+    def list_models() -> List[str]:
+        """Every name of the zoo catalog."""
+        return ModelManager().list_models()
+
+    def load_tts_model_by_name(self, model_name: str) -> None:
+        """A zoo model by name (port of ``tts_tpu/api.py:88-110``): its files
+        from the data directory, fetched if absent, after the family is
+        known to be ported."""
+        manager = ModelManager()
+        reason = unported_reason(model_name, manager.models_dict)
+        if reason:
+            raise NotImplementedError(f"{model_name}: {reason}")
+        model_path, config_path, _ = manager.download_model(model_name)
+        self.load_tts_model_by_path(model_path, config_path)
+
+    def load_tts_model_by_path(self, model_path: str, config_path: Optional[str] = None) -> None:
+        self.synthesizer = Synthesizer(
+            tts_checkpoint=model_path, tts_config_path=config_path or "", device=self.device,
+            speakers_file_path=self._speakers_file_path,
+            language_ids_file_path=self._language_ids_file_path,
+        )
 
     def _manager(self, name: str):
         model = self.synthesizer.tts_model if self.synthesizer else None

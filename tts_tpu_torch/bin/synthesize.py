@@ -13,6 +13,19 @@ Examples::
         --speakers_file_path vctk_dir/speakers.json --list_speaker_idxs
     python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
         --model_path vctk_dir/ --speaker_idx p226 --out_path out.wav
+    python -m tts_tpu_torch.bin.synthesize --list_models
+    python -m tts_tpu_torch.bin.synthesize --model_info_by_idx tts_models/3
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_name tts_models/en/vctk/vits --speaker_idx p226
+    python -m tts_tpu_torch.bin.synthesize --model_path vctk_dir/ \\
+        --reference_wav p225.wav --reference_speaker_idx p225 --speaker_idx p226
+
+``--model_name`` loads a zoo model from ``$TTS_HOME/tts_tpu/`` (fetched if
+absent; ``TTS_TPU_MODELS_FILE`` replaces the catalog); a family the port
+does not run yet raises ``NotImplementedError`` before anything is fetched.
+``--reference_wav`` with ``--reference_speaker_idx`` (the speaker of the
+recording) and ``--speaker_idx`` (the voice wanted) converts a recording
+with a multi-speaker VITS model.
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
 runs the plain PyTorch path. ``--use_cuda``, ``--save_spectogram`` and
@@ -22,12 +35,11 @@ only thing written to stdout: the log lines go to stderr (the JAX
 command line prints them into the same stream).
 
 The JAX command line's other flags wait for the paths they select, and
-argparse rejects them until then (ROADMAP.md §1):
+argparse rejects them until then (ROADMAP.md §1); ``--vocoder_name`` is
+taken and raises ``NotImplementedError`` (item 13 onward):
 
-* the model zoo (``--list_models``, ``--model_info_by_idx``,
-  ``--model_info_by_name``, ``--model_name``, ``--vocoder_name``): item 6;
-* voice conversion (``--source_wav``, ``--target_wav``) and same-model voice
-  transfer (``--reference_wav``, ``--reference_speaker_idx``): item 8;
+* voice conversion models (``--source_wav``, ``--target_wav``): FreeVC,
+  slice 3, item 16;
 * vocoder and speaker-encoder checkpoints (``--vocoder_path``,
   ``--vocoder_config_path``, ``--encoder_path``, ``--encoder_config_path``):
   slice 3, items 13–15;
@@ -51,7 +63,15 @@ def str2bool(v):
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="tts_tpu_torch synthesis command line")
+    parser.add_argument("--list_models", action="store_true", help="list the zoo's models")
+    parser.add_argument("--model_info_by_idx", type=str, default=None,
+                        help="model info by query idx: <model_type>/<model_query_idx>")
+    parser.add_argument("--model_info_by_name", type=str, default=None,
+                        help="model info by full name: <model_type>/<language>/<dataset>/<model_name>")
     parser.add_argument("--text", type=str, default=None, help="Text to synthesize.")
+    parser.add_argument("--model_name", type=str, default=None, help="zoo model name")
+    parser.add_argument("--vocoder_name", type=str, default=None,
+                        help="zoo vocoder name (vocoders are not ported yet: raises)")
     parser.add_argument("--model_path", type=str, default=None,
                         help="model directory, or a VITS checkpoint file with --config_path")
     parser.add_argument("--config_path", type=str, default=None,
@@ -71,6 +91,10 @@ def make_parser() -> argparse.ArgumentParser:
                         help="print the model's speaker names and exit")
     parser.add_argument("--list_language_idxs", action="store_true",
                         help="print the model's language names and exit")
+    parser.add_argument("--reference_wav", type=str, default=None,
+                        help="convert this recording to --speaker_idx's voice")
+    parser.add_argument("--reference_speaker_idx", type=str, default=None,
+                        help="the speaker of --reference_wav")
     parser.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
     # accepted for compatibility with the reference command line
     parser.add_argument("--use_cuda", action="store_true",
@@ -78,7 +102,7 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_spectogram", action="store_true",
                         help="accepted for compatibility (a no-op in the reference too)")
     parser.add_argument("--progress_bar", type=str2bool, nargs="?", const=True, default=True,
-                        help="accepted for compatibility (the port downloads nothing)")
+                        help="accepted for compatibility (downloads show no bar)")
     return parser
 
 
@@ -86,9 +110,26 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     pipe_out = sys.stdout if args.pipe_out else None
     with contextlib.redirect_stdout(sys.stderr if pipe_out else sys.stdout):
+        if args.list_models or args.model_info_by_idx or args.model_info_by_name:
+            from tts_tpu_torch.utils.manage import ModelManager
+
+            manager = ModelManager(progress_bar=args.progress_bar)
+            if args.list_models:
+                for name in manager.list_models():
+                    print(name)
+            if args.model_info_by_idx:
+                manager.model_info_by_idx(args.model_info_by_idx)
+            if args.model_info_by_name:
+                manager.model_info_by_name(args.model_info_by_name)
+            return
+        if args.vocoder_name:
+            raise NotImplementedError("--vocoder_name: vocoders are not ported to "
+                                      "tts_tpu_torch yet (ROADMAP.md items 13 onward)")
+
         from tts_tpu_torch.api import TTS
 
-        tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device,
+        tts = TTS(model_name=args.model_name or "", model_path=args.model_path,
+                  config_path=args.config_path, device=args.device,
                   speakers_file_path=args.speakers_file_path,
                   language_ids_file_path=args.language_ids_file_path)
 
@@ -99,6 +140,14 @@ def main(argv=None):
         if args.list_language_idxs:
             print(" > Available language ids: (set --language_idx to one of these):")
             print(tts.languages)
+            return
+
+        if args.reference_wav is not None:
+            wav = tts.synthesizer.tts(reference_wav=args.reference_wav,
+                                      speaker_name=args.speaker_idx,
+                                      reference_speaker_name=args.reference_speaker_idx)
+            tts.synthesizer.save_wav(wav, args.out_path, pipe_out=pipe_out)
+            print(f" > Saving output to {args.out_path}")
             return
 
         if args.text is None:

@@ -3,13 +3,23 @@
 flow, HiFiGAN decoder; the posterior encoder is built so weights load
 strictly) and the ``Vits`` host wrapper (tokenizer, weights, noise).
 
-The port runs the HiFiGAN variant, one utterance per row (``inference``) or
-many packed into a few rows (``inference_packed``), for one speaker or many
-(a learned speaker embedding ``emb_g`` or d-vectors) and one language or
-many (``emb_l``): ``aux_input`` carries ``speaker_ids``, ``d_vectors`` and
-``language_ids`` per row, as in the JAX package. ``encoder_sample_rate``
-(``interpolate_z``), the ``istft`` decoder, voice conversion and training
-raise ``NotImplementedError`` (ROADMAP.md, item 8 and later).
+The port runs VITS inference as the JAX package does: one utterance per
+row (``inference``) or many packed into a few rows (``inference_packed``),
+for one speaker or many (a learned speaker embedding ``emb_g`` or
+d-vectors) and one language or many (``emb_l``): ``aux_input`` carries
+``speaker_ids``, ``d_vectors`` and ``language_ids`` per row. The waveform
+decoder is HiFiGAN or, with ``decoder_type="istft"``, the iSTFT head
+(``vocoder/models/istft_hifigan.py``). With ``encoder_sample_rate`` the
+encoders and flow run at that lower rate and the latent is linearly
+upsampled to the output rate (``interpolate_z``) or the decoder's own
+upsampling carries the factor. Neither variant takes the packed decode
+(ROADMAP.md F2): ``inference_packed`` raises on both.
+
+``voice_conversion`` (speaker ids or d-vectors) runs the posterior encoder
+and the flow forward with the source speaker, the flow back with the target
+and the decoder, upsampling the latent as ``inference`` does, where the
+reference does not (the JAX package's named divergence). Training waits
+for its own slice (ROADMAP.md item 17).
 
 ``Vits.init_from_config`` attaches the speaker and language managers
 (``utils/managers.py``), reading their fields from the config's top level or
@@ -33,6 +43,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from tts_tpu_torch import resolve_device
 from tts_tpu_torch.layers.common import DurationPredictor
@@ -40,6 +51,7 @@ from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
 from tts_tpu_torch.text.tokenizer import TTSTokenizer
 from tts_tpu_torch.utils.managers import init_speaker_manager
 from tts_tpu_torch.vocoder.models.hifigan_generator import HifiganGenerator
+from tts_tpu_torch.vocoder.models.istft_hifigan import IstftHifiganGenerator
 
 from . import modules
 from .config import VitsArgs, VitsConfig
@@ -47,16 +59,39 @@ from .config import VitsArgs, VitsConfig
 PORT_WEIGHTS = "model_torch.pt"  # the port's state_dict of VitsModule
 REFERENCE_WEIGHTS = "model.pth"  # a reference-layout (coqui) checkpoint
 
-_ROADMAP = "is not ported to tts_tpu_torch yet (ROADMAP.md, item 8)"
+DECODER_TYPES = ("hifigan", "istft")
 
 
 def check_supported(config: VitsConfig) -> None:
-    """Raise on every VITS variant the port does not run yet."""
+    """Raise on a decoder type the port does not know (the JAX package
+    builds HiFiGAN for any name but ``istft``)."""
+    if config.model_args.decoder_type not in DECODER_TYPES:
+        raise ValueError(f"VITS decoder_type={config.model_args.decoder_type!r}: "
+                         f"one of {DECODER_TYPES}")
+
+
+def interpolate_factor(config: VitsConfig) -> float:
+    """``audio.sample_rate / encoder_sample_rate`` (1.0 without an encoder
+    rate), with the JAX package's two checks (``tts_tpu/models/vits/model.py:494-522``):
+    the rates divide, and the decoder's upsampling covers ``hop_length`` at
+    the output rate (times the factor where the latent is not interpolated)."""
     a = config.model_args
-    if a.encoder_sample_rate:
-        raise NotImplementedError(f"VITS with encoder_sample_rate (interpolate_z) {_ROADMAP}")
-    if a.decoder_type != "hifigan":
-        raise NotImplementedError(f"VITS decoder_type={a.decoder_type!r} {_ROADMAP}")
+    if not a.encoder_sample_rate:
+        return 1.0
+    sr, enc_sr = config.audio.sample_rate, a.encoder_sample_rate
+    if sr % enc_sr != 0:
+        raise ValueError(f"audio.sample_rate ({sr}) must be an integer multiple of "
+                         f"encoder_sample_rate ({enc_sr})")
+    factor = sr / enc_sr
+    rates = int(np.prod(a.upsample_rates_decoder))
+    if a.decoder_type == "istft":
+        rates *= int(a.istft_hop_decoder) * int(a.istft_subbands_decoder)
+    need = config.audio.hop_length if a.interpolate_z else config.audio.hop_length * int(factor)
+    if rates != need:
+        raise ValueError(f"decoder upsampling {rates} != required {need} (hop "
+                         f"{config.audio.hop_length}, interpolate_z={a.interpolate_z}, "
+                         f"factor {factor})")
+    return factor
 
 
 def supports_packed_decode(config: VitsConfig) -> bool:
@@ -79,9 +114,11 @@ class VitsModule(nn.Module):
     languages, ``emb_l`` of the ids joins the text encoder's input and
     conditions the stochastic duration predictor."""
 
-    def __init__(self, args: VitsArgs):
+    def __init__(self, args: VitsArgs, interpolate_factor: float = 1.0):
         super().__init__()
         self.args = args
+        # the latent's upsampling to the output rate (encoder_sample_rate)
+        self.interpolate_factor = interpolate_factor
         if args.use_d_vector_file and not args.d_vector_dim:
             raise ValueError("use_d_vector_file needs d_vector_dim, the d-vectors' width")
         if args.use_language_embedding and not args.num_languages:
@@ -133,18 +170,23 @@ class VitsModule(nn.Module):
                 in_channels=args.hidden_channels + lang_dim, hidden_channels=256,
                 kernel_size=3, cond_channels=dp_cond,
             )
-        self.waveform_decoder = HifiganGenerator(
+        decoder = dict(
             in_channels=args.hidden_channels,
-            out_channels=1,
             resblock_type=args.resblock_type_decoder,
             resblock_dilation_sizes=[tuple(d) for d in args.resblock_dilation_sizes_decoder],
             resblock_kernel_sizes=tuple(args.resblock_kernel_sizes_decoder),
             upsample_kernel_sizes=tuple(args.upsample_kernel_sizes_decoder),
             upsample_initial_channel=args.upsample_initial_channel_decoder,
             upsample_factors=tuple(args.upsample_rates_decoder),
-            conv_post_bias=False,
             cond_channels=speaker_dim,
         )
+        if args.decoder_type == "istft":
+            self.waveform_decoder = IstftHifiganGenerator(
+                istft_n_fft=args.istft_n_fft_decoder, istft_hop=args.istft_hop_decoder,
+                subbands=args.istft_subbands_decoder, **decoder)
+        else:
+            self.waveform_decoder = HifiganGenerator(out_channels=1, conv_post_bias=False,
+                                                     **decoder)
 
     def _cond_vectors(self, aux_input: Optional[Dict]):
         """``(g [B, C_g] or None, lang [B, C_l] or None)`` from ``aux_input``'s
@@ -160,6 +202,19 @@ class VitsModule(nn.Module):
             if aux_input.get("language_ids") is not None and a.use_language_embedding:
                 lang = self.emb_l(aux_input["language_ids"])
         return g, lang
+
+    def _upsample_z(self, z: torch.Tensor) -> torch.Tensor:
+        """The latent ``[B, T, C]`` linearly resized to ``T * factor`` frames
+        with half-pixel centres (``align_corners=False``, which is
+        ``jax.image.resize``'s linear resize), where ``interpolate_z`` is on
+        and the encoder rate is below the output rate; else unchanged (port
+        of ``tts_tpu/models/vits/model.py:160-171``)."""
+        f = int(round(self.interpolate_factor))
+        if f == 1 or not self.args.interpolate_z:
+            return z
+        z = F.interpolate(z.transpose(1, 2), size=z.shape[1] * f, mode="linear",
+                          align_corners=False)
+        return z.transpose(1, 2)
 
     def _durations(self, x, x_lengths, generator, g=None, lang=None):
         """Text encoder and duration predictor: ``(w_ceil [B, T_x, 1], m_p,
@@ -204,7 +259,7 @@ class VitsModule(nn.Module):
         noise = modules.normal(m_p_e.shape, generator)
         z_p = m_p_e + noise * torch.exp(logs_p_e) * a.inference_noise_scale
         z = self.flow(z_p * y_mask, y_mask, g=g)
-        o = self.waveform_decoder(z * y_mask, g=g)
+        o = self.waveform_decoder(self._upsample_z(z * y_mask), g=g)
         return {
             "model_outputs": o,
             "alignments": attn.transpose(1, 2),
@@ -269,6 +324,21 @@ class VitsModule(nn.Module):
         return {"model_outputs": o, "y_lengths": y_lengths, "packed_mask": valid,
                 "durations": w_ceil}
 
+    @torch.no_grad()
+    def voice_conversion(self, y, y_lengths, g_src: torch.Tensor, g_tgt: torch.Tensor,
+                         generator: torch.Generator) -> torch.Tensor:
+        """Linear spectrogram ``[B, T, C_spec]`` spoken by ``g_src`` →
+        waveform in the voice of ``g_tgt`` (speaker vectors ``[B, C_g]``):
+        posterior sample, flow forward with the source, back with the
+        target, decoder (port of ``tts_tpu/models/vits/model.py:429-443``).
+        The latent is upsampled as in :meth:`inference`; the reference
+        omits that step here, which would make an ``encoder_sample_rate``
+        model's audio factor-times too short."""
+        z, _, _, y_mask = self.posterior_encoder(y, y_lengths, generator, g=g_src)
+        z_p = self.flow(z, y_mask, g=g_src, reverse=False)
+        z_hat = self.flow(z_p, y_mask, g=g_tgt)
+        return self.waveform_decoder(self._upsample_z(z_hat * y_mask), g=g_tgt)
+
 
 class Vits:
     """Host wrapper: tokenizer, weights and noise around :class:`VitsModule`."""
@@ -281,7 +351,7 @@ class Vits:
         check_supported(config)
         self.config = config
         self.args = config.model_args
-        self.module = VitsModule(self.args)
+        self.module = VitsModule(self.args, interpolate_factor(config))
         self.tokenizer: Optional[TTSTokenizer] = None
         self.speaker_manager = None
         self.language_manager = None
@@ -324,9 +394,22 @@ class Vits:
         return bool(self.args.use_d_vector_file)
 
     @property
+    def has_speakers(self) -> bool:
+        """Whether the model is conditioned on a speaker (ids or d-vectors)."""
+        a = self.args
+        return bool(a.use_d_vector_file or (a.use_speaker_embedding and a.num_speakers > 0))
+
+    @property
     def hop_length(self) -> int:
-        """Waveform samples per latent frame."""
-        return int(np.prod(self.args.upsample_rates_decoder))
+        """Waveform samples per latent frame: the decoder's upsampling (the
+        iSTFT hop and bands included), times the latent's own upsampling."""
+        a = self.args
+        hop = int(np.prod(a.upsample_rates_decoder))
+        if a.decoder_type == "istft":
+            hop *= int(a.istft_hop_decoder) * int(a.istft_subbands_decoder)
+        if a.interpolate_z:
+            hop *= int(round(self.module.interpolate_factor))
+        return hop
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -429,7 +512,12 @@ class Vits:
         """Sequence-packed decode (:meth:`VitsModule.inference_packed`) of a
         plan from ``utils.packing.plan_pack_layout`` (numpy or tensors) over
         :meth:`infer_durations`' lengths, made with the same generator
-        state and ``aux_input``."""
+        state and ``aux_input``. Raises ``ValueError`` for a model that
+        :attr:`supports_packed_decode` refuses (ROADMAP.md F2)."""
+        if not self.supports_packed_decode:
+            raise ValueError("the sequence-packed decode needs the masked HiFiGAN decoder at "
+                             "the encoder's rate; the istft and interpolate_z variants are "
+                             "served by duration-grouped decodes (ROADMAP.md F2)")
         seg_sample = torch.as_tensor(seg_sample, device=self.device)
         seg_pos = torch.as_tensor(seg_pos, device=self.device)
         return self.module.inference_packed(x, x_lengths, seg_sample, seg_pos,
@@ -437,5 +525,28 @@ class Vits:
                                             noise_frames=noise_frames,
                                             noise_layout=noise_layout, aux_input=aux_input)
 
-    def voice_conversion(self, *args, **kwargs):
-        raise NotImplementedError(f"VITS voice_conversion {_ROADMAP}")
+    def _speaker_vector(self, cond) -> torch.Tensor:
+        """Speaker ids (integers, ``[B]``) → ``emb_g`` rows; d-vectors
+        (floats, ``[B, C]``) as they are."""
+        cond = torch.as_tensor(cond, device=self.device)
+        if not cond.is_floating_point():
+            return self.module.emb_g(cond.reshape(-1).long())
+        return cond.reshape(-1, cond.shape[-1]).float()
+
+    def voice_conversion(self, y, y_lengths, speaker_cond_src, speaker_cond_tgt,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Same-model voice transfer (port of ``tts_tpu/models/vits/model.py:598-617``):
+        the linear spectrogram ``y`` ``[B, T, C_spec]`` spoken by the source
+        speaker → waveform ``[B, T * hop, 1]`` in the target's voice. Each
+        speaker is given by id (integers) or d-vector (floats). The
+        posterior sample draws from ``generator`` (seeded 0 by default, as
+        the JAX package draws from ``PRNGKey(0)``). A model without speakers
+        raises ``ValueError``."""
+        if not self.has_speakers:
+            raise ValueError("voice conversion needs a multi-speaker model (speaker "
+                             "embeddings or d-vectors)")
+        y = torch.as_tensor(y, device=self.device)
+        y_lengths = torch.as_tensor(y_lengths, device=self.device)
+        return self.module.voice_conversion(
+            y, y_lengths, self._speaker_vector(speaker_cond_src),
+            self._speaker_vector(speaker_cond_tgt), self._generator(generator))

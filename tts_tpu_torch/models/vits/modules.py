@@ -4,10 +4,12 @@ inference, time-major ``[B, T, C]`` like the JAX package, with the speaker
 multi-language models.
 
 Every parameter of the JAX modules' inference path has its counterpart
-here, under the same name, so converted weights load strictly. The flows'
-``forward`` runs their inverse (``reverse=True``) direction, the one
-inference takes. Their training direction, the stochastic duration
-predictor's posterior flows and the discriminator wait for training.
+here, under the same name, so converted weights load strictly. The coupling
+flows run in both directions: their inverse (``reverse=True``, the default
+here) for text-to-speech, and their forward direction after the posterior
+encoder for voice conversion (``models/vits/model.py``). The stochastic
+duration predictor's training direction, its posterior flows and the
+discriminator wait for training.
 
 The duration predictors read the text encoder's output, whose width is
 ``hidden_channels`` plus the language embedding's, as the reference's do
@@ -88,18 +90,24 @@ class PosteriorEncoder(nn.Module):
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
         self.proj = nn.Linear(hidden_channels, out_channels * 2)
 
-    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, generator: torch.Generator,
-                g: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor,
+                generator: Optional[torch.Generator] = None, g: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None):
+        """Spectrogram ``[B, T, C_spec]`` → ``(z, mean, log_scale, mask)``;
+        the sample ``z`` takes ``noise`` (``[B, T, C]``) where given, else a
+        draw from ``generator`` (port of ``tts_tpu/models/vits/modules.py:72-101``)."""
         x_mask = sequence_mask(x_lengths, x.shape[1])[:, :, None].to(x.dtype)
         h = self.enc(self.pre(x) * x_mask, x_mask, g=g)
         mean, log_scale = torch.chunk(self.proj(h) * x_mask, 2, dim=-1)
-        z = (mean + normal(mean.shape, generator) * torch.exp(log_scale)) * x_mask
+        if noise is None:
+            noise = normal(mean.shape, generator)
+        z = (mean + noise * torch.exp(log_scale)) * x_mask
         return z, mean, log_scale, x_mask
 
 
 class ResidualCouplingBlock(nn.Module):
     """Mean-only affine coupling with WN transform (reference ``networks.py:78``),
-    inverse direction."""
+    in both directions."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, num_layers: int, cond_channels: int = 0):
@@ -109,16 +117,19 @@ class ResidualCouplingBlock(nn.Module):
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, num_layers, cond_channels)
         self.post = nn.Linear(hidden_channels, self.half)
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: Optional[torch.Tensor] = None,
+                reverse: bool = True) -> torch.Tensor:
         x0, x1 = x[..., : self.half], x[..., self.half :]
         m = self.post(self.enc(self.pre(x0) * x_mask, x_mask, g=g)) * x_mask
-        return torch.cat([x0, (x1 - m) * x_mask], dim=-1)
+        x1 = (x1 - m) * x_mask if reverse else (m + x1) * x_mask
+        return torch.cat([x0, x1], dim=-1)
 
 
 class ResidualCouplingBlocks(nn.Module):
-    """Stack of coupling blocks with channel flips (reference ``networks.py:169``),
-    inverse direction: the blocks in reverse order, each after a flip."""
+    """Stack of coupling blocks with channel flips (reference ``networks.py:169``;
+    port of ``tts_tpu/models/vits/modules.py:103-180``): forward, each block
+    then a flip; inverse (``reverse=True``), the blocks in reverse order, each
+    after a flip."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, num_layers: int, num_flows: int = 4,
@@ -130,9 +141,13 @@ class ResidualCouplingBlocks(nn.Module):
             for _ in range(num_flows)
         )
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: Optional[torch.Tensor] = None,
+                reverse: bool = True) -> torch.Tensor:
         """``g``: ``[B, C_g]`` or per frame ``[B, T, C_g]`` (a packed grid)."""
+        if not reverse:
+            for block in self.flow:
+                x = torch.flip(block(x, x_mask, g=g, reverse=False), dims=[-1])
+            return x
         for block in reversed(self.flow):
             x = block(torch.flip(x, dims=[-1]), x_mask, g=g)
         return x

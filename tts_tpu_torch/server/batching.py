@@ -8,12 +8,18 @@ sentences, waiting ``window_ms`` after the first for others to join, pads
 their token ids as the JAX batcher does (batch → next power of two, text →
 ``pad_to_multiple_text``) and decodes them in one dispatch: a single
 sentence through ``Vits.inference`` at its frame budget, several as one
-sequence-packed grid (``utils.synthesis.decode_packed``). Each caller gets
-its sentences' waveforms joined with the serial path's 10000-sample gap.
+sequence-packed grid (``utils.synthesis.decode_packed``). A model without a
+packed decode (the ``istft`` and ``interpolate_z`` VITS variants, ROADMAP.md
+F2) takes the JAX batcher's grouped path instead: one durations pass over
+the batch, then at most two groups of similar predicted length
+(``utils.synthesis.plan_decode_groups``), each decoded through
+``Vits.inference`` at its own 32-frame bucket, capped at
+``max_inference_len`` (F3). Each caller gets its sentences' waveforms
+joined with the serial path's 10000-sample gap.
 
-Serves end-to-end waveform models with a packed decode (VITS). Models with
-their own ``synthesize`` (XTTS) and models without a waveform output are
-refused; the server then serves serially. Each request's speaker and
+Serves end-to-end waveform models (VITS). Models with their own
+``synthesize`` (XTTS) and models without a waveform output are refused;
+the server then serves serially. Each request's speaker and
 language are resolved by the ``Synthesizer``'s rules before it is queued
 (an unknown name raises ``ValueError`` there) and ride with each of its
 sentences as that row's ids, so one dispatch mixes speakers and languages.
@@ -34,7 +40,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tts_tpu_torch.utils.synthesis import _frame_budget, aux_input, decode_packed
+from tts_tpu_torch.utils.synthesis import (
+    _frame_budget,
+    aux_input,
+    decode_packed,
+    plan_decode_groups,
+)
 from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, split_into_sentences
 
 
@@ -71,8 +82,6 @@ class DynamicBatcher:
                 "DynamicBatcher needs a model whose inference() emits a waveform "
                 "directly (emits_waveform=True, e.g. VITS)"
             )
-        if not model.supports_packed_decode:
-            raise ValueError("DynamicBatcher needs a model with a sequence-packed decode")
         self.synthesizer = synthesizer
         self.model = model
         self.max_batch = int(max_batch)
@@ -150,20 +159,52 @@ class DynamicBatcher:
     def _dispatch(self, batch: List[_Pending]) -> None:
         """Decode ``batch`` and hand each item its waveform: one sentence at
         its frame budget through ``inference`` (capped at
-        ``max_inference_len`` there), several as one packed grid."""
+        ``max_inference_len`` there), several as one packed grid, or in
+        length groups where the model has no packed decode."""
         model = self.model
         budget = _frame_budget(max(len(it.ids) for it in batch))
+        if len(batch) > 1 and not model.supports_packed_decode:
+            self._dispatch_grouped(batch, budget)
+            return
         x, x_lengths = self._pad(batch)
         aux = self._aux(batch, x.shape[0])
         if len(batch) == 1:
-            out = model.inference(x, x_lengths, max_frames=budget, aux_input=aux)
-            frames = int(out["y_lengths"][0])
-            wavs = [out["model_outputs"][0, : frames * model.hop_length, 0].float().cpu().numpy()]
+            wavs = self._decode(x, x_lengths, budget, aux)
         else:
             wavs = decode_packed(model, x, x_lengths, len(batch), budget, aux)
         for it, wav in zip(batch, wavs):
             it.wav = wav
             it.done.set()
+
+    def _decode(self, x, x_lengths, frames: int, aux) -> List[np.ndarray]:
+        """``inference`` of the padded rows at ``frames``; each row's
+        waveform cut at its ``y_lengths``."""
+        out = self.model.inference(x, x_lengths, max_frames=frames, aux_input=aux)
+        lengths = out["y_lengths"].cpu().numpy()
+        wav = out["model_outputs"][..., 0].float().cpu().numpy()
+        hop = self.model.hop_length
+        return [wav[row, : int(n) * hop] for row, n in enumerate(lengths)]
+
+    def _dispatch_grouped(self, batch: List[_Pending], budget: int) -> None:
+        """The JAX batcher's grouped path (``tts_tpu/server/batching.py:185-210``):
+        the durations pass over the whole batch plans at most two length
+        groups in 32-frame buckets, and each group decodes at its bucket,
+        capped at ``max_inference_len`` (F3), in a batch of its own. Each
+        group's decode draws its own duration noise, as in the JAX
+        package."""
+        model = self.model
+        x, x_lengths = self._pad(batch)
+        y_pred = model.infer_durations(x, x_lengths, aux_input=self._aux(batch, x.shape[0]))
+        y_pred = y_pred[: len(batch)].cpu().numpy()
+        cap = int(model.args.max_inference_len or budget)
+        groups = plan_decode_groups(y_pred, multiple=32, cap=budget, max_groups=2)
+        for idx, frames in groups:
+            items = [batch[i] for i in idx]
+            x, x_lengths = self._pad(items)
+            wavs = self._decode(x, x_lengths, min(frames, cap), self._aux(items, x.shape[0]))
+            for it, wav in zip(items, wavs):
+                it.wav = wav
+                it.done.set()
 
     def _pad(self, batch: List[_Pending]):
         """Token ids padded into a batch of the next power of two rows and a

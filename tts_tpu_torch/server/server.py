@@ -29,8 +29,10 @@ streams.
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
 [--speakers_file_path speakers.json] [--max_batch 4] [--batch_window_ms 10]
 [--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
-config.json`` for a VITS checkpoint file. A VITS model serves ``/api/tts``
-(its streaming route answers 501).
+config.json`` for a VITS checkpoint file, or ``--model_name
+tts_models/en/vctk/vits`` for a zoo model (``--list_models`` prints the
+zoo's names). A VITS model serves ``/api/tts`` (its streaming route answers
+501).
 """
 
 from __future__ import annotations
@@ -278,7 +280,11 @@ def close_server(server: ThreadingHTTPServer) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="tts_tpu_torch HTTP server")
-    parser.add_argument("--model_path", required=True,
+    parser.add_argument("--list_models", action="store_true",
+                        help="list the zoo's models and exit")
+    parser.add_argument("--model_name", default=None,
+                        help="zoo model name (loaded from $TTS_HOME/tts_tpu/, fetched if absent)")
+    parser.add_argument("--model_path", default=None,
                         help="model directory (config.json, model_torch.pt or model.pth; XTTS "
                              "also vocab.json), or a VITS checkpoint file")
     parser.add_argument("--config_path", default=None,
@@ -300,10 +306,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def server_from_args(args: argparse.Namespace) -> ThreadingHTTPServer:
-    """Load the model directory and build the (not yet serving) server."""
+    """Load the model (by zoo name or path) and build the (not yet serving)
+    server."""
     from tts_tpu_torch.api import TTS
 
-    tts = TTS(model_path=args.model_path, config_path=args.config_path, device=args.device,
+    if not (args.model_name or args.model_path):
+        raise ValueError("give --model_name or --model_path")
+    tts = TTS(model_name=args.model_name or "", model_path=args.model_path,
+              config_path=args.config_path, device=args.device,
               speakers_file_path=args.speakers_file_path)
     return create_server(tts.synthesizer, args.port, max_batch=args.max_batch,
                          batch_window_ms=args.batch_window_ms, stream_batch=args.stream_batch,
@@ -311,7 +321,14 @@ def server_from_args(args: argparse.Namespace) -> ThreadingHTTPServer:
 
 
 def main(argv=None):
-    server = server_from_args(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.list_models:
+        from tts_tpu_torch.utils.manage import ModelManager
+
+        for name in ModelManager().list_models():
+            print(name)
+        return
+    server = server_from_args(args)
     print(f" > Serving on http://0.0.0.0:{server.server_address[1]}")
     try:
         server.serve_forever()

@@ -16,6 +16,9 @@ a handful of rules rather than a table:
 * norm ``scale``/``shift`` → ``weight``/``bias`` (folded BatchNorm included);
   ``embedding`` → ``weight``; other leaves keep their names.
 
+``reference_vits_state`` writes the port's VITS weights in the reference
+layout, the inverse of ``load_reference_vits``.
+
 ``load_reference_xtts`` / ``load_reference_vits`` read a reference-layout
 (coqui) checkpoint, map it to the flax-layout tree with ``convert_xtts`` /
 ``convert_vits_generator`` and from there into the port by the rules above.
@@ -626,6 +629,34 @@ def load_reference_xtts(path: str, layers: int = 30, heads: int = 16) -> Dict[st
     out = xtts_from_jax_params(gpt_params, decoder_params)
     if mel_stats is not None:
         out["mel_stats"] = torch.from_numpy(np.asarray(mel_stats, np.float32))
+    return out
+
+
+def reference_vits_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of ``VitsModule`` in the reference's (coqui) names and
+    layouts, weight norm folded: 1x1 convolutions for the linear layers,
+    ``gamma``/``beta`` norms, the stochastic predictor's flows numbered
+    after its affine flow. :func:`load_reference_vits` maps it back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = re.sub(r"^text_encoder\.encoder\.(attn|ffn)\.", r"text_encoder.encoder.\1_layers.", key)
+        k = re.sub(r"encoder\.norm([12])\.(\d+)\.", r"encoder.norm_layers_\1.\2.", k)
+        k = re.sub(r"\.(in_layer|res_skip_layer)\.", r".\1s.", k)
+        k = re.sub(r"^flow\.flow\.", "flow.flows.", k)
+        k = re.sub(r"^duration_predictor\.(post_)?flow_affine\.",
+                   lambda m: f"duration_predictor.{m.group(1) or ''}flows.0.", k)
+        k = re.sub(r"^duration_predictor\.(post_)?flow\.(\d+)\.",
+                   lambda m: f"duration_predictor.{m.group(1) or ''}flows.{int(m.group(2)) + 1}.", k)
+        k = re.sub(r"\.conv_(sep|1x1)\.", r".convs_\1.", k)
+        k = re.sub(r"convs\.norm([12])\.", r"convs.norms_\1.", k)
+        if re.search(r"(norm_layers_\d\.\d+|norms_\d\.\d+|norm_[12])\.(weight|bias)$", k):
+            k = k[: -len("weight")] + "gamma" if k.endswith("weight") else k[: -len("bias")] + "beta"
+        if v.ndim == 2 and not key.endswith(("emb.weight", "emb_g.weight", "emb_l.weight")):
+            v = v[:, :, None]
+        if k.endswith(("translation", "log_scale")):
+            v = v[:, None]
+        out[k] = v
     return out
 
 

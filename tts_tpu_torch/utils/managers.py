@@ -2,10 +2,13 @@
 ``tts_tpu/utils/managers.py``, reference ``TTS/tts/utils/managers.py``,
 ``speakers.py``, ``languages.py``; the port imports nothing of ``tts_tpu``).
 
-Embedding files are JSON (``.json``) or numpy archives (``.npz``, which
-replace the reference's torch ``.pth`` d-vector files).
+Speaker, language and embedding files are JSON (``.json``), numpy archives
+(``.npz``) or the reference's torch files (``.pth``, as the zoo ships
+``speakers.pth``), which the port reads with ``torch.load(...,
+weights_only=True)``; the JAX package's zoo converter rewrites those into
+``.npz`` first.
 
-Two differences from the source:
+Three differences from the source:
 
 * ``SpeakerManager.init_from_config`` and ``LanguageManager.init_from_config``
   read each field from the top level of the config or from its
@@ -15,6 +18,7 @@ Two differences from the source:
   gets no manager there (ROADMAP.md F11).
 * The speaker encoder (``init_encoder``, ``compute_embedding_from_clip``)
   is not ported: both raise ``NotImplementedError``.
+* ``load_file`` reads ``.pth`` files natively.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import random
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 __all__ = ["BaseIDManager", "EmbeddingManager", "SpeakerManager", "LanguageManager",
            "config_setting", "init_speaker_manager"]
@@ -42,7 +47,19 @@ def config_setting(config, name: str):
     return None
 
 
+def _plain(value):
+    """Tensors of a torch-loaded file as lists, so that ids and embeddings
+    read as they do from JSON."""
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, torch.Tensor):
+        return value.tolist()
+    return value
+
+
 def load_file(path: str) -> Dict:
+    if path.endswith(".pth"):
+        return _plain(torch.load(path, map_location="cpu", weights_only=True))
     if path.endswith(".json"):
         with open(path, "r", encoding="utf-8") as f:
             return json.load(f)

@@ -15,6 +15,8 @@ The JAX package's rules are kept, since the audio depends on them:
 :func:`decode_packed` decodes several utterances at once as one
 sequence-packed grid (``utils/packing.py``), for the ``Synthesizer``'s
 multi-sentence requests and the server's ``DynamicBatcher``;
+:func:`plan_decode_groups` splits a batch of a model without a packed
+decode into a few length groups for the batcher;
 :func:`trim_silence` cuts a waveform at its first long quiet stretch, as
 the JAX ``Synthesizer`` does for a model loaded from a checkpoint file.
 
@@ -38,6 +40,58 @@ def _frame_budget(n_tokens: int) -> int:
     """A generous 12 frames per token, rounded up to 128, at most 4096."""
     est = max(n_tokens * 12, 128)
     return min(((est + 127) // 128) * 128, 4096)
+
+
+# The fixed cost of one more decode dispatch, in frame·row units: one
+# dispatch's floor (ms) over the marginal ms of one latent frame in one
+# row, both measured on the MB-iSTFT VITS at full width by chip_smoke.py
+# phase 9 (DECODE_GROUP_FIT). The JAX package's 2048 was fitted on its TPU
+# and is not used here.
+DECODE_GROUP_FIT = ("NVIDIA H100 80GB HBM3, 700.00 W: floor 34.99 ms per dispatch, "
+                    "4.265 us per frame-row")
+DECODE_GROUP_OVERHEAD = 8205  # 34.99 ms / 4.265 us
+
+
+def plan_decode_groups(y_preds, multiple: int = 32, cap: int = 4096,
+                       overhead: int = DECODE_GROUP_OVERHEAD, max_groups: int = 3):
+    """Partition a batch by predicted decode length into at most
+    ``max_groups`` groups, each decoded at its own frame bucket (port of
+    ``tts_tpu/utils/synthesis.py:20-72``).
+
+    Sorted by length, the batch is split into contiguous groups by a small
+    dynamic program minimising ``sum_g bucket(max y in g) * |g| + overhead *
+    (n_groups - 1)``, where ``bucket`` rounds up to ``multiple`` (at most
+    ``cap``) and ``overhead`` is one more dispatch's fixed cost in
+    frame·row units: mixed lengths split where the padding saved pays for
+    the dispatch, matched ones stay in one group. Returns ``[(indices,
+    bucket), ...]``, shortest group first, ``indices`` into the original
+    order. Models with a sequence-packed decode do better packed
+    (``utils/packing.py``); this serves the others."""
+    n = len(y_preds)
+    order = sorted(range(n), key=lambda i: int(y_preds[i]))
+    ys = [max(1, int(y_preds[i])) for i in order]
+
+    def _bucket(v: int) -> int:
+        return min(((v + multiple - 1) // multiple) * multiple, cap)
+
+    # best[i][k]: (cost, split points) covering the first i sorted items
+    # with k groups; sorted order makes each group's max its last element
+    best = [[None] * (max_groups + 1) for _ in range(n + 1)]
+    best[0][0] = (0.0, ())
+    for i in range(1, n + 1):
+        for k in range(1, max_groups + 1):
+            cand = None
+            for j in range(i):
+                prev = best[j][k - 1]
+                if prev is None:
+                    continue
+                c = prev[0] + _bucket(ys[i - 1]) * (i - j) + (overhead if k > 1 else 0)
+                if cand is None or c < cand[0]:
+                    cand = (c, prev[1] + (j,))
+            best[i][k] = cand
+    win = min((b for b in best[n][1:] if b is not None), key=lambda t: t[0])
+    splits = list(win[1]) + [n]
+    return [(order[a:b], _bucket(ys[b - 1])) for a, b in zip(splits[:-1], splits[1:])]
 
 
 def aux_input(device, rows: int, speaker_ids=None, d_vectors=None,

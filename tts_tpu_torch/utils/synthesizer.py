@@ -34,6 +34,16 @@ without a speaker (or language) manager takes no speaker (or language)
 name. ``speaker_wav`` needs the speaker encoder, which is not ported for
 VITS: it raises ``NotImplementedError``, where the JAX ``Synthesizer``
 decodes without the voice.
+
+``tts(reference_wav=..., speaker_name=..., reference_speaker_name=...)``
+transfers a recording spoken by one of a multi-speaker VITS model's
+speakers into another's voice (``Vits.voice_conversion``). The posterior
+encoder is fed the VITS linear magnitude spectrogram (``wav_to_spec``:
+``center=False``, reflect padding of ``(n_fft - hop) / 2``,
+``sqrt(|X|² + 1e-6)``), which the reference's voice conversion and every
+reference-layout checkpoint's training use. The JAX ``Synthesizer`` feeds it
+its ``AudioProcessor``'s spectrogram instead (centred STFT, decibels,
+normalised), which is not what the encoder was trained on (ROADMAP.md F15).
 """
 
 from __future__ import annotations
@@ -47,7 +57,8 @@ import numpy as np
 import torch
 
 from tts_tpu_torch import resolve_device
-from tts_tpu_torch.audio.numpy_transforms import save_wav
+from tts_tpu_torch.audio.numpy_transforms import load_wav, resample_wav, save_wav
+from tts_tpu_torch.audio.torch_transforms import wav_to_spec
 from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models import config_from_dict, setup_model
 from tts_tpu_torch.utils.synthesis import (
@@ -123,17 +134,33 @@ class Synthesizer:
         speaker_name: Optional[str] = None,
         language_name: Optional[str] = None,
         speaker_wav=None,
+        reference_wav=None,
+        reference_speaker_name: Optional[str] = None,
         split_sentences: bool = True,
         **kwargs,
     ) -> List[float]:
         """Text → waveform samples, with 10000 zero samples after each
-        sentence."""
+        sentence; or, with ``reference_wav``, that recording of
+        ``reference_speaker_name`` in the voice of ``speaker_name``."""
         start = time.time()
-        if not text:
-            raise ValueError("You need to define `text` to use the TTS API.")
-        sens = split_into_sentences(text) if split_sentences else [text.strip()]
-        if not sens:
-            raise ValueError("No text to speak.")
+        if not text and not reference_wav:
+            raise ValueError("You need to define either `text` (for synthesis) or a "
+                             "`reference_wav` (for voice conversion) to use the TTS API.")
+        if reference_wav is not None:
+            wavs = self._voice_transfer(reference_wav, speaker_name, reference_speaker_name)
+        else:
+            sens = split_into_sentences(text) if split_sentences else [text.strip()]
+            if not sens:
+                raise ValueError("No text to speak.")
+            wavs = self._tts_sentences(sens, speaker_name, language_name, speaker_wav, **kwargs)
+        process_time = time.time() - start
+        audio_time = len(wavs) / self.output_sample_rate
+        print(f" > Processing time: {process_time}")
+        print(f" > Real-time factor: {process_time / max(audio_time, 1e-9)}")
+        return wavs
+
+    def _tts_sentences(self, sens: List[str], speaker_name, language_name, speaker_wav,
+                       **kwargs) -> List[float]:
         model = self.tts_model
         wavs: List[float] = []
         if hasattr(model, "synthesize"):
@@ -144,30 +171,59 @@ class Synthesizer:
                 )
                 wavs += list(np.asarray(outputs["wav"], np.float32))
                 wavs += [0] * SENTENCE_GAP
+            return wavs
+        given = sorted(k for k, v in kwargs.items() if v is not None)
+        if given:
+            raise ValueError(f"{self.tts_config.model!r} takes no {', '.join(given)}")
+        speaker_id, d_vector = self._resolve_speaker(speaker_name, speaker_wav)
+        language_id = self._resolve_language(language_name)
+        if len(sens) > 1 and model.supports_packed_decode:
+            pieces = self._tts_sentences_packed(sens, speaker_id, d_vector, language_id)
         else:
-            given = sorted(k for k, v in kwargs.items() if v is not None)
-            if given:
-                raise ValueError(f"{self.tts_config.model!r} takes no {', '.join(given)}")
-            speaker_id, d_vector = self._resolve_speaker(speaker_name, speaker_wav)
-            language_id = self._resolve_language(language_name)
-            if len(sens) > 1 and model.supports_packed_decode:
-                pieces = self._tts_sentences_packed(sens, speaker_id, d_vector, language_id)
-            else:
-                language = self._language_name(language_id)
-                pieces = [synthesis(model, sen, speaker_id, d_vector, language_id,
-                                    language)["wav"] for sen in sens]
-            audio = self.tts_config.audio
-            trim = self.from_file and getattr(audio, "do_trim_silence", False)
-            for wav in pieces:
-                if trim:
-                    wav = trim_silence(wav, audio)
-                wavs += list(wav)
-                wavs += [0] * SENTENCE_GAP
-        process_time = time.time() - start
-        audio_time = len(wavs) / self.output_sample_rate
-        print(f" > Processing time: {process_time}")
-        print(f" > Real-time factor: {process_time / max(audio_time, 1e-9)}")
+            language = self._language_name(language_id)
+            pieces = [synthesis(model, sen, speaker_id, d_vector, language_id,
+                                language)["wav"] for sen in sens]
+        audio = self.tts_config.audio
+        trim = self.from_file and getattr(audio, "do_trim_silence", False)
+        for wav in pieces:
+            if trim:
+                wav = trim_silence(wav, audio)
+            wavs += list(wav)
+            wavs += [0] * SENTENCE_GAP
         return wavs
+
+    def _voice_transfer(self, reference_wav: str, speaker_name: Optional[str],
+                        reference_speaker_name: Optional[str]) -> List[float]:
+        """``reference_wav``, spoken by ``reference_speaker_name``, in the
+        voice of ``speaker_name`` (port of ``tts_tpu/utils/synthesizer.py:473-509``):
+        the wav at the model's rate (at ``encoder_sample_rate`` where the
+        model has one), its VITS linear spectrogram, ``Vits.voice_conversion``.
+        Both names are required; d-vector models take each speaker's mean
+        d-vector."""
+        model = self.tts_model
+        if not hasattr(model, "voice_conversion"):
+            raise NotImplementedError(f"Model {self.tts_config.model!r} has no voice_conversion "
+                                      f"path.")
+        if speaker_name is None or reference_speaker_name is None:
+            raise ValueError(" [!] Voice transfer needs both `speaker_name` (target) and "
+                             "`reference_speaker_name` (source).")
+        audio = self.tts_config.audio
+        wav = load_wav(filename=reference_wav, sample_rate=audio.sample_rate, resample=True)
+        enc_sr = model.args.encoder_sample_rate
+        if enc_sr and enc_sr != audio.sample_rate:
+            wav = resample_wav(wav, audio.sample_rate, enc_sr)
+        y = torch.from_numpy(np.asarray(wav, np.float32)[None]).to(model.device)
+        spec = wav_to_spec(y, audio.fft_size, audio.hop_length, audio.win_length)  # [1, C, T]
+        y_lengths = torch.tensor([spec.shape[2]], device=model.device)
+
+        def speaker(name):
+            speaker_id, d_vector = self._resolve_speaker(name)
+            return torch.from_numpy(d_vector[None]) if d_vector is not None else \
+                torch.tensor([speaker_id])
+
+        out = model.voice_conversion(spec.transpose(1, 2), y_lengths,
+                                     speaker(reference_speaker_name), speaker(speaker_name))
+        return list(out.reshape(-1).float().cpu().numpy())
 
     # ------------------------------------------------------------------
     def _resolve_speaker(self, speaker_name: Optional[str], speaker_wav=None):
