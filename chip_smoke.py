@@ -89,7 +89,25 @@ Phases; each raises on failure and the script then exits non-zero:
    over its marginal ms per frame·row); one grouped batcher turn card
    against CPU and the serving mix with ``--max_batch 1`` and 4 on the
    iSTFT model, with the groups formed. ``decode_attention`` must not
-   launch.
+   launch;
+10. GlowTTS with Multiband-MelGAN, the ``tts`` command line's default
+    pairing, at the LJSpeech recipes' widths (``phoneme_cleaners``,
+    ``en-us`` phonemes from the rule G2P and the ``GlowTTSConfig``
+    defaults; the ``MultibandMelganConfig`` defaults), fp32 weights from
+    seed 0: the fidelity fixtures ``glow_tts.npz`` and
+    ``multiband_melgan.npz`` replayed on the card through the port's
+    converters (``y_lengths`` equal and mel RMSE under 5e-3; under 0.5 dB);
+    the three phase 6 sentences card against CPU (``y_lengths`` equal, mel
+    and waveform within 1e-4); latency and RTF at B=1 with a stage split
+    (encoder with durations, path expansion, flow decoder, host bridge,
+    MB-MelGAN by CUDA events), MB-MelGAN's TFLOP/s, the busy share and
+    kernels under ``torch.profiler``, peak memory; Griffin-Lim without a
+    vocoder, card against CPU after one ``np.random.seed``; the pair by zoo
+    name from reference-layout directories (the vocoder's ``stats_path``
+    rewritten, F17), equal to the path load; ``tts --vocoder_path`` within
+    one int16 step of the API; the server with ``--vocoder_path`` and
+    ``--max_batch 4``, which says it serves serially and answers three
+    ``/api/tts`` requests. ``decode_attention`` must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -2173,6 +2191,494 @@ def phase_zoo_and_variants(card: str, device="cuda", cut=None) -> None:
             f"before the phase | {card}")
 
 
+# ---------------------------------------------------------------------------
+ZOO_GLOW = "tts_models/en/ljspeech/glow-tts"
+ZOO_MBMELGAN = "vocoder_models/en/ljspeech/multiband-melgan"
+FOREIGN_STATS = "/published/ljspeech/multiband-melgan/scale_stats.npy"
+GLOW_MEL_TOL = 1e-4  # card vs CPU, the GlowTTS mel, fp32 with TF32 off
+GL_REL_TOL = 1e-2  # card vs CPU, Griffin-Lim's waveform, as a share of its peak
+FIDELITY_RMSE, FIDELITY_LSD_DB = 5e-3, 0.5  # tests/test_fidelity_corpus.py's thresholds
+
+
+def glow_recipe_config():
+    """``recipes/ljspeech/glow_tts/train_glowtts.py:21-33`` as published:
+    ``phoneme_cleaners``, ``en-us`` phonemes (from the rule G2P where
+    ``espeak`` is absent) and the ``GlowTTSConfig`` defaults, the embedding
+    sized by the phoneme set."""
+    from tts_tpu_torch.models.glow_tts import GlowTTSConfig
+
+    return GlowTTSConfig(text_cleaner="phoneme_cleaners", use_phonemes=True,
+                         phoneme_language="en-us")
+
+
+def mb_melgan_recipe_config():
+    """``recipes/ljspeech/multiband_melgan/train_multiband_melgan.py:15-25``:
+    the ``MultibandMelganConfig`` defaults (384 base channels, upsampling
+    [8, 4, 2], 4 residual blocks a stage, 4 PQMF bands; 22.05 kHz, hop 256,
+    80 mels)."""
+    from tts_tpu_torch.vocoder.configs import MultibandMelganConfig
+
+    return MultibandMelganConfig()
+
+
+def random_vocoder(config, seed: int = 0):
+    """The generator ``config`` names, on the CPU, with fp32 weights drawn
+    from ``seed``: N(0, 1/fan_in) (a transposed conv's fan-in is its input
+    channels times its taps per output, kernel / stride), biases 0."""
+    import torch
+
+    from tts_tpu_torch.vocoder.utils import make_generator_from_config
+
+    gen = make_generator_from_config(config)
+    draw = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            owner = gen.get_submodule(name.rsplit(".", 1)[0])
+            if name.endswith("bias"):
+                p.zero_()
+                continue
+            if isinstance(owner, torch.nn.ConvTranspose1d):
+                fan_in = p.shape[0] * p.shape[2] // owner.stride[0]
+            else:
+                fan_in = p[0].numel()
+            p.copy_(torch.randn(p.shape, generator=draw) / fan_in**0.5)
+    return gen.eval().requires_grad_(False)
+
+
+def melgan_gflop(gen, frames: int, padded: bool = True) -> float:
+    """Operations (2 per multiply-add) of a MelGAN generator's ``inference``
+    on ``frames`` mel frames (with its edge padding unless ``padded`` is
+    false): ``conv_pre``, each transposed
+    conv (every input frame meets its ``2u`` taps), each residual block's
+    dilated conv, 1x1 conv and 1x1 shortcut at the upsampled rate,
+    ``conv_post``, and the PQMF synthesis filter of a multi-band one."""
+    n = frames + (2 * gen.inference_padding if padded else 0)
+    flops = 2 * gen.conv_pre.in_channels * gen.conv_pre.out_channels * gen.proj_kernel * n
+    for i, up in enumerate(gen.ups):
+        flops += 2 * up.in_channels * up.out_channels * up.kernel_size[0] * n
+        n *= up.stride[0]
+        stack = getattr(gen, f"res_{i}")
+        c = up.out_channels
+        flops += stack.num_res_blocks * 2 * c * c * (stack.kernel_size + 2) * n
+    flops += 2 * gen.conv_post.in_channels * gen.conv_post.out_channels * gen.proj_kernel * n
+    if hasattr(gen, "pqmf"):
+        flops += 2 * gen.pqmf.N * (gen.pqmf.taps + 1) * n * gen.pqmf.N
+    return flops / 1e9
+
+
+def write_scale_stats(path: str, audio: dict, seed: int = 0) -> None:
+    """A ``scale_stats.npy`` as the reference's statistics script writes it
+    (mel and linear means and deviations in decibels, and the audio config
+    they were computed with), drawn from ``seed``."""
+    rs = np.random.RandomState(seed)
+    n, lin = audio["num_mels"], audio["fft_size"] // 2 + 1
+    np.save(path, {"mel_mean": rs.randn(n) * 5 - 40, "mel_std": rs.rand(n) * 5 + 10,
+                   "linear_mean": rs.randn(lin) * 5 - 40, "linear_std": rs.rand(lin) * 5 + 10,
+                   "audio_config": dict(audio)}, allow_pickle=True)
+
+
+def _lsd_db(ref: np.ndarray, ours: np.ndarray) -> float:
+    """``tests/test_fidelity_corpus.py``'s log-mel distance in dB (a 64-point
+    STFT, 20 mels at 1.6 kHz: the fixtures' waveforms are a few hundred
+    samples), through the port's numpy transforms."""
+    from tts_tpu_torch.audio.numpy_transforms import build_mel_basis, stft
+
+    def log_mel(wav):
+        spec = np.abs(stft(y=wav.astype(np.float32), fft_size=64, hop_length=16, win_length=64,
+                           pad_mode="reflect"))
+        basis = build_mel_basis(sample_rate=1600, fft_size=64, num_mels=20)
+        return 20.0 * np.log10(np.maximum(basis @ spec, 1e-5))
+
+    a, b = log_mel(ref), log_mel(ours)
+    return float(np.mean(np.sqrt(np.mean((a - b) ** 2, axis=0))))
+
+
+def fidelity_replays(device) -> str:
+    """``glow_tts.npz`` and ``multiband_melgan.npz`` (reference-layout state
+    dicts with the reference code's outputs) through the port's converters
+    on ``device``, at ``test_fidelity_corpus``'s thresholds."""
+    import torch
+
+    from tts_tpu_torch.models.glow_tts import GlowTTS, GlowTTSConfig
+    from tts_tpu_torch.utils.convert import load_reference_glow_tts, load_reference_vocoder
+    from tts_tpu_torch.vocoder.configs import MultibandMelganConfig
+    from tts_tpu_torch.vocoder.utils import make_generator_from_config
+
+    def fixture(name):
+        npz = np.load(os.path.join(REPO, "tests", "fixtures", "fidelity", f"{name}.npz"))
+        meta = json.loads(bytes(npz["meta"]).decode())
+        part = {p: {k[len(p) + 1:]: npz[k] for k in npz.files if k.startswith(p + "/")}
+                for p in ("sd", "in", "out")}
+        return part["sd"], part["in"], part["out"], meta
+
+    state, ins, outs, meta = fixture("glow_tts")
+    config = GlowTTSConfig()
+    for k, v in meta["config"].items():
+        setattr(config, k, v)
+    glow = GlowTTS(config)
+    glow.load_state_dict({k: v.to(device) for k, v in load_reference_glow_tts(state,
+                                                                               config).items()})
+    ref_lens = outs["y_lengths"]
+    with torch.no_grad():
+        out = glow.inference(torch.from_numpy(ins["text"]).to(device),
+                             torch.from_numpy(ins["text_lengths"]).to(device),
+                             max_frames=int(((ref_lens.max() + 31) // 32) * 32))
+    lens = out["y_lengths"].cpu().numpy()
+    mel = out["model_outputs"].float().cpu().numpy()
+    ours = np.concatenate([mel[b, :n] for b, n in enumerate(ref_lens)])
+    ref = np.concatenate([outs["mel"][b, :n] for b, n in enumerate(ref_lens)])
+    rmse = float(np.sqrt(np.mean((ours - ref) ** 2))) if ours.shape == ref.shape else np.inf
+    if not np.array_equal(lens, ref_lens) or not rmse < FIDELITY_RMSE:
+        raise AssertionError(f"glow_tts.npz on {device}: y_lengths {lens} vs {ref_lens}, "
+                             f"mel RMSE {rmse}")
+
+    state, ins, outs, meta = fixture("multiband_melgan")
+    vconfig = MultibandMelganConfig()
+    vconfig.audio.num_mels = ins["mel"].shape[1]
+    vconfig.generator_model_params = {"upsample_factors": [2, 2], "base_channels": 32,
+                                      "num_res_blocks": meta["num_res_blocks"]}
+    gen = make_generator_from_config(vconfig)
+    gen.load_state_dict(load_reference_vocoder(state, vconfig))
+    gen = gen.to(device).eval()
+    with torch.no_grad():
+        wav = gen.inference(torch.from_numpy(ins["mel"].transpose(0, 2, 1)).to(device))
+    wav = wav.float().cpu().numpy()[0, :, 0]
+    lsd = _lsd_db(outs["wav"][0, 0], wav) if len(wav) == outs["wav"].shape[-1] else np.inf
+    if not lsd < FIDELITY_LSD_DB:
+        raise AssertionError(f"multiband_melgan.npz on {device}: {len(wav)} samples, LSD {lsd}")
+    return (f"glow_tts.npz y_lengths {lens.tolist()} equal, mel RMSE {rmse:.3g} (< "
+            f"{FIDELITY_RMSE}); multiband_melgan.npz LSD {lsd:.3g} dB (< {FIDELITY_LSD_DB}), max "
+            f"abs diff {float(np.abs(outs['wav'][0, 0] - wav).max()):.3g}")
+
+
+def glow_stage_ms(synth, text: str, device, reps: int = 5) -> dict:
+    """One sentence's stages on the card, medians of ``reps``: the encoder
+    with the duration predictor, the path expansion (durations, monotonic
+    path, prior), the flow decoder in reverse and MB-MelGAN by CUDA events;
+    the host bridge (mel to the host, denormalise, renormalise, back to the
+    card) by the host clock."""
+    import torch
+
+    from tts_tpu_torch.utils.synthesis import _frame_budget
+
+    model = synth.tts_model
+    gm = model.module
+    ids = model.tokenizer.text_to_ids(text)
+    T = ((len(ids) + 15) // 16) * 16
+    x = torch.zeros(1, T, dtype=torch.long, device=device)
+    x[0, : len(ids)] = torch.tensor(ids, device=device)
+    xl = torch.tensor([len(ids)], device=device)
+    budget = _frame_budget(len(ids))
+    runs: dict = {}
+    with torch.no_grad():
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            o_mean, o_log_scale, o_dur_log, x_mask = gm.enc(x, xl)
+            ev[1].record()
+            e = gm.encode(x, xl, max_frames=budget)  # the path expansion, after the encoder
+            ev[2].record()
+            y, _, _ = gm.dec(e["y_mean"] * e["y_mask"], e["y_mask"], reverse=True)
+            ev[3].record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = int(e["y_lengths"][0])
+            mel = y[0, :frames].float().cpu().numpy()
+            voc_in = synth.vocoder_ap.normalize(synth.ap.denormalize(mel.T))
+            c = torch.from_numpy(np.ascontiguousarray(voc_in.T[None], np.float32)).to(device)
+            torch.cuda.synchronize()
+            bridge = (time.perf_counter() - t0) * 1e3
+            v0, v1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            v0.record()
+            synth.vocoder_model.inference(c)
+            v1.record()
+            torch.cuda.synchronize()
+            encode_ms = ev[0].elapsed_time(ev[1])
+            times = {"encoder + durations": encode_ms,
+                     "path expansion": ev[1].elapsed_time(ev[2]) - encode_ms,
+                     "flow decoder": ev[2].elapsed_time(ev[3]), "host bridge": bridge,
+                     "MB-MelGAN": v0.elapsed_time(v1)}
+            for k, v in times.items():
+                runs.setdefault(k, []).append(v)
+    return {"times": {k: sorted(v)[reps // 2] for k, v in runs.items()}, "frames": frames,
+            "budget": budget, "tokens": len(ids)}
+
+
+def phase_glow_tts(card: str, device="cuda", cut=None) -> None:
+    """GlowTTS with Multiband-MelGAN at the LJSpeech recipes' widths (the
+    ``tts`` command line's default pairing): the two fidelity fixtures
+    replayed on the card; the three phase 6 sentences card against CPU
+    (``y_lengths`` and mel, then the waveform through the vocoder bridge);
+    latency and RTF at B=1 with a stage split, MB-MelGAN's TFLOP/s, busy
+    share, kernels and peak memory; Griffin-Lim without a vocoder, card
+    against CPU under one ``np.random.seed``; the pair by zoo name from
+    reference-layout directories (nothing fetched; the vocoder's
+    ``stats_path`` names its trainer's file, F17) against the path load;
+    the ``tts`` command line's vocoder flags; and the server with
+    ``--vocoder_path`` and ``--max_batch 4``, which serves serially.
+    ``decode_attention`` must not launch. ``cut`` shrinks both configs in
+    place, for rehearsals on the CPU."""
+    import io
+    import shutil
+
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.models.glow_tts import GlowTTS
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.server.server import build_parser, close_server, server_from_args
+    from tts_tpu_torch.utils.convert import reference_glow_tts_state, reference_melgan_state
+    from tts_tpu_torch.utils.synthesis import synthesis
+    from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, Synthesizer
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    cut = cut or (lambda glow_config, voc_config: None)
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    medium = VITS_SENTENCES["medium"]
+
+    def silent(fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` without the Synthesizer's per-call lines."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    log(f"fidelity replays on {device}: " + fidelity_replays(device) + f" | {card}")
+
+    glow_config, voc_config = glow_recipe_config(), mb_melgan_recipe_config()
+    cut(glow_config, voc_config)
+    with tempfile.TemporaryDirectory() as d:
+        glow_dir, voc_dir = os.path.join(d, "glow"), os.path.join(d, "voc")
+        os.makedirs(glow_dir)
+        os.makedirs(voc_dir)
+        glow = GlowTTS.init_from_config(glow_config).init_params(seed=0, device="cpu")
+        write_json(os.path.join(glow_dir, "config.json"), glow.config.to_dict())
+        torch.save(glow.module.state_dict(), os.path.join(glow_dir, "model_torch.pt"))
+        gen = random_vocoder(voc_config, seed=0)
+        write_json(os.path.join(voc_dir, "config.json"), voc_config.to_dict())
+        torch.save(gen.state_dict(), os.path.join(voc_dir, "model_torch.pt"))
+        c = glow.config
+        n_glow = sum(p.numel() for p in glow.module.parameters())
+        n_voc = sum(p.numel() for p in gen.parameters())
+        per_s = (melgan_gflop(gen, 1, padded=False) * voc_config.audio.sample_rate
+                 / voc_config.audio.hop_length)
+        gp = voc_config.generator_model_params
+        log(f"GlowTTS (LJSpeech recipe, phonemes from {glow.tokenizer.phonemizer.name()}, "
+            f"{c.text_cleaner}, num_chars {c.num_chars}): encoder {c.hidden_channels_enc} ch, "
+            f"{c.encoder_params['num_layers']} relative-attention layers, "
+            f"{c.encoder_params['num_heads']} heads, FFN {c.encoder_params['hidden_channels_ffn']}"
+            f", prenet, duration predictor {c.hidden_channels_dp}; decoder "
+            f"{c.num_flow_blocks_dec} flow blocks of {c.num_block_layers} WN layers at "
+            f"{c.hidden_channels_dec} ch, kernel {c.kernel_size_dec}, {c.num_splits} splits, "
+            f"squeeze {c.num_squeeze}; {n_glow / 1e6:.2f} M parameters (seed 0; zero-init leaves "
+            f"drawn at a tenth scale, duration bias for ~6 frames a token). MB-MelGAN: "
+            f"{gen.conv_pre.out_channels} base channels, upsampling {gp['upsample_factors']}, "
+            f"{gp['num_res_blocks']} residual blocks a stage, {gen.pqmf.N} PQMF bands, "
+            f"{voc_config.audio.sample_rate} Hz, hop {voc_config.audio.hop_length}; "
+            f"{n_voc / 1e6:.2f} M parameters (seed 0); {per_s:.2f} GFLOP per second of audio")
+        del glow, gen
+        glow_args = ["--model_path", os.path.join(glow_dir, "model_torch.pt"), "--config_path",
+                     os.path.join(glow_dir, "config.json")]
+        voc_args = ["--vocoder_path", os.path.join(voc_dir, "model_torch.pt"),
+                    "--vocoder_config_path", os.path.join(voc_dir, "config.json")]
+
+        def load(dev, vocoder=True):
+            kw = dict(vocoder_checkpoint=voc_args[1], vocoder_config=voc_args[3]) \
+                if vocoder else {}
+            return Synthesizer(tts_checkpoint=glow_args[1], tts_config_path=glow_args[3],
+                               device=dev, **kw)
+
+        # card against CPU: the mel, then the waveform through the bridge
+        synth, cpu_synth = load(device), load("cpu")
+        worst_mel = worst_wav = 0.0
+        lengths, budgets, audio_s = [], [], []
+        with torch.no_grad():
+            for text in VITS_SENTENCES.values():
+                g, w = synthesis(synth.tts_model, text), synthesis(cpu_synth.tts_model, text)
+                g_len, w_len = g["outputs"]["y_lengths"].cpu(), w["outputs"]["y_lengths"]
+                if not torch.equal(g_len, w_len) or g["model_outputs"].shape != \
+                        w["model_outputs"].shape:
+                    raise AssertionError(f"GlowTTS y_lengths card {g_len.tolist()} != CPU "
+                                         f"{w_len.tolist()} for {text!r}")
+                err = float(np.abs(g["model_outputs"] - w["model_outputs"]).max())
+                if not err <= GLOW_MEL_TOL or not np.isfinite(g["model_outputs"]).all():
+                    raise AssertionError(f"GlowTTS mel card vs CPU: max abs diff {err}")
+                gw, ww = synth._vocode(g["model_outputs"]), cpu_synth._vocode(w["model_outputs"])
+                werr = float(np.abs(gw - ww).max()) if gw.shape == ww.shape else np.inf
+                if not werr <= VITS_WAV_TOL or not np.isfinite(gw).all() or gw.std() == 0:
+                    raise AssertionError(f"GlowTTS + MB-MelGAN card vs CPU: {gw.shape} vs "
+                                         f"{ww.shape}, max abs diff {werr}")
+                worst_mel, worst_wav = max(worst_mel, err), max(worst_wav, werr)
+                lengths.append(int(g_len[0]))
+                budgets.append(int(g["outputs"]["model_outputs"].shape[1]))
+                audio_s.append(len(gw) / synth.output_sample_rate)
+        cut_note = ", ".join(f"{n}/{b}" for n, b in zip(lengths, budgets))
+        log(f"GlowTTS + MB-MelGAN card vs CPU, the three phase 6 sentences: y_lengths {lengths} "
+            f"equal, mel max abs diff {worst_mel:.3g} (tol {GLOW_MEL_TOL}), waveform through "
+            f"the vocoder bridge {worst_wav:.3g} (tol {VITS_WAV_TOL}); frames/budget {cut_note}"
+            f" ({'none' if all(n < b for n, b in zip(lengths, budgets)) else 'some'} cut at "
+            f"the frame budget)")
+
+        # speed at B=1: Synthesizer.tts per sentence (trim included), median of 5
+        silent(synth.tts, medium)
+        for key, text in VITS_SENTENCES.items():
+            ms, lo, hi = median_ms(lambda: silent(synth.tts, text), device)
+            seconds = (len(silent(synth.tts, text)) - SENTENCE_GAP) / synth.output_sample_rate
+            log(f"GlowTTS + MB-MelGAN {key}: {seconds:.2f} s of audio (after the trim) in "
+                f"{ms:.1f} ms (median of 5; {lo:.1f}-{hi:.1f}), RTF {seconds / ms * 1e3:.1f} "
+                f"| {card}")
+        if cuda:
+            st = glow_stage_ms(synth, medium, device)
+            mb = st["times"]["MB-MelGAN"]
+            gflop = melgan_gflop(synth.vocoder_model, st["frames"])
+            log(f"GlowTTS stages, medium sentence ({st['tokens']} tokens, {st['frames']} frames, "
+                f"budget {st['budget']}), ms (median of 5; CUDA events, the bridge by the host "
+                f"clock): " + ", ".join(f"{k} {v:.2f}" for k, v in st["times"].items())
+                + f"; MB-MelGAN {gflop:.2f} GFLOP, {gflop / mb:.1f} TFLOP/s, "
+                f"{100 * gflop / mb * 1e12 / FP32_FLOPS_PER_S:.1f} % of the fp32 peak | {card}")
+            profile_call(lambda: silent(synth.tts, medium),
+                         "GlowTTS + MB-MelGAN, one medium sentence through Synthesizer.tts", card)
+
+        # Griffin-Lim: no vocoder, the same first phases on card and CPU
+        gl, cpu_gl = load(device, vocoder=False), load("cpu", vocoder=False)
+        np.random.seed(0)
+        a = np.asarray(silent(gl.tts, medium), np.float32)
+        np.random.seed(0)
+        b = np.asarray(silent(cpu_gl.tts, medium), np.float32)
+        peak = float(np.abs(b).max())
+        err = float(np.abs(a - b).max()) if a.shape == b.shape else np.inf
+        if not err <= GL_REL_TOL * peak or not np.isfinite(a).all() or peak == 0:
+            raise AssertionError(f"Griffin-Lim card vs CPU: {a.shape} vs {b.shape}, max abs diff "
+                                 f"{err} of peak {peak}")
+        mel = synthesis(gl.tts_model, medium)["model_outputs"]
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        gl.ap.inv_melspectrogram(mel.T)
+        gl_ms = (time.perf_counter() - t0) * 1e3
+        log(f"Griffin-Lim ({gl.ap.griffin_lim_iters} iterations, no vocoder), medium sentence: "
+            f"card vs CPU after np.random.seed(0), {len(a)} samples each, max abs diff "
+            f"{err:.3g} of peak {peak:.3g} (tol {GL_REL_TOL} of the peak); Griffin-Lim alone "
+            f"{gl_ms:.0f} ms on the host")
+        del gl, cpu_gl, cpu_synth
+
+        # the zoo by name: reference-layout directories, nothing fetched
+        with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+            zg = os.path.join(home, "tts_tpu", ZOO_GLOW.replace("/", "--"))
+            zv = os.path.join(home, "tts_tpu", ZOO_MBMELGAN.replace("/", "--"))
+            os.makedirs(zg)
+            os.makedirs(zv)
+            glow_state = torch.load(glow_args[1], weights_only=True)
+            torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                                  reference_glow_tts_state(glow_state).items()}},
+                       os.path.join(zg, "model_file.pth"))
+            shutil.copy(glow_args[3], os.path.join(zg, "config.json"))
+            torch.save({"model": {k: torch.from_numpy(v) for k, v in reference_melgan_state(
+                torch.load(voc_args[1], weights_only=True)).items()}},
+                os.path.join(zv, "model_file.pth"))
+            vsaved = voc_config.to_dict()
+            vsaved["audio"]["stats_path"] = FOREIGN_STATS
+            write_json(os.path.join(zv, "config.json"), vsaved)
+            write_scale_stats(os.path.join(zv, "scale_stats.npy"), vsaved["audio"], seed=0)
+            t0 = time.time()
+            by_name = TTS(model_name=ZOO_GLOW, device=device)
+            load_s = time.time() - t0
+            with open(os.path.join(zv, "config.json")) as f:
+                stats_path = json.load(f)["audio"]["stats_path"]
+            if stats_path != os.path.join(zv, "scale_stats.npy") or not hasattr(
+                    by_name.synthesizer.vocoder_ap, "mel_scaler"):
+                raise AssertionError(f"zoo vocoder stats_path {stats_path!r} (F17)")
+            by_path = TTS(model_path=os.path.join(zg, "model_file.pth"),
+                          config_path=os.path.join(zg, "config.json"),
+                          vocoder_path=os.path.join(zv, "model_file.pth"),
+                          vocoder_config_path=os.path.join(zv, "config.json"), device=device)
+            a = np.asarray(silent(by_name.tts, medium), np.float32)
+            b = np.asarray(silent(by_path.tts, medium), np.float32)
+            zerr = float(np.abs(a - b).max()) if a.shape == b.shape else np.inf
+            if zerr != 0 or a.std() == 0:
+                raise AssertionError(f"TTS(model_name={ZOO_GLOW}) vs path load: {a.shape} vs "
+                                     f"{b.shape}, max abs diff {zerr}")
+            log(f"zoo: {ZOO_GLOW} with its default vocoder {ZOO_MBMELGAN} from reference-layout "
+                f"directories (model_file.pth, config.json; the vocoder's scale_stats.npy, its "
+                f"stats_path rewritten from the trainer's, F17), nothing fetched; loaded in "
+                f"{load_s:.1f} s; the medium sentence differs from the path load by {zerr}")
+            del by_name, by_path
+
+        # the command line with the vocoder flags against the API
+        api = TTS(model_path=glow_args[1], config_path=glow_args[3], vocoder_path=voc_args[1],
+                  vocoder_config_path=voc_args[3], device=device)
+        api_path, cli_path = os.path.join(d, "api.wav"), os.path.join(d, "cli.wav")
+        silent(api.tts_to_file, medium, file_path=api_path)
+        silent(synthesize_cli, ["--text", medium, "--out_path", cli_path, "--device",
+                                str(device)] + glow_args + voc_args)
+        (sr, api_pcm), (cli_sr, cli_pcm) = (scipy.io.wavfile.read(p) for p in (api_path,
+                                                                              cli_path))
+        step = (np.abs(cli_pcm.astype(np.int32) - api_pcm.astype(np.int32)).max()
+                if cli_pcm.shape == api_pcm.shape else None)
+        if step is None or step > 1 or cli_sr != sr or sr != voc_config.audio.sample_rate:
+            raise AssertionError(f"tts --vocoder_path {cli_pcm.shape} at {cli_sr} Hz vs the API "
+                                 f"{api_pcm.shape} at {sr} Hz: {step} int16 steps")
+        log(f"tts --model_path --config_path --vocoder_path --vocoder_config_path: "
+            f"{len(cli_pcm)} samples at {cli_sr} Hz, at most {step} int16 step from "
+            f"TTS.tts_to_file")
+        del api
+
+        # the server with the vocoder flags and --max_batch 4: served serially
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            srv = server_from_args(build_parser().parse_args(
+                glow_args + voc_args + ["--max_batch", "4", "--port", "0",
+                                        "--device", str(device)]))
+        if "serving serially" not in said.getvalue() or srv.batcher is not None:
+            raise AssertionError(f"server with a vocoder and --max_batch 4: {said.getvalue()!r}")
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        results: dict = {}
+        try:
+            t1 = time.perf_counter()
+            clients = [threading.Thread(target=_fetch, args=(
+                f"{base}/api/tts?text={urllib.parse.quote(t)}", results, k))
+                for k, t in VITS_SENTENCES.items()]
+            with contextlib.redirect_stdout(io.StringIO()):
+                for cl in clients:
+                    cl.start()
+                for cl in clients:
+                    cl.join(timeout=600)
+            served_s = time.perf_counter() - t1
+        finally:
+            close_server(srv)
+            thread.join(timeout=60)
+        served_audio = 0.0
+        for key in VITS_SENTENCES:
+            res = results.get(key) or {}
+            if res.get("status") != 200:
+                raise AssertionError(f"GlowTTS /api/tts {key!r}: {res.get('status')}")
+            rate, pcm = scipy.io.wavfile.read(io.BytesIO(res["body"]))
+            if rate != sr or len(pcm) <= SENTENCE_GAP or pcm[:-SENTENCE_GAP].std() < 30:
+                raise AssertionError(f"GlowTTS /api/tts {key!r}: {rate} Hz, {len(pcm)} samples")
+            served_audio += len(pcm) / rate
+        line = [ln for ln in said.getvalue().splitlines() if "serially" in ln][0].strip()
+        log(f"GlowTTS server (--vocoder_path, --max_batch 4): said {line!r}; 3 concurrent "
+            f"/api/tts requests, {served_audio:.2f} s of audio in {served_s:.2f} s | {card}")
+        del synth
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the GlowTTS phase")
+    line = "GlowTTS + MB-MelGAN: no hand-written kernel on this path (decode_attention launches 0)"
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f"; phase 10 took {time.time() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2198,6 +2704,7 @@ def main() -> int:
     phase_batched_vits(card)
     phase_multispeaker(card, single_ms)
     phase_zoo_and_variants(card)
+    phase_glow_tts(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:

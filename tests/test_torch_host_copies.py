@@ -336,3 +336,151 @@ def test_manage_copies_match_jax(tmp_path):
         assert sorted(os.listdir(tmp_path / f"{manage.__name__}-{n}")) == sorted(
             os.listdir(tmp_path / f"{jax_manage.__name__}-{n}"))
     assert sorted(os.listdir(tmp_path / f"{manage.__name__}-1")) == ["only.pth"]
+
+
+# ---------------------------------------------------------------------------
+# The AudioProcessor and numpy transforms (``audio/processor.py``,
+# ``audio/numpy_transforms.py``), the GlowTTS and MelGAN converters, the
+# vocoder input interpolation and the GlowTTS config: equal to the JAX
+# package's, no tolerance.
+# ---------------------------------------------------------------------------
+
+AUDIO_CASES = {
+    "symmetric": dict(),
+    "one_sided": dict(symmetric_norm=False, max_norm=1.0, ref_level_db=10, min_level_db=-90),
+    "unclipped": dict(clip_norm=False, log_func="np.log"),
+    "no_norm": dict(signal_norm=False, preemphasis=0.97),
+    "mean_var": dict(stats=True),
+}
+
+
+def _processors(tmp_path, case):
+    """The port's and the JAX package's ``AudioProcessor`` for one audio
+    config (16 kHz, 256-point FFT, 20 mels), with ``scale_stats.npy``
+    written for the mean-var case."""
+    from tts_tpu.audio.processor import AudioProcessor as JaxAudioProcessor
+    from tts_tpu.config.shared import BaseAudioConfig as JaxAudioConfig
+    from tts_tpu_torch.audio.processor import AudioProcessor
+    from tts_tpu_torch.config.shared import BaseAudioConfig
+
+    kw = dict(AUDIO_CASES[case])
+    audio = dict(sample_rate=16000, fft_size=256, win_length=256, hop_length=64, num_mels=20,
+                 griffin_lim_iters=4)
+    if kw.pop("stats", False):
+        rs = np.random.RandomState(1)
+        audio["stats_path"] = str(tmp_path / "scale_stats.npy")
+        np.save(audio["stats_path"], {
+            "mel_mean": rs.randn(20) - 30, "mel_std": rs.rand(20) + 5,
+            "linear_mean": rs.randn(128), "linear_std": rs.rand(128) + 1,
+            "audio_config": dict(audio)}, allow_pickle=True)
+    audio.update(kw)
+    assert BaseAudioConfig(**audio).to_dict() == JaxAudioConfig(**audio).to_dict()
+    return (AudioProcessor.init_from_config(BaseAudioConfig(**audio), verbose=False),
+            JaxAudioProcessor.init_from_config(JaxAudioConfig(**audio), verbose=False))
+
+
+@pytest.mark.parametrize("case", list(AUDIO_CASES))
+def test_audio_processor_matches_jax(case, tmp_path):
+    """``normalize`` and ``denormalize`` both ways (mels and linear
+    spectrograms, values past the clip range included), ``load_stats``,
+    ``melspectrogram``, ``spectrogram``, ``inv_melspectrogram`` under one
+    ``np.random.seed``, ``find_endpoint`` and ``trim_silence``."""
+    ours, theirs = _processors(tmp_path, case)
+    rs = np.random.RandomState(0)
+    wav = (0.3 * rs.randn(4000)).astype(np.float32)
+    wav[2500:] *= 1e-4
+    for x in (rs.randn(20, 30) * 60 - 20, rs.randn(128, 30) * 60 - 20, rs.randn(20, 9) * 6):
+        np.testing.assert_array_equal(ours.normalize(x), theirs.normalize(x))
+        np.testing.assert_array_equal(ours.denormalize(x), theirs.denormalize(x))
+    if ours.stats_path:
+        for a, b in zip(ours.load_stats(ours.stats_path), theirs.load_stats(theirs.stats_path)):
+            np.testing.assert_equal(a, b)
+    mel = ours.melspectrogram(wav)
+    np.testing.assert_array_equal(mel, theirs.melspectrogram(wav))
+    if ours.stats_path:  # 129 linear bins against the stats' fft_size / 2, in both
+        for ap in (ours, theirs):
+            with pytest.raises(RuntimeError, match="does not match"):
+                ap.spectrogram(wav)
+    else:
+        np.testing.assert_array_equal(ours.spectrogram(wav), theirs.spectrogram(wav))
+    np.random.seed(3)
+    got = ours.inv_melspectrogram(mel)
+    np.random.seed(3)
+    np.testing.assert_array_equal(got, theirs.inv_melspectrogram(mel))
+    assert ours.find_endpoint(wav) == theirs.find_endpoint(wav)
+    np.testing.assert_array_equal(ours.trim_silence(wav), theirs.trim_silence(wav))
+
+
+@pytest.mark.parametrize("center", [True, False])
+def test_stft_istft_mel_to_spec_and_griffin_lim_match_jax(center):
+    from tts_tpu.audio import numpy_transforms as jax_nt
+    from tts_tpu_torch.audio import numpy_transforms as nt
+
+    rs = np.random.RandomState(2)
+    y = rs.randn(3000)
+    kw = dict(fft_size=256, hop_length=64, win_length=200, center=center)
+    D = nt.stft(y=y, **kw)
+    np.testing.assert_array_equal(D, jax_nt.stft(y=y, **kw))
+    np.testing.assert_array_equal(nt.istft(y=D, hop_length=64, win_length=200, center=center),
+                                  jax_nt.istft(y=D, hop_length=64, win_length=200,
+                                               center=center))
+    basis = nt.build_mel_basis(sample_rate=16000, fft_size=256, num_mels=20)
+    mel = nt.spec_to_mel(spec=np.abs(D), mel_basis=basis)
+    np.testing.assert_array_equal(mel, jax_nt.spec_to_mel(spec=np.abs(D), mel_basis=basis))
+    np.testing.assert_array_equal(nt.mel_to_spec(mel=mel, mel_basis=basis),
+                                  jax_nt.mel_to_spec(mel=mel, mel_basis=basis))
+    np.testing.assert_array_equal(nt.amp_to_db(x=np.abs(D), gain=20, base=10),
+                                  jax_nt.amp_to_db(x=np.abs(D), gain=20, base=10))
+    np.testing.assert_array_equal(nt.deemphasis(x=nt.preemphasis(x=y)),
+                                  jax_nt.deemphasis(x=jax_nt.preemphasis(x=y)))
+    gl = dict(spec=np.abs(D[:, :20]), num_iter=3, fft_size=256, hop_length=64, win_length=200)
+    np.random.seed(5)
+    got = nt.griffin_lim(**gl)
+    np.random.seed(5)
+    np.testing.assert_array_equal(got, jax_nt.griffin_lim(**gl))
+
+
+def test_convert_glow_tts_matches_jax_leaf_for_leaf():
+    """The reference-layout GlowTTS state dict of ``glow_tts.npz`` (weight
+    norm in the new parametrization API) through both converters."""
+    from tts_tpu.models.glow_tts.config import GlowTTSConfig as JaxGlowTTSConfig
+    from tts_tpu.utils.convert import convert_glow_tts as jax_convert_glow_tts
+    from tts_tpu_torch.models.glow_tts import GlowTTSConfig
+    from tts_tpu_torch.utils.convert import convert_glow_tts
+
+    state, _, _, meta = load_fidelity_fixture("glow_tts")
+    config, jax_config = GlowTTSConfig(), JaxGlowTTSConfig()
+    for k, v in meta["config"].items():
+        setattr(config, k, v)
+        setattr(jax_config, k, v)
+    assert config.to_dict() == jax_config.to_dict()
+    got = dict(_leaves(convert_glow_tts(dict(state), config)))
+    want = dict(_leaves(jax_convert_glow_tts(dict(state), jax_config)))
+    assert sorted(got) == sorted(want) and len(got) > 80
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+def test_convert_melgan_generator_matches_jax_leaf_for_leaf():
+    from tts_tpu.utils.convert import convert_melgan_generator as jax_convert_melgan_generator
+    from tts_tpu_torch.utils.convert import convert_melgan_generator
+
+    state, _, _, meta = load_fidelity_fixture("multiband_melgan")
+    kw = dict(num_upsample_stages=meta["num_upsample_stages"],
+              num_res_blocks=meta["num_res_blocks"])
+    got = dict(_leaves(convert_melgan_generator(dict(state), **kw)))
+    want = dict(_leaves(jax_convert_melgan_generator(dict(state), **kw)))
+    assert sorted(got) == sorted(want) and len(got) > 20
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+@pytest.mark.parametrize("scale", [22050 / 16000, 16000 / 22050, 2.0])
+def test_interpolate_vocoder_input_matches_jax(scale):
+    from tts_tpu.vocoder.utils import interpolate_vocoder_input as jax_interpolate
+    from tts_tpu_torch.vocoder.utils import interpolate_vocoder_input
+
+    spec = np.random.RandomState(4).randn(20, 37).astype(np.float32)
+    got = interpolate_vocoder_input([1, scale], spec)
+    np.testing.assert_array_equal(got, jax_interpolate([1, scale], spec))
+    assert got.shape == (20, int(np.floor(37 * scale)))

@@ -299,7 +299,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     interpreter, after importing every module of the port, the XTTS and VITS
     slices, the phonemizers, the ``tts`` command line, the server, its
     batcher, the pack planner, the speaker and language managers, the zoo
-    manager, the iSTFT decoder and the PQMF bank included: this test process
+    manager, the iSTFT decoder and the PQMF bank, GlowTTS with its flows, the
+    MelGAN generators, the vocoder registry and configs, and the
+    ``AudioProcessor`` included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -318,6 +320,10 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "assert len(mods) > 58 and 'tts_tpu_torch.text.japanese' in mods, mods\n"
         "assert {'tts_tpu_torch.utils.manage', 'tts_tpu_torch.vocoder.layers',\n"
         "        'tts_tpu_torch.vocoder.models.istft_hifigan'} <= set(mods), mods\n"
+        "from tts_tpu_torch.utils.convert import load_reference_glow_tts, load_reference_vocoder\n"
+        "assert {'tts_tpu_torch.models.glow_tts.model', 'tts_tpu_torch.layers.glow',\n"
+        "        'tts_tpu_torch.vocoder.models.melgan_generator', 'tts_tpu_torch.vocoder.utils',\n"
+        "        'tts_tpu_torch.vocoder.configs', 'tts_tpu_torch.audio.processor'} <= set(mods), mods\n"
         "catalog = ModelManager().models_file\n"
         "assert catalog.endswith('tts_tpu_torch/zoo/models.json'), catalog\n"
         "assert 'tts_tpu_torch.utils.managers' in mods, mods\n"

@@ -395,17 +395,28 @@ def _unported():
     return names + ["tts_models/de/fairseq/vits"]
 
 
+GLOW_TTS = ["tts_models/en/ljspeech/glow-tts", "tts_models/uk/mai/glow-tts",
+            "tts_models/tr/common-voice/glow-tts", "tts_models/be/common-voice/glow-tts",
+            "tts_models/it/mai_female/glow-tts", "tts_models/it/mai_male/glow-tts",
+            "tts_models/fa/custom/glow-tts"]
+
+
 def test_every_family_is_sorted_into_ported_or_an_item():
-    """38 entries named VITS, the VITS ``jenny`` (by its description) and
-    XTTS v2 load; each of the catalog's other 48, and the fairseq MMS
-    models, names a ROADMAP.md item."""
+    """38 entries named VITS, the VITS ``jenny`` (by its description), XTTS
+    v2, the 7 GlowTTS entries (with a Multiband-MelGAN or HiFiGAN default
+    vocoder, or none) and the 12 Multiband-MelGAN, Fullband-MelGAN and
+    HiFiGAN vocoders load; each of the catalog's other 29, and the fairseq
+    MMS models, names a ROADMAP.md item."""
     manager = manage.ModelManager()
     ported = [n for n in manager.list_models()
               if not manage.unported_reason(n, manager.models_dict)]
     assert len([n for n in ported if "vits" in n]) == 38
-    assert sorted(n for n in ported if "vits" not in n) == sorted(
-        ["tts_models/en/jenny/jenny", XTTS])
-    assert len(_unported()) == 88 - 40 + 1
+    assert sorted(n for n in ported if "vits" not in n and n.startswith("tts_models/")) == \
+        sorted(["tts_models/en/jenny/jenny", XTTS] + GLOW_TTS)
+    vocoders = [n for n in ported if n.startswith("vocoder_models/")]
+    assert len(vocoders) == 12 and all(
+        any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan")) for n in vocoders)
+    assert len(_unported()) == 88 - 59 + 1
 
 
 @pytest.mark.parametrize("name", _unported())
@@ -420,9 +431,13 @@ def test_unported_families_raise_before_any_download(name, offline_zoo):
 
 
 def test_vocoder_name_raises(offline_zoo):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md items 13 onward"):
+    """A ``--vocoder_name`` the port does not run (UnivNet) raises naming its
+    item, before anything is fetched."""
+    before = sorted(p.name for p in (offline_zoo / "tts_tpu").iterdir())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
         port_cli(["--text", TEXT, "--model_name", VCTK, "--speaker_idx", "p225",
-                  "--vocoder_name", "vocoder_models/en/vctk/hifigan_v2", "--device", "cpu"])
+                  "--vocoder_name", "vocoder_models/en/ljspeech/univnet", "--device", "cpu"])
+    assert sorted(p.name for p in (offline_zoo / "tts_tpu").iterdir()) == before
 
 
 def test_missing_directory_is_fetched(offline_zoo, zoo_home, monkeypatch):

@@ -1,7 +1,16 @@
-"""Host-side wav I/O, resampling and the trailing-silence endpoint (port
-of part of ``tts_tpu/audio/numpy_transforms.py``: ``load_wav``,
-``save_wav``, ``resample_wav``, and ``db_to_amp`` and ``find_endpoint``
-copied verbatim with ``_exp``; numpy and scipy only)."""
+"""Host-side audio ops, numpy and scipy only (port of
+``tts_tpu/audio/numpy_transforms.py``, copied unchanged apart from what the
+port does not run yet): the librosa-compatible centred ``stft``/``istft``,
+``griffin_lim``, mel ↔ linear (``spec_to_mel``, ``mel_to_spec``), decibels
+(``amp_to_db``, ``db_to_amp``), the preemphasis pair, the trailing-silence
+endpoint (``find_endpoint``), the leading and trailing silence trim
+(``trim_silence``), the volume norms, and wav I/O with resampling.
+
+``griffin_lim`` draws its first phases from numpy's global generator, as
+its source does: seed ``np.random`` before a call to repeat it. f0,
+energy and the mu-law and bit-depth codecs serve training datasets and wait
+for them.
+"""
 
 from __future__ import annotations
 
@@ -12,6 +21,239 @@ from typing import Tuple
 import numpy as np
 import scipy.io.wavfile
 import scipy.signal
+
+from .mel import build_mel_basis  # noqa: F401  (re-exported, as in the source)
+
+# --------------------------------------------------------------------------
+# framing / windows
+# --------------------------------------------------------------------------
+
+
+def _get_window(window: str, win_length: int) -> np.ndarray:
+    return scipy.signal.get_window(window, win_length, fftbins=True)
+
+
+def _pad_center(w: np.ndarray, size: int) -> np.ndarray:
+    n = len(w)
+    lpad = (size - n) // 2
+    return np.pad(w, (lpad, size - n - lpad))
+
+
+def _frame(x: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    """Frame a 1-D signal into overlapping columns ``[frame_length, n_frames]``."""
+    n_frames = 1 + (len(x) - frame_length) // hop_length
+    strides = (x.strides[0], hop_length * x.strides[0])
+    return np.lib.stride_tricks.as_strided(x, shape=(frame_length, n_frames), strides=strides)
+
+
+def millisec_to_length(
+    *, frame_length_ms: int = None, frame_shift_ms: int = None, sample_rate: int = None, **kwargs
+) -> Tuple[int, int]:
+    """``(win_length, hop_length)`` from milliseconds."""
+    factor = frame_length_ms / frame_shift_ms
+    assert factor.is_integer(), " [!] frame_shift_ms should divide frame_length_ms"
+    win_length = int(frame_length_ms / 1000.0 * sample_rate)
+    hop_length = int(win_length / float(factor))
+    return win_length, hop_length
+
+
+# --------------------------------------------------------------------------
+# dB / scaling
+# --------------------------------------------------------------------------
+
+
+def _log(x, base):
+    return np.log10(x) if base == 10 else np.log(x)
+
+
+def _exp(x, base):
+    return np.power(10, x) if base == 10 else np.exp(x)
+
+
+def amp_to_db(*, x: np.ndarray = None, gain: float = 1, base: int = 10, **kwargs) -> np.ndarray:
+    assert (x < 0).sum() == 0, " [!] Input values must be non-negative."
+    return gain * _log(np.maximum(1e-8, x), base)
+
+
+def db_to_amp(*, x: np.ndarray = None, gain: float = 1, base: int = 10, **kwargs) -> np.ndarray:
+    return _exp(x / gain, base)
+
+
+def preemphasis(*, x: np.ndarray, coef: float = 0.97, **kwargs) -> np.ndarray:
+    if coef == 0:
+        raise RuntimeError(" [!] Preemphasis is set 0.0.")
+    return scipy.signal.lfilter([1, -coef], [1], x)
+
+
+def deemphasis(*, x: np.ndarray = None, coef: float = 0.97, **kwargs) -> np.ndarray:
+    if coef == 0:
+        raise RuntimeError(" [!] Preemphasis is set 0.0.")
+    return scipy.signal.lfilter([1], [1, -coef], x)
+
+
+# --------------------------------------------------------------------------
+# spectrograms
+# --------------------------------------------------------------------------
+
+
+def spec_to_mel(*, spec: np.ndarray, mel_basis: np.ndarray = None, **kwargs) -> np.ndarray:
+    """``[C, T] -> [M, T]``"""
+    return np.dot(mel_basis, spec)
+
+
+def mel_to_spec(*, mel: np.ndarray = None, mel_basis: np.ndarray = None, **kwargs) -> np.ndarray:
+    assert (mel < 0).sum() == 0, " [!] Input values must be non-negative."
+    inv_mel_basis = np.linalg.pinv(mel_basis)
+    return np.maximum(1e-10, np.dot(inv_mel_basis, mel))
+
+
+def stft(
+    *,
+    y: np.ndarray = None,
+    fft_size: int = None,
+    hop_length: int = None,
+    win_length: int = None,
+    pad_mode: str = "reflect",
+    window: str = "hann",
+    center: bool = True,
+    **kwargs,
+) -> np.ndarray:
+    """Centered STFT, librosa-compatible. Returns complex ``[1+fft_size//2, T]``."""
+    if win_length is None:
+        win_length = fft_size
+    if hop_length is None:
+        hop_length = win_length // 4
+    w = _pad_center(_get_window(window, win_length), fft_size)
+    if center:
+        y = np.pad(y, fft_size // 2, mode=pad_mode)
+    frames = _frame(y, fft_size, hop_length)
+    return np.fft.rfft(frames * w[:, None], axis=0)
+
+
+def istft(
+    *,
+    y: np.ndarray = None,
+    hop_length: int = None,
+    win_length: int = None,
+    window: str = "hann",
+    center: bool = True,
+    **kwargs,
+) -> np.ndarray:
+    """Inverse STFT with NOLA window-sum correction (librosa-compatible)."""
+    n_fft = 2 * (y.shape[0] - 1)
+    if win_length is None:
+        win_length = n_fft
+    if hop_length is None:
+        hop_length = win_length // 4
+    w = _pad_center(_get_window(window, win_length), n_fft)
+    n_frames = y.shape[1]
+    expected_len = n_fft + hop_length * (n_frames - 1)
+    out = np.zeros(expected_len)
+    win_sum = np.zeros(expected_len)
+    frames = np.fft.irfft(y, n=n_fft, axis=0)
+    wsq = w**2
+    for i in range(n_frames):
+        s = i * hop_length
+        out[s : s + n_fft] += frames[:, i] * w
+        win_sum[s : s + n_fft] += wsq
+    out = out / np.maximum(win_sum, 1e-10)
+    if center:
+        out = out[n_fft // 2 : expected_len - n_fft // 2]
+    return out
+
+
+def griffin_lim(*, spec: np.ndarray = None, num_iter=60, **kwargs) -> np.ndarray:
+    """Griffin-Lim phase reconstruction; the first phases are drawn from
+    numpy's global generator."""
+    angles = np.exp(2j * np.pi * np.random.rand(*spec.shape))
+    S_complex = np.abs(spec).astype(complex)
+    y = istft(y=S_complex * angles, **kwargs)
+    if not np.isfinite(y).all():
+        print(" [!] Waveform is not finite everywhere. Skipping the GL.")
+        return np.array([0.0])
+    for _ in range(num_iter):
+        angles = np.exp(1j * np.angle(stft(y=y, **kwargs)))
+        y = istft(y=S_complex * angles, **kwargs)
+    return y
+
+
+# --------------------------------------------------------------------------
+# silence / volume
+# --------------------------------------------------------------------------
+
+
+def find_endpoint(
+    *,
+    wav: np.ndarray = None,
+    trim_db: float = -40,
+    sample_rate: int = None,
+    min_silence_sec=0.8,
+    gain: float = None,
+    base: int = None,
+    **kwargs,
+) -> int:
+    window_length = int(sample_rate * min_silence_sec)
+    hop_length = int(window_length / 4)
+    threshold = db_to_amp(x=-trim_db, gain=gain, base=base)
+    for x in range(hop_length, len(wav) - window_length, hop_length):
+        if np.max(wav[x : x + window_length]) < threshold:
+            return x + hop_length
+    return len(wav)
+
+
+def _rms_frames(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    y = np.pad(y, frame_length // 2, mode="constant")
+    frames = _frame(y, frame_length, hop_length)
+    return np.sqrt(np.mean(frames**2, axis=0))
+
+
+def trim_silence(
+    *,
+    wav: np.ndarray = None,
+    sample_rate: int = None,
+    trim_db: float = None,
+    win_length: int = None,
+    hop_length: int = None,
+    **kwargs,
+) -> np.ndarray:
+    """Trim leading and trailing silence below ``trim_db`` relative to the
+    peak RMS, after cutting a 0.01 s margin off each end
+    (``librosa.effects.trim``-equivalent)."""
+    margin = int(sample_rate * 0.01)
+    wav = wav[margin:-margin] if margin > 0 else wav
+    rms = _rms_frames(wav.astype(np.float64), win_length, hop_length)
+    power = rms**2
+    ref = power.max()
+    if ref <= 0:
+        return wav
+    db = 10.0 * np.log10(np.maximum(power, 1e-20) / ref)
+    non_silent = db > -trim_db
+    idx = np.nonzero(non_silent)[0]
+    if len(idx) == 0:
+        return wav[:0]
+    start = int(idx[0] * hop_length)
+    end = min(len(wav), int((idx[-1] + 1) * hop_length))
+    return wav[start:end]
+
+
+def volume_norm(*, x: np.ndarray = None, coef: float = 0.95, **kwargs) -> np.ndarray:
+    return x / abs(x).max() * coef
+
+
+def rms_norm(*, wav: np.ndarray = None, db_level: float = -27.0, **kwargs) -> np.ndarray:
+    r = 10 ** (db_level / 20)
+    a = np.sqrt((len(wav) * (r**2)) / np.sum(wav**2))
+    return wav * a
+
+
+def rms_volume_norm(*, x: np.ndarray, db_level: float = -27.0, **kwargs) -> np.ndarray:
+    assert -99 <= db_level <= 0, " [!] db_level should be between -99 and 0"
+    return rms_norm(wav=x, db_level=db_level)
+
+
+# --------------------------------------------------------------------------
+# I/O
+# --------------------------------------------------------------------------
 
 
 def _read_wav(filename: str) -> Tuple[np.ndarray, int]:
@@ -55,30 +297,3 @@ def save_wav(*, wav: np.ndarray, path: str, sample_rate: int = None, pipe_out=No
         wav_buffer.seek(0)
         pipe_out.buffer.write(wav_buffer.read())
     scipy.io.wavfile.write(path, sample_rate, wav_norm)
-
-
-def _exp(x, base):
-    return np.power(10, x) if base == 10 else np.exp(x)
-
-
-def db_to_amp(*, x: np.ndarray = None, gain: float = 1, base: int = 10, **kwargs) -> np.ndarray:
-    return _exp(x / gain, base)
-
-
-def find_endpoint(
-    *,
-    wav: np.ndarray = None,
-    trim_db: float = -40,
-    sample_rate: int = None,
-    min_silence_sec=0.8,
-    gain: float = None,
-    base: int = None,
-    **kwargs,
-) -> int:
-    window_length = int(sample_rate * min_silence_sec)
-    hop_length = int(window_length / 4)
-    threshold = db_to_amp(x=-trim_db, gain=gain, base=base)
-    for x in range(hop_length, len(wav) - window_length, hop_length):
-        if np.max(wav[x : x + window_length]) < threshold:
-            return x + hop_length
-    return len(wav)

@@ -19,13 +19,22 @@ Examples::
         --model_name tts_models/en/vctk/vits --speaker_idx p226
     python -m tts_tpu_torch.bin.synthesize --model_path vctk_dir/ \\
         --reference_wav p225.wav --reference_speaker_idx p225 --speaker_idx p226
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_path glow/model_file.pth --config_path glow/config.json \\
+        --vocoder_path mbmelgan/model_file.pth --vocoder_config_path mbmelgan/config.json
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_name tts_models/en/ljspeech/glow-tts \\
+        --vocoder_name vocoder_models/en/ljspeech/hifigan_v2
 
 ``--model_name`` loads a zoo model from ``$TTS_HOME/tts_tpu/`` (fetched if
 absent; ``TTS_TPU_MODELS_FILE`` replaces the catalog); a family the port
 does not run yet raises ``NotImplementedError`` before anything is fetched.
 ``--reference_wav`` with ``--reference_speaker_idx`` (the speaker of the
 recording) and ``--speaker_idx`` (the voice wanted) converts a recording
-with a multi-speaker VITS model.
+with a multi-speaker VITS model. ``--vocoder_path`` with
+``--vocoder_config_path``, or a zoo ``--vocoder_name``, gives a mel model
+(GlowTTS) its vocoder, in place of a zoo entry's default one; without any,
+Griffin-Lim speaks it.
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
 runs the plain PyTorch path. ``--use_cuda``, ``--save_spectogram`` and
@@ -35,14 +44,12 @@ only thing written to stdout: the log lines go to stderr (the JAX
 command line prints them into the same stream).
 
 The JAX command line's other flags wait for the paths they select, and
-argparse rejects them until then (ROADMAP.md §1); ``--vocoder_name`` is
-taken and raises ``NotImplementedError`` (item 13 onward):
+argparse rejects them until then (ROADMAP.md §1):
 
 * voice conversion models (``--source_wav``, ``--target_wav``): FreeVC,
   slice 3, item 16;
-* vocoder and speaker-encoder checkpoints (``--vocoder_path``,
-  ``--vocoder_config_path``, ``--encoder_path``, ``--encoder_config_path``):
-  slice 3, items 13–15;
+* speaker-encoder checkpoints (``--encoder_path``, ``--encoder_config_path``):
+  slice 3, item 15;
 * style references (``--style_wav`` and its aliases,
   ``--capacitron_style_text``) and the voice directory (``--voice_dir``):
   slice 3, item 16.
@@ -71,11 +78,16 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--text", type=str, default=None, help="Text to synthesize.")
     parser.add_argument("--model_name", type=str, default=None, help="zoo model name")
     parser.add_argument("--vocoder_name", type=str, default=None,
-                        help="zoo vocoder name (vocoders are not ported yet: raises)")
+                        help="zoo vocoder name (overrides the model's default_vocoder)")
     parser.add_argument("--model_path", type=str, default=None,
-                        help="model directory, or a VITS checkpoint file with --config_path")
+                        help="model directory, or a VITS or GlowTTS checkpoint file with "
+                             "--config_path")
     parser.add_argument("--config_path", type=str, default=None,
                         help="config.json of a checkpoint file given as --model_path")
+    parser.add_argument("--vocoder_path", type=str, default=None,
+                        help="vocoder checkpoint for a mel model (GlowTTS)")
+    parser.add_argument("--vocoder_config_path", type=str, default=None,
+                        help="config.json of --vocoder_path")
     parser.add_argument("--out_path", type=str, default="tts_output.wav")
     parser.add_argument("--pipe_out", action="store_true", help="also write the wav to stdout")
     parser.add_argument("--speaker_idx", type=str, default=None)
@@ -122,14 +134,14 @@ def main(argv=None):
             if args.model_info_by_name:
                 manager.model_info_by_name(args.model_info_by_name)
             return
-        if args.vocoder_name:
-            raise NotImplementedError("--vocoder_name: vocoders are not ported to "
-                                      "tts_tpu_torch yet (ROADMAP.md items 13 onward)")
+        from tts_tpu_torch.api import TTS, download_vocoder
 
-        from tts_tpu_torch.api import TTS
-
+        vocoder_path, vocoder_config_path = args.vocoder_path, args.vocoder_config_path
+        if args.vocoder_name and not vocoder_path:
+            vocoder_path, vocoder_config_path = download_vocoder(args.vocoder_name)
         tts = TTS(model_name=args.model_name or "", model_path=args.model_path,
-                  config_path=args.config_path, device=args.device,
+                  config_path=args.config_path, vocoder_path=vocoder_path,
+                  vocoder_config_path=vocoder_config_path, device=args.device,
                   speakers_file_path=args.speakers_file_path,
                   language_ids_file_path=args.language_ids_file_path)
 

@@ -1,5 +1,7 @@
 """Common conv/norm blocks (port of ``tts_tpu/layers/common.py``): ``Conv1d``,
-``LayerNorm`` and ``DurationPredictor``, inference only (no dropout).
+``LayerNorm``, ``ConvLayerNormBlock`` (the GlowTTS prenet) and
+``DurationPredictor`` (the VITS ``use_sdp=False`` and GlowTTS predictor),
+inference only (no dropout).
 
 ``Conv1d`` runs on channel-first ``[B, C, T]`` as torch's convolutions do;
 ``LayerNorm`` normalises the last axis of a time-major ``[B, T, C]`` tensor,
@@ -33,6 +35,33 @@ class LayerNorm(nn.LayerNorm):
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-4)
+
+
+class ConvLayerNormBlock(nn.Module):
+    """``num_layers`` × (conv → layer norm → ReLU) with a residual 1x1
+    projection ``proj`` (reference ``glow_tts/glow.py:11``
+    ResidualConv1dLayerNormBlock; the JAX package zero-initialises ``proj``,
+    so a fresh block is the identity). ``[B, T, C]`` in and out."""
+
+    def __init__(self, in_channels: int, hidden_channels: int, out_channels: int,
+                 kernel_size: int, num_layers: int):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"conv_{i}", Conv1d(in_channels if i == 0 else hidden_channels,
+                                                hidden_channels, kernel_size))
+            self.add_module(f"norm_{i}", LayerNorm(hidden_channels))
+        self.proj = nn.Conv1d(hidden_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+        x_res = x
+        mask = x_mask.transpose(1, 2)
+        h = x.transpose(1, 2)  # [B, C, T]
+        for i in range(self.num_layers):
+            h = getattr(self, f"conv_{i}")(h * mask)
+            h = getattr(self, f"norm_{i}")((h * mask).transpose(1, 2)).transpose(1, 2)
+            h = F.relu(h)
+        return (x_res + self.proj(h).transpose(1, 2)) * x_mask
 
 
 class DurationPredictor(nn.Module):

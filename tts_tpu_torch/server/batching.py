@@ -18,8 +18,9 @@ the batch, then at most two groups of similar predicted length
 joined with the serial path's 10000-sample gap.
 
 Serves end-to-end waveform models (VITS). Models with their own
-``synthesize`` (XTTS) and models without a waveform output are refused;
-the server then serves serially. Each request's speaker and
+``synthesize`` (XTTS), mel → vocoder pipelines and models without a
+waveform output (GlowTTS) are refused, as by the JAX batcher; the server
+then serves serially. Each request's speaker and
 language are resolved by the ``Synthesizer``'s rules before it is queued
 (an unknown name raises ``ValueError`` there) and ride with each of its
 sentences as that row's ids, so one dispatch mixes speakers and languages.
@@ -77,6 +78,9 @@ class DynamicBatcher:
         model = synthesizer.tts_model
         if model is None or hasattr(model, "synthesize"):
             raise ValueError("DynamicBatcher needs a generic-inference TTS model")
+        if getattr(synthesizer, "vocoder_model", None) is not None:
+            raise ValueError("DynamicBatcher supports end-to-end waveform models; "
+                             "mel→vocoder pipelines keep the serial path")
         if not getattr(model, "emits_waveform", False):
             raise ValueError(
                 "DynamicBatcher needs a model whose inference() emits a waveform "

@@ -21,18 +21,19 @@ chosen before anything is queued: one with a ``speaker_wav``, and every
 request to a model whose speakers are d-vectors (the JAX server catches the
 batcher's ``ValueError`` to the same end). A request the batcher refuses
 (an unknown speaker) is answered 400, as the serial path would answer it.
-A model the batcher cannot take (XTTS) is served serially, with one line
-said. With ``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
+A model the batcher cannot take (XTTS; a mel model with a vocoder or
+Griffin-Lim, GlowTTS) is served serially, with one line said at start-up. With ``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
 :class:`StreamBatcher`, whose worker thread batches up to N concurrent
 streams.
 
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
 [--speakers_file_path speakers.json] [--max_batch 4] [--batch_window_ms 10]
 [--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
-config.json`` for a VITS checkpoint file, or ``--model_name
+config.json`` for a VITS or GlowTTS checkpoint file, or ``--model_name
 tts_models/en/vctk/vits`` for a zoo model (``--list_models`` prints the
-zoo's names). A VITS model serves ``/api/tts`` (its streaming route answers
-501).
+zoo's names); ``--vocoder_path FILE --vocoder_config_path config.json``, or
+``--vocoder_name``, gives a mel model its vocoder. VITS and GlowTTS serve
+``/api/tts`` (their streaming route answers 501).
 """
 
 from __future__ import annotations
@@ -289,6 +290,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "also vocab.json), or a VITS checkpoint file")
     parser.add_argument("--config_path", default=None,
                         help="config.json of a checkpoint file given as --model_path")
+    parser.add_argument("--vocoder_name", default=None,
+                        help="zoo vocoder name (overrides the model's default_vocoder)")
+    parser.add_argument("--vocoder_path", default=None,
+                        help="vocoder checkpoint for a mel model (GlowTTS)")
+    parser.add_argument("--vocoder_config_path", default=None,
+                        help="config.json of --vocoder_path")
     parser.add_argument("--speakers_file_path", default=None,
                         help="JSON speakers file for a multi-speaker model (replaces the "
                              "config's)")
@@ -308,12 +315,16 @@ def build_parser() -> argparse.ArgumentParser:
 def server_from_args(args: argparse.Namespace) -> ThreadingHTTPServer:
     """Load the model (by zoo name or path) and build the (not yet serving)
     server."""
-    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.api import TTS, download_vocoder
 
     if not (args.model_name or args.model_path):
         raise ValueError("give --model_name or --model_path")
+    vocoder_path, vocoder_config = args.vocoder_path, args.vocoder_config_path
+    if args.vocoder_name and not vocoder_path:
+        vocoder_path, vocoder_config = download_vocoder(args.vocoder_name)
     tts = TTS(model_name=args.model_name or "", model_path=args.model_path,
-              config_path=args.config_path, device=args.device,
+              config_path=args.config_path, vocoder_path=vocoder_path,
+              vocoder_config_path=vocoder_config, device=args.device,
               speakers_file_path=args.speakers_file_path)
     return create_server(tts.synthesizer, args.port, max_batch=args.max_batch,
                          batch_window_ms=args.batch_window_ms, stream_batch=args.stream_batch,

@@ -16,14 +16,19 @@ a handful of rules rather than a table:
 * norm ``scale``/``shift`` → ``weight``/``bias`` (folded BatchNorm included);
   ``embedding`` → ``weight``; other leaves keep their names.
 
-``reference_vits_state`` writes the port's VITS weights in the reference
-layout, the inverse of ``load_reference_vits``.
+``reference_vits_state``, ``reference_glow_tts_state`` and
+``reference_melgan_state`` write the port's weights in the reference
+layout, the inverses of ``load_reference_vits``, ``load_reference_glow_tts``
+and ``load_reference_vocoder``.
 
-``load_reference_xtts`` / ``load_reference_vits`` read a reference-layout
-(coqui) checkpoint, map it to the flax-layout tree with ``convert_xtts`` /
-``convert_vits_generator`` and from there into the port by the rules above.
-Those converters and what they call are the port's own copy of the XTTS and
-VITS parts of ``tts_tpu/utils/convert.py`` (numpy only; the port imports
+``load_reference_xtts`` / ``load_reference_vits`` / ``load_reference_glow_tts``
+/ ``load_reference_vocoder`` read a reference-layout (coqui) checkpoint, map
+it to the flax-layout tree with ``convert_xtts`` / ``convert_vits_generator``
+/ ``convert_glow_tts`` / ``convert_hifigan_generator`` or
+``convert_melgan_generator`` and from there into the port by the rules above.
+Those converters and what they call are the port's own copy of the XTTS,
+VITS, GlowTTS, HiFiGAN and MelGAN parts of ``tts_tpu/utils/convert.py``
+(numpy only; the port imports
 nothing of ``tts_tpu``): parity tests hold the copy equal to the JAX
 package's converters, leaf for leaf (``tests/test_torch_host_copies.py``).
 Two additions, for multi-language and deterministic-duration checkpoints,
@@ -108,6 +113,19 @@ def xtts_from_jax_params(gpt_params: Mapping, decoder_params: Mapping) -> Dict[s
 def vits_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's ``VitsModule`` params (numpy or JAX arrays) → the
     state_dict of ``tts_tpu_torch.models.vits.model.VitsModule``."""
+    return flax_to_state_dict(params)
+
+
+def glow_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``GlowTTSModule`` params → the state_dict of
+    ``tts_tpu_torch.models.glow_tts.model.GlowTTSModule``."""
+    return flax_to_state_dict(params)
+
+
+def melgan_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's MelGAN-family generator params → the state_dict of
+    the port's generator (``vocoder/models/melgan_generator.py``); HiFiGAN's
+    map by the same rules."""
     return flax_to_state_dict(params)
 
 
@@ -443,6 +461,112 @@ def convert_vits_generator(state, args) -> Dict[str, Any]:
     return {"params": p}
 
 
+# ---------------------------------------------------------------------------
+# GlowTTS (copied from ``tts_tpu/utils/convert.py:363-436``) and the MelGAN
+# family (``:777-806``), unchanged.
+# ---------------------------------------------------------------------------
+
+
+def convert_glow_duration_predictor(state, prefix=""):
+    """glow_tts DurationPredictor → ``tts_tpu.layers.common.DurationPredictor``."""
+    p = {
+        "conv_1": _conv(state, f"{prefix}conv_1"),
+        "norm_1": {"LayerNorm_0": _layernorm(state, f"{prefix}norm_1")},
+        "conv_2": _conv(state, f"{prefix}conv_2"),
+        "norm_2": {"LayerNorm_0": _layernorm(state, f"{prefix}norm_2")},
+        "proj": _plain_conv(state, f"{prefix}proj"),
+    }
+    if f"{prefix}cond.weight" in state:
+        p["cond"] = _dense(state, f"{prefix}cond")
+    return p
+
+
+def convert_glow_prenet(state, prefix, num_layers=3):
+    """ResidualConv1dLayerNormBlock → ``ConvLayerNormBlock``."""
+    p = {}
+    for i in range(num_layers):
+        p[f"conv_{i}"] = _conv(state, f"{prefix}conv_layers.{i}")
+        p[f"norm_{i}"] = {"LayerNorm_0": _layernorm(state, f"{prefix}norm_layers.{i}")}
+    p["proj"] = _plain_conv(state, f"{prefix}proj")
+    return p
+
+
+def convert_glow_decoder(state, prefix="", num_flow_blocks=12, num_coupling_layers=4):
+    """glow_tts Decoder (flows list) → ``tts_tpu.layers.glow.GlowDecoder``."""
+    state = fold_weight_norm(state)
+    p = {}
+    for k in range(num_flow_blocks):
+        base = 3 * k
+        p[f"actnorm_{k}"] = {
+            "logs": state[f"{prefix}flows.{base}.logs"].reshape(-1),
+            "bias": state[f"{prefix}flows.{base}.bias"].reshape(-1),
+        }
+        p[f"invconv_{k}"] = {"weight": state[f"{prefix}flows.{base + 1}.weight"]}
+        cpl = f"{prefix}flows.{base + 2}."
+        p[f"coupling_{k}"] = {
+            "start": _dense(state, f"{cpl}start"),
+            "wn": convert_wn(state, f"{cpl}wn.", num_coupling_layers, has_cond=True),
+            "end": _dense(state, f"{cpl}end"),
+        }
+    return p
+
+
+def convert_glow_tts(state, config) -> Dict[str, Any]:
+    """Full reference ``GlowTTS`` state dict → ``tts_tpu`` GlowTTSModule."""
+    state = fold_weight_norm(state)
+    enc = {
+        "emb": {"embedding": state["encoder.emb.weight"]},
+        "encoder": convert_rel_pos_transformer(
+            state, "encoder.encoder.", config.encoder_params.get("num_layers", 6)
+        ),
+        "proj_m": _dense(state, "encoder.proj_m"),
+        "duration_predictor": convert_glow_duration_predictor(
+            state, "encoder.duration_predictor."
+        ),
+    }
+    if config.use_encoder_prenet:
+        enc["prenet"] = convert_glow_prenet(state, "encoder.prenet.")
+    if not config.mean_only and "encoder.proj_s.weight" in state:
+        enc["proj_s"] = _dense(state, "encoder.proj_s")
+    p = {
+        "enc": enc,
+        "dec": convert_glow_decoder(
+            state, "decoder.", config.num_flow_blocks_dec, config.num_block_layers
+        ),
+    }
+    if "emb_g.weight" in state:
+        p["emb_g"] = {"embedding": state["emb_g.weight"]}
+    return {"params": p}
+
+
+def _convtranspose(state, key):
+    leaf = {"kernel": convtranspose1d_kernel(state[f"{key}.weight"])}
+    if f"{key}.bias" in state:
+        leaf["bias"] = state[f"{key}.bias"]
+    return leaf
+
+
+def convert_melgan_generator(state, num_upsample_stages, num_res_blocks=3):
+    """Reference MelganGenerator Sequential → flax params.
+
+    Sequential layout: [pad, conv_pre, (lrelu, convT, resstack)*N, lrelu,
+    pad, conv_post, tanh] → conv indices 1, 3+3i, and 2+3N+2."""
+    state = fold_weight_norm(state)
+    p = {"conv_pre": _plain_conv(state, "layers.1")}
+    for i in range(num_upsample_stages):
+        up = 3 + 3 * i
+        p[f"ups_{i}"] = _convtranspose(state, f"layers.{up}")
+        stack = {}
+        for j in range(num_res_blocks):
+            stack[f"block{j}_conv1"] = _plain_conv(state, f"layers.{up + 1}.blocks.{j}.2")
+            stack[f"block{j}_conv2"] = _plain_conv(state, f"layers.{up + 1}.blocks.{j}.4")
+            stack[f"shortcut{j}"] = _plain_conv(state, f"layers.{up + 1}.shortcuts.{j}")
+        p[f"res_{i}"] = stack
+    final = 2 + 3 * num_upsample_stages + 2
+    p["conv_post"] = _plain_conv(state, f"layers.{final}")
+    return {"params": p}
+
+
 def _qkv_interleaved_dense(state, key, heads):
     """Conditioning-encoder qkv conv1x1 → flax Dense.
 
@@ -665,3 +789,102 @@ def load_reference_vits(state: Mapping, args) -> Dict[str, torch.Tensor]:
     state_dict of ``VitsModule``; ``args`` is the model's ``VitsArgs``."""
     state = {k: _to_numpy(v) for k, v in state.items()}
     return vits_from_jax_params(convert_vits_generator(state, args))
+
+
+def load_reference_glow_tts(state: Mapping, config) -> Dict[str, torch.Tensor]:
+    """A reference-layout GlowTTS state dict (tensors or arrays) → the
+    state_dict of ``GlowTTSModule``; ``config`` is the model's
+    ``GlowTTSConfig``."""
+    state = {k: _to_numpy(v) for k, v in state.items()}
+    return glow_tts_from_jax_params(convert_glow_tts(state, config))
+
+
+def _strip_prefix(state: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    """``state`` without ``prefix``, keeping only the keys that have it,
+    when any does (a GAN checkpoint's ``model_g.`` generator)."""
+    if any(k.startswith(prefix) for k in state):
+        return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+    return state
+
+
+def load_reference_vocoder(state: Mapping, config) -> Dict[str, torch.Tensor]:
+    """A reference-layout vocoder checkpoint (its generator under
+    ``model_g.``, or bare) → the state_dict of the generator that
+    ``config.generator_model`` names (the dispatch of
+    ``tts_tpu/utils/zoo_convert.py:68-80``)."""
+    state = _strip_prefix({k: _to_numpy(v) for k, v in state.items()}, "model_g.")
+    name = config.generator_model.lower()
+    if name == "hifigan_generator":
+        return flax_to_state_dict(convert_hifigan_generator(state))
+    if name in ("melgan_generator", "multiband_melgan_generator", "fullband_melgan_generator"):
+        gp = config.generator_model_params
+        return melgan_from_jax_params(convert_melgan_generator(
+            state, num_upsample_stages=len(gp["upsample_factors"]),
+            num_res_blocks=gp.get("num_res_blocks", 3)))
+    raise NotImplementedError(f"no converter for the vocoder generator {name!r} in "
+                              f"tts_tpu_torch (ROADMAP.md item 16)")
+
+
+def _reference_key(key: str, rules) -> str:
+    for pattern, repl in rules:
+        key = re.sub(pattern, repl, key)
+    return key
+
+
+_GLOW_RULES = (
+    (r"^enc\.", "encoder."),
+    (r"^dec\.", "decoder."),
+    (r"^encoder\.encoder\.(attn|ffn)\.", r"encoder.encoder.\1_layers."),
+    (r"^encoder\.encoder\.norm([12])\.", r"encoder.encoder.norm_layers_\1."),
+    (r"^encoder\.prenet\.conv_(\d+)\.", r"encoder.prenet.conv_layers.\1."),
+    (r"^encoder\.prenet\.norm_(\d+)\.", r"encoder.prenet.norm_layers.\1."),
+    (r"\.(in_layer|res_skip_layer)\.", r".\1s."),
+    (r"^decoder\.actnorm_(\d+)\.", lambda m: f"decoder.flows.{3 * int(m.group(1))}."),
+    (r"^decoder\.invconv_(\d+)\.", lambda m: f"decoder.flows.{3 * int(m.group(1)) + 1}."),
+    (r"^decoder\.coupling_(\d+)\.", lambda m: f"decoder.flows.{3 * int(m.group(1)) + 2}."),
+)
+
+
+def reference_glow_tts_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of ``GlowTTSModule`` in the reference's (coqui) names
+    and layouts, weight norm folded: 1x1 convolutions for the linear layers,
+    ``gamma``/``beta`` norms ``[1, C, 1]``, ``ActNorm`` terms ``[1, C, 1]``,
+    the flows numbered in one list. :func:`load_reference_glow_tts` maps it
+    back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = _reference_key(key, _GLOW_RULES)
+        if re.search(r"norm(_layers(_[12])?\.\d+|_[12])\.(weight|bias)$", k):
+            k = k[: -len("weight")] + "gamma" if k.endswith("weight") else k[: -len("bias")] + "beta"
+            v = v[None, :, None]
+        elif re.search(r"decoder\.flows\.\d+\.(logs|bias)$", k) and v.ndim == 1:
+            v = v[None, :, None]
+        elif v.ndim == 2 and not key.endswith(("emb.weight", "emb_g.weight")) \
+                and ".invconv_" not in key:
+            v = v[:, :, None]
+        out[k] = v
+    return out
+
+
+def reference_melgan_state(state: Mapping[str, torch.Tensor],
+                           prefix: str = "model_g.") -> Dict[str, np.ndarray]:
+    """The state_dict of a MelGAN-family generator in the reference's
+    ``Sequential`` names (``layers.<i>``), under ``prefix`` as a GAN
+    checkpoint holds its generator. :func:`load_reference_vocoder` maps it
+    back."""
+    n_up = len({k.split(".")[1] for k in state if k.startswith("ups.")})
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = key
+        k = re.sub(r"^conv_pre\.", "layers.1.", k)
+        k = re.sub(r"^conv_post\.", f"layers.{3 * n_up + 4}.", k)
+        k = re.sub(r"^ups\.(\d+)\.", lambda m: f"layers.{3 + 3 * int(m.group(1))}.", k)
+        k = re.sub(r"^res_(\d+)\.block(\d+)_conv([12])\.",
+                   lambda m: f"layers.{4 + 3 * int(m.group(1))}.blocks.{m.group(2)}."
+                             f"{2 if m.group(3) == '1' else 4}.", k)
+        k = re.sub(r"^res_(\d+)\.shortcut(\d+)\.",
+                   lambda m: f"layers.{4 + 3 * int(m.group(1))}.shortcuts.{m.group(2)}.", k)
+        out[prefix + k] = v
+    return out

@@ -20,6 +20,9 @@ Differences from the source:
   reference checkpoint.
 * The fairseq MMS models (``tts_models/<lang>/fairseq/vits``) raise
   ``NotImplementedError`` (ROADMAP.md item 16).
+* ``_update_paths`` also points ``audio.stats_path`` at the directory's
+  ``scale_stats.npy``, as the reference does and the JAX copy does not
+  (ROADMAP.md F17).
 
 :func:`unported_reason` says, from a zoo name and the catalog alone, why
 the port cannot load a model yet; ``TTS`` asks it before any download.
@@ -46,21 +49,10 @@ def get_user_data_dir(appname: str = "tts_tpu") -> str:
     return os.path.join(base, appname)
 
 
-def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
-    """Why the port cannot load the zoo model ``model_name`` of the catalog
-    ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for the
-    families it runs: VITS (by its name or its description) and XTTS v2."""
-    model_type, lang, dataset, model = model_name.split("/")
-    if model_type == "voice_conversion_models":
-        return "voice conversion models (FreeVC) are not ported yet (ROADMAP.md item 16)"
-    if model_type == "vocoder_models":
-        return "stand-alone vocoders are not ported yet (ROADMAP.md items 13 onward)"
-    if dataset == "fairseq":  # the MMS models, named by language outside the catalog
-        return "the fairseq MMS models are not ported yet (ROADMAP.md item 16)"
-    model_item = models_dict[model_type][lang][dataset][model]
-    if model_item.get("default_vocoder"):
-        return (f"{model_name} needs the vocoder {model_item['default_vocoder']}, and "
-                f"vocoders are not ported yet (ROADMAP.md items 13 onward)")
+_VOCODER_FAMILIES = ("multiband-melgan", "fullband-melgan", "hifigan")  # the registry's generators
+
+
+def _family_reason(model: str, model_item: Dict) -> Optional[str]:
     if model == "xtts_v2":
         return None
     if model.startswith("xtts_v1"):
@@ -72,10 +64,36 @@ def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     if "GST" in model or "capacitron" in model:
         return f"{model} is not ported yet (ROADMAP.md item 16)"
     if "glow" in model:
-        return "GlowTTS is not ported yet (ROADMAP.md item 13)"
+        return None
     if "tacotron2" in model:
         return "Tacotron2 is not ported yet (ROADMAP.md item 14)"
     return f"{model} is not ported yet (ROADMAP.md item 16)"
+
+
+def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
+    """Why the port cannot load the zoo model ``model_name`` of the catalog
+    ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for what it
+    runs: VITS (by its name or its description), XTTS v2, GlowTTS whose
+    ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
+    and the MelGAN and HiFiGAN vocoders. A model whose family is not ported
+    names its own item, whatever its vocoder."""
+    model_type, lang, dataset, model = model_name.split("/")
+    if model_type == "voice_conversion_models":
+        return "voice conversion models (FreeVC) are not ported yet (ROADMAP.md item 16)"
+    if model_type == "vocoder_models":
+        if any(family in model for family in _VOCODER_FAMILIES):
+            return None
+        return f"the vocoder {model} is not ported yet (ROADMAP.md item 16)"
+    if dataset == "fairseq":  # the MMS models, named by language outside the catalog
+        return "the fairseq MMS models are not ported yet (ROADMAP.md item 16)"
+    model_item = models_dict[model_type][lang][dataset][model]
+    reason = _family_reason(model, model_item)
+    vocoder = model_item.get("default_vocoder")
+    if reason is None and vocoder:
+        vocoder_reason = unported_reason(vocoder, models_dict)
+        if vocoder_reason:
+            return f"{model_name} needs the vocoder {vocoder}: {vocoder_reason}"
+    return reason
 
 
 class ModelManager:
@@ -242,7 +260,12 @@ class ModelManager:
     @staticmethod
     def _update_paths(output_path: str, config_path: str) -> None:
         """Rewrite aux-file paths inside a downloaded config to the local
-        download dir (reference ``manage.py:463 _update_paths``)."""
+        download dir (reference ``manage.py:463 _update_paths``): the
+        speaker, d-vector and language files, and ``audio.stats_path`` when
+        the directory holds ``scale_stats.npy``, as the reference does. The
+        JAX package's copy leaves ``stats_path`` at the trainer's path, where
+        the ``AudioProcessor`` then fails to read it or reads other stats
+        (ROADMAP.md F17)."""
         with open(config_path, "r", encoding="utf-8") as f:
             cfg = json.load(f)
 
@@ -262,6 +285,11 @@ class ModelManager:
             if not os.path.isfile(os.path.join(output_path, "speakers.json")):
                 _set(d, "d_vector_file", "speakers.pth")
             changed = changed or before != d
+        stats = os.path.join(output_path, "scale_stats.npy")
+        audio = cfg.get("audio")
+        if isinstance(audio, dict) and os.path.isfile(stats) and audio.get("stats_path") != stats:
+            audio["stats_path"] = stats
+            changed = True
         if changed:
             with open(config_path, "w", encoding="utf-8") as f:
                 json.dump(cfg, f, indent=2)

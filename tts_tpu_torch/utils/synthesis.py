@@ -1,24 +1,30 @@
-"""Text → waveform for one sentence (port of ``tts_tpu/utils/synthesis.py``
-for the end-to-end waveform models, VITS so far).
+"""Text → waveform or mel for one sentence (port of
+``tts_tpu/utils/synthesis.py``): VITS, which emits the waveform, and
+GlowTTS, which emits a mel for a vocoder or Griffin-Lim.
 
 The JAX package's rules are kept, since the audio depends on them:
 
 * the token ids are padded to a multiple of ``config.pad_to_multiple_text``
   (16), with the true length in ``x_lengths``;
-* the frame budget is the duration pass's predicted length rounded up to a
-  multiple of 32 (never above a generous 12 frames per token): the model
+* the frame budget is 12 frames per token in buckets of 128, at most 4096
+  (:func:`_frame_budget`); a model with a durations pass (VITS) decodes at
+  its predicted length rounded up to a multiple of 32 within that: the model
   decodes the whole budget without a frame mask, so the last frames of an
   utterance depend on the padded tail, and an exact-length decode would
-  differ there;
-* the waveform is cut to ``y_lengths × hop`` samples.
+  differ there. A GlowTTS has no durations pass and decodes at the budget,
+  which cuts a sentence predicted longer (as in the JAX package);
+* the waveform is cut to ``y_lengths × hop`` samples, a mel to
+  ``y_lengths`` frames, which Griffin-Lim turns into a waveform on the host
+  when asked (``use_griffin_lim`` with the model's ``AudioProcessor``).
 
 :func:`decode_packed` decodes several utterances at once as one
 sequence-packed grid (``utils/packing.py``), for the ``Synthesizer``'s
 multi-sentence requests and the server's ``DynamicBatcher``;
 :func:`plan_decode_groups` splits a batch of a model without a packed
 decode into a few length groups for the batcher;
-:func:`trim_silence` cuts a waveform at its first long quiet stretch, as
-the JAX ``Synthesizer`` does for a model loaded from a checkpoint file.
+:func:`trim_silence` cuts a waveform at its first long quiet stretch
+(``AudioProcessor.find_endpoint``), as the JAX ``Synthesizer`` does for a
+model loaded from a checkpoint file.
 
 There is no compile step and no cache: each call runs eagerly.
 """
@@ -30,10 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from tts_tpu_torch.audio.numpy_transforms import find_endpoint
 from tts_tpu_torch.utils.packing import plan_pack_layout, unpack_outputs
-
-_LOG_BASE = {"np.log10": 10, "np.log": np.e}  # AudioProcessor's log_func → base
 
 
 def _frame_budget(n_tokens: int) -> int:
@@ -113,19 +116,22 @@ def aux_input(device, rows: int, speaker_ids=None, d_vectors=None,
 
 
 def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
-              language_id: Optional[int] = None, language: Optional[str] = None
-              ) -> Dict[str, Any]:
-    """Tokenize → durations → decode → cut. ``model`` is a host wrapper with
-    ``tokenizer``, ``config``, ``device``, ``hop_length``,
-    ``infer_durations`` and ``inference`` (:class:`~tts_tpu_torch.models.vits.model.Vits`),
-    each call of which seeds its own generator: the durations pass draws the
-    noise that the decode after it draws. ``speaker_id``, ``d_vector`` and
-    ``language_id`` condition a multi-speaker or multi-language model;
-    ``language``, the language's name, goes to the tokenizer, whose
-    ``multi_phonemizer`` picks its phonemizer by it (the JAX package passes
-    none, so its multi-phonemizer models cannot synthesize: ROADMAP.md F14).
-    Returns the float32 ``wav`` (numpy), the model's ``outputs`` and the
-    padded ``text_inputs``."""
+              language_id: Optional[int] = None, language: Optional[str] = None,
+              use_griffin_lim: bool = False, ap=None) -> Dict[str, Any]:
+    """Tokenize → (durations) → decode → cut. ``model`` is a host wrapper
+    with ``tokenizer``, ``config``, ``device``, ``hop_length``,
+    ``emits_waveform`` and ``inference`` (:class:`~tts_tpu_torch.models.vits.model.Vits`,
+    :class:`~tts_tpu_torch.models.glow_tts.model.GlowTTS`). A VITS also has
+    ``infer_durations``; each of its calls seeds its own generator, so the
+    durations pass draws the noise that the decode after it draws.
+    ``speaker_id``, ``d_vector`` and ``language_id`` condition a
+    multi-speaker or multi-language model; ``language``, the language's
+    name, goes to the tokenizer, whose ``multi_phonemizer`` picks its
+    phonemizer by it (the JAX package passes none, so its multi-phonemizer
+    models cannot synthesize: ROADMAP.md F14). Returns the float32 ``wav``
+    (numpy; for a mel model ``None`` unless ``use_griffin_lim`` with ``ap``),
+    ``model_outputs`` (a mel model's ``[T, C]`` mel, numpy), the model's
+    ``outputs`` and the padded ``text_inputs``."""
     token_ids = model.tokenizer.text_to_ids(text, language)
     bucket = int(getattr(model.config, "pad_to_multiple_text", 16) or 16)
     n_tokens = max(1, len(token_ids))
@@ -136,16 +142,19 @@ def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
     x_lengths = torch.tensor([n_tokens], device=model.device)
     aux = aux_input(model.device, 1, speaker_id, d_vector, language_id)
 
-    y_len = int(model.infer_durations(x, x_lengths, aux_input=aux).max())
-    budget = min(_frame_budget(len(token_ids)), ((y_len + 31) // 32) * 32)
+    budget = _frame_budget(len(token_ids))
+    if hasattr(model, "infer_durations"):
+        y_len = int(model.infer_durations(x, x_lengths, aux_input=aux).max())
+        budget = min(budget, ((y_len + 31) // 32) * 32)
     outputs = model.inference(x, x_lengths, max_frames=budget, aux_input=aux)
     valid_frames = int(outputs["y_lengths"][0])
-    wav = outputs["model_outputs"][0, : valid_frames * model.hop_length, 0]
-    return {
-        "wav": wav.float().cpu().numpy(),
-        "outputs": outputs,
-        "text_inputs": x,
-    }
+    if model.emits_waveform:
+        wav = outputs["model_outputs"][0, : valid_frames * model.hop_length, 0]
+        return {"wav": wav.float().cpu().numpy(), "model_outputs": None, "outputs": outputs,
+                "text_inputs": x}
+    mel = outputs["model_outputs"][0, :valid_frames].float().cpu().numpy()
+    wav = ap.inv_melspectrogram(mel.T) if use_griffin_lim and ap is not None else None
+    return {"wav": wav, "model_outputs": mel, "outputs": outputs, "text_inputs": x}
 
 
 def decode_packed(model, x: torch.Tensor, x_lengths: torch.Tensor, n: int, budget: int,
@@ -166,14 +175,7 @@ def decode_packed(model, x: torch.Tensor, x_lengths: torch.Tensor, n: int, budge
     return unpack_outputs(grid, plan, upsample=model.hop_length)
 
 
-def trim_silence(wav: np.ndarray, audio_config) -> np.ndarray:
-    """``wav`` up to its endpoint, as the JAX ``AudioProcessor.find_endpoint``
-    cuts it: ``trim_db``, ``spec_gain``, the base of ``log_func`` and
-    ``sample_rate`` from ``audio_config``, and the ``AudioProcessor``'s
-    defaults (60 dB, 20, ``np.log10``) for the fields it lacks, as a
-    ``VitsAudioConfig`` lacks all three."""
-    end = find_endpoint(wav=wav, trim_db=getattr(audio_config, "trim_db", 60),
-                        sample_rate=audio_config.sample_rate,
-                        gain=float(getattr(audio_config, "spec_gain", 20)),
-                        base=_LOG_BASE[getattr(audio_config, "log_func", "np.log10")])
-    return wav[:end]
+def trim_silence(wav: np.ndarray, ap) -> np.ndarray:
+    """``wav`` up to its endpoint (``ap.find_endpoint``: the first 0.8 s
+    window below ``-trim_db`` dB)."""
+    return wav[: ap.find_endpoint(wav)]

@@ -1,15 +1,25 @@
 """Synthesizer: load a model once, render text many times (port of
-``tts_tpu/utils/synthesizer.py`` for XTTS and VITS).
+``tts_tpu/utils/synthesizer.py`` for XTTS, VITS and GlowTTS with a vocoder).
 
 A model loads from a directory (``config.json`` plus weights: the port's
 ``model_torch.pt`` or a reference-layout ``model.pth``; XTTS also needs its
-``vocab.json``) or, for VITS, from a checkpoint file and its
-``config.json``.
+``vocab.json``) or, for VITS and GlowTTS, from a checkpoint file and its
+``config.json``. A vocoder (``vocoder_checkpoint`` with its
+``vocoder_config``: HiFiGAN or a MelGAN, the port's state_dict or a
+reference-layout checkpoint) turns a mel model's output into audio; a mel
+model without one speaks through Griffin-Lim (``use_griffin_lim``, on by
+default, as in the JAX package), on the host.
 
 Models with their own ``synthesize`` (XTTS) render each sentence through
-it. For the others (VITS), a request of two or more sentences is decoded
-as one sequence-packed grid (:func:`~tts_tpu_torch.utils.synthesis.decode_packed`),
-and a single sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`.
+it. For the waveform models (VITS), a request of two or more sentences is
+decoded as one sequence-packed grid
+(:func:`~tts_tpu_torch.utils.synthesis.decode_packed`), and a single
+sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`. A mel
+model (GlowTTS) decodes sentence by sentence, and each mel goes to the
+vocoder through the bridge of ``_vocode``: denormalised with the TTS
+model's ``AudioProcessor``, normalised with the vocoder's, resampled in time
+when the two sample rates differ, then ``generator.inference`` on the
+model's device. The output sample rate is then the vocoder's.
 The JAX package's ``Synthesizer`` gates its packed path on ``not use_gl``
 as well, which its default ``use_griffin_lim=True`` makes false for a
 vocoder-less VITS, so by default it decodes sentence by sentence; the port
@@ -19,10 +29,11 @@ serial loop.
 
 A model loaded from a checkpoint file has each sentence cut at its first
 long quiet stretch when its audio config has ``do_trim_silence`` on, as
-the JAX package's does (:func:`~tts_tpu_torch.utils.synthesis.trim_silence`);
-one loaded from a model directory is not trimmed. A VITS config's audio
-section (``VitsAudioConfig``) has no such field, so VITS is trimmed by
-neither package.
+the JAX package's does (:func:`~tts_tpu_torch.utils.synthesis.trim_silence`,
+with the TTS model's ``AudioProcessor``); one loaded from a model directory
+is not trimmed. A VITS config's audio section (``VitsAudioConfig``) has no
+such field, so VITS is trimmed by neither package; a GlowTTS config's
+(``BaseAudioConfig``) has it on by default.
 
 Speakers and languages of a VITS model are named through its managers
 (``utils/managers.py``), with the JAX ``Synthesizer``'s errors: an unknown
@@ -58,9 +69,11 @@ import torch
 
 from tts_tpu_torch import resolve_device
 from tts_tpu_torch.audio.numpy_transforms import load_wav, resample_wav, save_wav
+from tts_tpu_torch.audio.processor import AudioProcessor
 from tts_tpu_torch.audio.torch_transforms import wav_to_spec
 from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models import config_from_dict, setup_model
+from tts_tpu_torch.vocoder.utils import interpolate_vocoder_input, make_generator_from_config
 from tts_tpu_torch.utils.synthesis import (
     _frame_budget,
     aux_input,
@@ -87,24 +100,40 @@ _ENCODER = ("speaker_wav needs the speaker encoder, which is not ported for VITS
 
 class Synthesizer:
     def __init__(self, tts_checkpoint: str = "", tts_config_path: str = "", model_dir: str = "",
-                 device="cuda", speakers_file_path: str = "", language_ids_file_path: str = ""):
+                 device="cuda", speakers_file_path: str = "", language_ids_file_path: str = "",
+                 vocoder_checkpoint: str = "", vocoder_config: str = "",
+                 use_griffin_lim: bool = True):
         self.device = resolve_device(device)
         self.speakers_file_path = speakers_file_path
         self.language_ids_file_path = language_ids_file_path
+        self.use_griffin_lim = use_griffin_lim
         self.tts_model = None
         self.tts_config = None
+        self.ap = None  # the TTS model's AudioProcessor (not for XTTS)
+        self.vocoder_model = None
+        self.vocoder_config = None
+        self.vocoder_ap = None
         self.from_file = False  # loaded from a checkpoint file: may trim silence
         self.output_sample_rate = 24000
         path = model_dir or tts_checkpoint
         if path:
-            if not tts_config_path:
-                if not os.path.isdir(path):
-                    raise ValueError("a checkpoint file needs its config.json (tts_config_path)")
-                tts_config_path = os.path.join(path, "config.json")
-            self._load_tts(path, tts_config_path)
+            self._load_tts(path, self._config_path(path, tts_config_path))
+        if vocoder_checkpoint:
+            self._load_vocoder(vocoder_checkpoint,
+                               self._config_path(vocoder_checkpoint, vocoder_config))
+
+    @staticmethod
+    def _config_path(path: str, config_path: str) -> str:
+        """``config_path``, or a directory's ``config.json``."""
+        if config_path:
+            return config_path
+        if not os.path.isdir(path):
+            raise ValueError(f"the checkpoint file {path} needs its config.json")
+        return os.path.join(path, "config.json")
 
     def _load_tts(self, path: str, config_path: str) -> None:
-        """A model directory, or a VITS checkpoint file, with its config."""
+        """A model directory, or a VITS or GlowTTS checkpoint file, with its
+        config."""
         config = config_from_dict(read_json_with_comments(config_path))
         for target in (config, getattr(config, "model_args", None)):
             if self.speakers_file_path and hasattr(target, "speakers_file"):
@@ -117,15 +146,58 @@ class Synthesizer:
             model = setup_model(config)
         if os.path.isdir(path):
             model = model.load_checkpoint(config, checkpoint_dir=path, device=self.device)
-        elif config.model == "vits":
+        elif config.model in ("vits", "glow_tts"):
             model = model.load_checkpoint(config, checkpoint_path=path, device=self.device)
         else:
             raise ValueError(f"{config.model!r} loads from a model directory, not a file")
         self.tts_model = model
         self.tts_config = config  # as loaded, as the JAX package keeps it (/details shows it)
         self.from_file = not os.path.isdir(path)
-        self.output_sample_rate = (getattr(config.model_args, "output_sample_rate", None)
-                                   or config.audio.sample_rate)
+        if config.model != "xtts":
+            self.ap = AudioProcessor.init_from_config(config.audio, verbose=False)
+        self.output_sample_rate = (
+            getattr(getattr(config, "model_args", None), "output_sample_rate", None)
+            or config.audio.sample_rate)
+
+    def _load_vocoder(self, path: str, config_path: str) -> None:
+        """A vocoder checkpoint file with its config: the generator its
+        config names, its own
+        ``AudioProcessor`` for the bridge, and its sample rate for the
+        output (port of ``tts_tpu/utils/synthesizer.py:131-152``)."""
+        config = config_from_dict(read_json_with_comments(config_path))
+        if not hasattr(config, "generator_model"):
+            raise ValueError(f"{config_path} is not a vocoder config (model {config.model!r})")
+        with torch.device("meta"):
+            generator = make_generator_from_config(config)
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(state, dict) and "model" in state:
+            state = state["model"]
+        if not set(state) >= set(generator.state_dict()):
+            from tts_tpu_torch.utils.convert import load_reference_vocoder
+
+            state = load_reference_vocoder(state, config)
+        generator.load_state_dict({k: v.to(self.device) for k, v in state.items()}, strict=True,
+                                  assign=True)
+        self.vocoder_model = generator.eval().requires_grad_(False)
+        self.vocoder_config = config
+        self.vocoder_ap = AudioProcessor.init_from_config(config.audio, verbose=False)
+        self.output_sample_rate = self.vocoder_ap.sample_rate
+
+    @torch.no_grad()
+    def _vocode(self, mel: np.ndarray) -> np.ndarray:
+        """A TTS model's normalised mel ``[T, C]`` → waveform through the
+        vocoder: back to decibels with the TTS model's processor, normalised
+        with the vocoder's, resampled in time when the rates differ, then
+        ``generator.inference`` on the device (port of
+        ``tts_tpu/utils/synthesizer.py:223-262``)."""
+        voc_in = self.vocoder_ap.normalize(self.ap.denormalize(mel.T))  # [C, T]
+        scale_factor = self.vocoder_ap.sample_rate / self.ap.sample_rate
+        if scale_factor != 1.0:
+            print(" > interpolating tts model output.")
+            voc_in = interpolate_vocoder_input([1, scale_factor], voc_in)
+        c = torch.from_numpy(np.ascontiguousarray(voc_in.T[None], np.float32)).to(self.device)
+        wav = self.vocoder_model.inference(c)
+        return wav.float().cpu().numpy().reshape(-1)
 
     # ------------------------------------------------------------------
     def tts(
@@ -177,17 +249,25 @@ class Synthesizer:
             raise ValueError(f"{self.tts_config.model!r} takes no {', '.join(given)}")
         speaker_id, d_vector = self._resolve_speaker(speaker_name, speaker_wav)
         language_id = self._resolve_language(language_name)
-        if len(sens) > 1 and model.supports_packed_decode:
+        if len(sens) > 1 and getattr(model, "supports_packed_decode", False):
             pieces = self._tts_sentences_packed(sens, speaker_id, d_vector, language_id)
         else:
             language = self._language_name(language_id)
-            pieces = [synthesis(model, sen, speaker_id, d_vector, language_id,
-                                language)["wav"] for sen in sens]
-        audio = self.tts_config.audio
-        trim = self.from_file and getattr(audio, "do_trim_silence", False)
+            use_gl = self.vocoder_model is None and self.use_griffin_lim
+            pieces = []
+            for sen in sens:
+                out = synthesis(model, sen, speaker_id, d_vector, language_id, language,
+                                use_griffin_lim=use_gl, ap=self.ap)
+                if out["wav"] is not None:
+                    pieces.append(out["wav"])
+                elif self.vocoder_model is not None:
+                    pieces.append(self._vocode(out["model_outputs"]))
+                else:
+                    raise RuntimeError("No vocoder or Griffin-Lim available.")
+        trim = self.from_file and getattr(self.tts_config.audio, "do_trim_silence", False)
         for wav in pieces:
             if trim:
-                wav = trim_silence(wav, audio)
+                wav = trim_silence(wav, self.ap)
             wavs += list(wav)
             wavs += [0] * SENTENCE_GAP
         return wavs

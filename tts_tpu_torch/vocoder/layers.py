@@ -3,10 +3,11 @@
 reference ``TTS/vocoder/layers/pqmf.py``).
 
 The synthesis side serves the multi-band iSTFT decoder
-(``istft_subbands_decoder > 1``); the MelGAN generators that also use the
-bank wait for their own port (ROADMAP.md item 13). The filters are designed
-on the host in float64 (``scipy.signal.firwin``) and cast to float32, as in
-the JAX package.
+(``istft_subbands_decoder > 1``) and the multi-band MelGAN generator; the
+analysis side serves training and waits for it (ROADMAP.md item 17). The
+filters are designed on the host in float64 (``scipy.signal.firwin``) and
+cast to float32, as in the JAX package; the synthesis filter moves to the
+signal's device and dtype at its first call there and stays.
 """
 
 from __future__ import annotations
@@ -52,4 +53,6 @@ class PQMF:
         B, T, N = x.shape
         up = x.new_zeros((B, N, T * N))
         up[:, :, :: N] = x.transpose(1, 2) * N
-        return F.conv1d(up, self.G.to(x), padding=self.taps // 2).transpose(1, 2)
+        if self.G.device != x.device or self.G.dtype != x.dtype:
+            self.G = self.G.to(x)
+        return F.conv1d(up, self.G, padding=self.taps // 2).transpose(1, 2)

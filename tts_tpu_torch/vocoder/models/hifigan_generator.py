@@ -8,6 +8,8 @@ kernel, so ``utils.convert`` flips ``k`` when it maps one to the other.
 
 ``x_mask`` (``[B, T, 1]`` at input-frame resolution) is re-applied after
 every conv, so masked gaps behave like zero padding, as in the JAX package.
+``inference`` serves the generator as a stand-alone vocoder: the mel
+padded with ``inference_padding`` (5) edge frames on each side.
 """
 
 from __future__ import annotations
@@ -76,8 +78,10 @@ class HifiganGenerator(nn.Module):
         cond_channels: int = 0,
         conv_post_bias: bool = True,
         cond_in_each_up_layer: bool = False,
+        inference_padding: int = 5,
     ):
         super().__init__()
+        self.inference_padding = inference_padding
         self.num_kernels = len(resblock_kernel_sizes)
         self.upsample_factors = tuple(upsample_factors)
         self.cond_in_each_up_layer = cond_in_each_up_layer
@@ -133,3 +137,9 @@ class HifiganGenerator(nn.Module):
         if mask is not None:
             o = o * mask
         return o.transpose(1, 2)
+
+    def inference(self, c: torch.Tensor) -> torch.Tensor:
+        """A stand-alone vocoder's call: the mel ``[B, T, C]`` with
+        ``inference_padding`` edge frames on each side."""
+        p = self.inference_padding
+        return self(F.pad(c.transpose(1, 2), (p, p), mode="replicate").transpose(1, 2))
