@@ -107,7 +107,31 @@ Phases; each raises on failure and the script then exits non-zero:
     rewritten, F17), equal to the path load; ``tts --vocoder_path`` within
     one int16 step of the API; the server with ``--vocoder_path`` and
     ``--max_batch 4``, which says it serves serially and answers three
-    ``/api/tts`` requests. ``decode_attention`` must not launch.
+    ``/api/tts`` requests. ``decode_attention`` must not launch;
+11. Tacotron2-DDC with HiFiGAN at the LJSpeech recipes' widths
+    (``phoneme_cleaners``, ``en-us`` phonemes from the rule G2P, the
+    ``Tacotron2Config`` defaults with the recipe's ``r=6``; the
+    ``HifiganConfig`` defaults), fp32 weights from seed 0, norms folded as
+    in a converted checkpoint, the stopnet's weight 0 and bias -10 so that
+    every decode runs its whole budget. The model is saved in the reference
+    layout with ``"r": 2`` beside the weights and loaded back: ``r_init`` 6
+    from the 480-wide projection, ``r`` 2 from the checkpoint (F20). Then:
+    ``tacotron2.npz`` teacher-forced on the card (mel RMSE under 5e-3); the
+    three phase 6 sentences card against CPU (``mel_lengths`` equal, mel and
+    waveform within 1e-4, the mel's largest difference per 100 decode steps
+    printed); the DCA recipe card against CPU on the short sentence; B = 4
+    rows against their own B = 1 decodes at 400 steps (location attention
+    gives padded tokens no weight, so a row cannot move with the padding);
+    the stopnet firing at step 1 (bias +10), which leaves at the first stop
+    check; ms per decode step at B = 1 and 4 (the slope between 100 and
+    300 steps), kernels per step and the busy share under
+    ``torch.profiler``; latency, RTF and HiFiGAN's share at natural length
+    (``inference(max_steps=3 × tokens)``, LJSpeech's pace at r = 2) and at
+    the whole budget through ``Synthesizer.tts``; the pair by zoo name
+    (``tacotron2-DDC`` with ``hifigan_v2``) equal to the path load; ``tts
+    --vocoder_path`` within one int16 step of the API; the server with
+    ``--max_batch 4``, which serves serially; peak memory.
+    ``decode_attention`` must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -2679,6 +2703,542 @@ def phase_glow_tts(card: str, device="cuda", cut=None) -> None:
     log(line + f"; phase 10 took {time.time() - t_phase:.1f} s | {card}")
 
 
+ZOO_T2 = "tts_models/en/ljspeech/tacotron2-DDC"
+ZOO_HIFIGAN_V2 = "vocoder_models/en/ljspeech/hifigan_v2"
+T2_TOL = 1e-4  # card vs CPU, the Tacotron2 mel and waveform, fp32 with TF32 off
+T2_DECODE_R = 2  # the recipe's last gradual-training step: r 2 of the projection's 6 (F20)
+T2_B4_STEPS = 400  # decode steps of the B=4 check and its B=1 decodes
+
+
+def tacotron2_recipe_config():
+    """``recipes/ljspeech/tacotron2_ddc/train_tacotron_ddc.py:24-36`` as
+    published: ``r=6`` with the gradual-training schedule down to 2, DDC
+    (``ddc_r`` 6), ``phoneme_cleaners``, ``en-us`` phonemes and the
+    ``Tacotron2Config`` defaults (512-wide encoder, 1024-wide attention and
+    decoder LSTMs, prenet 256, attention 128, location-sensitive attention
+    with sigmoid normalisation); ``norm_type="folded"``, as a converted
+    checkpoint runs."""
+    from tts_tpu_torch.models.tacotron2 import Tacotron2Config
+
+    return Tacotron2Config(
+        r=6, gradual_training=[[0, 6, 64], [10000, 4, 32], [50000, 3, 32], [100000, 2, 32]],
+        double_decoder_consistency=True, ddc_r=6, text_cleaner="phoneme_cleaners",
+        use_phonemes=True, phoneme_language="en-us", norm_type="folded")
+
+
+def tacotron2_dca_recipe_config():
+    """``recipes/ljspeech/tacotron2_dca/train_tacotron_dca.py:22-52``: its
+    audio (22.05 kHz, no signal normalisation, mels 0-8000 Hz, natural log,
+    ``ref_level_db`` 20, no preemphasis), ``r=2``, dynamic convolution
+    attention, ``phoneme_cleaners`` with ``en-us`` phonemes; folded norms."""
+    from tts_tpu_torch.config.shared import BaseAudioConfig
+    from tts_tpu_torch.models.tacotron2 import Tacotron2Config
+
+    audio = BaseAudioConfig(sample_rate=22050, do_trim_silence=True, trim_db=60.0,
+                            signal_norm=False, mel_fmin=0.0, mel_fmax=8000, spec_gain=1.0,
+                            log_func="np.log", ref_level_db=20, preemphasis=0.0)
+    return Tacotron2Config(audio=audio, r=2, attention_type="dynamic_convolution",
+                           double_decoder_consistency=False, text_cleaner="phoneme_cleaners",
+                           use_phonemes=True, phoneme_language="en-us", norm_type="folded")
+
+
+def hifigan_recipe_config():
+    """``recipes/ljspeech/hifigan/train_hifigan.py:12-22``: the
+    ``HifiganConfig`` defaults (upsampling [8, 8, 2, 2] from 512 channels,
+    resblocks of kernels 3, 7, 11; 22.05 kHz, hop 256, 80 mels)."""
+    from tts_tpu_torch.vocoder.configs import HifiganConfig
+
+    return HifiganConfig()
+
+
+def random_tacotron2(config, seed: int = 0, stop_bias: float = -10.0):
+    """``Tacotron2.init_from_config(config)`` with fp32 weights from
+    ``seed`` on the CPU, the stopnet's weight zero and its bias
+    ``stop_bias``: at -10 random weights run every decode to its budget, the
+    worst case the budget exists for, and card and CPU cannot disagree on a
+    stop near 0.5."""
+    import torch
+
+    from tts_tpu_torch.models.tacotron2 import Tacotron2
+
+    model = Tacotron2.init_from_config(config).init_params(seed=seed, device="cpu")
+    stopnet = model.module.decoder_cell.stopnet
+    with torch.no_grad():
+        stopnet.weight.zero_()
+        stopnet.bias.fill_(stop_bias)
+    return model
+
+
+def tacotron2_fidelity(device) -> str:
+    """``tacotron2.npz`` (a reference-layout state at full width, rebuilt
+    from its manifest as ``tests/helpers.py`` rebuilds it; teacher-forced at
+    r = 2 by the reference code) through ``load_reference_tacotron2`` on
+    ``device``, at ``test_fidelity_corpus``'s mel RMSE bound."""
+    import torch
+
+    from tts_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+    from tts_tpu_torch.utils.convert import load_reference_tacotron2
+
+    npz = np.load(os.path.join(REPO, "tests", "fixtures", "fidelity", "tacotron2.npz"))
+    meta = json.loads(bytes(npz["meta"]).decode())
+    rs = np.random.RandomState(meta["state_seed"])
+    state = {}
+    for name, (shape, dtype) in meta["state_manifest"].items():
+        if name.endswith("num_batches_tracked"):
+            state[name] = np.zeros(shape, np.int64)
+        elif name.endswith("running_var"):
+            state[name] = (0.5 + np.abs(rs.randn(*shape))).astype(np.float32)
+        elif name.endswith("running_mean"):
+            state[name] = (0.1 * rs.randn(*shape)).astype(np.float32)
+        else:
+            state[name] = (0.1 * rs.randn(*shape)).astype(dtype)
+    config = Tacotron2Config(num_chars=meta["num_chars"], r=meta["r"], attention_norm="softmax")
+    model = Tacotron2(config)
+    model.load_state_dict({k: v.to(device) for k, v in load_reference_tacotron2(state,
+                                                                                config).items()})
+    text, mel = npz["in/text"], npz["in/mel"]
+    with torch.no_grad():
+        out = model.module(torch.from_numpy(text).to(device),
+                           torch.full((text.shape[0],), text.shape[1], device=device),
+                           torch.from_numpy(mel).to(device))
+    ours = out["model_outputs"].float().cpu().numpy()
+    rmse = float(np.sqrt(np.mean((ours - npz["out/mel"]) ** 2)))
+    if not rmse < FIDELITY_RMSE:
+        raise AssertionError(f"tacotron2.npz on {device}: mel RMSE {rmse}")
+    return f"tacotron2.npz teacher-forced at r 2, mel RMSE {rmse:.3g} (< {FIDELITY_RMSE})"
+
+
+def drift_per_steps(a: np.ndarray, b: np.ndarray, r: int, steps: int = 100) -> list:
+    """Largest ``|a - b|`` over each run of ``steps`` decode steps (``r``
+    frames a step) of two mels ``[T, C]``."""
+    d = np.abs(a - b).max(axis=1)
+    return [float(d[i: i + steps * r].max()) for i in range(0, len(d), steps * r)]
+
+
+def t2_ids(model, texts, device):
+    """Token ids of ``texts`` padded to the widest, in multiples of 16 as
+    ``synthesis`` pads them, with their lengths."""
+    import torch
+
+    rows = [model.tokenizer.text_to_ids(t) for t in texts]
+    width = ((max(len(r) for r in rows) + 15) // 16) * 16
+    x = torch.zeros(len(rows), width, dtype=torch.long)
+    for i, r in enumerate(rows):
+        x[i, : len(r)] = torch.tensor(r)
+    return x.to(device), torch.tensor([len(r) for r in rows], device=device)
+
+
+def t2_step_ms(model, texts, device, lo: int = 100, hi: int = 300) -> float:
+    """Milliseconds per decode step at the batch of ``texts``: the slope of
+    ``inference``'s wall time (synchronized, median of 3) between ``lo``
+    and ``hi`` steps of a decode that never stops."""
+    import torch
+
+    x, xl = t2_ids(model, texts, device)
+    times = {}
+    with torch.no_grad():
+        model.inference(x, xl, max_steps=lo)
+        for n in (lo, hi):
+            times[n] = median_ms(lambda: model.inference(x, xl, max_steps=n), device, reps=3)[0]
+    return (times[hi] - times[lo]) / (hi - lo)
+
+
+def t2_kernels_per_step(model, texts, device, card: str, lo: int = 50, hi: int = 150):
+    """Kernels and device milliseconds a decode step takes at the batch of
+    ``texts`` (the differences between two profiled decodes of ``lo`` and
+    ``hi`` steps, over ``hi - lo``), with the busy share of the longer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, xl = t2_ids(model, texts, device)
+    counts, busy = {}, {}
+    for n in (lo, hi):
+        with torch.no_grad():
+            model.inference(x, xl, max_steps=n)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                model.inference(x, xl, max_steps=n)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t1) * 1e6
+        rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
+                and e.self_device_time_total > 0]
+        counts[n] = sum(e.count for e in rows)
+        busy[n] = sum(e.self_device_time_total for e in rows) / 1e3
+    log_profile(prof, f"Tacotron2 B={len(texts)} decode of {hi} steps (never stopping)", wall_us,
+                card, top=4)
+    return (counts[hi] - counts[lo]) / (hi - lo), (busy[hi] - busy[lo]) / (hi - lo)
+
+
+def t2_stage_ms(synth, text: str, steps: int, device, reps: int = 5) -> dict:
+    """One sentence at ``steps`` decode steps, by stage, medians of
+    ``reps``: the encoder (with the attention's input projection) and the
+    whole ``inference`` by the host clock (synchronized), the postnet and
+    HiFiGAN by CUDA events, the mel to the host with the bridge by the host
+    clock; the decode loop is ``inference`` less its encoder and postnet."""
+    import torch
+
+    model, m = synth.tts_model, synth.tts_model.module
+    x, xl = t2_ids(model, [text], device)
+    runs: dict = {}
+    with torch.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m._attention_inputs(m._encode(x, xl))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            o = model.inference(x, xl, max_steps=steps)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            m.postnet(o["decoder_outputs"])
+            ev[1].record()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            mel = o["model_outputs"][0, : int(o["mel_lengths"][0])].float().cpu().numpy()
+            voc_in = synth.vocoder_ap.normalize(synth.ap.denormalize(mel.T))
+            c = torch.from_numpy(np.ascontiguousarray(voc_in.T[None], np.float32)).to(device)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            ev[2].record()
+            synth.vocoder_model.inference(c)
+            ev[3].record()
+            torch.cuda.synchronize()
+            encoder, postnet = (t1 - t0) * 1e3, ev[0].elapsed_time(ev[1])
+            times = {"encoder": encoder, "decode loop": (t2 - t1) * 1e3 - encoder - postnet,
+                     "postnet": postnet, "host bridge": (t4 - t3) * 1e3,
+                     "HiFiGAN": ev[2].elapsed_time(ev[3])}
+            for k, v in times.items():
+                runs.setdefault(k, []).append(v)
+    return {k: sorted(v)[reps // 2] for k, v in runs.items()}
+
+
+def phase_tacotron2(card: str, device="cuda", cut=None) -> None:
+    """Tacotron2-DDC with HiFiGAN at the LJSpeech recipes' widths: the
+    recipe's model (r_init 6) decoded at r = 2 from a reference-layout
+    checkpoint that says so (F20); ``tacotron2.npz`` on the card; the three
+    phase 6 sentences card against CPU at their whole budgets (mel and
+    waveform, the drift per 100 decode steps); the DCA recipe card against
+    CPU; B = 4 rows against their own B = 1 decodes; the stopnet firing at
+    step 1 (the early exit); ms per decode step at B = 1 and 4, kernels per
+    step, busy share, latency and RTF at natural length and at the whole
+    budget, HiFiGAN's share, peak memory; the pair by zoo name; ``tts
+    --vocoder_path``; the server, serial. ``decode_attention`` must not
+    launch. ``cut`` shrinks the three configs in place, for rehearsals on
+    the CPU."""
+    import io
+    import shutil
+
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.models.tacotron2 import model as t2_model
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.server.server import build_parser, close_server, server_from_args
+    from tts_tpu_torch.utils.convert import reference_tacotron2_state
+    from tts_tpu_torch.utils.synthesis import _frame_budget, synthesis
+    from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, Synthesizer, split_into_sentences
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    cut = cut or (lambda t2_config, dca_config, voc_config: None)
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    short, medium = VITS_SENTENCES["short"], VITS_SENTENCES["medium"]
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    log(f"Tacotron2 fidelity replay on {device}: " + tacotron2_fidelity(device) + f" | {card}")
+
+    t2_config, dca_config, voc_config = (tacotron2_recipe_config(), tacotron2_dca_recipe_config(),
+                                         hifigan_recipe_config())
+    cut(t2_config, dca_config, voc_config)
+    with tempfile.TemporaryDirectory() as d:
+        t2_dir, voc_dir = os.path.join(d, "t2"), os.path.join(d, "voc")
+        os.makedirs(t2_dir)
+        os.makedirs(voc_dir)
+        t2 = random_tacotron2(t2_config, seed=0)
+        n_t2 = sum(p.numel() for p in t2.module.parameters())
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in reference_tacotron2_state(
+            t2.module.state_dict()).items()}, "r": T2_DECODE_R},
+            os.path.join(t2_dir, "model_file.pth"))
+        write_json(os.path.join(t2_dir, "config.json"), t2.config.to_dict())
+        gen = random_vocoder(voc_config, seed=0)
+        n_voc = sum(p.numel() for p in gen.parameters())
+        torch.save({"model": {"model_g." + k: v for k, v in gen.state_dict().items()}},
+                   os.path.join(voc_dir, "model_file.pth"))
+        write_json(os.path.join(voc_dir, "config.json"), voc_config.to_dict())
+        c = t2.config
+        del t2, gen
+        t2_args = ["--model_path", os.path.join(t2_dir, "model_file.pth"), "--config_path",
+                   os.path.join(t2_dir, "config.json")]
+        voc_args = ["--vocoder_path", os.path.join(voc_dir, "model_file.pth"),
+                    "--vocoder_config_path", os.path.join(voc_dir, "config.json")]
+
+        def load(dev):
+            return Synthesizer(tts_checkpoint=t2_args[1], tts_config_path=t2_args[3],
+                               vocoder_checkpoint=voc_args[1], vocoder_config=voc_args[3],
+                               device=dev)
+
+        synth, cpu_synth = load(device), load("cpu")
+        model = synth.tts_model
+        if (model.r_init, model.r) != (6, T2_DECODE_R):
+            raise AssertionError(f"F20: r_init {model.r_init}, r {model.r} from a 480-wide "
+                                 f"projection and r {T2_DECODE_R} in the checkpoint")
+        gp = voc_config.generator_model_params
+        log(f"Tacotron2-DDC (LJSpeech recipe, phonemes from {model.tokenizer.phonemizer.name()}, "
+            f"{c.text_cleaner}, num_chars {c.num_chars}): embedding {c.embedding_dim}, encoder "
+            f"{c.encoder_in_features} (3 convs, biLSTM), attention LSTM {c.query_dim}, decoder "
+            f"LSTM {c.decoder_rnn_dim}, prenet {c.prenet_dim}, {c.attention_type} attention "
+            f"({c.attention_norm}, location {c.location_attn}) {c.attn_dim}, postnet 5 x 512; "
+            f"{n_t2 / 1e6:.2f} M parameters (seed 0, the DDC coarse decoder not built), loaded "
+            f"from the reference layout: r_init {model.r_init} from the projection, r "
+            f"{model.r} from the checkpoint (F20); stopnet weight 0, bias -10 (never stops). "
+            f"HiFiGAN: {gp['upsample_initial_channel']} channels, upsampling "
+            f"{gp['upsample_factors']}, {voc_config.audio.sample_rate} Hz, hop "
+            f"{voc_config.audio.hop_length}; {n_voc / 1e6:.2f} M parameters (seed 0)")
+
+        # card against CPU at each sentence's whole budget: mel, then the waveform
+        worst_mel = worst_wav = 0.0
+        lengths, drifts = [], {}
+        with torch.no_grad():
+            for key, text in VITS_SENTENCES.items():
+                g, w = synthesis(model, text), synthesis(cpu_synth.tts_model, text)
+                g_len, w_len = g["outputs"]["mel_lengths"].cpu(), w["outputs"]["mel_lengths"]
+                if not torch.equal(g_len, w_len) or g["model_outputs"].shape != \
+                        w["model_outputs"].shape:
+                    raise AssertionError(f"Tacotron2 mel_lengths card {g_len.tolist()} != CPU "
+                                         f"{w_len.tolist()} for {key!r}")
+                drifts[key] = drift_per_steps(g["model_outputs"], w["model_outputs"], model.r)
+                err = max(drifts[key])
+                if not err <= T2_TOL or not np.isfinite(g["model_outputs"]).all():
+                    raise AssertionError(f"Tacotron2 mel card vs CPU ({key}): max abs diff {err}; "
+                                         f"per 100 steps {drifts[key]}")
+                gw, ww = synth._vocode(g["model_outputs"]), cpu_synth._vocode(w["model_outputs"])
+                werr = float(np.abs(gw - ww).max()) if gw.shape == ww.shape else np.inf
+                if not werr <= T2_TOL or not np.isfinite(gw).all() or gw.std() == 0:
+                    raise AssertionError(f"Tacotron2 + HiFiGAN card vs CPU ({key}): {gw.shape} vs "
+                                         f"{ww.shape}, max abs diff {werr}")
+                worst_mel, worst_wav = max(worst_mel, err), max(worst_wav, werr)
+                lengths.append(int(g_len[0]))
+        log(f"Tacotron2 + HiFiGAN card vs CPU, the three phase 6 sentences at their whole "
+            f"budgets: mel_lengths {lengths} equal, mel max abs diff {worst_mel:.3g}, waveform "
+            f"{worst_wav:.3g} (tol {T2_TOL}); mel max abs diff per 100 decode steps: "
+            + "; ".join(f"{k} " + ", ".join(f"{v:.2g}" for v in vs) for k, vs in drifts.items())
+            + f" (phase 11 at {time.time() - t_phase:.0f} s)")
+        del cpu_synth
+
+        # the DCA recipe, card against CPU on the short sentence
+        dca = random_tacotron2(dca_config, seed=0)
+        dca_cpu_state = {k: v.clone() for k, v in dca.module.state_dict().items()}
+        with torch.no_grad():
+            w = synthesis(dca, short)
+            dca.load_state_dict({k: v.to(device) for k, v in dca_cpu_state.items()})
+            g = synthesis(dca, short)
+        derr = float(np.abs(g["model_outputs"] - w["model_outputs"]).max()) \
+            if g["model_outputs"].shape == w["model_outputs"].shape else np.inf
+        if not derr <= T2_TOL or not np.isfinite(g["model_outputs"]).all():
+            raise AssertionError(f"Tacotron2-DCA card vs CPU: {g['model_outputs'].shape} vs "
+                                 f"{w['model_outputs'].shape}, max abs diff {derr}")
+        log(f"Tacotron2-DCA (LJSpeech DCA recipe: r {dca.r}, {dca.config.attention_type}, "
+            f"{dca.config.audio.log_func}, no signal norm; seed 0), short sentence card vs CPU: "
+            f"mel_lengths {int(g['outputs']['mel_lengths'][0])} equal, mel max abs diff "
+            f"{derr:.3g} (tol {T2_TOL})")
+        del dca, dca_cpu_state
+
+        # B = 4 rows against their own B = 1 decodes at the same max_steps
+        rows = list(VITS_SENTENCES.values()) + [MULTI_SENTENCES["en"]]
+        with torch.no_grad():
+            x, xl = t2_ids(model, rows, device)
+            batch = model.inference(x, xl, max_steps=T2_B4_STEPS)
+            b4err = 0.0
+            for i, text in enumerate(rows):
+                xi, xli = t2_ids(model, [text], device)
+                one = model.inference(xi, xli, max_steps=T2_B4_STEPS)
+                if int(one["mel_lengths"][0]) != int(batch["mel_lengths"][i]):
+                    raise AssertionError(f"B=4 row {i}: mel_lengths {batch['mel_lengths'][i]} "
+                                         f"vs {one['mel_lengths'][0]} alone")
+                b4err = max(b4err, float((batch["model_outputs"][i] - one["model_outputs"][0])
+                                         .abs().max()))
+        if not b4err <= T2_TOL:
+            raise AssertionError(f"Tacotron2 B=4 rows vs their B=1 decodes: max abs diff {b4err}")
+        log(f"Tacotron2 B=4 ({[int(v) for v in xl]} tokens padded to {x.shape[1]}), each row "
+            f"against its own B=1 decode at {T2_B4_STEPS} steps: mel_lengths equal, mel max abs "
+            f"diff {b4err:.3g} (tol {T2_TOL}; phase 11 at {time.time() - t_phase:.0f} s)")
+
+        # the stopnet firing at step 1: the decode leaves at the first check
+        stopper = random_tacotron2(t2_config, seed=0, stop_bias=10.0)
+        stopper.load_state_dict({k: v.to(device) for k, v in
+                                 stopper.module.state_dict().items()})
+        stopper.set_r(T2_DECODE_R)
+        with torch.no_grad():
+            x1, xl1 = t2_ids(stopper, [medium], device)
+            out = stopper.inference(x1, xl1, max_steps=1000)
+            early_ms = median_ms(lambda: stopper.inference(x1, xl1, max_steps=1000), device)[0]
+        ran = out["alignments"].shape[1]
+        if int(out["mel_lengths"][0]) != T2_DECODE_R or ran != t2_model.STOP_CHECK_EVERY:
+            raise AssertionError(f"early exit: mel_lengths {out['mel_lengths'].tolist()}, "
+                                 f"{ran} steps run")
+        log(f"Tacotron2 stopnet firing at step 1 (bias +10): mel_lengths {T2_DECODE_R}, "
+            f"{ran} of 1000 steps run (the first stop check), {early_ms:.1f} ms | {card}")
+        del stopper
+
+        # speed: ms per step, kernels per step, natural length and whole budget
+        if cuda:
+            step1 = t2_step_ms(model, [medium], device)
+            step4 = t2_step_ms(model, rows, device)
+            k1, d1 = t2_kernels_per_step(model, [medium], device, card)
+            k4, d4 = t2_kernels_per_step(model, rows, device, card)
+            log(f"Tacotron2 decode step (wall: slope between 100 and 300 steps, median of 3; "
+                f"kernels and device time: profiled 150 less 50 steps): B=1 {step1:.3f} ms wall, "
+                f"{k1:.1f} kernels, {d1 * 1e3:.1f} us device; B=4 {step4:.3f} ms wall, "
+                f"{k4:.1f} kernels, {d4 * 1e3:.1f} us device | {card}")
+        sr = synth.output_sample_rate
+        for key, text in VITS_SENTENCES.items():
+            n_tokens = len(model.tokenizer.text_to_ids(text))
+            steps = min(3 * n_tokens, _frame_budget(n_tokens) // model.r)
+            xk, xlk = t2_ids(model, [text], device)
+            parts = {}
+
+            def natural():
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    o = model.inference(xk, xlk, max_steps=steps)
+                    mel = o["model_outputs"][0, : int(o["mel_lengths"][0])].float().cpu().numpy()
+                t1 = time.perf_counter()
+                wav = synth._vocode(mel)
+                sync(device)
+                parts.update(model=(t1 - t0) * 1e3, vocoder=(time.perf_counter() - t1) * 1e3,
+                             seconds=len(wav) / sr)
+
+            ms, lo, hi = median_ms(natural, device)
+            samples = []
+            full, flo, fhi = median_ms(lambda: samples.append(len(silent(synth.tts, text))),
+                                       device, reps=3)
+            full_s = (samples[-1] - SENTENCE_GAP * len(split_into_sentences(text))) / sr
+            log(f"Tacotron2 + HiFiGAN {key} ({n_tokens} tokens): natural length ({steps} steps, "
+                f"3 a token) {parts['seconds']:.2f} s of audio in {ms:.1f} ms (median of 5; "
+                f"{lo:.1f}-{hi:.1f}), RTF {parts['seconds'] / ms * 1e3:.1f}, HiFiGAN "
+                f"{parts['vocoder']:.1f} ms ({100 * parts['vocoder'] / ms:.1f} %); whole budget "
+                f"through Synthesizer.tts {full_s:.2f} s in {full:.1f} ms (median of 3; "
+                f"{flo:.1f}-{fhi:.1f}), RTF {full_s / full * 1e3:.1f} | {card}")
+        if cuda:
+            n_tokens = len(model.tokenizer.text_to_ids(medium))
+            xm, xlm = t2_ids(model, [medium], device)
+
+            def natural_medium():
+                with torch.no_grad():
+                    o = model.inference(xm, xlm, max_steps=3 * n_tokens)
+                    synth._vocode(o["model_outputs"][0, : int(o["mel_lengths"][0])].cpu().numpy())
+
+            profile_call(natural_medium, "Tacotron2 + HiFiGAN, medium sentence at natural length",
+                         card)
+            st = t2_stage_ms(synth, medium, 3 * n_tokens, device)
+            log(f"Tacotron2 + HiFiGAN stages, medium sentence at natural length ({3 * n_tokens} "
+                f"steps), ms (median of 5; postnet and HiFiGAN by CUDA events, the rest by the "
+                f"host clock): " + ", ".join(f"{k} {v:.2f}" for k, v in st.items()) + f" | {card}")
+
+        # the zoo by name: reference-layout directories, nothing fetched
+        with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+            zt = os.path.join(home, "tts_tpu", ZOO_T2.replace("/", "--"))
+            zv = os.path.join(home, "tts_tpu", ZOO_HIFIGAN_V2.replace("/", "--"))
+            shutil.copytree(t2_dir, zt)
+            shutil.copytree(voc_dir, zv)
+            by_name = TTS(model_name=ZOO_T2, device=device)
+            by_path = TTS(model_path=t2_args[1], config_path=t2_args[3], vocoder_path=voc_args[1],
+                          vocoder_config_path=voc_args[3], device=device)
+            a = np.asarray(silent(by_name.tts, short), np.float32)
+            b = np.asarray(silent(by_path.tts, short), np.float32)
+            zerr = float(np.abs(a - b).max()) if a.shape == b.shape else np.inf
+            if zerr != 0 or a.std() == 0 or by_name.synthesizer.tts_model.r != T2_DECODE_R:
+                raise AssertionError(f"TTS(model_name={ZOO_T2}) vs path load: {a.shape} vs "
+                                     f"{b.shape}, max abs diff {zerr}")
+            log(f"zoo: {ZOO_T2} with its default vocoder {ZOO_HIFIGAN_V2} from reference-layout "
+                f"directories, nothing fetched; r {by_name.synthesizer.tts_model.r}; the short "
+                f"sentence differs from the path load by {zerr}")
+            del by_name, by_path
+
+        # the command line with the vocoder flags against the API
+        api = TTS(model_path=t2_args[1], config_path=t2_args[3], vocoder_path=voc_args[1],
+                  vocoder_config_path=voc_args[3], device=device)
+        api_path, cli_path = os.path.join(d, "api.wav"), os.path.join(d, "cli.wav")
+        silent(api.tts_to_file, short, file_path=api_path)
+        silent(synthesize_cli, ["--text", short, "--out_path", cli_path, "--device",
+                                str(device)] + t2_args + voc_args)
+        (api_sr, api_pcm), (cli_sr, cli_pcm) = (scipy.io.wavfile.read(p) for p in
+                                                (api_path, cli_path))
+        step = (np.abs(cli_pcm.astype(np.int32) - api_pcm.astype(np.int32)).max()
+                if cli_pcm.shape == api_pcm.shape else None)
+        if step is None or step > 1 or cli_sr != api_sr:
+            raise AssertionError(f"tts --vocoder_path {cli_pcm.shape} at {cli_sr} Hz vs the API "
+                                 f"{api_pcm.shape} at {api_sr} Hz: {step} int16 steps")
+        log(f"tts --model_path --config_path --vocoder_path --vocoder_config_path (Tacotron2): "
+            f"{len(cli_pcm)} samples at {cli_sr} Hz, at most {step} int16 step from "
+            f"TTS.tts_to_file")
+        del api
+
+        # the server with the vocoder flags and --max_batch 4: served serially
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            srv = server_from_args(build_parser().parse_args(
+                t2_args + voc_args + ["--max_batch", "4", "--port", "0",
+                                      "--device", str(device)]))
+        if "serving serially" not in said.getvalue() or srv.batcher is not None:
+            raise AssertionError(f"Tacotron2 server with --max_batch 4: {said.getvalue()!r}")
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        results: dict = {}
+        try:
+            t1 = time.perf_counter()
+            clients = [threading.Thread(target=_fetch, args=(
+                f"{base}/api/tts?text={urllib.parse.quote(t)}", results, k))
+                for k, t in (("short", short), ("medium", medium))]
+            with contextlib.redirect_stdout(io.StringIO()):
+                for cl in clients:
+                    cl.start()
+                for cl in clients:
+                    cl.join(timeout=600)
+            served_s = time.perf_counter() - t1
+        finally:
+            close_server(srv)
+            thread.join(timeout=60)
+        served_audio = 0.0
+        for key in ("short", "medium"):
+            res = results.get(key) or {}
+            if res.get("status") != 200:
+                raise AssertionError(f"Tacotron2 /api/tts {key!r}: {res.get('status')}")
+            rate, pcm = scipy.io.wavfile.read(io.BytesIO(res["body"]))
+            if rate != sr or len(pcm) <= SENTENCE_GAP or pcm[:-SENTENCE_GAP].std() < 30:
+                raise AssertionError(f"Tacotron2 /api/tts {key!r}: {rate} Hz, {len(pcm)} samples")
+            served_audio += len(pcm) / rate
+        line = [ln for ln in said.getvalue().splitlines() if "serially" in ln][0].strip()
+        log(f"Tacotron2 server (--vocoder_path, --max_batch 4): said {line!r}; 2 concurrent "
+            f"/api/tts requests, {served_audio:.2f} s of audio in {served_s:.2f} s | {card}")
+        del synth, model
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the Tacotron2 phase")
+    line = "Tacotron2 + HiFiGAN: no hand-written kernel on this path (decode_attention launches 0)"
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f"; phase 11 took {time.time() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2705,6 +3265,7 @@ def main() -> int:
     phase_multispeaker(card, single_ms)
     phase_zoo_and_variants(card)
     phase_glow_tts(card)
+    phase_tacotron2(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:

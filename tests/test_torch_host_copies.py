@@ -7,8 +7,8 @@ tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
 ``cleaners.py`` and ``english.py``; the phoneme front end: ``punctuation``,
 ``cmudict``, ``en_g2p``, ``latin_g2p`` with ``rule_g2p_ext`` and
 ``rule_g2p_ext3``, ``belarusian``, ``phonemizers``, ``IPAPhonemes`` and
-``VitsCharacters``), the reference → flax-layout XTTS and VITS converters
-(``utils/convert.py``), the pack planner (``utils/packing.py``), the
+``VitsCharacters``), the Tacotron2 configs, the reference → flax-layout
+XTTS, VITS, GlowTTS, MelGAN and Tacotron2 converters (``utils/convert.py``), the pack planner (``utils/packing.py``), the
 trailing-silence endpoint (``db_to_amp``, ``find_endpoint``) and the
 speaker and language managers (``utils/managers.py``, apart from their
 ``init_from_config``, which reads ``model_args`` too: ROADMAP.md F11, held
@@ -484,3 +484,42 @@ def test_interpolate_vocoder_input_matches_jax(scale):
     got = interpolate_vocoder_input([1, scale], spec)
     np.testing.assert_array_equal(got, jax_interpolate([1, scale], spec))
     assert got.shape == (20, int(np.floor(37 * scale)))
+
+
+def test_tacotron2_config_to_dict_matches_jax():
+    from tts_tpu.models.tacotron2 import Tacotron2Config as JaxTacotron2Config
+    from tts_tpu.models.tacotron2 import TacotronConfig as JaxTacotronConfig
+    from tts_tpu_torch.models.tacotron2 import Tacotron2Config, TacotronConfig
+
+    assert TacotronConfig().to_dict() == JaxTacotronConfig().to_dict()
+    assert Tacotron2Config().to_dict() == JaxTacotron2Config().to_dict()
+    recipe = JaxTacotron2Config(r=6, gradual_training=[[0, 6, 64], [10000, 4, 32]],
+                                double_decoder_consistency=True, text_cleaner="phoneme_cleaners",
+                                use_phonemes=True, phoneme_language="en-us")
+    assert Tacotron2Config.from_dict(recipe.to_dict()).to_dict() == recipe.to_dict()
+
+
+@pytest.mark.parametrize("attention", ["location", "dca"])
+def test_convert_tacotron2_matches_jax_leaf_for_leaf(attention):
+    """The reference-layout state of ``tacotron2.npz`` (location attention),
+    and the same with its attention swapped for DCA's layers and no
+    ``inputs_layer``, through both converters."""
+    from tts_tpu.utils.convert import convert_tacotron2 as jax_convert_tacotron2
+    from tts_tpu_torch.utils.convert import convert_tacotron2
+
+    state, _, _, _ = load_fidelity_fixture("tacotron2")
+    if attention == "dca":
+        rs = np.random.RandomState(0)
+        state = {k: v for k, v in state.items() if not k.startswith("decoder.attention.")}
+        for name, shape in (("query_layer.weight", (128, 1024)), ("query_layer.bias", (128,)),
+                            ("key_layer.weight", (168, 128)),
+                            ("static_filter_conv.weight", (8, 1, 21)),
+                            ("static_filter_layer.weight", (128, 8)),
+                            ("dynamic_filter_layer.weight", (128, 8)),
+                            ("dynamic_filter_layer.bias", (128,)), ("v.weight", (1, 128))):
+            state["decoder.attention." + name] = rs.randn(*shape).astype(np.float32)
+    got = dict(_leaves(convert_tacotron2(dict(state))))
+    want = dict(_leaves(jax_convert_tacotron2(dict(state))))
+    assert sorted(got) == sorted(want) and len(got) > 60
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)

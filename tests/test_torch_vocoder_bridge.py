@@ -418,13 +418,14 @@ def test_missing_text_front_end_raises_at_load(offline, change, missing):
 
 def test_vocoder_names_resolve_through_the_zoo(offline, tmp_path):
     """``--vocoder_name`` loads a zoo vocoder in place of the default; a
-    vocoder given as the model raises ``ValueError``; Tacotron2-DCA still
-    raises for its item although its vocoder loads."""
+    vocoder given as the model raises ``ValueError``; Tacotron2-DDC_ph
+    raises for its default vocoder's item (UnivNet) although the model's
+    family loads."""
     out = tmp_path / "named.wav"
     port_cli(["--text", TEXT, "--model_name", GLOW, "--vocoder_name", MBMELGAN,
               "--out_path", str(out), "--device", "cpu"])
     assert scipy.io.wavfile.read(out)[0] == 16000
     with pytest.raises(ValueError, match="is a vocoder"):
         TTS(model_name=MBMELGAN, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 14"):
-        TTS(model_name="tts_models/en/ljspeech/tacotron2-DCA", device="cpu")
+    with pytest.raises(NotImplementedError, match="univnet.*ROADMAP.md item 16"):
+        TTS(model_name="tts_models/en/ljspeech/tacotron2-DDC_ph", device="cpu")

@@ -300,8 +300,8 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     slices, the phonemizers, the ``tts`` command line, the server, its
     batcher, the pack planner, the speaker and language managers, the zoo
     manager, the iSTFT decoder and the PQMF bank, GlowTTS with its flows, the
-    MelGAN generators, the vocoder registry and configs, and the
-    ``AudioProcessor`` included: this test process
+    MelGAN generators, the vocoder registry and configs, the
+    ``AudioProcessor``, and Tacotron2 with its layers included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -330,6 +330,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "assert 'tts_tpu_torch.bin.synthesize' in mods, mods\n"
         "assert 'tts_tpu_torch.models.vits.model' in mods, mods\n"
         "assert {'tts_tpu_torch.utils.packing', 'tts_tpu_torch.server.batching'} <= set(mods)\n"
+        "from tts_tpu_torch.utils.convert import load_reference_tacotron2\n"
+        "assert {'tts_tpu_torch.models.tacotron2.model', 'tts_tpu_torch.layers.tacotron',\n"
+        "        'tts_tpu_torch.models.base'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

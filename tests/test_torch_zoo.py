@@ -401,22 +401,34 @@ GLOW_TTS = ["tts_models/en/ljspeech/glow-tts", "tts_models/uk/mai/glow-tts",
             "tts_models/fa/custom/glow-tts"]
 
 
+TACOTRON2 = ["tts_models/en/ljspeech/tacotron2-DDC", "tts_models/en/ljspeech/tacotron2-DCA",
+             "tts_models/es/mai/tacotron2-DDC", "tts_models/fr/mai/tacotron2-DDC",
+             "tts_models/de/thorsten/tacotron2-DCA", "tts_models/de/thorsten/tacotron2-DDC",
+             "tts_models/ja/kokoro/tacotron2-DDC"]
+
+
 def test_every_family_is_sorted_into_ported_or_an_item():
     """38 entries named VITS, the VITS ``jenny`` (by its description), XTTS
     v2, the 7 GlowTTS entries (with a Multiband-MelGAN or HiFiGAN default
-    vocoder, or none) and the 12 Multiband-MelGAN, Fullband-MelGAN and
-    HiFiGAN vocoders load; each of the catalog's other 29, and the fairseq
-    MMS models, names a ROADMAP.md item."""
+    vocoder, or none), the 7 Tacotron2 entries whose default vocoder is a
+    HiFiGAN or a MelGAN and the 12 Multiband-MelGAN, Fullband-MelGAN and
+    HiFiGAN vocoders load; each of the catalog's other 22, and the fairseq
+    MMS models, names a ROADMAP.md item: the other Tacotron entries
+    (``ek1``'s WaveGrad, ``DDC_ph``'s UnivNet, ``nl/mai``'s ParallelWaveGAN,
+    GST, Tacotron v1) item 16."""
     manager = manage.ModelManager()
     ported = [n for n in manager.list_models()
               if not manage.unported_reason(n, manager.models_dict)]
     assert len([n for n in ported if "vits" in n]) == 38
     assert sorted(n for n in ported if "vits" not in n and n.startswith("tts_models/")) == \
-        sorted(["tts_models/en/jenny/jenny", XTTS] + GLOW_TTS)
+        sorted(["tts_models/en/jenny/jenny", XTTS] + GLOW_TTS + TACOTRON2)
     vocoders = [n for n in ported if n.startswith("vocoder_models/")]
     assert len(vocoders) == 12 and all(
         any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan")) for n in vocoders)
-    assert len(_unported()) == 88 - 59 + 1
+    assert len(_unported()) == 88 - 66 + 1
+    tacotrons = [n for n in _unported() if "tacotron" in n]
+    assert len(tacotrons) == 5 and all(
+        "item 16" in manage.unported_reason(n, manager.models_dict) for n in tacotrons)
 
 
 @pytest.mark.parametrize("name", _unported())

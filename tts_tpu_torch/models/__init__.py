@@ -1,8 +1,8 @@
 """Model registry of the port: config name → (config class, model class),
 and the vocoder configs by name.
 
-XTTS, VITS and GlowTTS are ported so far, with the HiFiGAN and MelGAN
-vocoders (``vocoder.models.setup_generator``); other names raise.
+XTTS, VITS, GlowTTS and Tacotron2 are ported so far, with the HiFiGAN and
+MelGAN vocoders (``vocoder.models.setup_generator``); other names raise.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ _MODELS = {
     "vits": ("tts_tpu_torch.models.vits.config:VitsConfig", "tts_tpu_torch.models.vits.model:Vits"),
     "glow_tts": ("tts_tpu_torch.models.glow_tts.config:GlowTTSConfig",
                  "tts_tpu_torch.models.glow_tts.model:GlowTTS"),
+    "tacotron2": ("tts_tpu_torch.models.tacotron2.config:Tacotron2Config",
+                  "tts_tpu_torch.models.tacotron2.model:Tacotron2"),
 }
 _VOCODER_CONFIGS = {
     "hifigan": "tts_tpu_torch.vocoder.configs:HifiganConfig",

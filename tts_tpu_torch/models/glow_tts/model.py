@@ -37,8 +37,8 @@ from tts_tpu_torch import resolve_device
 from tts_tpu_torch.layers.common import ConvLayerNormBlock, DurationPredictor
 from tts_tpu_torch.layers.glow import ActNorm, GlowDecoder, InvConvNear
 from tts_tpu_torch.layers.transformer import RelativePositionTransformer
+from tts_tpu_torch.models.base import init_tokenizer
 from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
-from tts_tpu_torch.text import cleaners
 from tts_tpu_torch.text.tokenizer import TTSTokenizer
 
 from .config import GlowTTSConfig
@@ -183,24 +183,6 @@ class GlowTTSModule(nn.Module):
         }
 
 
-def init_front_end(config):
-    """``TTSTokenizer.init_from_config``, with a text cleaner or a phonemizer
-    that the port lacks raised as ``NotImplementedError`` naming it, at load
-    and not at the first sentence."""
-    cleaner = getattr(config, "text_cleaner", None)
-    if isinstance(cleaner, str) and not hasattr(cleaners, cleaner):
-        raise NotImplementedError(f"the text cleaner {cleaner!r} is not in "
-                                  f"tts_tpu_torch.text.cleaners")
-    try:
-        return TTSTokenizer.init_from_config(config)
-    except (ValueError, RuntimeError) as e:
-        if not config.use_phonemes:
-            raise
-        raise NotImplementedError(
-            f"no phonemizer of tts_tpu_torch serves phoneme_language "
-            f"{config.phoneme_language!r} (phonemizer {config.phonemizer!r}): {e}") from e
-
-
 class GlowTTS:
     """Host wrapper: tokenizer, weights and noise around :class:`GlowTTSModule`."""
 
@@ -217,16 +199,7 @@ class GlowTTS:
         """Tokenizer and model for ``config``. The embedding has the
         vocabulary's size when ``num_chars`` is ``None``; a smaller
         ``num_chars`` raises (ROADMAP.md F7)."""
-        tokenizer, config = init_front_end(config)
-        n_symbols = tokenizer.characters.num_chars
-        if config.num_chars is None:
-            config.num_chars = n_symbols
-        if config.num_chars < n_symbols:
-            raise ValueError(
-                f"num_chars={config.num_chars} is smaller than the {n_symbols} symbols of "
-                f"{type(tokenizer.characters).__name__}: set it to {n_symbols}, or to None to "
-                f"take the vocabulary's size"
-            )
+        tokenizer, config = init_tokenizer(config)
         model = cls(config)
         model.tokenizer = tokenizer
         return model

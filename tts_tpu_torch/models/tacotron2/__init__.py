@@ -1,0 +1,4 @@
+"""Tacotron2 in PyTorch (port of ``tts_tpu.models.tacotron2``): inference."""
+
+from .config import Tacotron2Config, TacotronConfig  # noqa: F401
+from .model import Tacotron2, Tacotron2Module  # noqa: F401

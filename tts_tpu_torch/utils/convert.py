@@ -16,21 +16,26 @@ a handful of rules rather than a table:
 * norm ``scale``/``shift`` → ``weight``/``bias`` (folded BatchNorm included);
   ``embedding`` → ``weight``; other leaves keep their names.
 
-``reference_vits_state``, ``reference_glow_tts_state`` and
-``reference_melgan_state`` write the port's weights in the reference
-layout, the inverses of ``load_reference_vits``, ``load_reference_glow_tts``
-and ``load_reference_vocoder``.
+``tacotron2_from_jax_params`` adds one rule for Tacotron2: flax's LSTM
+cells, eight Denses each, are packed into torch's LSTM weights.
+
+``reference_vits_state``, ``reference_glow_tts_state``,
+``reference_melgan_state`` and ``reference_tacotron2_state`` write the
+port's weights in the reference layout, the inverses of
+``load_reference_vits``, ``load_reference_glow_tts``,
+``load_reference_vocoder`` and ``load_reference_tacotron2``.
 
 ``load_reference_xtts`` / ``load_reference_vits`` / ``load_reference_glow_tts``
-/ ``load_reference_vocoder`` read a reference-layout (coqui) checkpoint, map
-it to the flax-layout tree with ``convert_xtts`` / ``convert_vits_generator``
-/ ``convert_glow_tts`` / ``convert_hifigan_generator`` or
-``convert_melgan_generator`` and from there into the port by the rules above.
+/ ``load_reference_vocoder`` / ``load_reference_tacotron2`` read a
+reference-layout (coqui) checkpoint, map it to the flax-layout tree with
+``convert_xtts`` / ``convert_vits_generator`` / ``convert_glow_tts`` /
+``convert_hifigan_generator`` or ``convert_melgan_generator`` /
+``convert_tacotron2`` and from there into the port by the rules above.
 Those converters and what they call are the port's own copy of the XTTS,
-VITS, GlowTTS, HiFiGAN and MelGAN parts of ``tts_tpu/utils/convert.py``
-(numpy only; the port imports
-nothing of ``tts_tpu``): parity tests hold the copy equal to the JAX
-package's converters, leaf for leaf (``tests/test_torch_host_copies.py``).
+VITS, GlowTTS, HiFiGAN, MelGAN and Tacotron2 parts of
+``tts_tpu/utils/convert.py`` (numpy only; the port imports nothing of
+``tts_tpu``): parity tests hold the copy equal to the JAX package's
+converters, leaf for leaf (``tests/test_torch_host_copies.py``).
 Two additions, for multi-language and deterministic-duration checkpoints,
 which the JAX package's converter drops (ROADMAP.md F13): the stochastic
 duration predictor's ``cond_lang`` and the whole ``use_sdp=False``
@@ -127,6 +132,55 @@ def melgan_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     the port's generator (``vocoder/models/melgan_generator.py``); HiFiGAN's
     map by the same rules."""
     return flax_to_state_dict(params)
+
+
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def _pack_lstm(cell: Mapping, suffix: str = "") -> Dict[str, np.ndarray]:
+    """flax ``OptimizedLSTMCell`` params (``ii/if/ig/io`` input Denses
+    without bias, ``hi/hf/hg/ho`` hidden Denses with bias) → torch LSTM
+    ``weight_ih``/``weight_hh`` ``[4H, in]`` in gate order i, f, g, o, the
+    bias on the hidden side and zeros on the input side."""
+    w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"], np.float32).T
+                           for g in _LSTM_GATES])
+    w_hh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"], np.float32).T
+                           for g in _LSTM_GATES])
+    b_hh = np.concatenate([np.asarray(cell[f"h{g}"]["bias"], np.float32) for g in _LSTM_GATES])
+    return {f"weight_ih{suffix}": w_ih, f"weight_hh{suffix}": w_hh,
+            f"bias_ih{suffix}": np.zeros_like(b_hh), f"bias_hh{suffix}": b_hh}
+
+
+_LSTM_NAMES = {"lstm_fwd": ("lstm", "_l0"), "lstm_bwd": ("lstm", "_l0_reverse")}
+
+
+def tacotron2_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Tacotron2Module`` params (or those of one of its
+    layers) → the state_dict of the port's module: the generic rules, with
+    each flax LSTM cell packed, the encoder's ``lstm_fwd``/``lstm_bwd`` into
+    one bidirectional ``lstm``, the decoder's ``attention_rnn`` and
+    ``decoder_rnn`` into ``nn.LSTMCell`` weights. The DDC coarse decoder
+    (``coarse_decoder_cell``), which only training runs, is dropped."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    lstms: Dict[str, np.ndarray] = {}
+
+    def split(tree: Mapping, path: Tuple[str, ...]) -> Dict[str, Any]:
+        out = {}
+        for key, value in tree.items():
+            if key == "coarse_decoder_cell":
+                continue
+            if isinstance(value, Mapping) and "ii" in value:
+                name, suffix = _LSTM_NAMES.get(key, (key, ""))
+                lstms.update({".".join(path + (name, leaf)): w
+                              for leaf, w in _pack_lstm(value, suffix).items()})
+            else:
+                out[key] = split(value, path + (key,)) if isinstance(value, Mapping) else value
+        return out
+
+    state = flax_to_state_dict(split(params, ()))
+    state.update({k: torch.from_numpy(v) for k, v in lstms.items()})
+    return state
 
 
 
@@ -735,6 +789,118 @@ def convert_xtts(state, layers=30, heads=16):
     return gpt_params, decoder_params
 
 
+# ---------------------------------------------------------------------------
+# Tacotron2 (copied from ``tts_tpu/utils/convert.py:616-751``), unchanged but
+# for GST and Capacitron layers, which raise (ROADMAP.md item 16).
+# ---------------------------------------------------------------------------
+
+
+def _lstm_cell(state, prefix, suffix=""):
+    """torch LSTM(Cell) gates [i,f,g,o] → flax OptimizedLSTMCell params
+    (``ii/if/ig/io`` bias-free input Dense + ``hi/hf/hg/ho`` biased hidden
+    Dense; the two torch biases sum onto the hidden side)."""
+    wi = state[f"{prefix}.weight_ih{suffix}"]
+    wh = state[f"{prefix}.weight_hh{suffix}"]
+    bi = state[f"{prefix}.bias_ih{suffix}"]
+    bh = state[f"{prefix}.bias_hh{suffix}"]
+    H = wh.shape[1]
+    p = {}
+    for gidx, g in enumerate(("i", "f", "g", "o")):
+        sl = slice(gidx * H, (gidx + 1) * H)
+        p[f"i{g}"] = {"kernel": linear_kernel(wi[sl])}
+        p[f"h{g}"] = {"kernel": linear_kernel(wh[sl]), "bias": bi[sl] + bh[sl]}
+    return p
+
+
+def _conv_bn_block(state, key):
+    """ConvBNBlock (tacotron2.py:11): conv + folded eval-mode BatchNorm."""
+    return {
+        "conv": _conv(state, f"{key}.convolution1d"),
+        **_fold_bn_scale_shift(state, f"{key}.batch_normalization"),
+    }
+
+
+def _fold_bn_scale_shift(state, key, eps=1e-5):
+    f = _fold_bn(state, key, eps)
+    return {"scale": f["scale"], "shift": f["shift"]}
+
+
+def convert_tacotron2(state, num_chars=None, r=2):
+    """Full Tacotron2 → flax params (use ``norm_type="folded"``).
+
+    BiLSTM directions map to the fwd/bwd ``nn.RNN`` pair; attention/decoder
+    LSTMCells and the location layer convert via the generic rules."""
+    state = dict(state)
+    enc = {
+        f"conv_{i}": _conv_bn_block(state, f"encoder.convolutions.{i}")
+        for i in range(3)
+    }
+    enc["lstm_fwd"] = _lstm_cell(state, "encoder.lstm", "_l0")
+    enc["lstm_bwd"] = _lstm_cell(state, "encoder.lstm", "_l0_reverse")
+
+    cell = {
+        "prenet": {
+            "linear_0": _dense(state, "decoder.prenet.linear_layers.0.linear_layer"),
+            "linear_1": _dense(state, "decoder.prenet.linear_layers.1.linear_layer"),
+        },
+        "attention_rnn": _lstm_cell(state, "decoder.attention_rnn"),
+        "decoder_rnn": _lstm_cell(state, "decoder.decoder_rnn"),
+        "linear_projection": _dense(state, "decoder.linear_projection.linear_layer"),
+        "stopnet": _dense(state, "decoder.stopnet.1.linear_layer"),
+    }
+    if "decoder.attention.key_layer.weight" in state:
+        # dynamic-convolution attention (tacotron2-DCA zoo entries;
+        # reference attentions.py:323 — raw nn.Linear layers, no wrapper)
+        cell.update(
+            query_layer=_dense(state, "decoder.attention.query_layer"),
+            key_layer=_dense(state, "decoder.attention.key_layer"),
+            static_filter_conv={
+                "kernel": conv1d_kernel(state["decoder.attention.static_filter_conv.weight"])
+            },
+            static_filter_layer=_dense(state, "decoder.attention.static_filter_layer"),
+            dynamic_filter_layer=_dense(state, "decoder.attention.dynamic_filter_layer"),
+            v=_dense(state, "decoder.attention.v"),
+        )
+    else:
+        cell.update(
+            query_layer=_dense(state, "decoder.attention.query_layer.linear_layer"),
+            location_conv={
+                "kernel": conv1d_kernel(
+                    state["decoder.attention.location_layer.location_conv1d.weight"]
+                )
+            },
+            location_dense=_dense(
+                state, "decoder.attention.location_layer.location_dense.linear_layer"
+            ),
+            v=_dense(state, "decoder.attention.v.linear_layer"),
+        )
+    post = {
+        f"conv_{i}": _conv_bn_block(state, f"postnet.convolutions.{i}")
+        for i in range(5)
+    }
+    if "decoder.attention.inputs_layer.linear_layer.weight" in state:
+        inputs_layer = _dense(state, "decoder.attention.inputs_layer.linear_layer")
+    else:
+        # DCA has no inputs_layer (preprocess_inputs → None, :432); our
+        # module still owns the Dense but the DCA branch never reads it
+        dec_rnn_dim = state["decoder.decoder_rnn.weight_hh"].shape[1]
+        in_dim = state["decoder.linear_projection.linear_layer.weight"].shape[1] - dec_rnn_dim
+        inputs_layer = {"kernel": np.zeros((in_dim, 128), np.float32)}
+    p = {
+        "embedding": {"embedding": state["embedding.weight"]},
+        "encoder": enc,
+        "decoder_cell": cell,
+        "inputs_layer": inputs_layer,
+        "postnet": post,
+    }
+    if "speaker_embedding.weight" in state:
+        p["speaker_embedding"] = {"embedding": state["speaker_embedding.weight"]}
+    if any(k.startswith(("gst_layer.", "capacitron_vae_layer.")) for k in state):
+        raise NotImplementedError("Tacotron2 with GST or Capacitron is not ported to "
+                                  "tts_tpu_torch yet (ROADMAP.md item 16)")
+    return {"params": p}
+
+
 def _to_numpy(value: Any):
     if isinstance(value, torch.Tensor):
         return value.float().numpy() if value.is_floating_point() else value.numpy()
@@ -797,6 +963,22 @@ def load_reference_glow_tts(state: Mapping, config) -> Dict[str, torch.Tensor]:
     ``GlowTTSConfig``."""
     state = {k: _to_numpy(v) for k, v in state.items()}
     return glow_tts_from_jax_params(convert_glow_tts(state, config))
+
+
+def load_reference_tacotron2(state: Mapping, config) -> Dict[str, torch.Tensor]:
+    """A reference-layout Tacotron2 state dict (tensors or arrays) → the
+    state_dict of ``Tacotron2Module`` with folded norms; sets
+    ``config.norm_type = "folded"``, as the JAX package's zoo conversion
+    does (``tts_tpu/utils/zoo_convert.py:45-49``). A DCA checkpoint has no
+    ``inputs_layer``: the module's, which DCA never reads, is zeros of the
+    config's ``attn_dim``."""
+    state = {k: _to_numpy(v) for k, v in state.items()}
+    config.norm_type = "folded"
+    out = tacotron2_from_jax_params(convert_tacotron2(state))
+    if "decoder.attention.inputs_layer.linear_layer.weight" not in state:
+        out["inputs_layer.weight"] = torch.zeros(config.attn_dim,
+                                                 out["inputs_layer.weight"].shape[1])
+    return out
 
 
 def _strip_prefix(state: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
@@ -887,4 +1069,50 @@ def reference_melgan_state(state: Mapping[str, torch.Tensor],
         k = re.sub(r"^res_(\d+)\.shortcut(\d+)\.",
                    lambda m: f"layers.{4 + 3 * int(m.group(1))}.shortcuts.{m.group(2)}.", k)
         out[prefix + k] = v
+    return out
+
+
+_TACOTRON2_RULES = (
+    (r"^encoder\.conv_(\d+)\.conv\.", r"encoder.convolutions.\1.convolution1d."),
+    (r"^encoder\.conv_(\d+)\.(weight|bias)$", r"encoder.convolutions.\1.batch_normalization.\2"),
+    (r"^postnet\.conv_(\d+)\.conv\.", r"postnet.convolutions.\1.convolution1d."),
+    (r"^postnet\.conv_(\d+)\.(weight|bias)$", r"postnet.convolutions.\1.batch_normalization.\2"),
+    (r"^decoder_cell\.prenet\.linear_(\d+)\.", r"decoder.prenet.linear_layers.\1.linear_layer."),
+    (r"^decoder_cell\.(attention_rnn|decoder_rnn)\.", r"decoder.\1."),
+    (r"^decoder_cell\.linear_projection\.", "decoder.linear_projection.linear_layer."),
+    (r"^decoder_cell\.stopnet\.", "decoder.stopnet.1.linear_layer."),
+    (r"^inputs_layer\.", "decoder.attention.inputs_layer.linear_layer."),
+)
+_LOCATION_RULES = (
+    (r"^decoder_cell\.(query_layer|v)\.", r"decoder.attention.\1.linear_layer."),
+    (r"^decoder_cell\.location_conv\.", "decoder.attention.location_layer.location_conv1d."),
+    (r"^decoder_cell\.location_dense\.",
+     "decoder.attention.location_layer.location_dense.linear_layer."),
+)
+_DCA_RULES = ((r"^decoder_cell\.", "decoder.attention."),)
+
+
+def reference_tacotron2_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of a ``Tacotron2Module`` with folded norms and
+    location-sensitive or DCA attention in the reference's (coqui) names:
+    each folded norm as an eval-mode BatchNorm (running mean 0, running
+    variance ``1 - 1e-5``, so that it folds back exactly), the DCA without
+    ``inputs_layer``. :func:`load_reference_tacotron2` maps it back."""
+    dca = "decoder_cell.key_layer.weight" in state
+    rules = _TACOTRON2_RULES + (_DCA_RULES if dca else _LOCATION_RULES)
+    out = {}
+    for key, value in state.items():
+        if dca and key.startswith("inputs_layer."):
+            continue
+        k = _reference_key(key, rules)
+        out[k] = value.detach().cpu().numpy()
+        if k.endswith("batch_normalization.weight"):
+            base = k[: -len("weight")]
+            out[base + "running_mean"] = np.zeros_like(out[k])
+            out[base + "running_var"] = np.full_like(out[k], np.float32(1) - np.float32(1e-5))
+            out[base + "num_batches_tracked"] = np.zeros((), np.int64)
+    unmapped = [k for k in out if k.startswith("decoder_cell.")]
+    if unmapped or any(".norm." in k for k in out):
+        raise ValueError(f"no reference layout for {unmapped or 'layer norms'} (folded norms "
+                         f"and location or DCA attention only)")
     return out

@@ -63,20 +63,19 @@ def _family_reason(model: str, model_item: Dict) -> Optional[str]:
         return None
     if "GST" in model or "capacitron" in model:
         return f"{model} is not ported yet (ROADMAP.md item 16)"
-    if "glow" in model:
+    if "glow" in model or "tacotron2" in model:
         return None
-    if "tacotron2" in model:
-        return "Tacotron2 is not ported yet (ROADMAP.md item 14)"
     return f"{model} is not ported yet (ROADMAP.md item 16)"
 
 
 def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     """Why the port cannot load the zoo model ``model_name`` of the catalog
     ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for what it
-    runs: VITS (by its name or its description), XTTS v2, GlowTTS whose
-    ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
-    and the MelGAN and HiFiGAN vocoders. A model whose family is not ported
-    names its own item, whatever its vocoder."""
+    runs: VITS (by its name or its description), XTTS v2, GlowTTS and
+    Tacotron2 (without GST) whose ``default_vocoder`` it runs (or that has
+    none: Griffin-Lim speaks it), and the MelGAN and HiFiGAN vocoders. A
+    model whose family is not ported names its own item, whatever its
+    vocoder."""
     model_type, lang, dataset, model = model_name.split("/")
     if model_type == "voice_conversion_models":
         return "voice conversion models (FreeVC) are not ported yet (ROADMAP.md item 16)"

@@ -1,6 +1,6 @@
 """Text → waveform or mel for one sentence (port of
 ``tts_tpu/utils/synthesis.py``): VITS, which emits the waveform, and
-GlowTTS, which emits a mel for a vocoder or Griffin-Lim.
+GlowTTS and Tacotron2, which emit a mel for a vocoder or Griffin-Lim.
 
 The JAX package's rules are kept, since the audio depends on them:
 
@@ -12,10 +12,14 @@ The JAX package's rules are kept, since the audio depends on them:
   decodes the whole budget without a frame mask, so the last frames of an
   utterance depend on the padded tail, and an exact-length decode would
   differ there. A GlowTTS has no durations pass and decodes at the budget,
-  which cuts a sentence predicted longer (as in the JAX package);
+  which cuts a sentence predicted longer (as in the JAX package). An
+  autoregressive model (Tacotron2, which has a reduction factor ``r``)
+  decodes at most ``max(1, budget // r)`` steps of ``r`` frames, its decode's
+  ``r`` (ROADMAP.md F20), and stops where every row has stopped;
 * the waveform is cut to ``y_lengths × hop`` samples, a mel to
-  ``y_lengths`` frames, which Griffin-Lim turns into a waveform on the host
-  when asked (``use_griffin_lim`` with the model's ``AudioProcessor``).
+  ``y_lengths`` frames (``mel_lengths`` for an autoregressive model), which
+  Griffin-Lim turns into a waveform on the host when asked
+  (``use_griffin_lim`` with the model's ``AudioProcessor``).
 
 :func:`decode_packed` decodes several utterances at once as one
 sequence-packed grid (``utils/packing.py``), for the ``Synthesizer``'s
@@ -121,7 +125,9 @@ def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
     """Tokenize → (durations) → decode → cut. ``model`` is a host wrapper
     with ``tokenizer``, ``config``, ``device``, ``hop_length``,
     ``emits_waveform`` and ``inference`` (:class:`~tts_tpu_torch.models.vits.model.Vits`,
-    :class:`~tts_tpu_torch.models.glow_tts.model.GlowTTS`). A VITS also has
+    :class:`~tts_tpu_torch.models.glow_tts.model.GlowTTS`,
+    :class:`~tts_tpu_torch.models.tacotron2.model.Tacotron2`, which also has
+    ``r``). A VITS also has
     ``infer_durations``; each of its calls seeds its own generator, so the
     durations pass draws the noise that the decode after it draws.
     ``speaker_id``, ``d_vector`` and ``language_id`` condition a
@@ -146,8 +152,13 @@ def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
     if hasattr(model, "infer_durations"):
         y_len = int(model.infer_durations(x, x_lengths, aux_input=aux).max())
         budget = min(budget, ((y_len + 31) // 32) * 32)
-    outputs = model.inference(x, x_lengths, max_frames=budget, aux_input=aux)
-    valid_frames = int(outputs["y_lengths"][0])
+    if hasattr(model, "r"):  # autoregressive: decoder steps of r frames, to the first stop
+        outputs = model.inference(x, x_lengths, max_steps=max(1, budget // model.r),
+                                  aux_input=aux)
+        valid_frames = int(outputs["mel_lengths"][0])
+    else:
+        outputs = model.inference(x, x_lengths, max_frames=budget, aux_input=aux)
+        valid_frames = int(outputs["y_lengths"][0])
     if model.emits_waveform:
         wav = outputs["model_outputs"][0, : valid_frames * model.hop_length, 0]
         return {"wav": wav.float().cpu().numpy(), "model_outputs": None, "outputs": outputs,

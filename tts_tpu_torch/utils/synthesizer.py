@@ -1,10 +1,11 @@
 """Synthesizer: load a model once, render text many times (port of
-``tts_tpu/utils/synthesizer.py`` for XTTS, VITS and GlowTTS with a vocoder).
+``tts_tpu/utils/synthesizer.py`` for XTTS, VITS, and GlowTTS and Tacotron2
+with a vocoder).
 
 A model loads from a directory (``config.json`` plus weights: the port's
 ``model_torch.pt`` or a reference-layout ``model.pth``; XTTS also needs its
-``vocab.json``) or, for VITS and GlowTTS, from a checkpoint file and its
-``config.json``. A vocoder (``vocoder_checkpoint`` with its
+``vocab.json``) or, for VITS, GlowTTS and Tacotron2, from a checkpoint file
+and its ``config.json``. A vocoder (``vocoder_checkpoint`` with its
 ``vocoder_config``: HiFiGAN or a MelGAN, the port's state_dict or a
 reference-layout checkpoint) turns a mel model's output into audio; a mel
 model without one speaks through Griffin-Lim (``use_griffin_lim``, on by
@@ -15,8 +16,8 @@ it. For the waveform models (VITS), a request of two or more sentences is
 decoded as one sequence-packed grid
 (:func:`~tts_tpu_torch.utils.synthesis.decode_packed`), and a single
 sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`. A mel
-model (GlowTTS) decodes sentence by sentence, and each mel goes to the
-vocoder through the bridge of ``_vocode``: denormalised with the TTS
+model (GlowTTS, Tacotron2) decodes sentence by sentence, and each mel goes
+to the vocoder through the bridge of ``_vocode``: denormalised with the TTS
 model's ``AudioProcessor``, normalised with the vocoder's, resampled in time
 when the two sample rates differ, then ``generator.inference`` on the
 model's device. The output sample rate is then the vocoder's.
@@ -32,8 +33,8 @@ long quiet stretch when its audio config has ``do_trim_silence`` on, as
 the JAX package's does (:func:`~tts_tpu_torch.utils.synthesis.trim_silence`,
 with the TTS model's ``AudioProcessor``); one loaded from a model directory
 is not trimmed. A VITS config's audio section (``VitsAudioConfig``) has no
-such field, so VITS is trimmed by neither package; a GlowTTS config's
-(``BaseAudioConfig``) has it on by default.
+such field, so VITS is trimmed by neither package; a GlowTTS or Tacotron2
+config's (``BaseAudioConfig``) has it on by default.
 
 Speakers and languages of a VITS model are named through its managers
 (``utils/managers.py``), with the JAX ``Synthesizer``'s errors: an unknown
@@ -132,8 +133,8 @@ class Synthesizer:
         return os.path.join(path, "config.json")
 
     def _load_tts(self, path: str, config_path: str) -> None:
-        """A model directory, or a VITS or GlowTTS checkpoint file, with its
-        config."""
+        """A model directory, or a VITS, GlowTTS or Tacotron2 checkpoint
+        file, with its config."""
         config = config_from_dict(read_json_with_comments(config_path))
         for target in (config, getattr(config, "model_args", None)):
             if self.speakers_file_path and hasattr(target, "speakers_file"):
@@ -146,7 +147,7 @@ class Synthesizer:
             model = setup_model(config)
         if os.path.isdir(path):
             model = model.load_checkpoint(config, checkpoint_dir=path, device=self.device)
-        elif config.model in ("vits", "glow_tts"):
+        elif config.model in ("vits", "glow_tts", "tacotron2"):
             model = model.load_checkpoint(config, checkpoint_path=path, device=self.device)
         else:
             raise ValueError(f"{config.model!r} loads from a model directory, not a file")
