@@ -131,6 +131,27 @@ Phases; each raises on failure and the script then exits non-zero:
     (``tacotron2-DDC`` with ``hifigan_v2``) equal to the path load; ``tts
     --vocoder_path`` within one int16 step of the API; the server with
     ``--max_batch 4``, which serves serially; peak memory.
+    ``decode_attention`` must not launch;
+12. the speaker encoders, YourTTS voice cloning and the ForwardTTS family,
+    fp32 weights from seed 0: ``speaker_encoder_resnet.npz`` and
+    ``fastpitch.npz`` replayed on the card through the port's reference
+    loaders; the recipe's SE-ResNet34 (64 mels, ``log_input``, 512 wide, 16
+    kHz) and the ``BaseEncoderConfig`` LSTM (80 mels, 3 × 768 → 256), each
+    written as a reference-layout ``model_se.pth.tar`` and loaded by
+    ``load_speaker_encoder``, card against CPU on a 3 s and a 10 s clip
+    (d-vectors within 1e-4, finite) with their ms per clip; YourTTS as the
+    recipe publishes it (graphemes, ``multilingual_cleaners``, 512-wide
+    d-vectors) cloning a 3 s clip card against CPU on host noise
+    (``y_lengths`` equal, waveform within 1e-4), the encoder's share of a
+    cloned request and its latency beside a named speaker's, ``TTS(
+    encoder_path=...)``, ``tts --encoder_path`` (one int16 step), the
+    server's ``/api/tts?speaker_wav=`` (serial) and ``your_tts`` by zoo name
+    from a directory with ``model_se.pth.tar`` (F23); FastPitch as the
+    LJSpeech recipe publishes it with HiFiGAN, card against CPU on the three
+    phase 6 sentences (mel and waveform within 1e-4), FastSpeech2 and
+    SpeedySpeech card against CPU on the short one, latency, RTF, the stage
+    split, busy share and kernels, ``fast_pitch`` by zoo name with
+    ``hifigan_v2``, the command line and the server (serial); peak memory.
     ``decode_attention`` must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
@@ -3239,6 +3260,612 @@ def phase_tacotron2(card: str, device="cuda", cut=None) -> None:
     log(line + f"; phase 11 took {time.time() - t_phase:.1f} s | {card}")
 
 
+ZOO_YOURTTS = "tts_models/multilingual/multi-dataset/your_tts"
+ZOO_FAST_PITCH = "tts_models/en/ljspeech/fast_pitch"
+ENCODER_TOL = 1e-4  # card vs CPU, the d-vectors, fp32 with TF32 off
+FP_TOL = 1e-4  # card vs CPU, the ForwardTTS mel and waveform, fp32 with TF32 off
+ENCODER_CLIP_S = (3.0, 10.0)
+YOURTTS_SPEAKERS = ("p225", "p226", "p227", "p228")
+TRAINER_DISK = "/published/yourtts"  # where a trainer's config names the encoder's files
+
+
+def resnet_encoder_recipe_config():
+    """``recipes/vctk/resnet_speaker_encoder/train_encoder.py:34-53``: the
+    SE-ResNet34 of 64 mels with ``log_input`` and 512-wide d-vectors, its
+    audio at 16 kHz, FFT 512, window 400, hop 160, pre-emphasis 0.97 (which
+    the features of both packages skip, F25), no trim, RMS normalisation to
+    -27 dB."""
+    from tts_tpu_torch.encoder.configs import SpeakerEncoderConfig
+
+    config = SpeakerEncoderConfig(model_params={"model_name": "resnet", "input_dim": 64,
+                                                "log_input": True, "proj_dim": 512},
+                                  voice_len=2.0)
+    for k, v in dict(fft_size=512, win_length=400, hop_length=160, sample_rate=16000,
+                     preemphasis=0.97, num_mels=64, mel_fmax=8000.0, do_trim_silence=False,
+                     signal_norm=False, do_rms_norm=True, db_level=-27.0).items():
+        setattr(config.audio, k, v)
+    return config
+
+
+def lstm_encoder_config():
+    """The ``BaseEncoderConfig`` defaults: 3 LSTMs of 768 over 80 mels,
+    projected to 256; the ``BaseAudioConfig`` defaults (22.05 kHz, FFT
+    1024, hop 256)."""
+    from tts_tpu_torch.encoder.configs import SpeakerEncoderConfig
+
+    return SpeakerEncoderConfig()
+
+
+def yourtts_recipe_config(d_vector_file: str):
+    """``recipes/vctk/yourtts/train_yourtts.py:32-48``: VITS on graphemes
+    with ``multilingual_cleaners``, 512-wide d-vectors (set on the top level
+    and on ``model_args``), the speaker-encoder loss on, the ``VitsArgs``
+    defaults otherwise; the speakers' mean d-vectors from
+    ``d_vector_file``."""
+    from tts_tpu_torch.models.vits import VitsConfig
+
+    config = VitsConfig(text_cleaner="multilingual_cleaners", use_phonemes=False,
+                        compute_linear_spec=True, return_wav=True, use_d_vector_file=True,
+                        d_vector_file=d_vector_file)
+    a = config.model_args
+    a.num_chars, a.use_d_vector_file, a.d_vector_dim = None, True, 512
+    a.use_speaker_encoder_as_loss, a.d_vector_file = True, d_vector_file
+    a.speaker_encoder_model_path = f"{TRAINER_DISK}/model_se.pth.tar"
+    a.speaker_encoder_config_path = f"{TRAINER_DISK}/config_se.json"
+    return config
+
+
+def fast_pitch_recipe_config():
+    """``recipes/ljspeech/fast_pitch/train_fast_pitch.py:23-36``: the
+    ``FastPitchConfig`` defaults (hidden 384, 6 + 6 FFT layers of one head,
+    FFN 1024, pitch predictor, positional encoding), ``english_cleaners``
+    with ``en-us`` phonemes from the rule G2P."""
+    from tts_tpu_torch.models.forward_tts import FastPitchConfig
+
+    return FastPitchConfig(text_cleaner="english_cleaners", use_phonemes=True,
+                           phoneme_language="en-us")
+
+
+def manifest_state(manifest: dict, seed: int) -> dict:
+    """A reference-layout state dict rebuilt from a fixture's manifest, as
+    ``tests/helpers.py:synth_state_from_manifest`` rebuilds it."""
+    rs = np.random.RandomState(seed)
+    state = {}
+    for name, (shape, dtype) in manifest.items():
+        shape = tuple(shape)
+        if name.endswith("num_batches_tracked"):
+            state[name] = np.zeros(shape, np.int64)
+        elif name.endswith("running_var"):
+            state[name] = (0.5 + np.abs(rs.randn(*shape))).astype(np.float32)
+        elif name.endswith("running_mean"):
+            state[name] = (0.1 * rs.randn(*shape)).astype(np.float32)
+        else:
+            state[name] = (0.1 * rs.randn(*shape)).astype(dtype)
+    return state
+
+
+def speaker_fidelity(device) -> str:
+    """``speaker_encoder_resnet.npz`` and ``fastpitch.npz`` through the
+    port's reference loaders on ``device``, at ``test_fidelity_corpus``'s
+    thresholds (cosine above 0.9999; the frame count, mel RMSE under
+    5e-3)."""
+    import torch
+
+    from tts_tpu_torch.encoder.configs import SpeakerEncoderConfig
+    from tts_tpu_torch.encoder.model import SpeakerEncoder
+    from tts_tpu_torch.models.forward_tts import FastPitchConfig, ForwardTTS
+    from tts_tpu_torch.utils.convert import load_reference_forward_tts, load_reference_speaker_encoder
+
+    def fixture(name):
+        npz = np.load(os.path.join(REPO, "tests", "fixtures", "fidelity", f"{name}.npz"))
+        meta = json.loads(bytes(npz["meta"]).decode())
+        state = manifest_state(meta["state_manifest"], meta["state_seed"]) \
+            if "state_manifest" in meta else \
+            {k[3:]: npz[k] for k in npz.files if k.startswith("sd/")}
+        ins = {k[3:]: npz[k] for k in npz.files if k.startswith("in/")}
+        outs = {k[4:]: npz[k] for k in npz.files if k.startswith("out/")}
+        return state, ins, outs, meta
+
+    state, ins, outs, meta = fixture("speaker_encoder_resnet")
+    config = SpeakerEncoderConfig(model_params={"model_name": "resnet", "log_input": True,
+                                                "input_dim": meta["input_dim"],
+                                                "proj_dim": meta["proj_dim"]})
+    enc = SpeakerEncoder(config).load_state_dict(load_reference_speaker_encoder(state, config))
+    enc.module.to(device)
+    with torch.no_grad():
+        ours = enc.module(torch.from_numpy(ins["mel"].transpose(0, 2, 1)).to(device))
+    ours = ours.float().cpu().numpy()
+    ref = outs["emb"]
+    cos = np.sum(ref * ours, -1) / (np.linalg.norm(ref, axis=-1) * np.linalg.norm(ours, axis=-1))
+    if not np.all(cos > 0.9999):
+        raise AssertionError(f"speaker_encoder_resnet.npz on {device}: cosine {cos}")
+
+    state, ins, outs, meta = fixture("fastpitch")
+    fp = FastPitchConfig()
+    a = fp.model_args
+    a.num_chars, a.out_channels, a.hidden_channels = 40, 20, 32
+    a.duration_predictor_hidden_channels = a.pitch_predictor_hidden_channels = 48
+    a.encoder_params = a.decoder_params = {"hidden_channels_ffn": 64, "num_heads": 2,
+                                           "num_layers": 2, "dropout_p": 0.0}
+    model = ForwardTTS(fp)
+    model.load_state_dict({k: v.to(device) for k, v in
+                           load_reference_forward_tts(state, a).items()})
+    with torch.no_grad():
+        out = model.inference(torch.from_numpy(ins["text"]).long().to(device),
+                              torch.from_numpy(ins["text_lengths"]).long().to(device),
+                              max_frames=64)
+    T = int(out["y_lengths"][0])
+    mel = out["model_outputs"][0, :T].float().cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mel - outs["mel"][0]) ** 2))) if T == len(outs["mel"][0]) \
+        else np.inf
+    if not rmse < FIDELITY_RMSE:
+        raise AssertionError(f"fastpitch.npz on {device}: {T} frames, mel RMSE {rmse}")
+    return (f"speaker_encoder_resnet.npz cosine {float(cos.min()):.7f} (> 0.9999), max abs diff "
+            f"{float(np.abs(ours - ref).max()):.3g}; fastpitch.npz {T} frames as the reference, "
+            f"mel RMSE {rmse:.3g} (< {FIDELITY_RMSE})")
+
+
+def fast_pitch_stage_ms(synth, text: str, device, reps: int = 5) -> dict:
+    """One sentence's stages on the card, medians of ``reps``: the encoder
+    with the durations and the pitch adaptor, the expansion, the decoder and
+    HiFiGAN by CUDA events; the host bridge by the host clock."""
+    import torch
+
+    from tts_tpu_torch.utils.synthesis import _frame_budget
+
+    model = synth.tts_model
+    m = model.module
+    ids = model.tokenizer.text_to_ids(text)
+    T = ((len(ids) + 15) // 16) * 16
+    x = torch.zeros(1, T, dtype=torch.long, device=device)
+    x[0, : len(ids)] = torch.tensor(ids, device=device)
+    xl = torch.tensor([len(ids)], device=device)
+    budget = _frame_budget(len(ids))
+    runs: dict = {}
+    with torch.no_grad():
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            e = m.encode(x, xl, max_frames=budget)
+            ev[1].record()
+            o_en_ex, _ = m._expand(e["o_en"], e["durations"], e["x_mask"], e["y_mask"])
+            ev[2].record()
+            y = m._decode(o_en_ex, e["y_mask"])
+            ev[3].record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = int(e["y_lengths"][0])
+            mel = y[0, :frames].float().cpu().numpy()
+            voc_in = synth.vocoder_ap.normalize(synth.ap.denormalize(mel.T))
+            c = torch.from_numpy(np.ascontiguousarray(voc_in.T[None], np.float32)).to(device)
+            torch.cuda.synchronize()
+            bridge = (time.perf_counter() - t0) * 1e3
+            ev[4].record()
+            synth.vocoder_model.inference(c)
+            ev[5].record()
+            torch.cuda.synchronize()
+            times = {"encoder + durations + pitch": ev[0].elapsed_time(ev[1]),
+                     "expansion": ev[1].elapsed_time(ev[2]),
+                     "decoder": ev[2].elapsed_time(ev[3]), "host bridge": bridge,
+                     "HiFiGAN": ev[4].elapsed_time(ev[5])}
+            for k, v in times.items():
+                runs.setdefault(k, []).append(v)
+    return {"times": {k: sorted(v)[reps // 2] for k, v in runs.items()}, "frames": frames,
+            "budget": budget, "tokens": len(ids)}
+
+
+def _int16_steps(a_path: str, b_path: str):
+    """The largest difference of two wav files in int16 steps (``None`` when
+    their shapes or rates differ), and the first file's rate."""
+    import scipy.io.wavfile
+
+    (sa, a), (sb, b) = (scipy.io.wavfile.read(p) for p in (a_path, b_path))
+    if a.shape != b.shape or sa != sb:
+        return None, sa
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()), sa
+
+
+def _serve_once(args: list, query: dict, device) -> tuple:
+    """The server from its command line (``args``, with ``--max_batch 4``) on
+    a free port answering one ``/api/tts`` request: ``(status, body, what it
+    said at start-up, the batch sizes its batcher dispatched)``."""
+    import io
+
+    from tts_tpu_torch.server.server import build_parser, close_server, server_from_args
+
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        srv = server_from_args(build_parser().parse_args(
+            args + ["--max_batch", "4", "--port", "0", "--device", str(device)]))
+    dispatched = []
+    if srv.batcher is not None:
+        real = srv.batcher._dispatch
+        srv.batcher._dispatch = lambda batch: dispatched.append(len(batch)) or real(batch)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    out: dict = {}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _fetch(f"http://127.0.0.1:{srv.server_address[1]}/api/tts?"
+                   + urllib.parse.urlencode(query), out, "r")
+    finally:
+        close_server(srv)
+        thread.join(timeout=60)
+    return out["r"]["status"], out["r"]["body"], said.getvalue(), dispatched
+
+
+def phase_speaker_and_forward_tts(card: str, device="cuda", cut=None) -> None:
+    """The speaker encoders, YourTTS voice cloning and the ForwardTTS family
+    at the recipes' widths, fp32 weights from seed 0: both fidelity
+    fixtures on the card; the ResNet and LSTM encoders card against CPU on
+    3 s and 10 s clips (d-vectors within 1e-4, finite) and their ms per
+    clip; YourTTS ``speaker_wav`` → waveform card against CPU on host noise,
+    the encoder's share of a cloned request and its latency against a named
+    speaker's, then ``TTS(encoder_path=...)``, ``tts --encoder_path`` within
+    one int16 step, the server's ``/api/tts?speaker_wav=`` on the serial
+    path, and ``your_tts`` by zoo name loading its directory's encoder
+    (F23); FastPitch with HiFiGAN card against CPU on the three phase 6
+    sentences (mel and waveform within 1e-4), FastSpeech2 and SpeedySpeech
+    on the short one, latency, RTF and the stage split, busy share and
+    kernels, ``fast_pitch`` by zoo name with ``hifigan_v2`` against the path
+    load, the command line and the server (serial). ``decode_attention``
+    must not launch. ``cut(resnet, lstm, yourtts, fast_pitch, hifigan)``
+    shrinks the configs in place, for rehearsals on the CPU."""
+    import io
+    import shutil
+
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.encoder.model import SpeakerEncoder, load_speaker_encoder
+    from tts_tpu_torch.models.forward_tts import (
+        Fastspeech2Config,
+        ForwardTTS,
+        SpeedySpeechConfig,
+    )
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.utils.convert import (
+        reference_forward_tts_state,
+        reference_speaker_encoder_state,
+        reference_vits_state,
+    )
+    from tts_tpu_torch.utils.synthesis import synthesis
+    from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, Synthesizer
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    cut = cut or (lambda *configs: None)
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    short, medium = VITS_SENTENCES["short"], VITS_SENTENCES["medium"]
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    log(f"speaker encoder and FastPitch fidelity replays on {device}: "
+        + speaker_fidelity(device) + f" | {card}")
+
+    with tempfile.TemporaryDirectory() as d:
+        speakers_file = os.path.join(d, "speakers.json")
+        configs = (resnet_encoder_recipe_config(), lstm_encoder_config(),
+                   yourtts_recipe_config(speakers_file), fast_pitch_recipe_config(),
+                   hifigan_recipe_config())
+        cut(*configs)
+        resnet_cfg, lstm_cfg, yt_cfg, fp_cfg, voc_cfg = configs
+        # two clips a speaker, their d-vectors of length ~1.1: a mean d-vector is no unit vector
+        rs = np.random.RandomState(0)
+        dim = yt_cfg.model_args.d_vector_dim
+        write_json(speakers_file, {f"{name}_{i}.wav": {"name": name, "embedding": (
+            rs.randn(dim) * 0.05).tolist()} for name in YOURTTS_SPEAKERS for i in range(2)})
+
+        # the encoders: reference-layout files, card against CPU, ms per clip
+        encoder_files = {}
+        for kind, config in (("resnet", resnet_cfg), ("lstm", lstm_cfg)):
+            enc = SpeakerEncoder(config).init_params(seed=0, device="cpu")
+            n_params = sum(p.numel() for p in enc.module.parameters())
+            se_dir = os.path.join(d, f"se_{kind}")
+            os.makedirs(se_dir)
+            files = (os.path.join(se_dir, "model_se.pth.tar"),
+                     os.path.join(se_dir, "config_se.json"))
+            torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                                  reference_speaker_encoder_state(enc.module.state_dict()).items()}},
+                       files[0])
+            write_json(files[1], config.to_dict())
+            encoder_files[kind] = files
+            on_card, ap = load_speaker_encoder(*files, device=device)
+            on_cpu, _ = load_speaker_encoder(*files, device="cpu")
+            worst, timings = 0.0, []
+            for seconds in ENCODER_CLIP_S:
+                wav = reference_wav(seconds, sr=ap.sample_rate, seed=int(seconds))
+                got = on_card.compute_embedding_from_wav(wav)
+                want = on_cpu.compute_embedding_from_wav(wav)
+                err = float(np.abs(got - want).max())
+                if not np.isfinite(got).all() or not err <= ENCODER_TOL:
+                    raise AssertionError(f"{kind} encoder card vs CPU on {seconds} s: max abs "
+                                         f"diff {err} (finite: {np.isfinite(got).all()})")
+                worst = max(worst, err)
+                frames = on_card.features(wav).shape[1]
+                windows = 1 if frames <= 250 else len(range(0, frames - 250 + 1, 125))
+                ms, lo, hi = median_ms(lambda: on_card.compute_embedding_from_wav(wav), device)
+                timings.append(f"{seconds:g} s ({frames} frames, {windows} window"
+                               f"{'s' if windows > 1 else ''}) {ms:.2f} ms ({lo:.2f}-{hi:.2f})")
+            mp = config.model_params
+            log(f"{kind} speaker encoder ({mp}; {ap.sample_rate} Hz, hop {ap.hop_length}; "
+                f"{n_params / 1e6:.2f} M parameters, seed 0): card vs CPU d-vectors max abs diff "
+                f"{worst:.3g} (tol {ENCODER_TOL}), finite; ms per clip (median of 5, the "
+                f"features included): " + ", ".join(timings) + f" | {card}")
+            if cuda and kind == "resnet":
+                wav10 = reference_wav(ENCODER_CLIP_S[-1], sr=ap.sample_rate, seed=10)
+                profile_call(lambda: on_card.compute_embedding_from_wav(wav10),
+                             "ResNet speaker encoder, one 10 s clip", card)
+            del on_card, on_cpu, enc
+
+        # YourTTS: speaker_wav → d-vector → VITS, card against CPU on host noise
+        yt_dir = os.path.join(d, "yourtts")
+        os.makedirs(yt_dir)
+        yt = Vits.init_from_config(yt_cfg).init_params(seed=0, device="cpu")
+        n_yt = sum(p.numel() for p in yt.module.parameters())
+        yt_state = yt.module.state_dict()
+        torch.save(yt_state, os.path.join(yt_dir, "model_torch.pt"))
+        write_json(os.path.join(yt_dir, "config.json"), yt.config.to_dict())
+        del yt
+        ref_wav = os.path.join(d, "ref.wav")
+        scipy.io.wavfile.write(ref_wav, 22050, reference_wav(3.0, seed=7))
+        yt_args = ["--model_path", os.path.join(yt_dir, "model_torch.pt"), "--config_path",
+                   os.path.join(yt_dir, "config.json")]
+        enc_args = ["--encoder_path", encoder_files["resnet"][0], "--encoder_config_path",
+                    encoder_files["resnet"][1]]
+
+        def load_yt(dev):
+            return Synthesizer(tts_checkpoint=yt_args[1], tts_config_path=yt_args[3], device=dev,
+                               encoder_checkpoint=enc_args[1], encoder_config=enc_args[3])
+
+        synth, cpu_synth = load_yt(device), load_yt("cpu")
+        a = synth.tts_config.model_args
+        got_dv = np.asarray(synth.tts_model.speaker_manager.compute_embedding_from_clip(ref_wav))
+        want_dv = np.asarray(cpu_synth.tts_model.speaker_manager.compute_embedding_from_clip(
+            ref_wav))
+        with torch.no_grad():
+            wav, err, y_lengths, _ = silent(card_against_cpu, synth, cpu_synth, short,
+                                            speaker_wav=ref_wav)
+        log(f"YourTTS (recipe: {synth.tts_config.text_cleaner}, graphemes, num_chars "
+            f"{a.num_chars}, {a.d_vector_dim}-wide d-vectors, {n_yt / 1e6:.2f} M parameters, "
+            f"seed 0) cloning a 3 s clip: d-vector card vs CPU {float(np.abs(got_dv - want_dv).max()):.3g}"
+            f", finite; the short sentence card vs CPU on host noise: y_lengths {y_lengths} "
+            f"equal, waveform max abs diff {err:.3g} (tol {VITS_WAV_TOL})")
+        del cpu_synth
+        sm = synth.tts_model.speaker_manager
+        enc_ms, _, _ = median_ms(lambda: sm.compute_embedding_from_clip(ref_wav), device)
+        silent(synth.tts, medium, speaker_wav=ref_wav)
+        cloned_ms, lo, hi = median_ms(lambda: silent(synth.tts, medium, speaker_wav=ref_wav),
+                                      device)
+        named_ms, nlo, nhi = median_ms(lambda: silent(synth.tts, medium, speaker_name="p226"),
+                                       device)
+        log(f"YourTTS medium sentence: cloned from the 3 s clip {cloned_ms:.1f} ms ({lo:.1f}-"
+            f"{hi:.1f}), of which the encoder (clip load, features, ResNet) {enc_ms:.1f} ms "
+            f"({100 * enc_ms / cloned_ms:.1f} %); with the named speaker p226 {named_ms:.1f} ms "
+            f"({nlo:.1f}-{nhi:.1f}); medians of 5 | {card}")
+        if cuda:
+            profile_call(lambda: silent(synth.tts, medium, speaker_wav=ref_wav),
+                         "YourTTS, one medium sentence cloned from a 3 s clip", card)
+
+        # TTS(encoder_path=...), tts --encoder_path, the server's speaker_wav
+        api = TTS(model_path=yt_args[1], config_path=yt_args[3], encoder_path=enc_args[1],
+                  encoder_config_path=enc_args[3], device=device)
+        api_path, cli_path = os.path.join(d, "yt_api.wav"), os.path.join(d, "yt_cli.wav")
+        silent(api.tts_to_file, short, speaker_wav=ref_wav, file_path=api_path)
+        silent(synthesize_cli, ["--text", short, "--speaker_wav", ref_wav, "--out_path", cli_path,
+                                "--device", str(device)] + yt_args + enc_args)
+        step, sr = _int16_steps(cli_path, api_path)
+        if step is None or step > 1:
+            raise AssertionError(f"tts --encoder_path vs the API: {step} int16 steps")
+        del api
+        status, body, said, dispatched = _serve_once(yt_args + enc_args,
+                                                     {"text": short, "speaker_wav": ref_wav},
+                                                     device)
+        pcm = scipy.io.wavfile.read(io.BytesIO(body))[1] if status == 200 else None
+        api_pcm = scipy.io.wavfile.read(api_path)[1]
+        serr = (int(np.abs(pcm.astype(np.int32) - api_pcm).max())
+                if pcm is not None and pcm.shape == api_pcm.shape else None)
+        if status != 200 or dispatched or serr is None or serr > 1:
+            raise AssertionError(f"YourTTS /api/tts?speaker_wav=: {status}, dispatched "
+                                 f"{dispatched}, {serr} int16 steps from the API")
+        log(f"YourTTS surfaces: TTS(encoder_path=...) and tts --encoder_path --speaker_wav "
+            f"within {step} int16 step; the server (--encoder_path, --max_batch 4) answered "
+            f"/api/tts?speaker_wav= on the serial path (batcher dispatches {dispatched}), "
+            f"{serr} int16 steps from the API")
+
+        # your_tts by zoo name: the directory's encoder, the config's paths rewritten (F23)
+        with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+            zy = os.path.join(home, "tts_tpu", ZOO_YOURTTS.replace("/", "--"))
+            os.makedirs(zy)
+            reference = {k: torch.from_numpy(v) for k, v in reference_vits_state(yt_state).items()}
+            se_state = torch.load(encoder_files["resnet"][0], weights_only=True)["model"]
+            reference.update({"speaker_encoder." + k: v for k, v in se_state.items()})
+            torch.save({"model": reference}, os.path.join(zy, "model_file.pth"))
+            shutil.copy(speakers_file, os.path.join(zy, "speakers.json"))
+            for f in encoder_files["resnet"]:
+                shutil.copy(f, zy)
+            saved = json.load(open(yt_args[3]))
+            saved["d_vector_file"] = saved["model_args"]["d_vector_file"] = \
+                f"{TRAINER_DISK}/speakers.json"
+            write_json(os.path.join(zy, "config.json"), saved)
+            by_name = TTS(model_name=ZOO_YOURTTS, device=device)
+            by_path = TTS(model_path=os.path.join(zy, "model_file.pth"),
+                          config_path=os.path.join(zy, "config.json"),
+                          encoder_path=os.path.join(zy, "model_se.pth.tar"),
+                          encoder_config_path=os.path.join(zy, "config_se.json"), device=device)
+            rewritten = json.load(open(os.path.join(zy, "config.json")))["model_args"]
+            if rewritten["speaker_encoder_model_path"] != os.path.join(zy, "model_se.pth.tar") \
+                    or by_name.synthesizer.tts_model.speaker_manager.encoder is None:
+                raise AssertionError(f"F23: {ZOO_YOURTTS} loaded no encoder from its directory "
+                                     f"({rewritten['speaker_encoder_model_path']})")
+            with host_noise(seed=0):
+                za = np.asarray(silent(by_name.tts, short, speaker_wav=ref_wav), np.float32)
+                zb = np.asarray(silent(by_path.tts, short, speaker_wav=ref_wav), np.float32)
+            zerr = float(np.abs(za - zb).max()) if za.shape == zb.shape else np.inf
+            if zerr != 0 or za.std() == 0:
+                raise AssertionError(f"{ZOO_YOURTTS} by name vs path load: {za.shape} vs "
+                                     f"{zb.shape}, max abs diff {zerr}")
+            log(f"zoo: {ZOO_YOURTTS} from a reference-layout directory (model_file.pth with its "
+                f"speaker_encoder.* dropped, speakers.json, model_se.pth.tar, config_se.json), "
+                f"nothing fetched; the config's encoder paths rewritten from the trainer's and "
+                f"the encoder loaded (F23); the cloned short sentence differs from the path "
+                f"load by {zerr}")
+            del by_name, by_path
+        del synth
+
+        # FastPitch with HiFiGAN: card against CPU, latency, stages
+        fp_dir, voc_dir = os.path.join(d, "fp"), os.path.join(d, "voc")
+        os.makedirs(fp_dir)
+        os.makedirs(voc_dir)
+        fp = ForwardTTS.init_from_config(fp_cfg).init_params(seed=0, device="cpu")
+        n_fp = sum(p.numel() for p in fp.module.parameters())
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in reference_forward_tts_state(
+            fp.module.state_dict(), fp.module.pos_encoder.pe).items()}},
+            os.path.join(fp_dir, "model_file.pth"))
+        write_json(os.path.join(fp_dir, "config.json"), fp.config.to_dict())
+        c = fp.config
+        del fp
+        gen = random_vocoder(voc_cfg, seed=0)
+        torch.save({"model": {"model_g." + k: v for k, v in gen.state_dict().items()}},
+                   os.path.join(voc_dir, "model_file.pth"))
+        write_json(os.path.join(voc_dir, "config.json"), voc_cfg.to_dict())
+        del gen
+        fp_args = ["--model_path", os.path.join(fp_dir, "model_file.pth"), "--config_path",
+                   os.path.join(fp_dir, "config.json")]
+        voc_args = ["--vocoder_path", os.path.join(voc_dir, "model_file.pth"),
+                    "--vocoder_config_path", os.path.join(voc_dir, "config.json")]
+
+        def load_fp(dev):
+            return Synthesizer(tts_checkpoint=fp_args[1], tts_config_path=fp_args[3],
+                               vocoder_checkpoint=voc_args[1], vocoder_config=voc_args[3],
+                               device=dev)
+
+        synth, cpu_synth = load_fp(device), load_fp("cpu")
+        worst_mel = worst_wav = 0.0
+        lengths = []
+        with torch.no_grad():
+            for text in VITS_SENTENCES.values():
+                g, w = synthesis(synth.tts_model, text), synthesis(cpu_synth.tts_model, text)
+                g_len, w_len = g["outputs"]["y_lengths"].cpu(), w["outputs"]["y_lengths"]
+                if not torch.equal(g_len, w_len):
+                    m = synth.tts_model.module
+                    x = g["text_inputs"]
+                    x_mask = (g["outputs"]["durations"] > 0)[:, :, None].float()
+                    raw = (torch.exp(m.duration_predictor(m._encode(x, x_mask), x_mask)[0, :, 0])
+                           - 1).cpu().numpy()
+                    raise AssertionError(f"FastPitch y_lengths card {g_len.tolist()} != CPU "
+                                         f"{w_len.tolist()} for {text!r}; the durations nearest "
+                                         f".5 before rounding: "
+                                         f"{sorted(raw, key=lambda v: abs(v % 1 - 0.5))[:4]}")
+                err = float(np.abs(g["model_outputs"] - w["model_outputs"]).max())
+                gw, ww = synth._vocode(g["model_outputs"]), cpu_synth._vocode(w["model_outputs"])
+                werr = float(np.abs(gw - ww).max()) if gw.shape == ww.shape else np.inf
+                if not err <= FP_TOL or not werr <= FP_TOL or not np.isfinite(gw).all() \
+                        or gw.std() == 0:
+                    raise AssertionError(f"FastPitch + HiFiGAN card vs CPU: mel {err}, waveform "
+                                         f"{werr} (tol {FP_TOL})")
+                worst_mel, worst_wav = max(worst_mel, err), max(worst_wav, werr)
+                lengths.append(int(g_len[0]))
+        log(f"FastPitch (LJSpeech recipe, phonemes from "
+            f"{synth.tts_model.tokenizer.phonemizer.name()}, num_chars {c.model_args.num_chars}:"
+            f" hidden {c.model_args.hidden_channels}, {c.model_args.encoder_params['num_layers']}"
+            f" + {c.model_args.decoder_params['num_layers']} FFT layers, FFN "
+            f"{c.model_args.encoder_params['hidden_channels_ffn']}; {n_fp / 1e6:.2f} M "
+            f"parameters, seed 0, duration bias for ~6 frames a token) + HiFiGAN card vs CPU, "
+            f"the three phase 6 sentences: y_lengths {lengths} equal, mel max abs diff "
+            f"{worst_mel:.3g}, waveform {worst_wav:.3g} (tol {FP_TOL})")
+        for name, cls in (("FastSpeech2", Fastspeech2Config), ("SpeedySpeech", SpeedySpeechConfig)):
+            cfg = cls(text_cleaner="english_cleaners", use_phonemes=True, phoneme_language="en-us")
+            cut(None, None, None, cfg, None)
+            m = ForwardTTS.init_from_config(cfg).init_params(seed=0, device="cpu")
+            n_m = sum(p.numel() for p in m.module.parameters())
+            cpu_out = synthesis(m, short)
+            m.module.to(device)
+            with torch.no_grad():
+                card_out = synthesis(m, short)
+            err = float(np.abs(card_out["model_outputs"] - cpu_out["model_outputs"]).max()) \
+                if card_out["model_outputs"].shape == cpu_out["model_outputs"].shape else np.inf
+            if not err <= FP_TOL or not np.isfinite(card_out["model_outputs"]).all():
+                raise AssertionError(f"{name} card vs CPU on the short sentence: {err}")
+            log(f"{name} (its config's defaults, {n_m / 1e6:.2f} M parameters, seed 0) card vs "
+                f"CPU, the short sentence: {card_out['model_outputs'].shape[0]} frames each, mel "
+                f"max abs diff {err:.3g} (tol {FP_TOL})")
+            del m
+        del cpu_synth
+
+        silent(synth.tts, medium)
+        for key, text in VITS_SENTENCES.items():
+            ms, lo, hi = median_ms(lambda: silent(synth.tts, text), device)
+            seconds = (len(silent(synth.tts, text)) - SENTENCE_GAP) / synth.output_sample_rate
+            log(f"FastPitch + HiFiGAN {key}: {seconds:.2f} s of audio (after the trim) in "
+                f"{ms:.1f} ms (median of 5; {lo:.1f}-{hi:.1f}), RTF {seconds / ms * 1e3:.1f} "
+                f"| {card}")
+        if cuda:
+            st = fast_pitch_stage_ms(synth, medium, device)
+            log(f"FastPitch stages, medium sentence ({st['tokens']} tokens, {st['frames']} frames,"
+                f" budget {st['budget']}), ms (median of 5; CUDA events, the bridge by the host "
+                f"clock): " + ", ".join(f"{k} {v:.2f}" for k, v in st["times"].items())
+                + f" | {card}")
+            profile_call(lambda: silent(synth.tts, medium),
+                         "FastPitch + HiFiGAN, one medium sentence through Synthesizer.tts", card)
+
+        # fast_pitch by zoo name with hifigan_v2, the command line, the server
+        with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+            shutil.copytree(fp_dir, os.path.join(home, "tts_tpu",
+                                                 ZOO_FAST_PITCH.replace("/", "--")))
+            shutil.copytree(voc_dir, os.path.join(home, "tts_tpu",
+                                                  ZOO_HIFIGAN_V2.replace("/", "--")))
+            by_name = TTS(model_name=ZOO_FAST_PITCH, device=device)
+            za = np.asarray(silent(by_name.tts, short), np.float32)
+            zb = np.asarray(silent(synth.tts, short), np.float32)
+            zerr = float(np.abs(za - zb).max()) if za.shape == zb.shape else np.inf
+            if zerr != 0 or za.std() == 0 or by_name.synthesizer.vocoder_model is None:
+                raise AssertionError(f"{ZOO_FAST_PITCH} by name vs path load: {za.shape} vs "
+                                     f"{zb.shape}, max abs diff {zerr}")
+            del by_name
+        api = TTS(model_path=fp_args[1], config_path=fp_args[3], vocoder_path=voc_args[1],
+                  vocoder_config_path=voc_args[3], device=device)
+        api_path, cli_path = os.path.join(d, "fp_api.wav"), os.path.join(d, "fp_cli.wav")
+        silent(api.tts_to_file, medium, file_path=api_path)
+        silent(synthesize_cli, ["--text", medium, "--out_path", cli_path, "--device",
+                                str(device)] + fp_args + voc_args)
+        step, sr = _int16_steps(cli_path, api_path)
+        if step is None or step > 1 or sr != voc_cfg.audio.sample_rate:
+            raise AssertionError(f"FastPitch tts --vocoder_path vs the API: {step} int16 steps")
+        del api
+        status, body, said, _ = _serve_once(fp_args + voc_args, {"text": medium}, device)
+        if status != 200 or "serving serially" not in said:
+            raise AssertionError(f"FastPitch server: {status}, said {said!r}")
+        pcm = scipy.io.wavfile.read(io.BytesIO(body))[1]
+        serr = int(np.abs(pcm.astype(np.int32) - scipy.io.wavfile.read(api_path)[1]).max())
+        log(f"FastPitch surfaces: {ZOO_FAST_PITCH} with {ZOO_HIFIGAN_V2} by name from "
+            f"reference-layout directories, nothing fetched, {zerr} from the path load; tts "
+            f"--vocoder_path within {step} int16 step of TTS.tts_to_file; the server "
+            f"(--max_batch 4) serves serially, {serr} int16 steps from the API")
+        del synth
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the speaker-encoder, YourTTS and ForwardTTS phase")
+    line = ("speaker encoders, YourTTS, ForwardTTS: no hand-written kernel on these paths "
+            "(decode_attention launches 0)")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f"; phase 12 took {time.time() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3266,6 +3893,7 @@ def main() -> int:
     phase_zoo_and_variants(card)
     phase_glow_tts(card)
     phase_tacotron2(card)
+    phase_speaker_and_forward_tts(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:

@@ -7,8 +7,9 @@ tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
 ``cleaners.py`` and ``english.py``; the phoneme front end: ``punctuation``,
 ``cmudict``, ``en_g2p``, ``latin_g2p`` with ``rule_g2p_ext`` and
 ``rule_g2p_ext3``, ``belarusian``, ``phonemizers``, ``IPAPhonemes`` and
-``VitsCharacters``), the Tacotron2 configs, the reference → flax-layout
-XTTS, VITS, GlowTTS, MelGAN and Tacotron2 converters (``utils/convert.py``), the pack planner (``utils/packing.py``), the
+``VitsCharacters``), the Tacotron2, ForwardTTS and speaker encoder configs,
+the reference → flax-layout XTTS, VITS, GlowTTS, MelGAN, Tacotron2, speaker
+encoder and ForwardTTS converters (``utils/convert.py``), the pack planner (``utils/packing.py``), the
 trailing-silence endpoint (``db_to_amp``, ``find_endpoint``) and the
 speaker and language managers (``utils/managers.py``, apart from their
 ``init_from_config``, which reads ``model_args`` too: ROADMAP.md F11, held
@@ -521,5 +522,84 @@ def test_convert_tacotron2_matches_jax_leaf_for_leaf(attention):
     got = dict(_leaves(convert_tacotron2(dict(state))))
     want = dict(_leaves(jax_convert_tacotron2(dict(state))))
     assert sorted(got) == sorted(want) and len(got) > 60
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+def test_forward_tts_and_encoder_configs_to_dict_match_jax():
+    """The five ForwardTTS configs and the three encoder configs, at their
+    defaults and round-tripped from a recipe's fields."""
+    from tts_tpu.encoder import configs as jax_encoder_configs
+    from tts_tpu.models.forward_tts import config as jax_forward_config
+    from tts_tpu_torch.encoder import configs as encoder_configs
+    from tts_tpu_torch.models.forward_tts import config as forward_config
+
+    for module, jax_module, names in (
+            (forward_config, jax_forward_config, ("ForwardTTSConfig", "FastPitchConfig",
+                                                  "FastSpeechConfig", "Fastspeech2Config",
+                                                  "SpeedySpeechConfig")),
+            (encoder_configs, jax_encoder_configs, ("BaseEncoderConfig", "SpeakerEncoderConfig",
+                                                    "EmotionEncoderConfig"))):
+        for name in names:
+            assert getattr(module, name)().to_dict() == getattr(jax_module, name)().to_dict(), name
+    recipe = jax_forward_config.FastPitchConfig(use_speaker_embedding=True, use_phonemes=True,
+                                                phoneme_language="en-us")
+    recipe.model_args.num_speakers = 109
+    assert forward_config.FastPitchConfig.from_dict(recipe.to_dict()).to_dict() == \
+        recipe.to_dict()
+    se = jax_encoder_configs.SpeakerEncoderConfig(model_params={
+        "model_name": "resnet", "input_dim": 64, "use_torch_spec": True, "log_input": True,
+        "proj_dim": 512})
+    assert encoder_configs.SpeakerEncoderConfig.from_dict(se.to_dict()).to_dict() == se.to_dict()
+
+
+@pytest.mark.parametrize("kind", ["resnet", "lstm"])
+def test_convert_speaker_encoder_matches_jax_leaf_for_leaf(kind):
+    """``speaker_encoder_resnet.npz``'s reference-layout SE-ResNet34, and a
+    reference-layout LSTM encoder (3 layers of 768 projected to 256, the
+    ``BaseEncoderConfig`` defaults' shapes, drawn from a seed), through both
+    packages' ``convert_speaker_encoder``."""
+    from tts_tpu.encoder.configs import SpeakerEncoderConfig as JaxSpeakerEncoderConfig
+    from tts_tpu.utils.convert import convert_speaker_encoder as jax_convert_speaker_encoder
+    from tts_tpu_torch.encoder.configs import SpeakerEncoderConfig
+    from tts_tpu_torch.utils.convert import convert_speaker_encoder
+
+    if kind == "resnet":
+        state, _, _, _ = load_fidelity_fixture("speaker_encoder_resnet")
+        model_params = {"model_name": "resnet", "input_dim": 64, "proj_dim": 512}
+    else:
+        rs = np.random.RandomState(0)
+        state = {}
+        for i in range(3):
+            width = 80 if i == 0 else 256
+            for leaf, shape in (("lstm.weight_ih_l0", (3072, width)),
+                                ("lstm.weight_hh_l0", (3072, 768)), ("lstm.bias_ih_l0", (3072,)),
+                                ("lstm.bias_hh_l0", (3072,)), ("linear.weight", (256, 768))):
+                state[f"layers.{i}.{leaf}"] = rs.randn(*shape).astype(np.float32)
+        model_params = {"model_name": "lstm", "num_lstm_layers": 3}
+    got = dict(_leaves(convert_speaker_encoder(dict(state),
+                                               SpeakerEncoderConfig(model_params=model_params))))
+    want = dict(_leaves(jax_convert_speaker_encoder(
+        dict(state), JaxSpeakerEncoderConfig(model_params=model_params))))
+    assert sorted(got) == sorted(want) and len(got) > (30 if kind == "lstm" else 150)
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+def test_convert_forward_tts_matches_jax_leaf_for_leaf():
+    """``fastpitch.npz``'s reference-layout FastPitch (aligner included)
+    through both packages' ``convert_forward_tts``."""
+    from tts_tpu.models.forward_tts.config import ForwardTTSArgs as JaxForwardTTSArgs
+    from tts_tpu.utils.convert import convert_forward_tts as jax_convert_forward_tts
+    from tts_tpu_torch.models.forward_tts import ForwardTTSArgs
+    from tts_tpu_torch.utils.convert import convert_forward_tts
+
+    state, _, _, _ = load_fidelity_fixture("fastpitch")
+    fft = {"hidden_channels_ffn": 64, "num_heads": 2, "num_layers": 2, "dropout_p": 0.0}
+    got = dict(_leaves(convert_forward_tts(dict(state), ForwardTTSArgs(
+        encoder_params=fft, decoder_params=fft))))
+    want = dict(_leaves(jax_convert_forward_tts(dict(state), JaxForwardTTSArgs(
+        encoder_params=fft, decoder_params=fft))))
+    assert sorted(got) == sorted(want) and len(got) > 70
     for key in want:
         np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)

@@ -32,8 +32,13 @@ Divergences from the JAX package, each named in its test (ROADMAP.md §3):
 * F14: the JAX package tokenizes without the request's language, so its
   ``multi_phonemizer`` models (the multilingual recipe's) cannot
   synthesize; the port passes the language's name, as the reference does.
-* ``speaker_wav`` on VITS raises ``NotImplementedError`` in the port (no
-  speaker encoder yet); the JAX ``Synthesizer`` decodes without the voice.
+* F22: ``speaker_wav`` without a speaker encoder raises ``ValueError``
+  in the port, naming ``--encoder_path``; the JAX ``Synthesizer`` decodes
+  such a request without the voice.
+* F26: the port L2-normalises d-vectors, as the reference VITS does, and
+  the JAX package does not; the comparisons with the JAX package here feed
+  unit d-vectors, on which the two agree
+  (``tests/test_torch_speaker_slice.py`` names the divergence).
 * A d-vector model with one speaker takes that speaker's d-vector when none
   is named; the JAX ``Synthesizer`` passes a speaker id, which a d-vector
   model ignores, and decodes unconditioned.
@@ -159,12 +164,14 @@ def port_of(jax_model, params) -> Vits:
 
 
 def conditioning(kw, rows, seed=0):
-    """``aux_input`` for ``rows`` rows: speakers, d-vectors and languages
-    as the case takes them, each row different."""
+    """``aux_input`` for ``rows`` rows: speakers, d-vectors (unit vectors,
+    which the port's normalisation leaves as they are, F26) and languages as
+    the case takes them, each row different."""
     rs = np.random.RandomState(seed)
     aux = {}
     if kw.get("use_d_vector_file"):
-        aux["d_vectors"] = rs.randn(rows, D_VECTOR_DIM).astype(np.float32)
+        d = rs.randn(rows, D_VECTOR_DIM)
+        aux["d_vectors"] = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     elif kw.get("use_speaker_embedding"):
         aux["speaker_ids"] = np.array([2, 0, 1, 2][:rows], np.int32)
     if kw.get("use_language_embedding"):
@@ -587,12 +594,14 @@ def test_error_surface_matches_jax(model_dir, given, error, match):
 
 
 def test_speaker_wav_raises_until_the_encoder_is_ported(model_dir, tmp_path):
-    """The port has no speaker encoder for VITS: a ``speaker_wav`` raises
-    ``NotImplementedError`` naming its item, and the server answers it 501.
-    The JAX ``Synthesizer`` decodes such a request without the voice."""
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """F22: without a speaker encoder loaded, a ``speaker_wav`` raises
+    ``ValueError`` naming ``--encoder_path`` and ``encoder_path=``, and the
+    server answers it 400. The JAX ``Synthesizer`` decodes such a request
+    without the voice."""
+    with pytest.raises(ValueError, match="--encoder_path.*encoder_path=") as error:
         port_synth(model_dir).tts("Hello there.", speaker_name="p225", language_name="en",
                                   speaker_wav="ref.wav")
+    assert "F22" in str(error.value)
     srv = create_server(port_synth(model_dir), port=0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     try:
@@ -600,7 +609,7 @@ def test_speaker_wav_raises_until_the_encoder_is_ported(model_dir, tmp_path):
                           f"&speaker_id=p225&language_id=en&speaker_wav=ref.wav")
     finally:
         close_server(srv)
-    assert code == 501 and b"item 15" in body
+    assert code == 400 and b"--encoder_path" in body
 
 
 def test_one_entry_managers_are_taken_by_default(tmp_path):

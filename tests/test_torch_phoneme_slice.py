@@ -163,7 +163,7 @@ def test_cli_needs_text_and_rejects_unported_flags(model_dir, capsys):
     with pytest.raises(SystemExit) as exit_info:
         port_cli(["--model_path", str(model_dir), "--device", "cpu"])
     assert exit_info.value.code == 1 and "Provide --text" in capsys.readouterr().err
-    for flag, value in [("--encoder_path", "e.pth"), ("--encoder_config_path", "e.json"),
+    for flag, value in [("--target_wav", "t.wav"), ("--voice_dir", "voices"),
                         ("--source_wav", "a.wav"), ("--style_wav", "s.wav")]:
         with pytest.raises(SystemExit) as exit_info:
             port_cli(["--text", "hi", "--model_path", str(model_dir), flag, value])

@@ -333,14 +333,16 @@ def test_unported_variants_raise(field, value):
 
 
 def test_unported_paths_raise(pair):
-    """What VITS still refuses: ``speaker_wav`` (the speaker encoder, ROADMAP.md
-    item 15) and voice conversion on a model without speakers."""
+    """What VITS still refuses: ``speaker_wav`` without a speaker encoder
+    loaded (ROADMAP.md F22, naming ``--encoder_path``) and voice conversion
+    on a model without speakers."""
     from tts_tpu_torch.utils.synthesizer import Synthesizer
 
     _, _, port = pair
     synth = Synthesizer(device="cpu")
     synth.tts_model, synth.tts_config = port, port.config
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="F22") as error:
         synth.tts("Hello.", speaker_wav="ref.wav")
+    assert "--encoder_path" in str(error.value)
     with pytest.raises(ValueError, match="multi-speaker"):
         port.voice_conversion(None, None, None, None)

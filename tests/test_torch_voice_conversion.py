@@ -70,8 +70,10 @@ def _speakers(case, seed=0):
     rs = np.random.RandomState(seed)
     if case == "speaker_ids":
         return np.array([1, 2], np.int32), np.array([2, 0], np.int32)
-    return (rs.randn(2, D_VECTOR_DIM).astype(np.float32),
-            rs.randn(2, D_VECTOR_DIM).astype(np.float32))
+    # unit d-vectors, which the port's normalisation leaves as they are (F26)
+    src, tgt = rs.randn(2, D_VECTOR_DIM), rs.randn(2, D_VECTOR_DIM)
+    return tuple((d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+                 for d in (src, tgt))
 
 
 @pytest.fixture(scope="module", params=list(CASES))

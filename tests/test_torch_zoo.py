@@ -401,6 +401,8 @@ GLOW_TTS = ["tts_models/en/ljspeech/glow-tts", "tts_models/uk/mai/glow-tts",
             "tts_models/fa/custom/glow-tts"]
 
 
+YOURTTS = "tts_models/multilingual/multi-dataset/your_tts"
+FAST_PITCH = ["tts_models/en/ljspeech/fast_pitch", "tts_models/en/vctk/fast_pitch"]
 TACOTRON2 = ["tts_models/en/ljspeech/tacotron2-DDC", "tts_models/en/ljspeech/tacotron2-DCA",
              "tts_models/es/mai/tacotron2-DDC", "tts_models/fr/mai/tacotron2-DDC",
              "tts_models/de/thorsten/tacotron2-DCA", "tts_models/de/thorsten/tacotron2-DDC",
@@ -408,27 +410,30 @@ TACOTRON2 = ["tts_models/en/ljspeech/tacotron2-DDC", "tts_models/en/ljspeech/tac
 
 
 def test_every_family_is_sorted_into_ported_or_an_item():
-    """38 entries named VITS, the VITS ``jenny`` (by its description), XTTS
-    v2, the 7 GlowTTS entries (with a Multiband-MelGAN or HiFiGAN default
-    vocoder, or none), the 7 Tacotron2 entries whose default vocoder is a
-    HiFiGAN or a MelGAN and the 12 Multiband-MelGAN, Fullband-MelGAN and
-    HiFiGAN vocoders load; each of the catalog's other 22, and the fairseq
-    MMS models, names a ROADMAP.md item: the other Tacotron entries
+    """38 entries named VITS, the VITS ``jenny`` (by its description),
+    YourTTS, XTTS v2, the 7 GlowTTS entries (with a Multiband-MelGAN or
+    HiFiGAN default vocoder, or none), the 7 Tacotron2 entries whose default
+    vocoder is a HiFiGAN or a MelGAN, the 2 FastPitch entries (LJSpeech with
+    HiFiGAN v2, VCTK with none) and the 12 Multiband-MelGAN, Fullband-MelGAN
+    and HiFiGAN vocoders load; each of the catalog's other 19, and the
+    fairseq MMS models, names a ROADMAP.md item: the other Tacotron entries
     (``ek1``'s WaveGrad, ``DDC_ph``'s UnivNet, ``nl/mai``'s ParallelWaveGAN,
-    GST, Tacotron v1) item 16."""
+    GST, Tacotron v1) and SpeedySpeech item 16."""
     manager = manage.ModelManager()
     ported = [n for n in manager.list_models()
               if not manage.unported_reason(n, manager.models_dict)]
     assert len([n for n in ported if "vits" in n]) == 38
     assert sorted(n for n in ported if "vits" not in n and n.startswith("tts_models/")) == \
-        sorted(["tts_models/en/jenny/jenny", XTTS] + GLOW_TTS + TACOTRON2)
+        sorted(["tts_models/en/jenny/jenny", XTTS, YOURTTS] + GLOW_TTS + TACOTRON2 + FAST_PITCH)
     vocoders = [n for n in ported if n.startswith("vocoder_models/")]
     assert len(vocoders) == 12 and all(
         any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan")) for n in vocoders)
-    assert len(_unported()) == 88 - 66 + 1
+    assert len(_unported()) == 88 - 69 + 1
     tacotrons = [n for n in _unported() if "tacotron" in n]
     assert len(tacotrons) == 5 and all(
         "item 16" in manage.unported_reason(n, manager.models_dict) for n in tacotrons)
+    assert "item 16" in manage.unported_reason("tts_models/en/ljspeech/speedy-speech",
+                                               manager.models_dict)
 
 
 @pytest.mark.parametrize("name", _unported())

@@ -19,11 +19,19 @@ Example::
     ...            vocoder_path="mbmelgan/model_file.pth",
     ...            vocoder_config_path="mbmelgan/config.json")
     >>> TTS("tts_models/en/ljspeech/glow-tts")  # with its default vocoder, Multiband-MelGAN
+    >>> yourtts = TTS(model_path="yourtts/model_file.pth", config_path="yourtts/config.json",
+    ...               encoder_path="se/model_se.pth.tar", encoder_config_path="se/config_se.json")
+    >>> yourtts.tts_to_file("Hello world.", speaker_wav="ref.wav", language="en",
+    ...                     file_path="out.wav")
+    >>> TTS("tts_models/en/ljspeech/fast_pitch")  # FastPitch with HiFiGAN v2
 
-A zoo name loads through ``utils.manage.ModelManager``: a VITS or GlowTTS
-entry from its reference-layout checkpoint file and ``config.json``, XTTS v2
-from its directory, and an entry's ``default_vocoder`` with it unless a
-``vocoder_path`` is given. Every other family raises
+A zoo name loads through ``utils.manage.ModelManager``: a VITS, GlowTTS,
+Tacotron2 or FastPitch entry from its reference-layout checkpoint file and
+``config.json``, XTTS v2 from its directory, and an entry's
+``default_vocoder`` with it unless a ``vocoder_path`` is given. YourTTS
+(``tts_models/multilingual/multi-dataset/your_tts``) also loads the speaker
+encoder its directory ships (``model_se.pth.tar``, ``config_se.json``) unless
+an ``encoder_path`` is given. Every other family raises
 ``NotImplementedError`` naming its ROADMAP.md item before anything is
 fetched (``utils.manage.unported_reason``).
 """
@@ -57,19 +65,24 @@ class TTS:
     ``config_path``; ``vocoder_path`` (with ``vocoder_config_path``) a
     vocoder for a mel model, in place of a zoo entry's default vocoder;
     ``speakers_file_path`` and ``language_ids_file_path`` replace the
-    config's speaker and language files. ``device`` defaults to ``"cuda"``
-    and must exist."""
+    config's speaker and language files; ``encoder_path`` (with
+    ``encoder_config_path``) is the speaker encoder that turns a
+    ``speaker_wav`` into a d-vector for a d-vector model. ``device``
+    defaults to ``"cuda"`` and must exist."""
 
     def __init__(self, model_name: str = "", model_path: Optional[str] = None,
                  config_path: Optional[str] = None, vocoder_path: Optional[str] = None,
                  vocoder_config_path: Optional[str] = None, device="cuda",
                  speakers_file_path: Optional[str] = None,
-                 language_ids_file_path: Optional[str] = None):
+                 language_ids_file_path: Optional[str] = None,
+                 encoder_path: Optional[str] = None, encoder_config_path: Optional[str] = None):
         self.synthesizer: Optional[Synthesizer] = None
         self.model_name = model_name
         self.device = device
         self._speakers_file_path = speakers_file_path or ""
         self._language_ids_file_path = language_ids_file_path or ""
+        self._encoder_path = encoder_path or ""
+        self._encoder_config_path = encoder_config_path or ""
         if model_name:
             self.load_tts_model_by_name(model_name, vocoder_path, vocoder_config_path)
         elif model_path:
@@ -108,6 +121,7 @@ class TTS:
             speakers_file_path=self._speakers_file_path,
             language_ids_file_path=self._language_ids_file_path,
             vocoder_checkpoint=vocoder_path or "", vocoder_config=vocoder_config or "",
+            encoder_checkpoint=self._encoder_path, encoder_config=self._encoder_config_path,
         )
 
     def _manager(self, name: str):

@@ -25,6 +25,10 @@ Examples::
     python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
         --model_name tts_models/en/ljspeech/glow-tts \\
         --vocoder_name vocoder_models/en/ljspeech/hifigan_v2
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \
+        --model_path yourtts/model_file.pth --config_path yourtts/config.json \
+        --encoder_path se/model_se.pth.tar --encoder_config_path se/config_se.json \
+        --speaker_wav ref.wav --language_idx en
 
 ``--model_name`` loads a zoo model from ``$TTS_HOME/tts_tpu/`` (fetched if
 absent; ``TTS_TPU_MODELS_FILE`` replaces the catalog); a family the port
@@ -33,8 +37,11 @@ does not run yet raises ``NotImplementedError`` before anything is fetched.
 recording) and ``--speaker_idx`` (the voice wanted) converts a recording
 with a multi-speaker VITS model. ``--vocoder_path`` with
 ``--vocoder_config_path``, or a zoo ``--vocoder_name``, gives a mel model
-(GlowTTS) its vocoder, in place of a zoo entry's default one; without any,
-Griffin-Lim speaks it.
+(GlowTTS, Tacotron2, FastPitch) its vocoder, in place of a zoo entry's
+default one; without any, Griffin-Lim speaks it. ``--encoder_path`` with
+``--encoder_config_path`` loads a speaker encoder, which turns
+``--speaker_wav`` into a d-vector for a d-vector model (YourTTS); the zoo's
+``your_tts`` loads the one its directory ships.
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
 runs the plain PyTorch path. ``--use_cuda``, ``--save_spectogram`` and
@@ -48,8 +55,6 @@ argparse rejects them until then (ROADMAP.md §1):
 
 * voice conversion models (``--source_wav``, ``--target_wav``): FreeVC,
   slice 3, item 16;
-* speaker-encoder checkpoints (``--encoder_path``, ``--encoder_config_path``):
-  slice 3, item 15;
 * style references (``--style_wav`` and its aliases,
   ``--capacitron_style_text``) and the voice directory (``--voice_dir``):
   slice 3, item 16.
@@ -88,6 +93,10 @@ def make_parser() -> argparse.ArgumentParser:
                         help="vocoder checkpoint for a mel model (GlowTTS)")
     parser.add_argument("--vocoder_config_path", type=str, default=None,
                         help="config.json of --vocoder_path")
+    parser.add_argument("--encoder_path", type=str, default=None,
+                        help="speaker-encoder checkpoint for d-vectors from --speaker_wav")
+    parser.add_argument("--encoder_config_path", type=str, default=None,
+                        help="config.json of --encoder_path")
     parser.add_argument("--out_path", type=str, default="tts_output.wav")
     parser.add_argument("--pipe_out", action="store_true", help="also write the wav to stdout")
     parser.add_argument("--speaker_idx", type=str, default=None)
@@ -143,7 +152,8 @@ def main(argv=None):
                   config_path=args.config_path, vocoder_path=vocoder_path,
                   vocoder_config_path=vocoder_config_path, device=args.device,
                   speakers_file_path=args.speakers_file_path,
-                  language_ids_file_path=args.language_ids_file_path)
+                  language_ids_file_path=args.language_ids_file_path,
+                  encoder_path=args.encoder_path, encoder_config_path=args.encoder_config_path)
 
         if args.list_speaker_idxs:
             print(" > Available speaker ids: (set --speaker_idx to one of these):")

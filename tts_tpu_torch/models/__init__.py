@@ -1,8 +1,10 @@
 """Model registry of the port: config name → (config class, model class),
 and the vocoder configs by name.
 
-XTTS, VITS, GlowTTS and Tacotron2 are ported so far, with the HiFiGAN and
-MelGAN vocoders (``vocoder.models.setup_generator``); other names raise.
+XTTS, VITS, GlowTTS, Tacotron2 and the ForwardTTS family (FastPitch,
+FastSpeech, FastSpeech2, SpeedySpeech) are ported so far, with the HiFiGAN
+and MelGAN vocoders (``vocoder.models.setup_generator``) and the speaker
+encoders' configs; other names raise.
 """
 
 from __future__ import annotations
@@ -17,6 +19,16 @@ _MODELS = {
                  "tts_tpu_torch.models.glow_tts.model:GlowTTS"),
     "tacotron2": ("tts_tpu_torch.models.tacotron2.config:Tacotron2Config",
                   "tts_tpu_torch.models.tacotron2.model:Tacotron2"),
+    **{name: (f"tts_tpu_torch.models.forward_tts.config:{cls}",
+              "tts_tpu_torch.models.forward_tts.model:ForwardTTS")
+       for name, cls in (("fast_pitch", "FastPitchConfig"), ("fast_speech", "FastSpeechConfig"),
+                         ("fastspeech2", "Fastspeech2Config"),
+                         ("speedy_speech", "SpeedySpeechConfig"),
+                         ("forward_tts", "ForwardTTSConfig"))},
+}
+_ENCODER_CONFIGS = {
+    "speaker_encoder": "tts_tpu_torch.encoder.configs:SpeakerEncoderConfig",
+    "emotion_encoder": "tts_tpu_torch.encoder.configs:EmotionEncoderConfig",
 }
 _VOCODER_CONFIGS = {
     "hifigan": "tts_tpu_torch.vocoder.configs:HifiganConfig",
@@ -52,11 +64,13 @@ def _process_model_name(config_dict: Dict) -> str:
 
 
 def config_from_dict(config_dict: Dict):
-    """A ``config.json`` dict → the port's config object for its model or
-    vocoder."""
+    """A ``config.json`` dict → the port's config object for its model,
+    vocoder or encoder."""
     name = _process_model_name(config_dict).lower()
     if name in _VOCODER_CONFIGS:
         return _load(_VOCODER_CONFIGS[name]).from_dict(config_dict)
+    if name in _ENCODER_CONFIGS:
+        return _load(_ENCODER_CONFIGS[name]).from_dict(config_dict)
     if name in _UNPORTED_VOCODERS:
         raise NotImplementedError(f"the {name!r} vocoder is not ported to tts_tpu_torch yet "
                                   f"(ROADMAP.md item 16)")

@@ -1,5 +1,5 @@
 """The text front end of a mel model (port of ``tts_tpu/models/base.py:27``,
-``init_tokenizer``), shared by GlowTTS and Tacotron2.
+``init_tokenizer``), shared by GlowTTS, Tacotron2 and ForwardTTS.
 
 Differences from the source: a text cleaner or phonemizer the port lacks
 raises ``NotImplementedError`` naming it when the model loads, not at the
@@ -31,15 +31,18 @@ def init_front_end(config):
 
 
 def init_tokenizer(config):
-    """``(tokenizer, config)`` with ``config.num_chars`` set to the
+    """``(tokenizer, config)`` with ``num_chars`` (of ``config.model_args``
+    where that has one, as ForwardTTS's does, else of ``config``) set to the
     vocabulary's size when it is ``None``; a smaller ``num_chars`` raises."""
     tokenizer, config = init_front_end(config)
     n_symbols = tokenizer.characters.num_chars
-    if config.num_chars is None:
-        config.num_chars = n_symbols
-    if config.num_chars < n_symbols:
+    target = config.model_args if hasattr(getattr(config, "model_args", None), "num_chars") \
+        else config
+    if target.num_chars is None:
+        target.num_chars = n_symbols
+    if target.num_chars < n_symbols:
         raise ValueError(
-            f"num_chars={config.num_chars} is smaller than the {n_symbols} symbols of "
+            f"num_chars={target.num_chars} is smaller than the {n_symbols} symbols of "
             f"{type(tokenizer.characters).__name__}: set it to {n_symbols}, or to None to "
             f"take the vocabulary's size"
         )

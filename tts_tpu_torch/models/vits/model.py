@@ -21,6 +21,11 @@ and the decoder, upsampling the latent as ``inference`` does, where the
 reference does not (the JAX package's named divergence). Training waits
 for its own slice (ROADMAP.md item 17).
 
+D-vectors are L2-normalised before they condition anything, in inference
+and in voice conversion, as the reference VITS does; the JAX package feeds
+them as they are, which differs for a speaker's mean d-vector or one
+averaged over several clips, neither of unit length (ROADMAP.md F26).
+
 ``Vits.init_from_config`` attaches the speaker and language managers
 (``utils/managers.py``), reading their fields from the config's top level or
 from ``model_args``, whichever sets them; the JAX package reads the top
@@ -60,6 +65,13 @@ PORT_WEIGHTS = "model_torch.pt"  # the port's state_dict of VitsModule
 REFERENCE_WEIGHTS = "model.pth"  # a reference-layout (coqui) checkpoint
 
 DECODER_TYPES = ("hifigan", "istft")
+
+
+def normalize_d_vectors(d: torch.Tensor) -> torch.Tensor:
+    """Each d-vector over its L2 norm (at least 1e-12), as the reference's
+    ``F.normalize`` in ``_set_cond_input`` and ``voice_conversion``; neither
+    of the JAX package's paths normalises (ROADMAP.md F26)."""
+    return d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True), min=1e-12)
 
 
 def check_supported(config: VitsConfig) -> None:
@@ -190,13 +202,14 @@ class VitsModule(nn.Module):
 
     def _cond_vectors(self, aux_input: Optional[Dict]):
         """``(g [B, C_g] or None, lang [B, C_l] or None)`` from ``aux_input``'s
-        ``d_vectors`` (d-vector models), else ``speaker_ids``, and
-        ``language_ids``, each taken only by a model built for it."""
+        ``d_vectors`` (d-vector models; L2-normalised, ROADMAP.md F26), else
+        ``speaker_ids``, and ``language_ids``, each taken only by a model
+        built for it."""
         a = self.args
         g = lang = None
         if aux_input:
             if aux_input.get("d_vectors") is not None and a.use_d_vector_file:
-                g = aux_input["d_vectors"]
+                g = normalize_d_vectors(aux_input["d_vectors"])
             elif aux_input.get("speaker_ids") is not None and a.use_speaker_embedding:
                 g = self.emb_g(aux_input["speaker_ids"])
             if aux_input.get("language_ids") is not None and a.use_language_embedding:
@@ -527,11 +540,11 @@ class Vits:
 
     def _speaker_vector(self, cond) -> torch.Tensor:
         """Speaker ids (integers, ``[B]``) → ``emb_g`` rows; d-vectors
-        (floats, ``[B, C]``) as they are."""
+        (floats, ``[B, C]``) L2-normalised (ROADMAP.md F26)."""
         cond = torch.as_tensor(cond, device=self.device)
         if not cond.is_floating_point():
             return self.module.emb_g(cond.reshape(-1).long())
-        return cond.reshape(-1, cond.shape[-1]).float()
+        return normalize_d_vectors(cond.reshape(-1, cond.shape[-1]).float())
 
     def voice_conversion(self, y, y_lengths, speaker_cond_src, speaker_cond_tgt,
                          generator: Optional[torch.Generator] = None) -> torch.Tensor:

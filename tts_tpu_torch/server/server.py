@@ -17,23 +17,28 @@ route answers 404. ``/api/tts`` and ``/process`` run under one lock. With
 :class:`DynamicBatcher` instead, whose worker thread decodes up to N
 queued sentences of concurrent requests, of any speakers and languages, in
 one dispatch. Two kinds of request take the serial path under the lock,
-chosen before anything is queued: one with a ``speaker_wav``, and every
-request to a model whose speakers are d-vectors (the JAX server catches the
+chosen before anything is queued: one with a ``speaker_wav`` (a server-side
+path, turned into a d-vector by the speaker encoder of ``--encoder_path``
+and ``--encoder_config_path``, or of a zoo YourTTS directory; without one
+it is answered 400), and every request to a model whose speakers are
+d-vectors (the JAX server catches the
 batcher's ``ValueError`` to the same end). A request the batcher refuses
 (an unknown speaker) is answered 400, as the serial path would answer it.
 A model the batcher cannot take (XTTS; a mel model with a vocoder or
-Griffin-Lim, GlowTTS) is served serially, with one line said at start-up. With ``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
+Griffin-Lim: GlowTTS, Tacotron2, ForwardTTS) is served serially, with one line said at start-up. With ``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
 :class:`StreamBatcher`, whose worker thread batches up to N concurrent
 streams.
 
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
 [--speakers_file_path speakers.json] [--max_batch 4] [--batch_window_ms 10]
 [--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
-config.json`` for a VITS or GlowTTS checkpoint file, or ``--model_name
-tts_models/en/vctk/vits`` for a zoo model (``--list_models`` prints the
-zoo's names); ``--vocoder_path FILE --vocoder_config_path config.json``, or
-``--vocoder_name``, gives a mel model its vocoder. VITS and GlowTTS serve
-``/api/tts`` (their streaming route answers 501).
+config.json`` for a VITS, GlowTTS, Tacotron2 or ForwardTTS checkpoint file,
+or ``--model_name tts_models/en/vctk/vits`` for a zoo model
+(``--list_models`` prints the zoo's names); ``--vocoder_path FILE
+--vocoder_config_path config.json``, or ``--vocoder_name``, gives a mel
+model its vocoder; ``--encoder_path FILE --encoder_config_path
+config.json`` a d-vector model its speaker encoder. Models other than XTTS
+serve ``/api/tts`` (their streaming route answers 501).
 """
 
 from __future__ import annotations
@@ -189,7 +194,7 @@ def create_handler(synthesizer, lock: threading.Lock, batcher=None, stream_batch
                 except ValueError as e:
                     self._send(400, str(e).encode())
                     return
-                except NotImplementedError as e:  # e.g. speaker_wav for VITS
+                except NotImplementedError as e:  # a path the port does not run yet
                     self._send(501, str(e).encode())
                     return
                 self._send(200, wav, "audio/wav")
@@ -299,6 +304,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--speakers_file_path", default=None,
                         help="JSON speakers file for a multi-speaker model (replaces the "
                              "config's)")
+    parser.add_argument("--encoder_path", default=None,
+                        help="speaker-encoder checkpoint for d-vectors from speaker_wav")
+    parser.add_argument("--encoder_config_path", default=None,
+                        help="config.json of --encoder_path")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument("--port", type=int, default=5002, help="0 picks a free port")
     parser.add_argument("--max_batch", type=int, default=1,
@@ -325,7 +334,8 @@ def server_from_args(args: argparse.Namespace) -> ThreadingHTTPServer:
     tts = TTS(model_name=args.model_name or "", model_path=args.model_path,
               config_path=args.config_path, vocoder_path=vocoder_path,
               vocoder_config_path=vocoder_config, device=args.device,
-              speakers_file_path=args.speakers_file_path)
+              speakers_file_path=args.speakers_file_path, encoder_path=args.encoder_path,
+              encoder_config_path=args.encoder_config_path)
     return create_server(tts.synthesizer, args.port, max_batch=args.max_batch,
                          batch_window_ms=args.batch_window_ms, stream_batch=args.stream_batch,
                          stream_window_ms=args.stream_window_ms)

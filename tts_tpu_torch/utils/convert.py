@@ -17,13 +17,20 @@ a handful of rules rather than a table:
   ``embedding`` → ``weight``; other leaves keep their names.
 
 ``tacotron2_from_jax_params`` adds one rule for Tacotron2: flax's LSTM
-cells, eight Denses each, are packed into torch's LSTM weights.
+cells, eight Denses each, are packed into torch's LSTM weights;
+``speaker_encoder_from_jax_params`` packs the LSTM speaker encoder's cells
+the same way, and ``forward_tts_from_jax_params`` packs flax's attention
+Denses (``query``/``key``/``value`` ``[C, H, dh]``, ``out`` ``[H, dh, C]``)
+into ``in_proj_weight`` ``[3C, C]`` and ``out_proj``, and drops the
+training-only aligner.
 
 ``reference_vits_state``, ``reference_glow_tts_state``,
-``reference_melgan_state`` and ``reference_tacotron2_state`` write the
-port's weights in the reference layout, the inverses of
+``reference_melgan_state``, ``reference_tacotron2_state``,
+``reference_speaker_encoder_state`` and ``reference_forward_tts_state``
+write the port's weights in the reference layout, the inverses of
 ``load_reference_vits``, ``load_reference_glow_tts``,
-``load_reference_vocoder`` and ``load_reference_tacotron2``.
+``load_reference_vocoder``, ``load_reference_tacotron2``,
+``load_reference_speaker_encoder`` and ``load_reference_forward_tts``.
 
 ``load_reference_xtts`` / ``load_reference_vits`` / ``load_reference_glow_tts``
 / ``load_reference_vocoder`` / ``load_reference_tacotron2`` read a
@@ -32,7 +39,8 @@ reference-layout (coqui) checkpoint, map it to the flax-layout tree with
 ``convert_hifigan_generator`` or ``convert_melgan_generator`` /
 ``convert_tacotron2`` and from there into the port by the rules above.
 Those converters and what they call are the port's own copy of the XTTS,
-VITS, GlowTTS, HiFiGAN, MelGAN and Tacotron2 parts of
+VITS, GlowTTS, HiFiGAN, MelGAN, Tacotron2, speaker encoder and ForwardTTS
+parts of
 ``tts_tpu/utils/convert.py`` (numpy only; the port imports nothing of
 ``tts_tpu``): parity tests hold the copy equal to the JAX package's
 converters, leaf for leaf (``tests/test_torch_host_copies.py``).
@@ -952,8 +960,10 @@ def reference_vits_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndar
 
 def load_reference_vits(state: Mapping, args) -> Dict[str, torch.Tensor]:
     """A reference-layout VITS state dict (tensors or arrays) → the
-    state_dict of ``VitsModule``; ``args`` is the model's ``VitsArgs``."""
-    state = {k: _to_numpy(v) for k, v in state.items()}
+    state_dict of ``VitsModule``; ``args`` is the model's ``VitsArgs``. A
+    YourTTS checkpoint's ``speaker_encoder.*`` (the encoder its training
+    loss used) is dropped, as ``tts_tpu/utils/zoo_convert.py:35`` drops it."""
+    state = {k: _to_numpy(v) for k, v in state.items() if not k.startswith("speaker_encoder.")}
     return vits_from_jax_params(convert_vits_generator(state, args))
 
 
@@ -1115,4 +1125,271 @@ def reference_tacotron2_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np
     if unmapped or any(".norm." in k for k in out):
         raise ValueError(f"no reference layout for {unmapped or 'layer norms'} (folded norms "
                          f"and location or DCA attention only)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Speaker encoders (copied from ``tts_tpu/utils/convert.py:1496-1512``), unchanged.
+# ---------------------------------------------------------------------------
+
+
+def convert_lstm_speaker_encoder(state, num_layers=3):
+    """Reference LSTMSpeakerEncoder (LSTMWithProjection stack) → flax params
+    for :class:`tts_tpu.encoder.model.LSTMSpeakerEncoder`."""
+    p = {}
+    for i in range(num_layers):
+        p[f"lstm_{i}"] = _lstm_cell(state, f"layers.{i}.lstm", "_l0")
+        p[f"proj_{i}"] = {"kernel": linear_kernel(state[f"layers.{i}.linear.weight"])}
+    return {"params": p}
+
+
+def convert_speaker_encoder(state, config):
+    """Dispatch on config.model_params.model_name (lstm | resnet)."""
+    mp = dict(getattr(config, "model_params", {}) or {})
+    name = mp.get("model_name", "resnet")
+    if name == "lstm":
+        return convert_lstm_speaker_encoder(state, mp.get("num_lstm_layers", 3))
+    return {"params": convert_resnet_speaker_encoder(state)}
+
+
+def speaker_encoder_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``LSTMSpeakerEncoder`` or ``ResNetSpeakerEncoder``
+    (folded norms) params → the state_dict of the port's module: each flax
+    LSTM cell packed into ``layers.<i>.lstm``, its projection into
+    ``layers.<i>.linear``; the ResNet by the generic rules."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    if "lstm_0" not in params:
+        return flax_to_state_dict(params)
+    state = {}
+    for i in range(len([k for k in params if k.startswith("lstm_")])):
+        state.update({f"layers.{i}.lstm.{k}": torch.from_numpy(v)
+                      for k, v in _pack_lstm(params[f"lstm_{i}"], "_l0").items()})
+        kernel = np.asarray(params[f"proj_{i}"]["kernel"], np.float32)
+        state[f"layers.{i}.linear.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+    return state
+
+
+def load_reference_speaker_encoder(state: Mapping, config) -> Dict[str, torch.Tensor]:
+    """A reference-layout speaker encoder state dict (tensors or arrays; a
+    ResNet's ``torch_spec`` buffers are not read) → the state_dict of the
+    port's module that ``config.model_params`` names."""
+    state = {k: _to_numpy(v) for k, v in state.items()}
+    return speaker_encoder_from_jax_params(convert_speaker_encoder(state, config))
+
+
+_RESNET_ENCODER_RULES = (
+    (r"\.se\.fc1\.", ".se.fc.0."),
+    (r"\.se\.fc2\.", ".se.fc.2."),
+    (r"\.downsample_conv\.", ".downsample.0."),
+    (r"\.downsample_bn\.", ".downsample.1."),
+    (r"^attn_conv1\.", "attention.0."),
+    (r"^attn_bn\.", "attention.2."),
+    (r"^attn_conv2\.", "attention.3."),
+)
+_BATCH_NORM = re.compile(r"(^|\.)(bn\d|downsample\.1|attention\.2)\.weight$")
+
+
+def reference_speaker_encoder_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's speaker encoder in the reference's
+    (coqui) names and layouts: the LSTM's as it is; the ResNet's 2-D
+    kernels over (mel, time), each folded norm as an eval-mode BatchNorm
+    (running mean 0, running variance ``1 - 1e-5``, so that it folds back
+    exactly). :func:`load_reference_speaker_encoder` maps it back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = _reference_key(key, _RESNET_ENCODER_RULES)
+        if v.ndim == 4:
+            v = np.ascontiguousarray(v.transpose(0, 1, 3, 2))  # (time, mel) taps → (mel, time)
+        out[k] = v
+        if _BATCH_NORM.search(k):
+            base = k[: -len("weight")]
+            out[base + "running_mean"] = np.zeros_like(v)
+            out[base + "running_var"] = np.full_like(v, np.float32(1) - np.float32(1e-5))
+            out[base + "num_batches_tracked"] = np.zeros((), np.int64)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ForwardTTS (copied from ``tts_tpu/utils/convert.py:1355-1441``), unchanged.
+# ---------------------------------------------------------------------------
+
+
+def _mha(state, prefix, heads):
+    """torch nn.MultiheadAttention → flax MultiHeadDotProductAttention."""
+    w = state[f"{prefix}.in_proj_weight"]  # [3D, D] rows q,k,v
+    b = state[f"{prefix}.in_proj_bias"]
+    D = w.shape[1]
+    dh = D // heads
+
+    def leaf(wi, bi):
+        return {"kernel": wi.T.reshape(D, heads, dh), "bias": bi.reshape(heads, dh)}
+
+    out_w = state[f"{prefix}.out_proj.weight"]  # [D, D]
+    return {
+        "query": leaf(w[:D], b[:D]),
+        "key": leaf(w[D : 2 * D], b[D : 2 * D]),
+        "value": leaf(w[2 * D :], b[2 * D :]),
+        "out": {"kernel": out_w.T.reshape(heads, dh, D), "bias": state[f"{prefix}.out_proj.bias"]},
+    }
+
+
+def _fft_block(state, prefix, num_layers, heads):
+    """Reference FFTransformerBlock ``fft_layers.{i}`` → our ``fft_{i}``."""
+    p = {}
+    for i in range(num_layers):
+        k = f"{prefix}fft_layers.{i}"
+        p[f"fft_{i}"] = {
+            "self_attn": _mha(state, f"{k}.self_attn", heads),
+            "conv1": _conv(state, f"{k}.conv1"),
+            "conv2": _conv(state, f"{k}.conv2"),
+            "norm1": _layernorm(state, f"{k}.norm1"),
+            "norm2": _layernorm(state, f"{k}.norm2"),
+        }
+    return p
+
+
+def _variance_predictor(state, prefix):
+    """DurationPredictor-style conv/LN/conv/LN/proj stack (forward_tts)."""
+    return {
+        "conv_1": _conv(state, f"{prefix}conv_1"),
+        "norm_1": {"LayerNorm_0": _layernorm(state, f"{prefix}norm_1")},
+        "conv_2": _conv(state, f"{prefix}conv_2"),
+        "norm_2": {"LayerNorm_0": _layernorm(state, f"{prefix}norm_2")},
+        "proj": _plain_conv(state, f"{prefix}proj"),
+    }
+
+
+def convert_forward_tts(state, args):
+    """Full reference ForwardTTS state dict → flax params.
+
+    ``args`` is our ForwardTTSArgs (layer counts/heads drive the maps).
+    Supports the fftransformer encoder/decoder types (FastPitch/FastSpeech
+    family); conv-BN types (speedy_speech) are not yet weight-compatible.
+    """
+    enc_p = getattr(args, "encoder_params", {}) or {}
+    dec_p = getattr(args, "decoder_params", {}) or {}
+    enc_layers = enc_p.get("num_layers", 6)
+    enc_heads = enc_p.get("num_heads", 1)
+    dec_layers = dec_p.get("num_layers", 6)
+    dec_heads = dec_p.get("num_heads", 1)
+
+    p = {
+        "emb": {"embedding": state["emb.weight"]},
+        "encoder": _fft_block(state, "encoder.encoder.", enc_layers, enc_heads),
+        "decoder": _fft_block(
+            state, "decoder.decoder.transformer_block.", dec_layers, dec_heads
+        ),
+        "proj": _dense(state, "decoder.decoder.postnet"),
+        "duration_predictor": _variance_predictor(state, "duration_predictor."),
+    }
+    if "pos_encoder.scale" in state:
+        p["pos_encoder"] = {"scale": state["pos_encoder.scale"].reshape(-1)}
+    if "pitch_predictor.conv_1.weight" in state:
+        p["pitch_predictor"] = _variance_predictor(state, "pitch_predictor.")
+        p["pitch_emb"] = _conv(state, "pitch_emb")
+    if "energy_predictor.conv_1.weight" in state:
+        p["energy_predictor"] = _variance_predictor(state, "energy_predictor.")
+        p["energy_emb"] = _conv(state, "energy_emb")
+    if "aligner.key_layer.0.weight" in state:
+        p["aligner"] = {
+            "key_conv1": _conv(state, "aligner.key_layer.0"),
+            "key_conv2": _conv(state, "aligner.key_layer.2"),
+            "query_conv1": _conv(state, "aligner.query_layer.0"),
+            "query_conv2": _conv(state, "aligner.query_layer.2"),
+            "query_conv3": _conv(state, "aligner.query_layer.4"),
+        }
+    if "emb_g.weight" in state:
+        p["emb_g"] = {"embedding": state["emb_g.weight"]}
+    return {"params": p}
+
+
+def _pack_attention(attn: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``MultiHeadDotProductAttention`` Denses → ``in_proj_weight``
+    ``[3C, C]`` (rows q, k, v), ``in_proj_bias`` and ``out_proj``."""
+    def rows(name):
+        kernel = np.asarray(attn[name]["kernel"], np.float32)  # [C, H, dh]
+        return kernel.reshape(kernel.shape[0], -1).T, np.asarray(attn[name]["bias"],
+                                                                 np.float32).reshape(-1)
+
+    (wq, bq), (wk, bk), (wv, bv) = rows("query"), rows("key"), rows("value")
+    out = np.asarray(attn["out"]["kernel"], np.float32)  # [H, dh, C]
+    return {"in_proj_weight": np.concatenate([wq, wk, wv]),
+            "in_proj_bias": np.concatenate([bq, bk, bv]),
+            "out_proj.weight": out.reshape(-1, out.shape[-1]).T,
+            "out_proj.bias": np.asarray(attn["out"]["bias"], np.float32)}
+
+
+def forward_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ForwardTTSModule`` params (or those of one of its
+    blocks) → the state_dict of the port's module: the generic rules, each
+    ``self_attn`` packed (:func:`_pack_attention`); the ``aligner``, which
+    only training runs, is dropped."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    attns: Dict[str, np.ndarray] = {}
+
+    def split(tree: Mapping, path: Tuple[str, ...]) -> Dict[str, Any]:
+        out = {}
+        for key, value in tree.items():
+            if key == "aligner":
+                continue
+            if key == "self_attn":
+                attns.update({".".join(path + (key, leaf)): w
+                              for leaf, w in _pack_attention(value).items()})
+            else:
+                out[key] = split(value, path + (key,)) if isinstance(value, Mapping) else value
+        return out
+
+    state = flax_to_state_dict(split(params, ()))
+    state.update({k: torch.from_numpy(np.array(v, order="C")) for k, v in attns.items()})
+    return state
+
+
+def load_reference_forward_tts(state: Mapping, args) -> Dict[str, torch.Tensor]:
+    """A reference-layout ForwardTTS state dict (tensors or arrays) → the
+    state_dict of ``ForwardTTSModule``; ``args`` is the model's
+    ``ForwardTTSArgs``. The aligner and the positional table are not kept.
+    FFTransformer encoders and decoders only: the JAX package maps no
+    SpeedySpeech checkpoint (its conv blocks have LayerNorm where the
+    reference's have BatchNorm), so neither does the port."""
+    if args.encoder_type != "fftransformer" or args.decoder_type != "fftransformer":
+        raise NotImplementedError("no reference-layout converter for the residual_conv_bn "
+                                  "blocks of SpeedySpeech (ROADMAP.md item 16)")
+    state = {k: _to_numpy(v) for k, v in state.items()}
+    return forward_tts_from_jax_params(convert_forward_tts(state, args))
+
+
+_FORWARD_TTS_RULES = (
+    (r"^encoder\.fft_(\d+)\.", r"encoder.encoder.fft_layers.\1."),
+    (r"^decoder\.fft_(\d+)\.", r"decoder.decoder.transformer_block.fft_layers.\1."),
+    (r"^proj\.", "decoder.decoder.postnet."),
+    (r"^pos_encoder\.weight$", "pos_encoder.scale"),
+)
+
+
+def reference_forward_tts_state(state: Mapping[str, torch.Tensor],
+                                pe: torch.Tensor = None) -> Dict[str, np.ndarray]:
+    """The state_dict of a ``ForwardTTSModule`` with FFTransformer blocks in
+    the reference's (coqui) names and layouts: ``gamma``/``beta``
+    ``[1, C, 1]`` for the predictors' norms, a 1x1 convolution for the
+    output projection, and the
+    positional table ``pe`` (``[max_len, C]``) as the reference's buffer
+    ``[1, C, max_len]`` when given. :func:`load_reference_forward_tts` maps
+    it back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = _reference_key(key, _FORWARD_TTS_RULES)
+        if re.search(r"predictor\.norm_[12]\.(weight|bias)$", k):
+            k = k[: -len("weight")] + "gamma" if k.endswith("weight") else k[: -len("bias")] + "beta"
+            v = v[None, :, None]
+        if k == "decoder.decoder.postnet.weight":
+            v = v[:, :, None]
+        out[k] = v
+    if any(".block" in k for k in out):
+        raise ValueError("no reference layout for residual_conv_bn blocks (FFTransformer only)")
+    if pe is not None:
+        out["pos_encoder.pe"] = pe.detach().cpu().numpy().T[None]
     return out

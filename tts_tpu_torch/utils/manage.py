@@ -22,7 +22,11 @@ Differences from the source:
   ``NotImplementedError`` (ROADMAP.md item 16).
 * ``_update_paths`` also points ``audio.stats_path`` at the directory's
   ``scale_stats.npy``, as the reference does and the JAX copy does not
-  (ROADMAP.md F17).
+  (ROADMAP.md F17), and ``speaker_encoder_model_path`` and
+  ``speaker_encoder_config_path`` (top level and ``model_args``) at the
+  directory's ``model_se.pth.tar`` (or ``model_se.pth``) and
+  ``config_se.json``, as the reference does for YourTTS; the JAX copy
+  leaves them at the trainer's paths (ROADMAP.md F23).
 
 :func:`unported_reason` says, from a zoo name and the catalog alone, why
 the port cannot load a model yet; ``TTS`` asks it before any download.
@@ -57,8 +61,8 @@ def _family_reason(model: str, model_item: Dict) -> Optional[str]:
         return None
     if model.startswith("xtts_v1"):
         return "the XTTS v1 layout is not ported yet (ROADMAP.md item 12)"
-    if model == "your_tts":
-        return "YourTTS is not ported yet (ROADMAP.md item 15)"
+    if model in ("your_tts", "fast_pitch"):
+        return None
     if "vits" in model.lower() or "vits" in (model_item.get("description") or "").lower():
         return None
     if "GST" in model or "capacitron" in model:
@@ -71,9 +75,11 @@ def _family_reason(model: str, model_item: Dict) -> Optional[str]:
 def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     """Why the port cannot load the zoo model ``model_name`` of the catalog
     ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for what it
-    runs: VITS (by its name or its description), XTTS v2, GlowTTS and
-    Tacotron2 (without GST) whose ``default_vocoder`` it runs (or that has
-    none: Griffin-Lim speaks it), and the MelGAN and HiFiGAN vocoders. A
+    runs: VITS (by its name or its description), YourTTS, XTTS v2, GlowTTS,
+    Tacotron2 (without GST) and FastPitch whose ``default_vocoder`` it runs
+    (or that has none: Griffin-Lim speaks it), and the MelGAN and HiFiGAN
+    vocoders. SpeedySpeech names item 16: neither package converts its
+    reference checkpoint. A
     model whose family is not ported names its own item, whatever its
     vocoder."""
     model_type, lang, dataset, model = model_name.split("/")
@@ -264,7 +270,10 @@ class ModelManager:
         the directory holds ``scale_stats.npy``, as the reference does. The
         JAX package's copy leaves ``stats_path`` at the trainer's path, where
         the ``AudioProcessor`` then fails to read it or reads other stats
-        (ROADMAP.md F17)."""
+        (ROADMAP.md F17). The speaker encoder's paths, where the config sets
+        them, go to the directory's ``model_se.pth.tar`` (or
+        ``model_se.pth``) and ``config_se.json`` when those are there
+        (F23)."""
         with open(config_path, "r", encoding="utf-8") as f:
             cfg = json.load(f)
 
@@ -273,9 +282,13 @@ class ModelManager:
             if key in d and d[key] and os.path.isfile(path):
                 d[key] = path
 
+        encoder = next((f for f in ("model_se.pth.tar", "model_se.pth")
+                        if os.path.isfile(os.path.join(output_path, f))), "model_se.pth.tar")
         changed = False
         for d in (cfg, cfg.get("model_args") or {}):
             before = dict(d)
+            _set(d, "speaker_encoder_model_path", encoder)
+            _set(d, "speaker_encoder_config_path", "config_se.json")
             _set(d, "speakers_file", "speakers.json")
             if not os.path.isfile(os.path.join(output_path, "speakers.json")):
                 _set(d, "speakers_file", "speakers.pth")

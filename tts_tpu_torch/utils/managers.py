@@ -16,8 +16,11 @@ Three differences from the source:
   package reads the top level only, so a VITS config that sets the speaker
   and language fields on ``model_args``, as both of the repo's recipes do,
   gets no manager there (ROADMAP.md F11).
-* The speaker encoder (``init_encoder``, ``compute_embedding_from_clip``)
-  is not ported: both raise ``NotImplementedError``.
+* ``init_encoder`` loads the speaker encoder on ``device`` (``"cuda"``
+  unless the caller names another; ``use_cuda`` is taken and not read).
+  ``compute_embedding_from_clip`` loads each clip at the encoder's rate
+  through its ``AudioProcessor``, as the JAX package does; a list of clips
+  gives the mean of their d-vectors.
 * ``load_file`` reads ``.pth`` files natively.
 """
 
@@ -32,10 +35,6 @@ import torch
 
 __all__ = ["BaseIDManager", "EmbeddingManager", "SpeakerManager", "LanguageManager",
            "config_setting", "init_speaker_manager"]
-
-_ENCODER = ("the speaker encoder (--encoder_path, d-vectors from a clip) is not ported to "
-            "tts_tpu_torch yet (ROADMAP.md slice 3, item 15)")
-
 
 def config_setting(config, name: str):
     """``name`` from the top level of ``config`` or from its ``model_args``,
@@ -196,11 +195,28 @@ class EmbeddingManager(BaseIDManager):
         return sorted(self.embeddings.keys())
 
     # ------------------------------------------------------------------
-    def init_encoder(self, model_path: str, config_path: str, use_cuda: bool = False) -> None:
-        raise NotImplementedError(_ENCODER)
+    def init_encoder(self, model_path: str, config_path: str, use_cuda: bool = False,
+                     device="cuda") -> None:
+        """Load a speaker encoder and its ``AudioProcessor`` for d-vectors
+        from clips (reference ``managers.py:315``)."""
+        from tts_tpu_torch.encoder.model import load_speaker_encoder
+
+        self.encoder, self.encoder_ap = load_speaker_encoder(model_path, config_path, device)
 
     def compute_embedding_from_clip(self, wav_file: Union[str, List[str]]) -> List:
-        raise NotImplementedError(_ENCODER)
+        """wav file(s) → d-vector through the loaded encoder (reference
+        ``managers.py:331``): each clip at the encoder's sample rate, the
+        mean over a list of clips."""
+        if self.encoder is None:
+            raise ValueError(" [!] init_encoder first.")
+
+        def _compute(path: str) -> np.ndarray:
+            wav = self.encoder_ap.load_wav(path, sr=self.encoder_ap.sample_rate)
+            return self.encoder.compute_embedding_from_wav(wav)
+
+        if isinstance(wav_file, list):
+            return np.stack([_compute(f) for f in wav_file]).mean(0).tolist()
+        return np.asarray(_compute(wav_file)).flatten().tolist()
 
 
 class SpeakerManager(EmbeddingManager):

@@ -1,6 +1,7 @@
 """Text → waveform or mel for one sentence (port of
 ``tts_tpu/utils/synthesis.py``): VITS, which emits the waveform, and
-GlowTTS and Tacotron2, which emit a mel for a vocoder or Griffin-Lim.
+GlowTTS, Tacotron2 and the ForwardTTS family, which emit a mel for a
+vocoder or Griffin-Lim.
 
 The JAX package's rules are kept, since the audio depends on them:
 
@@ -11,8 +12,9 @@ The JAX package's rules are kept, since the audio depends on them:
   its predicted length rounded up to a multiple of 32 within that: the model
   decodes the whole budget without a frame mask, so the last frames of an
   utterance depend on the padded tail, and an exact-length decode would
-  differ there. A GlowTTS has no durations pass and decodes at the budget,
-  which cuts a sentence predicted longer (as in the JAX package). An
+  differ there. GlowTTS and ForwardTTS have no durations pass and decode at
+  the budget, which cuts a sentence predicted longer (as in the JAX
+  package). An
   autoregressive model (Tacotron2, which has a reduction factor ``r``)
   decodes at most ``max(1, budget // r)`` steps of ``r`` frames, its decode's
   ``r`` (ROADMAP.md F20), and stops where every row has stopped;

@@ -1,11 +1,11 @@
 """Synthesizer: load a model once, render text many times (port of
-``tts_tpu/utils/synthesizer.py`` for XTTS, VITS, and GlowTTS and Tacotron2
-with a vocoder).
+``tts_tpu/utils/synthesizer.py`` for XTTS, VITS, and GlowTTS, Tacotron2 and
+the ForwardTTS family with a vocoder).
 
 A model loads from a directory (``config.json`` plus weights: the port's
 ``model_torch.pt`` or a reference-layout ``model.pth``; XTTS also needs its
-``vocab.json``) or, for VITS, GlowTTS and Tacotron2, from a checkpoint file
-and its ``config.json``. A vocoder (``vocoder_checkpoint`` with its
+``vocab.json``) or, for VITS, GlowTTS, Tacotron2 and ForwardTTS, from a
+checkpoint file and its ``config.json``. A vocoder (``vocoder_checkpoint`` with its
 ``vocoder_config``: HiFiGAN or a MelGAN, the port's state_dict or a
 reference-layout checkpoint) turns a mel model's output into audio; a mel
 model without one speaks through Griffin-Lim (``use_griffin_lim``, on by
@@ -16,7 +16,7 @@ it. For the waveform models (VITS), a request of two or more sentences is
 decoded as one sequence-packed grid
 (:func:`~tts_tpu_torch.utils.synthesis.decode_packed`), and a single
 sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`. A mel
-model (GlowTTS, Tacotron2) decodes sentence by sentence, and each mel goes
+model (GlowTTS, Tacotron2, ForwardTTS) decodes sentence by sentence, and each mel goes
 to the vocoder through the bridge of ``_vocode``: denormalised with the TTS
 model's ``AudioProcessor``, normalised with the vocoder's, resampled in time
 when the two sample rates differ, then ``generator.inference`` on the
@@ -33,19 +33,33 @@ long quiet stretch when its audio config has ``do_trim_silence`` on, as
 the JAX package's does (:func:`~tts_tpu_torch.utils.synthesis.trim_silence`,
 with the TTS model's ``AudioProcessor``); one loaded from a model directory
 is not trimmed. A VITS config's audio section (``VitsAudioConfig``) has no
-such field, so VITS is trimmed by neither package; a GlowTTS or Tacotron2
-config's (``BaseAudioConfig``) has it on by default.
+such field, so VITS is trimmed by neither package; a GlowTTS, Tacotron2
+or ForwardTTS config's (``BaseAudioConfig``) has it on by default.
 
-Speakers and languages of a VITS model are named through its managers
-(``utils/managers.py``), with the JAX ``Synthesizer``'s errors: an unknown
-name, no speaker for a multi-speaker model or no language for a
+Speakers and languages of a VITS or ForwardTTS model are named through its
+managers (``utils/managers.py``), with the JAX ``Synthesizer``'s errors: an
+unknown name, no speaker for a multi-speaker model or no language for a
 multi-language model raise ``ValueError``; a manager of one entry is taken
 when none is named. ``speakers_file_path`` and ``language_ids_file_path``
 override the config's files, on its top level and in ``model_args``. A model
 without a speaker (or language) manager takes no speaker (or language)
-name. ``speaker_wav`` needs the speaker encoder, which is not ported for
-VITS: it raises ``NotImplementedError``, where the JAX ``Synthesizer``
-decodes without the voice.
+name.
+
+``speaker_wav`` (a clip, or a list of clips) clones a voice with a d-vector
+model (YourTTS): the speaker encoder of ``encoder_checkpoint`` and
+``encoder_config`` computes its d-vector (``SpeakerManager.
+compute_embedding_from_clip``), which takes the place of a named speaker.
+Without an encoder the request raises ``ValueError`` naming
+``--encoder_path`` and ``encoder_path=``; the JAX ``Synthesizer`` decodes it
+without any speaker conditioning (ROADMAP.md F22). A zoo directory that
+holds the reference's speaker encoder (``model_se.pth.tar`` or
+``model_se.pth``, with ``config_se.json``), to which the model manager has
+pointed ``model_args.speaker_encoder_model_path`` and
+``speaker_encoder_config_path``, loads that encoder when none is given; the
+JAX package loads none there (F23). Those config paths are read only when
+they name files in the model's own directory: otherwise they point at the
+trainer's disk. An encoder given to a model whose speakers are not
+d-vectors raises.
 
 ``tts(reference_wav=..., speaker_name=..., reference_speaker_name=...)``
 transfers a recording spoken by one of a multi-speaker VITS model's
@@ -95,15 +109,21 @@ def split_into_sentences(text: str) -> List[str]:
     return [p.strip() for p in _SENTENCE_RE.split(text) if p.strip()]
 
 
-_ENCODER = ("speaker_wav needs the speaker encoder, which is not ported for VITS "
-            "(ROADMAP.md slice 3, item 15)")
+_NO_ENCODER = ("speaker_wav needs a speaker encoder to compute its d-vector: load one with "
+               "--encoder_path and --encoder_config_path (TTS(encoder_path=..., "
+               "encoder_config_path=...)); without it the JAX package decodes with no speaker "
+               "(ROADMAP.md F22)")
+# models that load from a checkpoint file and its config.json
+FILE_MODELS = ("vits", "glow_tts", "tacotron2", "fast_pitch", "fast_speech", "fastspeech2",
+               "speedy_speech", "forward_tts")
 
 
 class Synthesizer:
     def __init__(self, tts_checkpoint: str = "", tts_config_path: str = "", model_dir: str = "",
                  device="cuda", speakers_file_path: str = "", language_ids_file_path: str = "",
                  vocoder_checkpoint: str = "", vocoder_config: str = "",
-                 use_griffin_lim: bool = True):
+                 use_griffin_lim: bool = True, encoder_checkpoint: str = "",
+                 encoder_config: str = ""):
         self.device = resolve_device(device)
         self.speakers_file_path = speakers_file_path
         self.language_ids_file_path = language_ids_file_path
@@ -119,6 +139,7 @@ class Synthesizer:
         path = model_dir or tts_checkpoint
         if path:
             self._load_tts(path, self._config_path(path, tts_config_path))
+            self._load_encoder(path, encoder_checkpoint, encoder_config)
         if vocoder_checkpoint:
             self._load_vocoder(vocoder_checkpoint,
                                self._config_path(vocoder_checkpoint, vocoder_config))
@@ -147,7 +168,7 @@ class Synthesizer:
             model = setup_model(config)
         if os.path.isdir(path):
             model = model.load_checkpoint(config, checkpoint_dir=path, device=self.device)
-        elif config.model in ("vits", "glow_tts", "tacotron2"):
+        elif config.model in FILE_MODELS:
             model = model.load_checkpoint(config, checkpoint_path=path, device=self.device)
         else:
             raise ValueError(f"{config.model!r} loads from a model directory, not a file")
@@ -159,6 +180,24 @@ class Synthesizer:
         self.output_sample_rate = (
             getattr(getattr(config, "model_args", None), "output_sample_rate", None)
             or config.audio.sample_rate)
+
+    def _load_encoder(self, path: str, checkpoint: str, config_path: str) -> None:
+        """The speaker encoder for ``speaker_wav``: ``checkpoint`` with its
+        config, or else the one the model's config names inside the model's
+        own directory (a zoo directory, F23)."""
+        if not checkpoint:
+            args = getattr(self.tts_config, "model_args", None)
+            home = os.path.abspath(path if os.path.isdir(path) else os.path.dirname(path))
+            found = [getattr(args, f, None) or "" for f in ("speaker_encoder_model_path",
+                                                            "speaker_encoder_config_path")]
+            if not all(os.path.isfile(f) and os.path.dirname(os.path.abspath(f)) == home
+                       for f in found):
+                return
+            checkpoint, config_path = found
+        if not getattr(self.tts_model, "uses_d_vectors", False):
+            raise ValueError(f"{self.tts_config.model!r} takes no speaker encoder: its speakers "
+                             f"are not d-vectors")
+        self.tts_model.speaker_manager.init_encoder(checkpoint, config_path, device=self.device)
 
     def _load_vocoder(self, path: str, config_path: str) -> None:
         """A vocoder checkpoint file with its config: the generator its
@@ -308,12 +347,15 @@ class Synthesizer:
 
     # ------------------------------------------------------------------
     def _resolve_speaker(self, speaker_name: Optional[str], speaker_wav=None):
-        """A speaker name → ``(speaker_id, d_vector)``, one of them ``None``
-        (both for a model without speakers), with the JAX ``Synthesizer``'s
-        errors."""
-        if speaker_wav is not None:
-            raise NotImplementedError(_ENCODER)
+        """A speaker name, or a ``speaker_wav`` through the speaker encoder,
+        → ``(speaker_id, d_vector)``, one of them ``None`` (both for a model
+        without speakers), with the JAX ``Synthesizer``'s errors; a
+        ``speaker_wav`` without an encoder raises (ROADMAP.md F22)."""
         sm = getattr(self.tts_model, "speaker_manager", None)
+        if speaker_wav is not None:
+            if getattr(sm, "encoder", None) is None:
+                raise ValueError(_NO_ENCODER)
+            return None, np.asarray(sm.compute_embedding_from_clip(speaker_wav), np.float32)
         if sm is None or not sm.name_to_id:
             if speaker_name is not None:
                 raise ValueError(f"{self.tts_config.model!r} is a single-speaker model "
