@@ -152,7 +152,38 @@ Phases; each raises on failure and the script then exits non-zero:
     SpeedySpeech card against CPU on the short one, latency, RTF, the stage
     split, busy share and kernels, ``fast_pitch`` by zoo name with
     ``hifigan_v2``, the command line and the server (serial); peak memory.
-    ``decode_attention`` must not launch.
+    ``decode_attention`` must not launch;
+13. Overflow and NeuralHMM with HiFiGAN, then AlignTTS and DelightfulTTS,
+    at the LJSpeech recipes' widths (Overflow's and NeuralHMM's
+    ``phoneme_cleaners`` with ``en-us`` phonemes, NeuralHMM's audio;
+    AlignTTS's graphemes; DelightfulTTS's phonemes, its embedding sized by
+    the phoneme set), fp32 weights from seed 0. Overflow's transition bias
+    (the output net projection's last row) is calibrated on the card: of a
+    grid of biases, the one whose medium-sentence decode ends nearest 3
+    frames a state, its decisions at least 1e-3 from the threshold (the
+    grid is printed). The model is saved in the reference layout with
+    stand-in mel statistics as ``mean``/``std`` and loaded back through
+    ``load_reference_overflow``. Then: the three phase 6 sentences card
+    against CPU (``y_lengths`` equal, mel within 1e-4 with its largest
+    difference per 100 frames and the decisions' smallest distance from
+    the threshold; the waveform with HiFiGAN on the short and medium ones);
+    B = 4 rows against their own B = 1 decodes; a decode whose transition
+    never fires (bias -20), cut at its budget with every step run, card
+    against CPU; ms per frame at B = 1 and 4 (the slope between 256 and 768
+    frames of that decode), kernels per frame and the busy share; latency
+    and RTF at natural length, the medium sentence's stages (encoder,
+    sampling loop, post-flow, bridge, HiFiGAN) and its latency at 3 frames
+    a state; ``overflow`` and ``neural_hmm`` by zoo name with
+    ``hifigan_v2`` from reference-layout directories, equal to the path
+    load; ``tts --vocoder_path`` within one int16 step of the API; the
+    server with ``--max_batch 4``, serial. NeuralHMM (its own calibrated
+    bias) card against CPU on the short and medium sentences. AlignTTS
+    (mel, short and medium) and DelightfulTTS (mel and its joint vocoder's
+    waveform, F28, short) card against CPU with the durations' smallest
+    distance from a .5 boundary, the medium sentence's latency and RTF
+    through ``Synthesizer.tts`` (AlignTTS with HiFiGAN), and one
+    ``TTS.tts_to_file`` each; peak memory. ``decode_attention`` must not
+    launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -2849,47 +2880,60 @@ def t2_ids(model, texts, device):
     return x.to(device), torch.tensor([len(r) for r in rows], device=device)
 
 
-def t2_step_ms(model, texts, device, lo: int = 100, hi: int = 300) -> float:
-    """Milliseconds per decode step at the batch of ``texts``: the slope of
-    ``inference``'s wall time (synchronized, median of 3) between ``lo``
-    and ``hi`` steps of a decode that never stops."""
+def step_ms(decode, device, lo: int, hi: int) -> float:
+    """Milliseconds per step of ``decode(n)``, a decode of ``n`` steps that
+    never stops sooner: the slope of its wall time (synchronized, median
+    of 3) between ``lo`` and ``hi`` steps."""
     import torch
 
-    x, xl = t2_ids(model, texts, device)
     times = {}
     with torch.no_grad():
-        model.inference(x, xl, max_steps=lo)
+        decode(lo)
         for n in (lo, hi):
-            times[n] = median_ms(lambda: model.inference(x, xl, max_steps=n), device, reps=3)[0]
+            times[n] = median_ms(lambda: decode(n), device, reps=3)[0]
     return (times[hi] - times[lo]) / (hi - lo)
 
 
-def t2_kernels_per_step(model, texts, device, card: str, lo: int = 50, hi: int = 150):
-    """Kernels and device milliseconds a decode step takes at the batch of
-    ``texts`` (the differences between two profiled decodes of ``lo`` and
-    ``hi`` steps, over ``hi - lo``), with the busy share of the longer."""
+def kernels_per_step(decode, what: str, card: str, lo: int, hi: int):
+    """Kernels and device milliseconds a step of ``decode(n)`` takes (the
+    differences between two profiled decodes of ``lo`` and ``hi`` steps,
+    over ``hi - lo``), with the busy share of the longer."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x, xl = t2_ids(model, texts, device)
     counts, busy = {}, {}
     for n in (lo, hi):
         with torch.no_grad():
-            model.inference(x, xl, max_steps=n)
+            decode(n)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
-                model.inference(x, xl, max_steps=n)
+                decode(n)
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t1) * 1e6
         rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
                 and e.self_device_time_total > 0]
         counts[n] = sum(e.count for e in rows)
         busy[n] = sum(e.self_device_time_total for e in rows) / 1e3
-    log_profile(prof, f"Tacotron2 B={len(texts)} decode of {hi} steps (never stopping)", wall_us,
-                card, top=4)
+    log_profile(prof, what.format(hi), wall_us, card, top=4)
     return (counts[hi] - counts[lo]) / (hi - lo), (busy[hi] - busy[lo]) / (hi - lo)
+
+
+def t2_step_ms(model, texts, device, lo: int = 100, hi: int = 300) -> float:
+    """Milliseconds per Tacotron2 decode step at the batch of ``texts``
+    (:func:`step_ms` between ``lo`` and ``hi`` steps)."""
+    x, xl = t2_ids(model, texts, device)
+    return step_ms(lambda n: model.inference(x, xl, max_steps=n), device, lo, hi)
+
+
+def t2_kernels_per_step(model, texts, device, card: str, lo: int = 50, hi: int = 150):
+    """Kernels and device milliseconds a Tacotron2 decode step takes at the
+    batch of ``texts`` (:func:`kernels_per_step`)."""
+    x, xl = t2_ids(model, texts, device)
+    return kernels_per_step(lambda n: model.inference(x, xl, max_steps=n),
+                            f"Tacotron2 B={len(texts)} decode of {{}} steps (never stopping)",
+                            card, lo, hi)
 
 
 def t2_stage_ms(synth, text: str, steps: int, device, reps: int = 5) -> dict:
@@ -3866,6 +3910,582 @@ def phase_speaker_and_forward_tts(card: str, device="cuda", cut=None) -> None:
     log(line + f"; phase 12 took {time.time() - t_phase:.1f} s | {card}")
 
 
+ZOO_OVERFLOW = "tts_models/en/ljspeech/overflow"
+ZOO_NEURAL_HMM = "tts_models/en/ljspeech/neural_hmm"
+HMM_TOL = 1e-4  # card vs CPU, the mels and waveforms of phase 13, fp32 with TF32 off
+HMM_NEVER = -20.0  # a transition bias that never fires: sigmoid(-20) is 2e-9
+HMM_BIASES = (-3.0, -2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0)  # the calibration grid
+HMM_PACE = 3.0  # LJSpeech's pace, frames a state
+HMM_MEL_STATS = (-2.5, 1.75)  # stand-in mel statistics of the saved checkpoint (exact in fp32)
+HMM_WAVE_KEYS = ("short", "medium")  # the sentences vocoded card against CPU
+HMM_TIMING = (256, 768)  # frames between which ms per frame is the slope
+HMM_PROFILE = (64, 192)  # frames between which kernels per frame are counted
+
+
+def overflow_recipe_config():
+    """``recipes/ljspeech/overflow/train_overflow.py:24-35``: the
+    ``OverflowConfig`` defaults (512-wide encoder of 2 states a token, memory
+    LSTM 1024, prenet 2 × 256, output net [1024], 12 post-flow blocks of 4
+    WaveNet layers 150 wide), ``phoneme_cleaners``, ``en-us`` phonemes;
+    ``norm_type="folded"``, as a converted checkpoint runs."""
+    from tts_tpu_torch.models.overflow import OverflowConfig
+
+    return OverflowConfig(text_cleaner="phoneme_cleaners", use_phonemes=True,
+                          phoneme_language="en-us", norm_type="folded")
+
+
+def neuralhmm_recipe_config():
+    """``recipes/ljspeech/neuralhmm_tts/train_neuralhmmtts.py:24-52``: its
+    audio (22.05 kHz, trimming, no signal normalisation, mels 0-8000 Hz,
+    natural log, ``ref_level_db`` 20, no preemphasis), the
+    ``NeuralhmmTTSConfig`` defaults, ``phoneme_cleaners``, ``en-us``
+    phonemes; folded norms."""
+    from tts_tpu_torch.config.shared import BaseAudioConfig
+    from tts_tpu_torch.models.overflow import NeuralhmmTTSConfig
+
+    audio = BaseAudioConfig(sample_rate=22050, do_trim_silence=True, trim_db=60.0,
+                            signal_norm=False, mel_fmin=0.0, mel_fmax=8000, spec_gain=1.0,
+                            log_func="np.log", ref_level_db=20, preemphasis=0.0)
+    return NeuralhmmTTSConfig(audio=audio, text_cleaner="phoneme_cleaners", use_phonemes=True,
+                              phoneme_language="en-us", norm_type="folded")
+
+
+def align_tts_recipe_config():
+    """``recipes/ljspeech/align_tts/train_aligntts.py:22-34``: graphemes with
+    ``english_cleaners`` and the ``AlignTTSArgs`` defaults (hidden 256, 6 FFT
+    layers of 2 heads a side)."""
+    from tts_tpu_torch.models.align_tts import AlignTTSConfig
+
+    return AlignTTSConfig(text_cleaner="english_cleaners", use_phonemes=False,
+                          phoneme_language="en-us")
+
+
+def delightful_tts_recipe_config():
+    """``recipes/ljspeech/delightful_tts/train_delightful_tts.py:22-39``:
+    ``english_cleaners`` with ``en-us`` phonemes and the ``DelightfulTtsArgs``
+    defaults (6 conformer layers of 512 and 8 heads a side, the joint HiFiGAN
+    from 512 channels, upsampling [8, 8, 2, 2]), the embedding sized by the
+    phoneme set (``num_chars`` None: the default 100 is below it, F7)."""
+    from tts_tpu_torch.models.delightful_tts import DelightfulTTSConfig
+
+    config = DelightfulTTSConfig(text_cleaner="english_cleaners", use_phonemes=True,
+                                 phoneme_language="en-us")
+    config.model_args.num_chars = None
+    return config
+
+
+def set_transition(model, bias: float) -> None:
+    """The bias of the output net projection's last row, the transition
+    logit (an Overflow or NeuralHMM wrapper)."""
+    import torch
+
+    with torch.no_grad():
+        model.module.neural_hmm.output_net.proj.bias[-1] = bias
+
+
+def decision_margin(out, threshold: float) -> float:
+    """Smallest ``|p_move - threshold|`` over the decisions an HMM decode
+    took: every step of a row up to and including the one that left its
+    last state."""
+    p = out["transitions"].float().cpu().numpy()
+    steps = p.shape[1]
+    return min(float(np.abs(p[b, : min(int(n) + 1, steps)] - threshold).min())
+               for b, n in enumerate(out["y_lengths"].cpu()))
+
+
+def calibrate_transition(model, text: str, device) -> tuple:
+    """Try each bias of ``HMM_BIASES`` on ``text`` at its budget and keep the
+    one whose decode leaves its last state at the pace nearest
+    ``HMM_PACE`` frames a state, its decisions at least 1e-3 from the
+    threshold. Returns ``(bias, pace, margin)`` and the grid's readings."""
+    import torch
+
+    from tts_tpu_torch.utils.synthesis import _frame_budget
+
+    x, xl = t2_ids(model, [text], device)
+    budget, states = _frame_budget(int(xl[0])), 2 * int(xl[0])
+    grid = []
+    with torch.no_grad():
+        for bias in HMM_BIASES:
+            set_transition(model, bias)
+            out = model.inference(x, xl, max_frames=budget)
+            y = int(out["y_lengths"][0])
+            grid.append((bias, y / states, y < budget,
+                         decision_margin(out, model.config.duration_threshold)))
+    ended = [g for g in grid if g[2] and g[3] >= 1e-3]
+    if not ended:
+        raise AssertionError(f"no transition bias of {HMM_BIASES} ends the decode: {grid}")
+    bias, pace, _, margin = min(ended, key=lambda g: abs(g[1] - HMM_PACE))
+    set_transition(model, bias)
+    return (bias, pace, margin), grid
+
+
+def hmm_stage_ms(synth, text: str, device, reps: int = 5) -> dict:
+    """One Overflow sentence's stages at its natural length, medians of
+    ``reps``: the encoder, the sampling loop, the post-flow with the
+    denormalisation and HiFiGAN by CUDA events, the host bridge (the mel to
+    the host, the two audio processors, back to the card) by the host
+    clock."""
+    import torch
+
+    from tts_tpu_torch.ops.helpers import sequence_mask
+    from tts_tpu_torch.utils.synthesis import _frame_budget
+
+    model = synth.tts_model
+    m, c = model.module, model.config
+    x, xl = t2_ids(model, [text], device)
+    budget = _frame_budget(int(xl[0]))
+    runs: dict = {}
+    with torch.no_grad():
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            enc, state_lengths = m.encoder(x, xl)
+            ev[1].record()
+            s = m.neural_hmm.sample(enc, state_lengths, budget, 0.0, c.duration_threshold,
+                                    c.deterministic_transition)
+            ev[2].record()
+            mels = torch.nn.functional.pad(s["mels"], (0, 0, 0, -s["mels"].shape[1]
+                                                       % c.num_squeeze))
+            y_mask = sequence_mask(s["y_lengths"], mels.shape[1])[:, :, None].float()
+            mels = m.decoder(mels, y_mask, reverse=True)[0] * c.mel_statistics_std \
+                + c.mel_statistics_mean
+            ev[3].record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = int(s["y_lengths"][0])
+            voc_in = synth.vocoder_ap.normalize(synth.ap.denormalize(
+                mels[0, :frames].cpu().numpy().T))
+            voc = torch.from_numpy(np.ascontiguousarray(voc_in.T[None], np.float32)).to(device)
+            torch.cuda.synchronize()
+            bridge = (time.perf_counter() - t0) * 1e3
+            ev[4].record()
+            synth.vocoder_model.inference(voc)
+            ev[5].record()
+            torch.cuda.synchronize()
+            times = {"encoder": ev[0].elapsed_time(ev[1]),
+                     "sampling loop": ev[1].elapsed_time(ev[2]),
+                     "post-flow": ev[2].elapsed_time(ev[3]), "host bridge": bridge,
+                     "HiFiGAN": ev[4].elapsed_time(ev[5])}
+            for k, v in times.items():
+                runs.setdefault(k, []).append(v)
+    return {"times": {k: sorted(v)[reps // 2] for k, v in runs.items()}, "frames": frames}
+
+
+def duration_margin(model, text: str, device) -> float:
+    """Smallest distance of a token's unrounded duration from a .5 boundary
+    in one AlignTTS or DelightfulTTS decode of ``text``, read from the
+    duration predictor's output by a forward hook."""
+    import torch
+
+    x, xl = t2_ids(model, [text], device)
+    acoustic = getattr(model.module, "acoustic_model", None)
+    predictor = (acoustic or model.module).duration_predictor
+    captured = {}
+    handle = predictor.register_forward_hook(lambda mod, args, out: captured.update(log=out))
+    try:
+        with torch.no_grad():
+            model.inference(x, xl, max_frames=64)
+    finally:
+        handle.remove()
+    log = captured["log"].reshape(1, -1)[:, : int(xl[0])].float().cpu()
+    raw = (torch.exp(log) - 1) * model.args.length_scale
+    if acoustic is not None:  # DelightfulTTS rounds after its floor of one frame
+        raw = torch.clamp(raw, min=1.0)
+    raw = raw.numpy()
+    return float(np.abs(raw - np.floor(raw) - 0.5).min())
+
+
+def phase_hmm_align_delightful(card: str, device="cuda", cut=None) -> None:
+    """Overflow and NeuralHMM with HiFiGAN, then AlignTTS and DelightfulTTS,
+    at the LJSpeech recipes' widths, fp32 weights from seed 0: Overflow's
+    transition bias calibrated on the card, the model saved in the reference
+    layout with stand-in mel statistics and loaded back; the three phase 6
+    sentences card against CPU (``y_lengths`` equal, mel within 1e-4 with
+    its drift per 100 frames, the waveform on the short and medium ones);
+    B = 4 rows against their own B = 1 decodes; a decode whose transition
+    never fires, cut at its budget; ms and kernels per frame, latency, RTF
+    and stages at natural length; both zoo names with ``hifigan_v2``;
+    ``tts --vocoder_path``; the server, serial. NeuralHMM card against CPU
+    on the short and medium sentences. AlignTTS (mel) and DelightfulTTS (mel
+    and its own waveform, F28) card against CPU, their latency and one
+    ``TTS.tts_to_file`` each. ``decode_attention`` must not launch. ``cut``
+    shrinks the five configs in place, for rehearsals on the CPU."""
+    import io
+    import shutil
+
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.models.align_tts import AlignTTS
+    from tts_tpu_torch.models.delightful_tts import DelightfulTTS
+    from tts_tpu_torch.models.overflow import NeuralhmmTTS, Overflow
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.utils.convert import reference_overflow_state
+    from tts_tpu_torch.utils.synthesis import _frame_budget, synthesis
+    from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, Synthesizer, split_into_sentences
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    cut = cut or (lambda *configs: None)
+    decode_attention.launches = 0  # K1 is not on these paths: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    short, medium = VITS_SENTENCES["short"], VITS_SENTENCES["medium"]
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    def params(model) -> float:
+        return sum(p.numel() for p in model.module.parameters()) / 1e6
+
+    configs = (overflow_recipe_config(), neuralhmm_recipe_config(), align_tts_recipe_config(),
+               delightful_tts_recipe_config(), hifigan_recipe_config())
+    cut(*configs)
+    ov_config, nh_config, al_config, dt_config, voc_config = configs
+    with tempfile.TemporaryDirectory() as d:
+        dirs = {k: os.path.join(d, k) for k in ("ov", "nh", "al", "dt", "voc")}
+        for path in dirs.values():
+            os.makedirs(path)
+
+        # Overflow and NeuralHMM: the transition calibrated on the card, the
+        # reference layout with stand-in mel statistics
+        calibrated = {}
+        for key, cls, config in (("ov", Overflow, ov_config), ("nh", NeuralhmmTTS, nh_config)):
+            hmm = cls.init_from_config(config).init_params(seed=0, device=device)
+            calibrated[key] = calibrate_transition(hmm, medium, device) + (params(hmm),)
+            state = {k: v.cpu() for k, v in hmm.module.state_dict().items()}
+            torch.save({"model": {k: torch.from_numpy(v) for k, v in reference_overflow_state(
+                state, *HMM_MEL_STATS).items()}}, os.path.join(dirs[key], "model_file.pth"))
+            write_json(os.path.join(dirs[key], "config.json"), hmm.config.to_dict())
+            del hmm, state
+        gen = random_vocoder(voc_config, seed=0)
+        n_voc = sum(p.numel() for p in gen.parameters()) / 1e6
+        torch.save({"model": {"model_g." + k: v for k, v in gen.state_dict().items()}},
+                   os.path.join(dirs["voc"], "model_file.pth"))
+        write_json(os.path.join(dirs["voc"], "config.json"), voc_config.to_dict())
+        del gen
+        args = {k: ["--model_path", os.path.join(dirs[k], "model_file.pth"), "--config_path",
+                    os.path.join(dirs[k], "config.json")] for k in ("ov", "nh", "voc")}
+        voc_args = ["--vocoder_path", args["voc"][1], "--vocoder_config_path", args["voc"][3]]
+
+        def load(key, dev):
+            return Synthesizer(tts_checkpoint=args[key][1], tts_config_path=args[key][3],
+                               vocoder_checkpoint=voc_args[1], vocoder_config=voc_args[3],
+                               device=dev)
+
+        synth, cpu_synth = load("ov", device), load("ov", "cpu")
+        model, c = synth.tts_model, synth.tts_model.config
+        if (c.norm_type, c.mel_statistics_mean, c.mel_statistics_std) != \
+                ("folded", *HMM_MEL_STATS):
+            raise AssertionError(f"Overflow from the reference layout: norm {c.norm_type}, "
+                                 f"statistics {c.mel_statistics_mean}, {c.mel_statistics_std}")
+        (bias, pace, margin), grid, n_ov = calibrated["ov"]
+        gp = voc_config.generator_model_params
+        log(f"Overflow (LJSpeech recipe, phonemes from {model.tokenizer.phonemizer.name()}, "
+            f"{c.text_cleaner}, num_chars {c.num_chars}): encoder {c.encoder_in_out_features} "
+            f"({c.encoder_n_convolutions} convs, biLSTM) of {c.state_per_phone} states a token, "
+            f"prenet {c.prenet_n_layers} x {c.prenet_dim}, memory LSTM {c.memory_rnn_dim}, output "
+            f"net {c.outputnet_size}, post-flow {c.num_flow_blocks_dec} blocks of "
+            f"{c.num_block_layers} WaveNet layers {c.hidden_channels_dec} wide; {n_ov:.2f} M "
+            f"parameters (seed 0), loaded from the reference layout (folded norms, mel statistics "
+            f"{HMM_MEL_STATS} from its mean/std). HiFiGAN: {gp['upsample_initial_channel']} "
+            f"channels, upsampling {gp['upsample_factors']}, {voc_config.audio.sample_rate} Hz; "
+            f"{n_voc:.2f} M parameters (seed 0)")
+        log("Overflow transition bias (the output net projection's last row) on the medium "
+            "sentence at its budget, frames a state / ended / smallest |p_move - threshold|: "
+            + "; ".join(f"{b:+.1f}: {p:.2f} {'ended' if e else 'cut'} {m:.2g}"
+                        for b, p, e, m in grid)
+            + f" -> kept {bias:+.1f} ({pace:.2f} frames a state; random weights make the "
+              f"stay/move rule bistable: a state's move probability settles, so it lasts a few "
+              f"frames or never ends)")
+
+        # card against CPU on the three sentences at their budgets
+        worst_mel = worst_wav = 0.0
+        lengths, drifts, margins = [], {}, []
+        with torch.no_grad():
+            for key, text in VITS_SENTENCES.items():
+                g, w = synthesis(model, text), synthesis(cpu_synth.tts_model, text)
+                g_len, w_len = g["outputs"]["y_lengths"].cpu(), w["outputs"]["y_lengths"]
+                if not torch.equal(g_len, w_len) or g["model_outputs"].shape != \
+                        w["model_outputs"].shape:
+                    raise AssertionError(f"Overflow y_lengths card {g_len.tolist()} != CPU "
+                                         f"{w_len.tolist()} for {key!r}")
+                drifts[key] = drift_per_steps(g["model_outputs"], w["model_outputs"], 1)
+                err = max(drifts[key])
+                if not err <= HMM_TOL or not np.isfinite(g["model_outputs"]).all():
+                    raise AssertionError(f"Overflow mel card vs CPU ({key}): max abs diff {err}; "
+                                         f"per 100 frames {drifts[key]}")
+                margins.append(decision_margin(g["outputs"], c.duration_threshold))
+                if key in HMM_WAVE_KEYS:
+                    gw, ww = synth._vocode(g["model_outputs"]), cpu_synth._vocode(
+                        w["model_outputs"])
+                    werr = float(np.abs(gw - ww).max()) if gw.shape == ww.shape else np.inf
+                    if not werr <= HMM_TOL or not np.isfinite(gw).all() or gw.std() == 0:
+                        raise AssertionError(f"Overflow + HiFiGAN card vs CPU ({key}): "
+                                             f"{gw.shape} vs {ww.shape}, max abs diff {werr}")
+                    worst_wav = max(worst_wav, werr)
+                worst_mel = max(worst_mel, err)
+                lengths.append(int(g_len[0]))
+        log(f"Overflow + HiFiGAN card vs CPU, the three phase 6 sentences: y_lengths {lengths} "
+            f"equal, mel max abs diff {worst_mel:.3g}, waveform ({', '.join(HMM_WAVE_KEYS)}) "
+            f"{worst_wav:.3g} (tol {HMM_TOL}); smallest |p_move - threshold| per sentence "
+            + ", ".join(f"{m:.2g}" for m in margins) + "; mel max abs diff per 100 frames: "
+            + "; ".join(f"{k} " + ", ".join(f"{v:.2g}" for v in vs) for k, vs in drifts.items())
+            + f" (phase 13 at {time.time() - t_phase:.0f} s)")
+        cpu_model = cpu_synth.tts_model
+        del cpu_synth
+
+        # B = 4 rows against their own B = 1 decodes
+        rows = list(VITS_SENTENCES.values()) + [MULTI_SENTENCES["en"]]
+        with torch.no_grad():
+            x, xl = t2_ids(model, rows, device)
+            budget = _frame_budget(int(xl.max()))
+            batch = model.inference(x, xl, max_frames=budget)
+            b4err = 0.0
+            for i, text in enumerate(rows):
+                xi, xli = t2_ids(model, [text], device)
+                one = model.inference(xi, xli, max_frames=budget)
+                n = int(one["y_lengths"][0])
+                if n != int(batch["y_lengths"][i]):
+                    raise AssertionError(f"B=4 row {i}: y_lengths {batch['y_lengths'][i]} vs "
+                                         f"{n} alone")
+                b4err = max(b4err, float((batch["model_outputs"][i, :n]
+                                          - one["model_outputs"][0, :n]).abs().max()))
+        if not b4err <= HMM_TOL:
+            raise AssertionError(f"Overflow B=4 rows vs their B=1 decodes: max abs diff {b4err}")
+        log(f"Overflow B=4 ({[int(v) for v in xl]} tokens padded to {x.shape[1]}), each row "
+            f"against its own B=1 decode at a {budget}-frame budget: y_lengths "
+            f"{batch['y_lengths'].tolist()} equal, mel max abs diff {b4err:.3g} (tol {HMM_TOL})")
+
+        # a transition that never fires: cut at the budget, not sooner
+        set_transition(model, HMM_NEVER)
+        set_transition(cpu_model, HMM_NEVER)
+        with torch.no_grad():
+            xm, xlm = t2_ids(model, [medium], device)
+            budget = _frame_budget(int(xlm[0]))
+            out = model.inference(xm, xlm, max_frames=budget)
+            cpu_out = cpu_model.inference(xm.cpu(), xlm.cpu(), max_frames=budget)
+        ran = out["transitions"].shape[1]
+        nerr = float((out["model_outputs"].cpu() - cpu_out["model_outputs"]).abs().max())
+        if int(out["y_lengths"][0]) != budget or ran != budget or not nerr <= HMM_TOL:
+            raise AssertionError(f"never-firing transition: y_lengths {out['y_lengths'].tolist()}, "
+                                 f"{ran} of {budget} steps run, card vs CPU {nerr}")
+        log(f"Overflow transition never firing (bias {HMM_NEVER}): the medium sentence cut at its "
+            f"{budget}-frame budget, all {ran} steps run; card vs CPU mel max abs diff "
+            f"{nerr:.3g} (tol {HMM_TOL})")
+        del cpu_model
+
+        # speed: ms and kernels per frame on the never-firing decode
+        if cuda:
+            per_frame = {}
+            for texts in ([medium], rows):
+                xb, xlb = t2_ids(model, texts, device)
+
+                def decode(n, xb=xb, xlb=xlb):
+                    return model.inference(xb, xlb, max_frames=n)
+
+                ms = step_ms(decode, device, *HMM_TIMING)
+                k, dev_ms = kernels_per_step(
+                    decode, f"Overflow B={len(texts)} decode of {{}} frames (never moving)", card,
+                    *HMM_PROFILE)
+                per_frame[len(texts)] = (ms, k, dev_ms)
+            log(f"Overflow frame (wall: slope between {HMM_TIMING[0]} and {HMM_TIMING[1]} frames, "
+                f"median of 3; kernels and device time: profiled {HMM_PROFILE[1]} less "
+                f"{HMM_PROFILE[0]} frames): " + "; ".join(
+                    f"B={b} {ms:.3f} ms wall, {k:.1f} kernels, {dev * 1e3:.1f} us device"
+                    for b, (ms, k, dev) in per_frame.items()) + f" | {card}")
+        paced = {}
+
+        def at_pace():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                o = model.inference(xm, xlm, max_frames=int(HMM_PACE * 2 * int(xlm[0])))
+                mel = o["model_outputs"][0, : int(o["y_lengths"][0])].cpu().numpy()
+            paced.update(frames=len(mel), model=(time.perf_counter() - t0) * 1e3,
+                         seconds=len(synth._vocode(mel)) / synth.output_sample_rate)
+
+        ms, lo, hi = median_ms(at_pace, device, reps=3)
+        log(f"Overflow + HiFiGAN medium sentence at LJSpeech's pace ({HMM_PACE:.0f} frames a "
+            f"state: {paced['frames']} frames of a decode that never moves, cut there): "
+            f"{paced['seconds']:.2f} s of audio in {ms:.1f} ms (median of 3; {lo:.1f}-{hi:.1f}), "
+            f"RTF {paced['seconds'] / ms * 1e3:.1f}, the decode {paced['model']:.1f} ms | {card}")
+        set_transition(model, bias)
+
+        # latency and RTF at natural length, the medium sentence's stages
+        sr = synth.output_sample_rate
+        for key, text in VITS_SENTENCES.items():
+            parts = {}
+
+            def natural(text=text, parts=parts):
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    mel = synthesis(model, text)["model_outputs"]
+                t1 = time.perf_counter()
+                wav = synth._vocode(mel)
+                sync(device)
+                parts.update(frames=len(mel), model=(t1 - t0) * 1e3,
+                             vocoder=(time.perf_counter() - t1) * 1e3, seconds=len(wav) / sr)
+
+            ms, lo, hi = median_ms(natural, device, reps=3)
+            log(f"Overflow + HiFiGAN {key}: natural length ({parts['frames']} frames) "
+                f"{parts['seconds']:.2f} s of audio in {ms:.1f} ms (median of 3; {lo:.1f}-"
+                f"{hi:.1f}), RTF {parts['seconds'] / ms * 1e3:.1f}, HiFiGAN with the bridge "
+                f"{parts['vocoder']:.1f} ms | {card}")
+        if cuda:
+            profile_call(lambda: synth._vocode(synthesis(model, medium)["model_outputs"]),
+                         "Overflow + HiFiGAN, medium sentence at natural length", card)
+            st = hmm_stage_ms(synth, medium, device)
+            log(f"Overflow + HiFiGAN stages, medium sentence at natural length ({st['frames']} "
+                f"frames), ms (median of 5; the bridge by the host clock, the rest by CUDA "
+                f"events): " + ", ".join(f"{k} {v:.2f}" for k, v in st["times"].items())
+                + f" | {card}")
+
+        # NeuralHMM: card against CPU
+        nh, nh_cpu = load("nh", device), load("nh", "cpu")
+        with torch.no_grad():
+            for key in ("short", "medium"):
+                g = synthesis(nh.tts_model, VITS_SENTENCES[key])
+                w = synthesis(nh_cpu.tts_model, VITS_SENTENCES[key])
+                same = torch.equal(g["outputs"]["y_lengths"].cpu(), w["outputs"]["y_lengths"])
+                err = float(np.abs(g["model_outputs"] - w["model_outputs"]).max()) if same \
+                    else np.inf
+                if not err <= HMM_TOL or not np.isfinite(g["model_outputs"]).all():
+                    raise AssertionError(f"NeuralHMM card vs CPU ({key}): y_lengths "
+                                         f"{g['outputs']['y_lengths'].tolist()} vs "
+                                         f"{w['outputs']['y_lengths'].tolist()}, {err}")
+                log(f"NeuralHMM (LJSpeech recipe, {calibrated['nh'][2]:.2f} M parameters, "
+                    f"transition bias {calibrated['nh'][0][0]:+.1f}: "
+                    f"{calibrated['nh'][0][1]:.2f} frames a state) {key} card vs CPU: y_lengths "
+                    f"{int(g['outputs']['y_lengths'][0])} equal, mel max abs diff {err:.3g}, "
+                    f"smallest |p_move - threshold| "
+                    f"{decision_margin(g['outputs'], nh.tts_model.config.duration_threshold):.2g}")
+        del nh, nh_cpu
+
+        # the zoo by name: reference-layout directories, nothing fetched
+        with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+            shutil.copytree(dirs["voc"], os.path.join(home, "tts_tpu",
+                                                      ZOO_HIFIGAN_V2.replace("/", "--")))
+            for key, name in (("ov", ZOO_OVERFLOW), ("nh", ZOO_NEURAL_HMM)):
+                shutil.copytree(dirs[key], os.path.join(home, "tts_tpu", name.replace("/", "--")))
+                by_name = TTS(model_name=name, device=device)
+                by_path = TTS(model_path=args[key][1], config_path=args[key][3],
+                              vocoder_path=voc_args[1], vocoder_config_path=voc_args[3],
+                              device=device)
+                a = np.asarray(silent(by_name.tts, short), np.float32)
+                b = np.asarray(silent(by_path.tts, short), np.float32)
+                zerr = float(np.abs(a - b).max()) if a.shape == b.shape else np.inf
+                if zerr != 0 or a.std() == 0:
+                    raise AssertionError(f"TTS(model_name={name}) vs path load: {a.shape} vs "
+                                         f"{b.shape}, max abs diff {zerr}")
+                log(f"zoo: {name} with its default vocoder {ZOO_HIFIGAN_V2} from reference-layout "
+                    f"directories, nothing fetched; the short sentence differs from the path "
+                    f"load by {zerr}")
+                del by_name, by_path
+
+        # the command line with the vocoder flags against the API, the server
+        api = TTS(model_path=args["ov"][1], config_path=args["ov"][3], vocoder_path=voc_args[1],
+                  vocoder_config_path=voc_args[3], device=device)
+        api_path, cli_path = os.path.join(d, "api.wav"), os.path.join(d, "cli.wav")
+        silent(api.tts_to_file, short, file_path=api_path)
+        silent(synthesize_cli, ["--text", short, "--out_path", cli_path, "--device",
+                                str(device)] + args["ov"] + voc_args)
+        step, cli_sr = _int16_steps(cli_path, api_path)
+        if step is None or step > 1:
+            raise AssertionError(f"tts --vocoder_path (Overflow) vs the API: {step} int16 steps")
+        log(f"tts --model_path --config_path --vocoder_path --vocoder_config_path (Overflow): at "
+            f"{cli_sr} Hz, at most {step} int16 step from TTS.tts_to_file")
+        del api
+        status, body, said, dispatched = _serve_once(args["ov"] + voc_args, {"text": short},
+                                                     device)
+        if status != 200 or "serving serially" not in said or dispatched:
+            raise AssertionError(f"Overflow server with --max_batch 4: {status}, {said!r}")
+        line = [ln for ln in said.splitlines() if "serially" in ln][0].strip()
+        log(f"Overflow server (--vocoder_path, --max_batch 4): said {line!r}; /api/tts answered "
+            f"{len(body)} bytes")
+        del synth, model
+
+        # AlignTTS (with HiFiGAN) and DelightfulTTS (its joint vocoder, F28)
+        for key, cls, config in (("al", AlignTTS, al_config), ("dt", DelightfulTTS, dt_config)):
+            m = cls.init_from_config(config).init_params(seed=0, device="cpu")
+            torch.save(m.module.state_dict(), os.path.join(dirs[key], "model_torch.pt"))
+            write_json(os.path.join(dirs[key], "config.json"), m.config.to_dict())
+            n_m = params(m)
+            del m
+            path = [os.path.join(dirs[key], "model_torch.pt"), os.path.join(dirs[key],
+                                                                            "config.json")]
+            vocoder = {"vocoder_checkpoint": voc_args[1], "vocoder_config": voc_args[3]} \
+                if key == "al" else {}
+            g_synth = Synthesizer(tts_checkpoint=path[0], tts_config_path=path[1], device=device,
+                                  **vocoder)
+            w_synth = Synthesizer(tts_checkpoint=path[0], tts_config_path=path[1], device="cpu",
+                                  **vocoder)
+            g_model = g_synth.tts_model
+            name = "AlignTTS" if key == "al" else "DelightfulTTS"
+            for sentence in (("short", "medium") if key == "al" else ("short",)):
+                text = VITS_SENTENCES[sentence]
+                with torch.no_grad():
+                    g, w = synthesis(g_model, text), synthesis(w_synth.tts_model, text)
+                n = int(g["outputs"]["y_lengths"][0])
+                if n != int(w["outputs"]["y_lengths"][0]):
+                    raise AssertionError(f"{name} y_lengths card {n} vs CPU "
+                                         f"{w['outputs']['y_lengths'].tolist()} ({sentence})")
+                if key == "al":
+                    g_mel, w_mel = g["model_outputs"], w["model_outputs"]
+                    errs = {"mel": float(np.abs(g_mel - w_mel).max())}
+                else:
+                    g_mel = g["outputs"]["mel"][0, :n].cpu().numpy()
+                    w_mel = w["outputs"]["mel"][0, :n].numpy()
+                    errs = {"mel": float(np.abs(g_mel - w_mel).max()),
+                            "waveform": float(np.abs(g["wav"] - w["wav"]).max())}
+                    if g["wav"].shape != (n * g_model.hop_length,) or g["wav"].std() == 0:
+                        raise AssertionError(f"DelightfulTTS waveform {g['wav'].shape} for {n} "
+                                             f"frames")
+                if not max(errs.values()) <= HMM_TOL:
+                    raise AssertionError(f"{name} card vs CPU ({sentence}): {errs}")
+                log(f"{name} (LJSpeech recipe, {n_m:.2f} M parameters, seed 0) {sentence} card "
+                    f"vs CPU: y_lengths {n} equal, "
+                    + ", ".join(f"{k} max abs diff {v:.3g}" for k, v in errs.items())
+                    + f" (tol {HMM_TOL}; the mel's peak {float(np.abs(w_mel).max()):.3g}); "
+                      f"smallest distance of a duration from a .5 boundary "
+                      f"{duration_margin(g_model, text, device):.3g}")
+            del w_synth
+            samples = []
+            ms, lo, hi = median_ms(lambda: samples.append(len(silent(g_synth.tts, medium))),
+                                   device, reps=3)
+            audio = (samples[-1] - SENTENCE_GAP * len(split_into_sentences(medium))) / \
+                g_synth.output_sample_rate
+            if cuda and key == "dt":
+                profile_call(lambda: silent(g_synth.tts, medium),
+                             "DelightfulTTS, medium sentence through Synthesizer.tts", card)
+            api = TTS(model_path=path[0], config_path=path[1], device=device,
+                      **({"vocoder_path": voc_args[1], "vocoder_config_path": voc_args[3]}
+                         if key == "al" else {}))
+            wav_path = os.path.join(d, f"{key}.wav")
+            silent(api.tts_to_file, short, file_path=wav_path)
+            log(f"{name}{' + HiFiGAN' if key == 'al' else ' (joint vocoder)'} medium sentence "
+                f"through Synthesizer.tts: {audio:.2f} s of audio in {ms:.1f} ms (median of 3; "
+                f"{lo:.1f}-{hi:.1f}), RTF {audio / ms * 1e3:.1f}; TTS.tts_to_file wrote "
+                f"{os.path.getsize(wav_path)} bytes | {card}")
+            del g_synth, g_model, api
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during phase 13")
+    line = ("Overflow, NeuralHMM, AlignTTS, DelightfulTTS: no hand-written kernel on these paths "
+            "(decode_attention launches 0)")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f"; phase 13 took {time.time() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3881,6 +4501,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
 
+    t_start = time.time()
     card = phase_environment()
     phase_build()
     kernel = phase_kernels(card)
@@ -3894,10 +4515,12 @@ def main() -> int:
     phase_glow_tts(card)
     phase_tacotron2(card)
     phase_speaker_and_forward_tts(card)
+    phase_hmm_align_delightful(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
+    log(f"chip_smoke.py: phases 1-13 took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({
         "ok": True,

@@ -7,9 +7,11 @@ tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
 ``cleaners.py`` and ``english.py``; the phoneme front end: ``punctuation``,
 ``cmudict``, ``en_g2p``, ``latin_g2p`` with ``rule_g2p_ext`` and
 ``rule_g2p_ext3``, ``belarusian``, ``phonemizers``, ``IPAPhonemes`` and
-``VitsCharacters``), the Tacotron2, ForwardTTS and speaker encoder configs,
-the reference → flax-layout XTTS, VITS, GlowTTS, MelGAN, Tacotron2, speaker
-encoder and ForwardTTS converters (``utils/convert.py``), the pack planner (``utils/packing.py``), the
+``VitsCharacters``), the Tacotron2, ForwardTTS, speaker encoder, Overflow,
+NeuralHMM, AlignTTS and DelightfulTTS configs, the reference → flax-layout
+XTTS, VITS, GlowTTS, MelGAN, Tacotron2, speaker encoder, ForwardTTS and
+Overflow converters (``utils/convert.py``), the pack planner
+(``utils/packing.py``), the
 trailing-silence endpoint (``db_to_amp``, ``find_endpoint``) and the
 speaker and language managers (``utils/managers.py``, apart from their
 ``init_from_config``, which reads ``model_args`` too: ROADMAP.md F11, held
@@ -601,5 +603,66 @@ def test_convert_forward_tts_matches_jax_leaf_for_leaf():
     want = dict(_leaves(jax_convert_forward_tts(dict(state), JaxForwardTTSArgs(
         encoder_params=fft, decoder_params=fft))))
     assert sorted(got) == sorted(want) and len(got) > 70
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+def test_overflow_align_and_delightful_configs_to_dict_match_jax():
+    """The Overflow, NeuralHMM, AlignTTS and DelightfulTTS configs, at their
+    defaults and round-tripped from their LJSpeech recipes' fields."""
+    from tts_tpu.models.align_tts import config as jax_align_config
+    from tts_tpu.models.delightful_tts import config as jax_delightful_config
+    from tts_tpu.models.overflow import config as jax_overflow_config
+    from tts_tpu_torch.models.align_tts import config as align_config
+    from tts_tpu_torch.models.delightful_tts import config as delightful_config
+    from tts_tpu_torch.models.overflow import config as overflow_config
+
+    for module, jax_module, names in (
+            (overflow_config, jax_overflow_config, ("NeuralhmmTTSConfig", "OverflowConfig")),
+            (align_config, jax_align_config, ("AlignTTSArgs", "AlignTTSConfig")),
+            (delightful_config, jax_delightful_config,
+             ("DelightfulTtsAudioConfig", "VocoderConfig", "DelightfulTtsArgs",
+              "DelightfulTTSConfig"))):
+        for name in names:
+            assert getattr(module, name)().to_dict() == getattr(jax_module, name)().to_dict(), name
+    recipes = (
+        (overflow_config.OverflowConfig, jax_overflow_config.OverflowConfig(
+            text_cleaner="phoneme_cleaners", use_phonemes=True, phoneme_language="en-us")),
+        (overflow_config.NeuralhmmTTSConfig, jax_overflow_config.NeuralhmmTTSConfig(
+            text_cleaner="phoneme_cleaners", use_phonemes=True, mel_statistics_mean=-5.5)),
+        (align_config.AlignTTSConfig, jax_align_config.AlignTTSConfig(
+            text_cleaner="english_cleaners", phase_start_steps=[0, 40000])),
+        (delightful_config.DelightfulTTSConfig, jax_delightful_config.DelightfulTTSConfig(
+            text_cleaner="english_cleaners", use_phonemes=True, phoneme_language="en-us")))
+    for cls, recipe in recipes:
+        assert cls.from_dict(recipe.to_dict()).to_dict() == recipe.to_dict()
+
+
+@pytest.mark.parametrize("kind", ["overflow", "neuralhmm"])
+def test_convert_overflow_matches_jax_leaf_for_leaf(kind):
+    """A reference-layout Overflow (post-flow of two blocks) and NeuralHMM,
+    each with an output net of two layers, drawn from a seed in the
+    reference's names (``utils.convert.reference_overflow_state`` of a
+    folded port model), through both packages' ``convert_overflow``."""
+    from tts_tpu.models.overflow import NeuralhmmTTSConfig as JaxNeuralhmmTTSConfig
+    from tts_tpu.models.overflow import OverflowConfig as JaxOverflowConfig
+    from tts_tpu.utils.convert import convert_overflow as jax_convert_overflow
+    from tts_tpu_torch.models.overflow import NeuralhmmTTS, NeuralhmmTTSConfig, Overflow, \
+        OverflowConfig
+    from tts_tpu_torch.utils.convert import convert_overflow, reference_overflow_state
+
+    kw = dict(num_chars=30, out_channels=16, encoder_in_out_features=32, memory_rnn_dim=32,
+              prenet_dim=16, outputnet_size=[32, 24], norm_type="folded")
+    if kind == "overflow":
+        kw.update(hidden_channels_dec=16, num_flow_blocks_dec=2, num_block_layers=2)
+        cls, config, jax_config = Overflow, OverflowConfig(**kw), JaxOverflowConfig(**kw)
+    else:
+        cls, config, jax_config = NeuralhmmTTS, NeuralhmmTTSConfig(**kw), \
+            JaxNeuralhmmTTSConfig(**kw)
+    model = cls(config).init_params(seed=5, device="cpu")
+    state = reference_overflow_state(model.module.state_dict(), mean=-4.0, std=2.5)
+    got = dict(_leaves(convert_overflow(dict(state), config)))
+    want = dict(_leaves(jax_convert_overflow(dict(state), jax_config)))
+    assert sorted(got) == sorted(want) and len(got) > (60 if kind == "overflow" else 30)
     for key in want:
         np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)

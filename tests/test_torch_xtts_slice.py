@@ -301,8 +301,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     batcher, the pack planner, the speaker and language managers, the zoo
     manager, the iSTFT decoder and the PQMF bank, GlowTTS with its flows, the
     MelGAN generators, the vocoder registry and configs, the
-    ``AudioProcessor``, Tacotron2 with its layers, the speaker encoders and
-    the ForwardTTS family with its feed-forward layers included: this test process
+    ``AudioProcessor``, Tacotron2 with its layers, the speaker encoders,
+    the ForwardTTS family with its feed-forward layers, Overflow and
+    NeuralHMM, AlignTTS and DelightfulTTS included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -337,6 +338,10 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "from tts_tpu_torch.utils.convert import load_reference_forward_tts, load_reference_speaker_encoder\n"
         "assert {'tts_tpu_torch.models.forward_tts.model', 'tts_tpu_torch.layers.feed_forward',\n"
         "        'tts_tpu_torch.encoder.model', 'tts_tpu_torch.encoder.configs'} <= set(mods), mods\n"
+        "from tts_tpu_torch.utils.convert import load_reference_overflow, delightful_tts_from_jax_params\n"
+        "assert {'tts_tpu_torch.models.overflow.model', 'tts_tpu_torch.models.align_tts.model',\n"
+        "        'tts_tpu_torch.models.delightful_tts.model',\n"
+        "        'tts_tpu_torch.models.delightful_tts.acoustic_model'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

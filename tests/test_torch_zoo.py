@@ -407,6 +407,7 @@ TACOTRON2 = ["tts_models/en/ljspeech/tacotron2-DDC", "tts_models/en/ljspeech/tac
              "tts_models/es/mai/tacotron2-DDC", "tts_models/fr/mai/tacotron2-DDC",
              "tts_models/de/thorsten/tacotron2-DCA", "tts_models/de/thorsten/tacotron2-DDC",
              "tts_models/ja/kokoro/tacotron2-DDC"]
+HMM = ["tts_models/en/ljspeech/overflow", "tts_models/en/ljspeech/neural_hmm"]
 
 
 def test_every_family_is_sorted_into_ported_or_an_item():
@@ -414,21 +415,23 @@ def test_every_family_is_sorted_into_ported_or_an_item():
     YourTTS, XTTS v2, the 7 GlowTTS entries (with a Multiband-MelGAN or
     HiFiGAN default vocoder, or none), the 7 Tacotron2 entries whose default
     vocoder is a HiFiGAN or a MelGAN, the 2 FastPitch entries (LJSpeech with
-    HiFiGAN v2, VCTK with none) and the 12 Multiband-MelGAN, Fullband-MelGAN
-    and HiFiGAN vocoders load; each of the catalog's other 19, and the
-    fairseq MMS models, names a ROADMAP.md item: the other Tacotron entries
-    (``ek1``'s WaveGrad, ``DDC_ph``'s UnivNet, ``nl/mai``'s ParallelWaveGAN,
-    GST, Tacotron v1) and SpeedySpeech item 16."""
+    HiFiGAN v2, VCTK with none), Overflow and NeuralHMM (both with HiFiGAN
+    v2) and the 12 Multiband-MelGAN, Fullband-MelGAN and HiFiGAN vocoders
+    load; each of the catalog's other 17, and the fairseq MMS models, names
+    a ROADMAP.md item: the other Tacotron entries (``ek1``'s WaveGrad,
+    ``DDC_ph``'s UnivNet, ``nl/mai``'s ParallelWaveGAN, GST, Tacotron v1)
+    and SpeedySpeech item 16."""
     manager = manage.ModelManager()
     ported = [n for n in manager.list_models()
               if not manage.unported_reason(n, manager.models_dict)]
     assert len([n for n in ported if "vits" in n]) == 38
     assert sorted(n for n in ported if "vits" not in n and n.startswith("tts_models/")) == \
-        sorted(["tts_models/en/jenny/jenny", XTTS, YOURTTS] + GLOW_TTS + TACOTRON2 + FAST_PITCH)
+        sorted(["tts_models/en/jenny/jenny", XTTS, YOURTTS] + GLOW_TTS + TACOTRON2 + FAST_PITCH
+               + HMM)
     vocoders = [n for n in ported if n.startswith("vocoder_models/")]
     assert len(vocoders) == 12 and all(
         any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan")) for n in vocoders)
-    assert len(_unported()) == 88 - 69 + 1
+    assert len(_unported()) == 88 - 71 + 1
     tacotrons = [n for n in _unported() if "tacotron" in n]
     assert len(tacotrons) == 5 and all(
         "item 16" in manage.unported_reason(n, manager.models_dict) for n in tacotrons)

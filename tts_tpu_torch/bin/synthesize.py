@@ -37,7 +37,8 @@ does not run yet raises ``NotImplementedError`` before anything is fetched.
 recording) and ``--speaker_idx`` (the voice wanted) converts a recording
 with a multi-speaker VITS model. ``--vocoder_path`` with
 ``--vocoder_config_path``, or a zoo ``--vocoder_name``, gives a mel model
-(GlowTTS, Tacotron2, FastPitch) its vocoder, in place of a zoo entry's
+(GlowTTS, Tacotron2, FastPitch, Overflow, NeuralHMM, AlignTTS) its vocoder,
+in place of a zoo entry's
 default one; without any, Griffin-Lim speaks it. ``--encoder_path`` with
 ``--encoder_config_path`` loads a speaker encoder, which turns
 ``--speaker_wav`` into a d-vector for a d-vector model (YourTTS); the zoo's
@@ -85,12 +86,11 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vocoder_name", type=str, default=None,
                         help="zoo vocoder name (overrides the model's default_vocoder)")
     parser.add_argument("--model_path", type=str, default=None,
-                        help="model directory, or a VITS or GlowTTS checkpoint file with "
-                             "--config_path")
+                        help="model directory, or a checkpoint file with --config_path")
     parser.add_argument("--config_path", type=str, default=None,
                         help="config.json of a checkpoint file given as --model_path")
     parser.add_argument("--vocoder_path", type=str, default=None,
-                        help="vocoder checkpoint for a mel model (GlowTTS)")
+                        help="vocoder checkpoint for a mel model (GlowTTS, Tacotron2, ...)")
     parser.add_argument("--vocoder_config_path", type=str, default=None,
                         help="config.json of --vocoder_path")
     parser.add_argument("--encoder_path", type=str, default=None,

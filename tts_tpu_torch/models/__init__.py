@@ -1,10 +1,11 @@
 """Model registry of the port: config name → (config class, model class),
 and the vocoder configs by name.
 
-XTTS, VITS, GlowTTS, Tacotron2 and the ForwardTTS family (FastPitch,
-FastSpeech, FastSpeech2, SpeedySpeech) are ported so far, with the HiFiGAN
-and MelGAN vocoders (``vocoder.models.setup_generator``) and the speaker
-encoders' configs; other names raise.
+XTTS, VITS, GlowTTS, Tacotron2, the ForwardTTS family (FastPitch,
+FastSpeech, FastSpeech2, SpeedySpeech), Overflow, NeuralHMM, AlignTTS and
+DelightfulTTS are ported so far, with the HiFiGAN and MelGAN vocoders
+(``vocoder.models.setup_generator``) and the speaker encoders' configs;
+other names raise.
 """
 
 from __future__ import annotations
@@ -25,6 +26,14 @@ _MODELS = {
                          ("fastspeech2", "Fastspeech2Config"),
                          ("speedy_speech", "SpeedySpeechConfig"),
                          ("forward_tts", "ForwardTTSConfig"))},
+    "overflow": ("tts_tpu_torch.models.overflow.config:OverflowConfig",
+                 "tts_tpu_torch.models.overflow.model:Overflow"),
+    "neuralhmm_tts": ("tts_tpu_torch.models.overflow.config:NeuralhmmTTSConfig",
+                      "tts_tpu_torch.models.overflow.model:NeuralhmmTTS"),
+    "align_tts": ("tts_tpu_torch.models.align_tts.config:AlignTTSConfig",
+                  "tts_tpu_torch.models.align_tts.model:AlignTTS"),
+    "delightful_tts": ("tts_tpu_torch.models.delightful_tts.config:DelightfulTTSConfig",
+                       "tts_tpu_torch.models.delightful_tts.model:DelightfulTTS"),
 }
 _ENCODER_CONFIGS = {
     "speaker_encoder": "tts_tpu_torch.encoder.configs:SpeakerEncoderConfig",

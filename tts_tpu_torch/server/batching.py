@@ -17,10 +17,11 @@ the batch, then at most two groups of similar predicted length
 ``max_inference_len`` (F3). Each caller gets its sentences' waveforms
 joined with the serial path's 10000-sample gap.
 
-Serves end-to-end waveform models (VITS). Models with their own
-``synthesize`` (XTTS), mel → vocoder pipelines and models without a
-waveform output (GlowTTS) are refused, as by the JAX batcher; the server
-then serves serially. Each request's speaker and
+Serves end-to-end waveform models with a durations pass (VITS). Models with
+their own ``synthesize`` (XTTS), mel → vocoder pipelines and models without
+a waveform output (GlowTTS) are refused, as by the JAX batcher, and so is
+DelightfulTTS, a waveform model in the port (ROADMAP.md F28) that has no
+durations pass to plan a dispatch with; the server then serves serially. Each request's speaker and
 language are resolved by the ``Synthesizer``'s rules before it is queued
 (an unknown name raises ``ValueError`` there) and ride with each of its
 sentences as that row's ids, so one dispatch mixes speakers and languages.
@@ -86,6 +87,9 @@ class DynamicBatcher:
                 "DynamicBatcher needs a model whose inference() emits a waveform "
                 "directly (emits_waveform=True, e.g. VITS)"
             )
+        if not hasattr(model, "infer_durations"):
+            raise ValueError("DynamicBatcher plans its dispatches on a durations pass "
+                             "(infer_durations, e.g. VITS), which this model lacks")
         self.synthesizer = synthesizer
         self.model = model
         self.max_batch = int(max_batch)

@@ -25,14 +25,17 @@ d-vectors (the JAX server catches the
 batcher's ``ValueError`` to the same end). A request the batcher refuses
 (an unknown speaker) is answered 400, as the serial path would answer it.
 A model the batcher cannot take (XTTS; a mel model with a vocoder or
-Griffin-Lim: GlowTTS, Tacotron2, ForwardTTS) is served serially, with one line said at start-up. With ``--stream_batch N > 1`` ``/api/tts-stream`` goes through the
+Griffin-Lim: GlowTTS, Tacotron2, ForwardTTS, Overflow, NeuralHMM, AlignTTS;
+DelightfulTTS, which has no durations pass to plan a batch with) is served
+serially, with one line said at start-up. With ``--stream_batch N > 1``
+``/api/tts-stream`` goes through the
 :class:`StreamBatcher`, whose worker thread batches up to N concurrent
 streams.
 
 Run: ``python -m tts_tpu_torch.server.server --model_path DIR [--device cuda]
 [--speakers_file_path speakers.json] [--max_batch 4] [--batch_window_ms 10]
 [--stream_batch 4] [--port 5002]``, or ``--model_path FILE --config_path
-config.json`` for a VITS, GlowTTS, Tacotron2 or ForwardTTS checkpoint file,
+config.json`` for a checkpoint file of any family but XTTS,
 or ``--model_name tts_models/en/vctk/vits`` for a zoo model
 (``--list_models`` prints the zoo's names); ``--vocoder_path FILE
 --vocoder_config_path config.json``, or ``--vocoder_name``, gives a mel

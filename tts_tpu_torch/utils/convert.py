@@ -18,19 +18,24 @@ a handful of rules rather than a table:
 
 ``tacotron2_from_jax_params`` adds one rule for Tacotron2: flax's LSTM
 cells, eight Denses each, are packed into torch's LSTM weights;
-``speaker_encoder_from_jax_params`` packs the LSTM speaker encoder's cells
-the same way, and ``forward_tts_from_jax_params`` packs flax's attention
-Denses (``query``/``key``/``value`` ``[C, H, dh]``, ``out`` ``[H, dh, C]``)
-into ``in_proj_weight`` ``[3C, C]`` and ``out_proj``, and drops the
-training-only aligner.
+``overflow_from_jax_params`` packs Overflow's and NeuralHMM's the same way,
+and so does ``speaker_encoder_from_jax_params`` the LSTM speaker encoder's;
+``forward_tts_from_jax_params`` packs flax's attention Denses
+(``query``/``key``/``value`` ``[C, H, dh]``, ``out`` ``[H, dh, C]``) into
+``in_proj_weight`` ``[3C, C]`` and ``out_proj``, and drops the
+training-only aligner, and ``align_tts_from_jax_params`` does the same for
+AlignTTS, dropping its MDN head; ``delightful_tts_from_jax_params`` carries
+DelightfulTTS's acoustic and joint vocoder trees without the training-only
+aligner and prosody encoders.
 
 ``reference_vits_state``, ``reference_glow_tts_state``,
 ``reference_melgan_state``, ``reference_tacotron2_state``,
-``reference_speaker_encoder_state`` and ``reference_forward_tts_state``
-write the port's weights in the reference layout, the inverses of
-``load_reference_vits``, ``load_reference_glow_tts``,
-``load_reference_vocoder``, ``load_reference_tacotron2``,
-``load_reference_speaker_encoder`` and ``load_reference_forward_tts``.
+``reference_speaker_encoder_state``, ``reference_forward_tts_state`` and
+``reference_overflow_state`` write the port's weights in the reference
+layout, the inverses of ``load_reference_vits``,
+``load_reference_glow_tts``, ``load_reference_vocoder``,
+``load_reference_tacotron2``, ``load_reference_speaker_encoder``,
+``load_reference_forward_tts`` and ``load_reference_overflow``.
 
 ``load_reference_xtts`` / ``load_reference_vits`` / ``load_reference_glow_tts``
 / ``load_reference_vocoder`` / ``load_reference_tacotron2`` read a
@@ -39,8 +44,8 @@ reference-layout (coqui) checkpoint, map it to the flax-layout tree with
 ``convert_hifigan_generator`` or ``convert_melgan_generator`` /
 ``convert_tacotron2`` and from there into the port by the rules above.
 Those converters and what they call are the port's own copy of the XTTS,
-VITS, GlowTTS, HiFiGAN, MelGAN, Tacotron2, speaker encoder and ForwardTTS
-parts of
+VITS, GlowTTS, HiFiGAN, MelGAN, Tacotron2, speaker encoder, ForwardTTS and
+Overflow parts of
 ``tts_tpu/utils/convert.py`` (numpy only; the port imports nothing of
 ``tts_tpu``): parity tests hold the copy equal to the JAX package's
 converters, leaf for leaf (``tests/test_torch_host_copies.py``).
@@ -162,13 +167,11 @@ def _pack_lstm(cell: Mapping, suffix: str = "") -> Dict[str, np.ndarray]:
 _LSTM_NAMES = {"lstm_fwd": ("lstm", "_l0"), "lstm_bwd": ("lstm", "_l0_reverse")}
 
 
-def tacotron2_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``Tacotron2Module`` params (or those of one of its
-    layers) → the state_dict of the port's module: the generic rules, with
-    each flax LSTM cell packed, the encoder's ``lstm_fwd``/``lstm_bwd`` into
-    one bidirectional ``lstm``, the decoder's ``attention_rnn`` and
-    ``decoder_rnn`` into ``nn.LSTMCell`` weights. The DDC coarse decoder
-    (``coarse_decoder_cell``), which only training runs, is dropped."""
+def _carry_lstms(params: Mapping, drop: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """The generic rules, with each flax LSTM cell packed: an encoder's
+    ``lstm_fwd``/``lstm_bwd`` into one bidirectional ``lstm``, any other
+    cell into ``nn.LSTMCell`` weights under its own name. Subtrees named in
+    ``drop`` are left out."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     lstms: Dict[str, np.ndarray] = {}
@@ -176,7 +179,7 @@ def tacotron2_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     def split(tree: Mapping, path: Tuple[str, ...]) -> Dict[str, Any]:
         out = {}
         for key, value in tree.items():
-            if key == "coarse_decoder_cell":
+            if key in drop:
                 continue
             if isinstance(value, Mapping) and "ii" in value:
                 name, suffix = _LSTM_NAMES.get(key, (key, ""))
@@ -190,6 +193,24 @@ def tacotron2_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     state.update({k: torch.from_numpy(v) for k, v in lstms.items()})
     return state
 
+
+def tacotron2_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Tacotron2Module`` params (or those of one of its
+    layers) → the state_dict of the port's module: the generic rules, with
+    each flax LSTM cell packed (:func:`_carry_lstms`), the encoder's into
+    one bidirectional ``lstm``, the decoder's ``attention_rnn`` and
+    ``decoder_rnn`` into ``nn.LSTMCell`` weights. The DDC coarse decoder
+    (``coarse_decoder_cell``), which only training runs, is dropped."""
+    return _carry_lstms(params, drop=("coarse_decoder_cell",))
+
+
+def overflow_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``NeuralhmmTTSModule`` params (Overflow's or
+    NeuralHMM's, or those of one of its layers) → the state_dict of the
+    port's module: the generic rules, with the encoder's two LSTM cells
+    packed into one bidirectional ``lstm`` and the ``memory_rnn`` cell into
+    ``nn.LSTMCell`` weights (:func:`_carry_lstms`)."""
+    return _carry_lstms(params)
 
 
 # ---------------------------------------------------------------------------
@@ -1321,11 +1342,9 @@ def _pack_attention(attn: Mapping) -> Dict[str, np.ndarray]:
             "out_proj.bias": np.asarray(attn["out"]["bias"], np.float32)}
 
 
-def forward_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``ForwardTTSModule`` params (or those of one of its
-    blocks) → the state_dict of the port's module: the generic rules, each
-    ``self_attn`` packed (:func:`_pack_attention`); the ``aligner``, which
-    only training runs, is dropped."""
+def _carry_attention(params: Mapping, drop: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """The generic rules, with each flax ``self_attn`` packed
+    (:func:`_pack_attention`); subtrees named in ``drop`` are left out."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     attns: Dict[str, np.ndarray] = {}
@@ -1333,7 +1352,7 @@ def forward_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     def split(tree: Mapping, path: Tuple[str, ...]) -> Dict[str, Any]:
         out = {}
         for key, value in tree.items():
-            if key == "aligner":
+            if key in drop:
                 continue
             if key == "self_attn":
                 attns.update({".".join(path + (key, leaf)): w
@@ -1345,6 +1364,22 @@ def forward_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     state = flax_to_state_dict(split(params, ()))
     state.update({k: torch.from_numpy(np.array(v, order="C")) for k, v in attns.items()})
     return state
+
+
+def forward_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ForwardTTSModule`` params (or those of one of its
+    blocks) → the state_dict of the port's module: the generic rules, each
+    ``self_attn`` packed (:func:`_pack_attention`); the ``aligner``, which
+    only training runs, is dropped."""
+    return _carry_attention(params, drop=("aligner",))
+
+
+def align_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``AlignTTSModule`` params → the state_dict of the
+    port's module, as :func:`forward_tts_from_jax_params` carries
+    ForwardTTS's; the MDN head (``mdn_conv1``, ``mdn_norm``, ``mdn_conv2``),
+    which only training runs, is dropped."""
+    return _carry_attention(params, drop=("mdn_conv1", "mdn_norm", "mdn_conv2"))
 
 
 def load_reference_forward_tts(state: Mapping, args) -> Dict[str, torch.Tensor]:
@@ -1393,3 +1428,132 @@ def reference_forward_tts_state(state: Mapping[str, torch.Tensor],
     if pe is not None:
         out["pos_encoder.pe"] = pe.detach().cpu().numpy().T[None]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Overflow / NeuralHMM (copied from ``tts_tpu/utils/convert.py:1448-1488``),
+# unchanged.
+# ---------------------------------------------------------------------------
+
+def convert_overflow(state, config):
+    """Reference Overflow/NeuralhmmTTS state dict → flax params
+    (use with ``config.norm_type='folded'``)."""
+    state = dict(state)
+    enc = {
+        "emb": {"embedding": state["encoder.emb.weight"]},
+        "lstm_fwd": _lstm_cell(state, "encoder.lstm", "_l0"),
+        "lstm_bwd": _lstm_cell(state, "encoder.lstm", "_l0_reverse"),
+    }
+    for i in range(getattr(config, "encoder_n_convolutions", 3)):
+        enc[f"conv_{i}"] = _conv_bn_block(state, f"encoder.convolutions.{i}")
+
+    n_layers = len(getattr(config, "outputnet_size", [1024, 1024]))
+    out_net = {
+        "proj": _dense(state, "neural_hmm.output_net.parametermodel.last_layer"),
+    }
+    for i in range(n_layers):
+        out_net[f"layer_{i}"] = _dense(
+            state, f"neural_hmm.output_net.parametermodel.layers.{i}.linear_layer"
+        )
+    prenet = {}
+    for i in range(getattr(config, "prenet_n_layers", 1)):
+        w = state[f"neural_hmm.prenet.linear_layers.{i}.linear_layer.weight"]
+        prenet[f"linear_{i}"] = {
+            "kernel": linear_kernel(w),
+            "bias": np.zeros((w.shape[0],), w.dtype),  # reference prenet is bias-free
+        }
+    p = {
+        "encoder": enc,
+        "neural_hmm": {
+            "prenet": prenet,
+            "memory_rnn": _lstm_cell(state, "neural_hmm.memory_rnn", ""),
+            "output_net": out_net,
+        },
+    }
+    if "decoder.glow_decoder.flows.0.logs" in state:
+        p["decoder"] = convert_glow_decoder(
+            state, "decoder.glow_decoder.",
+            getattr(config, "num_flow_blocks_dec", 12),
+            getattr(config, "num_block_layers", 4),
+        )
+    return {"params": p}
+
+
+def load_reference_overflow(state: Mapping, config) -> Dict[str, torch.Tensor]:
+    """A reference-layout Overflow or NeuralHMM state dict (tensors or
+    arrays) → the state_dict of ``NeuralhmmTTSModule`` with folded norms, as
+    ``tts_tpu/utils/zoo_convert.py:58-65`` converts it: sets
+    ``config.norm_type = "folded"`` and, where the checkpoint has its
+    ``mean``/``std`` buffers, ``config.mel_statistics_mean/std``."""
+    state = {k: _to_numpy(v) for k, v in state.items()}
+    config.norm_type = "folded"
+    if "mean" in state:
+        config.mel_statistics_mean = float(state["mean"])
+        config.mel_statistics_std = float(state["std"])
+    return overflow_from_jax_params(convert_overflow(state, config))
+
+
+_OVERFLOW_RULES = (
+    (r"^encoder\.conv_(\d+)\.conv\.", r"encoder.convolutions.\1.convolution1d."),
+    (r"^encoder\.conv_(\d+)\.(weight|bias)$", r"encoder.convolutions.\1.batch_normalization.\2"),
+    (r"^neural_hmm\.prenet\.linear_(\d+)\.", r"neural_hmm.prenet.linear_layers.\1.linear_layer."),
+    (r"^neural_hmm\.output_net\.layer_(\d+)\.",
+     r"neural_hmm.output_net.parametermodel.layers.\1.linear_layer."),
+    (r"^neural_hmm\.output_net\.proj\.", "neural_hmm.output_net.parametermodel.last_layer."),
+)
+
+
+def reference_overflow_state(state: Mapping[str, torch.Tensor], mean: float = 0.0,
+                             std: float = 1.0) -> Dict[str, np.ndarray]:
+    """The state_dict of a ``NeuralhmmTTSModule`` with folded norms in the
+    reference's (coqui) names and layouts, with the mel statistics as its
+    ``mean``/``std`` buffers: each folded norm as an eval-mode BatchNorm
+    (running mean 0, running variance ``1 - 1e-5``, so that it folds back
+    exactly), the prenet without its bias (which must be zero: the
+    reference's prenet has none), the post-flow as GlowTTS's decoder under
+    ``decoder.glow_decoder.``. :func:`load_reference_overflow` maps it
+    back."""
+    flows = reference_glow_tts_state({k: v for k, v in state.items()
+                                      if k.startswith("decoder.")})
+    out = {k.replace("decoder.", "decoder.glow_decoder.", 1): v for k, v in flows.items()}
+    for key, value in state.items():
+        if key.startswith("decoder."):
+            continue
+        v = value.detach().cpu().numpy()
+        if re.fullmatch(r"neural_hmm\.prenet\.linear_\d+\.bias", key):
+            if np.any(v != 0):
+                raise ValueError(f"{key} is not zero: the reference's prenet has no bias")
+            continue
+        k = _reference_key(key, _OVERFLOW_RULES)
+        out[k] = v
+        if k.endswith("batch_normalization.weight"):
+            base = k[: -len("weight")]
+            out[base + "running_mean"] = np.zeros_like(v)
+            out[base + "running_var"] = np.full_like(v, np.float32(1) - np.float32(1e-5))
+            out[base + "num_batches_tracked"] = np.zeros((), np.int64)
+    if any(".norm." in k for k in out):
+        raise ValueError("no reference layout for layer norms (folded norms only)")
+    out["mean"] = np.asarray(mean, np.float32)
+    out["std"] = np.asarray(std, np.float32)
+    return out
+
+
+_DELIGHTFUL_TRAINING = ("aligner", "utterance_prosody_encoder", "phoneme_prosody_encoder")
+
+
+def delightful_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's DelightfulTTS params (``{"acoustic": ...,
+    "vocoder": ...}``, each a flax tree) → the state_dict of
+    ``DelightfulTTSModule``: the acoustic tree under ``acoustic_model.``
+    and the joint HiFiGAN's under ``vocoder.``, by the generic rules. The
+    subtrees only training runs (the aligner and the two prosody encoders
+    that read mels) are dropped, as :func:`forward_tts_from_jax_params`
+    drops the ForwardTTS aligner; the discriminator, which the JAX package
+    keeps apart, is not there."""
+    acoustic = params["acoustic"]
+    if "params" in acoustic and len(acoustic) == 1:
+        acoustic = acoustic["params"]
+    state = flax_to_state_dict({k: v for k, v in acoustic.items()
+                                if k not in _DELIGHTFUL_TRAINING}, "acoustic_model.")
+    state.update(flax_to_state_dict(params["vocoder"], "vocoder."))
+    return state

@@ -61,7 +61,7 @@ def _family_reason(model: str, model_item: Dict) -> Optional[str]:
         return None
     if model.startswith("xtts_v1"):
         return "the XTTS v1 layout is not ported yet (ROADMAP.md item 12)"
-    if model in ("your_tts", "fast_pitch"):
+    if model in ("your_tts", "fast_pitch", "overflow", "neural_hmm"):
         return None
     if "vits" in model.lower() or "vits" in (model_item.get("description") or "").lower():
         return None
@@ -76,12 +76,11 @@ def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     """Why the port cannot load the zoo model ``model_name`` of the catalog
     ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for what it
     runs: VITS (by its name or its description), YourTTS, XTTS v2, GlowTTS,
-    Tacotron2 (without GST) and FastPitch whose ``default_vocoder`` it runs
-    (or that has none: Griffin-Lim speaks it), and the MelGAN and HiFiGAN
-    vocoders. SpeedySpeech names item 16: neither package converts its
-    reference checkpoint. A
-    model whose family is not ported names its own item, whatever its
-    vocoder."""
+    Tacotron2 (without GST), FastPitch, Overflow and NeuralHMM whose
+    ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
+    and the MelGAN and HiFiGAN vocoders. SpeedySpeech names item 16: neither
+    package converts its reference checkpoint. A model whose family is not
+    ported names its own item, whatever its vocoder."""
     model_type, lang, dataset, model = model_name.split("/")
     if model_type == "voice_conversion_models":
         return "voice conversion models (FreeVC) are not ported yet (ROADMAP.md item 16)"

@@ -1,11 +1,12 @@
 """Synthesizer: load a model once, render text many times (port of
-``tts_tpu/utils/synthesizer.py`` for XTTS, VITS, and GlowTTS, Tacotron2 and
-the ForwardTTS family with a vocoder).
+``tts_tpu/utils/synthesizer.py`` for XTTS, VITS, DelightfulTTS, and
+GlowTTS, Tacotron2, the ForwardTTS family, Overflow, NeuralHMM and AlignTTS
+with a vocoder).
 
 A model loads from a directory (``config.json`` plus weights: the port's
 ``model_torch.pt`` or a reference-layout ``model.pth``; XTTS also needs its
-``vocab.json``) or, for VITS, GlowTTS, Tacotron2 and ForwardTTS, from a
-checkpoint file and its ``config.json``. A vocoder (``vocoder_checkpoint`` with its
+``vocab.json``) or, for the others (``FILE_MODELS``), from a checkpoint
+file and its ``config.json``. A vocoder (``vocoder_checkpoint`` with its
 ``vocoder_config``: HiFiGAN or a MelGAN, the port's state_dict or a
 reference-layout checkpoint) turns a mel model's output into audio; a mel
 model without one speaks through Griffin-Lim (``use_griffin_lim``, on by
@@ -15,8 +16,10 @@ Models with their own ``synthesize`` (XTTS) render each sentence through
 it. For the waveform models (VITS), a request of two or more sentences is
 decoded as one sequence-packed grid
 (:func:`~tts_tpu_torch.utils.synthesis.decode_packed`), and a single
-sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`. A mel
-model (GlowTTS, Tacotron2, ForwardTTS) decodes sentence by sentence, and each mel goes
+sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`;
+DelightfulTTS, which speaks through its joint vocoder (ROADMAP.md F28),
+decodes sentence by sentence. A mel model (GlowTTS, Tacotron2, ForwardTTS,
+Overflow, NeuralHMM, AlignTTS) decodes sentence by sentence, and each mel goes
 to the vocoder through the bridge of ``_vocode``: denormalised with the TTS
 model's ``AudioProcessor``, normalised with the vocoder's, resampled in time
 when the two sample rates differ, then ``generator.inference`` on the
@@ -33,8 +36,9 @@ long quiet stretch when its audio config has ``do_trim_silence`` on, as
 the JAX package's does (:func:`~tts_tpu_torch.utils.synthesis.trim_silence`,
 with the TTS model's ``AudioProcessor``); one loaded from a model directory
 is not trimmed. A VITS config's audio section (``VitsAudioConfig``) has no
-such field, so VITS is trimmed by neither package; a GlowTTS, Tacotron2
-or ForwardTTS config's (``BaseAudioConfig``) has it on by default.
+such field, so VITS is trimmed by neither package, nor is DelightfulTTS
+(``DelightfulTtsAudioConfig``); the mel models' (``BaseAudioConfig``) have
+it on by default.
 
 Speakers and languages of a VITS or ForwardTTS model are named through its
 managers (``utils/managers.py``), with the JAX ``Synthesizer``'s errors: an
@@ -115,7 +119,8 @@ _NO_ENCODER = ("speaker_wav needs a speaker encoder to compute its d-vector: loa
                "(ROADMAP.md F22)")
 # models that load from a checkpoint file and its config.json
 FILE_MODELS = ("vits", "glow_tts", "tacotron2", "fast_pitch", "fast_speech", "fastspeech2",
-               "speedy_speech", "forward_tts")
+               "speedy_speech", "forward_tts", "overflow", "neuralhmm_tts", "align_tts",
+               "delightful_tts")
 
 
 class Synthesizer:
@@ -154,8 +159,8 @@ class Synthesizer:
         return os.path.join(path, "config.json")
 
     def _load_tts(self, path: str, config_path: str) -> None:
-        """A model directory, or a VITS, GlowTTS or Tacotron2 checkpoint
-        file, with its config."""
+        """A model directory, or a checkpoint file of ``FILE_MODELS`` with
+        its config."""
         config = config_from_dict(read_json_with_comments(config_path))
         for target in (config, getattr(config, "model_args", None)):
             if self.speakers_file_path and hasattr(target, "speakers_file"):
