@@ -183,7 +183,34 @@ Phases; each raises on failure and the script then exits non-zero:
     distance from a .5 boundary, the medium sentence's latency and RTF
     through ``Synthesizer.tts`` (AlignTTS with HiFiGAN), and one
     ``TTS.tts_to_file`` each; peak memory. ``decode_attention`` must not
-    launch.
+    launch;
+14. the remaining vocoders at full width, fp32 weights from seed 0:
+    ParallelWaveGAN (``ParallelWaveganConfig``: 30 layers in 3 stacks,
+    64/128/64 channels, upsampling [4, 4, 4, 4]), UnivNet (``UnivnetConfig``:
+    64 noise and 32 hidden channels, LVC blocks [8, 8, 4]), WaveGrad
+    (``WavegradConfig``: 768 wide, [4, 4, 4, 2, 2], 50 test steps; its FiLM
+    output convs scaled by 0.1 and its head so that the predicted noise has
+    a deviation of 1, as random weights otherwise diverge), WaveRNN
+    (``WavernnConfig``: ``mold``, 512-wide GRUs, [4, 8, 8]) and the iSTFT
+    generator at the MB-iSTFT-VITS decoder's widths. Card against CPU on a
+    64-frame mel with the noise drawn once on the CPU (within 1e-4:
+    ParallelWaveGAN, UnivNet and the iSTFT generator; WaveGrad's ``y``
+    before the clip after 50 steps, its largest difference after each 10
+    steps and that of the FiLM positional table printed; WaveRNN's
+    teacher-forced logits and ``generate`` over 16 frames, a flipped
+    mixture component traced to its step and Gumbel margin); the four
+    fidelity fixtures on the card; each vocoder alone on the medium
+    sentence's mel at the Tacotron2 phase's natural length (latency, RTF,
+    operations, kernels and busy share, working memory; WaveGrad's two
+    branches of a step; WaveRNN's us a sample on a 32-frame clip and kernels
+    a sample on a 6-frame one); ``en/ek1/tacotron2``,
+    ``en/ljspeech/tacotron2-DDC_ph`` and ``nl/mai/tacotron2-DDC`` by zoo
+    name with their default vocoders from reference-layout directories,
+    equal to the path load; ``tts --vocoder_path`` (UnivNet) within one
+    int16 step of the API; one WaveRNN ``TTS.tts_to_file``; the server with
+    WaveGrad and ``--max_batch 4``, serial. The surfaces' Tacotron2 stops at
+    step 1 and decodes at the recipe's r = 6: 6 frames a sentence.
+    ``decode_attention`` must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -195,6 +222,7 @@ checkout, it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -2300,7 +2328,9 @@ def mb_melgan_recipe_config():
 def random_vocoder(config, seed: int = 0):
     """The generator ``config`` names, on the CPU, with fp32 weights drawn
     from ``seed``: N(0, 1/fan_in) (a transposed conv's fan-in is its input
-    channels times its taps per output, kernel / stride), biases 0."""
+    channels times its taps per output, kernel / stride), biases 0; the
+    shared smoothing taps (``up_<i>``) and WaveRNN's folded norms keep their
+    initial values."""
     import torch
 
     from tts_tpu_torch.vocoder.utils import make_generator_from_config
@@ -2309,8 +2339,11 @@ def random_vocoder(config, seed: int = 0):
     draw = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in gen.named_parameters():
-            owner = gen.get_submodule(name.rsplit(".", 1)[0])
-            if name.endswith("bias"):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("up_") or leaf.endswith(("_scale", "_shift")):
+                continue  # smoothing taps at 1 / k, folded norms the identity, as initialised
+            owner = gen.get_submodule(name.rsplit(".", 1)[0]) if "." in name else gen
+            if "bias" in leaf:
                 p.zero_()
                 continue
             if isinstance(owner, torch.nn.ConvTranspose1d):
@@ -4486,6 +4519,509 @@ def phase_hmm_align_delightful(card: str, device="cuda", cut=None) -> None:
     log(line + f"; phase 13 took {time.time() - t_phase:.1f} s | {card}")
 
 
+ZOO_PAIRINGS = {  # the Tacotron2 entries whose default vocoders phase 14 brings
+    "tts_models/en/ek1/tacotron2": ("vocoder_models/en/ek1/wavegrad", "wavegrad"),
+    "tts_models/en/ljspeech/tacotron2-DDC_ph": ("vocoder_models/en/ljspeech/univnet", "univnet"),
+    "tts_models/nl/mai/tacotron2-DDC": ("vocoder_models/nl/mai/parallel-wavegan",
+                                        "parallel_wavegan"),
+}
+VOCODER_TOL = 1e-4  # card vs CPU, the vocoders of phase 14, fp32 with TF32 off
+VOCODER_CHECK_FRAMES = 64  # the mel of the card-against-CPU checks
+WAVERNN_CHECK_FRAMES = 16  # WaveRNN's: (16 - 2 pad) x 256 = 3072 samples a side
+WAVERNN_TIMING_FRAMES = 32  # the clip WaveRNN's us per sample is timed on
+WAVERNN_PROFILE_FRAMES = 6  # the clip its kernels per sample are counted on
+T2_STOP_BIAS = 10.0  # the stopnet fires at step 1: one step of r = 6 frames for the surfaces
+
+
+def vocoder_recipe_configs() -> dict:
+    """The five vocoders at full width, 22.05 kHz, hop 256, 80 mels:
+    ``ParallelWaveganConfig`` (30 layers in 3 stacks, 64 residual, 128 gate
+    and 64 skip channels, upsampling [4, 4, 4, 4]), ``UnivnetConfig`` (the
+    generator's defaults: 64 noise channels, 32 hidden, LVC blocks [8, 8, 4]
+    of 4 layers, a 64-wide kernel predictor), ``WavegradConfig`` (768 wide,
+    upsampling [4, 4, 4, 2, 2], 50 test steps), ``WavernnConfig`` (``mold``,
+    512-wide GRUs and dense layers, 10 resnet blocks, upsampling [4, 8, 8])
+    and the MB-iSTFT-VITS decoder's widths (``mb_istft_config``) as a
+    stand-alone iSTFT generator on the mel."""
+    from tts_tpu_torch.vocoder import configs
+
+    istft = configs.GANConfig(generator_model="istft_hifigan_generator", generator_model_params={
+        "upsample_initial_channel": 512, "upsample_factors": [4, 4],
+        "upsample_kernel_sizes": [16, 16], "istft_n_fft": 16, "istft_hop": 4, "subbands": 4})
+    return {"parallel_wavegan": configs.ParallelWaveganConfig(),
+            "univnet": configs.UnivnetConfig(), "wavegrad": configs.WavegradConfig(),
+            "wavernn": configs.WavernnConfig(), "istft_hifigan": istft}
+
+
+def vocoder_fidelity(device) -> str:
+    """``parallel_wavegan.npz``, ``univnet.npz``, ``wavegrad.npz`` and
+    ``wavernn.npz`` (reference-layout state dicts with the reference code's
+    outputs) through the port's converters on ``device``, at
+    ``test_fidelity_corpus``'s thresholds: the log-mel distance of the
+    waveforms on the fixtures' own noise, WaveRNN's teacher-forced logits'
+    RMSE."""
+    import torch
+
+    from tts_tpu_torch.utils.convert import load_reference_vocoder
+    from tts_tpu_torch.vocoder import configs
+    from tts_tpu_torch.vocoder.utils import make_generator_from_config
+
+    widths = {
+        "parallel_wavegan": ("ParallelWaveganConfig", "generator_model_params", dict(
+            num_res_blocks=6, stacks=3, res_channels=8, gate_channels=16, skip_channels=8,
+            upsample_factors=[4, 4])),
+        "univnet": ("UnivnetConfig", "generator_model_params", dict(
+            in_channels=8, hidden_channels=8, upsample_factors=[2, 2], lvc_layers_each_block=2,
+            kpnet_hidden_channels=8)),
+        "wavegrad": ("WavegradConfig", "model_params", dict(
+            y_conv_channels=8, x_conv_channels=24, dblock_out_channels=[8, 12],
+            ublock_out_channels=[24, 12, 8], upsample_factors=[2, 2, 2],
+            upsample_dilations=[[1, 2, 1, 2]] * 3)),
+        "wavernn": ("WavernnConfig", "model_args", dict(
+            rnn_dims=16, fc_dims=16, compute_dims=8, res_out_dims=8, num_res_blocks=2,
+            upsample_factors=[2, 2])),
+    }
+    said = []
+    for family, (kind, field, params) in widths.items():
+        npz = np.load(os.path.join(REPO, "tests", "fixtures", "fidelity", f"{family}.npz"))
+        part = {p: {k[len(p) + 1:]: npz[k] for k in npz.files if k.startswith(p + "/")}
+                for p in ("sd", "in", "out")}
+        ins, outs = part["in"], part["out"]
+        config = getattr(configs, kind)()
+        config.audio.num_mels = ins["mel"].shape[1]
+        setattr(config, field, params)
+        gen = make_generator_from_config(config)
+        gen.load_state_dict(load_reference_vocoder(part["sd"], config), strict=True)
+        gen = gen.to(device).eval()
+        mel = torch.from_numpy(ins["mel"].transpose(0, 2, 1)).to(device)
+        with torch.no_grad():
+            if family == "wavernn":
+                logits = gen(torch.from_numpy(ins["x"]).to(device), mel).cpu().numpy()[0]
+                rmse = float(np.sqrt(np.mean((logits - outs["logits"][0]) ** 2)))
+                if not rmse < FIDELITY_RMSE:
+                    raise AssertionError(f"wavernn.npz on {device}: logits RMSE {rmse}")
+                said.append(f"wavernn.npz logits RMSE {rmse:.3g} (< {FIDELITY_RMSE})")
+                continue
+            if family == "wavegrad":
+                wav = gen(torch.from_numpy(ins["x"].transpose(0, 2, 1)).to(device), mel,
+                          torch.from_numpy(ins["noise_scale"]).to(device))
+            else:
+                wav = gen(mel, torch.from_numpy(ins["noise"].transpose(0, 2, 1)).to(device))
+        wav = wav.cpu().numpy()[0, :, 0]
+        ref = outs["wav"][0, 0]
+        lsd = _lsd_db(ref, wav) if len(wav) == len(ref) else np.inf
+        if not lsd < FIDELITY_LSD_DB:
+            raise AssertionError(f"{family}.npz on {device}: {len(wav)} samples, LSD {lsd}")
+        said.append(f"{family}.npz LSD {lsd:.3g} dB (max abs diff "
+                    f"{float(np.abs(ref - wav).max()):.3g})")
+    return "; ".join(said) + f" (< {FIDELITY_LSD_DB} dB)"
+
+
+WAVEGRAD_FILM_SCALE = 0.1  # random FiLM weights at 1 / fan-in make the reverse diffusion diverge
+
+
+def calibrate_wavegrad(gen, frames: int = 16, seed: int = 6) -> float:
+    """Tame random WaveGrad weights for a 50-step reverse diffusion: the
+    FiLM output convs scaled by ``WAVEGRAD_FILM_SCALE`` (at 1 / fan-in the
+    shift and scale they give grow with ``y``, and the loop diverges to inf
+    within 30 steps in CPU rehearsals at small widths; a trained model's
+    prediction tracks the noise in ``y`` instead), then the head
+    (``out_conv``, which the JAX package initialises at zero) scaled so that
+    the predicted noise has a standard deviation of 1 on pure noise at the
+    first reverse step. Returns the head's factor."""
+    import torch
+
+    from tts_tpu_torch.vocoder.models.wavegrad import compute_noise_schedule
+
+    rs = np.random.RandomState(seed)
+    mel = torch.from_numpy(rs.randn(1, frames, gen.x_conv.in_channels).astype(np.float32))
+    y = torch.from_numpy(rs.randn(1, frames * gen.hop, 1).astype(np.float32))
+    nl = torch.full((1,), float(np.sqrt(compute_noise_schedule(50)[2][-1])))
+    with torch.no_grad():
+        for name, module in gen.named_modules():
+            if name.endswith("output_conv"):
+                module.weight.mul_(WAVEGRAD_FILM_SCALE)
+        factor = 1.0 / float(gen(y, mel, nl).std())
+        gen.out_conv.weight.mul_(factor)
+    return factor
+
+
+def calibrate_univnet(gen) -> float:
+    """Scale each LVC block's kernel predictor's ``kernel_conv`` by ``1 /
+    sqrt(C_in K)``, so that the kernels it predicts from random weights sit
+    at 1 / fan-in, as a convolution's random weights do (unscaled, each LVC
+    layer multiplies its input by ~10, and the gates saturate). Returns the
+    factor."""
+    import torch
+
+    block = gen.lvc_0
+    factor = 1.0 / float(np.sqrt(block.in_channels * block.kernel_predictor.shape[3]))
+    with torch.no_grad():
+        for n in range(len(gen.upsample_factors)):
+            getattr(gen, f"lvc_{n}").kernel_predictor.kernel_conv.weight.mul_(factor)
+    return factor
+
+
+def gumbel_margin(logits, gumbel) -> "torch.Tensor":
+    """Per step, the gap between the best and the second-best mixture
+    component of WaveRNN's Gumbel-max choice: ``logits`` ``[1, T, 30]``,
+    ``gumbel`` ``[T, 1, 10]`` → ``[T]``."""
+    import torch
+
+    nr_mix = logits.shape[-1] // 3
+    top = torch.topk(logits[0, :, :nr_mix] + gumbel[:, 0].to(logits), 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def wavernn_against_cpu(gen, cpu_gen, device) -> str:
+    """WaveRNN card against CPU on a ``WAVERNN_CHECK_FRAMES``-frame mel:
+    ``generate`` on draws made once on the CPU, then the teacher-forced
+    logits of both sides along the card's samples (the steps ``generate``
+    ran, on the card). A sample that differs by more than the tolerance is
+    traced to its step: where the mixture component flipped there, the step
+    and its Gumbel margin are printed, and the phase fails."""
+    import torch
+
+    mel = torch.from_numpy(np.random.RandomState(3).randn(1, WAVERNN_CHECK_FRAMES, 80).astype(
+        np.float32))
+    T = (WAVERNN_CHECK_FRAMES - 4) * gen.hop
+    noise = cpu_gen.draw_noise(T, 1, torch.Generator().manual_seed(2))
+    card = gen.generate(mel.to(device), noise={k: v.to(device) for k, v in noise.items()}).cpu()
+    host = cpu_gen.generate(mel, noise=noise)
+    prev = torch.cat([card.new_zeros(1, 1), card[:, :-1]], 1)
+    with torch.no_grad():
+        got = gen(prev.to(device), mel.to(device)).cpu()
+        want = cpu_gen(prev, mel)
+    margins = gumbel_margin(got, noise["gumbel"])
+    nr = got.shape[-1] // 3
+    comps = [torch.argmax(v[0, :, :nr] + noise["gumbel"][:, 0], -1) for v in (got, want)]
+    err, lerr = float((card - host).abs().max()), float((got - want).abs().max())
+    if not err <= VOCODER_TOL:
+        t = int(((card - host).abs() > VOCODER_TOL).nonzero()[0, 1])
+        flipped = bool(comps[0][t] != comps[1][t])
+        raise AssertionError(f"WaveRNN generate card vs CPU: max abs diff {err}, first at sample "
+                             f"{t}; mixture component {'flipped' if flipped else 'kept'} there, "
+                             f"Gumbel margin {float(margins[t]):.3g}")
+    if not lerr <= VOCODER_TOL:
+        raise AssertionError(f"WaveRNN teacher-forced logits card vs CPU: max abs diff {lerr}")
+    return (f"generate ({T} samples on CPU-drawn noise) max abs diff {err:.3g}, no mixture "
+            f"component flipped (smallest Gumbel margin {float(margins.min()):.3g} at sample "
+            f"{int(margins.argmin())}); the teacher-forced logits along those samples max abs "
+            f"diff {lerr:.3g}")
+
+
+def kernels_and_device_us(fn) -> tuple:
+    """``(kernels, device microseconds)`` of one call of ``fn`` under
+    ``torch.profiler`` (kernel rows only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+    return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of ``fn`` between CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+    return sorted(runs)[reps // 2]
+
+
+def vocoder_timings(gens: dict, schedule, frames: int, sr: int, device, card: str) -> None:
+    """Each vocoder alone at B = 1 on a seeded mel of ``frames`` frames (the
+    medium sentence at the Tacotron2 phase's natural length): latency, RTF,
+    operations (``torch``'s counter), kernels and busy share under
+    ``torch.profiler``, working memory; WaveGrad's two branches of one step
+    by CUDA events; WaveRNN's us a sample on a ``WAVERNN_TIMING_FRAMES``
+    clip and its kernels a sample on a ``WAVERNN_PROFILE_FRAMES`` one."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tts_tpu_torch.vocoder.models.wavegrad import wavegrad_inference
+
+    wg = gens["wavegrad"]
+    steps = len(schedule[0])
+    mel_m = torch.from_numpy(np.random.RandomState(4).randn(1, frames, 80).astype(
+        np.float32)).to(device)
+    calls = {
+        "parallel_wavegan": lambda: gens["parallel_wavegan"].inference(mel_m),
+        "univnet": lambda: gens["univnet"].inference(mel_m),
+        "istft_hifigan": lambda: gens["istft_hifigan"].inference(mel_m),
+        "wavegrad": lambda: wavegrad_inference(wg, mel_m, schedule),
+    }
+    for k, fn in calls.items():
+        with torch.no_grad():
+            with FlopCounterMode(display=False) as counter:
+                out = fn()
+            audio = out.shape[1] / sr
+            del out
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms, lo, hi = median_ms(fn, device, reps=3)
+            peak = torch.cuda.max_memory_allocated() - base
+            n_k, dev_us = kernels_and_device_us(fn)
+        gflop = counter.get_total_flops() / 1e9
+        log(f"{k} on the medium sentence's mel ({frames} frames, the Tacotron2 phase's natural "
+            f"length; {audio:.2f} s of audio): {ms:.1f} ms (median of 3; {lo:.1f}-{hi:.1f}), "
+            f"RTF {audio / ms * 1e3:.1f}; {gflop:.1f} GFLOP (torch's counter: convolutions "
+            f"and matmuls), {gflop / ms:.1f} TFLOP/s; {n_k} kernels, device busy "
+            f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / ms:.1f} % of the median wall); "
+            f"peak {peak / 1e9:.3f} GB above the weights and the mel | {card}")
+    nl = torch.full((1,), float(np.sqrt(schedule[2][steps // 2])), device=device)
+    y = torch.randn((1, frames * wg.hop, 1), device=device)
+    with torch.no_grad():
+        ss = wg.film(y, nl)
+        film_ms = cuda_ms(lambda: wg.film(y, nl))
+        decode_ms = cuda_ms(lambda: wg.decode(mel_m, ss))
+    log(f"WaveGrad step on {frames} frames (CUDA events, median of 5): waveform branch "
+        f"(y_conv, 4 DBlocks, 5 FiLMs) {film_ms:.2f} ms, mel branch (x_conv, 5 UBlocks, "
+        f"out_conv) {decode_ms:.2f} ms; {steps} steps | {card}")
+    wr = gens["wavernn"]
+    for n_frames in (WAVERNN_PROFILE_FRAMES, WAVERNN_TIMING_FRAMES):
+        clip = torch.from_numpy(np.random.RandomState(5).randn(1, n_frames, 80).astype(
+            np.float32)).to(device)
+        samples = (n_frames - 4) * wr.hop
+        if n_frames == WAVERNN_TIMING_FRAMES:  # one run: the profiled clip below warms it
+            ms = median_ms(lambda: wr.generate(clip), device, reps=1)[0]
+            log(f"WaveRNN generate, {n_frames}-frame clip ({samples} samples): {ms:.1f} ms "
+                f"(one run), {ms * 1e3 / samples:.1f} us a sample, RTF "
+                f"{samples / sr / ms * 1e3:.3f} | {card}")
+        else:
+            wr.generate(clip)
+            n_k, dev_us = kernels_and_device_us(lambda: wr.generate(clip))
+            log(f"WaveRNN generate, {n_frames}-frame clip ({samples} samples) under "
+                f"torch.profiler: {n_k / samples:.1f} kernels and {dev_us / samples:.1f} us of "
+                f"device a sample | {card}")
+
+
+def phase_vocoders(card: str, device="cuda", cut=None) -> None:
+    """ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN and the iSTFT generator
+    at full width (``vocoder_recipe_configs``), fp32 weights from seed 0:
+    card against CPU on one seeded mel with the noise drawn once on the CPU
+    (WaveGrad's ``y`` before the clip after its 50 steps, with the largest
+    difference per 10 steps and of the FiLM table; WaveRNN's logits and
+    samples); the four fidelity fixtures on the card; each vocoder alone on
+    the medium sentence's mel at the Tacotron2 phase's natural length
+    (latency, RTF, busy share, kernels, peak memory; WaveGrad's ms per step
+    and its two branches; WaveRNN's us and kernels per sample on short
+    clips); the three Tacotron2 pairings by zoo name against the path load,
+    ``tts --vocoder_path``, one WaveRNN ``TTS.tts_to_file`` and the server,
+    serial. ``decode_attention`` must not launch. ``cut`` shrinks the six
+    configs in place (the five vocoders' by name, then the Tacotron2's), for
+    rehearsals on the CPU."""
+    import io
+    import shutil
+
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.text.tokenizer import TTSTokenizer
+    from tts_tpu_torch.utils import convert
+    from tts_tpu_torch.vocoder.models.wavegrad import compute_noise_schedule, wavegrad_inference
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    decode_attention.launches = 0  # K1 is not on these paths: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    short, medium = VITS_SENTENCES["short"], VITS_SENTENCES["medium"]
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    configs, t2_config = vocoder_recipe_configs(), tacotron2_recipe_config()
+    if cut:
+        cut(configs, t2_config)
+    cpu_gens = {k: random_vocoder(c, seed=0) for k, c in configs.items()}
+    head = calibrate_wavegrad(cpu_gens["wavegrad"])
+    lvc = calibrate_univnet(cpu_gens["univnet"])
+    gens = {k: copy.deepcopy(g).to(device) for k, g in cpu_gens.items()}
+    sizes = ", ".join(f"{k} {sum(p.numel() for p in g.parameters()) / 1e6:.2f} M"
+                      for k, g in cpu_gens.items())
+    log(f"vocoders at full width (seed 0, fp32): {sizes} parameters; WaveGrad's FiLM output "
+        f"convs scaled by {WAVEGRAD_FILM_SCALE} and its head by {head:.3g}, so that its predicted "
+        f"noise has a standard deviation of 1 on pure noise; UnivNet's kernel convs by "
+        f"{lvc:.3g}, so that its predicted kernels sit at 1 / fan-in")
+
+    # card against CPU: one seeded mel, the noise drawn once on the CPU
+    rs = np.random.RandomState(0)
+    mel = torch.from_numpy(rs.randn(1, VOCODER_CHECK_FRAMES, 80).astype(np.float32))
+    draw = torch.Generator().manual_seed(1)
+    errs = {}
+    with torch.no_grad():
+        for k in ("parallel_wavegan", "univnet", "istft_hifigan"):
+            g, c = gens[k], cpu_gens[k]
+            if k == "istft_hifigan":
+                a, b = g.inference(mel.to(device)).cpu(), c.inference(mel)
+            else:
+                shape = ((1, (VOCODER_CHECK_FRAMES + 2 * c.inference_padding) * c.hop, 1)
+                         if k == "parallel_wavegan" else (1, VOCODER_CHECK_FRAMES, c.in_channels))
+                x = torch.randn(shape, generator=draw)
+                a = g.inference(mel.to(device), x=x.to(device)).cpu()
+                b = c.inference(mel, x=x)
+            errs[k] = float((a - b).abs().max()) if a.shape == b.shape else np.inf
+            if not errs[k] <= VOCODER_TOL or not torch.isfinite(a).all() or a.std() == 0:
+                raise AssertionError(f"{k} card vs CPU: {tuple(a.shape)} vs {tuple(b.shape)}, "
+                                     f"max abs diff {errs[k]}")
+    log("card vs CPU on a seeded " + f"{VOCODER_CHECK_FRAMES}-frame mel, noise drawn once on the "
+        "CPU: " + ", ".join(f"{k} max abs diff {v:.3g}" for k, v in errs.items())
+        + f" (tol {VOCODER_TOL}) (phase 14 at {time.time() - t_phase:.0f} s)")
+
+    tokenizer, _ = TTSTokenizer.init_from_config(t2_config)
+    frames = 3 * len(tokenizer.text_to_ids(medium)) * T2_DECODE_R  # Tacotron2's natural length
+    sched = configs["wavegrad"].test_noise_schedule
+    schedule = compute_noise_schedule(sched["num_steps"], sched["min_val"], sched["max_val"])
+    steps = len(schedule[0])
+    wg, wg_cpu = gens["wavegrad"], cpu_gens["wavegrad"]
+    T_wav = VOCODER_CHECK_FRAMES * wg.hop
+    noise = torch.randn((steps + 1, 1, T_wav, 1), generator=draw)
+    seen = {}
+
+    def record(key):
+        def hook(module, args):
+            seen.setdefault(key, []).append(args[0].detach().cpu())
+        return hook
+
+    hooks = [wg.register_forward_pre_hook(record("card")),
+             wg_cpu.register_forward_pre_hook(record("cpu"))]
+    a = wavegrad_inference(wg, mel.to(device), schedule, noise=noise.to(device), clip=False).cpu()
+    b = wavegrad_inference(wg_cpu, mel, schedule, noise=noise, clip=False)
+    for h in hooks:
+        h.remove()
+    per_step = [float((p - q).abs().max()) for p, q in zip(seen["card"], seen["cpu"])] + [
+        float((a - b).abs().max())]
+    err = per_step[-1]
+    if not err <= VOCODER_TOL or not torch.isfinite(a).all():
+        raise AssertionError(f"WaveGrad y before the clip, card vs CPU after {steps} steps: {err}")
+    film, T_big = wg.film_0, frames * wg.hop
+    table = float((film.positional_table(T_big, device).cpu()
+                   - wg_cpu.film_0.positional_table(T_big, "cpu")).abs().max())
+    log(f"WaveGrad card vs CPU ({steps} steps, {T_wav} samples, the first y and each z drawn once "
+        f"on the CPU): y before the clip max abs diff {err:.3g} (tol {VOCODER_TOL}; |y| up to "
+        f"{float(b.abs().max()):.3g}, {float((b.abs() > 1).float().mean()) * 100:.1f} % of it "
+        f"beyond the clip); largest difference after each 10 steps: "
+        + ", ".join(f"{per_step[i]:.2g}" for i in range(10, steps + 1, 10))
+        + f"; the FiLM positional table at the timing length ({film.input_conv.out_channels} x "
+          f"{T_big}, arguments up to {T_big - 1}) card vs CPU {table:.3g}")
+    log("WaveRNN card vs CPU: " + wavernn_against_cpu(gens["wavernn"], cpu_gens["wavernn"],
+                                                       device)
+        + f" (tol {VOCODER_TOL}) (phase 14 at {time.time() - t_phase:.0f} s)")
+    del cpu_gens, wg_cpu
+    log(f"vocoder fidelity replays on {device}: " + vocoder_fidelity(device) + f" | {card}")
+
+    if cuda:
+        vocoder_timings(gens, schedule, frames, configs["wavegrad"].audio.sample_rate, device,
+                        card)
+
+    # the surfaces: a Tacotron2 that stops at step 1, in the reference layout without an
+    # "r", so that it decodes at the recipe's r = 6: 6 frames a sentence, which WaveRNN's
+    # valid resnet conv (2 pad + 1 = 5 frames) can take
+    with tempfile.TemporaryDirectory() as d:
+        t2_dir = os.path.join(d, "t2")
+        os.makedirs(t2_dir)
+        t2 = random_tacotron2(t2_config, seed=0, stop_bias=T2_STOP_BIAS)
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in convert.reference_tacotron2_state(
+            t2.module.state_dict()).items()}}, os.path.join(t2_dir, "model_file.pth"))
+        write_json(os.path.join(t2_dir, "config.json"), t2.config.to_dict())
+        del t2
+        writers = {"parallel_wavegan": convert.reference_parallel_wavegan_state,
+                   "univnet": convert.reference_univnet_state,
+                   "wavegrad": convert.reference_wavegrad_state,
+                   "wavernn": convert.reference_wavernn_state}
+        paths = {}
+        for k, writer in writers.items():
+            vdir = os.path.join(d, k)
+            os.makedirs(vdir)
+            state = {n: v.cpu() for n, v in gens[k].state_dict().items()}
+            torch.save({"model": {n: torch.from_numpy(v) for n, v in writer(state).items()}},
+                       os.path.join(vdir, "model_file.pth"))
+            write_json(os.path.join(vdir, "config.json"), configs[k].to_dict())
+            paths[k] = ["--vocoder_path", os.path.join(vdir, "model_file.pth"),
+                        "--vocoder_config_path", os.path.join(vdir, "config.json")]
+        del gens, wg
+        t2_args = ["--model_path", os.path.join(t2_dir, "model_file.pth"), "--config_path",
+                   os.path.join(t2_dir, "config.json")]
+
+        def by_path(k):
+            return TTS(model_path=t2_args[1], config_path=t2_args[3], vocoder_path=paths[k][1],
+                       vocoder_config_path=paths[k][3], device=device)
+
+        with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+            for name, (vname, k) in ZOO_PAIRINGS.items():
+                shutil.copytree(t2_dir, os.path.join(home, "tts_tpu", name.replace("/", "--")))
+                shutil.copytree(os.path.dirname(paths[k][1]),
+                                os.path.join(home, "tts_tpu", vname.replace("/", "--")))
+                named = TTS(model_name=name, device=device)
+                a = np.asarray(silent(named.tts, short), np.float32)
+                b = np.asarray(silent(by_path(k).tts, short), np.float32)
+                zerr = float(np.abs(a - b).max()) if a.shape == b.shape else np.inf
+                if zerr != 0 or a.std() == 0 or not np.isfinite(a).all():
+                    raise AssertionError(f"TTS(model_name={name}) vs path load: {a.shape} vs "
+                                         f"{b.shape}, max abs diff {zerr}")
+                log(f"zoo: {name} with its default vocoder {vname} ({k}) from reference-layout "
+                    f"directories, nothing fetched: {len(a)} samples, the short sentence differs "
+                    f"from the path load by {zerr}")
+                del named
+
+        api = by_path("univnet")
+        api_path, cli_path = os.path.join(d, "api.wav"), os.path.join(d, "cli.wav")
+        silent(api.tts_to_file, short, file_path=api_path)
+        silent(synthesize_cli, ["--text", short, "--out_path", cli_path, "--device", str(device)]
+               + t2_args + paths["univnet"])
+        step, cli_sr = _int16_steps(cli_path, api_path)
+        if step is None or step > 1:
+            raise AssertionError(f"tts --vocoder_path (UnivNet) vs the API: {step} int16 steps")
+        log(f"tts --model_path --config_path --vocoder_path --vocoder_config_path (UnivNet, its "
+            f"noise from a generator seeded 0): at {cli_sr} Hz, at most {step} int16 step from "
+            f"TTS.tts_to_file")
+        wr_path = os.path.join(d, "wavernn.wav")
+        t0 = time.perf_counter()
+        silent(by_path("wavernn").tts_to_file, short, file_path=wr_path)
+        log(f"WaveRNN TTS.tts_to_file (Tacotron2 stopping at step 1, 6 frames): "
+            f"{os.path.getsize(wr_path)} bytes in {time.perf_counter() - t0:.1f} s, model load "
+            f"included")
+        status, body, said, dispatched = _serve_once(t2_args + paths["wavegrad"],
+                                                     {"text": short}, device)
+        if status != 200 or "serving serially" not in said or dispatched:
+            raise AssertionError(f"Tacotron2 + WaveGrad server with --max_batch 4: {status}, "
+                                 f"{said!r}")
+        line = [ln for ln in said.splitlines() if "serially" in ln][0].strip()
+        log(f"Tacotron2 + WaveGrad server (--vocoder_path, --max_batch 4): said {line!r}; "
+            f"/api/tts answered {len(body)} bytes")
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during phase 14")
+    line = ("ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN, iSTFT: no hand-written kernel on these "
+            "paths (decode_attention launches 0)")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f"; phase 14 took {time.time() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -4516,11 +5052,12 @@ def main() -> int:
     phase_tacotron2(card)
     phase_speaker_and_forward_tts(card)
     phase_hmm_align_delightful(card)
+    phase_vocoders(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"chip_smoke.py: phases 1-13 took {time.time() - t_start:.1f} s | {card}")
+    log(f"chip_smoke.py: phases 1-14 took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({
         "ok": True,

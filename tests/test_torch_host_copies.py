@@ -8,8 +8,9 @@ tokenizer's normalisation; the VITS tokenizer with every cleaner pipeline of
 ``cmudict``, ``en_g2p``, ``latin_g2p`` with ``rule_g2p_ext`` and
 ``rule_g2p_ext3``, ``belarusian``, ``phonemizers``, ``IPAPhonemes`` and
 ``VitsCharacters``), the Tacotron2, ForwardTTS, speaker encoder, Overflow,
-NeuralHMM, AlignTTS and DelightfulTTS configs, the reference → flax-layout
-XTTS, VITS, GlowTTS, MelGAN, Tacotron2, speaker encoder, ForwardTTS and
+NeuralHMM, AlignTTS and DelightfulTTS configs, the vocoder configs, the
+reference → flax-layout XTTS, VITS, GlowTTS, MelGAN, ParallelWaveGAN,
+UnivNet, WaveGrad, WaveRNN, Tacotron2, speaker encoder, ForwardTTS and
 Overflow converters (``utils/convert.py``), the pack planner
 (``utils/packing.py``), the
 trailing-silence endpoint (``db_to_amp``, ``find_endpoint``) and the
@@ -666,3 +667,58 @@ def test_convert_overflow_matches_jax_leaf_for_leaf(kind):
     assert sorted(got) == sorted(want) and len(got) > (60 if kind == "overflow" else 30)
     for key in want:
         np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# The ParallelWaveGAN, UnivNet, WaveGrad and WaveRNN converters and configs
+# (``utils/convert.py``, ``vocoder/configs.py``): equal to the JAX package's.
+# ---------------------------------------------------------------------------
+
+VOCODER_CONVERTERS = {
+    "parallel_wavegan": ("convert_parallel_wavegan_generator",
+                         lambda meta: dict(num_res_blocks=meta["num_res_blocks"],
+                                           num_upsample_stages=meta["num_upsample_stages"])),
+    "univnet": ("convert_univnet_generator",
+                lambda meta: dict(num_blocks=meta["num_blocks"],
+                                  kpnet_res_blocks=meta["kpnet_res_blocks"])),
+    "wavegrad": ("convert_wavegrad", lambda meta: {}),
+    "wavernn": ("convert_wavernn", lambda meta: dict(
+        num_res_blocks=meta["num_res_blocks"], num_upsample_stages=meta["num_upsample_stages"])),
+}
+
+
+@pytest.mark.parametrize("family", list(VOCODER_CONVERTERS))
+def test_convert_vocoders_match_jax_leaf_for_leaf(family):
+    """The reference-layout state dict of ``<family>.npz`` through both
+    packages' converters (``_shared_tap`` and ``_gru_cell`` included)."""
+    from tts_tpu.utils import convert as jax_convert
+    from tts_tpu_torch.utils import convert
+
+    name, kwargs = VOCODER_CONVERTERS[family]
+    state, _, _, meta = load_fidelity_fixture(family)
+    got = dict(_leaves(getattr(convert, name)(dict(state), **kwargs(meta))))
+    want = dict(_leaves(getattr(jax_convert, name)(dict(state), **kwargs(meta))))
+    assert sorted(got) == sorted(want) and len(got) > 20
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+def test_vocoder_configs_to_dict_match_jax():
+    """``ParallelWaveganConfig``, ``UnivnetConfig``, ``GANConfig``,
+    ``WavegradConfig`` and ``WavernnConfig``, at their defaults and
+    round-tripped from changed fields."""
+    from tts_tpu.vocoder import configs as jax_configs
+    from tts_tpu_torch.vocoder import configs
+
+    for name in ("ParallelWaveganConfig", "UnivnetConfig", "GANConfig", "WavegradConfig",
+                 "WavernnConfig"):
+        assert getattr(configs, name)().to_dict() == getattr(jax_configs, name)().to_dict(), name
+    changed = (
+        jax_configs.ParallelWaveganConfig(generator_model_params={"stacks": 2}, seq_len=1024),
+        jax_configs.UnivnetConfig(generator_model_params={"upsample_factors": [8, 8, 4]}),
+        jax_configs.WavegradConfig(test_noise_schedule={"min_val": 1e-6, "max_val": 0.5,
+                                                        "num_steps": 6}),
+        jax_configs.WavernnConfig(mode=10, mulaw=False))
+    for recipe in changed:
+        cls = getattr(configs, type(recipe).__name__)
+        assert cls.from_dict(recipe.to_dict()).to_dict() == recipe.to_dict()

@@ -1,7 +1,7 @@
 """The port's MelGAN vocoders (``tts_tpu_torch.vocoder.models.melgan_generator``),
-its generator registry (``vocoder.models.setup_generator``,
-``vocoder.utils.make_generator_from_config``) and vocoder configs against
-the JAX package's, on the CPU.
+its generator registry (``vocoder.models.setup_generator`` through
+``vocoder.utils.make_generator_from_config``) and every vocoder config
+against the JAX package's, on the CPU.
 
 The three MelGAN generators take flax parameters drawn from a seed (every
 leaf, biases included), carried into the port by
@@ -31,9 +31,10 @@ from tts_tpu_torch.utils.convert import (
     load_reference_vocoder,
     melgan_from_jax_params,
     reference_melgan_state,
+    wavernn_from_jax_params,
 )
 from tts_tpu_torch.vocoder import configs
-from tts_tpu_torch.vocoder.models import melgan_generator, setup_generator
+from tts_tpu_torch.vocoder.models import melgan_generator
 from tts_tpu_torch.vocoder.utils import make_generator_from_config
 
 ATOL = 1e-5
@@ -142,36 +143,53 @@ def test_hifigan_fidelity_replay_through_the_registry():
     assert padded.shape[1] == wav.shape[1] + 10 * 16
 
 
-@pytest.mark.parametrize("name", ["parallel_wavegan_generator", "univnet_generator",
-                                  "wavegrad", "wavernn"])
-def test_unregistered_generator_raises(name):
-    """Generators the port does not run yet raise ``NotImplementedError``
-    naming their ROADMAP.md item, from the registry and from a config."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
-        setup_generator(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
-        config_from_dict({"generator_model": name})
+# the field each config keeps its generator's parameters in
+PARAMS_FIELD = {"WavegradConfig": "model_params", "WavernnConfig": "model_args"}
+
+
+def _init_args(name: str, mel):
+    """The JAX generator's ``init`` arguments after the key, for a mel of 8
+    frames: the noise of ParallelWaveGAN and UnivNet, WaveGrad's noisy
+    waveform and noise level, WaveRNN's teacher-forcing samples."""
+    if name == "parallel_wavegan_generator":
+        return (mel, jnp.zeros((1, 8 * 256, 1)))
+    if name == "univnet_generator":
+        return (mel, jnp.zeros((1, 8, 64)))
+    if name == "wavegrad":
+        return (jnp.zeros((1, 8 * 256, 1)), mel, jnp.ones((1,)))
+    if name == "wavernn":
+        return (jnp.zeros((1, 16)), mel)
+    return (mel,)
 
 
 @pytest.mark.parametrize("kind", ["MultibandMelganConfig", "FullbandMelganConfig",
-                                  "MelganConfig", "HifiganConfig"])
+                                  "MelganConfig", "HifiganConfig", "ParallelWaveganConfig",
+                                  "UnivnetConfig", "GANConfig", "WavegradConfig",
+                                  "WavernnConfig"])
 def test_config_and_generator_match_jax(kind):
     """The copied vocoder configs equal the JAX package's, the registry reads
     them back from a ``config.json`` dict (by ``model``, or by a legacy
-    ``generator_model`` alone), and ``make_generator_from_config`` builds
-    the generator the JAX one builds, extra fields (``use_weight_norm``)
-    dropped: the same parameter shapes."""
+    ``generator_model`` alone: the generic ``GANConfig``'s names its HiFiGAN
+    generator), and ``make_generator_from_config`` builds the generator the JAX
+    one builds from the field the config keeps its parameters in
+    (``generator_model_params``, WaveGrad's ``model_params``, WaveRNN's
+    ``model_args``), extra fields (``use_weight_norm``) dropped: the same
+    parameter shapes."""
     ours, theirs = getattr(configs, kind)(), getattr(jax_configs, kind)()
     assert ours.to_dict() == theirs.to_dict()
     assert type(config_from_dict(ours.to_dict())) is type(ours)
     legacy = {k: v for k, v in ours.to_dict().items() if k != "model"}
-    assert type(config_from_dict(legacy)) is type(ours)
+    assert type(config_from_dict(legacy)) is (configs.HifiganConfig if kind == "GANConfig"
+                                              else type(ours))
+    field = PARAMS_FIELD.get(kind, "generator_model_params")
     for c in (ours, theirs):
         c.audio.num_mels = 24
-        c.generator_model_params = dict(c.generator_model_params, use_weight_norm=True)
+        setattr(c, field, dict(getattr(c, field), use_weight_norm=True))
     jm = jax_make_generator(theirs)
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 8, 24)))
-    want = {k: tuple(v.shape) for k, v in flax_to_state_dict(jax.tree_util.tree_map(
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *_init_args(
+        theirs.generator_model, jnp.zeros((1, 8, 24))))
+    want = {k: tuple(v.shape) for k, v in (wavernn_from_jax_params if kind == "WavernnConfig"
+                                            else flax_to_state_dict)(jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
     port = make_generator_from_config(ours)
     assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == want

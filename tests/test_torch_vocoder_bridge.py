@@ -419,13 +419,26 @@ def test_missing_text_front_end_raises_at_load(offline, change, missing):
 def test_vocoder_names_resolve_through_the_zoo(offline, tmp_path):
     """``--vocoder_name`` loads a zoo vocoder in place of the default; a
     vocoder given as the model raises ``ValueError``; Tacotron2-DDC_ph
-    raises for its default vocoder's item (UnivNet) although the model's
-    family loads."""
+    loads with its default vocoder, UnivNet (tiny ones written by
+    ``test_torch_vocoder_slice``'s writers), and speaks."""
     out = tmp_path / "named.wav"
     port_cli(["--text", TEXT, "--model_name", GLOW, "--vocoder_name", MBMELGAN,
               "--out_path", str(out), "--device", "cpu"])
     assert scipy.io.wavfile.read(out)[0] == 16000
     with pytest.raises(ValueError, match="is a vocoder"):
         TTS(model_name=MBMELGAN, device="cpu")
-    with pytest.raises(NotImplementedError, match="univnet.*ROADMAP.md item 16"):
-        TTS(model_name="tts_models/en/ljspeech/tacotron2-DDC_ph", device="cpu")
+    from test_torch_tacotron2_slice import write_tacotron2
+    from test_torch_vocoder_slice import write_vocoder
+
+    ddc_ph, univnet = (zoo_dir(offline, n) for n in ("tts_models/en/ljspeech/tacotron2-DDC_ph",
+                                                     "vocoder_models/en/ljspeech/univnet"))
+    try:
+        write_tacotron2(ddc_ph)
+        write_vocoder(univnet, "univnet")
+        tts = TTS(model_name="tts_models/en/ljspeech/tacotron2-DDC_ph", device="cpu")
+        assert tts.synthesizer.vocoder_config.generator_model == "univnet_generator"
+        wav = np.asarray(tts.tts("Be a voice."), np.float32)
+        assert wav.shape[0] > SENTENCE_GAP and np.isfinite(wav).all() and np.abs(wav).max() > 0
+    finally:
+        shutil.rmtree(ddc_ph, ignore_errors=True)
+        shutil.rmtree(univnet, ignore_errors=True)

@@ -303,7 +303,8 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     MelGAN generators, the vocoder registry and configs, the
     ``AudioProcessor``, Tacotron2 with its layers, the speaker encoders,
     the ForwardTTS family with its feed-forward layers, Overflow and
-    NeuralHMM, AlignTTS and DelightfulTTS included: this test process
+    NeuralHMM, AlignTTS and DelightfulTTS, the ParallelWaveGAN, UnivNet,
+    WaveGrad and WaveRNN vocoders included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -342,6 +343,11 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "assert {'tts_tpu_torch.models.overflow.model', 'tts_tpu_torch.models.align_tts.model',\n"
         "        'tts_tpu_torch.models.delightful_tts.model',\n"
         "        'tts_tpu_torch.models.delightful_tts.acoustic_model'} <= set(mods), mods\n"
+        "from tts_tpu_torch.utils.convert import convert_wavernn, reference_univnet_state\n"
+        "assert {'tts_tpu_torch.vocoder.models.parallel_wavegan_generator',\n"
+        "        'tts_tpu_torch.vocoder.models.univnet_generator',\n"
+        "        'tts_tpu_torch.vocoder.models.wavegrad',\n"
+        "        'tts_tpu_torch.vocoder.models.wavernn'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

@@ -406,21 +406,23 @@ FAST_PITCH = ["tts_models/en/ljspeech/fast_pitch", "tts_models/en/vctk/fast_pitc
 TACOTRON2 = ["tts_models/en/ljspeech/tacotron2-DDC", "tts_models/en/ljspeech/tacotron2-DCA",
              "tts_models/es/mai/tacotron2-DDC", "tts_models/fr/mai/tacotron2-DDC",
              "tts_models/de/thorsten/tacotron2-DCA", "tts_models/de/thorsten/tacotron2-DDC",
-             "tts_models/ja/kokoro/tacotron2-DDC"]
+             "tts_models/ja/kokoro/tacotron2-DDC", "tts_models/en/ek1/tacotron2",
+             "tts_models/en/ljspeech/tacotron2-DDC_ph", "tts_models/nl/mai/tacotron2-DDC"]
 HMM = ["tts_models/en/ljspeech/overflow", "tts_models/en/ljspeech/neural_hmm"]
 
 
 def test_every_family_is_sorted_into_ported_or_an_item():
     """38 entries named VITS, the VITS ``jenny`` (by its description),
     YourTTS, XTTS v2, the 7 GlowTTS entries (with a Multiband-MelGAN or
-    HiFiGAN default vocoder, or none), the 7 Tacotron2 entries whose default
-    vocoder is a HiFiGAN or a MelGAN, the 2 FastPitch entries (LJSpeech with
-    HiFiGAN v2, VCTK with none), Overflow and NeuralHMM (both with HiFiGAN
-    v2) and the 12 Multiband-MelGAN, Fullband-MelGAN and HiFiGAN vocoders
-    load; each of the catalog's other 17, and the fairseq MMS models, names
-    a ROADMAP.md item: the other Tacotron entries (``ek1``'s WaveGrad,
-    ``DDC_ph``'s UnivNet, ``nl/mai``'s ParallelWaveGAN, GST, Tacotron v1)
-    and SpeedySpeech item 16."""
+    HiFiGAN default vocoder, or none), the 10 Tacotron2 entries (their
+    default vocoders a HiFiGAN, a MelGAN, ``ek1``'s WaveGrad, ``DDC_ph``'s
+    UnivNet, ``nl/mai``'s ParallelWaveGAN), the 2 FastPitch entries
+    (LJSpeech with HiFiGAN v2, VCTK with none), Overflow and NeuralHMM (both
+    with HiFiGAN v2) and all 17 vocoders (Multiband-MelGAN,
+    Fullband-MelGAN, HiFiGAN, ParallelWaveGAN, UnivNet, WaveGrad) load;
+    each of the catalog's other 9, and the fairseq MMS models, names a
+    ROADMAP.md item: the other Tacotron entries (GST, Tacotron v1) and
+    SpeedySpeech item 16."""
     manager = manage.ModelManager()
     ported = [n for n in manager.list_models()
               if not manage.unported_reason(n, manager.models_dict)]
@@ -429,11 +431,12 @@ def test_every_family_is_sorted_into_ported_or_an_item():
         sorted(["tts_models/en/jenny/jenny", XTTS, YOURTTS] + GLOW_TTS + TACOTRON2 + FAST_PITCH
                + HMM)
     vocoders = [n for n in ported if n.startswith("vocoder_models/")]
-    assert len(vocoders) == 12 and all(
-        any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan")) for n in vocoders)
-    assert len(_unported()) == 88 - 71 + 1
+    assert len(vocoders) == 17 and all(
+        any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan",
+                             "parallel-wavegan", "univnet", "wavegrad")) for n in vocoders)
+    assert len(_unported()) == 88 - 79 + 1
     tacotrons = [n for n in _unported() if "tacotron" in n]
-    assert len(tacotrons) == 5 and all(
+    assert len(tacotrons) == 2 and all(
         "item 16" in manage.unported_reason(n, manager.models_dict) for n in tacotrons)
     assert "item 16" in manage.unported_reason("tts_models/en/ljspeech/speedy-speech",
                                                manager.models_dict)
@@ -451,12 +454,14 @@ def test_unported_families_raise_before_any_download(name, offline_zoo):
 
 
 def test_vocoder_name_raises(offline_zoo):
-    """A ``--vocoder_name`` the port does not run (UnivNet) raises naming its
-    item, before anything is fetched."""
+    """A ``--vocoder_name`` that is no ``vocoder_models/`` entry (a TTS
+    model's name) raises ``ValueError`` before anything is fetched: every
+    vocoder of the catalog runs, so none raises for its family."""
     before = sorted(p.name for p in (offline_zoo / "tts_tpu").iterdir())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
+    with pytest.raises(ValueError, match="is not a vocoder_models/ entry"):
         port_cli(["--text", TEXT, "--model_name", VCTK, "--speaker_idx", "p225",
-                  "--vocoder_name", "vocoder_models/en/ljspeech/univnet", "--device", "cpu"])
+                  "--vocoder_name", "tts_models/en/ljspeech/tacotron2-DDC_ph", "--device",
+                  "cpu"])
     assert sorted(p.name for p in (offline_zoo / "tts_tpu").iterdir()) == before
 
 

@@ -3,9 +3,10 @@ and the vocoder configs by name.
 
 XTTS, VITS, GlowTTS, Tacotron2, the ForwardTTS family (FastPitch,
 FastSpeech, FastSpeech2, SpeedySpeech), Overflow, NeuralHMM, AlignTTS and
-DelightfulTTS are ported so far, with the HiFiGAN and MelGAN vocoders
-(``vocoder.models.setup_generator``) and the speaker encoders' configs;
-other names raise.
+DelightfulTTS are ported so far, with every vocoder config of the JAX
+package (HiFiGAN, the MelGANs, ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN
+and the generic ``gan``; their generators in ``vocoder.models.setup_generator``)
+and the speaker encoders' configs; other names raise.
 """
 
 from __future__ import annotations
@@ -44,8 +45,12 @@ _VOCODER_CONFIGS = {
     "melgan": "tts_tpu_torch.vocoder.configs:MelganConfig",
     "multiband_melgan": "tts_tpu_torch.vocoder.configs:MultibandMelganConfig",
     "fullband_melgan": "tts_tpu_torch.vocoder.configs:FullbandMelganConfig",
+    "parallel_wavegan": "tts_tpu_torch.vocoder.configs:ParallelWaveganConfig",
+    "univnet": "tts_tpu_torch.vocoder.configs:UnivnetConfig",
+    "wavegrad": "tts_tpu_torch.vocoder.configs:WavegradConfig",
+    "wavernn": "tts_tpu_torch.vocoder.configs:WavernnConfig",
+    "gan": "tts_tpu_torch.vocoder.configs:GANConfig",
 }
-_UNPORTED_VOCODERS = ("parallel_wavegan", "univnet", "wavegrad", "wavernn", "gan")
 
 
 def _load(entry: str):
@@ -80,9 +85,6 @@ def config_from_dict(config_dict: Dict):
         return _load(_VOCODER_CONFIGS[name]).from_dict(config_dict)
     if name in _ENCODER_CONFIGS:
         return _load(_ENCODER_CONFIGS[name]).from_dict(config_dict)
-    if name in _UNPORTED_VOCODERS:
-        raise NotImplementedError(f"the {name!r} vocoder is not ported to tts_tpu_torch yet "
-                                  f"(ROADMAP.md item 16)")
     return _load(_entry(name)[0]).from_dict(config_dict)
 
 

@@ -10,9 +10,9 @@ a handful of rules rather than a table:
 * Dense ``kernel [in, out]`` → ``weight [out, in]``;
 * Conv ``kernel [k, in, out]`` → ``weight [out, in, k]``, 2-D
   ``[kh, kw, in, out]`` → ``[out, in, kh, kw]``;
-* the upsampling convs (``ups``) hold ``TorchConvTranspose1d``'s time-flipped
-  ``[k, in, out]`` kernel → ``ConvTranspose1d`` ``[in, out, k]`` with ``k``
-  flipped back;
+* the upsampling convs (``ups``, and UnivNet's ``upsample``) hold
+  ``TorchConvTranspose1d``'s time-flipped ``[k, in, out]`` kernel →
+  ``ConvTranspose1d`` ``[in, out, k]`` with ``k`` flipped back;
 * norm ``scale``/``shift`` → ``weight``/``bias`` (folded BatchNorm included);
   ``embedding`` → ``weight``; other leaves keep their names.
 
@@ -26,12 +26,18 @@ and so does ``speaker_encoder_from_jax_params`` the LSTM speaker encoder's;
 training-only aligner, and ``align_tts_from_jax_params`` does the same for
 AlignTTS, dropping its MDN head; ``delightful_tts_from_jax_params`` carries
 DelightfulTTS's acoustic and joint vocoder trees without the training-only
-aligner and prosody encoders.
+aligner and prosody encoders. ``parallel_wavegan_from_jax_params``,
+``univnet_from_jax_params`` and ``wavegrad_from_jax_params`` are the generic
+rules; ``wavernn_from_jax_params`` packs flax's ``GRUCell`` Denses into
+``nn.GRUCell`` (``bias_hh`` zeros for ``r`` and ``z``, ``hn``'s bias for
+``n``).
 
 ``reference_vits_state``, ``reference_glow_tts_state``,
 ``reference_melgan_state``, ``reference_tacotron2_state``,
-``reference_speaker_encoder_state``, ``reference_forward_tts_state`` and
-``reference_overflow_state`` write the port's weights in the reference
+``reference_speaker_encoder_state``, ``reference_forward_tts_state``,
+``reference_overflow_state``, ``reference_parallel_wavegan_state``,
+``reference_univnet_state``, ``reference_wavegrad_state`` and
+``reference_wavernn_state`` write the port's weights in the reference
 layout, the inverses of ``load_reference_vits``,
 ``load_reference_glow_tts``, ``load_reference_vocoder``,
 ``load_reference_tacotron2``, ``load_reference_speaker_encoder``,
@@ -41,11 +47,12 @@ layout, the inverses of ``load_reference_vits``,
 / ``load_reference_vocoder`` / ``load_reference_tacotron2`` read a
 reference-layout (coqui) checkpoint, map it to the flax-layout tree with
 ``convert_xtts`` / ``convert_vits_generator`` / ``convert_glow_tts`` /
-``convert_hifigan_generator`` or ``convert_melgan_generator`` /
-``convert_tacotron2`` and from there into the port by the rules above.
-Those converters and what they call are the port's own copy of the XTTS,
-VITS, GlowTTS, HiFiGAN, MelGAN, Tacotron2, speaker encoder, ForwardTTS and
-Overflow parts of
+``convert_hifigan_generator``, ``convert_melgan_generator``,
+``convert_parallel_wavegan_generator``, ``convert_univnet_generator``,
+``convert_wavegrad`` or ``convert_wavernn`` / ``convert_tacotron2`` and from
+there into the port by the rules above. Those converters and what they call
+are the port's own copy of the XTTS, VITS, GlowTTS, vocoder, Tacotron2,
+speaker encoder, ForwardTTS and Overflow parts of
 ``tts_tpu/utils/convert.py`` (numpy only; the port imports nothing of
 ``tts_tpu``): parity tests hold the copy equal to the JAX package's
 converters, leaf for leaf (``tests/test_torch_host_copies.py``).
@@ -100,7 +107,8 @@ def _torch_value(path: Tuple[str, ...], value) -> np.ndarray:
         return a
     if a.ndim == 2:  # Dense
         return a.T
-    if a.ndim == 3 and any(_INDEXED.fullmatch(p) and p.startswith("ups_") for p in path):
+    if a.ndim == 3 and (path[-2] == "upsample"
+                        or any(_INDEXED.fullmatch(p) and p.startswith("ups_") for p in path)):
         return a.transpose(1, 2, 0)[:, :, ::-1]  # flipped [k, in, out] → [in, out, k]
     if a.ndim == 3:
         return a.transpose(2, 1, 0)
@@ -1024,18 +1032,35 @@ def load_reference_vocoder(state: Mapping, config) -> Dict[str, torch.Tensor]:
     """A reference-layout vocoder checkpoint (its generator under
     ``model_g.``, or bare) → the state_dict of the generator that
     ``config.generator_model`` names (the dispatch of
-    ``tts_tpu/utils/zoo_convert.py:68-80``)."""
+    ``tts_tpu/utils/zoo_convert.py:68-126``: HiFiGAN, the MelGANs,
+    ParallelWaveGAN, UnivNet, WaveGrad and WaveRNN, each converter's depth
+    read from its config as there)."""
     state = _strip_prefix({k: _to_numpy(v) for k, v in state.items()}, "model_g.")
     name = config.generator_model.lower()
     if name == "hifigan_generator":
         return flax_to_state_dict(convert_hifigan_generator(state))
+    gp = getattr(config, "generator_model_params", None) or {}
     if name in ("melgan_generator", "multiband_melgan_generator", "fullband_melgan_generator"):
-        gp = config.generator_model_params
         return melgan_from_jax_params(convert_melgan_generator(
             state, num_upsample_stages=len(gp["upsample_factors"]),
             num_res_blocks=gp.get("num_res_blocks", 3)))
-    raise NotImplementedError(f"no converter for the vocoder generator {name!r} in "
-                              f"tts_tpu_torch (ROADMAP.md item 16)")
+    if name == "parallel_wavegan_generator":
+        return parallel_wavegan_from_jax_params(convert_parallel_wavegan_generator(
+            state, num_res_blocks=gp.get("num_res_blocks", 30),
+            num_upsample_stages=len(gp.get("upsample_factors", [4, 4, 4, 4]))))
+    if name == "univnet_generator":
+        gp = gp or getattr(config, "model_params", {}) or {}
+        return univnet_from_jax_params(convert_univnet_generator(
+            state, num_blocks=len(gp.get("upsample_factors", [8, 8, 4]))))
+    if name == "wavegrad":
+        return wavegrad_from_jax_params(convert_wavegrad(state))
+    if name == "wavernn":
+        ma = getattr(config, "model_args", {}) or {}
+        return wavernn_from_jax_params(convert_wavernn(
+            state, num_res_blocks=ma.get("num_res_blocks", 10),
+            num_upsample_stages=len(ma.get("upsample_factors", [4, 8, 8]))))
+    raise NotImplementedError(f"no reference-layout converter for the vocoder generator "
+                              f"{name!r} (the iSTFT generator has no reference layout)")
 
 
 def _reference_key(key: str, rules) -> str:
@@ -1557,3 +1582,318 @@ def delightful_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
                                 if k not in _DELIGHTFUL_TRAINING}, "acoustic_model.")
     state.update(flax_to_state_dict(params["vocoder"], "vocoder."))
     return state
+
+
+# ---------------------------------------------------------------------------
+# ParallelWaveGAN, UnivNet, WaveGrad and WaveRNN (copied from
+# ``tts_tpu/utils/convert.py:809-873`` and ``:1258-1354``), unchanged apart
+# from UnivNet's LVC layers, all of which are read (F34).
+# ---------------------------------------------------------------------------
+
+
+def _shared_tap(w):
+    """Reference Conv2d(1, 1, (1, k)) smoothing weight [1,1,1,k] → (k,1,1)."""
+    return np.asarray(w).reshape(-1)[:, None, None]
+
+
+def convert_parallel_wavegan_generator(state, num_res_blocks=30, num_upsample_stages=4):
+    state = fold_weight_norm(state)
+    p = {
+        "first_conv": _dense(state, "first_conv"),
+        "last_conv_1": _dense(state, "last_conv_layers.1"),
+        "last_conv_2": _dense(state, "last_conv_layers.3"),
+        "upsample_net": {
+            "conv_in": _plain_conv(state, "upsample_net.conv_in"),
+        },
+    }
+    for i in range(num_upsample_stages):
+        p["upsample_net"][f"up_{i}"] = _shared_tap(
+            state[f"upsample_net.upsample.up_layers.{2 * i + 1}.weight"]
+        )
+    for i in range(num_res_blocks):
+        k = f"conv_layers.{i}"
+        p[f"res_{i}"] = {
+            "conv": _plain_conv(state, f"{k}.conv"),
+            "conv1x1_aux": _dense(state, f"{k}.conv1x1_aux"),
+            "conv1x1_out": _dense(state, f"{k}.conv1x1_out"),
+            "conv1x1_skip": _dense(state, f"{k}.conv1x1_skip"),
+        }
+    return {"params": p}
+
+
+def convert_univnet_generator(state, num_blocks=3, kpnet_res_blocks=3):
+    """Reference UnivNet → flax-layout params. Every ``convs.<j>`` of an LVC
+    block is read, where the JAX package's copy reads ``convs.0`` and
+    ``convs.1`` only, though its generator and ``UnivnetConfig`` build 4
+    layers a block (ROADMAP.md F34)."""
+    state = fold_weight_norm(state)
+    p = {
+        "first_conv": _plain_conv(state, "first_conv"),
+        "last_conv": _plain_conv(state, "last_conv_layers.0"),
+    }
+    for i in range(num_blocks):
+        k = f"lvc_blocks.{i}"
+        layers = 0
+        while f"{k}.convs.{layers}.weight" in state:
+            layers += 1
+        blk = {
+            **{f"conv_{j}": _plain_conv(state, f"{k}.convs.{j}") for j in range(layers)},
+            "upsample": _convtranspose(state, f"{k}.upsample"),
+            "kernel_predictor": {
+                "input_conv": _plain_conv(state, f"{k}.kernel_predictor.input_conv.0"),
+                "kernel_conv": _plain_conv(state, f"{k}.kernel_predictor.kernel_conv"),
+                "bias_conv": _plain_conv(state, f"{k}.kernel_predictor.bias_conv"),
+            },
+        }
+        for r in range(kpnet_res_blocks):
+            blk["kernel_predictor"][f"res_{r}a"] = _plain_conv(
+                state, f"{k}.kernel_predictor.residual_conv.{5 * r + 1}"
+            )
+            blk["kernel_predictor"][f"res_{r}b"] = _plain_conv(
+                state, f"{k}.kernel_predictor.residual_conv.{5 * r + 3}"
+            )
+        p[f"lvc_{i}"] = blk
+    return {"params": p}
+
+
+def convert_wavegrad(state, num_dblocks=4, num_ublocks=5):
+    state = fold_weight_norm(state)
+    p = {
+        "y_conv": _plain_conv(state, "y_conv"),
+        "x_conv": _plain_conv(state, "x_conv"),
+        "out_conv": _plain_conv(state, "out_conv"),
+    }
+    for i in range(num_dblocks):
+        k = f"dblocks.{i}"
+        if f"{k}.res_block.weight" not in state:
+            break
+        p[f"dblock_{i}"] = {
+            "res_block": _dense(state, f"{k}.res_block"),
+            **{f"main_{j}": _plain_conv(state, f"{k}.main_block.{j}") for j in range(3)},
+        }
+    i = 0
+    while f"film.{i}.input_conv.weight" in state:
+        p[f"film_{i}"] = {
+            "input_conv": _plain_conv(state, f"film.{i}.input_conv"),
+            "output_conv": _plain_conv(state, f"film.{i}.output_conv"),
+        }
+        i += 1
+    for i in range(num_ublocks):
+        k = f"ublocks.{i}"
+        if f"{k}.res_block.weight" not in state:
+            break
+        p[f"ublock_{i}"] = {
+            "res_block": _dense(state, f"{k}.res_block"),
+            **{f"main_{j}": _plain_conv(state, f"{k}.main_block.{j}") for j in range(2)},
+            **{f"out_{j}": _plain_conv(state, f"{k}.out_block.{j}") for j in range(2)},
+        }
+    return {"params": p}
+
+
+def _gru_cell(state, prefix):
+    """torch GRU gates [r,z,n] → flax GRUCell ir/iz/in (biased) + hr/hz
+    (bias-free) + hn (biased): r/z hidden biases fold into the input side;
+    the n-gate hidden bias stays separate (it is scaled by r)."""
+    wi, wh = state[f"{prefix}.weight_ih_l0"], state[f"{prefix}.weight_hh_l0"]
+    bi, bh = state[f"{prefix}.bias_ih_l0"], state[f"{prefix}.bias_hh_l0"]
+    H = wh.shape[1]
+    p = {}
+    for gidx, g in enumerate(("r", "z", "n")):
+        sl = slice(gidx * H, (gidx + 1) * H)
+        p[f"i{g}"] = {"kernel": linear_kernel(wi[sl]), "bias": bi[sl] + (bh[sl] if g != "n" else 0)}
+        hk = {"kernel": linear_kernel(wh[sl])}
+        if g == "n":
+            hk["bias"] = bh[sl]
+        p[f"h{g}"] = hk
+    return p
+
+
+def convert_wavernn(state, num_res_blocks=10, num_upsample_stages=3):
+    """Full reference Wavernn → flax params (use ``norm_type="folded"``)."""
+    state = fold_weight_norm(state)
+    resnet = {
+        "conv_in": {"kernel": conv1d_kernel(state["upsample.resnet.conv_in.weight"])},
+        "conv_out": _plain_conv(state, "upsample.resnet.conv_out"),
+    }
+    bn = _fold_bn(state, "upsample.resnet.batch_norm")
+    resnet["norm_in_scale"], resnet["norm_in_shift"] = bn["scale"], bn["shift"]
+    for i in range(num_res_blocks):
+        k = f"upsample.resnet.layers.{i}"
+        if f"{k}.conv1.weight" not in state:
+            break
+        resnet[f"res{i}_conv1"] = {"kernel": conv1d_kernel(state[f"{k}.conv1.weight"])}
+        resnet[f"res{i}_conv2"] = {"kernel": conv1d_kernel(state[f"{k}.conv2.weight"])}
+        b1 = _fold_bn(state, f"{k}.batch_norm1")
+        b2 = _fold_bn(state, f"{k}.batch_norm2")
+        resnet[f"res{i}_norm1_scale"], resnet[f"res{i}_norm1_shift"] = b1["scale"], b1["shift"]
+        resnet[f"res{i}_norm2_scale"], resnet[f"res{i}_norm2_shift"] = b2["scale"], b2["shift"]
+    upsample = {"resnet": resnet}
+    for i in range(num_upsample_stages):
+        key = f"upsample.up_layers.{2 * i + 1}.weight"
+        if key not in state:
+            break
+        upsample[f"up_{i}"] = _shared_tap(state[key])
+    p = {
+        "upsample": upsample,
+        "I": _dense(state, "I"),
+        "rnn1": _gru_cell(state, "rnn1"),
+        "rnn2": _gru_cell(state, "rnn2"),
+        "fc1": _dense(state, "fc1"),
+        "fc2": _dense(state, "fc2"),
+        "fc3": _dense(state, "fc3"),
+    }
+    return {"params": p}
+
+
+def parallel_wavegan_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ParallelWaveganGenerator`` params → the state_dict
+    of the port's (``vocoder/models/parallel_wavegan_generator.py``): the
+    generic rules; the smoothing taps keep their ``(2f + 1, 1, 1)`` shape."""
+    return flax_to_state_dict(params)
+
+
+def univnet_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``UnivnetGenerator`` params → the state_dict of the
+    port's (``vocoder/models/univnet_generator.py``): the generic rules, each
+    LVC block's ``upsample`` flipped back into a ``ConvTranspose1d``."""
+    return flax_to_state_dict(params)
+
+
+def wavegrad_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Wavegrad`` params → the state_dict of the port's
+    (``vocoder/models/wavegrad.py``), by the generic rules."""
+    return flax_to_state_dict(params)
+
+
+def _pack_gru(cell: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``GRUCell`` (Denses ``ir``, ``iz``, ``in`` with biases; ``hr``,
+    ``hz`` without; ``hn`` with) → ``nn.GRUCell``'s ``[r; z; n]`` packing:
+    ``bias_ih`` carries the input biases, ``bias_hh`` zeros for ``r`` and
+    ``z`` and ``hn``'s bias, which both packages scale by ``r``."""
+    kernel = lambda name: np.asarray(cell[name]["kernel"], np.float32).T  # noqa: E731
+    hn = np.asarray(cell["hn"]["bias"], np.float32)
+    return {
+        "weight_ih": np.concatenate([kernel(f"i{g}") for g in "rzn"]),
+        "weight_hh": np.concatenate([kernel(f"h{g}") for g in "rzn"]),
+        "bias_ih": np.concatenate([np.asarray(cell[f"i{g}"]["bias"], np.float32) for g in "rzn"]),
+        "bias_hh": np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn]),
+    }
+
+
+def wavernn_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Wavernn`` params → the state_dict of the port's
+    (``vocoder/models/wavernn.py``): the generic rules, and each flax
+    ``GRUCell`` packed into an ``nn.GRUCell`` (:func:`_pack_gru`)."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    state = flax_to_state_dict({k: v for k, v in params.items() if k not in ("rnn1", "rnn2")})
+    for name in ("rnn1", "rnn2"):
+        state.update({f"{name}.{k}": torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in _pack_gru(params[name]).items()})
+    return state
+
+
+def _with_conv_axis(key: str, v: np.ndarray) -> np.ndarray:
+    """A ``Linear`` weight ``[out, in]`` as the reference's 1x1 ``Conv1d``
+    ``[out, in, 1]``; anything else unchanged."""
+    return v[:, :, None] if key.endswith("weight") and v.ndim == 2 else v
+
+
+_PWGAN_RULES = (
+    (r"^upsample_net\.up_(\d+)$",
+     lambda m: f"upsample_net.upsample.up_layers.{2 * int(m.group(1)) + 1}.weight"),
+    (r"^res_(\d+)\.", r"conv_layers.\1."),
+    (r"^last_conv_1\.", "last_conv_layers.1."),
+    (r"^last_conv_2\.", "last_conv_layers.3."),
+)
+
+
+def reference_parallel_wavegan_state(state: Mapping[str, torch.Tensor],
+                                     prefix: str = "model_g.") -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``ParallelWaveganGenerator`` in the
+    reference's names and layouts (1x1 ``Conv1d`` weights, each smoothing
+    tap a ``Conv2d(1, 1, (1, k))`` of ``up_layers``), under ``prefix`` as a
+    GAN checkpoint holds its generator. :func:`load_reference_vocoder` maps
+    it back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = _reference_key(key, _PWGAN_RULES)
+        out[prefix + k] = v.reshape(1, 1, 1, -1) if ".up_layers." in k else \
+            _with_conv_axis(k, v)
+    return out
+
+
+_UNIVNET_RULES = (
+    (r"^lvc_(\d+)\.", r"lvc_blocks.\1."),
+    (r"\.conv_(\d+)\.", r".convs.\1."),
+    (r"\.kernel_predictor\.input_conv\.", ".kernel_predictor.input_conv.0."),
+    (r"\.kernel_predictor\.res_(\d+)([ab])\.",
+     lambda m: f".kernel_predictor.residual_conv.{5 * int(m.group(1)) + (1 if m.group(2) == 'a' else 3)}."),
+    (r"^last_conv\.", "last_conv_layers.0."),
+)
+
+
+def reference_univnet_state(state: Mapping[str, torch.Tensor],
+                            prefix: str = "model_g.") -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``UnivnetGenerator`` in the reference's
+    names (``lvc_blocks``, the kernel predictor's ``residual_conv``
+    ``Sequential``), under ``prefix``. :func:`load_reference_vocoder` maps it
+    back."""
+    return {prefix + _reference_key(k, _UNIVNET_RULES): v.detach().cpu().numpy()
+            for k, v in state.items()}
+
+
+_WAVEGRAD_RULES = (
+    (r"^film_(\d+)\.", r"film.\1."),
+    (r"^dblock_(\d+)\.main_(\d+)\.", r"dblocks.\1.main_block.\2."),
+    (r"^dblock_(\d+)\.", r"dblocks.\1."),
+    (r"^ublock_(\d+)\.main_(\d+)\.", r"ublocks.\1.main_block.\2."),
+    (r"^ublock_(\d+)\.out_(\d+)\.", r"ublocks.\1.out_block.\2."),
+    (r"^ublock_(\d+)\.", r"ublocks.\1."),
+)
+
+
+def reference_wavegrad_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``Wavegrad`` in the reference's names
+    (``film``, ``dblocks``, ``ublocks`` with their ``main_block`` and
+    ``out_block`` lists, 1x1 ``Conv1d`` residual projections), bare as a
+    WaveGrad checkpoint holds it. :func:`load_reference_vocoder` maps it
+    back."""
+    return {(k := _reference_key(key, _WAVEGRAD_RULES)): _with_conv_axis(
+        k, v.detach().cpu().numpy()) for key, v in state.items()}
+
+
+_WAVERNN_RULES = (
+    (r"\.norm_in_(scale|shift)$", r".batch_norm.\1"),
+    (r"\.res(\d+)_conv([12])\.", r".layers.\1.conv\2."),
+    (r"\.res(\d+)_norm([12])_(scale|shift)$", r".layers.\1.batch_norm\2.\3"),
+    (r"^upsample\.up_(\d+)$", lambda m: f"upsample.up_layers.{2 * int(m.group(1)) + 1}.weight"),
+    (r"^(rnn[12])\.(weight|bias)_(ih|hh)$", r"\1.\2_\3_l0"),
+)
+
+
+def reference_wavernn_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``Wavernn`` with folded norms in the
+    reference's names and layouts: each folded norm an eval-mode BatchNorm
+    (running mean 0, running variance ``1 - 1e-5``, so that it folds back
+    exactly), the GRUs as one-layer ``nn.GRU``, the smoothing taps as
+    ``Conv2d(1, 1, (1, k))``. :func:`load_reference_vocoder` maps it back."""
+    if any(re.search(r"norm(_in|\d)\.(weight|bias)$", k) for k in state):
+        raise ValueError("no reference layout for WaveRNN's layer norms (folded norms only)")
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = _reference_key(key, _WAVERNN_RULES)
+        if ".up_layers." in k:
+            v = v.reshape(1, 1, 1, -1)
+        elif k.endswith(".scale"):
+            base = k[: -len("scale")]
+            out[base + "running_mean"] = np.zeros_like(v)
+            out[base + "running_var"] = np.full_like(v, np.float32(1) - np.float32(1e-5))
+            out[base + "num_batches_tracked"] = np.zeros((), np.int64)
+            k = base + "weight"
+        elif k.endswith(".shift"):
+            k = k[: -len("shift")] + "bias"
+        out[k] = v
+    return out

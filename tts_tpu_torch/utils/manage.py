@@ -53,7 +53,9 @@ def get_user_data_dir(appname: str = "tts_tpu") -> str:
     return os.path.join(base, appname)
 
 
-_VOCODER_FAMILIES = ("multiband-melgan", "fullband-melgan", "hifigan")  # the registry's generators
+# the catalog's vocoder families, every one the registry's generators run
+_VOCODER_FAMILIES = ("multiband-melgan", "fullband-melgan", "hifigan", "parallel-wavegan",
+                     "univnet", "wavegrad")
 
 
 def _family_reason(model: str, model_item: Dict) -> Optional[str]:
@@ -78,9 +80,10 @@ def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     runs: VITS (by its name or its description), YourTTS, XTTS v2, GlowTTS,
     Tacotron2 (without GST), FastPitch, Overflow and NeuralHMM whose
     ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
-    and the MelGAN and HiFiGAN vocoders. SpeedySpeech names item 16: neither
-    package converts its reference checkpoint. A model whose family is not
-    ported names its own item, whatever its vocoder."""
+    and every vocoder of the catalog (the MelGANs, HiFiGAN, ParallelWaveGAN,
+    UnivNet, WaveGrad). SpeedySpeech and Tacotron v1 name item 16: neither
+    package converts their reference checkpoints. A model whose family is
+    not ported names its own item, whatever its vocoder."""
     model_type, lang, dataset, model = model_name.split("/")
     if model_type == "voice_conversion_models":
         return "voice conversion models (FreeVC) are not ported yet (ROADMAP.md item 16)"

@@ -7,8 +7,9 @@ A model loads from a directory (``config.json`` plus weights: the port's
 ``model_torch.pt`` or a reference-layout ``model.pth``; XTTS also needs its
 ``vocab.json``) or, for the others (``FILE_MODELS``), from a checkpoint
 file and its ``config.json``. A vocoder (``vocoder_checkpoint`` with its
-``vocoder_config``: HiFiGAN or a MelGAN, the port's state_dict or a
-reference-layout checkpoint) turns a mel model's output into audio; a mel
+``vocoder_config``: any generator of ``vocoder.models``, the port's
+state_dict or a reference-layout checkpoint, which the iSTFT generator has
+not) turns a mel model's output into audio; a mel
 model without one speaks through Griffin-Lim (``use_griffin_lim``, on by
 default, as in the JAX package), on the host.
 
@@ -92,6 +93,7 @@ from tts_tpu_torch.audio.processor import AudioProcessor
 from tts_tpu_torch.audio.torch_transforms import wav_to_spec
 from tts_tpu_torch.config import read_json_with_comments
 from tts_tpu_torch.models import config_from_dict, setup_model
+from tts_tpu_torch.vocoder.models.wavegrad import compute_noise_schedule, wavegrad_inference
 from tts_tpu_torch.vocoder.utils import interpolate_vocoder_input, make_generator_from_config
 from tts_tpu_torch.utils.synthesis import (
     _frame_budget,
@@ -232,16 +234,31 @@ class Synthesizer:
     def _vocode(self, mel: np.ndarray) -> np.ndarray:
         """A TTS model's normalised mel ``[T, C]`` → waveform through the
         vocoder: back to decibels with the TTS model's processor, normalised
-        with the vocoder's, resampled in time when the rates differ, then
-        ``generator.inference`` on the device (port of
-        ``tts_tpu/utils/synthesizer.py:223-262``)."""
+        with the vocoder's, resampled in time when the rates differ, then on
+        the device ``generator.inference``, WaveGrad's reverse diffusion over
+        its ``test_noise_schedule`` (50 steps by default) or WaveRNN's
+        ``generate`` (port of ``tts_tpu/utils/synthesizer.py:223-262``). The
+        vocoders that draw noise draw it from a generator on the device
+        seeded 0 at each call, as the JAX package keys each call with
+        ``PRNGKey(0)``; ParallelWaveGAN's and UnivNet's ``inference``, which
+        the JAX modules lack, are the port's (ROADMAP.md F31)."""
         voc_in = self.vocoder_ap.normalize(self.ap.denormalize(mel.T))  # [C, T]
         scale_factor = self.vocoder_ap.sample_rate / self.ap.sample_rate
         if scale_factor != 1.0:
             print(" > interpolating tts model output.")
             voc_in = interpolate_vocoder_input([1, scale_factor], voc_in)
         c = torch.from_numpy(np.ascontiguousarray(voc_in.T[None], np.float32)).to(self.device)
-        wav = self.vocoder_model.inference(c)
+        name = self.vocoder_config.generator_model.lower()
+        if name == "wavegrad":
+            sched = getattr(self.vocoder_config, "test_noise_schedule", None) or {}
+            schedule = compute_noise_schedule(int(sched.get("num_steps", 50)),
+                                              float(sched.get("min_val", 1e-6)),
+                                              float(sched.get("max_val", 1e-2)))
+            wav = wavegrad_inference(self.vocoder_model, c, schedule)
+        elif name == "wavernn":
+            wav = self.vocoder_model.generate(c)
+        else:
+            wav = self.vocoder_model.inference(c)
         return wav.float().cpu().numpy().reshape(-1)
 
     # ------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Copied from ``tts_tpu/vocoder/configs.py:1-176`` (the port imports nothing
-of ``tts_tpu``), unchanged apart from this docstring and import paths:
+"""Copied from ``tts_tpu/vocoder/configs.py`` (the port imports nothing of
+``tts_tpu``), unchanged apart from this docstring and import paths:
 ``BaseVocoderConfig``, ``BaseGANVocoderConfig``, ``HifiganConfig``,
-``MelganConfig``, ``MultibandMelganConfig`` and ``FullbandMelganConfig``
-(reference ``TTS/vocoder/configs/``). The configs of the vocoders the port
-does not run yet (ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN) wait for
-them (ROADMAP.md item 16)."""
+``MelganConfig``, ``MultibandMelganConfig``, ``FullbandMelganConfig``,
+``ParallelWaveganConfig``, ``UnivnetConfig``, ``GANConfig``,
+``WavegradConfig`` and ``WavernnConfig`` (reference
+``TTS/vocoder/configs/``)."""
 
 from __future__ import annotations
 
@@ -177,3 +177,103 @@ class FullbandMelganConfig(MelganConfig):
     generator_model_params: dict = field(
         default_factory=lambda: {"upsample_factors": [8, 8, 2, 2], "num_res_blocks": 4}
     )
+
+
+@dataclass
+class ParallelWaveganConfig(BaseGANVocoderConfig):
+    """(reference ``parallel_wavegan_config.py``)"""
+
+    model: str = "parallel_wavegan"
+    generator_model: str = "parallel_wavegan_generator"
+    discriminator_model: str = "parallel_wavegan_discriminator"
+    generator_model_params: dict = field(
+        default_factory=lambda: {"upsample_factors": [4, 4, 4, 4], "stacks": 3, "num_res_blocks": 30}
+    )
+    use_stft_loss: bool = True
+    use_subband_stft_loss: bool = False
+    use_feat_match_loss: bool = False
+    use_l1_spec_loss: bool = False
+    stft_loss_weight: float = 0.5
+    mse_G_loss_weight: float = 2.5
+    seq_len: int = 25600
+    pad_short: int = 2000
+    steps_to_start_discriminator: int = 200000
+    lr_gen: float = 0.0002
+    lr_disc: float = 0.0002
+
+
+@dataclass
+class UnivnetConfig(BaseGANVocoderConfig):
+    """(reference ``univnet_config.py``)"""
+
+    model: str = "univnet"
+    generator_model: str = "univnet_generator"
+    discriminator_model: str = "univnet_discriminator"
+    use_stft_loss: bool = True
+    use_mse_gan_loss: bool = True
+    use_feat_match_loss: bool = False
+    stft_loss_weight: float = 2.5
+    mse_G_loss_weight: float = 1.0
+    seq_len: int = 8192
+    pad_short: int = 2000
+
+
+@dataclass
+class GANConfig(BaseGANVocoderConfig):
+    model: str = "gan"
+
+
+@dataclass
+class WavegradConfig(BaseVocoderConfig):
+    """(reference ``wavegrad_config.py``)"""
+
+    model: str = "wavegrad"
+    generator_model: str = "wavegrad"
+    model_params: dict = field(
+        default_factory=lambda: {
+            "use_weight_norm": True,
+            "y_conv_channels": 32,
+            "x_conv_channels": 768,
+            "ublock_out_channels": [512, 512, 256, 128, 128],
+            "dblock_out_channels": [128, 128, 256, 512],
+            "upsample_factors": [4, 4, 4, 2, 2],
+            "upsample_dilations": [[1, 2, 1, 2], [1, 2, 1, 2], [1, 2, 4, 8], [1, 2, 4, 8], [1, 2, 4, 8]],
+        }
+    )
+    train_noise_schedule: dict = field(
+        default_factory=lambda: {"min_val": 1e-6, "max_val": 1e-2, "num_steps": 1000}
+    )
+    test_noise_schedule: dict = field(
+        default_factory=lambda: {"min_val": 1e-6, "max_val": 1e-2, "num_steps": 50}
+    )
+    seq_len: int = 6144
+    lr: float = 1e-4
+    grad_clip: float = 1.0
+
+
+@dataclass
+class WavernnConfig(BaseVocoderConfig):
+    """(reference ``wavernn_config.py``)"""
+
+    model: str = "wavernn"
+    mode: str = "mold"
+    mulaw: bool = True
+    generator_model: str = "wavernn"
+    model_args: dict = field(
+        default_factory=lambda: {
+            "rnn_dims": 512,
+            "fc_dims": 512,
+            "compute_dims": 128,
+            "res_out_dims": 128,
+            "num_res_blocks": 10,
+            "use_aux_net": True,
+            "use_upsample_net": True,
+            "upsample_factors": [4, 8, 8],
+        }
+    )
+    batched: bool = True
+    target_samples: int = 11000
+    overlap_samples: int = 550
+    seq_len: int = 1280
+    lr: float = 1e-4
+    grad_clip: float = 4.0

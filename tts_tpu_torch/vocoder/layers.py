@@ -1,6 +1,9 @@
 """Vocoder layers of the port: the pseudo-QMF filter bank (port of
 ``PQMF`` and ``pqmf_filters`` in ``tts_tpu/vocoder/models/melgan_generator.py:93-142``,
-reference ``TTS/vocoder/layers/pqmf.py``).
+reference ``TTS/vocoder/layers/pqmf.py``), and what ParallelWaveGAN,
+UnivNet, WaveGrad and WaveRNN share: the 1x1 convolution of a flax ``Dense``
+on ``[B, C, T]``, the nearest-repeat upsampling with one smoothing tap shared
+across channels, and the default noise generator.
 
 The synthesis side serves the multi-band iSTFT decoder
 (``istft_subbands_decoder > 1``) and the multi-band MelGAN generator; the
@@ -16,7 +19,34 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
+
+
+def pointwise(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` (a flax ``Dense`` carried as ``nn.Linear``) on every time
+    step of ``[B, C_in, T]`` → ``[B, C_out, T]``, as a 1x1 convolution."""
+    return F.conv1d(x, layer.weight[..., None], layer.bias)
+
+
+def shared_tap_upsample(x: torch.Tensor, tap: torch.Tensor, factor: int) -> torch.Tensor:
+    """``[B, C, T]`` → ``[B, C, T * factor]``: each frame repeated
+    ``factor`` times, then smoothed by one ``(2 factor + 1)``-tap kernel
+    shared by every channel (``tap`` of any shape with that many elements),
+    zero padding ``factor`` on each side. The reference stores the tap as a
+    ``Conv2d(1, 1, (1, k))`` over the (C, T) plane; the JAX package as a
+    depthwise kernel broadcast over channels."""
+    B, C, T = x.shape
+    x = torch.repeat_interleave(x, factor, dim=2).reshape(B * C, 1, T * factor)
+    return F.conv1d(x, tap.reshape(1, 1, -1), padding=factor).reshape(B, C, T * factor)
+
+
+def noise_generator(device, seed: int = 0) -> torch.Generator:
+    """The generator a vocoder draws from when the caller passes none: on
+    ``device``, seeded with ``seed`` (so each call draws the same noise, as
+    the JAX package's ``PRNGKey(0)`` does; the draws themselves differ from
+    ``jax.random``'s, and between devices)."""
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def pqmf_filters(N: int = 4, taps: int = 62, cutoff: float = 0.15,

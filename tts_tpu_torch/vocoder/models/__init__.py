@@ -1,7 +1,8 @@
 """Vocoder generator registry of the port (port of ``setup_generator`` in
-``tts_tpu/vocoder/models/__init__.py``): the HiFiGAN and MelGAN generators.
-Every other generator of the JAX package raises ``NotImplementedError``
-naming its ROADMAP.md item."""
+``tts_tpu/vocoder/models/__init__.py``): every generator of the JAX package,
+HiFiGAN, the MelGAN family, ParallelWaveGAN, UnivNet, the iSTFT generator,
+WaveGrad and WaveRNN, inference only. The discriminators and the training
+wrappers serve training and wait for it (ROADMAP.md item 17)."""
 
 from __future__ import annotations
 
@@ -14,22 +15,18 @@ _GENERATORS = {
         "tts_tpu_torch.vocoder.models.melgan_generator:MultibandMelganGenerator",
     "fullband_melgan_generator":
         "tts_tpu_torch.vocoder.models.melgan_generator:FullbandMelganGenerator",
-}
-_UNPORTED = {
-    "parallel_wavegan_generator": "ROADMAP.md item 16",
-    "univnet_generator": "ROADMAP.md item 16",
-    "istft_hifigan_generator": "ROADMAP.md item 16",
-    "wavegrad": "ROADMAP.md item 16",
-    "wavernn": "ROADMAP.md item 16",
+    "parallel_wavegan_generator":
+        "tts_tpu_torch.vocoder.models.parallel_wavegan_generator:ParallelWaveganGenerator",
+    "univnet_generator": "tts_tpu_torch.vocoder.models.univnet_generator:UnivnetGenerator",
+    "istft_hifigan_generator": "tts_tpu_torch.vocoder.models.istft_hifigan:IstftHifiganGenerator",
+    "wavegrad": "tts_tpu_torch.vocoder.models.wavegrad:Wavegrad",
+    "wavernn": "tts_tpu_torch.vocoder.models.wavernn:Wavernn",
 }
 
 
 def setup_generator(name: str):
     """The generator class registered under ``name``."""
     key = name.lower()
-    if key in _UNPORTED:
-        raise NotImplementedError(f"the vocoder generator {name!r} is not ported to "
-                                  f"tts_tpu_torch yet ({_UNPORTED[key]})")
     if key not in _GENERATORS:
         raise ModuleNotFoundError(f" [!] Unknown vocoder module {name!r}")
     mod_name, cls_name = _GENERATORS[key].split(":")

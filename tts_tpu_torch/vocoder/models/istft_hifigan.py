@@ -8,10 +8,13 @@ from an inverse STFT of a predicted (log-magnitude, phase) spectrum: irfft
 and overlap-add, plain PyTorch ops. The decoder masks no convolution, so it
 does not serve the sequence-packed decode (ROADMAP.md F2).
 
-There is no reference-layout counterpart (the reference ships plain HiFiGAN
-only): weights come from the JAX package's parameters
-(``utils.convert.vits_from_jax_params``) or from the port's own
-``model_torch.pt``. Layout is the JAX package's: ``[B, T, C]`` in,
+It serves as VITS's decoder and, through ``inference`` (``forward`` with no
+padding, ``tts_tpu/vocoder/models/istft_hifigan.py:129``), as a vocoder
+(``vocoder.models.setup_generator("istft_hifigan_generator")``). There is
+no reference-layout counterpart (the reference ships plain HiFiGAN only):
+weights come from the JAX package's parameters
+(``utils.convert.vits_from_jax_params``, ``flax_to_state_dict``) or from the
+port's own ``model_torch.pt``. Layout is the JAX package's: ``[B, T, C]`` in,
 ``[B, T * prod(upsample_factors) * istft_hop * subbands, 1]`` out.
 """
 
@@ -129,3 +132,7 @@ class IstftHifiganGenerator(nn.Module):
         if S == 1:
             return torch.tanh(wav.transpose(1, 2))  # [B, T*hop, 1]
         return torch.tanh(self.pqmf.synthesis(wav.transpose(1, 2)))  # [B, T*hop*S, 1]
+
+    def inference(self, c: torch.Tensor) -> torch.Tensor:
+        """As a vocoder: ``forward`` on the mel, no edge padding."""
+        return self(c)

@@ -28,16 +28,39 @@ def interpolate_vocoder_input(scale_factor, spec: np.ndarray) -> np.ndarray:
 
 
 def make_generator_from_config(config):
-    """The generator named by ``config.generator_model``, built from
-    ``generator_model_params`` with ``in_channels`` from
-    ``config.audio.num_mels``; parameters the module does not take (such as
-    ``use_weight_norm``, folded away by the converter) are dropped."""
+    """The generator named by ``config.generator_model``, built from its
+    parameters as the JAX package builds it (``tts_tpu/vocoder/utils.py:29-62``):
+    ``generator_model_params``, else ``model_params`` (WaveGrad, a UnivNet
+    config), else ``model_args`` (WaveRNN); the mel width fills the field
+    that takes it (``in_channels``, ParallelWaveGAN's ``aux_channels``,
+    UnivNet's ``cond_channels``, WaveRNN's ``feat_dims``, which also takes
+    the config's ``mode`` and ``mulaw`` and the folded norms of a converted
+    checkpoint). The flax modules infer their input widths from the mel, so
+    the JAX package sets no ``in_channels`` for the iSTFT generator and
+    WaveGrad; the port's modules need it, and take the mel width there too.
+    Parameters the module does not take (such as ``use_weight_norm``,
+    folded away by the converter) are dropped."""
     from tts_tpu_torch.vocoder.models import setup_generator
 
     name = config.generator_model.lower()
-    cls = setup_generator(name)
     params = dict(getattr(config, "generator_model_params", None) or {})
-    params.setdefault("in_channels", config.audio.num_mels)
+    if not params:
+        params = dict(getattr(config, "model_params", None) or {})
+    if not params:
+        params = dict(getattr(config, "model_args", None) or {})
+    num_mels = config.audio.num_mels
+    cls = setup_generator(name)
+    if "melgan" in name or name in ("hifigan_generator", "istft_hifigan_generator", "wavegrad"):
+        params.setdefault("in_channels", num_mels)
+    elif name == "parallel_wavegan_generator":
+        params.setdefault("aux_channels", num_mels)
+    elif name == "univnet_generator":
+        params.setdefault("cond_channels", num_mels)
+    elif name == "wavernn":
+        params.setdefault("feat_dims", num_mels)
+        params.setdefault("mode", getattr(config, "mode", "mold"))
+        params.setdefault("mulaw", getattr(config, "mulaw", True))
+        params.setdefault("norm_type", "folded")
     valid = set()
     for klass in cls.__mro__:
         if klass.__init__ is not object.__init__ and "__init__" in vars(klass):
