@@ -210,7 +210,28 @@ Phases; each raises on failure and the script then exits non-zero:
     int16 step of the API; one WaveRNN ``TTS.tts_to_file``; the server with
     WaveGrad and ``--max_batch 4``, serial. The surfaces' Tacotron2 stops at
     step 1 and decodes at the recipe's r = 6: 6 frames a sentence.
-    ``decode_attention`` must not launch.
+    ``decode_attention`` must not launch;
+15. GST and Capacitron on Tacotron2, then Tacotron v1, fp32 weights from
+    seed 0 at full width, the stopnet never firing: the blizzard2013
+    Capacitron Tacotron2 recipe (dynamic convolution attention, r = 2,
+    Capacitron 128, 24 kHz) with a 24 kHz HiFiGAN, saved in the reference
+    layout; a Tacotron2 with GST at the GST defaults (512 wide, 4 heads, 10
+    tokens) with the LJSpeech HiFiGAN; the blizzard2013 Capacitron Tacotron
+    v1 recipe (CBHG 128, 513 linear bins) with Griffin-Lim, from the port's
+    own checkpoint. Each card against CPU on the short sentence with a
+    style reference at its whole budget, on the same host draws (the GST
+    style vector, Capacitron's ``z`` of the posterior and of the prior, the
+    mel or linear spectrogram, the audio: within 1e-4; Griffin-Lim's
+    magnitude spectrogram within 1e-2 relative L2, its waveform's share of
+    the peak printed); the medium sentence with a style reference at
+    natural length (3 steps a token): latency, RTF, ms per decode step, the
+    kernels and busy share under ``torch.profiler``. Then the zoo's
+    ``capacitron-t2-c50`` and ``capacitron-t2-c150_v2`` by name with the
+    blizzard2013 ``hifigan_v2``, with and without a style reference, equal
+    to the path load; ``tts --model_name --capacitron_style_wav
+    --capacitron_style_text`` and ``/api/tts?style_wav=`` (served serially)
+    within one int16 step of the API; peak memory. ``decode_attention``
+    must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -5022,6 +5043,368 @@ def phase_vocoders(card: str, device="cuda", cut=None) -> None:
     log(line + f"; phase 14 took {time.time() - t_phase:.1f} s | {card}")
 
 
+ZOO_CAPACITRON = ("tts_models/en/blizzard2013/capacitron-t2-c50",
+                  "tts_models/en/blizzard2013/capacitron-t2-c150_v2")
+ZOO_BLIZZARD_HIFIGAN = "vocoder_models/en/blizzard2013/hifigan_v2"
+STYLE_TOL = 1e-4  # card vs CPU, the style vectors, mels and waveforms of phase 15, fp32, TF32 off
+STYLE_TEXT = "It is a lovely day for a walk."  # the Capacitron style reference's words (F37)
+
+
+def blizzard_audio(spec_gain: float):
+    """The blizzard2013 recipes' audio (24 kHz, trimmed at 60 dB, signal
+    norm, mels 80-12000 Hz, ``np.log10``, ``ref_level_db`` 20, no
+    preemphasis, ``min_level_db`` -100); ``spec_gain`` 25 in the Tacotron2
+    recipe, 20 in the Tacotron v1 one."""
+    from tts_tpu_torch.config.shared import BaseAudioConfig
+
+    return BaseAudioConfig(sample_rate=24000, do_trim_silence=True, trim_db=60.0,
+                           signal_norm=True, mel_fmin=80.0, mel_fmax=12000, spec_gain=spec_gain,
+                           log_func="np.log10", ref_level_db=20, preemphasis=0.0,
+                           min_level_db=-100)
+
+
+def capacitron_t2_recipe_config():
+    """``recipes/blizzard2013/tacotron2_capacitron/train_capacitron_t2.py``:
+    Tacotron2 at full width with Capacitron 128 (capacity 150), ``r=2``,
+    dynamic convolution attention, ``phoneme_cleaners`` with ``en-us``
+    phonemes, 24 kHz; norms folded, as the zoo's converted checkpoints run."""
+    from tts_tpu_torch.models.tacotron2 import Tacotron2Config
+
+    return Tacotron2Config(
+        audio=blizzard_audio(25.0), use_capacitron_vae=True,
+        capacitron_vae={"capacitron_VAE_loss_alpha": 1.0, "capacitron_capacity": 150,
+                        "capacitron_VAE_embedding_dim": 128},
+        r=2, attention_type="dynamic_convolution", text_cleaner="phoneme_cleaners",
+        use_phonemes=True, phoneme_language="en-us", stopnet_pos_weight=15, norm_type="folded")
+
+
+def gst_t2_config():
+    """Tacotron2 with GST at the JAX package's GST defaults (512 wide, 4
+    heads, 10 tokens), the ``Tacotron2Config`` defaults otherwise (22.05 kHz,
+    location-sensitive attention, ``r=2``), ``phoneme_cleaners`` with
+    ``en-us`` phonemes; norms folded."""
+    from tts_tpu_torch.models.tacotron2 import Tacotron2Config
+
+    return Tacotron2Config(use_gst=True, text_cleaner="phoneme_cleaners", use_phonemes=True,
+                           phoneme_language="en-us", norm_type="folded")
+
+
+def capacitron_t1_recipe_config():
+    """``recipes/blizzard2013/tacotron1_capacitron/train_capacitron_t1.py``:
+    the ``TacotronConfig`` defaults (embedding 256, CBHG 128 with banks of
+    16 and 8, 1024-wide decoder LSTMs, 513 linear bins) with Capacitron 128,
+    ``r=2``, ``phoneme_cleaners`` with ``en-us`` phonemes, 24 kHz. Its
+    ``graves`` attention is not read: the JAX network keeps the Tacotron2
+    cell's location-sensitive attention (F41)."""
+    from tts_tpu_torch.models.tacotron2 import TacotronConfig
+
+    return TacotronConfig(
+        audio=blizzard_audio(20.0), use_capacitron_vae=True,
+        capacitron_vae={"capacitron_VAE_loss_alpha": 1.0, "capacitron_VAE_embedding_dim": 128},
+        r=2, attention_type="graves", attention_heads=5, text_cleaner="phoneme_cleaners",
+        use_phonemes=True, phoneme_language="en-us", stopnet_pos_weight=15)
+
+
+def never_stopping(model, seed: int = 0):
+    """``model`` (a Tacotron2 or Tacotron wrapper) with fp32 weights from
+    ``seed`` on the CPU and the stopnet's weight 0, bias -10: every decode
+    runs its budget."""
+    import torch
+
+    model.init_params(seed=seed, device="cpu")
+    with torch.no_grad():
+        model.module.decoder_cell.stopnet.weight.zero_()
+        model.module.decoder_cell.stopnet.bias.fill_(-10.0)
+    return model
+
+
+def style_vectors(model, text: str, style_mel, device) -> dict:
+    """The style vectors a decode of ``text`` appends to the encoder
+    outputs: the GST's of ``style_mel``, Capacitron's ``z`` of its posterior
+    and of its prior (each drawn on the host from a generator seeded 0)."""
+    import torch
+
+    m = model.module
+    x, xl = t2_ids(model, [text], device)
+    mel = torch.from_numpy(style_mel).to(device)
+    out = {}
+    with torch.no_grad():
+        if hasattr(m, "gst_layer"):
+            out["GST style"] = m.gst_layer(mel).float().cpu().numpy()
+        if hasattr(m, "capacitron_vae_layer"):
+            D = m.capacitron_vae_layer.embedding_dim
+            for what, ref in (("Capacitron z (posterior)", mel), ("Capacitron z (prior)", None)):
+                enc = m._encode(x, xl, style_mel=ref, generator=torch.Generator().manual_seed(0))
+                out[what] = enc[:, 0, -D:].float().cpu().numpy()
+    return out
+
+
+def compare_style_path(name: str, synth, cpu_synth, style_wav: str, device, card: str,
+                       griffin_lim: bool = False) -> str:
+    """``name`` card against CPU on the short sentence: the style vectors
+    (:func:`style_vectors`), then the whole budget through ``synthesis``
+    with the style reference (a mel, or Tacotron v1's linear spectrogram)
+    and its audio (the vocoder's, or Griffin-Lim's after one
+    ``np.random.seed``). Returns the log line."""
+    from tts_tpu_torch.utils.synthesis import synthesis
+
+    short = VITS_SENTENCES["short"]
+    model, cpu_model = synth.tts_model, cpu_synth.tts_model
+    style_mel = synth.ap.melspectrogram(synth.ap.load_wav(style_wav)).T[None]
+    errs = {}
+    card_vec, cpu_vec = (style_vectors(m, short, style_mel, dev) for m, dev in
+                         ((model, device), (cpu_model, "cpu")))
+    for what in card_vec:
+        errs[what] = float(np.abs(card_vec[what] - cpu_vec[what]).max())
+    outs = []
+    for s, m in ((synth, model), (cpu_synth, cpu_model)):
+        np.random.seed(0)
+        outs.append(synthesis(m, short, style_wav=style_wav, ap=s.ap,
+                              use_griffin_lim=griffin_lim, style_text=STYLE_TEXT))
+    g, w = outs
+    g_len, w_len = (int(o["outputs"]["mel_lengths"][0]) for o in outs)
+    if g_len != w_len or g["model_outputs"].shape != w["model_outputs"].shape:
+        raise AssertionError(f"{name}: mel_lengths card {g_len} != CPU {w_len}")
+    errs["linear spectrogram" if griffin_lim else "mel"] = float(
+        np.abs(g["model_outputs"] - w["model_outputs"]).max())
+    if griffin_lim:
+        gw, ww = g["wav"], w["wav"]
+        errs["mel"] = float(np.abs(g["outputs"]["decoder_outputs"][0].cpu().numpy()
+                                   - w["outputs"]["decoder_outputs"][0].numpy()).max())
+    else:
+        gw, ww = synth._vocode(g["model_outputs"]), cpu_synth._vocode(w["model_outputs"])
+    audio = float(np.abs(gw - ww).max()) if gw.shape == ww.shape else np.inf
+    if griffin_lim:
+        # the phase Griffin-Lim rebuilds drifts with 1e-6 differences of its input over its 60
+        # iterations; the magnitude it rebuilds does not: the relative L2 distance of the two
+        # waveforms' magnitude spectrograms is the check, the waveforms' peak share is printed
+        from tts_tpu_torch.audio.numpy_transforms import stft
+
+        mag_g, mag_w = (np.abs(stft(y=w_, **synth.ap._stft_kwargs())) for w_ in (gw, ww))
+        spectral = float(np.linalg.norm(mag_g - mag_w) / np.linalg.norm(mag_w))
+        audio /= float(np.abs(ww).max())
+    bad = {k: v for k, v in errs.items() if not v <= STYLE_TOL}
+    if bad or not (spectral <= GL_REL_TOL if griffin_lim else audio <= STYLE_TOL) \
+            or not np.isfinite(gw).all() or gw.std() == 0:
+        raise AssertionError(f"{name} card vs CPU: {errs}, audio {audio} (tol {STYLE_TOL}; "
+                             f"Griffin-Lim's magnitude {GL_REL_TOL})")
+    audio_line = (f"Griffin-Lim audio: magnitude spectrogram {spectral:.3g} relative L2 (tol "
+                  f"{GL_REL_TOL}), waveform {audio:.3g} of its peak (printed)" if griffin_lim
+                  else f"audio {audio:.3g} (tol {STYLE_TOL})")
+    return (f"{name}, short sentence with a style reference, card vs CPU at its whole budget "
+            f"(mel_lengths {g_len} equal): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tol {STYLE_TOL}); {audio_line} | {card}")
+
+
+def style_latency(name: str, synth, style_wav: str, device, card: str,
+                  griffin_lim: bool = False) -> None:
+    """The medium sentence with a style reference at natural length (3
+    decode steps a token): latency and RTF (median of 3), ms per decode step
+    (the slope between 100 and 300 steps), and the kernels and busy share of
+    one call under ``torch.profiler``; the vocoder's (or Griffin-Lim's) part
+    of it."""
+    import torch
+
+    model, medium = synth.tts_model, VITS_SENTENCES["medium"]
+    aux = {"style_mel": torch.from_numpy(
+        synth.ap.melspectrogram(synth.ap.load_wav(style_wav)).T[None]).to(device)}
+    n_tokens = len(model.tokenizer.text_to_ids(medium))
+    x, xl = t2_ids(model, [medium], device)
+    parts = {}
+
+    def natural():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            o = model.inference(x, xl, max_steps=3 * n_tokens, aux_input=aux)
+            out = o["model_outputs"][0, : int(o["mel_lengths"][0])].float().cpu().numpy()
+        t1 = time.perf_counter()
+        wav = synth.ap.inv_spectrogram(out.T) if griffin_lim else synth._vocode(out)
+        sync(device)
+        parts.update(model=(t1 - t0) * 1e3, vocoder=(time.perf_counter() - t1) * 1e3,
+                     seconds=len(wav) / synth.output_sample_rate)
+
+    ms, lo, hi = median_ms(natural, device, reps=3)
+    step = step_ms(lambda n: model.inference(x, xl, max_steps=n, aux_input=aux), device, 100, 300)
+    vocoder = "Griffin-Lim (host)" if griffin_lim else "HiFiGAN"
+    log(f"{name}, medium sentence with a style reference ({n_tokens} tokens) at natural length "
+        f"({3 * n_tokens} steps): {parts['seconds']:.2f} s of audio in {ms:.1f} ms (median of 3; "
+        f"{lo:.1f}-{hi:.1f}), RTF {parts['seconds'] / ms * 1e3:.2f}; model {parts['model']:.1f} "
+        f"ms, {vocoder} {parts['vocoder']:.1f} ms; decode step {step:.3f} ms wall (the slope "
+        f"between 100 and 300 steps, median of 3) | {card}")
+    profile_call(natural, f"{name}, medium sentence at natural length", card)
+
+
+def phase_style_tacotron(card: str, device="cuda", cut=None) -> None:
+    """GST and Capacitron on Tacotron2, then Tacotron v1: the blizzard2013
+    Capacitron Tacotron2 recipe with a 24 kHz HiFiGAN, saved in the
+    reference layout and driven by the zoo's two Capacitron names through
+    ``TTS``, ``tts --style_wav --capacitron_style_text`` and
+    ``/api/tts?style_wav=``, with and without a style reference; a GST
+    Tacotron2 at the GST defaults with the LJSpeech HiFiGAN; the blizzard2013
+    Capacitron Tacotron v1 recipe with Griffin-Lim, from the port's own
+    checkpoint. Each card against CPU (style vectors, mel, audio), with the
+    medium sentence's latency, ms per step and busy share.
+    ``decode_attention`` must not launch. ``cut(cap, gst, t1, blizzard_voc,
+    ljspeech_voc)`` shrinks the configs in place, for rehearsals on the
+    CPU."""
+    import io
+    import shutil
+
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.models.tacotron2 import Tacotron, Tacotron2
+    from tts_tpu_torch.models.tacotron2.model import gst_settings
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.utils.convert import reference_tacotron2_state
+    from tts_tpu_torch.utils.synthesizer import Synthesizer
+    from tts_tpu_torch.vocoder.configs import HifiganConfig
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    short = VITS_SENTENCES["short"]
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    cap, gst, t1 = capacitron_t2_recipe_config(), gst_t2_config(), capacitron_t1_recipe_config()
+    blizzard_voc = HifiganConfig(audio=blizzard_audio(25.0))
+    ljspeech_voc = hifigan_recipe_config()
+    (cut or (lambda *configs: None))(cap, gst, t1, blizzard_voc, ljspeech_voc)
+    with tempfile.TemporaryDirectory() as d:
+        style_wav = os.path.join(d, "style.wav")
+        scipy.io.wavfile.write(style_wav, 24000, reference_wav(3.0, 24000, seed=5))
+
+        def save(name, model, reference=True):
+            path = os.path.join(d, name)
+            os.makedirs(path)
+            state = model.module.state_dict()
+            if reference:
+                torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                                      reference_tacotron2_state(state).items()}},
+                           os.path.join(path, "model_file.pth"))
+            else:
+                torch.save(state, os.path.join(path, "model_torch.pt"))
+            write_json(os.path.join(path, "config.json"), model.config.to_dict())
+            return sum(p.numel() for p in model.module.parameters())
+
+        def save_vocoder(name, config):
+            path = os.path.join(d, name)
+            os.makedirs(path)
+            gen = random_vocoder(config, seed=0)
+            torch.save({"model": {"model_g." + k: v for k, v in gen.state_dict().items()}},
+                       os.path.join(path, "model_file.pth"))
+            write_json(os.path.join(path, "config.json"), config.to_dict())
+
+        def load(name, dev, vocoder=None, weights="model_file.pth"):
+            voc = {} if vocoder is None else dict(
+                vocoder_checkpoint=os.path.join(d, vocoder, "model_file.pth"),
+                vocoder_config=os.path.join(d, vocoder, "config.json"))
+            return Synthesizer(tts_checkpoint=os.path.join(d, name, weights),
+                               tts_config_path=os.path.join(d, name, "config.json"),
+                               device=dev, **voc)
+
+        n = {"cap": save("cap", never_stopping(Tacotron2.init_from_config(cap))),
+             "gst": save("gst", never_stopping(Tacotron2.init_from_config(gst))),
+             "t1": save("t1", never_stopping(Tacotron.init_from_config(t1)), reference=False)}
+        save_vocoder("blizzard_voc", blizzard_voc)
+        save_vocoder("ljspeech_voc", ljspeech_voc)
+        g = gst_settings(gst)
+        log(f"Capacitron Tacotron2 (blizzard2013 recipe: {cap.attention_type} attention, r "
+            f"{cap.r}, Capacitron {cap.capacitron_vae['capacitron_VAE_embedding_dim']}, "
+            f"{cap.audio.sample_rate} Hz) {n['cap'] / 1e6:.2f} M; GST Tacotron2 "
+            f"({g['gst_embedding_dim']} wide, {g['num_heads']} heads, {g['num_style_tokens']} "
+            f"tokens) {n['gst'] / 1e6:.2f} M; Capacitron Tacotron v1 (blizzard2013 T1 recipe: "
+            f"CBHG {t1.cbhg_features}, K {t1.cbhg_K} and {t1.post_cbhg_K}, {t1.out_channels} "
+            f"linear bins) {n['t1'] / 1e6:.2f} M; phonemes en-us; weights from seed 0, stopnet "
+            f"weight 0, bias -10 (never stops); HiFiGAN at 24 kHz (blizzard) and 22.05 kHz "
+            f"| {card}")
+
+        for name, key, vocoder, weights, gl in (
+                ("Capacitron Tacotron2 + HiFiGAN", "cap", "blizzard_voc", "model_file.pth", False),
+                ("GST Tacotron2 + HiFiGAN", "gst", "ljspeech_voc", "model_file.pth", False),
+                ("Capacitron Tacotron v1 + Griffin-Lim", "t1", None, "model_torch.pt", True)):
+            synth = load(key, device, vocoder, weights)
+            cpu_synth = load(key, "cpu", vocoder, weights)
+            log(compare_style_path(name, synth, cpu_synth, style_wav, device, card, gl)
+                + f" (phase 15 at {time.time() - t_phase:.0f} s)")
+            del cpu_synth
+            if cuda:
+                style_latency(name, synth, style_wav, device, card, gl)
+                log(f"(phase 15 at {time.time() - t_phase:.0f} s)")
+            del synth
+
+        # the zoo's two Capacitron voices by name, with and without a style reference
+        with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+            for zoo_name in ZOO_CAPACITRON:
+                shutil.copytree(os.path.join(d, "cap"),
+                                os.path.join(home, "tts_tpu", zoo_name.replace("/", "--")))
+            shutil.copytree(os.path.join(d, "blizzard_voc"), os.path.join(
+                home, "tts_tpu", ZOO_BLIZZARD_HIFIGAN.replace("/", "--")))
+            by_path = load("cap", device, "blizzard_voc")
+            want = np.asarray(silent(by_path.tts, short, style_wav=style_wav), np.float32)
+            want_prior = np.asarray(silent(by_path.tts, short), np.float32)
+            for zoo_name in ZOO_CAPACITRON:
+                tts = TTS(model_name=zoo_name, device=device)
+                styled = np.asarray(silent(tts.tts, short, style_wav=style_wav,
+                                           style_text=STYLE_TEXT), np.float32)
+                prior = np.asarray(silent(tts.tts, short), np.float32)
+                if not (np.array_equal(styled, want) and np.array_equal(prior, want_prior)):
+                    raise AssertionError(f"TTS(model_name={zoo_name}) vs the path load")
+                del tts
+            if np.array_equal(want, want_prior) or want.std() == 0:
+                raise AssertionError("Capacitron: the style reference changed nothing")
+            log(f"zoo: {', '.join(ZOO_CAPACITRON)} with {ZOO_BLIZZARD_HIFIGAN} from "
+                f"reference-layout directories, nothing fetched: with a style_wav and without "
+                f"(the prior), each equal to the path load; the two differ by "
+                f"{float(np.abs(want - want_prior).max()):.3g}")
+
+            api_path, cli_path = os.path.join(d, "api.wav"), os.path.join(d, "cli.wav")
+            silent(by_path.save_wav, want, api_path)
+            silent(synthesize_cli, ["--text", short, "--model_name", ZOO_CAPACITRON[0],
+                                    "--capacitron_style_wav", style_wav,
+                                    "--capacitron_style_text", STYLE_TEXT,
+                                    "--out_path", cli_path, "--device", str(device)])
+            step, sr = _int16_steps(cli_path, api_path)
+            if step is None or step > 1:
+                raise AssertionError(f"tts --model_name --capacitron_style_wav: {step} int16 "
+                                     f"steps from the API")
+            status, body, said, dispatched = _serve_once(
+                ["--model_name", ZOO_CAPACITRON[1]], {"text": short, "style_wav": style_wav},
+                device)
+            with open(os.path.join(d, "srv.wav"), "wb") as f:
+                f.write(body)
+            srv_step, _ = _int16_steps(os.path.join(d, "srv.wav"), api_path)
+            if status != 200 or srv_step is None or srv_step > 1 or dispatched:
+                raise AssertionError(f"/api/tts?style_wav=: {status}, {srv_step} int16 steps, "
+                                     f"batches {dispatched}")
+            log(f"tts --model_name {ZOO_CAPACITRON[0]} --capacitron_style_wav "
+                f"--capacitron_style_text: {step} int16 step from the API; /api/tts?style_wav= "
+                f"on {ZOO_CAPACITRON[1]} (--max_batch 4, served serially): {srv_step} int16 step; "
+                f"{sr} Hz | {card}")
+            del by_path
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the style phase")
+    line = ("GST, Capacitron and Tacotron v1: no hand-written kernel on these paths "
+            "(decode_attention launches 0)")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f"; phase 15 took {time.time() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5053,11 +5436,12 @@ def main() -> int:
     phase_speaker_and_forward_tts(card)
     phase_hmm_align_delightful(card)
     phase_vocoders(card)
+    phase_style_tacotron(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"chip_smoke.py: phases 1-14 took {time.time() - t_start:.1f} s | {card}")
+    log(f"chip_smoke.py: phases 1-15 took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({
         "ok": True,

@@ -18,6 +18,7 @@ loads its own ``model_torch.pt`` and the JAX parameters, and a
 reference-layout file raises (``test_checkpoint_loads_the_ports_own_file``).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

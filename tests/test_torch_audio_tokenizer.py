@@ -8,6 +8,7 @@
 * ``XttsConfig``: the same fields and defaults, JSON round trips both ways.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import json
 

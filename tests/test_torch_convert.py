@@ -10,6 +10,7 @@ file (fp32 atol 1e-4), and a model directory holding only ``model.pth``
 must serve.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import os
 

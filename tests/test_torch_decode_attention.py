@@ -11,6 +11,7 @@ on a card (``cuda`` marker; ``chip_smoke.py`` covers the same cases at XTTS
 v2 shapes).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ at ``y_lengths × hop``, which equals the JAX module's own ``waveform``
 within 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -26,6 +26,7 @@ Divergences from the JAX package, each named in its test:
   the JAX package's (``test_weights_carry_over_strictly``).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 
 import jax

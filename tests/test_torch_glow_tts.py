@@ -21,6 +21,7 @@ so it always decodes the mean; the port applies the noise, drawn from a
 module called with a ``noise_rng``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@ port's; the waveforms, each sentence trimmed at its endpoint as both
 packages trim a model loaded from a file, agree within 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import io
 import shutil

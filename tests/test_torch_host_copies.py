@@ -26,6 +26,7 @@ for equality, no tolerance. The grapheme path is held here; the
 phoneme front end in ``tests/test_torch_phonemes.py``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 
 import numpy as np
@@ -503,11 +504,31 @@ def test_tacotron2_config_to_dict_matches_jax():
     assert Tacotron2Config.from_dict(recipe.to_dict()).to_dict() == recipe.to_dict()
 
 
-@pytest.mark.parametrize("attention", ["location", "dca"])
+def _reference_style_layers():
+    """A GST (64 wide, 4 heads, 10 tokens) and a Capacitron (32 wide) in the
+    reference's names and shapes, values from a numpy seed."""
+    import torch
+
+    from tts_tpu_torch.layers.capacitron import CapacitronVAE
+    from tts_tpu_torch.layers.tacotron_v1 import GST
+    from tts_tpu_torch.utils.convert import reference_tacotron2_state
+
+    rs = np.random.RandomState(1)
+    layers = torch.nn.ModuleDict({"gst_layer": GST(80, 4, 10, 64, "folded"),
+                                  "capacitron_vae_layer": CapacitronVAE(80, 576, 32,
+                                                                        norm_type="folded")})
+    state = {k: torch.from_numpy(np.asarray(rs.randn(*v.shape), np.float32))
+             for k, v in layers.state_dict().items()}
+    return reference_tacotron2_state(state)
+
+
+@pytest.mark.parametrize("attention", ["location", "dca", "style"])
 def test_convert_tacotron2_matches_jax_leaf_for_leaf(attention):
     """The reference-layout state of ``tacotron2.npz`` (location attention),
-    and the same with its attention swapped for DCA's layers and no
-    ``inputs_layer``, through both converters."""
+    the same with its attention swapped for DCA's layers and no
+    ``inputs_layer``, and the same with a reference-layout GST and
+    Capacitron added (``convert_gst``, ``convert_capacitron``), through
+    both converters."""
     from tts_tpu.utils.convert import convert_tacotron2 as jax_convert_tacotron2
     from tts_tpu_torch.utils.convert import convert_tacotron2
 
@@ -522,6 +543,8 @@ def test_convert_tacotron2_matches_jax_leaf_for_leaf(attention):
                             ("dynamic_filter_layer.weight", (128, 8)),
                             ("dynamic_filter_layer.bias", (128,)), ("v.weight", (1, 128))):
             state["decoder.attention." + name] = rs.randn(*shape).astype(np.float32)
+    if attention == "style":
+        state.update(_reference_style_layers())
     got = dict(_leaves(convert_tacotron2(dict(state))))
     want = dict(_leaves(jax_convert_tacotron2(dict(state))))
     assert sorted(got) == sorted(want) and len(got) > 60

@@ -14,6 +14,7 @@ through the port's own converters (``load_reference_vocoder``) under
 ``test_fidelity_corpus``'s 0.5 dB log-mel distance.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

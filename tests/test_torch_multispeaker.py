@@ -44,6 +44,7 @@ Divergences from the JAX package, each named in its test (ROADMAP.md §3):
   model ignores, and decodes unconditioned.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import io
 import json
 import re

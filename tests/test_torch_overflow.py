@@ -38,6 +38,7 @@ Divergences from the JAX package, each named in its test:
 has it: the last frame of an odd length leaves the flow as zero.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import functools
 
 import jax

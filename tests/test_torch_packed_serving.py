@@ -30,6 +30,7 @@ audio config has ``do_trim_silence`` on; a VITS config's audio section has
 no such field, so as loaded neither package trims VITS.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import functools
 import io

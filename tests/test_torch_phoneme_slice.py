@@ -26,6 +26,7 @@ prints its log lines into stdout, in the middle of the wav bytes; the
 port's writes only the wav there and its log lines to stderr.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import io
 import json
@@ -46,6 +47,7 @@ from test_torch_vits_model import record_jax_normals, replay_normals, tiny_jax_v
 
 from tts_tpu_torch.api import TTS
 from tts_tpu_torch.bin.synthesize import main as port_cli
+from tts_tpu_torch.bin.synthesize import make_parser
 from tts_tpu_torch.utils.synthesizer import SENTENCE_GAP, Synthesizer
 from tts_tpu_torch.utils.convert import vits_from_jax_params
 
@@ -160,14 +162,20 @@ def test_cli_pipes_only_the_wav_to_stdout(model_dir, tmp_path, monkeypatch, caps
 
 
 def test_cli_needs_text_and_rejects_unported_flags(model_dir, capsys):
+    """The flags of paths not ported yet are refused by argparse; the style
+    flags, ported with GST and Capacitron, parse."""
     with pytest.raises(SystemExit) as exit_info:
         port_cli(["--model_path", str(model_dir), "--device", "cpu"])
     assert exit_info.value.code == 1 and "Provide --text" in capsys.readouterr().err
     for flag, value in [("--target_wav", "t.wav"), ("--voice_dir", "voices"),
-                        ("--source_wav", "a.wav"), ("--style_wav", "s.wav")]:
+                        ("--source_wav", "a.wav")]:
         with pytest.raises(SystemExit) as exit_info:
             port_cli(["--text", "hi", "--model_path", str(model_dir), flag, value])
         assert exit_info.value.code == 2  # argparse: unrecognized arguments
+    for flag in ("--style_wav", "--gst_style", "--capacitron_style_wav"):
+        args = make_parser().parse_args(["--text", "hi", flag, "s.wav",
+                                         "--capacitron_style_text", "Words."])
+        assert (args.style_wav, args.style_text) == ("s.wav", "Words.")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_cli(["--text", "hi", "--model_path", str(model_dir)])

@@ -26,6 +26,7 @@ symbols) embeds its punctuation and late phonemes past the table, which
 flax reads as NaN. The port raises on such a config instead.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import json
 import os

@@ -22,6 +22,7 @@ wrapper hands such a module ``exp`` of the log-mel, and equals the JAX
 module applied to ``exp`` of the JAX log-mel.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 
 import jax

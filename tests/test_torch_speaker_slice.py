@@ -31,6 +31,7 @@ Divergences from the JAX package, each named in its test:
   JAX package feeds a speaker's mean d-vector as it is.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import io
 import json

@@ -27,6 +27,7 @@ Divergences from the JAX package, each named in its test:
   (``test_f20_reduction_factor_from_the_checkpoint``).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -452,7 +453,8 @@ def test_f20_reduction_factor_from_the_checkpoint(tmp_path):
 def test_weights_carry_over_strictly():
     """Every leaf of the JAX params lands in the port's state_dict and
     nothing else does: a missing or an extra key raises. The DDC coarse
-    decoder's params (``coarse_decoder_cell``) are dropped."""
+    decoder's params (``coarse_decoder_cell``) are dropped. A model with GST
+    and Capacitron builds, its decoder sized for both style vectors."""
     jm, params, port = jax_pair(double_decoder_consistency=True, ddc_r=3)
     assert "coarse_decoder_cell" in params["params"]
     state = tacotron2_from_jax_params(params)
@@ -465,8 +467,13 @@ def test_weights_carry_over_strictly():
     with pytest.raises(RuntimeError, match="Unexpected key"):
         Tacotron2(small_config(Tacotron2Config)).load_state_dict(
             {**state, "decoder_cell.extra": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
-        Tacotron2(small_config(Tacotron2Config, use_gst=True))
+    styled = Tacotron2(small_config(Tacotron2Config, use_gst=True, use_capacitron_vae=True,
+                                    gst={"gst_embedding_dim": 16}))
+    names = styled.module.state_dict()
+    assert "gst_layer.style_token_layer.style_tokens" in names
+    assert "capacitron_vae_layer.post_mlp.out.weight" in names
+    # the cell reads 64 encoder + 16 GST + 128 Capacitron channels
+    assert styled.module.inputs_layer.in_features == 64 + 16 + 128
 
 
 def test_text_lengths_mask_the_location_attention(stopping_pair):

@@ -11,6 +11,7 @@ not use, within 1e-4). The JAX modules get their own random init;
 their flax trees are carried into the port by ``flax_to_state_dict``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ and checks the golden waveform as ``tests/test_fidelity_corpus.py`` does
 for the JAX package.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 
 import jax

@@ -23,6 +23,7 @@ The port's HTTP server answers ``/api/tts`` for VITS with the synthesizer's
 own audio; its streaming route answers 501.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import io
 import json
 import threading

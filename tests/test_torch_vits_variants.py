@@ -20,6 +20,7 @@ serial path: an un-masked decoder's last samples depend on the bucket), with
 both planning on the port's ``DECODE_GROUP_OVERHEAD`` and on 0.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import functools
 import json

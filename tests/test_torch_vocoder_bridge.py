@@ -22,6 +22,7 @@ directory's ``scale_stats.npy``, as the reference does; the JAX copy leaves
 the trainer's path, which its ``AudioProcessor`` then fails to read.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import io
 import json

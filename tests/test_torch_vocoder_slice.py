@@ -35,6 +35,7 @@ repeat from call to call, so the API, the command line and the server give
 the same audio.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import contextlib
 import io
 import shutil

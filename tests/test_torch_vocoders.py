@@ -27,6 +27,7 @@ on the mel as the port pads it (ParallelWaveGAN: ``inference_padding`` edge
 frames on each side; UnivNet: none).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import functools
 import types
 

@@ -18,6 +18,7 @@ checkpoints' training use the VITS linear magnitude (``wav_to_spec``:
 one spectrogram into both packages, is exact either way.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 
 import jax.numpy as jnp

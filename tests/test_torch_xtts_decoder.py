@@ -5,6 +5,7 @@ against the JAX package, and replay of the golden reference outputs in
 (log-mel distance < 0.5 dB for the waveform, cosine > 0.9999 for the
 d-vector)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

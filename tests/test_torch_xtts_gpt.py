@@ -7,6 +7,7 @@ within fp32 atol 1e-4 (float32 sums in another order through 2 layers);
 greedy decoding (top_k=1) must give identical tokens.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import sys
 import threading
 

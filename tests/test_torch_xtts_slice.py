@@ -12,6 +12,7 @@ within 1e-4 (fp32 through conditioning, 2 GPT layers and the HiFi decoder),
 plus one int16 step where it crossed the server.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import os
 import subprocess
@@ -304,7 +305,8 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     ``AudioProcessor``, Tacotron2 with its layers, the speaker encoders,
     the ForwardTTS family with its feed-forward layers, Overflow and
     NeuralHMM, AlignTTS and DelightfulTTS, the ParallelWaveGAN, UnivNet,
-    WaveGrad and WaveRNN vocoders included: this test process
+    WaveGrad and WaveRNN vocoders, the GST and Capacitron layers and
+    Tacotron v1 included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -348,6 +350,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "        'tts_tpu_torch.vocoder.models.univnet_generator',\n"
         "        'tts_tpu_torch.vocoder.models.wavegrad',\n"
         "        'tts_tpu_torch.vocoder.models.wavernn'} <= set(mods), mods\n"
+        "from tts_tpu_torch.utils.convert import convert_gst, convert_capacitron\n"
+        "assert {'tts_tpu_torch.layers.tacotron_v1', 'tts_tpu_torch.layers.capacitron',\n"
+        "        'tts_tpu_torch.models.tacotron2.tacotron_v1'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

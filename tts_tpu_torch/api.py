@@ -166,19 +166,23 @@ class TTS:
         return self.synthesizer
 
     def tts(self, text: str, speaker: Optional[str] = None, language: Optional[str] = None,
-            speaker_wav=None, split_sentences: bool = True, **kwargs):
-        """Text → waveform samples."""
+            speaker_wav=None, style_wav=None, style_text: Optional[str] = None,
+            split_sentences: bool = True, **kwargs):
+        """Text → waveform samples; ``style_wav`` (a path or samples) and
+        ``style_text`` style a GST or Capacitron model."""
         return self._require_model().tts(
             text, speaker_name=speaker, language_name=language, speaker_wav=speaker_wav,
-            split_sentences=split_sentences, **kwargs,
+            style_wav=style_wav, style_text=style_text, split_sentences=split_sentences,
+            **kwargs,
         )
 
     def tts_to_file(self, text: str, speaker: Optional[str] = None,
-                    language: Optional[str] = None, speaker_wav=None,
-                    file_path: str = "output.wav", pipe_out=None,
-                    split_sentences: bool = True, **kwargs) -> str:
+                    language: Optional[str] = None, speaker_wav=None, style_wav=None,
+                    style_text: Optional[str] = None, file_path: str = "output.wav",
+                    pipe_out=None, split_sentences: bool = True, **kwargs) -> str:
         """Text → wav file."""
         wav = self.tts(text, speaker=speaker, language=language, speaker_wav=speaker_wav,
+                       style_wav=style_wav, style_text=style_text,
                        split_sentences=split_sentences, **kwargs)
         self._require_model().save_wav(wav, file_path, pipe_out=pipe_out)
         return file_path

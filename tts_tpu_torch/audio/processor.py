@@ -4,8 +4,9 @@
 ``init_from_config``, ``normalize``/``denormalize`` (range normalisation, or
 mean-var stats through ``StandardScaler`` when ``stats_path`` and
 ``signal_norm`` are set), ``load_stats``/``setup_scaler``, the preemphasis
-pair, ``spectrogram``, ``melspectrogram``, ``inv_melspectrogram`` through
-Griffin-Lim, ``find_endpoint``/``trim_silence``, and ``load_wav``/``save_wav``.
+pair, ``spectrogram``, ``melspectrogram``, ``inv_spectrogram`` and
+``inv_melspectrogram`` through Griffin-Lim, ``find_endpoint``/``trim_silence``,
+and ``load_wav``/``save_wav``.
 
 The ``Synthesizer`` builds one per model: the TTS model's turns its mel
 back into decibels, the vocoder's normalises them for the vocoder, and
@@ -272,6 +273,14 @@ class AudioProcessor:
         if self.do_amp_to_db_mel:
             S = nt.amp_to_db(x=S, gain=self.spec_gain, base=self.base)
         return self.normalize(S).astype(np.float32)
+
+    def inv_spectrogram(self, spectrogram: np.ndarray) -> np.ndarray:
+        """A normalised linear spectrogram ``[fft_size // 2 + 1, T]`` →
+        waveform through Griffin-Lim (Tacotron v1's output)."""
+        S = self.denormalize(spectrogram)
+        S = nt.db_to_amp(x=S, gain=self.spec_gain, base=self.base)
+        W = self._griffin_lim(S**self.power)
+        return self.apply_inv_preemphasis(W) if self.preemphasis != 0 else W
 
     def inv_melspectrogram(self, mel_spectrogram: np.ndarray) -> np.ndarray:
         """A normalised mel ``[M, T]`` → waveform through Griffin-Lim."""

@@ -25,6 +25,9 @@ Examples::
     python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
         --model_name tts_models/en/ljspeech/glow-tts \\
         --vocoder_name vocoder_models/en/ljspeech/hifigan_v2
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_name tts_models/en/blizzard2013/capacitron-t2-c50 \\
+        --style_wav style.wav --capacitron_style_text "The style's words."
     python -m tts_tpu_torch.bin.synthesize --text "Hello world." \
         --model_path yourtts/model_file.pth --config_path yourtts/config.json \
         --encoder_path se/model_se.pth.tar --encoder_config_path se/config_se.json \
@@ -42,7 +45,10 @@ in place of a zoo entry's
 default one; without any, Griffin-Lim speaks it. ``--encoder_path`` with
 ``--encoder_config_path`` loads a speaker encoder, which turns
 ``--speaker_wav`` into a d-vector for a d-vector model (YourTTS); the zoo's
-``your_tts`` loads the one its directory ships.
+``your_tts`` loads the one its directory ships. ``--style_wav`` (or its
+aliases ``--gst_style`` and ``--capacitron_style_wav``) gives a GST or
+Capacitron Tacotron its style reference; ``--capacitron_style_text``, its
+transcription, changes nothing, as in the JAX package (ROADMAP.md F37).
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
 runs the plain PyTorch path. ``--use_cuda``, ``--save_spectogram`` and
@@ -55,10 +61,9 @@ The JAX command line's other flags wait for the paths they select, and
 argparse rejects them until then (ROADMAP.md §1):
 
 * voice conversion models (``--source_wav``, ``--target_wav``): FreeVC,
-  slice 3, item 16;
-* style references (``--style_wav`` and its aliases,
-  ``--capacitron_style_text``) and the voice directory (``--voice_dir``):
-  slice 3, item 16.
+  item 16b;
+* the voice directory (``--voice_dir``): Tortoise and Bark, items 16c and
+  16d.
 """
 
 from __future__ import annotations
@@ -116,6 +121,11 @@ def make_parser() -> argparse.ArgumentParser:
                         help="convert this recording to --speaker_idx's voice")
     parser.add_argument("--reference_speaker_idx", type=str, default=None,
                         help="the speaker of --reference_wav")
+    parser.add_argument("--style_wav", "--gst_style", "--capacitron_style_wav",
+                        dest="style_wav", type=str, default=None,
+                        help="GST/Capacitron style-reference wav")
+    parser.add_argument("--capacitron_style_text", dest="style_text", type=str, default=None,
+                        help="transcription of the Capacitron style reference")
     parser.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
     # accepted for compatibility with the reference command line
     parser.add_argument("--use_cuda", action="store_true",
@@ -188,6 +198,8 @@ def main(argv=None):
             speaker=args.speaker_idx,
             language=args.language_idx,
             speaker_wav=args.speaker_wav,
+            style_wav=args.style_wav,
+            style_text=args.style_text,
             file_path=args.out_path,
             pipe_out=pipe_out,
         )

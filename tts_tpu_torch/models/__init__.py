@@ -1,9 +1,9 @@
 """Model registry of the port: config name → (config class, model class),
 and the vocoder configs by name.
 
-XTTS, VITS, GlowTTS, Tacotron2, the ForwardTTS family (FastPitch,
-FastSpeech, FastSpeech2, SpeedySpeech), Overflow, NeuralHMM, AlignTTS and
-DelightfulTTS are ported so far, with every vocoder config of the JAX
+XTTS, VITS, GlowTTS, Tacotron2 (with GST or Capacitron), Tacotron v1, the
+ForwardTTS family (FastPitch, FastSpeech, FastSpeech2, SpeedySpeech),
+Overflow, NeuralHMM, AlignTTS and DelightfulTTS are ported so far, with every vocoder config of the JAX
 package (HiFiGAN, the MelGANs, ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN
 and the generic ``gan``; their generators in ``vocoder.models.setup_generator``)
 and the speaker encoders' configs; other names raise.
@@ -21,6 +21,8 @@ _MODELS = {
                  "tts_tpu_torch.models.glow_tts.model:GlowTTS"),
     "tacotron2": ("tts_tpu_torch.models.tacotron2.config:Tacotron2Config",
                   "tts_tpu_torch.models.tacotron2.model:Tacotron2"),
+    "tacotron": ("tts_tpu_torch.models.tacotron2.config:TacotronConfig",
+                 "tts_tpu_torch.models.tacotron2.tacotron_v1:Tacotron"),
     **{name: (f"tts_tpu_torch.models.forward_tts.config:{cls}",
               "tts_tpu_torch.models.forward_tts.model:ForwardTTS")
        for name, cls in (("fast_pitch", "FastPitchConfig"), ("fast_speech", "FastSpeechConfig"),

@@ -3,7 +3,8 @@ on the standard library's ``http.server``.
 
 Routes:
   GET /                 minimal HTML page
-  GET /api/tts          ?text=…&speaker_id=…&language_id=…&speaker_wav=… → wav
+  GET /api/tts          ?text=…&speaker_id=…&language_id=…&speaker_wav=…&style_wav=…
+                        → wav
   GET /api/tts-stream   same parameters → progressive WAV, written per
                         decoded chunk
   GET /details          the model's config as JSON, with its speakers and
@@ -16,12 +17,13 @@ route answers 404. ``/api/tts`` and ``/process`` run under one lock. With
 ``--max_batch N > 1`` and a VITS model they go through the
 :class:`DynamicBatcher` instead, whose worker thread decodes up to N
 queued sentences of concurrent requests, of any speakers and languages, in
-one dispatch. Two kinds of request take the serial path under the lock,
+one dispatch. Three kinds of request take the serial path under the lock,
 chosen before anything is queued: one with a ``speaker_wav`` (a server-side
 path, turned into a d-vector by the speaker encoder of ``--encoder_path``
 and ``--encoder_config_path``, or of a zoo YourTTS directory; without one
-it is answered 400), and every request to a model whose speakers are
-d-vectors (the JAX server catches the
+it is answered 400), one with a ``style_wav`` (a server-side path whose mel
+styles a GST or Capacitron Tacotron2, as in the JAX server), and every
+request to a model whose speakers are d-vectors (the JAX server catches the
 batcher's ``ValueError`` to the same end). A request the batcher refuses
 (an unknown speaker) is answered 400, as the serial path would answer it.
 A model the batcher cannot take (XTTS; a mel model with a vocoder or
@@ -71,6 +73,7 @@ _INDEX_HTML = """<!DOCTYPE html>
   <label>speaker <select id="speaker_id"><option value=""></option></select></label>
   <label>language <select id="language_id"><option value=""></option></select></label>
   <label>speaker wav <input id="speaker_wav" size="24" placeholder="(server path)"/></label>
+  <label>style wav <input id="style_wav" size="24" placeholder="(server path)"/></label>
 </div>
 <audio id="audio" controls style="margin-top: 1em; width: 100%;"></audio>
 <script>
@@ -84,7 +87,7 @@ fetch('/details').then(r => r.json()).then(d => {
 });
 function speak() {
   const p = new URLSearchParams({text: document.getElementById('text').value});
-  for (const k of ["speaker_id", "language_id", "speaker_wav"]) {
+  for (const k of ["speaker_id", "language_id", "speaker_wav", "style_wav"]) {
     const v = document.getElementById(k).value;
     if (v) p.set(k, v);
   }
@@ -117,6 +120,7 @@ def create_handler(synthesizer, lock: threading.Lock, batcher=None, stream_batch
 
         def _synthesize(self, text: str, **params) -> bytes:
             if batcher is not None and params.get("speaker_wav") is None \
+                    and params.get("style_wav") is None \
                     and not getattr(synthesizer.tts_model, "uses_d_vectors", False):
                 # no lock: the batch worker owns the dispatch
                 wav = batcher.tts(text, speaker_name=params.get("speaker_name"),
@@ -193,7 +197,8 @@ def create_handler(synthesizer, lock: threading.Lock, batcher=None, stream_batch
                     self._send(400, b"missing text")
                     return
                 try:
-                    wav = self._synthesize(text, **self._params(qs))
+                    wav = self._synthesize(text, **self._params(qs),
+                                           style_wav=(qs.get("style_wav") or [None])[0])
                 except ValueError as e:
                     self._send(400, str(e).encode())
                     return

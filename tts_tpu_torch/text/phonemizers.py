@@ -1,6 +1,8 @@
 """Copied from ``tts_tpu/text/phonemizers.py`` (the port imports nothing of ``tts_tpu``);
-unchanged apart from this line and the package named in docstrings and in the
-fallback warning, which names the port's module.
+unchanged apart from this line, the package named in docstrings and in the
+fallback warning, which names the port's module, and ``ZH_CN_Phonemizer``,
+which is never available and raises on construction (ROADMAP.md F36: its
+source imports a module neither package has).
 
 Phonemizer backends (G2P) — host-side, outside jit.
 
@@ -244,11 +246,16 @@ class Gruut(BasePhonemizer):
         return " ".join(separator.join(w) for w in ph_list)
 
 
+ZH_CN_MISSING = ("the Mandarin phonemizer needs a pinyin-to-phoneme table (chinese_mandarin) "
+                 "that is not in the repository (ROADMAP.md F36)")
+
+
 class ZH_CN_Phonemizer(BasePhonemizer):
-    """Mandarin pinyin G2P via pypinyin (reference ``zh_cn_phonemizer.py``)."""
+    """Mandarin pinyin G2P via pypinyin (reference ``zh_cn_phonemizer.py``);
+    unavailable in the port (ROADMAP.md F36): building one raises."""
 
     def __init__(self, punctuations=Punctuation.default_puncs(), keep_puncs=False, language="zh-cn", **kwargs):
-        super().__init__("zh-cn", punctuations=punctuations, keep_puncs=keep_puncs)
+        raise NotImplementedError(ZH_CN_MISSING)
 
     @staticmethod
     def name():
@@ -256,14 +263,10 @@ class ZH_CN_Phonemizer(BasePhonemizer):
 
     @classmethod
     def is_available(cls) -> bool:
-        try:
-            import pypinyin
-
-            # functional check: a bare test stub registers the module name
-            # without a working API
-            return callable(getattr(pypinyin, "lazy_pinyin", None))
-        except ImportError:
-            return False
+        """Never, in the port, whether ``pypinyin`` is installed or not: its
+        source imports a pinyin-to-phoneme table (``.chinese_mandarin``)
+        that neither package has (ROADMAP.md F36)."""
+        return False
 
     @classmethod
     def version(cls) -> str:
@@ -274,9 +277,7 @@ class ZH_CN_Phonemizer(BasePhonemizer):
         return {"zh-cn": "Chinese (China)"}
 
     def _phonemize(self, text: str, separator: str = "|") -> str:
-        from .chinese_mandarin import chinese_text_to_phonemes
-
-        return chinese_text_to_phonemes(text, separator)
+        raise NotImplementedError(ZH_CN_MISSING)
 
 
 class KO_KR_Phonemizer(BasePhonemizer):

@@ -172,14 +172,19 @@ def _pack_lstm(cell: Mapping, suffix: str = "") -> Dict[str, np.ndarray]:
             f"bias_ih{suffix}": np.zeros_like(b_hh), f"bias_hh{suffix}": b_hh}
 
 
-_LSTM_NAMES = {"lstm_fwd": ("lstm", "_l0"), "lstm_bwd": ("lstm", "_l0_reverse")}
+# flax cells that become (a direction of) a whole-sequence nn.LSTM or nn.GRU:
+# an encoder's two LSTM directions, Capacitron's LSTMs, the GST reference
+# encoder's GRU and a CBHG's two GRU directions (flax names them GRUCell_0/_1)
+_RNN_NAMES = {"lstm_fwd": ("lstm", "_l0"), "lstm_bwd": ("lstm", "_l0_reverse"),
+              "lstm": ("lstm", "_l0"), "gru": ("gru", "_l0"),
+              "GRUCell_0": ("gru", "_l0"), "GRUCell_1": ("gru", "_l0_reverse")}
 
 
 def _carry_lstms(params: Mapping, drop: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
-    """The generic rules, with each flax LSTM cell packed: an encoder's
-    ``lstm_fwd``/``lstm_bwd`` into one bidirectional ``lstm``, any other
-    cell into ``nn.LSTMCell`` weights under its own name. Subtrees named in
-    ``drop`` are left out."""
+    """The generic rules, with each flax LSTM or GRU cell packed: the cells
+    of :data:`_RNN_NAMES` into (a direction of) an ``nn.LSTM`` or
+    ``nn.GRU``, any other LSTM cell into ``nn.LSTMCell`` weights under its
+    own name. Subtrees named in ``drop`` are left out."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     lstms: Dict[str, np.ndarray] = {}
@@ -189,10 +194,10 @@ def _carry_lstms(params: Mapping, drop: Tuple[str, ...] = ()) -> Dict[str, torch
         for key, value in tree.items():
             if key in drop:
                 continue
-            if isinstance(value, Mapping) and "ii" in value:
-                name, suffix = _LSTM_NAMES.get(key, (key, ""))
-                lstms.update({".".join(path + (name, leaf)): w
-                              for leaf, w in _pack_lstm(value, suffix).items()})
+            if isinstance(value, Mapping) and ("ii" in value or "ir" in value):
+                name, suffix = _RNN_NAMES.get(key, (key, ""))
+                pack = _pack_lstm(value, suffix) if "ii" in value else _pack_gru(value, suffix)
+                lstms.update({".".join(path + (name, leaf)): w for leaf, w in pack.items()})
             else:
                 out[key] = split(value, path + (key,)) if isinstance(value, Mapping) else value
         return out
@@ -207,9 +212,34 @@ def tacotron2_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     layers) → the state_dict of the port's module: the generic rules, with
     each flax LSTM cell packed (:func:`_carry_lstms`), the encoder's into
     one bidirectional ``lstm``, the decoder's ``attention_rnn`` and
-    ``decoder_rnn`` into ``nn.LSTMCell`` weights. The DDC coarse decoder
-    (``coarse_decoder_cell``), which only training runs, is dropped."""
+    ``decoder_rnn`` into ``nn.LSTMCell`` weights, the GST's and Capacitron's
+    recurrent cells into an ``nn.GRU`` and ``nn.LSTM``s. The DDC coarse
+    decoder (``coarse_decoder_cell``), which only training runs, is
+    dropped."""
     return _carry_lstms(params, drop=("coarse_decoder_cell",))
+
+
+def gst_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``GST`` params → the state_dict of the port's
+    (``layers/tacotron_v1.py``): the generic rules, the reference encoder's
+    ``GRUCell`` packed into an ``nn.GRU``."""
+    return _carry_lstms(params)
+
+
+def capacitron_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``CapacitronVAE`` params → the state_dict of the
+    port's (``layers/capacitron.py``): the generic rules, the reference
+    encoder's and the text summary's LSTM cells packed into ``nn.LSTM``s."""
+    return _carry_lstms(params)
+
+
+def tacotron_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's Tacotron v1 ``TacotronModule`` params → the
+    state_dict of the port's (``models/tacotron2/tacotron_v1.py``): the
+    generic rules, each CBHG's two ``GRUCell``s packed into one
+    bidirectional ``nn.GRU``, the decoder cell's LSTMs as in
+    :func:`tacotron2_from_jax_params`."""
+    return _carry_lstms(params)
 
 
 def overflow_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -827,8 +857,8 @@ def convert_xtts(state, layers=30, heads=16):
 
 
 # ---------------------------------------------------------------------------
-# Tacotron2 (copied from ``tts_tpu/utils/convert.py:616-751``), unchanged but
-# for GST and Capacitron layers, which raise (ROADMAP.md item 16).
+# Tacotron2 (copied from ``tts_tpu/utils/convert.py:616-751``) and its GST and
+# Capacitron layers (``:1859-1903``), unchanged.
 # ---------------------------------------------------------------------------
 
 
@@ -932,10 +962,59 @@ def convert_tacotron2(state, num_chars=None, r=2):
     }
     if "speaker_embedding.weight" in state:
         p["speaker_embedding"] = {"embedding": state["speaker_embedding.weight"]}
-    if any(k.startswith(("gst_layer.", "capacitron_vae_layer.")) for k in state):
-        raise NotImplementedError("Tacotron2 with GST or Capacitron is not ported to "
-                                  "tts_tpu_torch yet (ROADMAP.md item 16)")
+    if any(k.startswith("gst_layer.") for k in state):
+        p["gst_layer"] = convert_gst(state, "gst_layer.")
+    if any(k.startswith("capacitron_vae_layer.") for k in state):
+        p["capacitron_vae_layer"] = convert_capacitron(state, "capacitron_vae_layer.")
     return {"params": p}
+
+
+def _ref_encoder_convs(s, prefix):
+    """Shared conv-stack mapping for both reference encoders: Conv2d +
+    eval-mode BatchNorm2d folded to the flax ``folded`` affine."""
+    p = {}
+    for i in range(6):
+        p[f"conv_{i}"] = {
+            "kernel": conv2d_kernel(s[f"{prefix}convs.{i}.weight"]),
+            "bias": s[f"{prefix}convs.{i}.bias"],
+        }
+        f = _fold_bn(s, f"{prefix}bns.{i}")
+        p[f"scale_{i}"], p[f"shift_{i}"] = f["scale"], f["shift"]
+    return p
+
+
+def convert_gst(state, prefix="gst_layer."):
+    """Reference ``GST`` (gst_layers.py:6) → flax ``layers.tacotron_v1.GST``
+    params (use ``norm_type="folded"`` on the flax module)."""
+    s = _subdict(state, prefix)
+    enc = _ref_encoder_convs(s, "encoder.")
+    enc["gru"] = _gru_cell(s, "encoder.recurrence")
+    stl = {
+        "style_tokens": s["style_token_layer.style_tokens"],
+        "W_query": _dense(s, "style_token_layer.attention.W_query"),
+        "W_key": _dense(s, "style_token_layer.attention.W_key"),
+        "W_value": _dense(s, "style_token_layer.attention.W_value"),
+    }
+    return {"encoder": enc, "style_token_layer": stl}
+
+
+def convert_capacitron(state, prefix="capacitron_vae_layer."):
+    """Reference ``CapacitronVAE`` (capacitron_layers.py:11) → flax
+    ``layers.capacitron.CapacitronVAE`` params (``norm_type="folded"``)."""
+    s = _subdict(state, prefix)
+    ref = _ref_encoder_convs(s, "encoder.")
+    ref["lstm"] = _lstm_cell(s, "encoder.recurrence", "_l0")
+    p = {
+        "ref_encoder": ref,
+        "post_mlp": {
+            "hidden": _dense(s, "post_encoder_mlp.net.0"),
+            "out": _dense(s, "post_encoder_mlp.net.2"),
+        },
+        "beta": np.asarray(s["beta"]).reshape(()),
+    }
+    if "text_summary_net.lstm.weight_ih_l0" in s:
+        p["text_summary"] = {"lstm": _lstm_cell(s, "text_summary_net.lstm", "_l0")}
+    return p
 
 
 def _to_numpy(value: Any):
@@ -1146,29 +1225,43 @@ _LOCATION_RULES = (
      "decoder.attention.location_layer.location_dense.linear_layer."),
 )
 _DCA_RULES = ((r"^decoder_cell\.", "decoder.attention."),)
+_REF_ENCODERS = r"^(gst_layer\.encoder|capacitron_vae_layer\.ref_encoder)\."
+_STYLE_RULES = (
+    (_REF_ENCODERS + r"conv_(\d+)\.", r"\1.convs.\2."),
+    (_REF_ENCODERS + r"scale_(\d+)$", r"\1.bns.\2.weight"),
+    (_REF_ENCODERS + r"shift_(\d+)$", r"\1.bns.\2.bias"),
+    (r"^capacitron_vae_layer\.ref_encoder\.", "capacitron_vae_layer.encoder."),
+    (r"^(gst_layer|capacitron_vae_layer)\.encoder\.(gru|lstm)\.", r"\1.encoder.recurrence."),
+    (r"^gst_layer\.style_token_layer\.W_", "gst_layer.style_token_layer.attention.W_"),
+    (r"^capacitron_vae_layer\.text_summary\.", "capacitron_vae_layer.text_summary_net."),
+    (r"^capacitron_vae_layer\.post_mlp\.hidden\.",
+     "capacitron_vae_layer.post_encoder_mlp.net.0."),
+    (r"^capacitron_vae_layer\.post_mlp\.out\.", "capacitron_vae_layer.post_encoder_mlp.net.2."),
+)
 
 
 def reference_tacotron2_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The state_dict of a ``Tacotron2Module`` with folded norms and
-    location-sensitive or DCA attention in the reference's (coqui) names:
-    each folded norm as an eval-mode BatchNorm (running mean 0, running
-    variance ``1 - 1e-5``, so that it folds back exactly), the DCA without
-    ``inputs_layer``. :func:`load_reference_tacotron2` maps it back."""
+    location-sensitive or DCA attention, with or without GST and Capacitron,
+    in the reference's (coqui) names: each folded norm as an eval-mode
+    BatchNorm (running mean 0, running variance ``1 - 1e-5``, so that it
+    folds back exactly), the DCA without ``inputs_layer``.
+    :func:`load_reference_tacotron2` maps it back."""
     dca = "decoder_cell.key_layer.weight" in state
-    rules = _TACOTRON2_RULES + (_DCA_RULES if dca else _LOCATION_RULES)
+    rules = _TACOTRON2_RULES + (_DCA_RULES if dca else _LOCATION_RULES) + _STYLE_RULES
     out = {}
     for key, value in state.items():
         if dca and key.startswith("inputs_layer."):
             continue
         k = _reference_key(key, rules)
         out[k] = value.detach().cpu().numpy()
-        if k.endswith("batch_normalization.weight"):
+        if re.search(r"(batch_normalization|\.bns\.\d+)\.weight$", k):
             base = k[: -len("weight")]
             out[base + "running_mean"] = np.zeros_like(out[k])
             out[base + "running_var"] = np.full_like(out[k], np.float32(1) - np.float32(1e-5))
             out[base + "num_batches_tracked"] = np.zeros((), np.int64)
     unmapped = [k for k in out if k.startswith("decoder_cell.")]
-    if unmapped or any(".norm." in k for k in out):
+    if unmapped or any(re.search(r"\.norm(_\d+)?\.", k) for k in out):
         raise ValueError(f"no reference layout for {unmapped or 'layer norms'} (folded norms "
                          f"and location or DCA attention only)")
     return out
@@ -1765,18 +1858,20 @@ def wavegrad_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return flax_to_state_dict(params)
 
 
-def _pack_gru(cell: Mapping) -> Dict[str, np.ndarray]:
+def _pack_gru(cell: Mapping, suffix: str = "") -> Dict[str, np.ndarray]:
     """flax ``GRUCell`` (Denses ``ir``, ``iz``, ``in`` with biases; ``hr``,
-    ``hz`` without; ``hn`` with) → ``nn.GRUCell``'s ``[r; z; n]`` packing:
-    ``bias_ih`` carries the input biases, ``bias_hh`` zeros for ``r`` and
-    ``z`` and ``hn``'s bias, which both packages scale by ``r``."""
+    ``hz`` without; ``hn`` with) → ``nn.GRUCell``'s (or, with ``suffix``,
+    ``nn.GRU``'s) ``[r; z; n]`` packing: ``bias_ih`` carries the input
+    biases, ``bias_hh`` zeros for ``r`` and ``z`` and ``hn``'s bias, which
+    both packages scale by ``r``."""
     kernel = lambda name: np.asarray(cell[name]["kernel"], np.float32).T  # noqa: E731
     hn = np.asarray(cell["hn"]["bias"], np.float32)
     return {
-        "weight_ih": np.concatenate([kernel(f"i{g}") for g in "rzn"]),
-        "weight_hh": np.concatenate([kernel(f"h{g}") for g in "rzn"]),
-        "bias_ih": np.concatenate([np.asarray(cell[f"i{g}"]["bias"], np.float32) for g in "rzn"]),
-        "bias_hh": np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn]),
+        f"weight_ih{suffix}": np.concatenate([kernel(f"i{g}") for g in "rzn"]),
+        f"weight_hh{suffix}": np.concatenate([kernel(f"h{g}") for g in "rzn"]),
+        f"bias_ih{suffix}": np.concatenate([np.asarray(cell[f"i{g}"]["bias"], np.float32)
+                                            for g in "rzn"]),
+        f"bias_hh{suffix}": np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn]),
     }
 
 

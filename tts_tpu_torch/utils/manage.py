@@ -67,10 +67,14 @@ def _family_reason(model: str, model_item: Dict) -> Optional[str]:
         return None
     if "vits" in model.lower() or "vits" in (model_item.get("description") or "").lower():
         return None
-    if "GST" in model or "capacitron" in model:
-        return f"{model} is not ported yet (ROADMAP.md item 16)"
-    if "glow" in model or "tacotron2" in model:
+    if "GST" in model:
+        return (f"{model} is Mandarin, and the Mandarin phonemizer imports a pinyin table "
+                f"that neither package has (ROADMAP.md F36)")
+    if "glow" in model or "tacotron2" in model or "capacitron" in model:
         return None
+    if model.startswith("tacotron"):
+        return (f"{model}: no converter reads a reference Tacotron v1 checkpoint, whose "
+                f"network the port's is not (ROADMAP.md F41)")
     return f"{model} is not ported yet (ROADMAP.md item 16)"
 
 
@@ -78,12 +82,13 @@ def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     """Why the port cannot load the zoo model ``model_name`` of the catalog
     ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for what it
     runs: VITS (by its name or its description), YourTTS, XTTS v2, GlowTTS,
-    Tacotron2 (without GST), FastPitch, Overflow and NeuralHMM whose
+    Tacotron2 (Capacitron's too), FastPitch, Overflow and NeuralHMM whose
     ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
     and every vocoder of the catalog (the MelGANs, HiFiGAN, ParallelWaveGAN,
-    UnivNet, WaveGrad). SpeedySpeech and Tacotron v1 name item 16: neither
-    package converts their reference checkpoints. A model whose family is
-    not ported names its own item, whatever its vocoder."""
+    UnivNet, WaveGrad). The Mandarin GST Tacotron2 names F36; Tacotron v1
+    names F41 and SpeedySpeech item 16: neither package converts their
+    reference checkpoints. A model whose family is not ported names its own
+    item, whatever its vocoder."""
     model_type, lang, dataset, model = model_name.split("/")
     if model_type == "voice_conversion_models":
         return "voice conversion models (FreeVC) are not ported yet (ROADMAP.md item 16)"

@@ -21,7 +21,15 @@ The JAX package's rules are kept, since the audio depends on them:
 * the waveform is cut to ``y_lengths × hop`` samples, a mel to
   ``y_lengths`` frames (``mel_lengths`` for an autoregressive model), which
   Griffin-Lim turns into a waveform on the host when asked
-  (``use_griffin_lim`` with the model's ``AudioProcessor``).
+  (``use_griffin_lim`` with the model's ``AudioProcessor``);
+* a style reference ``style_wav`` (a path or an array) becomes the
+  ``AudioProcessor``'s mel ``[1, T, M]`` in ``aux_input["style_mel"]``, and
+  ``style_text`` goes into ``aux_input`` as it is (no model reads it,
+  ROADMAP.md F37).
+
+Tacotron v1 (``config.model == "tacotron"``) emits a linear spectrogram,
+which Griffin-Lim inverts through ``AudioProcessor.inv_spectrogram``; the
+JAX package inverts it as a mel (ROADMAP.md F40).
 
 :func:`decode_packed` decodes several utterances at once as one
 sequence-packed grid (``utils/packing.py``), for the ``Synthesizer``'s
@@ -121,9 +129,31 @@ def aux_input(device, rows: int, speaker_ids=None, d_vectors=None,
     return aux or None
 
 
+def style_input(aux: Optional[Dict[str, Any]], device, style_wav=None, style_text=None,
+                ap=None) -> Optional[Dict[str, Any]]:
+    """``aux`` with the style mel of ``style_wav`` (a path, or samples;
+    ``ap.melspectrogram``, as ``[1, T, M]`` on ``device``) and
+    ``style_text`` added; ``style_wav`` without ``ap`` raises the JAX
+    package's ``ValueError``."""
+    aux = dict(aux or {})
+    if style_wav is not None:
+        if ap is None:
+            raise ValueError(
+                "style_wav was given but no AudioProcessor is available to "
+                "compute the style mel; pass `ap` or precompute the style.")
+        if isinstance(style_wav, str):
+            style_wav = ap.load_wav(style_wav)
+        mel = ap.melspectrogram(np.asarray(style_wav, np.float32))
+        aux["style_mel"] = torch.from_numpy(np.ascontiguousarray(mel.T[None])).to(device)
+    if style_text is not None:
+        aux["style_text"] = style_text
+    return aux or None
+
+
 def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
               language_id: Optional[int] = None, language: Optional[str] = None,
-              use_griffin_lim: bool = False, ap=None) -> Dict[str, Any]:
+              use_griffin_lim: bool = False, ap=None, style_wav=None,
+              style_text: Optional[str] = None) -> Dict[str, Any]:
     """Tokenize → (durations) → decode → cut. ``model`` is a host wrapper
     with ``tokenizer``, ``config``, ``device``, ``hop_length``,
     ``emits_waveform`` and ``inference`` (:class:`~tts_tpu_torch.models.vits.model.Vits`,
@@ -136,7 +166,9 @@ def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
     multi-speaker or multi-language model; ``language``, the language's
     name, goes to the tokenizer, whose ``multi_phonemizer`` picks its
     phonemizer by it (the JAX package passes none, so its multi-phonemizer
-    models cannot synthesize: ROADMAP.md F14). Returns the float32 ``wav``
+    models cannot synthesize: ROADMAP.md F14). ``style_wav`` and
+    ``style_text`` style a GST or Capacitron model (:func:`style_input`).
+    Returns the float32 ``wav``
     (numpy; for a mel model ``None`` unless ``use_griffin_lim`` with ``ap``),
     ``model_outputs`` (a mel model's ``[T, C]`` mel, numpy), the model's
     ``outputs`` and the padded ``text_inputs``."""
@@ -148,7 +180,8 @@ def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
     ids[0, : len(token_ids)] = token_ids
     x = torch.from_numpy(ids).to(model.device)
     x_lengths = torch.tensor([n_tokens], device=model.device)
-    aux = aux_input(model.device, 1, speaker_id, d_vector, language_id)
+    aux = style_input(aux_input(model.device, 1, speaker_id, d_vector, language_id),
+                      model.device, style_wav, style_text, ap)
 
     budget = _frame_budget(len(token_ids))
     if hasattr(model, "infer_durations"):
@@ -166,7 +199,10 @@ def synthesis(model, text: str, speaker_id: Optional[int] = None, d_vector=None,
         return {"wav": wav.float().cpu().numpy(), "model_outputs": None, "outputs": outputs,
                 "text_inputs": x}
     mel = outputs["model_outputs"][0, :valid_frames].float().cpu().numpy()
-    wav = ap.inv_melspectrogram(mel.T) if use_griffin_lim and ap is not None else None
+    wav = None
+    if use_griffin_lim and ap is not None:
+        linear = model.config.model == "tacotron"
+        wav = ap.inv_spectrogram(mel.T) if linear else ap.inv_melspectrogram(mel.T)
     return {"wav": wav, "model_outputs": mel, "outputs": outputs, "text_inputs": x}
 
 

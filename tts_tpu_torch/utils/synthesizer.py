@@ -120,9 +120,9 @@ _NO_ENCODER = ("speaker_wav needs a speaker encoder to compute its d-vector: loa
                "encoder_config_path=...)); without it the JAX package decodes with no speaker "
                "(ROADMAP.md F22)")
 # models that load from a checkpoint file and its config.json
-FILE_MODELS = ("vits", "glow_tts", "tacotron2", "fast_pitch", "fast_speech", "fastspeech2",
-               "speedy_speech", "forward_tts", "overflow", "neuralhmm_tts", "align_tts",
-               "delightful_tts")
+FILE_MODELS = ("vits", "glow_tts", "tacotron2", "tacotron", "fast_pitch", "fast_speech",
+               "fastspeech2", "speedy_speech", "forward_tts", "overflow", "neuralhmm_tts",
+               "align_tts", "delightful_tts")
 
 
 class Synthesizer:
@@ -148,6 +148,10 @@ class Synthesizer:
             self._load_tts(path, self._config_path(path, tts_config_path))
             self._load_encoder(path, encoder_checkpoint, encoder_config)
         if vocoder_checkpoint:
+            if self.tts_config is not None and self.tts_config.model == "tacotron":
+                raise NotImplementedError(
+                    "Tacotron v1 emits a linear spectrogram, which a mel vocoder cannot take: "
+                    "leave the vocoder out, and Griffin-Lim speaks it (ROADMAP.md F40)")
             self._load_vocoder(vocoder_checkpoint,
                                self._config_path(vocoder_checkpoint, vocoder_config))
 
@@ -268,6 +272,8 @@ class Synthesizer:
         speaker_name: Optional[str] = None,
         language_name: Optional[str] = None,
         speaker_wav=None,
+        style_wav=None,
+        style_text: Optional[str] = None,
         reference_wav=None,
         reference_speaker_name: Optional[str] = None,
         split_sentences: bool = True,
@@ -275,7 +281,10 @@ class Synthesizer:
     ) -> List[float]:
         """Text → waveform samples, with 10000 zero samples after each
         sentence; or, with ``reference_wav``, that recording of
-        ``reference_speaker_name`` in the voice of ``speaker_name``."""
+        ``reference_speaker_name`` in the voice of ``speaker_name``.
+        ``style_wav`` (a path or samples) and ``style_text`` style a GST or
+        Capacitron model, sentence by sentence; other models ignore them,
+        as in the JAX package."""
         start = time.time()
         if not text and not reference_wav:
             raise ValueError("You need to define either `text` (for synthesis) or a "
@@ -286,7 +295,8 @@ class Synthesizer:
             sens = split_into_sentences(text) if split_sentences else [text.strip()]
             if not sens:
                 raise ValueError("No text to speak.")
-            wavs = self._tts_sentences(sens, speaker_name, language_name, speaker_wav, **kwargs)
+            wavs = self._tts_sentences(sens, speaker_name, language_name, speaker_wav,
+                                       style_wav=style_wav, style_text=style_text, **kwargs)
         process_time = time.time() - start
         audio_time = len(wavs) / self.output_sample_rate
         print(f" > Processing time: {process_time}")
@@ -294,7 +304,7 @@ class Synthesizer:
         return wavs
 
     def _tts_sentences(self, sens: List[str], speaker_name, language_name, speaker_wav,
-                       **kwargs) -> List[float]:
+                       style_wav=None, style_text=None, **kwargs) -> List[float]:
         model = self.tts_model
         wavs: List[float] = []
         if hasattr(model, "synthesize"):
@@ -311,7 +321,8 @@ class Synthesizer:
             raise ValueError(f"{self.tts_config.model!r} takes no {', '.join(given)}")
         speaker_id, d_vector = self._resolve_speaker(speaker_name, speaker_wav)
         language_id = self._resolve_language(language_name)
-        if len(sens) > 1 and getattr(model, "supports_packed_decode", False):
+        styled = style_wav is not None or style_text is not None
+        if len(sens) > 1 and getattr(model, "supports_packed_decode", False) and not styled:
             pieces = self._tts_sentences_packed(sens, speaker_id, d_vector, language_id)
         else:
             language = self._language_name(language_id)
@@ -319,7 +330,8 @@ class Synthesizer:
             pieces = []
             for sen in sens:
                 out = synthesis(model, sen, speaker_id, d_vector, language_id, language,
-                                use_griffin_lim=use_gl, ap=self.ap)
+                                use_griffin_lim=use_gl, ap=self.ap, style_wav=style_wav,
+                                style_text=style_text)
                 if out["wav"] is not None:
                     pieces.append(out["wav"])
                 elif self.vocoder_model is not None:
