@@ -231,6 +231,24 @@ Phases; each raises on failure and the script then exits non-zero:
     to the path load; ``tts --model_name --capacitron_style_wav
     --capacitron_style_text`` and ``/api/tts?style_wav=`` (served serially)
     within one int16 step of the API; peak memory. ``decode_attention``
+    must not launch;
+16. FreeVC voice conversion with WavLM-Large, the zoo's ``freevc24``, fp32
+    weights from seed 0 at full width in the reference layout:
+    WavLM-Large (``wavlm_large_config()``, 24 pre-LN layers 1024 wide with
+    the gated relative position bias) at ``$TTS_HOME/wavlm/WavLM-Large.pt``
+    and FreeVC at ``FreeVCConfig()`` (with its in-model speaker encoder) as
+    the zoo directory's ``model.pth`` and ``config.json``. Card against CPU
+    on a 3 s source and a 3 s target at 22.05 kHz: WavLM's features (within
+    1e-4 of their peak), the target's speaker embedding and, on host noise,
+    the converted waveform (within 1e-4). Then WavLM's ms on a 3 s and a 10
+    s source, FreeVC's decode ms, ``voice_conversion_from_files`` end to end
+    (ms, source and output seconds per wall second), its busy share and top
+    kernels under ``torch.profiler``, and the output rate against F42 (320
+    samples a frame labelled 24 kHz); ``TTS(model_name=".../freevc24")``
+    equal to the path load; ``tts --model_name --source_wav --target_wav``
+    within one int16 step of ``voice_conversion_to_file``;
+    ``tts_with_vc_to_file`` on phase 6's LJSpeech VITS loaded by path, into
+    FreeVC loaded by name on first use; peak memory. ``decode_attention``
     must not launch.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
@@ -5405,6 +5423,295 @@ def phase_style_tacotron(card: str, device="cuda", cut=None) -> None:
     log(line + f"; phase 15 took {time.time() - t_phase:.1f} s | {card}")
 
 
+ZOO_FREEVC = "voice_conversion_models/multilingual/vctk/freevc24"
+FREEVC_TOL = 1e-4  # card vs CPU, the speaker embedding and the waveform, fp32 with TF32 off
+WAVLM_FEATURE_TOL = 1e-4  # card vs CPU, WavLM-Large's features, as a share of their peak
+WAVLM_SOURCES_S = (3.0, 10.0)  # the sources WavLM is timed on
+
+
+def random_wavlm(cfg, seed: int = 0):
+    """``tts_tpu_torch.vc.modules.wavlm.WavLM`` for ``cfg`` on the CPU, fp32
+    weights drawn from ``seed``: linear and conv weights N(0, 1/fan_in),
+    biases 0, norms the identity, the relative-position table N(0, 1) (as
+    the reference's ``nn.Embedding`` draws it), ``grep_a`` ones."""
+    import torch
+
+    from tts_tpu_torch.vc.modules.wavlm import WavLM
+
+    model = WavLM(cfg)
+    draw = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            owner = model.get_submodule(name.rsplit(".", 1)[0])
+            leaf = name.rsplit(".", 1)[-1]
+            if isinstance(owner, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias":
+                p.zero_()
+            elif leaf == "grep_a":
+                p.fill_(1.0)
+            elif leaf == "relative_attention_bias":
+                p.copy_(torch.randn(p.shape, generator=draw))
+            else:
+                p.copy_(torch.randn(p.shape, generator=draw) / p[0].numel() ** 0.5)
+    return model.eval().requires_grad_(False)
+
+
+def vc_stage_ms(vcm, src: str, tgt: str, device) -> dict:
+    """Median ms of each stage of ``FreeVC.voice_conversion_from_files``, run
+    one by one: the two wav loads (the target resampled), the target's
+    speaker embedding (mel and ``enc_spk``), WavLM, the decode and the copy
+    to the host."""
+    import torch
+
+    from tts_tpu_torch.audio.numpy_transforms import load_wav
+
+    sr = vcm.config.audio.input_sample_rate
+    wavs = [load_wav(filename=p, sample_rate=sr, resample=True) for p in (src, tgt)]
+    x = torch.from_numpy(wavs[0])[None].to(device)
+    with torch.no_grad():
+        c = vcm.content_extractor(x)
+        g = vcm.embed_target_speaker(wavs[1])
+        out = vcm.voice_conversion(c, torch.tensor([c.shape[1]], device=device), g)
+        parts = {
+            "wav loads": lambda: [load_wav(filename=p, sample_rate=sr, resample=True)
+                                  for p in (src, tgt)],
+            "target embedding": lambda: vcm.embed_target_speaker(wavs[1]),
+            "WavLM": lambda: vcm.content_extractor(x),
+            "decode": lambda: vcm.voice_conversion(
+                c, torch.tensor([c.shape[1]], device=device), g),
+            "to host": lambda: out.float().cpu().numpy(),
+        }
+        return {k: median_ms(fn, device)[0] for k, fn in parts.items()}
+
+
+def conv_rows(fn, what: str, card: str, top: int = 4) -> None:
+    """The convolutions of one call of ``fn`` that take the most device time,
+    by input shape (``torch.profiler`` with shapes recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose")]
+    total = sum(e.device_time_total for e in rows)
+    log(f"convolutions of {what}: {total / 1e3:.2f} ms of device time in "
+        f"{sum(e.count for e in rows)} calls | {card}")
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:top]:
+        log(f"  {e.device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key} "
+            f"{str(e.input_shapes[:2])[:90]}")
+
+
+def phase_voice_conversion(card: str, device="cuda", cut=None) -> None:
+    """FreeVC with WavLM-Large, the zoo's ``freevc24``: random weights from
+    seed 0 at full width written in the reference layout (WavLM-Large to
+    ``$TTS_HOME/wavlm/WavLM-Large.pt``, FreeVC at ``FreeVCConfig()`` as the
+    zoo directory's ``model.pth`` and ``config.json``), card against CPU on a
+    3 s source and a 3 s target (WavLM's features, the target embedding,
+    the waveform on host noise), the timings, the zoo name, ``tts
+    --source_wav --target_wav`` and ``tts_with_vc_to_file`` on phase 6's
+    LJSpeech VITS. ``decode_attention`` must not launch. ``cut(wavlm_cfg,
+    freevc_config, vits_config)`` shrinks the configs in place, for
+    rehearsals on the CPU."""
+    import io
+
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.audio.numpy_transforms import load_wav
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.utils.convert import reference_freevc_state, reference_wavlm_state
+    from tts_tpu_torch.utils.synthesizer import Synthesizer
+    from tts_tpu_torch.vc.configs import FreeVCConfig
+    from tts_tpu_torch.vc.models.freevc import FreeVC
+    from tts_tpu_torch.vc.modules.wavlm import load_wavlm, wavlm_large_config
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    decode_attention.launches = 0  # K1 is not on this path: the count must stay 0
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    wl_cfg, vc_config, vits_config = wavlm_large_config(), FreeVCConfig(), vits_recipe_config()
+    (cut or (lambda *configs: None))(wl_cfg, vc_config, vits_config)
+    a = vc_config.model_args
+    with tempfile.TemporaryDirectory() as home, offline_zoo(home):
+        os.makedirs(os.path.join(home, "wavlm"))
+        wl = random_wavlm(wl_cfg, seed=0)
+        n_wavlm = sum(p.numel() for p in wl.parameters())
+        torch.save({"cfg": wl_cfg.to_checkpoint_cfg(),
+                    "model": {k: torch.from_numpy(v)
+                              for k, v in reference_wavlm_state(wl.state_dict()).items()}},
+                   os.path.join(home, "wavlm", "WavLM-Large.pt"))
+        del wl
+        zoo = os.path.join(home, "tts_tpu", ZOO_FREEVC.replace("/", "--"))
+        os.makedirs(zoo)
+        vc = FreeVC(vc_config).init_params(seed=0, device="cpu")
+        n_freevc = sum(p.numel() for p in vc.module.parameters())
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                              reference_freevc_state(vc.module.state_dict()).items()}},
+                   os.path.join(zoo, "model.pth"))
+        write_json(os.path.join(zoo, "config.json"), vc_config.to_dict())
+        del vc
+        hop = int(np.prod(a.upsample_rates))
+        log(f"WavLM-Large ({wl_cfg.encoder_layers} layers, {wl_cfg.encoder_embed_dim} wide, "
+            f"{wl_cfg.encoder_attention_heads} heads, buckets {wl_cfg.num_buckets}/"
+            f"{wl_cfg.max_distance}) {n_wavlm / 1e6:.2f} M ({4 * n_wavlm / 1e9:.2f} GB fp32); "
+            f"FreeVC (FreeVCConfig(): {a.spec_channels} spec bins, {a.hidden_channels} wide, "
+            f"HiFiGAN from {a.upsample_initial_channel} channels x {a.upsample_rates}, gin "
+            f"{a.gin_channels}, ssl_dim {a.ssl_dim}, enc_spk) {n_freevc / 1e6:.2f} M; reference "
+            f"layout, weights from seed 0 | {card}")
+
+        sr_in = vc_config.audio.input_sample_rate
+        src, tgt = os.path.join(home, "src.wav"), os.path.join(home, "tgt.wav")
+        scipy.io.wavfile.write(src, sr_in, reference_wav(3.0, sr_in, seed=6))
+        scipy.io.wavfile.write(tgt, 22050, reference_wav(3.0, 22050, seed=7))
+
+        def load(dev):
+            return Synthesizer(vc_checkpoint=os.path.join(zoo, "model.pth"),
+                               vc_config=os.path.join(zoo, "config.json"), device=dev)
+
+        synth, cpu_synth = load(device), load("cpu")
+        t0 = time.time()
+        synth.vc_model.content_extractor = load_wavlm(device=device)
+        log(f"load_wavlm: {time.time() - t0:.1f} s (torch.load, reference layout → the port's "
+            f"state, to the device)")
+        cpu_synth.vc_model.content_extractor = load_wavlm(device="cpu")
+        vcm, cpu_vcm = synth.vc_model, cpu_synth.vc_model
+        src16 = reference_wav(3.0, sr_in, seed=6)
+        tgt16 = load_wav(filename=tgt, sample_rate=sr_in, resample=True)
+        with torch.no_grad():
+            feats = vcm.content_extractor(torch.from_numpy(src16)[None].to(device)).cpu()
+            cpu_feats = cpu_vcm.content_extractor(torch.from_numpy(src16)[None])
+            emb = vcm.embed_target_speaker(tgt16).cpu()
+            cpu_emb = cpu_vcm.embed_target_speaker(tgt16)
+        feat_err = float((feats - cpu_feats).abs().max()) / float(cpu_feats.abs().max())
+        emb_err = float((emb - cpu_emb).abs().max())
+        with host_noise(0):
+            out = np.asarray(silent(synth.voice_conversion, src, tgt), np.float32)
+            cpu_out = np.asarray(silent(cpu_synth.voice_conversion, src, tgt), np.float32)
+        wav_err = float(np.abs(out - cpu_out).max())
+        frames = feats.shape[1]
+        log(f"card vs CPU, 3 s source, 3 s target (22.05 kHz, resampled), host noise: WavLM "
+            f"features [{frames}, {feats.shape[2]}] {feat_err:.3g} of their peak "
+            f"{float(cpu_feats.abs().max()):.3g} (tolerance {WAVLM_FEATURE_TOL:g}); target "
+            f"embedding {emb_err:.3g}; waveform {wav_err:.3g} (tolerance {FREEVC_TOL:g}) over "
+            f"{len(out)} samples, peak {float(np.abs(cpu_out).max()):.3g} | {card}")
+        if not (np.isfinite(out).all() and out.shape == cpu_out.shape == (frames * hop,)
+                and np.abs(out).max() > 0):
+            raise AssertionError(f"FreeVC output: shape {out.shape}, {frames} frames x {hop}")
+        if feat_err > WAVLM_FEATURE_TOL or emb_err > FREEVC_TOL or wav_err > FREEVC_TOL:
+            raise AssertionError(f"card vs CPU: features {feat_err}, embedding {emb_err}, "
+                                 f"waveform {wav_err}")
+        del cpu_synth, cpu_vcm
+        gc.collect()
+        sr_out = synth.output_sample_rate
+        log(f"output rate (F42): {len(out)} samples for a 3.0 s source = {hop} a WavLM frame, "
+            f"{len(out) / 3.0:.0f} a second, labelled {sr_out} Hz: {len(out) / sr_out:.3f} s "
+            f"of audio, {3.0 * sr_out / len(out):.2f}x fast | {card}")
+
+        if cuda:
+            for seconds in WAVLM_SOURCES_S:
+                x = torch.from_numpy(reference_wav(seconds, sr_in, seed=8))[None].to(device)
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: vcm.content_extractor(x))
+                    n = vcm.content_extractor(x).shape[1]
+                    kernels, device_us = kernels_and_device_us(lambda: vcm.content_extractor(x))
+                log(f"WavLM-Large on a {seconds:.0f} s source ({n} frames): {ms:.2f} ms "
+                    f"(CUDA events, median of 5); {kernels} kernels, {device_us / 1e3:.2f} ms of "
+                    f"device time (torch.profiler) | {card}")
+            with torch.no_grad():
+                conv_rows(lambda: vcm.content_extractor(x[:, :int(3.0 * sr_in)]),
+                          "WavLM-Large on 3 s", card)
+            c = feats.to(device)
+            lengths = torch.tensor([frames], device=device)
+            g = emb.to(device)
+            decode = cuda_ms(lambda: vcm.voice_conversion(c, lengths, g))
+            kernels, device_us = kernels_and_device_us(lambda: vcm.voice_conversion(c, lengths, g))
+            log(f"FreeVC decode (enc_p, flow in reverse, HiFiGAN) on {frames} frames → "
+                f"{frames * hop} samples: {decode:.2f} ms (CUDA events, median of 5); {kernels} "
+                f"kernels, {device_us / 1e3:.2f} ms of device time (torch.profiler) | {card}")
+            med, lo, hi = median_ms(lambda: silent(synth.voice_conversion, src, tgt), device)
+            log(f"voice_conversion_from_files, 3 s source, 3 s target: {med:.1f} ms (min "
+                f"{lo:.1f}, max {hi:.1f}, median of 5): {3.0 / (med / 1e3):.1f} source s per "
+                f"wall s, {len(out) / sr_out / (med / 1e3):.1f} output s (at the labelled "
+                f"{sr_out} Hz) per wall s | {card}")
+            profile_call(lambda: silent(synth.voice_conversion, src, tgt),
+                         "voice_conversion_from_files (3 s source)", card)
+            stages = vc_stage_ms(vcm, src, tgt, device)
+            log("stages of voice_conversion_from_files (host clock, synchronized, median of "
+                "5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()) + f" | {card}")
+            conv_rows(lambda: vcm.voice_conversion(c, lengths, g), "the FreeVC decode", card)
+        log(f"(phase 16 at {time.time() - t_phase:.0f} s)")
+
+        # the zoo's name, the command line, and TTS into the converter
+        tts = TTS(model_name=ZOO_FREEVC, device=device)
+        by_name = np.asarray(silent(tts.voice_conversion, source_wav=src, target_wav=tgt),
+                             np.float32)
+        by_path = np.asarray(silent(synth.voice_conversion, src, tgt), np.float32)
+        if not np.array_equal(by_name, by_path):
+            raise AssertionError(f"TTS(model_name={ZOO_FREEVC}) vs the path load: "
+                                 f"{float(np.abs(by_name - by_path).max())}")
+        api_path, cli_path = os.path.join(home, "api.wav"), os.path.join(home, "cli.wav")
+        silent(tts.voice_conversion_to_file, source_wav=src, target_wav=tgt, file_path=api_path)
+        del tts
+        silent(synthesize_cli, ["--model_name", ZOO_FREEVC, "--source_wav", src,
+                                "--target_wav", tgt, "--out_path", cli_path,
+                                "--device", str(device)])
+        step, sr = _int16_steps(cli_path, api_path)
+        if step is None or step > 1 or sr != sr_out:
+            raise AssertionError(f"tts --source_wav --target_wav: {step} int16 steps, {sr} Hz")
+        log(f"zoo: {ZOO_FREEVC} from a reference-layout directory, WavLM from "
+            f"$TTS_HOME/wavlm/, nothing fetched: equal to the path load; tts --model_name "
+            f"--source_wav --target_wav: {step} int16 step from voice_conversion_to_file; "
+            f"{sr} Hz | {card}")
+
+        vits_dir = os.path.join(home, "vits")
+        os.makedirs(vits_dir)
+        save_model_dir(vits_config, vits_dir)
+        tts = TTS(model_path=vits_dir, device=device)
+        with_vc, spoken = os.path.join(home, "with_vc.wav"), os.path.join(home, "spoken.wav")
+        text = VITS_SENTENCES["short"]
+        t0 = time.time()
+        silent(tts.tts_with_vc_to_file, text, speaker_wav=tgt, file_path=with_vc)
+        first = time.time() - t0
+        silent(tts.tts_to_file, text, file_path=spoken)
+        want = np.asarray(silent(tts.voice_converter.voice_conversion, spoken, tgt), np.float32)
+        silent(tts.voice_converter.save_wav, want, os.path.join(home, "want.wav"))
+        step, sr = _int16_steps(with_vc, os.path.join(home, "want.wav"))
+        if step is None or step > 1 or sr != sr_out:
+            raise AssertionError(f"tts_with_vc_to_file: {step} int16 steps, {sr} Hz")
+        log(f"tts_with_vc_to_file: phase 6's LJSpeech VITS by path, {ZOO_FREEVC} loaded by "
+            f"name on first use ({first:.1f} s with that load): {step} int16 step from "
+            f"voice_conversion of the VITS file; {sr} Hz | {card}")
+        del tts, synth, vcm
+
+    if decode_attention.launches:
+        raise AssertionError(f"decode_attention launched {decode_attention.launches} times "
+                             f"during the voice-conversion phase")
+    line = ("FreeVC with WavLM-Large: no hand-written kernel on this path "
+            "(decode_attention launches 0)")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f"; phase 16 took {time.time() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5437,11 +5744,12 @@ def main() -> int:
     phase_hmm_align_delightful(card)
     phase_vocoders(card)
     phase_style_tacotron(card)
+    phase_voice_conversion(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"chip_smoke.py: phases 1-15 took {time.time() - t_start:.1f} s | {card}")
+    log(f"chip_smoke.py: phases 1-16 took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({
         "ok": True,

@@ -745,3 +745,69 @@ def test_vocoder_configs_to_dict_match_jax():
     for recipe in changed:
         cls = getattr(configs, type(recipe).__name__)
         assert cls.from_dict(recipe.to_dict()).to_dict() == recipe.to_dict()
+
+
+# ---------------------------------------------------------------------------
+# The FreeVC config and the WavLM and FreeVC converters (``vc/configs.py``,
+# ``utils/convert.py``): equal to the JAX package's.
+# ---------------------------------------------------------------------------
+
+
+def test_freevc_configs_to_dict_match_jax():
+    """``FreeVCAudioConfig``, ``FreeVCArgs`` and ``FreeVCConfig`` at their
+    defaults, round-tripped from changed fields, and read by the port's
+    registry (``models.config_from_dict``) from a ``config.json`` dict."""
+    from tts_tpu.vc import configs as jax_configs
+    from tts_tpu_torch.models import config_from_dict
+    from tts_tpu_torch.vc import configs
+
+    for name in ("FreeVCAudioConfig", "FreeVCArgs", "FreeVCConfig"):
+        assert getattr(configs, name)().to_dict() == getattr(jax_configs, name)().to_dict(), name
+    changed = jax_configs.FreeVCConfig()
+    changed.model_args.upsample_rates = [10, 6, 2, 2]
+    changed.audio.output_sample_rate = 16000
+    got = config_from_dict(changed.to_dict())
+    assert isinstance(got, configs.FreeVCConfig) and got.to_dict() == changed.to_dict()
+
+
+@pytest.mark.parametrize("kind", ["freevc", "wavlm"])
+def test_convert_freevc_and_wavlm_match_jax_leaf_for_leaf(kind):
+    """A reference-layout FreeVC (written by ``reference_freevc_state`` from
+    random port weights at small widths) and a WavLM-Large-style WavLM
+    (``reference_wavlm_state``: its positional conv under weight norm over
+    ``dim=2``) through both packages' ``convert_freevc`` and
+    ``convert_wavlm_state``."""
+    import torch
+
+    from tts_tpu.utils import convert as jax_convert
+    from tts_tpu.vc.modules.wavlm import WavLMConfig as JaxWavLMConfig
+    from tts_tpu_torch.utils import convert
+    from tts_tpu_torch.vc.configs import FreeVCConfig
+    from tts_tpu_torch.vc.models.freevc import FreeVC
+    from tts_tpu_torch.vc.modules.wavlm import WavLM, WavLMConfig
+
+    torch.manual_seed(0)
+    if kind == "freevc":
+        config = FreeVCConfig()
+        for k, v in dict(ssl_dim=12, inter_channels=8, hidden_channels=16, gin_channels=16,
+                         spec_channels=21, resblock_kernel_sizes=[3],
+                         resblock_dilation_sizes=[[1, 3, 5]], upsample_rates=[4, 4],
+                         upsample_kernel_sizes=[8, 8], upsample_initial_channel=32).items():
+            setattr(config.model_args, k, v)
+        model = FreeVC(config).init_params(seed=1, device="cpu")
+        state = convert.reference_freevc_state(model.module.state_dict())
+        got = dict(_leaves(convert.convert_freevc(dict(state))))
+        want = dict(_leaves(jax_convert.convert_freevc(dict(state))))
+    else:
+        kw = dict(encoder_layers=2, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+                  encoder_attention_heads=4, conv_feature_layers=((24, 10, 5), (24, 3, 2)),
+                  conv_pos=16, conv_pos_groups=4, extractor_mode="layer_norm",
+                  layer_norm_first=True, relative_position_embedding=True, num_buckets=16,
+                  max_distance=64, gru_rel_pos=True)
+        model = WavLM(WavLMConfig(**kw))
+        state = convert.reference_wavlm_state(model.state_dict())
+        got = dict(_leaves(convert.convert_wavlm_state(dict(state), WavLMConfig(**kw))))
+        want = dict(_leaves(jax_convert.convert_wavlm_state(dict(state), JaxWavLMConfig(**kw))))
+    assert sorted(got) == sorted(want) and len(got) > 40
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)

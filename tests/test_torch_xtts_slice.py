@@ -305,8 +305,8 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     ``AudioProcessor``, Tacotron2 with its layers, the speaker encoders,
     the ForwardTTS family with its feed-forward layers, Overflow and
     NeuralHMM, AlignTTS and DelightfulTTS, the ParallelWaveGAN, UnivNet,
-    WaveGrad and WaveRNN vocoders, the GST and Capacitron layers and
-    Tacotron v1 included: this test process
+    WaveGrad and WaveRNN vocoders, the GST and Capacitron layers,
+    Tacotron v1, and FreeVC with WavLM (``vc/``) included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -353,6 +353,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "from tts_tpu_torch.utils.convert import convert_gst, convert_capacitron\n"
         "assert {'tts_tpu_torch.layers.tacotron_v1', 'tts_tpu_torch.layers.capacitron',\n"
         "        'tts_tpu_torch.models.tacotron2.tacotron_v1'} <= set(mods), mods\n"
+        "from tts_tpu_torch.utils.convert import load_reference_freevc, load_reference_wavlm\n"
+        "assert {'tts_tpu_torch.vc.configs', 'tts_tpu_torch.vc.modules.wavlm',\n"
+        "        'tts_tpu_torch.vc.models.freevc', 'tts_tpu_torch.vc.models'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

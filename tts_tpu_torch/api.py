@@ -24,6 +24,10 @@ Example::
     >>> yourtts.tts_to_file("Hello world.", speaker_wav="ref.wav", language="en",
     ...                     file_path="out.wav")
     >>> TTS("tts_models/en/ljspeech/fast_pitch")  # FastPitch with HiFiGAN v2
+    >>> vc = TTS("voice_conversion_models/multilingual/vctk/freevc24")  # FreeVC
+    >>> vc.voice_conversion_to_file(source_wav="a.wav", target_wav="b.wav",
+    ...                             file_path="out.wav")
+    >>> vits.tts_with_vc_to_file("Hello world.", speaker_wav="b.wav", file_path="out.wav")
 
 A zoo name loads through ``utils.manage.ModelManager``: a VITS, GlowTTS,
 Tacotron2 or FastPitch entry from its reference-layout checkpoint file and
@@ -31,7 +35,10 @@ Tacotron2 or FastPitch entry from its reference-layout checkpoint file and
 ``default_vocoder`` with it unless a ``vocoder_path`` is given. YourTTS
 (``tts_models/multilingual/multi-dataset/your_tts``) also loads the speaker
 encoder its directory ships (``model_se.pth.tar``, ``config_se.json``) unless
-an ``encoder_path`` is given. Every other family raises
+an ``encoder_path`` is given. A ``voice_conversion_models/`` name loads a
+voice converter (FreeVC) in place of a TTS model, WavLM-Large read from
+``$TTS_HOME/wavlm/WavLM-Large.pt`` on its first conversion (nothing is
+fetched for it). Every other family raises
 ``NotImplementedError`` naming its ROADMAP.md item before anything is
 fetched (``utils.manage.unported_reason``).
 """
@@ -67,7 +74,9 @@ class TTS:
     ``speakers_file_path`` and ``language_ids_file_path`` replace the
     config's speaker and language files; ``encoder_path`` (with
     ``encoder_config_path``) is the speaker encoder that turns a
-    ``speaker_wav`` into a d-vector for a d-vector model. ``device``
+    ``speaker_wav`` into a d-vector for a d-vector model. A
+    ``model_name`` that contains ``voice_conversion`` loads a voice
+    converter (``voice_converter``) instead of a TTS model. ``device``
     defaults to ``"cuda"`` and must exist."""
 
     def __init__(self, model_name: str = "", model_path: Optional[str] = None,
@@ -77,13 +86,16 @@ class TTS:
                  language_ids_file_path: Optional[str] = None,
                  encoder_path: Optional[str] = None, encoder_config_path: Optional[str] = None):
         self.synthesizer: Optional[Synthesizer] = None
+        self.voice_converter: Optional[Synthesizer] = None
         self.model_name = model_name
         self.device = device
         self._speakers_file_path = speakers_file_path or ""
         self._language_ids_file_path = language_ids_file_path or ""
         self._encoder_path = encoder_path or ""
         self._encoder_config_path = encoder_config_path or ""
-        if model_name:
+        if model_name and "voice_conversion" in model_name:
+            self.load_vc_model_by_name(model_name)
+        elif model_name:
             self.load_tts_model_by_name(model_name, vocoder_path, vocoder_config_path)
         elif model_path:
             self.load_tts_model_by_path(model_path, config_path, vocoder_path,
@@ -123,6 +135,22 @@ class TTS:
             vocoder_checkpoint=vocoder_path or "", vocoder_config=vocoder_config or "",
             encoder_checkpoint=self._encoder_path, encoder_config=self._encoder_config_path,
         )
+
+    def load_vc_model_by_name(self, model_name: str) -> None:
+        """A zoo voice-conversion model by name (port of ``tts_tpu/api.py:128``):
+        its files from the data directory, fetched if absent, after the
+        family is known to be ported."""
+        manager = ModelManager()
+        reason = unported_reason(model_name, manager.models_dict)
+        if reason:
+            raise NotImplementedError(f"{model_name}: {reason}")
+        model_path, config_path, _ = manager.download_model(model_name)
+        self.load_vc_model_by_path(model_path, config_path)
+
+    def load_vc_model_by_path(self, model_path: str, config_path: Optional[str] = None) -> None:
+        """A voice-conversion checkpoint file with its config."""
+        self.voice_converter = Synthesizer(vc_checkpoint=model_path, vc_config=config_path or "",
+                                           device=self.device)
 
     def _manager(self, name: str):
         model = self.synthesizer.tts_model if self.synthesizer else None
@@ -195,3 +223,49 @@ class TTS:
             text, speaker_name=speaker, language_name=language, speaker_wav=speaker_wav,
             split_sentences=split_sentences, **kwargs,
         )
+
+    def voice_conversion(self, source_wav: str, target_wav):
+        """``source_wav`` spoken in the voice of ``target_wav`` (port of
+        ``tts_tpu/api.py:215``): waveform samples at the converter's
+        ``output_sample_rate``."""
+        converter = self.voice_converter or self.synthesizer
+        if converter is None:
+            raise RuntimeError("No model loaded.")
+        return converter.voice_conversion(source_wav=source_wav, target_wav=target_wav)
+
+    def voice_conversion_to_file(self, source_wav: str, target_wav: str,
+                                 file_path: str = "output.wav") -> str:
+        """:meth:`voice_conversion` into a wav file."""
+        wav = self.voice_conversion(source_wav=source_wav, target_wav=target_wav)
+        (self.voice_converter or self.synthesizer).save_wav(wav, file_path)
+        return file_path
+
+    def tts_with_vc(self, text: str, language: Optional[str] = None, speaker_wav=None,
+                    speaker: Optional[str] = None, split_sentences: bool = True):
+        """Synthesize ``text``, then convert it into the voice of
+        ``speaker_wav`` (port of ``tts_tpu/api.py:231``); the zoo's
+        ``freevc24`` is loaded by name when no converter is. The
+        intermediate wav file is removed afterwards, where the JAX package
+        leaves it in the temporary directory."""
+        import os
+        import tempfile
+
+        fd, path = tempfile.mkstemp(suffix=".wav")
+        os.close(fd)
+        try:
+            self.tts_to_file(text=text, speaker=speaker, language=language, file_path=path,
+                             split_sentences=split_sentences)
+            if self.voice_converter is None:
+                self.load_vc_model_by_name("voice_conversion_models/multilingual/vctk/freevc24")
+            return self.voice_converter.voice_conversion(source_wav=path, target_wav=speaker_wav)
+        finally:
+            os.remove(path)
+
+    def tts_with_vc_to_file(self, text: str, language: Optional[str] = None, speaker_wav=None,
+                            file_path: str = "output.wav", speaker: Optional[str] = None,
+                            split_sentences: bool = True) -> str:
+        """:meth:`tts_with_vc` into a wav file."""
+        wav = self.tts_with_vc(text=text, language=language, speaker_wav=speaker_wav,
+                               speaker=speaker, split_sentences=split_sentences)
+        self.voice_converter.save_wav(wav, file_path)
+        return file_path

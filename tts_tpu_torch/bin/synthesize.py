@@ -33,6 +33,10 @@ Examples::
         --encoder_path se/model_se.pth.tar --encoder_config_path se/config_se.json \
         --speaker_wav ref.wav --language_idx en
 
+    python -m tts_tpu_torch.bin.synthesize \\
+        --model_name voice_conversion_models/multilingual/vctk/freevc24 \\
+        --source_wav source.wav --target_wav target.wav --out_path out.wav
+
 ``--model_name`` loads a zoo model from ``$TTS_HOME/tts_tpu/`` (fetched if
 absent; ``TTS_TPU_MODELS_FILE`` replaces the catalog); a family the port
 does not run yet raises ``NotImplementedError`` before anything is fetched.
@@ -49,6 +53,10 @@ default one; without any, Griffin-Lim speaks it. ``--encoder_path`` with
 aliases ``--gst_style`` and ``--capacitron_style_wav``) gives a GST or
 Capacitron Tacotron its style reference; ``--capacitron_style_text``, its
 transcription, changes nothing, as in the JAX package (ROADMAP.md F37).
+``--source_wav`` with ``--target_wav`` converts the source recording into the
+target's voice with a voice-conversion model (``--model_name
+voice_conversion_models/multilingual/vctk/freevc24``: FreeVC, WavLM-Large
+read from ``$TTS_HOME/wavlm/WavLM-Large.pt``) and writes ``--out_path``.
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
 runs the plain PyTorch path. ``--use_cuda``, ``--save_spectogram`` and
@@ -57,13 +65,9 @@ command line and change nothing. With ``--pipe_out`` the wav bytes are the
 only thing written to stdout: the log lines go to stderr (the JAX
 command line prints them into the same stream).
 
-The JAX command line's other flags wait for the paths they select, and
-argparse rejects them until then (ROADMAP.md §1):
-
-* voice conversion models (``--source_wav``, ``--target_wav``): FreeVC,
-  item 16b;
-* the voice directory (``--voice_dir``): Tortoise and Bark, items 16c and
-  16d.
+The JAX command line's one other flag, the voice directory
+(``--voice_dir``), waits for the models it serves, Tortoise and Bark
+(ROADMAP.md items 16c and 16d), and argparse rejects it until then.
 """
 
 from __future__ import annotations
@@ -126,6 +130,10 @@ def make_parser() -> argparse.ArgumentParser:
                         help="GST/Capacitron style-reference wav")
     parser.add_argument("--capacitron_style_text", dest="style_text", type=str, default=None,
                         help="transcription of the Capacitron style reference")
+    parser.add_argument("--source_wav", type=str, default=None,
+                        help="voice conversion: the recording to convert")
+    parser.add_argument("--target_wav", type=str, default=None,
+                        help="voice conversion: a recording of the voice wanted")
     parser.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
     # accepted for compatibility with the reference command line
     parser.add_argument("--use_cuda", action="store_true",
@@ -172,6 +180,12 @@ def main(argv=None):
         if args.list_language_idxs:
             print(" > Available language ids: (set --language_idx to one of these):")
             print(tts.languages)
+            return
+
+        if args.source_wav is not None and args.target_wav is not None:
+            tts.voice_conversion_to_file(source_wav=args.source_wav, target_wav=args.target_wav,
+                                         file_path=args.out_path)
+            print(f" > Saving output to {args.out_path}")
             return
 
         if args.reference_wav is not None:

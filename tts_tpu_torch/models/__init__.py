@@ -6,7 +6,8 @@ ForwardTTS family (FastPitch, FastSpeech, FastSpeech2, SpeedySpeech),
 Overflow, NeuralHMM, AlignTTS and DelightfulTTS are ported so far, with every vocoder config of the JAX
 package (HiFiGAN, the MelGANs, ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN
 and the generic ``gan``; their generators in ``vocoder.models.setup_generator``)
-and the speaker encoders' configs; other names raise.
+the speaker encoders' configs, and FreeVC's config (``freevc``; its model is
+set up by ``tts_tpu_torch.vc.models.setup_model``); other names raise.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ _ENCODER_CONFIGS = {
     "speaker_encoder": "tts_tpu_torch.encoder.configs:SpeakerEncoderConfig",
     "emotion_encoder": "tts_tpu_torch.encoder.configs:EmotionEncoderConfig",
 }
+_VC_CONFIGS = {"freevc": "tts_tpu_torch.vc.configs:FreeVCConfig"}
 _VOCODER_CONFIGS = {
     "hifigan": "tts_tpu_torch.vocoder.configs:HifiganConfig",
     "melgan": "tts_tpu_torch.vocoder.configs:MelganConfig",
@@ -81,8 +83,10 @@ def _process_model_name(config_dict: Dict) -> str:
 
 def config_from_dict(config_dict: Dict):
     """A ``config.json`` dict → the port's config object for its model,
-    vocoder or encoder."""
+    vocoder, encoder or voice-conversion model."""
     name = _process_model_name(config_dict).lower()
+    if name in _VC_CONFIGS:
+        return _load(_VC_CONFIGS[name]).from_dict(config_dict)
     if name in _VOCODER_CONFIGS:
         return _load(_VOCODER_CONFIGS[name]).from_dict(config_dict)
     if name in _ENCODER_CONFIGS:

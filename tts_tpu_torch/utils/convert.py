@@ -1992,3 +1992,248 @@ def reference_wavernn_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.n
             k = k[: -len("shift")] + "bias"
         out[k] = v
     return out
+
+
+# ---------------------------------------------------------------------------
+# WavLM (copied from ``tts_tpu/utils/convert.py:1519-1628``) and FreeVC
+# (``:912-955``), unchanged.
+# ---------------------------------------------------------------------------
+
+
+def _wavlm_fold_pos_conv(state, key="encoder.pos_conv.0."):
+    """Fold the pos-conv weight norm (dim=2: g is [1, 1, k], norm over the
+    (out, in) axes per kernel tap — the generic fold assumes dim=0)."""
+    for g_key, v_key in (
+        (key + "weight_g", key + "weight_v"),
+        (key + "parametrizations.weight.original0", key + "parametrizations.weight.original1"),
+    ):
+        if v_key in state:
+            g, v = state[g_key], state[v_key]
+            axes = tuple(i for i, s in enumerate(g.shape) if s == 1)
+            norm = np.sqrt((v**2).sum(axis=axes, keepdims=True))
+            return g * v / np.maximum(norm, 1e-12)
+    return state[key + "weight"]
+
+
+def convert_wavlm_state(state, cfg) -> Dict[str, Any]:
+    """Torch WavLM state dict → flax params for
+    :class:`tts_tpu.vc.modules.wavlm.WavLM`."""
+    p: Dict[str, Any] = {}
+
+    fe: Dict[str, Any] = {}
+    for i in range(len(cfg.conv_feature_layers)):
+        conv = {"kernel": conv1d_kernel(state[f"feature_extractor.conv_layers.{i}.0.weight"])}
+        if cfg.conv_bias:
+            conv["bias"] = state[f"feature_extractor.conv_layers.{i}.0.bias"]
+        fe[f"conv_{i}"] = conv
+        if cfg.extractor_mode == "layer_norm":
+            fe[f"ln_{i}"] = {
+                "scale": state[f"feature_extractor.conv_layers.{i}.2.1.weight"],
+                "bias": state[f"feature_extractor.conv_layers.{i}.2.1.bias"],
+            }
+        elif i == 0:
+            fe["gn_0"] = {
+                "scale": state["feature_extractor.conv_layers.0.2.weight"],
+                "bias": state["feature_extractor.conv_layers.0.2.bias"],
+            }
+    p["feature_extractor"] = fe
+    p["layer_norm"] = {"scale": state["layer_norm.weight"], "bias": state["layer_norm.bias"]}
+    if "post_extract_proj.weight" in state:
+        p["post_extract_proj"] = {
+            "kernel": linear_kernel(state["post_extract_proj.weight"]),
+            "bias": state["post_extract_proj.bias"],
+        }
+
+    # grouped positional conv: torch [out, in/groups, k] → flax [k, in/groups, out]
+    w = _wavlm_fold_pos_conv(state)
+    p["pos_conv"] = {
+        "kernel": np.transpose(w, (2, 1, 0)),
+        "bias": state["encoder.pos_conv.0.bias"],
+    }
+
+    for i in range(cfg.encoder_layers):
+        pre = f"encoder.layers.{i}."
+        attn: Dict[str, Any] = {}
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            attn[proj] = {
+                "kernel": linear_kernel(state[pre + f"self_attn.{proj}.weight"]),
+                "bias": state[pre + f"self_attn.{proj}.bias"],
+            }
+        if cfg.gru_rel_pos:
+            attn["grep_linear"] = {
+                "kernel": linear_kernel(state[pre + "self_attn.grep_linear.weight"]),
+                "bias": state[pre + "self_attn.grep_linear.bias"],
+            }
+            attn["grep_a"] = state[pre + "self_attn.grep_a"]
+        if cfg.relative_position_embedding and i == 0:
+            attn["relative_attention_bias"] = state[pre + "self_attn.relative_attention_bias.weight"]
+        layer = {
+            "self_attn": attn,
+            "self_attn_layer_norm": {
+                "scale": state[pre + "self_attn_layer_norm.weight"],
+                "bias": state[pre + "self_attn_layer_norm.bias"],
+            },
+            "fc1": {"kernel": linear_kernel(state[pre + "fc1.weight"]), "bias": state[pre + "fc1.bias"]},
+            "fc2": {"kernel": linear_kernel(state[pre + "fc2.weight"]), "bias": state[pre + "fc2.bias"]},
+            "final_layer_norm": {
+                "scale": state[pre + "final_layer_norm.weight"],
+                "bias": state[pre + "final_layer_norm.bias"],
+            },
+        }
+        p[f"layer_{i}"] = layer
+    p["encoder_layer_norm"] = {
+        "scale": state["encoder.layer_norm.weight"],
+        "bias": state["encoder.layer_norm.bias"],
+    }
+    return {"params": p}
+
+
+def convert_freevc(state, config=None):
+    """Reference FreeVC checkpoint → flax params for
+    :class:`tts_tpu.vc.models.freevc.FreeVCModule` (WavLM ships separately
+    and converts via :func:`convert_wavlm`)."""
+    n_flows = 4
+    n_wn_layers = 16
+    state = fold_weight_norm(state)
+    p = {
+        "enc_p": {
+            "pre": _dense(state, "enc_p.pre"),
+            "enc": convert_wn(state, "enc_p.enc.", n_wn_layers, has_cond=False),
+            "proj": _dense(state, "enc_p.proj"),
+        },
+        "enc_q": convert_vits_posterior(
+            _subdict(state, "enc_q."), num_layers=n_wn_layers, has_cond=True
+        )["params"],
+        # freevc interleaves parameterless Flip modules: coupling layers sit
+        # at flows.{0,2,4,6} (VITS flips inline, flows.{0..3})
+        "flow": convert_vits_flow(
+            {
+                k.replace(f"flows.{2 * i}.", f"flows.{i}."): v
+                for k, v in _subdict(state, "flow.").items()
+                for i in [int(k.split(".")[1]) // 2]
+            },
+            num_flows=n_flows, num_layers=4, has_cond=True,
+        )["params"],
+        # freevc names its speaker-conditioning conv "cond" (vits: cond_layer)
+        "dec": convert_hifigan_generator({
+            ("cond_layer." + k[len("cond."):] if k.startswith("cond.") else k): v
+            for k, v in _subdict(state, "dec.").items()
+        })["params"],
+    }
+    if "enc_spk.lstm.weight_ih_l0" in state:
+        spk = {"linear": _dense(state, "enc_spk.linear")}
+        l = 0
+        while f"enc_spk.lstm.weight_ih_l{l}" in state:
+            spk[f"lstm_{l}"] = _lstm_cell(state, "enc_spk.lstm", f"_l{l}")
+            l += 1
+        p["enc_spk"] = spk
+    return {"params": p}
+
+
+# ---------------------------------------------------------------------------
+# WavLM and FreeVC into the port, and back into the reference layout.
+# ---------------------------------------------------------------------------
+
+
+def wavlm_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``WavLM`` params → the state_dict of the port's
+    (``vc/modules/wavlm.py``), by the generic rules."""
+    return flax_to_state_dict(params)
+
+
+def load_reference_wavlm(path: str):
+    """A reference WavLM checkpoint file (``{"cfg": ..., "model":
+    state_dict}``, read with ``weights_only=True``) → ``(WavLMConfig, the
+    port's state_dict)``; the positional conv's weight norm is folded over
+    its ``dim=2`` (:func:`_wavlm_fold_pos_conv`)."""
+    from tts_tpu_torch.vc.modules.wavlm import WavLMConfig
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    cfg = WavLMConfig.from_checkpoint_cfg(dict(ckpt.get("cfg", {})))
+    state = {k: _to_numpy(v) for k, v in ckpt["model"].items()}
+    return cfg, wavlm_from_jax_params(convert_wavlm_state(state, cfg))
+
+
+_WAVLM_RULES = (
+    (r"^feature_extractor\.conv_(\d+)\.", r"feature_extractor.conv_layers.\1.0."),
+    (r"^feature_extractor\.ln_(\d+)\.", r"feature_extractor.conv_layers.\1.2.1."),
+    (r"^feature_extractor\.gn_0\.", "feature_extractor.conv_layers.0.2."),
+    (r"^pos_conv\.", "encoder.pos_conv.0."),
+    (r"^layer_(\d+)\.", r"encoder.layers.\1."),
+    (r"\.relative_attention_bias$", ".relative_attention_bias.weight"),
+    (r"^encoder_layer_norm\.", "encoder.layer_norm."),
+)
+
+
+def reference_wavlm_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``WavLM`` in the reference's names and
+    layouts: the positional conv under weight norm over ``dim=2``
+    (``weight_g`` ``[1, 1, k]``, ``weight_v`` scaled per tap, so that only a
+    per-tap fold gives the weight back), and the training mask embedding
+    ``mask_emb`` the reference holds (zeros; no loader reads it).
+    :func:`load_reference_wavlm` maps it back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        k = _reference_key(key, _WAVLM_RULES)
+        if key == "pos_conv.weight":
+            base = k[: -len("weight")]
+            taps = np.float32(1) + np.arange(v.shape[2], dtype=np.float32) / v.shape[2]
+            out[base + "weight_g"] = np.sqrt((v**2).sum(axis=(0, 1), keepdims=True))
+            out[base + "weight_v"] = v * taps
+            out["mask_emb"] = np.zeros(v.shape[0], np.float32)
+            continue
+        out[k] = v
+    return out
+
+
+def freevc_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``FreeVCModule`` params → the state_dict of the
+    port's (``vc/models/freevc.py``): the generic rules, with ``enc_spk``'s
+    three flax LSTM cells packed into the layers of one ``nn.LSTM``
+    (``enc_spk.lstm.*_l<n>``)."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    params = dict(params)
+    spk = dict(params.pop("enc_spk", {}))
+    state = flax_to_state_dict(params)
+    layer = 0
+    while f"lstm_{layer}" in spk:
+        state.update({f"enc_spk.lstm.{k}": torch.from_numpy(v) for k, v in
+                      _pack_lstm(spk.pop(f"lstm_{layer}"), f"_l{layer}").items()})
+        layer += 1
+    state.update(flax_to_state_dict(spk, "enc_spk."))
+    return state
+
+
+def load_reference_freevc(state: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference-layout FreeVC state dict (tensors or arrays) → the
+    state_dict of ``FreeVCModule``: weight norm folded, the coupling layers
+    read from ``flow.flows.{0,2,4,6}``, ``dec.cond`` as ``dec.cond_layer``,
+    ``enc_spk.lstm.*_l<n>`` as one ``nn.LSTM`` (:func:`convert_freevc`).
+    Keys the module does not hold (a ``wavlm.*`` copy, say) are not read."""
+    state = {k: _to_numpy(v) for k, v in state.items()}
+    return freevc_from_jax_params(convert_freevc(state))
+
+
+_FREEVC_RULES = (
+    (r"\.(in_layer|res_skip_layer)\.", r".\1s."),
+    (r"^flow\.flow\.(\d+)\.", lambda m: f"flow.flows.{2 * int(m.group(1))}."),
+    (r"^dec\.cond_layer\.", "dec.cond."),
+)
+
+
+def reference_freevc_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of ``FreeVCModule`` in the reference's names and
+    layouts, weight norm folded: 1x1 convolutions for the linear layers
+    (``enc_spk``'s LSTM and Linear stay as they are), the coupling layers at
+    ``flow.flows.{0,2,4,6}`` between the reference's parameterless flips,
+    the decoder's conditioning conv ``dec.cond``.
+    :func:`load_reference_freevc` maps it back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        if v.ndim == 2 and not key.startswith("enc_spk."):
+            v = v[:, :, None]
+        out[_reference_key(key, _FREEVC_RULES)] = v
+    return out

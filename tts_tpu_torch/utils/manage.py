@@ -84,14 +84,16 @@ def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     runs: VITS (by its name or its description), YourTTS, XTTS v2, GlowTTS,
     Tacotron2 (Capacitron's too), FastPitch, Overflow and NeuralHMM whose
     ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
-    and every vocoder of the catalog (the MelGANs, HiFiGAN, ParallelWaveGAN,
-    UnivNet, WaveGrad). The Mandarin GST Tacotron2 names F36; Tacotron v1
+    every vocoder of the catalog (the MelGANs, HiFiGAN, ParallelWaveGAN,
+    UnivNet, WaveGrad) and the voice converter FreeVC (``freevc24``). The Mandarin GST Tacotron2 names F36; Tacotron v1
     names F41 and SpeedySpeech item 16: neither package converts their
     reference checkpoints. A model whose family is not ported names its own
     item, whatever its vocoder."""
     model_type, lang, dataset, model = model_name.split("/")
     if model_type == "voice_conversion_models":
-        return "voice conversion models (FreeVC) are not ported yet (ROADMAP.md item 16)"
+        if "freevc" in model:
+            return None
+        return f"the voice conversion model {model} is not ported yet (ROADMAP.md item 16)"
     if model_type == "vocoder_models":
         if any(family in model for family in _VOCODER_FAMILIES):
             return None

@@ -75,6 +75,13 @@ encoder is fed the VITS linear magnitude spectrogram (``wav_to_spec``:
 reference-layout checkpoint's training use. The JAX ``Synthesizer`` feeds it
 its ``AudioProcessor``'s spectrogram instead (centred STFT, decibels,
 normalised), which is not what the encoder was trained on (ROADMAP.md F15).
+
+``vc_checkpoint`` (with ``vc_config``) loads a voice-conversion model, FreeVC
+(port of ``tts_tpu/utils/synthesizer.py:154-169,512-519``): a reference-layout
+``model.pth`` or the port's ``model_torch.pt``. :meth:`Synthesizer.voice_conversion` converts a source
+wav into a target wav's voice through it, WavLM-Large read from
+``$TTS_HOME/wavlm/WavLM-Large.pt`` on first use, and sets
+``output_sample_rate`` to the VC config's ``audio.output_sample_rate``.
 """
 
 from __future__ import annotations
@@ -130,7 +137,7 @@ class Synthesizer:
                  device="cuda", speakers_file_path: str = "", language_ids_file_path: str = "",
                  vocoder_checkpoint: str = "", vocoder_config: str = "",
                  use_griffin_lim: bool = True, encoder_checkpoint: str = "",
-                 encoder_config: str = ""):
+                 encoder_config: str = "", vc_checkpoint: str = "", vc_config: str = ""):
         self.device = resolve_device(device)
         self.speakers_file_path = speakers_file_path
         self.language_ids_file_path = language_ids_file_path
@@ -141,6 +148,8 @@ class Synthesizer:
         self.vocoder_model = None
         self.vocoder_config = None
         self.vocoder_ap = None
+        self.vc_model = None
+        self.vc_config = None
         self.from_file = False  # loaded from a checkpoint file: may trim silence
         self.output_sample_rate = 24000
         path = model_dir or tts_checkpoint
@@ -154,6 +163,8 @@ class Synthesizer:
                     "leave the vocoder out, and Griffin-Lim speaks it (ROADMAP.md F40)")
             self._load_vocoder(vocoder_checkpoint,
                                self._config_path(vocoder_checkpoint, vocoder_config))
+        if vc_checkpoint:
+            self._load_vc(vc_checkpoint, self._config_path(vc_checkpoint, vc_config))
 
     @staticmethod
     def _config_path(path: str, config_path: str) -> str:
@@ -233,6 +244,28 @@ class Synthesizer:
         self.vocoder_config = config
         self.vocoder_ap = AudioProcessor.init_from_config(config.audio, verbose=False)
         self.output_sample_rate = self.vocoder_ap.sample_rate
+
+    def _load_vc(self, path: str, config_path: str) -> None:
+        """A voice-conversion checkpoint file with its config: the model its
+        ``model`` names (``vc.models.setup_model``; FreeVC)."""
+        from tts_tpu_torch.vc.models import setup_model as setup_vc_model
+
+        config = config_from_dict(read_json_with_comments(config_path))
+        with torch.device("meta"):
+            model = setup_vc_model(config)
+        self.vc_model = model.load_checkpoint(config, checkpoint_path=path, device=self.device)
+        self.vc_config = config
+
+    def voice_conversion(self, source_wav: str, target_wav) -> List[float]:
+        """``source_wav`` spoken in the voice of ``target_wav`` (a path, or a
+        list whose first path is taken) through the loaded VC model
+        (reference ``synthesizer.py:250``); the output sample rate becomes
+        the VC config's ``audio.output_sample_rate``."""
+        if self.vc_model is None:
+            raise RuntimeError("No voice-conversion model loaded (vc_checkpoint).")
+        wav = self.vc_model.voice_conversion_from_files(source_wav, target_wav)
+        self.output_sample_rate = self.vc_config.audio.output_sample_rate
+        return list(np.asarray(wav, np.float32).reshape(-1))
 
     @torch.no_grad()
     def _vocode(self, mel: np.ndarray) -> np.ndarray:
