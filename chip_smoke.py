@@ -13,7 +13,8 @@ Phases; each raises on failure and the script then exits non-zero:
    ``tts_tpu_torch/csrc`` (ptxas register / shared-memory use printed);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    decode shapes (B 1 and 4, S 685, 720 and 1024, H 16, dh 64, fp32 and
-   bf16 caches, per-row, scalar and the real decode's lengths), each call
+   bf16 caches, per-row, scalar and the real decode's lengths; Tortoise's
+   B 16 at S 600 and XTTS v1's B 1 at S 1650, timed too), each call
    made twice and the two results required bit-identical; then timed
    beside its bound, its plain version and one PyTorch library call
    (``scaled_dot_product_attention``) computing the same function;
@@ -88,7 +89,8 @@ Phases; each raises on failure and the script then exits non-zero:
    dispatch's ``overhead`` fitted on the iSTFT model (a dispatch's floor
    over its marginal ms per frame·row); one grouped batcher turn card
    against CPU and the serving mix with ``--max_batch 1`` and 4 on the
-   iSTFT model, with the groups formed. ``decode_attention`` must not
+   iSTFT model, with the groups formed, each group's decoded lengths
+   equal to its planned ones (F16). ``decode_attention`` must not
    launch;
 10. GlowTTS with Multiband-MelGAN, the ``tts`` command line's default
     pairing, at the LJSpeech recipes' widths (``phoneme_cleaners``,
@@ -249,7 +251,28 @@ Phases; each raises on failure and the script then exits non-zero:
     within one int16 step of ``voice_conversion_to_file``;
     ``tts_with_vc_to_file`` on phase 6's LJSpeech VITS loaded by path, into
     FreeVC loaded by name on first use; peak memory. ``decode_attention``
-    must not launch.
+    must not launch;
+17. XTTS v1 at full XTTS width (``XttsConfig()`` without the perceiver,
+    fp32 weights from seed 0): a 30 s clip's one coarse mel (``n_fft``
+    4096, hop 1024) gives 646 prompt latents; 40 greedy tokens through K1
+    and through the plain attention must be identical (latents within
+    1e-4) and launch K1 30 times a step; the time to first audio in parts
+    and ms a decode step behind the long prompt; ``xtts_v1.1`` by zoo name
+    equal to the path load;
+18. Tortoise at the default ``TortoiseArgs`` (AR 30 x 1024 x 16, diffusion
+    1024 x 10, CLVP 768 x 20 a side, the bundled UnivNet 32 channels), fp32
+    weights from seed 0, random latent generators and mel norms drawn
+    here: card against CPU within 1e-4 of each peak on short inputs (the
+    AR's conditioning and teacher-forced pass, 8 greedy decode steps, one
+    guided diffusion step, CLVP's scores, the vocoder on a 20-frame mel);
+    16 sampled candidates' codes identical through K1 and the plain
+    attention on one generator, K1 launching 30 times a step; one whole
+    ``synthesize`` from a voice folder and one from the random voice (16
+    candidates, ``TORTOISE_CAP`` codes each since random weights never stop,
+    30 DDIM steps with classifier-free guidance) with their stages, busy
+    share and peak memory; ``tortoise-v2`` by zoo name from the reference
+    layout equal to the path load; ``tts --model_name --voice_dir`` within
+    one int16 step of ``TTS.tts_to_file``.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
@@ -497,6 +520,12 @@ def phase_kernels(card: str) -> dict:
     for B, S in ((1, 720), (4, 720), (4, 1024)):
         for dtype in (torch.float32, torch.bfloat16):
             check(B, S, dtype, [33, 95, 300])
+    # Tortoise's 16 candidates behind a ~60-token prefix with up to 500 codes, and
+    # XTTS v1's prompt of one latent a coarse mel frame (646 for 30 s) before
+    # the text and the codes
+    for B, S, lengths in ((16, 600, [61, 300, 600]), (1, 1650, [700, 1200, 1650])):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(B, S, dtype, lengths)
     log(f"decode_attention: {n_checks} cases agree with the plain version, each called twice "
         f"with bit-identical results; max abs err fp32 {worst[torch.float32]:.3g} (tol 1e-5), "
         f"bf16 {worst[torch.bfloat16]:.3g} (tol 1e-3)")
@@ -506,6 +535,8 @@ def phase_kernels(card: str) -> dict:
     times = {}
     shapes = [(B, dtype, 685, 685) for B in (1, 4) for dtype in (torch.bfloat16, torch.float32)]
     shapes += [(1, torch.bfloat16, 720, 95), (1, torch.bfloat16, 720, 300)]
+    shapes += [(16, dtype, 600, 600) for dtype in (torch.bfloat16, torch.float32)]
+    shapes += [(1, dtype, 1650, 1650) for dtype in (torch.bfloat16, torch.float32)]
     for B, dtype, S, n in shapes:
         q = torch.randn(B, H, DH, generator=gen, device=dev).to(dtype)
         caches = [(torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype),
@@ -2064,12 +2095,15 @@ def recorded_groups(plans=None):
 
 def planned_against_decoded(plan_record, decoded) -> str:
     """The lengths the grouped dispatch planned against those its groups'
-    decodes drew, and how many were cut at their group's bucket."""
+    decodes gave, which must be equal since each group decodes on its
+    plan's durations (ROADMAP.md F16), and the number of groups."""
     y_preds, plan = plan_record
-    planned = [int(y_preds[i]) for idx, _ in plan for i in idx]
-    lengths = [n for (idx, _), ys in zip(plan, decoded) for n in ys[: len(idx)]]
-    cut_at = sum(n == frames for (idx, frames), ys in zip(plan, decoded) for n in ys[: len(idx)])
-    return f"planned lengths {planned}, decoded {lengths} ({cut_at} cut at their bucket)"
+    planned = [min(int(y_preds[i]), frames) for idx, frames in plan for i in idx]
+    lengths = [int(n) for (idx, _), ys in zip(plan, decoded) for n in ys[: len(idx)]]
+    if planned != lengths:
+        raise AssertionError(f"grouped dispatch: planned lengths {planned}, decoded {lengths}")
+    return (f"{len(plan)} group(s); planned lengths {planned}, decoded {lengths}: equal "
+            f"(F16 settled)")
 
 
 def fit_group_overhead(model, device) -> dict:
@@ -2286,8 +2320,8 @@ def phase_zoo_and_variants(card: str, device="cuda", cut=None) -> None:
         log(f"VITS MB-iSTFT grouped dispatch of 4 sentences, card vs CPU on host noise: groups "
             f"(size, bucket) {groups[0]} on both, max abs diff {turn:.3g} (tol {VITS_WAV_TOL}); "
             + planned_against_decoded(plans[0], decoded))
-        # two groups (a dispatch priced at 0): each group's decode redraws its durations
-        # with another shape than the plan's pass (ROADMAP.md F16)
+        # two groups (a dispatch priced at 0): each group decodes on its plan's durations
+        # (ROADMAP.md F16)
         plans, real = [], batching.plan_decode_groups
         batching.plan_decode_groups = functools.partial(real, overhead=0)
         try:
@@ -5712,6 +5746,456 @@ def phase_voice_conversion(card: str, device="cuda", cut=None) -> None:
     log(line + f"; phase 16 took {time.time() - t_phase:.1f} s | {card}")
 
 
+# ---------------------------------------------------------------------------
+XTTS_V1 = "tts_models/multilingual/multi-dataset/xtts_v1.1"
+XTTS_V1_CLIP_S = 30.0  # the default gpt_cond_len: 646 prompt latents
+XTTS_V1_TOKENS = 40
+
+
+def phase_xtts_v1(card: str, device="cuda", cut=None) -> int:
+    """XTTS v1 at full XTTS width (``XttsConfig()`` without the perceiver,
+    random fp32 weights from seed 0): a 30 s reference clip conditions one
+    latent a coarse mel frame; 40 greedy tokens through K1 and through the
+    plain attention on the card must be identical (latents within 1e-4) and
+    launch K1 30 times a step; the TTFA parts and ms a decode step behind
+    the long prompt; ``xtts_v1.1`` by zoo name against the path load.
+    ``cut(config)`` shrinks the config in place, for rehearsals on the CPU.
+    Returns K1's launches on this path."""
+    import shutil
+
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.audio.numpy_transforms import save_wav
+    from tts_tpu_torch.models.xtts.config import XttsConfig
+    from tts_tpu_torch.models.xtts.model import Xtts
+    from tts_tpu_torch.models.xtts.tokenizer import VoiceBpeTokenizer, write_char_vocab
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    config = XttsConfig()
+    config.model_args.gpt_use_perceiver_resampler = False
+    (cut or (lambda c: None))(config)
+    model = Xtts(config).init_params(seed=0, device=device, dtype=torch.float32)
+    n_layers = len(model.gpt.gpt.h)
+    D = model.args.gpt_n_model_channels
+    wav = reference_wav(seconds=XTTS_V1_CLIP_S)
+    sync(device)
+    t0 = time.perf_counter()
+    cond = model.get_gpt_cond_latents(wav, 22050)
+    sync(device)
+    cond_ms = (time.perf_counter() - t0) * 1e3
+    n_cond = int(XTTS_V1_CLIP_S * 22050) // 1024 + 1
+    if cond.shape != (1, n_cond, D) or not torch.isfinite(cond).all():
+        raise AssertionError(f"v1 conditioning {tuple(cond.shape)}, want (1, {n_cond}, {D})")
+    n_text = min(200, model.args.gpt_number_text_tokens)
+    text = torch.from_numpy(np.random.RandomState(0).randint(5, n_text, (1, 40))).to(device)
+    lengths = torch.tensor([40], device=device)
+    kw = dict(max_new_tokens=XTTS_V1_TOKENS, temperature=0.75, top_k=1, top_p=0.85,
+              repetition_penalty=5.0)
+    decode_attention.launches = 0
+    steps = model.gpt.decode_steps
+    with_kernel = model.gpt.generate(cond, text, lengths, None, **kw)
+    sync(device)
+    launches = decode_attention.launches
+    run_steps = model.gpt.decode_steps - steps
+    if cuda and launches != n_layers * run_steps:
+        raise AssertionError(f"XTTS v1: {launches} K1 launches for {run_steps} steps")
+    with plain_decode_attention():
+        with_plain = model.gpt.generate(cond, text, lengths, None, **kw)
+    sync(device)
+    if decode_attention.launches != launches:
+        raise AssertionError("the plain run launched the kernel")
+    if not torch.equal(with_kernel["codes"], with_plain["codes"]):
+        raise AssertionError(f"XTTS v1 tokens differ:\n{with_kernel['codes']}\n"
+                             f"{with_plain['codes']}")
+    lat_err = (with_kernel["latents"] - with_plain["latents"]).abs().max().item()
+    if not lat_err <= 1e-4:
+        raise AssertionError(f"XTTS v1 latents differ by {lat_err} > 1e-4")
+    cache = n_cond + 42 + 1 + XTTS_V1_TOKENS
+    log(f"XTTS v1 (no perceiver): {n_layers} layers, width {D}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters (seed 0); a "
+        f"{XTTS_V1_CLIP_S:.0f} s clip gives {n_cond} prompt latents in {cond_ms:.1f} ms; "
+        f"{XTTS_V1_TOKENS} greedy tokens identical through K1 and the plain attention, latents "
+        f"max abs diff {lat_err:.3g} (tol 1e-4); K1 launched {launches} times = {n_layers} x "
+        f"{run_steps} steps, the cache reaching {cache} keys | {card}")
+
+    with tempfile.TemporaryDirectory() as d:
+        ref = os.path.join(d, "ref.wav")
+        save_wav(wav=wav, path=ref, sample_rate=22050)
+        vocab = os.path.join(d, "vocab.json")
+        write_char_vocab(vocab, "abcdefghijklmnopqrstuvwxyz.,!?'-")
+        model.tokenizer = VoiceBpeTokenizer(vocab_file=vocab)
+        parts = ttfa_parts(model, ref, "this is the first sentence of a long reply.", device)
+        log("XTTS v1 time to first audio on an idle device, fp32 (ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+            + f"; sum {sum(parts.values()):.1f} | {card}")
+        step_ms = {}
+        for name in ("kernel", "plain"):
+            ctx = plain_decode_attention() if name == "plain" else contextlib.nullcontext()
+            with ctx:
+                state = model.gpt.prefill(cond, text, lengths, max_new_tokens=120)
+                state, _, _ = model.gpt.decode_chunk(state, None, chunk_size=20, top_k=1)
+                sync(device)
+                t1 = time.perf_counter()
+                model.gpt.decode_chunk(state, None, chunk_size=100, top_k=1)
+                sync(device)
+                step_ms[name] = (time.perf_counter() - t1) * 1e3 / 100
+        log(f"XTTS v1 decode step, fp32 GPT, B=1, cache {state['cur_index']}-"
+            f"{state['cur_index'] + 100} keys: {step_ms['kernel']:.2f} ms kernel, "
+            f"{step_ms['plain']:.2f} ms plain attention (host clock, synchronized) | {card}")
+        launches_total = decode_attention.launches
+
+        # the zoo's xtts_v1.1 from its directory, against the path load
+        home = os.path.join(d, "home")
+        zoo = os.path.join(home, "tts_tpu", XTTS_V1.replace("/", "--"))
+        os.makedirs(zoo)
+        with open(os.path.join(zoo, "config.json"), "w") as f:
+            json.dump(model.config.to_dict(), f, default=str)
+        shutil.copy(vocab, os.path.join(zoo, "vocab.json"))
+        torch.save(model.state_dict_with_stats(), os.path.join(zoo, "model_torch.pt"))
+        del model
+        with offline_zoo(home):
+            by_name = TTS(model_name=XTTS_V1, device=device)
+            by_path = TTS(model_path=zoo, device=device)
+            say = dict(speaker_wav=ref, language="en", max_new_tokens=20)
+            with contextlib.redirect_stdout(sys.stderr):
+                a = np.asarray(by_name.tts("hello there.", **say))
+                b = np.asarray(by_path.tts("hello there.", **say))
+        if a.shape != b.shape or float(np.abs(a - b).max()) != 0.0 or not np.isfinite(a).all():
+            raise AssertionError("xtts_v1.1 by zoo name differs from the path load")
+        log(f"xtts_v1.1 by zoo name (nothing fetched) equals the path load: {len(a)} samples")
+        del by_name, by_path
+    gc.collect()
+    log(f"phase 17 (XTTS v1) took {time.time() - t_phase:.1f} s | {card}")
+    return launches_total
+
+
+# ---------------------------------------------------------------------------
+TORTOISE = "tts_models/en/multi-dataset/tortoise-v2"
+TORTOISE_CAP = 160  # codes a candidate: random weights never emit the stop token
+TORTOISE_TOL = 1e-4  # card against CPU, as a share of each output's peak
+
+
+def rlg_state(channels: int, seed: int) -> dict:
+    """Random weights for a reference random latent generator (five
+    EqualLinear layers, N(0, 1) as the reference draws them, then a Linear
+    at 1 / fan-in)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for i in range(6):
+        scale = 1.0 if i < 5 else channels ** -0.5
+        state[f"layers.{i}.weight"] = torch.randn(channels, channels, generator=gen) * scale
+        state[f"layers.{i}.bias"] = torch.randn(channels, generator=gen) * 0.1
+    return state
+
+
+def peak_err(a, b) -> float:
+    """Largest difference of ``a`` (card) and ``b`` (CPU) as a share of
+    ``b``'s peak."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    if a.shape != b.shape:
+        return float("inf")
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def write_tortoise_dir(d: str, model, with_clvp: bool = True) -> None:
+    """``model`` as the reference's tortoise-v2 directory."""
+    import torch
+
+    from tts_tpu_torch.utils import convert
+
+    def save(state, name):
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()},
+                   os.path.join(d, name))
+
+    os.makedirs(d, exist_ok=True)
+    save(convert.reference_unified_voice_state(model.autoregressive.state_dict()),
+         "autoregressive.pth")
+    save(convert.reference_diffusion_state(model.diffusion.state_dict()), "diffusion_decoder.pth")
+    if with_clvp:
+        save(convert.reference_clvp_state(model.clvp.state_dict()), "clvp2.pth")
+    voc = convert.reference_tortoise_univnet_state(model.vocoder.state_dict())["model_g"]
+    torch.save({"model_g": {k: torch.from_numpy(v) for k, v in voc.items()}},
+               os.path.join(d, "vocoder.pth"))
+    torch.save(model.mel_norms.cpu(), os.path.join(d, "mel_norms.pth"))
+    torch.save({k: v.cpu() for k, v in model.rlg_auto.items()}, os.path.join(d, "rlg_auto.pth"))
+    torch.save({k: v.cpu() for k, v in model.rlg_diffuser.items()},
+               os.path.join(d, "rlg_diffuser.pth"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(model.config.to_dict(), f, default=list)
+
+
+@contextlib.contextmanager
+def stage_timer(model, device):
+    """Milliseconds of each Tortoise stage inside (host clock,
+    synchronized): the AR decode, the teacher-forced pass, CLVP, the
+    diffusion (``timestep_independent`` and the sampler) and the vocoder."""
+    from tts_tpu_torch.models.tortoise import model as tortoise
+
+    ms = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    ar = model.autoregressive
+    targets = [(ar, "generate", "AR decode"), (model, "rerank", "CLVP"),
+               (model.diffusion, "timestep_independent", "diffusion"),
+               (model, "vocode", "vocoder")]
+    for obj, attr, name in targets:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    ar.forward = timed("teacher-forced", ar.forward)
+    samplers = dict(tortoise.SAMPLERS)
+    for key, fn in samplers.items():
+        tortoise.SAMPLERS[key] = timed("diffusion", fn)
+    try:
+        yield ms
+    finally:
+        for obj, attr, _ in targets:
+            delattr(obj, attr)
+        del ar.forward
+        tortoise.SAMPLERS.update(samplers)
+
+
+def phase_tortoise(card: str, device="cuda", cut=None) -> int:
+    """Tortoise at the default ``TortoiseArgs`` (AR 30 x 1024 x 16,
+    diffusion 1024 x 10, CLVP 768 x 20 a side, UnivNet 32 channels), random
+    fp32 weights from seed 0 (the UnivNet's predicted kernels scaled to 1 /
+    fan-in, ``calibrate_univnet``), random latent generators and mel norms
+    drawn here: card against CPU within 1e-4 of the peak on short inputs
+    (the AR teacher-forced pass, 8 greedy decode steps, one guided diffusion
+    step, CLVP's scores, the vocoder on a 20-frame mel); 16 sampled
+    candidates' codes identical through K1 and through the plain attention
+    on one generator, K1 launching 30 times a step; one whole
+    ``synthesize`` from a voice folder and one from the random voice (16
+    candidates capped at ``TORTOISE_CAP`` codes, 30 DDIM steps with
+    classifier-free guidance), each with its stages, busy share and peak
+    memory; ``tortoise-v2`` by zoo name against the path load; ``tts
+    --voice_dir`` against the API. ``cut(config)`` shrinks the config in
+    place for rehearsals on the CPU and may return smaller CLVP widths.
+    Returns K1's launches on this path."""
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.audio.numpy_transforms import save_wav
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.models.tortoise import model as tortoise
+    from tts_tpu_torch.models.tortoise.audio import format_conditioning
+    from tts_tpu_torch.models.tortoise.config import TortoiseConfig
+    from tts_tpu_torch.models.tortoise.layers import CLVP
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    config = TortoiseConfig()
+    clvp_kw = (cut or (lambda c: None))(config) or {}
+    a = config.model_args
+    model = tortoise.Tortoise(config)
+    model.clvp = CLVP(**clvp_kw)
+    model.init_params(seed=0, device="cpu", clvp=False)
+    calibrate_univnet(model.vocoder)
+    gen = torch.Generator().manual_seed(1)
+    model.mel_norms = 1.0 + 0.1 * torch.rand(80, generator=gen)
+    model.rlg_auto = rlg_state(a.ar_model_dim, 2)
+    model.rlg_diffuser = rlg_state(2 * a.diff_model_channels, 3)
+    cpu = copy.deepcopy(model)
+    model.to(device)
+    model.mel_norms = model.mel_norms.to(device)
+    model.rlg_auto = {k: v.to(device) for k, v in model.rlg_auto.items()}
+    model.rlg_diffuser = {k: v.to(device) for k, v in model.rlg_diffuser.items()}
+    n_layers = len(model.autoregressive.gpt.h)
+    counts = {name: sum(p.numel() for p in getattr(model, name).parameters()) / 1e6
+              for name in ("autoregressive", "diffusion", "clvp", "vocoder")}
+    log(f"Tortoise (TortoiseArgs() defaults, seed 0, fp32, TF32 off): "
+        + ", ".join(f"{k} {v:.2f} M" for k, v in counts.items())
+        + f" parameters; ready in {time.time() - t_phase:.1f} s")
+
+    # short inputs, card against CPU
+    rs = np.random.RandomState(0)
+    wav22 = reference_wav(seconds=3.0, seed=3)
+    inputs = dict(
+        text=rs.randint(1, 250, (1, 20)), codes=rs.randint(0, 8192, (1, 30)),
+        dlat=rs.randn(1, 2 * a.diff_model_channels).astype(np.float32) * 0.5,
+        x=rs.randn(1, 86, a.diff_in_channels).astype(np.float32),
+        cands=rs.randint(0, 8192, (4, 40)), mel=rs.randn(1, 20, 100).astype(np.float32) - 5,
+        noise=rs.randn(1, 20, a.voc_noise_dim).astype(np.float32))
+    outs = {}
+    for m, dev in ((model, device), (cpu, "cpu")):
+        x = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+        with torch.no_grad():
+            cond = m.autoregressive.get_conditioning(
+                format_conditioning(wav22, m.mel_norms, device=dev))
+            _, logits, latents = m.autoregressive(cond, x["text"], x["codes"])
+            g = m.autoregressive.generate(cond.expand(2, -1, -1), x["text"].expand(2, -1), None,
+                                          max_new_tokens=8, top_p=1e-6)
+            emb = m.diffusion.timestep_independent(latents[:, :20], x["dlat"], 86)
+            t = torch.full((1,), 3999, device=dev)
+            eps = (1 + a.cond_free_k) * m.diffusion(x["x"], t, precomputed_embeddings=emb) \
+                - a.cond_free_k * m.diffusion(x["x"], t, conditioning_free=True)
+            scores = m.rerank(x["text"][0], x["cands"])
+            wav = m.vocoder(x["mel"], x["noise"])
+        outs[dev] = dict(cond=cond, logits=logits, latents=latents, codes=g["codes"],
+                         dec_latents=g["latents"], emb=emb, eps=eps, scores=scores, wav=wav)
+    card_out, cpu_out = outs[device], outs["cpu"]
+    errs = {k: peak_err(card_out[k], cpu_out[k]) for k in
+            ("cond", "logits", "latents", "dec_latents", "emb", "eps", "scores", "wav")}
+    if not torch.equal(card_out["codes"].cpu(), cpu_out["codes"]):
+        raise AssertionError("Tortoise greedy codes differ card against CPU")
+    if not max(errs.values()) <= TORTOISE_TOL:
+        raise AssertionError(f"Tortoise card against CPU: {errs}")
+    log("Tortoise card against CPU on short inputs, as a share of each peak (tol 1e-4): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; 8 greedy decode steps of 2 rows identical (phase 18 at "
+        f"{time.time() - t_phase:.1f} s) | " + card)
+    del cpu, outs, card_out, cpu_out
+    gc.collect()
+
+    # K1 against the plain attention: 16 sampled candidates on one generator
+    ids = torch.tensor([model.tokenizer.encode("Tortoise speaks through sixteen candidates.")
+                        + [a.ar_stop_text_token]], device=device)
+    cond = model.get_random_conditioning_latents(torch.Generator(device).manual_seed(0))[0]
+    kw = dict(max_new_tokens=60, temperature=a.temperature, top_p=a.top_p,
+              repetition_penalty=a.repetition_penalty)
+    decode_attention.launches = 0
+    steps = model.autoregressive.decode_steps
+    with_kernel = model.autoregressive.generate(
+        cond.expand(16, -1, -1), ids.expand(16, -1), torch.Generator(device).manual_seed(7), **kw)
+    sync(device)
+    launches = decode_attention.launches
+    run_steps = model.autoregressive.decode_steps - steps
+    if cuda and launches != n_layers * run_steps:
+        raise AssertionError(f"Tortoise: {launches} K1 launches for {run_steps} steps")
+    with plain_decode_attention():
+        with_plain = model.autoregressive.generate(
+            cond.expand(16, -1, -1), ids.expand(16, -1), torch.Generator(device).manual_seed(7),
+            **kw)
+    sync(device)
+    if decode_attention.launches != launches:
+        raise AssertionError("the plain run launched the kernel")
+    if not torch.equal(with_kernel["codes"], with_plain["codes"]):
+        raise AssertionError("Tortoise codes differ through K1 and the plain attention")
+    L_pre = 1 + ids.shape[1] + 2 + 1
+    log(f"Tortoise AR: 16 sampled candidates x {run_steps} steps (temperature {a.temperature}, "
+        f"top_p {a.top_p}) identical through K1 and the plain attention on one generator; K1 "
+        f"launched {launches} times = {n_layers} x {run_steps} steps at B=16, cache "
+        f"{L_pre}-{L_pre + run_steps} keys | {card}")
+
+    # whole synthesize calls from a voice folder and from the random voice
+    launches_total = decode_attention.launches
+    with tempfile.TemporaryDirectory() as d:
+        voices = os.path.join(d, "voices")
+        os.makedirs(os.path.join(voices, "emma"))
+        for i, secs in enumerate((6.0, 4.0)):
+            save_wav(wav=reference_wav(seconds=secs, seed=10 + i),
+                     path=os.path.join(voices, "emma", f"{i}.wav"), sample_rate=22050)
+        sentence = "The quick brown fox jumps over the lazy dog."
+        for voice in ("emma", "random"):
+            decode_attention.launches = 0
+            steps = model.autoregressive.decode_steps
+            with stage_timer(model, device) as ms:
+                sync(device)
+                t0 = time.perf_counter()
+                out = model.synthesize(sentence, config, speaker_id=voice, voice_dirs=[voices],
+                                       max_mel_tokens=TORTOISE_CAP)
+                sync(device)
+                wall = (time.perf_counter() - t0) * 1e3
+            run_steps = model.autoregressive.decode_steps - steps
+            if cuda and decode_attention.launches != n_layers * run_steps:
+                raise AssertionError(f"synthesize: {decode_attention.launches} K1 launches for "
+                                     f"{run_steps} steps")
+            launches_total += decode_attention.launches
+            w = out["wav"]
+            if not np.isfinite(w).all() or w.std() == 0:
+                raise AssertionError(f"Tortoise synthesize ({voice}) gave no finite audio")
+            secs = len(w) / 24000
+            log(f"Tortoise synthesize ({voice}; 16 candidates capped at {TORTOISE_CAP} codes, "
+                f"{a.diffusion_iterations} DDIM steps with cond-free guidance): {secs:.2f} s of "
+                f"audio in {wall:.1f} ms (RTF {secs * 1e3 / wall:.2f}); stages (ms) "
+                + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                + f"; {run_steps} decode steps, K1 {decode_attention.launches} launches | {card}")
+            if cuda:  # kernel rows only: ~150k kernels a call, CPU rows would add minutes
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    model.synthesize(sentence, config, speaker_id=voice, voice_dirs=[voices],
+                                     max_mel_tokens=TORTOISE_CAP)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t1) * 1e6
+                log_profile(prof, f"Tortoise synthesize ({voice})", wall_us, card, top=5)
+            log(f"  (phase 18 at {time.time() - t_phase:.1f} s)")
+
+        # the zoo's tortoise-v2 (reference layout), the command line's --voice_dir
+        home = os.path.join(d, "home")
+        zoo = os.path.join(home, "tts_tpu", TORTOISE.replace("/", "--"))
+        write_tortoise_dir(zoo, model, with_clvp=not clvp_kw)
+        log(f"  (phase 18 at {time.time() - t_phase:.1f} s: the reference layout written)")
+        with offline_zoo(home):
+            by_name = TTS(model_name=TORTOISE, voice_dir=voices, device=device)
+            log(f"  (phase 18 at {time.time() - t_phase:.1f} s: loaded by zoo name)")
+            # the files hold the weights they were written from: the path load is
+            # the model in memory
+            loaded = by_name.synthesizer.tts_model
+            if clvp_kw:  # a rehearsal's small CLVP is not in the directory
+                model.clvp = None
+            for name in [n for n in ("autoregressive", "diffusion", "clvp", "vocoder")
+                         if getattr(model, n) is not None]:
+                want = getattr(model, name).state_dict()
+                got = getattr(loaded, name).state_dict()
+                if set(got) != set(want) or any(not torch.equal(got[k], want[k]) for k in want):
+                    raise AssertionError(f"tortoise-v2 by zoo name: the {name} weights differ")
+            say = dict(speaker_id="emma", voice_dirs=[voices], max_mel_tokens=40,
+                       num_autoregressive_samples=4, diffusion_iterations=5)
+            x = loaded.synthesize("Hello there.", config, **say)["wav"]
+            y = model.synthesize("Hello there.", config, **say)["wav"]
+            if x.shape != y.shape or float(np.abs(x - y).max()) != 0.0:
+                raise AssertionError("tortoise-v2 by zoo name differs from the path load")
+            del model, loaded
+            gc.collect()
+            api, cli = os.path.join(d, "api.wav"), os.path.join(d, "cli.wav")
+            silent(by_name.tts_to_file, "Hello there.", speaker="emma", file_path=api)
+            log(f"  (phase 18 at {time.time() - t_phase:.1f} s: TTS.tts_to_file)")
+            silent(synthesize_cli, ["--text", "Hello there.", "--model_name", TORTOISE,
+                                    "--voice_dir", voices, "--speaker_idx", "emma",
+                                    "--out_path", cli, "--device", str(device)])
+        steps_, sr = _int16_steps(cli, api)
+        if steps_ is None or steps_ > 1 or sr != 24000:
+            raise AssertionError(f"tts --voice_dir: {steps_} int16 steps from the API at {sr} Hz")
+        log(f"tortoise-v2 by zoo name (nothing fetched) equals the path load ({len(x)} samples); "
+            f"tts --model_name --voice_dir --speaker_idx emma within {steps_} int16 step of "
+            f"TTS.tts_to_file at {sr} Hz (the defaults: 500 codes, 16 candidates)")
+        del by_name
+    gc.collect()
+    line = f"phase 18 (Tortoise) took {time.time() - t_phase:.1f} s"
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f" | {card}")
+    return launches_total
+
+
 def main() -> int:
     try:
         import torch
@@ -5745,11 +6229,12 @@ def main() -> int:
     phase_vocoders(card)
     phase_style_tacotron(card)
     phase_voice_conversion(card)
+    kernel["launches"] += phase_xtts_v1(card) + phase_tortoise(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"chip_smoke.py: phases 1-16 took {time.time() - t_start:.1f} s | {card}")
+    log(f"chip_smoke.py: phases 1-18 took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({
         "ok": True,

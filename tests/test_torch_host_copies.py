@@ -811,3 +811,23 @@ def test_convert_freevc_and_wavlm_match_jax_leaf_for_leaf(kind):
     assert sorted(got) == sorted(want) and len(got) > 40
     for key in want:
         np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+def test_tortoise_copies_match_jax():
+    """The port's copy of the Tortoise BPE vocabulary is the JAX package's
+    asset byte for byte, and the Tortoise config serialises as the JAX one
+    does (a ``config.json`` of either package loads in the other)."""
+    import filecmp
+
+    import tts_tpu
+    import tts_tpu_torch
+    from tts_tpu.models.tortoise.config import TortoiseConfig as JaxTortoiseConfig
+    from tts_tpu_torch.models.tortoise.config import TortoiseConfig
+
+    asset = os.path.join("zoo", "assets", "tortoise_bpe.json")
+    assert filecmp.cmp(os.path.join(os.path.dirname(tts_tpu.__file__), asset),
+                       os.path.join(os.path.dirname(tts_tpu_torch.__file__), asset),
+                       shallow=False)
+    want = JaxTortoiseConfig().to_dict()
+    assert TortoiseConfig().to_dict() == want
+    assert TortoiseConfig.from_dict(want).to_dict() == want

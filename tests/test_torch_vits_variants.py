@@ -15,9 +15,10 @@ other VITS tests, so durations are equal. Tolerances: 1e-5 for modules
 short of the waveform (the iSTFT's overlap-add, the PQMF filter, the
 latent's resize), 1e-4 for waveforms.
 
-The batcher is held against the JAX batcher's grouped path (not against the
-serial path: an un-masked decoder's last samples depend on the bucket), with
-both planning on the port's ``DECODE_GROUP_OVERHEAD`` and on 0.
+The batcher's durations pass and groups are held against the JAX batcher's
+grouped path, with both planning on the port's ``DECODE_GROUP_OVERHEAD``
+and on 0; each group then decodes on its planned durations, where the JAX
+batcher redraws them (ROADMAP.md F16).
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -293,50 +294,139 @@ def overhead(value):
         batching.plan_decode_groups = port_orig
 
 
+@contextlib.contextmanager
+def first_draw_replayed(draw):
+    """The port's first noise draw returns ``draw``; later draws come from
+    their generators."""
+    from tts_tpu_torch.models.vits import modules
+
+    orig, calls = modules.normal, []
+
+    def replay(shape, generator):
+        calls.append(tuple(shape))
+        if len(calls) > 1:
+            return orig(shape, generator)
+        assert tuple(draw.shape) == tuple(shape), (draw.shape, shape)
+        return torch.from_numpy(draw).to(generator.device)
+
+    modules.normal = replay
+    try:
+        yield calls
+    finally:
+        modules.normal = orig
+
+
+@contextlib.contextmanager
+def recorded(obj, name, record):
+    """``obj.name`` wrapped so that each call's result is passed to
+    ``record`` first."""
+    real = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        record(out)
+        return out
+
+    setattr(obj, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
 @pytest.mark.parametrize("cost", ["card", "zero"])
-def test_grouped_dispatch_matches_jax_batcher(model_dir, cost, monkeypatch):
-    """Four sentences of mixed lengths through each batcher's ``_dispatch``:
-    one durations pass over the four, the same groups planned (two where
-    a dispatch costs nothing), each group decoded at its bucket; every
-    sentence within 1e-4 of the JAX batcher's. F2: the JAX package lets an
-    ``interpolate_z`` model take its packed path, so its grouped path is
-    compared with that model's packed decode refused."""
+def test_f16_grouped_dispatch_decodes_planned_durations(model_dir, cost, monkeypatch):
+    """F16. Four sentences of mixed lengths through each batcher's
+    ``_dispatch``: one durations pass over the four plans the groups (two
+    where a dispatch costs nothing), each group decoded at its bucket.
+
+    The JAX batcher draws the durations again in each group's decode, so a
+    sentence comes out at another length than the one it was planned at
+    (and one drawn longer than its bucket is cut there). The port decodes
+    each group on the planned durations: every sentence's ``y_lengths`` is
+    its planned length, and its audio is that group's ``inference`` on the
+    planned durations from the same generator, sample for sample. The
+    text encoder and the durations pass stay held to the JAX package's:
+    on the JAX draw, the same predicted lengths and the same groups. F2:
+    the JAX package lets an ``interpolate_z`` model take its packed path,
+    so its grouped path runs with that model's packed decode refused."""
     from tts_tpu.models.vits import Vits as JaxVits
 
     monkeypatch.setattr(JaxVits, "supports_packed_decode", False)
     value = synthesis.DECODE_GROUP_OVERHEAD if cost == "card" else 0
     jax_b = JaxDynamicBatcher(jax_synth(model_dir, use_griffin_lim=False), max_batch=4)
     port_b = DynamicBatcher(port_synth(model_dir), max_batch=4)
-    try:
-        ids = [port_b.model.tokenizer.text_to_ids(s) for s in SENTENCES]
-        jax_items = [JaxPending(np.asarray(i, np.int32), None, None) for i in ids]
-        plans = []
-        with overhead(value), jax_eager_draws() as draws:
-            jax_b._dispatch(jax_items)
-        items = [batching._Pending(np.asarray(i, np.int64)) for i in ids]
-        with overhead(value), replay_normals(draws):
-            planner = batching.plan_decode_groups
+    port = port_b.model
+    jax_plans, jax_lengths, plans, lengths = [], [], [], []
+
+    def jitted_inference(real):
+        def get(model):
+            infer = real(model)
 
             def recording(*args, **kwargs):
-                plans.append(planner(*args, **kwargs))
-                return plans[-1]
+                out = infer(*args, **kwargs)
+                jax_lengths.append(np.asarray(out["y_lengths"]))
+                return out
+            return recording
+        return get
 
-            batching.plan_decode_groups = recording
+    try:
+        ids = [port.tokenizer.text_to_ids(s) for s in SENTENCES]
+        jax_items = [JaxPending(np.asarray(i, np.int32), None, None) for i in ids]
+        monkeypatch.setattr(jax_synthesis, "get_jitted_inference",
+                            jitted_inference(jax_synthesis.get_jitted_inference))
+        with overhead(value), jax_eager_draws() as draws:
+            planner = jax_synthesis.plan_decode_groups
+            jax_synthesis.plan_decode_groups = lambda y, *a, **k: (
+                jax_plans.append((np.asarray(y), planner(y, *a, **k))) or jax_plans[-1][1])
             try:
-                port_b._dispatch(items)
+                jax_b._dispatch(jax_items)
+            finally:
+                jax_synthesis.plan_decode_groups = planner
+        items = [batching._Pending(np.asarray(i, np.int64)) for i in ids]
+        with overhead(value), first_draw_replayed(draws[0]) as calls:
+            planner = batching.plan_decode_groups
+            batching.plan_decode_groups = lambda y, *a, **k: (
+                plans.append((np.asarray(y), planner(y, *a, **k))) or plans[-1][1])
+            try:
+                with recorded(port, "inference",
+                              lambda out: lengths.append(out["y_lengths"].numpy())):
+                    port_b._dispatch(items)
             finally:
                 batching.plan_decode_groups = planner
+        with first_draw_replayed(draws[0]):
+            x, x_lengths = port_b._pad(items)
+            w_ceil = port.durations(x, x_lengths)
     finally:
         jax_b.close()
         port_b.close()
-    (groups,) = plans
-    assert len(draws) == 1 + 2 * len(groups)  # durations pass, then each group's decode
+
+    (jax_y, jax_groups), = jax_plans
+    (y_pred, groups), = plans
+    assert len(draws) == 1 + 2 * len(jax_groups)  # durations pass, then each group redraws
+    assert len(calls) == 1 + len(groups)  # durations pass, then each group's latent only
+    np.testing.assert_array_equal(y_pred, jax_y)
+    assert [(list(i), f) for i, f in groups] == [(list(i), f) for i, f in jax_groups]
     if cost == "zero":
         assert len(groups) == 2
-    for got, want in zip(items, jax_items, strict=True):
-        assert got.done.is_set() and got.error is None
-        assert got.wav.shape == want.wav.shape and got.wav.shape[0] % port_b.model.hop_length == 0
-        np.testing.assert_allclose(got.wav, want.wav, rtol=0, atol=WAV_ATOL)
+    planned = {i: min(int(y_pred[i]), frames) for idx, frames in groups for i in idx}
+    jax_decoded = {i: int(n) for (idx, _), ls in zip(jax_groups, jax_lengths)
+                   for i, n in zip(idx, ls)}
+    decoded = {i: int(n) for (idx, _), ls in zip(groups, lengths) for i, n in zip(idx, ls)}
+    assert any(jax_decoded[i] != planned[i] for i in planned), (jax_decoded, planned)
+    assert decoded == planned
+    hop = port.hop_length
+    for idx, frames in groups:
+        group = [items[i] for i in idx]
+        gx, gx_lengths = port_b._pad(group)
+        durations = torch.zeros(gx.shape[0], gx.shape[1], 1)
+        durations[: len(idx)] = w_ceil[idx, : gx.shape[1]]
+        want = port.inference(gx, gx_lengths, max_frames=frames, durations=durations)
+        wav = want["model_outputs"][..., 0].numpy()
+        for row, it in enumerate(group):
+            assert it.done.is_set() and it.error is None
+            assert len(it.wav) == planned[idx[row]] * hop
+            np.testing.assert_array_equal(it.wav, wav[row, : len(it.wav)])
 
 
 def test_grouped_lengths_capped_at_max_inference_len(tmp_path):

@@ -306,7 +306,7 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     the ForwardTTS family with its feed-forward layers, Overflow and
     NeuralHMM, AlignTTS and DelightfulTTS, the ParallelWaveGAN, UnivNet,
     WaveGrad and WaveRNN vocoders, the GST and Capacitron layers,
-    Tacotron v1, and FreeVC with WavLM (``vc/``) included: this test process
+    Tacotron v1, FreeVC with WavLM (``vc/``) and Tortoise included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -356,6 +356,10 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "from tts_tpu_torch.utils.convert import load_reference_freevc, load_reference_wavlm\n"
         "assert {'tts_tpu_torch.vc.configs', 'tts_tpu_torch.vc.modules.wavlm',\n"
         "        'tts_tpu_torch.vc.models.freevc', 'tts_tpu_torch.vc.models'} <= set(mods), mods\n"
+        "from tts_tpu_torch.utils.convert import convert_unified_voice, reference_clvp_state\n"
+        "assert {'tts_tpu_torch.models.tortoise.model', 'tts_tpu_torch.models.tortoise.layers',\n"
+        "        'tts_tpu_torch.models.tortoise.tokenizer',\n"
+        "        'tts_tpu_torch.models.tortoise.audio'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"

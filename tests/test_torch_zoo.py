@@ -410,13 +410,15 @@ TACOTRON2 = ["tts_models/en/ljspeech/tacotron2-DDC", "tts_models/en/ljspeech/tac
              "tts_models/ja/kokoro/tacotron2-DDC", "tts_models/en/ek1/tacotron2",
              "tts_models/en/ljspeech/tacotron2-DDC_ph", "tts_models/nl/mai/tacotron2-DDC"]
 HMM = ["tts_models/en/ljspeech/overflow", "tts_models/en/ljspeech/neural_hmm"]
+XTTS_V1 = "tts_models/multilingual/multi-dataset/xtts_v1.1"
+TORTOISE = "tts_models/en/multi-dataset/tortoise-v2"
 CAPACITRON = ["tts_models/en/blizzard2013/capacitron-t2-c50",
               "tts_models/en/blizzard2013/capacitron-t2-c150_v2"]
 
 
 def test_every_family_is_sorted_into_ported_or_an_item():
     """38 entries named VITS, the VITS ``jenny`` (by its description),
-    YourTTS, XTTS v2, the 7 GlowTTS entries (with a Multiband-MelGAN or
+    YourTTS, XTTS v2 and v1.1, Tortoise, the 7 GlowTTS entries (with a Multiband-MelGAN or
     HiFiGAN default vocoder, or none), the 10 Tacotron2 entries (their
     default vocoders a HiFiGAN, a MelGAN, ``ek1``'s WaveGrad, ``DDC_ph``'s
     UnivNet, ``nl/mai``'s ParallelWaveGAN), the 2 Capacitron Tacotron2
@@ -434,14 +436,14 @@ def test_every_family_is_sorted_into_ported_or_an_item():
               if not manage.unported_reason(n, manager.models_dict)]
     assert len([n for n in ported if "vits" in n]) == 38
     assert sorted(n for n in ported if "vits" not in n and n.startswith("tts_models/")) == \
-        sorted(["tts_models/en/jenny/jenny", XTTS, YOURTTS] + GLOW_TTS + TACOTRON2 + CAPACITRON
-               + FAST_PITCH + HMM)
+        sorted(["tts_models/en/jenny/jenny", XTTS, XTTS_V1, TORTOISE, YOURTTS] + GLOW_TTS
+               + TACOTRON2 + CAPACITRON + FAST_PITCH + HMM)
     vocoders = [n for n in ported if n.startswith("vocoder_models/")]
     assert len(vocoders) == 17 and all(
         any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan",
                              "parallel-wavegan", "univnet", "wavegrad")) for n in vocoders)
     assert "voice_conversion_models/multilingual/vctk/freevc24" in ported
-    assert len(_unported()) == 88 - 82 + 1
+    assert len(_unported()) == 88 - 84 + 1
     tacotrons = sorted(n for n in _unported() if "tacotron" in n)
     assert [manage.unported_reason(n, manager.models_dict).split("(")[-1] for n in tacotrons] \
         == ["ROADMAP.md F41)", "ROADMAP.md F36)"]

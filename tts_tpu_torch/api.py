@@ -28,10 +28,13 @@ Example::
     >>> vc.voice_conversion_to_file(source_wav="a.wav", target_wav="b.wav",
     ...                             file_path="out.wav")
     >>> vits.tts_with_vc_to_file("Hello world.", speaker_wav="b.wav", file_path="out.wav")
+    >>> tortoise = TTS("tts_models/en/multi-dataset/tortoise-v2", voice_dir="voices/")
+    >>> tortoise.tts_to_file("Hello world.", speaker="emma", file_path="out.wav")
 
 A zoo name loads through ``utils.manage.ModelManager``: a VITS, GlowTTS,
 Tacotron2 or FastPitch entry from its reference-layout checkpoint file and
-``config.json``, XTTS v2 from its directory, and an entry's
+``config.json``, XTTS (v2 and v1.1) and Tortoise (``tortoise-v2``) from
+their directories, and an entry's
 ``default_vocoder`` with it unless a ``vocoder_path`` is given. YourTTS
 (``tts_models/multilingual/multi-dataset/your_tts``) also loads the speaker
 encoder its directory ships (``model_se.pth.tar``, ``config_se.json``) unless
@@ -74,7 +77,8 @@ class TTS:
     ``speakers_file_path`` and ``language_ids_file_path`` replace the
     config's speaker and language files; ``encoder_path`` (with
     ``encoder_config_path``) is the speaker encoder that turns a
-    ``speaker_wav`` into a d-vector for a d-vector model. A
+    ``speaker_wav`` into a d-vector for a d-vector model; ``voice_dir`` is
+    Tortoise's folder of voices (``<voice_dir>/<speaker>/*.wav``). A
     ``model_name`` that contains ``voice_conversion`` loads a voice
     converter (``voice_converter``) instead of a TTS model. ``device``
     defaults to ``"cuda"`` and must exist."""
@@ -84,7 +88,8 @@ class TTS:
                  vocoder_config_path: Optional[str] = None, device="cuda",
                  speakers_file_path: Optional[str] = None,
                  language_ids_file_path: Optional[str] = None,
-                 encoder_path: Optional[str] = None, encoder_config_path: Optional[str] = None):
+                 encoder_path: Optional[str] = None, encoder_config_path: Optional[str] = None,
+                 voice_dir: Optional[str] = None):
         self.synthesizer: Optional[Synthesizer] = None
         self.voice_converter: Optional[Synthesizer] = None
         self.model_name = model_name
@@ -93,6 +98,7 @@ class TTS:
         self._language_ids_file_path = language_ids_file_path or ""
         self._encoder_path = encoder_path or ""
         self._encoder_config_path = encoder_config_path or ""
+        self._voice_dir = voice_dir
         if model_name and "voice_conversion" in model_name:
             self.load_vc_model_by_name(model_name)
         elif model_name:
@@ -134,6 +140,7 @@ class TTS:
             language_ids_file_path=self._language_ids_file_path,
             vocoder_checkpoint=vocoder_path or "", vocoder_config=vocoder_config or "",
             encoder_checkpoint=self._encoder_path, encoder_config=self._encoder_config_path,
+            voice_dir=self._voice_dir,
         )
 
     def load_vc_model_by_name(self, model_name: str) -> None:

@@ -36,6 +36,9 @@ Examples::
     python -m tts_tpu_torch.bin.synthesize \\
         --model_name voice_conversion_models/multilingual/vctk/freevc24 \\
         --source_wav source.wav --target_wav target.wav --out_path out.wav
+    python -m tts_tpu_torch.bin.synthesize --text "Hello world." \\
+        --model_name tts_models/en/multi-dataset/tortoise-v2 \\
+        --voice_dir voices/ --speaker_idx emma --out_path out.wav
 
 ``--model_name`` loads a zoo model from ``$TTS_HOME/tts_tpu/`` (fetched if
 absent; ``TTS_TPU_MODELS_FILE`` replaces the catalog); a family the port
@@ -65,9 +68,11 @@ command line and change nothing. With ``--pipe_out`` the wav bytes are the
 only thing written to stdout: the log lines go to stderr (the JAX
 command line prints them into the same stream).
 
-The JAX command line's one other flag, the voice directory
-(``--voice_dir``), waits for the models it serves, Tortoise and Bark
-(ROADMAP.md items 16c and 16d), and argparse rejects it until then.
+``--voice_dir`` gives Tortoise its folder of voices: ``--speaker_idx
+emma`` clones ``<voice_dir>/emma/*.wav``, and ``--speaker_idx random`` (or
+none) speaks with a random voice. Bark, the JAX command line's other
+``--voice_dir`` model, waits for ROADMAP.md item 16d; other models ignore
+the flag, as in the JAX command line.
 """
 
 from __future__ import annotations
@@ -134,6 +139,8 @@ def make_parser() -> argparse.ArgumentParser:
                         help="voice conversion: the recording to convert")
     parser.add_argument("--target_wav", type=str, default=None,
                         help="voice conversion: a recording of the voice wanted")
+    parser.add_argument("--voice_dir", type=str, default=None,
+                        help="Tortoise's voices: <voice_dir>/<speaker_idx>/*.wav")
     parser.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
     # accepted for compatibility with the reference command line
     parser.add_argument("--use_cuda", action="store_true",
@@ -171,7 +178,8 @@ def main(argv=None):
                   vocoder_config_path=vocoder_config_path, device=args.device,
                   speakers_file_path=args.speakers_file_path,
                   language_ids_file_path=args.language_ids_file_path,
-                  encoder_path=args.encoder_path, encoder_config_path=args.encoder_config_path)
+                  encoder_path=args.encoder_path, encoder_config_path=args.encoder_config_path,
+                  voice_dir=args.voice_dir)
 
         if args.list_speaker_idxs:
             print(" > Available speaker ids: (set --speaker_idx to one of these):")

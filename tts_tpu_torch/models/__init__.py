@@ -3,7 +3,8 @@ and the vocoder configs by name.
 
 XTTS, VITS, GlowTTS, Tacotron2 (with GST or Capacitron), Tacotron v1, the
 ForwardTTS family (FastPitch, FastSpeech, FastSpeech2, SpeedySpeech),
-Overflow, NeuralHMM, AlignTTS and DelightfulTTS are ported so far, with every vocoder config of the JAX
+Overflow, NeuralHMM, AlignTTS, DelightfulTTS and Tortoise are ported so far, with every vocoder
+config of the JAX
 package (HiFiGAN, the MelGANs, ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN
 and the generic ``gan``; their generators in ``vocoder.models.setup_generator``)
 the speaker encoders' configs, and FreeVC's config (``freevc``; its model is
@@ -38,6 +39,8 @@ _MODELS = {
                   "tts_tpu_torch.models.align_tts.model:AlignTTS"),
     "delightful_tts": ("tts_tpu_torch.models.delightful_tts.config:DelightfulTTSConfig",
                        "tts_tpu_torch.models.delightful_tts.model:DelightfulTTS"),
+    "tortoise": ("tts_tpu_torch.models.tortoise.config:TortoiseConfig",
+                 "tts_tpu_torch.models.tortoise.model:Tortoise"),
 }
 _ENCODER_CONFIGS = {
     "speaker_encoder": "tts_tpu_torch.encoder.configs:SpeakerEncoderConfig",

@@ -246,22 +246,37 @@ class VitsModule(nn.Module):
         return torch.ceil(w) * x_mask, m_p, logs_p, x_mask
 
     @torch.no_grad()
+    def durations(self, x, x_lengths, generator: torch.Generator,
+                  aux_input: Optional[Dict] = None) -> torch.Tensor:
+        """Each token's frame count ``w_ceil [B, T_x, 1]``, as the decode
+        that starts from the same generator state would take it."""
+        return self._durations(x, x_lengths, generator, *self._cond_vectors(aux_input))[0]
+
+    @torch.no_grad()
     def infer_durations(self, x, x_lengths, generator: torch.Generator,
                         aux_input: Optional[Dict] = None) -> torch.Tensor:
         """Predicted output frame counts ``[B]`` (int32, at least 1)."""
-        w_ceil = self._durations(x, x_lengths, generator, *self._cond_vectors(aux_input))[0]
+        w_ceil = self.durations(x, x_lengths, generator, aux_input)
         return torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)
 
     @torch.no_grad()
     def inference(self, x, x_lengths, generator: torch.Generator, max_frames: int = 1000,
-                  aux_input: Optional[Dict] = None) -> Dict[str, Any]:
+                  aux_input: Optional[Dict] = None,
+                  durations: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """Text ids ``[B, T_x]`` → waveform ``[B, max_frames * hop, 1]``. The
         whole frame budget is decoded, as in the JAX package: frames past
         ``y_lengths`` are zero going into the decoder, but its convolutions
-        reach over the boundary."""
+        reach over the boundary. ``durations`` (``w_ceil [B, T_x, 1]``, from
+        :meth:`durations`) are taken in place of the duration predictor's,
+        which then draws nothing: the latent's noise is the generator's
+        first draw."""
         a = self.args
         g, lang = self._cond_vectors(aux_input)
-        w_ceil, m_p, logs_p, x_mask = self._durations(x, x_lengths, generator, g, lang)
+        if durations is None:
+            w_ceil, m_p, logs_p, x_mask = self._durations(x, x_lengths, generator, g, lang)
+        else:
+            _, m_p, logs_p, x_mask = self.text_encoder(x, x_lengths, lang)
+            w_ceil = durations.to(x_mask.dtype) * x_mask
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), 1, max_frames).to(torch.int32)
         y_mask = sequence_mask(y_lengths, max_frames)[:, :, None].to(x_mask.dtype)
         attn_mask = x_mask * y_mask.transpose(1, 2)
@@ -502,17 +517,27 @@ class Vits:
         return self.module.infer_durations(x, x_lengths, self._generator(generator),
                                            aux_input=aux_input)
 
+    def durations(self, x, x_lengths, generator: Optional[torch.Generator] = None,
+                  aux_input: Optional[Dict] = None) -> torch.Tensor:
+        """Each token's frame count ``[B, T_x, 1]`` (:meth:`VitsModule.durations`);
+        :meth:`infer_durations` sums them."""
+        return self.module.durations(x, x_lengths, self._generator(generator),
+                                     aux_input=aux_input)
+
     def inference(self, x, x_lengths, max_frames: int = 1000,
                   generator: Optional[torch.Generator] = None,
-                  aux_input: Optional[Dict] = None) -> Dict[str, Any]:
+                  aux_input: Optional[Dict] = None,
+                  durations: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """``aux_input``: ``speaker_ids [B]``, ``d_vectors [B, C]`` and
         ``language_ids [B]`` on the model's device, as the model takes
-        them."""
+        them. ``durations`` (from :meth:`durations`) replace the duration
+        predictor's draw."""
         if self.args.max_inference_len:
             # cap the decoder length (reference vits.py:650,1167)
             max_frames = min(max_frames, int(self.args.max_inference_len))
         return self.module.inference(x, x_lengths, self._generator(generator),
-                                     max_frames=max_frames, aux_input=aux_input)
+                                     max_frames=max_frames, aux_input=aux_input,
+                                     durations=durations)
 
     @property
     def supports_packed_decode(self) -> bool:

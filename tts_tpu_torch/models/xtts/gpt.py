@@ -3,7 +3,8 @@
 
 Sequence layout: ``[cond_latents | start_text text… stop_text | start_audio
 codes… stop_audio]``, with separate learned position tables for the text and
-mel segments. Module and parameter names mirror the flax ones, so
+mel segments. The conditioning latents are the perceiver's 32 (v2), or
+without it (the v1 layout) one per conditioning mel frame. Module and parameter names mirror the flax ones, so
 ``utils.convert.xtts_from_jax_params`` maps a JAX param tree by rule.
 """
 
@@ -127,6 +128,7 @@ class XttsGPT(nn.Module):
         stop_text_token: int = 0,
         max_text_tokens: int = 402,
         max_mel_tokens: int = 605,
+        use_perceiver_resampler: bool = True,
     ):
         super().__init__()
         D = model_dim
@@ -135,9 +137,11 @@ class XttsGPT(nn.Module):
         self.start_text_token, self.stop_text_token = start_text_token, stop_text_token
         self.max_mel_tokens = max_mel_tokens
         self.conditioning_encoder = ConditioningEncoder(D, attn_blocks=6, num_attn_heads=heads)
+        # the XTTS v1 layout has no perceiver: every conditioning frame is a
+        # prompt latent
         self.conditioning_perceiver = PerceiverResampler(
             dim=D, depth=2, num_latents=32, dim_head=64, heads=8
-        )
+        ) if use_perceiver_resampler else None
         self.text_embedding = nn.Embedding(number_text_tokens, D)
         self.mel_embedding = nn.Embedding(num_audio_tokens, D)
         self.text_pos_embedding = nn.Parameter(torch.empty(max_text_tokens + 2, D))
@@ -166,8 +170,10 @@ class XttsGPT(nn.Module):
 
     # ------------------------------------------------------------------
     def get_style_emb(self, cond_mels: torch.Tensor) -> torch.Tensor:
-        """cond mel ``[B, T, 80]`` → conditioning latents ``[B, 32, D]``."""
-        return self.conditioning_perceiver(self.conditioning_encoder(cond_mels.to(self.dtype)))
+        """cond mel ``[B, T, 80]`` → conditioning latents: ``[B, 32, D]``
+        through the perceiver, ``[B, T, D]`` without it (the v1 layout)."""
+        h = self.conditioning_encoder(cond_mels.to(self.dtype))
+        return h if self.conditioning_perceiver is None else self.conditioning_perceiver(h)
 
     def _embed_text(self, text_ids):
         return self.text_embedding(text_ids) + self.text_pos_embedding[None, : text_ids.shape[1]]

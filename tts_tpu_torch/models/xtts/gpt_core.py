@@ -11,7 +11,9 @@ slots past the prefix never contribute there either.
 
 Ring attention (``seq_axis``) and rematerialization (``remat``) are
 training-only in the JAX package and are not ported; neither are the
-bias-free and exact-gelu variants that only Bark and Tortoise use.
+bias-free and exact-gelu variants that only Bark uses. Tortoise's
+``UnifiedVoice`` runs on this core as it is (biases, the tanh gelu,
+``ln_f``), as it does on the JAX package's defaults.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 ``tts_tpu/models/xtts/model.py``).
 
 Pipeline: reference audio → (GPT conditioning latents through the
-perceiver, speaker d-vector through the SE-ResNet) → KV-cached GPT decode of
+perceiver, or one per coarse mel frame in the v1 layout; speaker d-vector
+through the SE-ResNet) → KV-cached GPT decode of
 mel codes → GPT latents → HiFi decoder → 24 kHz waveform. Streaming yields
 crossfaded chunks every ``stream_chunk_size`` tokens.
 
@@ -59,10 +60,6 @@ class Xtts(nn.Module):
         super().__init__()
         self.config = config
         self.args = a = config.model_args
-        if not a.gpt_use_perceiver_resampler:
-            raise NotImplementedError(
-                "the XTTS v1 layout (no perceiver resampler) is not ported yet"
-            )
         if a.gpt_int8_weights:
             raise NotImplementedError(
                 "int8 GPT weights (gpt_int8_weights=True) are not ported to tts_tpu_torch yet "
@@ -80,6 +77,7 @@ class Xtts(nn.Module):
             stop_text_token=a.gpt_stop_text_token or 0,
             max_text_tokens=a.gpt_max_text_tokens,
             max_mel_tokens=a.gpt_max_audio_tokens,
+            use_perceiver_resampler=a.gpt_use_perceiver_resampler,
         )
         self.hifigan_decoder = HifiDecoder(
             input_sample_rate=a.input_sample_rate,
@@ -191,13 +189,20 @@ class Xtts(nn.Module):
     def get_gpt_cond_latents(
         self, audio: np.ndarray, sr: int, length: int = 30, chunk_length: int = 6
     ) -> torch.Tensor:
-        """Reference audio → GPT conditioning latents ``[1, 32, D]``, the mean
-        over ``chunk_length``-second chunks."""
+        """Reference audio → GPT conditioning latents: ``[1, 32, D]``, the
+        mean over ``chunk_length``-second chunks; in the v1 layout (no
+        perceiver) one coarse mel over the whole clip (``n_fft`` 4096, hop
+        1024), each frame a latent ``[1, T, D]``, as the JAX package does."""
         if sr != 22050:
             audio = resample_wav(audio, sr, 22050)
         if length > 0:
             audio = audio[: 22050 * length]
         dev = self.device
+        if not self.args.gpt_use_perceiver_resampler:
+            mel = wav_to_mel_cloning(torch.as_tensor(audio, device=dev)[None],
+                                     mel_norms=self.mel_stats, n_fft=4096, hop_length=1024,
+                                     win_length=4096)
+            return self.gpt.get_style_emb(mel)
         style_embs = []
         step = 22050 * chunk_length
         for i in range(0, len(audio), step):

@@ -14,7 +14,8 @@ F2) takes the JAX batcher's grouped path instead: one durations pass over
 the batch, then at most two groups of similar predicted length
 (``utils.synthesis.plan_decode_groups``), each decoded through
 ``Vits.inference`` at its own 32-frame bucket, capped at
-``max_inference_len`` (F3). Each caller gets its sentences' waveforms
+``max_inference_len`` (F3), on the durations its plan was made on
+(ROADMAP.md F16). Each caller gets its sentences' waveforms
 joined with the serial path's 10000-sample gap.
 
 Serves end-to-end waveform models with a durations pass (VITS). Models with
@@ -184,10 +185,12 @@ class DynamicBatcher:
             it.wav = wav
             it.done.set()
 
-    def _decode(self, x, x_lengths, frames: int, aux) -> List[np.ndarray]:
-        """``inference`` of the padded rows at ``frames``; each row's
-        waveform cut at its ``y_lengths``."""
-        out = self.model.inference(x, x_lengths, max_frames=frames, aux_input=aux)
+    def _decode(self, x, x_lengths, frames: int, aux, durations=None) -> List[np.ndarray]:
+        """``inference`` of the padded rows at ``frames`` (on the given
+        ``durations`` when there are any); each row's waveform cut at its
+        ``y_lengths``."""
+        out = self.model.inference(x, x_lengths, max_frames=frames, aux_input=aux,
+                                   durations=durations)
         lengths = out["y_lengths"].cpu().numpy()
         wav = out["model_outputs"][..., 0].float().cpu().numpy()
         hop = self.model.hop_length
@@ -198,18 +201,22 @@ class DynamicBatcher:
         the durations pass over the whole batch plans at most two length
         groups in 32-frame buckets, and each group decodes at its bucket,
         capped at ``max_inference_len`` (F3), in a batch of its own. Each
-        group's decode draws its own duration noise, as in the JAX
-        package."""
+        group decodes on the durations the plan was made on, its rows at
+        its own width, so no sentence comes out longer than its bucket; the
+        JAX package redraws them in each group (ROADMAP.md F16)."""
         model = self.model
         x, x_lengths = self._pad(batch)
-        y_pred = model.infer_durations(x, x_lengths, aux_input=self._aux(batch, x.shape[0]))
-        y_pred = y_pred[: len(batch)].cpu().numpy()
+        w_ceil = model.durations(x, x_lengths, aux_input=self._aux(batch, x.shape[0]))
+        y_pred = torch.clamp(w_ceil.sum(dim=(1, 2)), min=1.0)[: len(batch)].cpu().numpy()
         cap = int(model.args.max_inference_len or budget)
         groups = plan_decode_groups(y_pred, multiple=32, cap=budget, max_groups=2)
         for idx, frames in groups:
             items = [batch[i] for i in idx]
             x, x_lengths = self._pad(items)
-            wavs = self._decode(x, x_lengths, min(frames, cap), self._aux(items, x.shape[0]))
+            planned = w_ceil.new_zeros((x.shape[0], x.shape[1], 1))
+            planned[: len(idx)] = w_ceil[idx, : x.shape[1]]
+            wavs = self._decode(x, x_lengths, min(frames, cap), self._aux(items, x.shape[0]),
+                                durations=planned)
             for it, wav in zip(items, wavs):
                 it.wav = wav
                 it.done.set()

@@ -762,13 +762,19 @@ def convert_xtts_gpt(
     heads=16,
     cond_attn_blocks=6,
     perceiver_depth=2,
-    use_perceiver=True,
+    use_perceiver=None,
     prefix="gpt.",
 ):
     """Full XTTS GPT stack (reference gpt.py:88 GPT).  ``state`` is the
     checkpoint dict; ``prefix`` is where the GPT lives (``"gpt."`` inside a
-    full XTTS checkpoint, ``""`` for a bare GPT state dict)."""
+    full XTTS checkpoint, ``""`` for a bare GPT state dict).
+    ``use_perceiver=None`` reads the layout from the checkpoint: one without
+    ``conditioning_perceiver.*`` (XTTS v1) converts without the perceiver.
+    The JAX package's copy defaults to ``True`` and raises ``KeyError`` on a
+    v1 checkpoint, in ``convert_xtts`` too (ROADMAP.md F46)."""
     s = _subdict(state, prefix) if prefix else dict(state)
+    if use_perceiver is None:
+        use_perceiver = "conditioning_perceiver.latents" in s
     p = {
         "conditioning_encoder": convert_conditioning_encoder(
             s, "conditioning_encoder.", heads, cond_attn_blocks
@@ -849,7 +855,7 @@ def convert_hifi_decoder(state, prefix="hifigan_decoder."):
 
 
 def convert_xtts(state, layers=30, heads=16):
-    """Full XTTS v2 checkpoint → (gpt_params, decoder_params) pair for
+    """Full XTTS checkpoint → (gpt_params, decoder_params) pair for
     :class:`tts_tpu.models.xtts.model.Xtts`."""
     gpt_params = convert_xtts_gpt(state, layers=layers, heads=heads, prefix="gpt.")
     decoder_params = convert_hifi_decoder(state, prefix="hifigan_decoder.")
@@ -2237,3 +2243,328 @@ def reference_freevc_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.nd
             v = v[:, :, None]
         out[_reference_key(key, _FREEVC_RULES)] = v
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tortoise (copied from ``tts_tpu/utils/convert.py:872-905`` and
+# ``:1621-1821``, unchanged): the bundled UnivNet, the diffusion decoder, CLVP
+# and UnifiedVoice; then the carrier from JAX params and the reference-layout
+# writers.
+# ---------------------------------------------------------------------------
+
+
+def convert_tortoise_univnet(state, num_blocks=3, kpnet_res_blocks=3, lvc_convs=4):
+    """Tortoise-bundled UnivNet vocoder (reference
+    ``TTS/tts/layers/tortoise/vocoder.py:277`` — ``vocoder.pth`` under the
+    ``model_g`` subkey).  Use with ``UnivnetGenerator(pad_mode="reflect",
+    kpnet_lrelu_slope=0.2, final_lrelu_slope=0.2,
+    kpnet_residual_style="per_block", cond_channels=100)``."""
+    if "model_g" in state:
+        state = state["model_g"]
+    state = fold_weight_norm(state)
+    p = {
+        "first_conv": _plain_conv(state, "conv_pre"),
+        "last_conv": _plain_conv(state, "conv_post.1"),
+    }
+    for i in range(num_blocks):
+        k = f"res_stack.{i}"
+        blk = {
+            "upsample": _convtranspose(state, f"{k}.convt_pre.1"),
+            "kernel_predictor": {
+                "input_conv": _plain_conv(state, f"{k}.kernel_predictor.input_conv.0"),
+                "kernel_conv": _plain_conv(state, f"{k}.kernel_predictor.kernel_conv"),
+                "bias_conv": _plain_conv(state, f"{k}.kernel_predictor.bias_conv"),
+            },
+        }
+        for d in range(lvc_convs):
+            blk[f"conv_{d}"] = _plain_conv(state, f"{k}.conv_blocks.{d}.1")
+        for r in range(kpnet_res_blocks):
+            blk["kernel_predictor"][f"res_{r}a"] = _plain_conv(
+                state, f"{k}.kernel_predictor.residual_convs.{r}.1"
+            )
+            blk["kernel_predictor"][f"res_{r}b"] = _plain_conv(
+                state, f"{k}.kernel_predictor.residual_convs.{r}.3"
+            )
+        p[f"lvc_{i}"] = blk
+    return {"params": p}
+
+
+def _tort_gn(state, key):
+    return {"scale": state[key + ".weight"], "bias": state[key + ".bias"]}
+
+
+def _tort_conv(state, key):
+    p = {"kernel": conv1d_kernel(state[key + ".weight"])}
+    if key + ".bias" in state:
+        p["bias"] = state[key + ".bias"]
+    return p
+
+
+def _tort_attn_block(state, key):
+    p = {
+        "norm": _tort_gn(state, key + ".norm"),
+        "qkv": _tort_conv(state, key + ".qkv"),
+        "proj_out": _tort_conv(state, key + ".proj_out"),
+    }
+    rel = key + ".relative_pos_embeddings.relative_attention_bias.weight"
+    if rel in state:
+        p["relative_attention_bias"] = state[rel]
+    return p
+
+
+def _tort_resblock(state, key):
+    p = {
+        "in_norm": _tort_gn(state, key + ".in_layers.0"),
+        "in_conv": _tort_conv(state, key + ".in_layers.2"),
+        "emb": {
+            "kernel": linear_kernel(state[key + ".emb_layers.1.weight"]),
+            "bias": state[key + ".emb_layers.1.bias"],
+        },
+        "out_norm": _tort_gn(state, key + ".out_layers.0"),
+        "out_conv": _tort_conv(state, key + ".out_layers.3"),
+    }
+    if key + ".skip_connection.weight" in state:
+        p["skip"] = _tort_conv(state, key + ".skip_connection")
+    return p
+
+
+def _tort_diff_layer(state, key):
+    return {
+        "resblk": _tort_resblock(state, key + ".resblk"),
+        "attn": _tort_attn_block(state, key + ".attn"),
+    }
+
+
+def convert_diffusion_decoder(state, num_layers=10) -> Dict[str, Any]:
+    """Reference ``DiffusionTts`` state dict → flax params for
+    :class:`tts_tpu.models.tortoise.layers.DiffusionTts` (latent path;
+    the code_embedding/code_converter training-only branch and the
+    mel_head code-pred head are not carried)."""
+    p: Dict[str, Any] = {
+        "inp_block": _tort_conv(state, "inp_block"),
+        "time_embed_0": {
+            "kernel": linear_kernel(state["time_embed.0.weight"]),
+            "bias": state["time_embed.0.bias"],
+        },
+        "time_embed_2": {
+            "kernel": linear_kernel(state["time_embed.2.weight"]),
+            "bias": state["time_embed.2.bias"],
+        },
+        "integrating_conv": _tort_conv(state, "integrating_conv"),
+        "out_norm": _tort_gn(state, "out.0"),
+        "out_conv": _tort_conv(state, "out.2"),
+        "unconditioned_embedding": np.transpose(state["unconditioned_embedding"], (0, 2, 1)),
+        "lat_conv": _tort_conv(state, "latent_conditioner.0"),
+        "code_norm": _tort_gn(state, "code_norm"),
+        "ctx_conv_0": _tort_conv(state, "contextual_embedder.0"),
+        "ctx_conv_1": _tort_conv(state, "contextual_embedder.1"),
+    }
+    for i in range(4):
+        p[f"lat_attn_{i}"] = _tort_attn_block(state, f"latent_conditioner.{i + 1}")
+    for i in range(5):
+        p[f"ctx_attn_{i}"] = _tort_attn_block(state, f"contextual_embedder.{i + 2}")
+    for i in range(3):
+        p[f"cti_{i}"] = _tort_diff_layer(state, f"conditioning_timestep_integrator.{i}")
+    for i in range(num_layers):
+        p[f"layer_{i}"] = _tort_diff_layer(state, f"layers.{i}")
+    for i in range(3):
+        p[f"post_{i}"] = _tort_resblock(state, f"layers.{num_layers + i}")
+    return {"params": p}
+
+
+def convert_clvp(state, depth=20) -> Dict[str, Any]:
+    """Reference ``CLVP`` (use_xformers) state dict → flax params for
+    :class:`tts_tpu.models.tortoise.layers.CLVP`."""
+
+    def enc(prefix):
+        e: Dict[str, Any] = {}
+        for i in range(depth):
+            a = f"{prefix}.transformer.attn_layers.layers.{2 * i}"
+            f = f"{prefix}.transformer.attn_layers.layers.{2 * i + 1}"
+            wrap_a = ".1.wrap" if a + ".1.wrap.to_q.weight" in state else ".1"
+            wrap_f = ".1.wrap" if f + ".1.wrap.net.0.proj.weight" in state else ".1"
+            e[f"attn_norm_{i}"] = {"g": state[a + ".0.0.g"]}
+            e[f"attn_{i}"] = {
+                "to_q": {"kernel": linear_kernel(state[a + wrap_a + ".to_q.weight"])},
+                "to_k": {"kernel": linear_kernel(state[a + wrap_a + ".to_k.weight"])},
+                "to_v": {"kernel": linear_kernel(state[a + wrap_a + ".to_v.weight"])},
+                "to_out": {
+                    "kernel": linear_kernel(state[a + wrap_a + ".to_out.weight"]),
+                    "bias": state[a + wrap_a + ".to_out.bias"],
+                },
+            }
+            e[f"ff_norm_{i}"] = {"g": state[f + ".0.0.g"]}
+            e[f"ff_{i}"] = {
+                "proj": {
+                    "kernel": linear_kernel(state[f + wrap_f + ".net.0.proj.weight"]),
+                    "bias": state[f + wrap_f + ".net.0.proj.bias"],
+                },
+                "out": {
+                    "kernel": linear_kernel(state[f + wrap_f + ".net.3.weight"]),
+                    "bias": state[f + wrap_f + ".net.3.bias"],
+                },
+            }
+        e["final_norm"] = {
+            "scale": state[prefix + ".transformer.norm.weight"],
+            "bias": state[prefix + ".transformer.norm.bias"],
+        }
+        return e
+
+    p = {
+        "text_emb": {"embedding": state["text_emb.weight"]},
+        "speech_emb": {"embedding": state["speech_emb.weight"]},
+        "to_text_latent": {"kernel": linear_kernel(state["to_text_latent.weight"])},
+        "to_speech_latent": {"kernel": linear_kernel(state["to_speech_latent.weight"])},
+        "temperature": np.asarray(state["temperature"]).reshape(()),
+        "text_transformer": enc("text_transformer"),
+        "speech_transformer": enc("speech_transformer"),
+    }
+    return {"params": p}
+
+
+def convert_unified_voice(state, layers=30) -> Dict[str, Any]:
+    """Reference Tortoise ``UnifiedVoice`` state dict → flax params for
+    :class:`tts_tpu.models.tortoise.model.UnifiedVoice` (HF GPT2 core via
+    ``convert_gpt2_core``; arch_utils attention conditioning encoder)."""
+    cond: Dict[str, Any] = {
+        "init": {
+            "kernel": state["conditioning_encoder.init.weight"][:, :, 0].T,
+            "bias": state["conditioning_encoder.init.bias"],
+        }
+    }
+    for i in range(6):
+        cond[f"attn_{i}"] = _tort_attn_block(state, f"conditioning_encoder.attn.{i}")
+    p: Dict[str, Any] = {
+        "conditioning_encoder": cond,
+        "text_embedding": {"embedding": state["text_embedding.weight"]},
+        "mel_embedding": {"embedding": state["mel_embedding.weight"]},
+        "text_pos_embedding": state["text_pos_embedding.emb.weight"],
+        "mel_pos_embedding": state["mel_pos_embedding.emb.weight"],
+        "gpt": convert_gpt2_core(state, prefix="gpt.", layers=layers),
+        "final_norm": {"scale": state["final_norm.weight"], "bias": state["final_norm.bias"]},
+        "text_head": {
+            "kernel": linear_kernel(state["text_head.weight"]),
+            "bias": state["text_head.bias"],
+        },
+        "mel_head": {
+            "kernel": linear_kernel(state["mel_head.weight"]),
+            "bias": state["mel_head.bias"],
+        },
+    }
+    return {"params": p}
+
+
+def tortoise_from_jax_params(ar_params: Mapping, diff_params: Mapping,
+                             clvp_params: Mapping = None,
+                             vocoder_params: Mapping = None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's Tortoise params (``ar_params``, ``diff_params`` and,
+    where there are any, ``clvp_params`` and ``vocoder_params``) → the
+    state_dicts of the port's ``autoregressive``, ``diffusion``, ``clvp``
+    and ``vocoder``, by the generic rules."""
+    parts = {"autoregressive": ar_params, "diffusion": diff_params, "clvp": clvp_params,
+             "vocoder": vocoder_params}
+    return {name: flax_to_state_dict(p) for name, p in parts.items() if p is not None}
+
+
+def _gpt2_reference_key(key: str) -> str:
+    return re.sub(r"\.mlp_(fc|proj)\.", lambda m: f".mlp.c_{m.group(1)}.", key)
+
+
+def reference_unified_voice_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``UnifiedVoice`` in the reference's names
+    and layouts (``autoregressive.pth``): the conditioning encoder's input
+    as a 1x1 conv, the position tables under ``.emb``, the GPT's weights as
+    HF ``Conv1D`` ``[in, out]``. :func:`convert_unified_voice` maps it back."""
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        if key == "conditioning_encoder.init.weight":
+            v = v[:, :, None]
+        elif key in ("text_pos_embedding", "mel_pos_embedding"):
+            key = key + ".emb.weight"
+        elif key.startswith("gpt.h.") and key.endswith("weight") and v.ndim == 2:
+            v = v.T  # HF Conv1D
+        out[_gpt2_reference_key(key)] = np.ascontiguousarray(v)
+    return out
+
+
+_TORT_BLOCK_RULES = (
+    (r"\.in_norm\.", ".in_layers.0."), (r"\.in_conv\.", ".in_layers.2."),
+    (r"\.emb\.", ".emb_layers.1."), (r"\.out_norm\.", ".out_layers.0."),
+    (r"\.out_conv\.", ".out_layers.3."), (r"\.skip\.", ".skip_connection."),
+    (r"\.relative_attention_bias$", ".relative_pos_embeddings.relative_attention_bias.weight"),
+)
+
+
+def reference_diffusion_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``DiffusionTts`` in the reference's names
+    (``diffusion_decoder.pth``: ``conditioning_timestep_integrator``,
+    ``layers`` with the three post ResBlocks after the diffusion layers,
+    ``contextual_embedder``, ``latent_conditioner``, the ``in_layers`` /
+    ``emb_layers`` / ``out_layers`` of each ResBlock).
+    :func:`convert_diffusion_decoder` maps it back."""
+    n_layers = len({k.split(".")[0] for k in state if re.match(r"layer_\d+\.", k)})
+    rules = (
+        (r"^time_embed_(\d)\.", r"time_embed.\1."),
+        (r"^out_norm\.", "out.0."), (r"^out_conv\.", "out.2."),
+        (r"^lat_conv\.", "latent_conditioner.0."),
+        (r"^lat_attn_(\d+)\.", lambda m: f"latent_conditioner.{int(m.group(1)) + 1}."),
+        (r"^ctx_conv_(\d)\.", r"contextual_embedder.\1."),
+        (r"^ctx_attn_(\d+)\.", lambda m: f"contextual_embedder.{int(m.group(1)) + 2}."),
+        (r"^cti_(\d+)\.", r"conditioning_timestep_integrator.\1."),
+        (r"^layer_(\d+)\.", r"layers.\1."),
+        (r"^post_(\d+)\.", lambda m: f"layers.{n_layers + int(m.group(1))}."),
+    ) + _TORT_BLOCK_RULES
+    out = {}
+    for key, value in state.items():
+        v = value.detach().cpu().numpy()
+        if key == "unconditioned_embedding":
+            v = np.transpose(v, (0, 2, 1))
+        out[_reference_key(key, rules)] = v
+    return out
+
+
+def reference_clvp_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``CLVP`` in the reference's xtransformers
+    names (``clvp2.pth``: ``<side>_transformer.transformer.attn_layers.layers``,
+    attention at even and feed-forward at odd indices, each ``[norm, block]``,
+    and the wrapper's final ``norm``). :func:`convert_clvp` maps it back."""
+    rules = (
+        (r"^(\w+_transformer)\.attn_norm_(\d+)\.g$",
+         lambda m: f"{m.group(1)}.transformer.attn_layers.layers.{2 * int(m.group(2))}.0.0.g"),
+        (r"^(\w+_transformer)\.attn\.(\d+)\.",
+         lambda m: f"{m.group(1)}.transformer.attn_layers.layers.{2 * int(m.group(2))}.1."),
+        (r"^(\w+_transformer)\.ff_norm_(\d+)\.g$",
+         lambda m: f"{m.group(1)}.transformer.attn_layers.layers.{2 * int(m.group(2)) + 1}.0.0.g"),
+        (r"^(\w+_transformer)\.ff_(\d+)\.proj\.",
+         lambda m: f"{m.group(1)}.transformer.attn_layers.layers.{2 * int(m.group(2)) + 1}"
+                   f".1.net.0.proj."),
+        (r"^(\w+_transformer)\.ff_(\d+)\.out\.",
+         lambda m: f"{m.group(1)}.transformer.attn_layers.layers.{2 * int(m.group(2)) + 1}"
+                   f".1.net.3."),
+        (r"^(\w+_transformer)\.final_norm\.", r"\1.transformer.norm."),
+    )
+    return {_reference_key(k, rules): v.detach().cpu().numpy() for k, v in state.items()}
+
+
+_TORT_UNIVNET_RULES = (
+    (r"^first_conv\.", "conv_pre."), (r"^last_conv\.", "conv_post.1."),
+    (r"^lvc_(\d+)\.upsample\.", r"res_stack.\1.convt_pre.1."),
+    (r"^lvc_(\d+)\.conv_(\d+)\.", r"res_stack.\1.conv_blocks.\2.1."),
+    (r"^lvc_(\d+)\.kernel_predictor\.input_conv\.", r"res_stack.\1.kernel_predictor.input_conv.0."),
+    (r"^lvc_(\d+)\.kernel_predictor\.res_(\d+)a\.",
+     r"res_stack.\1.kernel_predictor.residual_convs.\2.1."),
+    (r"^lvc_(\d+)\.kernel_predictor\.res_(\d+)b\.",
+     r"res_stack.\1.kernel_predictor.residual_convs.\2.3."),
+    (r"^lvc_(\d+)\.kernel_predictor\.", r"res_stack.\1.kernel_predictor."),
+)
+
+
+def reference_tortoise_univnet_state(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The state_dict of the port's bundled ``UnivnetGenerator`` as the
+    reference's ``vocoder.pth`` holds it: ``{"model_g": state}`` in the
+    names of ``tortoise/vocoder.py`` (``conv_pre``, ``res_stack``,
+    ``convt_pre``, ``conv_blocks``, ``residual_convs``, ``conv_post``).
+    :func:`convert_tortoise_univnet` maps it back."""
+    return {"model_g": {_reference_key(k, _TORT_UNIVNET_RULES): v.detach().cpu().numpy()
+                        for k, v in state.items()}}

@@ -59,10 +59,8 @@ _VOCODER_FAMILIES = ("multiband-melgan", "fullband-melgan", "hifigan", "parallel
 
 
 def _family_reason(model: str, model_item: Dict) -> Optional[str]:
-    if model == "xtts_v2":
+    if model.startswith(("xtts", "tortoise")):
         return None
-    if model.startswith("xtts_v1"):
-        return "the XTTS v1 layout is not ported yet (ROADMAP.md item 12)"
     if model in ("your_tts", "fast_pitch", "overflow", "neural_hmm"):
         return None
     if "vits" in model.lower() or "vits" in (model_item.get("description") or "").lower():
@@ -81,7 +79,8 @@ def _family_reason(model: str, model_item: Dict) -> Optional[str]:
 def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     """Why the port cannot load the zoo model ``model_name`` of the catalog
     ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for what it
-    runs: VITS (by its name or its description), YourTTS, XTTS v2, GlowTTS,
+    runs: VITS (by its name or its description), YourTTS, XTTS v2 and v1.1,
+    Tortoise (``tortoise-v2``, from its multi-file directory), GlowTTS,
     Tacotron2 (Capacitron's too), FastPitch, Overflow and NeuralHMM whose
     ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
     every vocoder of the catalog (the MelGANs, HiFiGAN, ParallelWaveGAN,

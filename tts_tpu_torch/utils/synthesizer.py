@@ -13,9 +13,13 @@ not) turns a mel model's output into audio; a mel
 model without one speaks through Griffin-Lim (``use_griffin_lim``, on by
 default, as in the JAX package), on the host.
 
-Models with their own ``synthesize`` (XTTS) render each sentence through
-it. For the waveform models (VITS), a request of two or more sentences is
-decoded as one sequence-packed grid
+Models with their own ``synthesize`` (XTTS, Tortoise) render each sentence
+through it, each followed by 10000 zero samples; Tortoise takes its voice
+from ``speaker_wav``, from ``voice_dir/<speaker_name>/*.wav`` (port of
+``tts_tpu/utils/synthesizer.py:341-357``) or, for ``speaker_name``
+``"random"`` or none, from its random-voice generators, and speaks at its
+config's ``audio.output_sample_rate`` (24 kHz). For the waveform models
+(VITS), a request of two or more sentences is decoded as one sequence-packed grid
 (:func:`~tts_tpu_torch.utils.synthesis.decode_packed`), and a single
 sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`;
 DelightfulTTS, which speaks through its joint vocoder (ROADMAP.md F28),
@@ -126,6 +130,8 @@ _NO_ENCODER = ("speaker_wav needs a speaker encoder to compute its d-vector: loa
                "--encoder_path and --encoder_config_path (TTS(encoder_path=..., "
                "encoder_config_path=...)); without it the JAX package decodes with no speaker "
                "(ROADMAP.md F22)")
+# models with their own audio config and front end (no AudioProcessor)
+OWN_AUDIO_MODELS = ("xtts", "tortoise")
 # models that load from a checkpoint file and its config.json
 FILE_MODELS = ("vits", "glow_tts", "tacotron2", "tacotron", "fast_pitch", "fast_speech",
                "fastspeech2", "speedy_speech", "forward_tts", "overflow", "neuralhmm_tts",
@@ -137,8 +143,10 @@ class Synthesizer:
                  device="cuda", speakers_file_path: str = "", language_ids_file_path: str = "",
                  vocoder_checkpoint: str = "", vocoder_config: str = "",
                  use_griffin_lim: bool = True, encoder_checkpoint: str = "",
-                 encoder_config: str = "", vc_checkpoint: str = "", vc_config: str = ""):
+                 encoder_config: str = "", vc_checkpoint: str = "", vc_config: str = "",
+                 voice_dir: Optional[str] = None):
         self.device = resolve_device(device)
+        self.voice_dir = voice_dir
         self.speakers_file_path = speakers_file_path
         self.language_ids_file_path = language_ids_file_path
         self.use_griffin_lim = use_griffin_lim
@@ -197,11 +205,11 @@ class Synthesizer:
         self.tts_model = model
         self.tts_config = config  # as loaded, as the JAX package keeps it (/details shows it)
         self.from_file = not os.path.isdir(path)
-        if config.model != "xtts":
+        if config.model not in OWN_AUDIO_MODELS:
             self.ap = AudioProcessor.init_from_config(config.audio, verbose=False)
         self.output_sample_rate = (
             getattr(getattr(config, "model_args", None), "output_sample_rate", None)
-            or config.audio.sample_rate)
+            or getattr(config.audio, "output_sample_rate", None) or config.audio.sample_rate)
 
     def _load_encoder(self, path: str, checkpoint: str, config_path: str) -> None:
         """The speaker encoder for ``speaker_wav``: ``checkpoint`` with its
@@ -341,10 +349,12 @@ class Synthesizer:
         model = self.tts_model
         wavs: List[float] = []
         if hasattr(model, "synthesize"):
+            # Tortoise also reads its voices from voice_dir/<speaker_name>/*.wav
+            extra = {"voice_dirs": self.voice_dir} if self.tts_config.model == "tortoise" else {}
             for sen in sens:
                 outputs = model.synthesize(
                     text=sen, config=self.tts_config, speaker_id=speaker_name,
-                    speaker_wav=speaker_wav, language=language_name or "en", **kwargs,
+                    speaker_wav=speaker_wav, language=language_name or "en", **extra, **kwargs,
                 )
                 wavs += list(np.asarray(outputs["wav"], np.float32))
                 wavs += [0] * SENTENCE_GAP
