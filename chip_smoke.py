@@ -14,7 +14,8 @@ Phases; each raises on failure and the script then exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card at the
    decode shapes (B 1 and 4, S 685, 720 and 1024, H 16, dh 64, fp32 and
    bf16 caches, per-row, scalar and the real decode's lengths; Tortoise's
-   B 16 at S 600 and XTTS v1's B 1 at S 1650, timed too), each call
+   B 16 at S 600, XTTS v1's B 1 at S 1650 and Bark's B 1 at S 656 and 947,
+   timed too), each call
    made twice and the two results required bit-identical; then timed
    beside its bound, its plain version and one PyTorch library call
    (``scaled_dot_product_attention``) computing the same function;
@@ -119,9 +120,9 @@ Phases; each raises on failure and the script then exits non-zero:
     layout with ``"r": 2`` beside the weights and loaded back: ``r_init`` 6
     from the 480-wide projection, ``r`` 2 from the checkpoint (F20). Then:
     ``tacotron2.npz`` teacher-forced on the card (mel RMSE under 5e-3); the
-    three phase 6 sentences card against CPU (``mel_lengths`` equal, mel and
-    waveform within 1e-4, the mel's largest difference per 100 decode steps
-    printed); the DCA recipe card against CPU on the short sentence; B = 4
+    short and medium phase 6 sentences card against CPU (``mel_lengths``
+    equal, mel and waveform within 1e-4, the mel's largest difference per
+    100 decode steps printed); the DCA recipe card against CPU on the short sentence; B = 4
     rows against their own B = 1 decodes at 400 steps (location attention
     gives padded tokens no weight, so a row cannot move with the padding);
     the stopnet firing at step 1 (bias +10), which leaves at the first stop
@@ -269,15 +270,35 @@ Phases; each raises on failure and the script then exits non-zero:
     attention on one generator, K1 launching 30 times a step; one whole
     ``synthesize`` from a voice folder and one from the random voice (16
     candidates, ``TORTOISE_CAP`` codes each since random weights never stop,
-    30 DDIM steps with classifier-free guidance) with their stages, busy
-    share and peak memory; ``tortoise-v2`` by zoo name from the reference
-    layout equal to the path load; ``tts --model_name --voice_dir`` within
-    one int16 step of ``TTS.tts_to_file``.
+    30 DDIM steps with classifier-free guidance) with their stages and
+    peak memory, the random one's busy share; ``tortoise-v2`` by zoo name
+    from the reference layout equal to the path load; ``tts --model_name
+    --voice_dir`` within one int16 step of ``TTS.tts_to_file``;
+19. Bark at the zoo's widths (24 x 1024 x 16 in all three GPTs, the text
+    model's head 10,048 wide over 129,600 tokens, F48; EnCodec at the 24 kHz
+    model's dims), fp32 weights from seed 0: card against CPU within 1e-4
+    of each peak on short inputs (the semantic prefill with
+    ``merge_context``, 8 greedy decode steps, one coarse window's prefill
+    and 60 greedy tokens, one fine window's logits, EnCodec on 50 frames);
+    sampled semantic and coarse tokens identical through K1 and the plain
+    attention on one generator, K1 launching 24 times a step; HuBERT-base
+    and its tokenizer card against CPU on a 3 s clip, ``generate_voice``'s
+    prompt saved as ``clone.npz``; one whole ``synthesize`` at random and
+    one from that prompt (random weights never emit EOS: 399 semantic
+    tokens, 20 coarse windows, 599 frames, 7.99 s of audio), each with its
+    stages, ms a decode step and K1's launches, then one of each at a 0.5 s
+    budget under ``torch.profiler`` (busy share, top kernels), and peak
+    memory; ``bark`` by zoo name from the reference layout (its semantic
+    head set to emit EOS first for the surfaces' sentence) equal to the
+    path load, ``tts --model_name --voice_dir
+    --speaker_idx`` within one int16 step of ``TTS.tts_to_file``, one
+    ``/api/tts`` request; Tortoise's wav2vec2 aligner at
+    wav2vec2-large-robust's widths card against CPU on one clip.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}`` on
 the line before the last and, as the last line, ``{"ok": true, "device":
-{...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax or
-``tokenizers`` by then. Without CUDA, or outside a
+{...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax,
+``tokenizers`` or ``transformers`` by then. Without CUDA, or outside a
 checkout, it exits 2 and prints no result.
 """
 
@@ -523,7 +544,10 @@ def phase_kernels(card: str) -> dict:
     # Tortoise's 16 candidates behind a ~60-token prefix with up to 500 codes, and
     # XTTS v1's prompt of one latent a coarse mel frame (646 for 30 s) before
     # the text and the codes
-    for B, S, lengths in ((16, 600, [61, 300, 600]), (1, 1650, [700, 1200, 1650])):
+    # Bark's semantic decode (257 prompt positions, up to 399 tokens) and its
+    # coarse windows (887 prompt positions, 60 tokens)
+    for B, S, lengths in ((16, 600, [61, 300, 600]), (1, 1650, [700, 1200, 1650]),
+                          (1, 656, [258, 400, 656]), (1, 947, [558, 888, 947])):
         for dtype in (torch.float32, torch.bfloat16):
             check(B, S, dtype, lengths)
     log(f"decode_attention: {n_checks} cases agree with the plain version, each called twice "
@@ -537,6 +561,7 @@ def phase_kernels(card: str) -> dict:
     shapes += [(1, torch.bfloat16, 720, 95), (1, torch.bfloat16, 720, 300)]
     shapes += [(16, dtype, 600, 600) for dtype in (torch.bfloat16, torch.float32)]
     shapes += [(1, dtype, 1650, 1650) for dtype in (torch.bfloat16, torch.float32)]
+    shapes += [(1, dtype, S, S) for S in (656, 947) for dtype in (torch.bfloat16, torch.float32)]
     for B, dtype, S, n in shapes:
         q = torch.randn(B, H, DH, generator=gen, device=dev).to(dtype)
         caches = [(torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype),
@@ -3090,8 +3115,8 @@ def t2_stage_ms(synth, text: str, steps: int, device, reps: int = 5) -> dict:
 def phase_tacotron2(card: str, device="cuda", cut=None) -> None:
     """Tacotron2-DDC with HiFiGAN at the LJSpeech recipes' widths: the
     recipe's model (r_init 6) decoded at r = 2 from a reference-layout
-    checkpoint that says so (F20); ``tacotron2.npz`` on the card; the three
-    phase 6 sentences card against CPU at their whole budgets (mel and
+    checkpoint that says so (F20); ``tacotron2.npz`` on the card; the short
+    and medium phase 6 sentences card against CPU at their whole budgets (mel and
     waveform, the drift per 100 decode steps); the DCA recipe card against
     CPU; B = 4 rows against their own B = 1 decodes; the stopnet firing at
     step 1 (the early exit); ms per decode step at B = 1 and 4, kernels per
@@ -3180,11 +3205,14 @@ def phase_tacotron2(card: str, device="cuda", cut=None) -> None:
             f"{gp['upsample_factors']}, {voc_config.audio.sample_rate} Hz, hop "
             f"{voc_config.audio.hop_length}; {n_voc / 1e6:.2f} M parameters (seed 0)")
 
-        # card against CPU at each sentence's whole budget: mel, then the waveform
+        # card against CPU at the short and medium sentences' whole budgets: mel,
+        # then the waveform (the long one's 4096 frames on the CPU were cut for
+        # the script's time limit)
         worst_mel = worst_wav = 0.0
         lengths, drifts = [], {}
         with torch.no_grad():
-            for key, text in VITS_SENTENCES.items():
+            for key in ("short", "medium"):
+                text = VITS_SENTENCES[key]
                 g, w = synthesis(model, text), synthesis(cpu_synth.tts_model, text)
                 g_len, w_len = g["outputs"]["mel_lengths"].cpu(), w["outputs"]["mel_lengths"]
                 if not torch.equal(g_len, w_len) or g["model_outputs"].shape != \
@@ -3203,7 +3231,7 @@ def phase_tacotron2(card: str, device="cuda", cut=None) -> None:
                                          f"{ww.shape}, max abs diff {werr}")
                 worst_mel, worst_wav = max(worst_mel, err), max(worst_wav, werr)
                 lengths.append(int(g_len[0]))
-        log(f"Tacotron2 + HiFiGAN card vs CPU, the three phase 6 sentences at their whole "
+        log(f"Tacotron2 + HiFiGAN card vs CPU, the short and medium sentences at their whole "
             f"budgets: mel_lengths {lengths} equal, mel max abs diff {worst_mel:.3g}, waveform "
             f"{worst_wav:.3g} (tol {T2_TOL}); mel max abs diff per 100 decode steps: "
             + "; ".join(f"{k} " + ", ".join(f"{v:.2g}" for v in vs) for k, vs in drifts.items())
@@ -5979,8 +6007,9 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
     on one generator, K1 launching 30 times a step; one whole
     ``synthesize`` from a voice folder and one from the random voice (16
     candidates capped at ``TORTOISE_CAP`` codes, 30 DDIM steps with
-    classifier-free guidance), each with its stages, busy share and peak
-    memory; ``tortoise-v2`` by zoo name against the path load; ``tts
+    classifier-free guidance), each with its stages and peak memory, the
+    random one's busy share; ``tortoise-v2`` by zoo name against the path
+    load; ``tts
     --voice_dir`` against the API. ``cut(config)`` shrinks the config in
     place for rehearsals on the CPU and may return smaller CLVP widths.
     Returns K1's launches on this path."""
@@ -6136,7 +6165,9 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
                 f"audio in {wall:.1f} ms (RTF {secs * 1e3 / wall:.2f}); stages (ms) "
                 + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
                 + f"; {run_steps} decode steps, K1 {decode_attention.launches} launches | {card}")
-            if cuda:  # kernel rows only: ~150k kernels a call, CPU rows would add minutes
+            if cuda and voice == "random":
+                # kernel rows only, one voice: ~150k kernels a call take the
+                # profiler ~35 s to digest, CPU rows would add minutes
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t1 = time.perf_counter()
                     model.synthesize(sentence, config, speaker_id=voice, voice_dirs=[voices],
@@ -6196,6 +6227,451 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
     return launches_total
 
 
+BARK = "tts_models/multilingual/multi-dataset/bark"
+BARK_TOL = 1e-4  # card against CPU, as a share of each output's peak
+BARK_TEXT = "Hello there."  # the surfaces' sentence: their semantic head stops at once for it
+BARK_GPT = dict(n_layer=24, n_head=16, n_embd=1024)  # suno's large text, coarse and fine models
+
+
+def bark_config():
+    """The zoo's Bark at the published large models' widths (24 layers, 1024
+    wide, 16 heads in all three GPTs), the text model's head 10,048 wide
+    over its 129,600-token input (F48)."""
+    from tts_tpu_torch.models.bark.config import BarkConfig, BarkGPTArgs
+
+    return BarkConfig(
+        semantic_config=BarkGPTArgs(input_vocab_size=129_600, output_vocab_size=10_048,
+                                    **BARK_GPT),
+        coarse_config=BarkGPTArgs(input_vocab_size=12_096, output_vocab_size=12_096, **BARK_GPT),
+        fine_config=BarkGPTArgs(input_vocab_size=1056, output_vocab_size=1056, **BARK_GPT))
+
+
+def write_bark_dir(d: str, model, with_encodec: bool = True) -> None:
+    """``model`` as the reference's bark directory: ``text_2.pt``,
+    ``coarse_2.pt`` and ``fine_2.pt`` as ``{"model": state, "model_args":
+    ...}`` in nanoGPT's names, ``encodec_24khz.pth`` in HF ``EncodecModel``'s
+    and ``config.json``."""
+    import torch
+
+    from tts_tpu_torch.utils import convert
+
+    os.makedirs(d, exist_ok=True)
+    for name, fname in (("semantic_model", "text_2.pt"), ("coarse_model", "coarse_2.pt"),
+                        ("fine_model", "fine_2.pt")):
+        gpt = getattr(model, name)
+        state = convert.reference_bark_gpt_state(gpt.state_dict())
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()},
+                    "model_args": gpt.args.to_dict()}, os.path.join(d, fname))
+        del state
+    if with_encodec:
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    convert.reference_encodec_state(model.encodec.state_dict()).items()},
+                   os.path.join(d, "encodec_24khz.pth"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(model.config.to_dict(), f, default=list)
+
+
+def stop_at_first_token(model, text: str, histories=(None,)):
+    """``model`` with its semantic head's EOS row set in the span of the last
+    hidden states of ``text``'s prompts behind each of ``histories`` (a
+    voice prompt's semantic tokens, or ``None`` for the random voice), so
+    that EOS is the first token sampled for that text in those voices: its
+    logit is 50 in each, the others' ~N(0, 1)."""
+    import torch
+
+    from tts_tpu_torch.models.bark.model import text_ids
+
+    seen = []
+    hook = model.semantic_model.core.register_forward_hook(
+        lambda m, args, out: seen.append(out[0, -1]))
+    with torch.no_grad():
+        for history in histories:
+            model.semantic_model(model.semantic_prompt(text_ids(text), history),
+                                 merge_context=True)
+        hook.remove()
+        h = torch.stack(seen)  # [n, D]
+        w = torch.linalg.pinv(h) @ torch.full((len(seen),), 50.0)
+        model.semantic_model.lm_head.weight[model.config.SEMANTIC_VOCAB_SIZE] = w
+    return model
+
+
+@contextlib.contextmanager
+def bark_stage_timer(model, device):
+    """Milliseconds of each Bark stage inside (host clock, synchronized):
+    semantic, coarse, fine and EnCodec."""
+    ms = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    targets = (("generate_text_semantic", "semantic"), ("generate_coarse", "coarse"),
+               ("generate_fine", "fine"), ("codes_to_audio", "EnCodec"))
+    for attr, name in targets:
+        setattr(model, attr, timed(name, getattr(model, attr)))
+    try:
+        yield ms
+    finally:
+        for attr, _ in targets:
+            delattr(model, attr)
+
+
+def bark_short_checks(model, device) -> dict:
+    """The short inputs of phase 19 through ``model`` on ``device``: the
+    semantic prefill's logits with ``merge_context``, 8 greedy decode steps
+    (their logits and tokens), one coarse window (its prefill's logits
+    under the window mask and 60 greedy tokens), one fine window's logits,
+    EnCodec on 50 frames."""
+    import torch
+
+    from tts_tpu_torch.models.bark.model import text_ids
+
+    c = model.config
+    sem, coarse, fine = model.semantic_model, model.coarse_model, model.fine_model
+    rs = np.random.RandomState(0)
+    out = {}
+    with torch.no_grad():
+        prompt = model.semantic_prompt(text_ids("Bark checks its card against its CPU."))
+        cache = sem.core.init_cache(1, 257 + 8, device=device)
+        logits = sem(prompt, cache=cache, merge_context=True)
+        out["semantic prefill"] = logits[0]
+        last, steps, toks = logits[:, -1], [], []
+        for s in range(8):
+            tok = torch.argmax(last[:, : c.SEMANTIC_VOCAB_SIZE + 1], dim=-1)
+            toks.append(tok)
+            last = sem._decode(tok, cache, 257 + s)
+            steps.append(last)
+        out["semantic decode"] = torch.stack(steps, dim=1)[0]
+        out["semantic tokens"] = torch.stack(toks, dim=1)[0]
+        # one coarse window: 256 semantic tokens, the infer token, a tail of 300
+        # valid coarse tokens padded to 630, 60 greedy steps
+        semantic = torch.from_numpy(rs.randint(0, c.SEMANTIC_VOCAB_SIZE, (1, 256))).to(device)
+        tail = torch.zeros(1, 630, dtype=torch.long, device=device)
+        tail[0, :300] = torch.from_numpy(rs.randint(0, 2 * c.CODEBOOK_SIZE, 300)
+                                         + c.SEMANTIC_VOCAB_SIZE)
+        rows = torch.arange(887, device=device)
+        mask = (rows[None] <= rows[:, None]) & (rows[None] < 557)
+        win_prompt = torch.cat([semantic, torch.full((1, 1), c.COARSE_INFER_TOKEN, device=device),
+                                tail], dim=1)
+        ccache = coarse.core.init_cache(1, 887 + 60, device=device)
+        out["coarse window prefill"] = coarse(win_prompt, cache=ccache, attn_mask=mask)[0, :557]
+        buf = coarse.generate_coarse_windows(
+            semantic, torch.zeros(1, 660, dtype=torch.long, device=device), [0], [0], [300],
+            [300], None, window_steps=60, max_coarse_history=630,
+            infer_token=c.COARSE_INFER_TOKEN, temperature=0.7, top_k=1, top_p=0.95,
+            codebook_cycle=(c.SEMANTIC_VOCAB_SIZE, c.CODEBOOK_SIZE, c.N_COARSE_CODEBOOKS))
+        out["coarse tokens"] = buf[0, 300:]
+        idx = torch.from_numpy(rs.randint(0, c.CODEBOOK_SIZE, (1, 1024, 8))).to(device)
+        out["fine window logits"] = fine(2, idx)[0]
+        out["EnCodec 50 frames"] = model.encodec.decode(
+            rs.randint(0, c.CODEBOOK_SIZE, (8, 50)))
+    return out
+
+
+def random_hubert_tokenizer(input_size: int, seed: int = 0):
+    """The reference tokenizer's layout (2 LSTM layers 1024 wide, 10,000
+    tokens) on the CPU, fp32 weights from ``seed``: N(0, 1/fan_in), biases 0."""
+    import torch
+
+    from tts_tpu_torch.models.bark.hubert import HubertTokenizer
+
+    tok = HubertTokenizer(input_size=input_size)
+    draw = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in tok.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=draw) / p[0].numel() ** 0.5)
+    return tok.eval().requires_grad_(False)
+
+
+def phase_bark(card: str, device="cuda", cut=None) -> int:
+    """Bark at the zoo's widths (24 x 1024 x 16 in all three GPTs; the text
+    model's head 10,048 wide, F48; EnCodec at the 24 kHz model's dims),
+    random fp32 weights from seed 0: card against CPU within 1e-4 of the
+    peak on short inputs (the semantic prefill with ``merge_context``, 8
+    greedy decode steps, one coarse window, one fine window's logits,
+    EnCodec on 50 frames); sampled semantic and coarse tokens identical
+    through K1 and through the plain attention on one generator, K1
+    launching 24 times a step; HuBERT-base and its tokenizer card against
+    CPU on a 3 s clip, and ``generate_voice``'s prompt saved as
+    ``voices/clone.npz``; one whole ``synthesize`` at random and one from
+    that prompt, each with its stages, ms a decode step, K1's launches,
+    busy share and top kernels and peak memory; the zoo's ``bark`` by name
+    from a reference-layout directory (its semantic head set to stop at
+    once for the surfaces' sentence) against the path load, ``tts
+    --model_name --voice_dir --speaker_idx`` against ``TTS.tts_to_file``,
+    one ``/api/tts`` request; last, Tortoise's wav2vec2 aligner at
+    wav2vec2-large-robust's widths card against CPU on one clip. ``cut(config,
+    hubert_cfg, wav2vec_cfg)`` shrinks the configs in place for rehearsals
+    on the CPU. Returns K1's launches on this path."""
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.audio.numpy_transforms import save_wav
+    from tts_tpu_torch.bin.synthesize import main as synthesize_cli
+    from tts_tpu_torch.models.bark import hubert
+    from tts_tpu_torch.models.bark.model import Bark
+    from tts_tpu_torch.models.tortoise import wav2vec_alignment as w2v
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+
+    def silent(fn, *args, **kwargs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kwargs)
+
+    def stamp(what: str) -> None:
+        log(f"  (phase 19 at {time.time() - t_phase:.1f} s: {what})")
+
+    config = bark_config()
+    hubert_cfg, w2v_cfg = hubert.hubert_base_config(), w2v.wav2vec2_large_robust_config()
+    if cut is not None:
+        cut(config, hubert_cfg, w2v_cfg)
+    cpu = Bark(config).init_params(seed=0, device="cpu")
+    model = copy.deepcopy(cpu).to(device)
+    n_layers = config.semantic_config.n_layer
+    counts = {name: sum(p.numel() for p in getattr(cpu, name).parameters()) / 1e6
+              for name in ("semantic_model", "coarse_model", "fine_model", "encodec")}
+    log(f"Bark ({n_layers} x {config.semantic_config.n_embd} x {config.semantic_config.n_head} "
+        "in all three GPTs, the text head 10,048 wide; seed 0, fp32, TF32 off): "
+        + ", ".join(f"{k} {v:.2f} M" for k, v in counts.items())
+        + f" parameters; ready in {time.time() - t_phase:.1f} s")
+
+    # short inputs, card against CPU
+    card_out, cpu_out = bark_short_checks(model, device), bark_short_checks(cpu, "cpu")
+    errs = {}
+    for k, want in cpu_out.items():
+        if "tokens" in k:
+            if not torch.equal(card_out[k].cpu(), want):
+                raise AssertionError(f"Bark {k} differ card against CPU")
+        else:
+            errs[k] = peak_err(card_out[k], want)
+    if not max(errs.values()) <= BARK_TOL:
+        raise AssertionError(f"Bark card against CPU: {errs}")
+    log("Bark card against CPU on short inputs, as a share of each peak (tol 1e-4): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + "; 8 greedy semantic tokens and 60 greedy coarse tokens identical | " + card)
+    del card_out, cpu_out
+    stamp("short inputs")
+
+    # K1 against the plain attention: sampled tokens on one generator
+    text = "Bark samples through the kernel and through the plain attention."
+    kw = dict(max_gen_duration_s=1.0)
+    runs = {}
+    for name, ctx in (("K1", contextlib.nullcontext), ("plain", plain_decode_attention)):
+        decode_attention.launches = 0
+        steps0 = model.semantic_model.decode_steps + model.coarse_model.decode_steps
+        gen = torch.Generator(device).manual_seed(7)
+        with ctx():
+            semantic = model.generate_text_semantic(
+                np.frombuffer(text.encode(), np.uint8).astype(np.int64), gen, **kw)
+            coarse = model.generate_coarse(semantic[:40], gen)
+        sync(device)
+        steps = model.semantic_model.decode_steps + model.coarse_model.decode_steps - steps0
+        runs[name] = (semantic, coarse, decode_attention.launches, steps)
+    (s1, c1, launches, steps), (s2, c2, plain_launches, _) = runs["K1"], runs["plain"]
+    if not (np.array_equal(s1, s2) and np.array_equal(c1, c2)):
+        raise AssertionError("Bark tokens differ through K1 and the plain attention")
+    if cuda and (launches != n_layers * steps or plain_launches != 0):
+        raise AssertionError(f"Bark: {launches} K1 launches for {steps} steps "
+                             f"({plain_launches} in the plain run)")
+    log(f"Bark: {len(s1)} sampled semantic tokens and {c1.size} coarse tokens (temperature 0.7, "
+        f"top_k 50, top_p 0.95) identical through K1 and the plain attention on one generator; "
+        f"K1 launched {launches} times = {n_layers} x {steps} steps at B=1 | {card}")
+    launches_total = launches
+
+    with tempfile.TemporaryDirectory() as d:
+        # voice prompts: HuBERT-base and its tokenizer card against CPU on a 3 s clip
+        voices = os.path.join(d, "voices")
+        os.makedirs(voices)
+        hub_cpu = random_wavlm(hubert_cfg, seed=3)
+        tok_cpu = random_hubert_tokenizer(hubert_cfg.encoder_embed_dim, seed=4)
+        hub_card = copy.deepcopy(hub_cpu).to(device)
+        tok_card = copy.deepcopy(tok_cpu).to(device)
+        clip16 = reference_wav(seconds=3.0, sr=16000, seed=21)
+        with torch.no_grad():
+            feats = [h(torch.from_numpy(clip16)[None].to(dev), output_layer=9)
+                     for h, dev in ((hub_card, device), (hub_cpu, "cpu"))]
+        ids = [hubert.semantic_tokens_from_audio(clip16, h, t)
+               for h, t in ((hub_card, tok_card), (hub_cpu, tok_cpu))]
+        feat_err = peak_err(feats[0], feats[1])
+        if not (feat_err <= BARK_TOL and np.array_equal(ids[0], ids[1])):
+            raise AssertionError(f"HuBERT card against CPU: features {feat_err}, ids "
+                                 f"{int((ids[0] != ids[1]).sum())} differ")
+        clip24 = reference_wav(seconds=3.0, sr=24000, seed=21)
+        sync(device)
+        t0 = time.perf_counter()
+        prompt = model.generate_voice(clip24, hub_card, tok_card,
+                                      output_path=os.path.join(voices, "clone.npz"),
+                                      sample_rate=24000)
+        sync(device)
+        voice_ms = (time.perf_counter() - t0) * 1e3
+        log(f"Bark voice prompt: HuBERT-base layer-9 features card against CPU "
+            f"{feat_err:.3g} of their peak, {len(ids[0])} tokenizer ids identical on a 3 s clip; "
+            f"generate_voice {voice_ms:.1f} ms: semantic {prompt['semantic_prompt'].shape}, "
+            f"coarse {prompt['coarse_prompt'].shape}, fine {prompt['fine_prompt'].shape} | {card}")
+        del hub_cpu, tok_cpu, hub_card, tok_card, feats
+        stamp("voice prompt")
+
+        # whole synthesize calls, at random and from the voice prompt; then a
+        # short one of each under the profiler (a whole call launches ~520k
+        # kernels, which the profiler takes ~2 min to digest)
+        sentence = "The quick brown fox jumps over the lazy dog."
+        for voice in ("random", "clone"):
+            decode_attention.launches = 0
+            steps0 = model.semantic_model.decode_steps + model.coarse_model.decode_steps
+            with bark_stage_timer(model, device) as ms:
+                sync(device)
+                t0 = time.perf_counter()
+                out = model.synthesize(sentence, config, speaker_id=voice, voice_dirs=[voices])
+                sync(device)
+                wall = (time.perf_counter() - t0) * 1e3
+            steps = model.semantic_model.decode_steps + model.coarse_model.decode_steps - steps0
+            if cuda and decode_attention.launches != n_layers * steps:
+                raise AssertionError(f"synthesize: {decode_attention.launches} K1 launches for "
+                                     f"{steps} steps")
+            launches_total += decode_attention.launches
+            w = out["wav"]
+            if not np.isfinite(w).all() or w.std() == 0:
+                raise AssertionError(f"Bark synthesize ({voice}) gave no finite audio")
+            if out["fine"].min() < 0 or out["fine"].max() >= config.CODEBOOK_SIZE:
+                raise AssertionError("Bark fine codes outside the codebook")
+            secs = len(w) / config.SAMPLE_RATE
+            per_step = (ms["semantic"] + ms["coarse"]) / max(steps, 1)
+            log(f"Bark synthesize ({voice}): {len(out['semantic'])} semantic tokens, "
+                f"{out['coarse'].shape[1]} coarse and fine frames, {secs:.2f} s of audio in "
+                f"{wall:.1f} ms (RTF {secs * 1e3 / wall:.3f}); stages (ms) "
+                + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                + f"; {steps} decode steps, {per_step:.2f} ms a step (semantic and coarse), "
+                f"K1 {decode_attention.launches} launches | {card}")
+            if cuda:
+                decode_attention.launches = 0
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    short = model.synthesize(sentence, config, speaker_id=voice,
+                                             voice_dirs=[voices], max_gen_duration_s=0.5)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t1) * 1e6
+                launches_total += decode_attention.launches
+                log_profile(prof, f"Bark synthesize ({voice}) at a 0.5 s budget "
+                            f"({len(short['semantic'])} semantic tokens, "
+                            f"{short['coarse'].shape[1]} frames)", wall_us, card, top=5)
+                log(f"  peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+                    f"allocated | {card}")
+            stamp(f"synthesize ({voice})")
+        del model
+        gc.collect()
+
+        # the zoo's bark (reference layout), the command line, the server
+        stop_at_first_token(cpu, BARK_TEXT, (None, prompt["semantic_prompt"]))
+        home = os.path.join(d, "home")
+        zoo = os.path.join(home, "tts_tpu", BARK.replace("/", "--"))
+        write_bark_dir(zoo, cpu)
+        written = {name: getattr(cpu, name).state_dict()
+                   for name in ("semantic_model", "coarse_model", "fine_model", "encodec")}
+        del cpu
+        stamp("the reference layout written")
+        with offline_zoo(home):
+            by_path = TTS(model_path=zoo, voice_dir=voices, device=device)
+            loaded = by_path.synthesizer.tts_model
+            for name, want in written.items():
+                got = getattr(loaded, name).state_dict()
+                if set(got) != set(want) or any(not torch.equal(got[k].cpu(), want[k])
+                                                for k in want):
+                    raise AssertionError(f"bark by path: the {name} weights differ")
+            del written
+            stamp("loaded by path")
+            x = silent(by_path.tts, BARK_TEXT, speaker="clone")
+            if len(x) != 320 + 10000:  # one frame, then the sentence's gap
+                raise AssertionError(f"the stopping head did not stop: {len(x)} samples")
+            del by_path, loaded
+            gc.collect()
+            by_name = TTS(model_name=BARK, voice_dir=voices, device=device)
+            stamp("loaded by zoo name")
+            y = silent(by_name.tts, BARK_TEXT, speaker="clone")
+            if len(x) != len(y) or float(np.abs(np.asarray(x) - np.asarray(y)).max()) != 0.0:
+                raise AssertionError("bark by zoo name differs from the path load")
+            api, cli = os.path.join(d, "api.wav"), os.path.join(d, "cli.wav")
+            silent(by_name.tts_to_file, BARK_TEXT, speaker="clone", file_path=api)
+            del by_name
+            gc.collect()
+            silent(synthesize_cli, ["--text", BARK_TEXT, "--model_name", BARK, "--voice_dir",
+                                    voices, "--speaker_idx", "clone", "--out_path", cli,
+                                    "--device", str(device)])
+            stamp("tts --model_name --voice_dir --speaker_idx")
+            status, body, said, _ = _serve_once(["--model_name", BARK], {"text": BARK_TEXT},
+                                                device)
+        steps_, sr = _int16_steps(cli, api)
+        if steps_ is None or steps_ > 1 or sr != 24000:
+            raise AssertionError(f"tts --voice_dir: {steps_} int16 steps from the API at {sr} Hz")
+        import scipy.io.wavfile
+
+        rate, pcm = scipy.io.wavfile.read(io.BytesIO(body))
+        if status != 200 or rate != 24000 or not len(pcm) or "serially" not in said:
+            raise AssertionError(f"/api/tts on bark: status {status}, {rate} Hz, {len(pcm)} "
+                                 f"samples; the server said {said!r}")
+        log(f"bark by zoo name (nothing fetched) equals the path load ({len(x)} samples of the "
+            f"stopping sentence in the cloned voice); tts --model_name --voice_dir --speaker_idx "
+            f"within {steps_} int16 step of TTS.tts_to_file at {sr} Hz; /api/tts answered "
+            f"{len(pcm)} samples at {rate} Hz, serially")
+        stamp("server")
+
+    # Tortoise's wav2vec2 aligner, card against CPU on one clip
+    ctc_cpu = w2v.Wav2Vec2CTC(w2v_cfg, vocab_size=40)
+    ctc_cpu.wav2vec2 = random_wavlm(w2v_cfg, seed=5)
+    with torch.no_grad():
+        ctc_cpu.lm_head.weight.copy_(torch.randn(40, w2v_cfg.encoder_embed_dim,
+                                                 generator=torch.Generator().manual_seed(6))
+                                     / w2v_cfg.encoder_embed_dim ** 0.5)
+        ctc_cpu.lm_head.bias.zero_()
+    ctc_cpu.eval().requires_grad_(False)
+    ctc_card = copy.deepcopy(ctc_cpu).to(device)
+    vocab = {c: i for i, c in enumerate("~abcdefghijklmnopqrstuvwxyz .,!?'-;:\"()")}
+    clip = reference_wav(seconds=3.0, sr=24000, seed=31)
+    x16 = torch.from_numpy(np.random.RandomState(1).randn(1, 48000).astype(np.float32))
+    with torch.no_grad():
+        lg = [m(x16.to(dev)) for m, dev in ((ctc_card, device), (ctc_cpu, "cpu"))]
+    ctc_err = peak_err(lg[0], lg[1])
+    aligners = [w2v.Wav2VecAlignment(m, vocab) for m in (ctc_card, ctc_cpu)]
+    frame_ids = [a._ctc_frame_ids(clip, 24000) for a in aligners]
+    heard = aligners[1]._decode(frame_ids[1].tolist())
+    words = "".join(ch for ch in heard if ch in vocab)[:8] or "a"
+    offsets = [a.align(clip, words, 24000) for a in aligners]
+    if not (ctc_err <= BARK_TOL and np.array_equal(frame_ids[0], frame_ids[1])
+            and offsets[0] == offsets[1]):
+        raise AssertionError(f"wav2vec2 aligner card against CPU: logits {ctc_err}, "
+                             f"frame ids equal {np.array_equal(*frame_ids)}")
+    log(f"wav2vec2 aligner ({w2v_cfg.encoder_layers} x {w2v_cfg.encoder_embed_dim}, random): "
+        f"CTC logits card against CPU {ctc_err:.3g} of their peak on 3 s; {len(frame_ids[0])} "
+        f"frame ids and the offsets of {len(words)} characters identical | {card}")
+    del ctc_cpu, ctc_card
+    gc.collect()
+    line = f"phase 19 (Bark) took {time.time() - t_phase:.1f} s"
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        line += (f"; peak device memory {peak / 1e9:.3f} GB allocated, "
+                 f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident")
+    log(line + f" | {card}")
+    return launches_total
+
+
 def main() -> int:
     try:
         import torch
@@ -6229,12 +6705,13 @@ def main() -> int:
     phase_vocoders(card)
     phase_style_tacotron(card)
     phase_voice_conversion(card)
-    kernel["launches"] += phase_xtts_v1(card) + phase_tortoise(card)
-    leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "tts_tpu")
+    kernel["launches"] += phase_xtts_v1(card) + phase_tortoise(card) + phase_bark(card)
+    leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "transformers",
+                                                   "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"chip_smoke.py: phases 1-18 took {time.time() - t_start:.1f} s | {card}")
+    log(f"chip_smoke.py: phases 1-19 took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({
         "ok": True,

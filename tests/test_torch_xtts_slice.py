@@ -296,7 +296,7 @@ def test_server_streams_through_batcher_and_matches_jax(port_tts, model_dir, jax
 
 def test_port_imports_no_jax_flax_or_tokenizers():
     """The port imports nothing of ``tts_tpu`` (not even its jax-free
-    modules), nor ``jax``, ``flax`` or ``tokenizers``. Checked in a fresh
+    modules), nor ``jax``, ``flax``, ``tokenizers`` or ``transformers``. Checked in a fresh
     interpreter, after importing every module of the port, the XTTS and VITS
     slices, the phonemizers, the ``tts`` command line, the server, its
     batcher, the pack planner, the speaker and language managers, the zoo
@@ -306,7 +306,8 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     the ForwardTTS family with its feed-forward layers, Overflow and
     NeuralHMM, AlignTTS and DelightfulTTS, the ParallelWaveGAN, UnivNet,
     WaveGrad and WaveRNN vocoders, the GST and Capacitron layers,
-    Tacotron v1, FreeVC with WavLM (``vc/``) and Tortoise included: this test process
+    Tacotron v1, FreeVC with WavLM (``vc/``), Tortoise with its wav2vec aligner and Bark
+    included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -360,7 +361,12 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "assert {'tts_tpu_torch.models.tortoise.model', 'tts_tpu_torch.models.tortoise.layers',\n"
         "        'tts_tpu_torch.models.tortoise.tokenizer',\n"
         "        'tts_tpu_torch.models.tortoise.audio'} <= set(mods), mods\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu')\n"
+        "from tts_tpu_torch.utils.convert import load_reference_encodec, convert_bark_gpt\n"
+        "assert {'tts_tpu_torch.models.bark.model', 'tts_tpu_torch.models.bark.encodec',\n"
+        "        'tts_tpu_torch.models.bark.hubert',\n"
+        "        'tts_tpu_torch.models.tortoise.wav2vec_alignment'} <= set(mods), mods\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu',\n"
+        "                                             'transformers')\n"
         "             or m.startswith('tts_tpu.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

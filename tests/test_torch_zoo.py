@@ -215,6 +215,7 @@ LAYOUTS = {
     "largest": ["config.json", "a.pth", "big.pt", "speakers.pth", "language_ids.json"],
     "xtts": ["config.json", "model.pth", "vocab.json", "speakers_xtts.pth"],
     "tortoise": ["autoregressive.pth", "config.json"],
+    "bark": ["coarse_2.pt", "config.json", "fine_2.pt", "text_2.pt", "hubert.pt"],
     "empty": ["config.json", "notes.txt"],
 }
 
@@ -377,6 +378,53 @@ def test_xtts_v2_by_name_loads_its_directory(offline_zoo):
         np.testing.assert_array_equal(ours[key].numpy(), value.numpy(), err_msg=key)
 
 
+def write_tiny_bark(d):
+    """A small random Bark (2 layers 32 wide, the 24 kHz EnCodec) as the
+    reference's bark directory."""
+    from tts_tpu_torch.models.bark.config import BarkConfig, BarkGPTArgs
+    from tts_tpu_torch.models.bark.model import Bark
+    from tts_tpu_torch.utils.convert import reference_bark_gpt_state, reference_encodec_state
+
+    gpt = dict(block_size=640, n_layer=2, n_head=2, n_embd=32)
+    config = BarkConfig(
+        SEMANTIC_VOCAB_SIZE=100, SEMANTIC_PAD_TOKEN=100, TEXT_ENCODING_OFFSET=104,
+        TEXT_PAD_TOKEN=380, SEMANTIC_INFER_TOKEN=383, CODEBOOK_SIZE=16,
+        COARSE_SEMANTIC_PAD_TOKEN=132, COARSE_INFER_TOKEN=134,
+        semantic_config=BarkGPTArgs(input_vocab_size=384, output_vocab_size=104, **gpt),
+        coarse_config=BarkGPTArgs(input_vocab_size=144, output_vocab_size=144, **gpt),
+        fine_config=BarkGPTArgs(input_vocab_size=20, output_vocab_size=20, **gpt))
+    model = Bark(config).init_params(seed=0, device="cpu")
+    d.mkdir(parents=True)
+    for name, fname in (("semantic_model", "text_2.pt"), ("coarse_model", "coarse_2.pt"),
+                        ("fine_model", "fine_2.pt")):
+        state = reference_bark_gpt_state(getattr(model, name).state_dict())
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}}, d / fname)
+    torch.save({k: torch.from_numpy(v) for k, v in
+                reference_encodec_state(model.encodec.state_dict()).items()},
+               d / "encodec_24khz.pth")
+    with open(d / "config.json", "w") as f:
+        json.dump(config.to_dict(), f)
+
+
+def test_bark_by_name_loads_its_directory(offline_zoo, tmp_path, monkeypatch):
+    """``TTS(model_name=".../bark")`` loads the multi-file directory
+    (``text_2.pt`` marks it) with nothing fetched, and speaks at 24 kHz as
+    the same files loaded by path."""
+    home = tmp_path / "home"
+    write_tiny_bark(zoo_dir(home, BARK))
+    monkeypatch.setenv("TTS_HOME", str(home))
+    manager = manage.ModelManager()
+    assert manage.unported_reason(BARK, manager.models_dict) is None
+    model_path, config_path, _ = manager.download_model(BARK)
+    assert model_path.endswith("bark") and config_path.endswith("config.json")
+    by_name = TTS(model_name=BARK, device="cpu")
+    by_path = TTS(model_path=model_path, device="cpu")
+    assert by_name.synthesizer.output_sample_rate == 24000
+    a, b = (np.asarray(t.tts(TEXT, max_gen_duration_s=0.2)) for t in (by_name, by_path))
+    assert a.shape == b.shape and np.isfinite(a).all()
+    np.testing.assert_array_equal(a, b)
+
+
 def test_speakers_pth_reads_natively(tmp_path):
     """The zoo's ``speakers.pth`` (ids, or d-vectors as tensors) loads with
     ``torch.load(weights_only=True)``."""
@@ -412,13 +460,14 @@ TACOTRON2 = ["tts_models/en/ljspeech/tacotron2-DDC", "tts_models/en/ljspeech/tac
 HMM = ["tts_models/en/ljspeech/overflow", "tts_models/en/ljspeech/neural_hmm"]
 XTTS_V1 = "tts_models/multilingual/multi-dataset/xtts_v1.1"
 TORTOISE = "tts_models/en/multi-dataset/tortoise-v2"
+BARK = "tts_models/multilingual/multi-dataset/bark"
 CAPACITRON = ["tts_models/en/blizzard2013/capacitron-t2-c50",
               "tts_models/en/blizzard2013/capacitron-t2-c150_v2"]
 
 
 def test_every_family_is_sorted_into_ported_or_an_item():
     """38 entries named VITS, the VITS ``jenny`` (by its description),
-    YourTTS, XTTS v2 and v1.1, Tortoise, the 7 GlowTTS entries (with a Multiband-MelGAN or
+    YourTTS, XTTS v2 and v1.1, Tortoise, Bark, the 7 GlowTTS entries (with a Multiband-MelGAN or
     HiFiGAN default vocoder, or none), the 10 Tacotron2 entries (their
     default vocoders a HiFiGAN, a MelGAN, ``ek1``'s WaveGrad, ``DDC_ph``'s
     UnivNet, ``nl/mai``'s ParallelWaveGAN), the 2 Capacitron Tacotron2
@@ -426,7 +475,7 @@ def test_every_family_is_sorted_into_ported_or_an_item():
     (LJSpeech with HiFiGAN v2, VCTK with none), Overflow and NeuralHMM (both
     with HiFiGAN v2), all 17 vocoders (Multiband-MelGAN, Fullband-MelGAN,
     HiFiGAN, ParallelWaveGAN, UnivNet, WaveGrad) and the voice converter
-    ``freevc24`` load; each of the catalog's other 6, and the fairseq MMS
+    ``freevc24`` load; each of the catalog's other 5, and the fairseq MMS
     models, names a
     ROADMAP.md item or fault: the Mandarin GST Tacotron2 F36 (its
     phonemizer), Tacotron v1 F41 (no converter reads its checkpoint) and
@@ -436,14 +485,14 @@ def test_every_family_is_sorted_into_ported_or_an_item():
               if not manage.unported_reason(n, manager.models_dict)]
     assert len([n for n in ported if "vits" in n]) == 38
     assert sorted(n for n in ported if "vits" not in n and n.startswith("tts_models/")) == \
-        sorted(["tts_models/en/jenny/jenny", XTTS, XTTS_V1, TORTOISE, YOURTTS] + GLOW_TTS
+        sorted(["tts_models/en/jenny/jenny", XTTS, XTTS_V1, TORTOISE, BARK, YOURTTS] + GLOW_TTS
                + TACOTRON2 + CAPACITRON + FAST_PITCH + HMM)
     vocoders = [n for n in ported if n.startswith("vocoder_models/")]
     assert len(vocoders) == 17 and all(
         any(f in n for f in ("multiband-melgan", "fullband-melgan", "hifigan",
                              "parallel-wavegan", "univnet", "wavegrad")) for n in vocoders)
     assert "voice_conversion_models/multilingual/vctk/freevc24" in ported
-    assert len(_unported()) == 88 - 84 + 1
+    assert len(_unported()) == 88 - 85 + 1
     tacotrons = sorted(n for n in _unported() if "tacotron" in n)
     assert [manage.unported_reason(n, manager.models_dict).split("(")[-1] for n in tacotrons] \
         == ["ROADMAP.md F41)", "ROADMAP.md F36)"]

@@ -30,11 +30,15 @@ Example::
     >>> vits.tts_with_vc_to_file("Hello world.", speaker_wav="b.wav", file_path="out.wav")
     >>> tortoise = TTS("tts_models/en/multi-dataset/tortoise-v2", voice_dir="voices/")
     >>> tortoise.tts_to_file("Hello world.", speaker="emma", file_path="out.wav")
+    >>> bark = TTS("tts_models/multilingual/multi-dataset/bark", voice_dir="prompts/")
+    >>> bark.tts_to_file("Hello world.", speaker="alice", file_path="out.wav")  # alice.npz
 
 A zoo name loads through ``utils.manage.ModelManager``: a VITS, GlowTTS,
 Tacotron2 or FastPitch entry from its reference-layout checkpoint file and
-``config.json``, XTTS (v2 and v1.1) and Tortoise (``tortoise-v2``) from
-their directories, and an entry's
+``config.json``, XTTS (v2 and v1.1), Tortoise (``tortoise-v2``) and Bark
+(``bark``; its directory must also hold EnCodec's ``encodec_24khz.pth``,
+which the zoo does not list, ROADMAP.md F49) from their directories, and an
+entry's
 ``default_vocoder`` with it unless a ``vocoder_path`` is given. YourTTS
 (``tts_models/multilingual/multi-dataset/your_tts``) also loads the speaker
 encoder its directory ships (``model_se.pth.tar``, ``config_se.json``) unless
@@ -78,7 +82,8 @@ class TTS:
     config's speaker and language files; ``encoder_path`` (with
     ``encoder_config_path``) is the speaker encoder that turns a
     ``speaker_wav`` into a d-vector for a d-vector model; ``voice_dir`` is
-    Tortoise's folder of voices (``<voice_dir>/<speaker>/*.wav``). A
+    Tortoise's folder of voices (``<voice_dir>/<speaker>/*.wav``) or Bark's
+    of voice prompts (``<voice_dir>/<speaker>.npz``). A
     ``model_name`` that contains ``voice_conversion`` loads a voice
     converter (``voice_converter``) instead of a TTS model. ``device``
     defaults to ``"cuda"`` and must exist."""

@@ -68,11 +68,11 @@ command line and change nothing. With ``--pipe_out`` the wav bytes are the
 only thing written to stdout: the log lines go to stderr (the JAX
 command line prints them into the same stream).
 
-``--voice_dir`` gives Tortoise its folder of voices: ``--speaker_idx
-emma`` clones ``<voice_dir>/emma/*.wav``, and ``--speaker_idx random`` (or
-none) speaks with a random voice. Bark, the JAX command line's other
-``--voice_dir`` model, waits for ROADMAP.md item 16d; other models ignore
-the flag, as in the JAX command line.
+``--voice_dir`` gives Tortoise and Bark their voices: for Tortoise
+``--speaker_idx emma`` clones ``<voice_dir>/emma/*.wav``, for Bark it takes
+the voice prompt ``<voice_dir>/emma.npz`` (made by ``Bark.generate_voice``);
+``--speaker_idx random`` (or none) speaks with a random voice. Other models
+ignore the flag, as in the JAX command line.
 """
 
 from __future__ import annotations
@@ -140,7 +140,8 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--target_wav", type=str, default=None,
                         help="voice conversion: a recording of the voice wanted")
     parser.add_argument("--voice_dir", type=str, default=None,
-                        help="Tortoise's voices: <voice_dir>/<speaker_idx>/*.wav")
+                        help="Tortoise's voices (<voice_dir>/<speaker_idx>/*.wav) or Bark's "
+                             "(<voice_dir>/<speaker_idx>.npz)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
     # accepted for compatibility with the reference command line
     parser.add_argument("--use_cuda", action="store_true",

@@ -3,11 +3,10 @@ and the vocoder configs by name.
 
 XTTS, VITS, GlowTTS, Tacotron2 (with GST or Capacitron), Tacotron v1, the
 ForwardTTS family (FastPitch, FastSpeech, FastSpeech2, SpeedySpeech),
-Overflow, NeuralHMM, AlignTTS, DelightfulTTS and Tortoise are ported so far, with every vocoder
-config of the JAX
-package (HiFiGAN, the MelGANs, ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN
-and the generic ``gan``; their generators in ``vocoder.models.setup_generator``)
-the speaker encoders' configs, and FreeVC's config (``freevc``; its model is
+Overflow, NeuralHMM, AlignTTS, DelightfulTTS, Tortoise and Bark are ported
+so far, with every vocoder config of the JAX package (HiFiGAN, the MelGANs,
+ParallelWaveGAN, UnivNet, WaveGrad, WaveRNN and the generic ``gan``; their
+generators in ``vocoder.models.setup_generator``) the speaker encoders' configs, and FreeVC's config (``freevc``; its model is
 set up by ``tts_tpu_torch.vc.models.setup_model``); other names raise.
 """
 
@@ -41,6 +40,7 @@ _MODELS = {
                        "tts_tpu_torch.models.delightful_tts.model:DelightfulTTS"),
     "tortoise": ("tts_tpu_torch.models.tortoise.config:TortoiseConfig",
                  "tts_tpu_torch.models.tortoise.model:Tortoise"),
+    "bark": ("tts_tpu_torch.models.bark.config:BarkConfig", "tts_tpu_torch.models.bark.model:Bark"),
 }
 _ENCODER_CONFIGS = {
     "speaker_encoder": "tts_tpu_torch.encoder.configs:SpeakerEncoderConfig",

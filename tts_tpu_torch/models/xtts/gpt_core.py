@@ -5,15 +5,19 @@ The cache is preallocated per layer as ``[B, max_len, H, dh]`` tensors and
 updated **in place** (the JAX version threads a functional cache through a
 ``lax.scan``). A decode step (one token with a valid length) goes through
 ``ops.decode_attention``, which launches the hand-written Hopper kernel on
-CUDA tensors. Prefill attends causally over the prefix only: the JAX
-version pads the causal mask with zeros out to ``max_len``, so the cache
-slots past the prefix never contribute there either.
+CUDA tensors. Prefill attends over the chunk it writes: causally by
+default, over the whole chunk (``causal=False``: Bark's fine model), or
+under an explicit boolean ``attn_mask [T, S]`` over the first ``S`` cache
+slots (Bark's coarse windows mask a padded tail). The JAX version attends
+over the whole ``max_len`` cache under a mask padded with zeros, so the
+slots past the mask never contribute there either.
 
-Ring attention (``seq_axis``) and rematerialization (``remat``) are
-training-only in the JAX package and are not ported; neither are the
-bias-free and exact-gelu variants that only Bark uses. Tortoise's
-``UnifiedVoice`` runs on this core as it is (biases, the tanh gelu,
-``ln_f``), as it does on the JAX package's defaults.
+Bark's variants are constructor flags, as in the JAX core: ``bias=False``
+drops the bias of every ``Linear`` and every ``LayerNorm`` (``ln_f``
+included), ``gelu_exact=True`` takes the erf gelu. The defaults (biases,
+the tanh gelu) are what XTTS and Tortoise's ``UnifiedVoice`` run on. Ring
+attention (``seq_axis``) and rematerialization (``remat``) are
+training-only in the JAX package and are not ported.
 """
 
 from __future__ import annotations
@@ -38,11 +42,11 @@ class KVCache:
 
 
 class GPT2Attention(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, bias: bool = True):
         super().__init__()
         self.heads = heads
-        self.c_attn = nn.Linear(dim, 3 * dim)
-        self.c_proj = nn.Linear(dim, dim)
+        self.c_attn = nn.Linear(dim, 3 * dim, bias=bias)
+        self.c_proj = nn.Linear(dim, dim, bias=bias)
 
     def forward(
         self,
@@ -52,6 +56,7 @@ class GPT2Attention(nn.Module):
         v_cache: Optional[torch.Tensor] = None,
         cache_index: int = 0,
         cache_len=None,  # decode: valid cache length (int or [B] tensor)
+        attn_mask: Optional[torch.Tensor] = None,  # prefill: bool [T, S], True = attend
     ) -> torch.Tensor:
         B, T, D = x.shape
         H = self.heads
@@ -69,27 +74,35 @@ class GPT2Attention(nn.Module):
             out = decode_attention(q[:, 0], k_cache, v_cache, cache_len)  # fp32 [B, H, dh]
             return self.c_proj(out.to(x.dtype).reshape(B, 1, D))
 
+        if attn_mask is not None and k_cache is not None:
+            S = attn_mask.shape[-1]  # the first S keys of the cache
+            k, v = k_cache[:, :S], v_cache[:, :S]
+        elif attn_mask is None and causal:
+            attn_mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
         scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(dh)
-        if causal:
-            mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-            scores = scores.masked_fill(~mask, -1e9)
+        if attn_mask is not None:
+            scores = scores.masked_fill(~attn_mask, -1e9)
         probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(v.dtype)
         out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
         return self.c_proj(out)
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, bias: bool = True, gelu_exact: bool = False):
         super().__init__()
-        self.ln_1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = GPT2Attention(dim, heads)
-        self.ln_2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp_fc = nn.Linear(dim, 4 * dim)
-        self.mlp_proj = nn.Linear(4 * dim, dim)
+        self.ln_1 = nn.LayerNorm(dim, eps=1e-5, bias=bias)
+        self.attn = GPT2Attention(dim, heads, bias)
+        self.ln_2 = nn.LayerNorm(dim, eps=1e-5, bias=bias)
+        self.mlp_fc = nn.Linear(dim, 4 * dim, bias=bias)
+        self.mlp_proj = nn.Linear(4 * dim, dim, bias=bias)
+        # HF GPT-2's gelu_new (tanh), or Bark's exact erf gelu
+        self.gelu = "none" if gelu_exact else "tanh"
 
-    def forward(self, x, causal=True, k_cache=None, v_cache=None, cache_index=0, cache_len=None):
-        x = x + self.attn(self.ln_1(x), causal, k_cache, v_cache, cache_index, cache_len)
-        m = F.gelu(self.mlp_fc(self.ln_2(x)), approximate="tanh")  # HF GPT-2's gelu_new
+    def forward(self, x, causal=True, k_cache=None, v_cache=None, cache_index=0, cache_len=None,
+                attn_mask=None):
+        x = x + self.attn(self.ln_1(x), causal, k_cache, v_cache, cache_index, cache_len,
+                          attn_mask)
+        m = F.gelu(self.mlp_fc(self.ln_2(x)), approximate=self.gelu)
         return x + self.mlp_proj(m)
 
 
@@ -97,11 +110,12 @@ class GPT2Core(nn.Module):
     """Stack of GPT-2 blocks and the final LayerNorm. Position embeddings
     belong to the caller (XTTS keeps separate text and mel tables)."""
 
-    def __init__(self, layers: int, dim: int, heads: int):
+    def __init__(self, layers: int, dim: int, heads: int, bias: bool = True,
+                 gelu_exact: bool = False):
         super().__init__()
         self.dim, self.heads = dim, heads
-        self.h = nn.ModuleList([GPT2Block(dim, heads) for _ in range(layers)])
-        self.ln_f = nn.LayerNorm(dim, eps=1e-5)
+        self.h = nn.ModuleList([GPT2Block(dim, heads, bias, gelu_exact) for _ in range(layers)])
+        self.ln_f = nn.LayerNorm(dim, eps=1e-5, bias=bias)
 
     def forward(
         self,
@@ -110,11 +124,12 @@ class GPT2Core(nn.Module):
         cache: Optional[KVCache] = None,
         cache_index: int = 0,
         cache_len=None,
+        attn_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         for i, block in enumerate(self.h):
             k_i = cache.k[i] if cache is not None else None
             v_i = cache.v[i] if cache is not None else None
-            h = block(h, causal, k_i, v_i, cache_index, cache_len)
+            h = block(h, causal, k_i, v_i, cache_index, cache_len, attn_mask)
         return self.ln_f(h)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None) -> KVCache:

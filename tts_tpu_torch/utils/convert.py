@@ -2568,3 +2568,335 @@ def reference_tortoise_univnet_state(state: Mapping[str, torch.Tensor]) -> Dict[
     :func:`convert_tortoise_univnet` maps it back."""
     return {"model_g": {_reference_key(k, _TORT_UNIVNET_RULES): v.detach().cpu().numpy()
                         for k, v in state.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Bark. Copied from ``tts_tpu/utils/convert.py``: the EnCodec converters
+# (``:1135-1253``) and the Bark GPT converters (``:1793-1850``), unchanged.
+# ---------------------------------------------------------------------------
+
+
+def _normalize_encodec_keys(state):
+    """Map the original ``encodec`` package state-dict names onto the HF
+    ``EncodecModel`` ones (same structure, different nesting)."""
+    out = {}
+    for k, v in state.items():
+        k = k.replace("decoder.model.", "decoder.layers.")
+        k = k.replace("encoder.model.", "encoder.layers.")
+        k = k.replace(".conv.conv.", ".conv.")
+        k = k.replace(".convtr.convtr.", ".conv.")
+        k = k.replace("quantizer.vq.layers.", "quantizer.layers.")
+        k = k.replace("._codebook.", ".codebook.")
+        out[k] = v
+    return out
+
+
+def convert_encodec_decoder(state, upsampling_ratios=(8, 5, 4, 2),
+                            num_residual_layers=1, num_lstm_layers=2,
+                            num_quantizers=None):
+    """HF ``EncodecModel`` (or original ``encodec``) state dict → flax
+    ``EncodecDecoder`` params + RVQ codebooks.
+
+    Returns ``(params, codebooks [n_q, bins, D])`` — encoder weights are
+    ignored (Bark only decodes).
+    """
+    state = fold_weight_norm(_normalize_encodec_keys(state))
+    p = {
+        "layer_0": {"conv": _plain_conv(state, "decoder.layers.0.conv")},
+    }
+    for l in range(num_lstm_layers):
+        p[f"lstm_{l}"] = _lstm_cell(state, "decoder.layers.1.lstm", f"_l{l}")
+    idx = 2
+    for _ in upsampling_ratios:
+        idx += 1  # ELU
+        p[f"layer_{idx}"] = {
+            "conv": _convtranspose(state, f"decoder.layers.{idx}.conv")
+        }
+        for _ in range(num_residual_layers):
+            idx += 1
+            p[f"layer_{idx}"] = {
+                "block_1": {"conv": _plain_conv(state, f"decoder.layers.{idx}.block.1.conv")},
+                "block_3": {"conv": _plain_conv(state, f"decoder.layers.{idx}.block.3.conv")},
+                "shortcut": {"conv": _plain_conv(state, f"decoder.layers.{idx}.shortcut.conv")},
+            }
+        idx += 1
+    idx += 1
+    p[f"layer_{idx}"] = {"conv": _plain_conv(state, f"decoder.layers.{idx}.conv")}
+
+    cb_keys = sorted(
+        (k for k in state if k.startswith("quantizer.layers.") and k.endswith(".codebook.embed")),
+        key=lambda k: int(k.split(".")[2]),
+    )
+    if num_quantizers is not None:
+        cb_keys = cb_keys[:num_quantizers]
+    codebooks = np.stack([state[k] for k in cb_keys]) if cb_keys else None
+    return {"params": p}, codebooks
+
+
+def infer_encodec_dims(state) -> Dict[str, object]:
+    """Read the SEANet hyperparameters straight off a checkpoint so
+    reduced-dim test models and the real 24 kHz weights both load without
+    out-of-band configuration.  Returns kwargs for ``EncodecDecoder`` /
+    ``EncodecEncoder``."""
+    import re as _re
+
+    state = fold_weight_norm(_normalize_encodec_keys(state))
+    convs = sorted(
+        int(k.split(".")[2])
+        for k in state
+        if _re.match(r"decoder\.layers\.\d+\.conv\.weight$", k)
+    )
+    # [in-conv, upsample×len(ratios), out-conv]
+    w0 = state[f"decoder.layers.{convs[0]}.conv.weight"]  # [scaling*nf, hidden, K]
+    ups = convs[1:-1]
+    ratios = [int(state[f"decoder.layers.{i}.conv.weight"].shape[2]) // 2 for i in ups]
+    # gap between consecutive upsample convs = 1 ELU + num_res resblocks + 1
+    num_res = (ups[1] - ups[0] - 2) if len(ups) > 1 else 1
+    res_key = f"decoder.layers.{ups[0] + 1}.block.1.conv.weight"
+    lstm_layers = sum(
+        1 for k in state if k.startswith("decoder.layers.1.lstm.weight_ih_l")
+    )
+    return dict(
+        hidden_size=int(w0.shape[1]),
+        num_filters=int(w0.shape[0]) // (2 ** len(ratios)),
+        upsampling_ratios=tuple(ratios),
+        kernel_size=int(w0.shape[2]),
+        last_kernel_size=int(state[f"decoder.layers.{convs[-1]}.conv.weight"].shape[2]),
+        residual_kernel_size=int(state[res_key].shape[2]) if res_key in state else 3,
+        num_lstm_layers=lstm_layers,
+        num_residual_layers=max(1, num_res),
+    )
+
+
+def convert_encodec_encoder(state, upsampling_ratios=(8, 5, 4, 2),
+                            num_residual_layers=1, num_lstm_layers=2):
+    """HF/original EnCodec state dict → flax ``EncodecEncoder`` params
+    (``encoder.layers.*``, same ModuleList-index naming as the decoder)."""
+    state = fold_weight_norm(_normalize_encodec_keys(state))
+    p = {
+        "layer_0": {"conv": _plain_conv(state, "encoder.layers.0.conv")},
+    }
+    idx = 0
+    for _ in reversed(list(upsampling_ratios)):
+        for _ in range(num_residual_layers):
+            idx += 1
+            p[f"layer_{idx}"] = {
+                "block_1": {"conv": _plain_conv(state, f"encoder.layers.{idx}.block.1.conv")},
+                "block_3": {"conv": _plain_conv(state, f"encoder.layers.{idx}.block.3.conv")},
+                "shortcut": {"conv": _plain_conv(state, f"encoder.layers.{idx}.shortcut.conv")},
+            }
+        idx += 2  # ELU + strided conv
+        p[f"layer_{idx}"] = {"conv": _plain_conv(state, f"encoder.layers.{idx}.conv")}
+    lstm_idx = idx + 1
+    for l in range(num_lstm_layers):
+        p[f"lstm_{l}"] = _lstm_cell(state, f"encoder.layers.{lstm_idx}.lstm", f"_l{l}")
+    out_idx = lstm_idx + 2
+    p[f"layer_{out_idx}"] = {"conv": _plain_conv(state, f"encoder.layers.{out_idx}.conv")}
+    return {"params": p}
+
+
+def _bark_ln(state, key):
+    p = {"scale": state[key + ".weight"]}
+    if key + ".bias" in state and state[key + ".bias"] is not None:
+        p["bias"] = state[key + ".bias"]
+    return p
+
+
+def _bark_linear(state, key):
+    p = {"kernel": linear_kernel(state[key + ".weight"])}
+    if key + ".bias" in state:
+        p["bias"] = state[key + ".bias"]
+    return p
+
+
+def _bark_core(state, n_layer):
+    core = {"ln_f": _bark_ln(state, "transformer.ln_f")}
+    for i in range(n_layer):
+        k = f"transformer.h.{i}"
+        core[f"h_{i}"] = {
+            "ln_1": _bark_ln(state, f"{k}.ln_1"),
+            "ln_2": _bark_ln(state, f"{k}.ln_2"),
+            "attn": {
+                "c_attn": _bark_linear(state, f"{k}.attn.c_attn"),
+                "c_proj": _bark_linear(state, f"{k}.attn.c_proj"),
+            },
+            "mlp_fc": _bark_linear(state, f"{k}.mlp.c_fc"),
+            "mlp_proj": _bark_linear(state, f"{k}.mlp.c_proj"),
+        }
+    return core
+
+
+def convert_bark_gpt(state, n_layer=12) -> Dict[str, Any]:
+    """Reference Bark ``GPT`` (semantic/coarse) → flax params for
+    :class:`tts_tpu.models.bark.model.BarkGPT`."""
+    return {
+        "params": {
+            "wte": {"embedding": state["transformer.wte.weight"]},
+            "wpe": state["transformer.wpe.weight"],
+            "core": _bark_core(state, n_layer),
+            "lm_head": {"kernel": linear_kernel(state["lm_head.weight"])},
+        }
+    }
+
+
+def convert_bark_fine(state, n_layer=12, n_codes_total=8, n_codes_given=1) -> Dict[str, Any]:
+    """Reference Bark ``FineGPT`` → flax params for ``BarkFineGPT``."""
+    p: Dict[str, Any] = {
+        "wpe": state["transformer.wpe.weight"],
+        "core": _bark_core(state, n_layer),
+    }
+    for i in range(n_codes_total):
+        p[f"wte_{i}"] = {"embedding": state[f"transformer.wtes.{i}.weight"]}
+    for i in range(n_codes_total - n_codes_given):
+        # flax heads are named by the codebook they predict (offset by
+        # n_codes_given); the reference list starts at 0
+        p[f"lm_head_{i + n_codes_given}"] = {
+            "kernel": linear_kernel(state[f"lm_heads.{i}.weight"])
+        }
+    return {"params": p}
+
+
+# ---------------------------------------------------------------------------
+# Bark into the port, and back into the reference layout.
+# ---------------------------------------------------------------------------
+
+
+def _upsample_layers(upsampling_ratios, num_residual_layers) -> Tuple[str, ...]:
+    """The EnCodec decoder's transposed convs, by their HF ModuleList index."""
+    names, idx = [], 2
+    for _ in upsampling_ratios:
+        names.append(f"layer_{idx + 1}")
+        idx += num_residual_layers + 2
+    return tuple(names)
+
+
+def encodec_from_jax_params(params: Mapping, codebooks=None, upsampling_ratios=None,
+                            num_residual_layers: int = 1) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``EncodecDecoder`` or ``EncodecEncoder`` params →
+    the state_dict of the port's (``models/bark/encodec.py``): the generic
+    rules, with the cells ``lstm_<l>`` packed into the layers of one
+    ``nn.LSTM`` and, for a decoder (``upsampling_ratios`` given), the
+    transposed convs' time-flipped ``[k, in, out]`` kernels turned back into
+    ``ConvTranspose1d``'s ``[in, out, k]``. ``codebooks [n_q, bins, D]``
+    become the ``codebooks`` buffer of an ``EncodecVocoder``'s state (keys
+    then under ``decoder.``)."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    state = flax_to_state_dict({k: v for k, v in params.items() if not k.startswith("lstm_")})
+    for name in _upsample_layers(upsampling_ratios or (), num_residual_layers):
+        k = np.asarray(params[name]["conv"]["kernel"], np.float32)
+        state[f"{name}.conv.weight"] = torch.from_numpy(
+            np.ascontiguousarray(k.transpose(1, 2, 0)[:, :, ::-1]))
+    for key, cell in params.items():
+        if key.startswith("lstm_"):
+            state.update({f"lstm.{leaf}": torch.from_numpy(w)
+                          for leaf, w in _pack_lstm(cell, f"_l{key[5:]}").items()})
+    if codebooks is not None:
+        state = {"decoder." + k: v for k, v in state.items()}
+        state["codebooks"] = torch.from_numpy(np.array(codebooks, np.float32))
+    return state
+
+
+def bark_from_jax_params(semantic_params: Mapping, coarse_params: Mapping, fine_params: Mapping,
+                         encodec=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's Bark params (the three GPTs' and, where there is
+    one, its ``EncodecVocoder``) → the state_dicts of the port's
+    ``semantic_model``, ``coarse_model``, ``fine_model`` (the generic rules)
+    and ``encodec`` (decoder, codebooks and, where the JAX vocoder holds
+    them, the encoder: :func:`encodec_from_jax_params`)."""
+    states = {"semantic_model": flax_to_state_dict(semantic_params),
+              "coarse_model": flax_to_state_dict(coarse_params),
+              "fine_model": flax_to_state_dict(fine_params)}
+    if encodec is not None:
+        dec = encodec.decoder
+        state = encodec_from_jax_params(encodec.params, np.asarray(encodec.codebooks),
+                                        dec.upsampling_ratios, dec.num_residual_layers)
+        if encodec.encoder_params is not None:
+            state.update({"encoder." + k: v for k, v in
+                          encodec_from_jax_params(encodec.encoder_params).items()})
+        states["encodec"] = state
+    return states
+
+
+def load_reference_encodec(state: Mapping, device="cpu"):
+    """A reference EnCodec state dict (HF ``EncodecModel`` or the
+    ``encodec`` package's, numpy) → the port's ``EncodecVocoder`` on
+    ``device``, its SEANet dims read off the checkpoint; the encoder too
+    where the checkpoint holds it."""
+    from tts_tpu_torch.models.bark.encodec import EncodecDecoder, EncodecEncoder, EncodecVocoder
+
+    dims = infer_encodec_dims(state)
+    kw = dict(upsampling_ratios=dims["upsampling_ratios"],
+              num_residual_layers=dims["num_residual_layers"],
+              num_lstm_layers=dims["num_lstm_layers"])
+    params, codebooks = convert_encodec_decoder(state, **kw)
+    has_encoder = any(k.startswith(("encoder.layers.", "encoder.model.")) for k in state)
+    with torch.device("meta"):
+        vocoder = EncodecVocoder(EncodecDecoder(**dims), torch.empty(codebooks.shape),
+                                 EncodecEncoder(**dims) if has_encoder else None)
+    weights = encodec_from_jax_params(params, codebooks, kw["upsampling_ratios"],
+                                      kw["num_residual_layers"])
+    if has_encoder:
+        weights.update({"encoder." + k: v for k, v in
+                        encodec_from_jax_params(convert_encodec_encoder(state, **kw)).items()})
+    vocoder.load_state_dict({k: v.to(device) for k, v in weights.items()}, strict=True,
+                            assign=True)
+    return vocoder.eval().requires_grad_(False)
+
+
+def hubert_tokenizer_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``HubertTokenizer`` params → the state_dict of the
+    port's (``models/bark/hubert.py``): ``lstm0``/``lstm1`` packed into the
+    two layers of one ``nn.LSTM``, the Denses by the generic rules."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    state = flax_to_state_dict({k: v for k, v in params.items() if not k.startswith("lstm")})
+    for key in ("lstm0", "lstm1"):
+        state.update({f"lstm.{leaf}": torch.from_numpy(w)
+                      for leaf, w in _pack_lstm(params[key], f"_l{key[-1]}").items()})
+    return state
+
+
+def reference_bark_gpt_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``BarkGPT`` or ``BarkFineGPT`` in the
+    reference's nanoGPT names (``transformer.wte``/``wtes.<i>``, ``wpe``,
+    ``h.<i>.attn.c_attn``, ``mlp.c_fc``, ``ln_f``; ``lm_head`` or
+    ``lm_heads.<i - n_codes_given>``), as ``text_2.pt``, ``coarse_2.pt`` and
+    ``fine_2.pt`` hold it under ``"model"``. :func:`convert_bark_gpt` and
+    :func:`convert_bark_fine` map it back."""
+    heads = sorted(int(k.split(".")[0][8:]) for k in state if re.match(r"lm_head_\d+\.", k))
+    rules = (
+        (r"^wte\.", "transformer.wte."), (r"^wte_(\d+)\.", r"transformer.wtes.\1."),
+        (r"^wpe$", "transformer.wpe.weight"), (r"^core\.", "transformer."),
+        (r"\.mlp_(fc|proj)\.", r".mlp.c_\1."),
+        (r"^lm_head_(\d+)\.", lambda m: f"lm_heads.{int(m.group(1)) - heads[0]}."),
+    )
+    return {_reference_key(k, rules): v.detach().float().cpu().numpy() for k, v in state.items()}
+
+
+def reference_encodec_state(state: Mapping[str, torch.Tensor],
+                            num_lstm_layers: int = 2) -> Dict[str, np.ndarray]:
+    """The state_dict of the port's ``EncodecVocoder`` in HF
+    ``EncodecModel``'s names (``decoder.layers.<i>.conv``, the LSTM at
+    ``decoder.layers.1.lstm``, the encoder's after its last strided conv,
+    ``quantizer.layers.<q>.codebook.embed``; weights plain, without weight
+    norm, which the converters accept). :func:`load_reference_encodec` maps
+    it back."""
+    enc_lstm = None
+    enc_convs = [int(m.group(1)) for k in state
+                 if (m := re.match(r"encoder\.layer_(\d+)\.conv\.weight$", k))]
+    if enc_convs:
+        enc_lstm = max(enc_convs) - 2
+    out = {}
+    for key, value in state.items():
+        v = value.detach().float().cpu().numpy()
+        if key == "codebooks":
+            for q in range(v.shape[0]):
+                out[f"quantizer.layers.{q}.codebook.embed"] = np.ascontiguousarray(v[q])
+            continue
+        key = re.sub(r"^decoder\.lstm\.", "decoder.layers.1.lstm.", key)
+        key = re.sub(r"^encoder\.lstm\.", f"encoder.layers.{enc_lstm}.lstm.", key)
+        key = re.sub(r"\.layer_(\d+)\.", r".layers.\1.", key)
+        key = re.sub(r"\.block_(\d)\.conv\.", r".block.\1.conv.", key)
+        out[key] = v
+    return out

@@ -59,7 +59,7 @@ _VOCODER_FAMILIES = ("multiband-melgan", "fullband-melgan", "hifigan", "parallel
 
 
 def _family_reason(model: str, model_item: Dict) -> Optional[str]:
-    if model.startswith(("xtts", "tortoise")):
+    if model.startswith(("xtts", "tortoise", "bark")):
         return None
     if model in ("your_tts", "fast_pitch", "overflow", "neural_hmm"):
         return None
@@ -80,7 +80,8 @@ def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
     """Why the port cannot load the zoo model ``model_name`` of the catalog
     ``models_dict`` yet, naming its ROADMAP.md item, or ``None`` for what it
     runs: VITS (by its name or its description), YourTTS, XTTS v2 and v1.1,
-    Tortoise (``tortoise-v2``, from its multi-file directory), GlowTTS,
+    Tortoise (``tortoise-v2``) and Bark (``bark``), each from its multi-file
+    directory, GlowTTS,
     Tacotron2 (Capacitron's too), FastPitch, Overflow and NeuralHMM whose
     ``default_vocoder`` it runs (or that has none: Griffin-Lim speaks it),
     every vocoder of the catalog (the MelGANs, HiFiGAN, ParallelWaveGAN,

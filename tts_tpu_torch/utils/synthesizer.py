@@ -13,14 +13,15 @@ not) turns a mel model's output into audio; a mel
 model without one speaks through Griffin-Lim (``use_griffin_lim``, on by
 default, as in the JAX package), on the host.
 
-Models with their own ``synthesize`` (XTTS, Tortoise) render each sentence
-through it, each followed by 10000 zero samples; Tortoise takes its voice
-from ``speaker_wav``, from ``voice_dir/<speaker_name>/*.wav`` (port of
-``tts_tpu/utils/synthesizer.py:341-357``) or, for ``speaker_name``
-``"random"`` or none, from its random-voice generators, and speaks at its
-config's ``audio.output_sample_rate`` (24 kHz). For the waveform models
-(VITS), a request of two or more sentences is decoded as one sequence-packed grid
-(:func:`~tts_tpu_torch.utils.synthesis.decode_packed`), and a single
+Models with their own ``synthesize`` (XTTS, Tortoise, Bark) render each
+sentence through it, each followed by 10000 zero samples; Tortoise takes
+its voice from ``speaker_wav``, from ``voice_dir/<speaker_name>/*.wav`` (port
+of ``tts_tpu/utils/synthesizer.py:341-357``) or, for ``speaker_name``
+``"random"`` or none, from its random-voice generators; Bark from the voice
+prompt ``voice_dir/<speaker_name>.npz`` or, without one, at random. Both
+speak at their config's ``audio.output_sample_rate`` (24 kHz). For the
+waveform models (VITS), a request of two or more sentences is decoded as
+one sequence-packed grid (:func:`~tts_tpu_torch.utils.synthesis.decode_packed`), and a single
 sentence through :func:`~tts_tpu_torch.utils.synthesis.synthesis`;
 DelightfulTTS, which speaks through its joint vocoder (ROADMAP.md F28),
 decodes sentence by sentence. A mel model (GlowTTS, Tacotron2, ForwardTTS,
@@ -131,7 +132,7 @@ _NO_ENCODER = ("speaker_wav needs a speaker encoder to compute its d-vector: loa
                "encoder_config_path=...)); without it the JAX package decodes with no speaker "
                "(ROADMAP.md F22)")
 # models with their own audio config and front end (no AudioProcessor)
-OWN_AUDIO_MODELS = ("xtts", "tortoise")
+OWN_AUDIO_MODELS = ("xtts", "tortoise", "bark")
 # models that load from a checkpoint file and its config.json
 FILE_MODELS = ("vits", "glow_tts", "tacotron2", "tacotron", "fast_pitch", "fast_speech",
                "fastspeech2", "speedy_speech", "forward_tts", "overflow", "neuralhmm_tts",
@@ -349,8 +350,10 @@ class Synthesizer:
         model = self.tts_model
         wavs: List[float] = []
         if hasattr(model, "synthesize"):
-            # Tortoise also reads its voices from voice_dir/<speaker_name>/*.wav
-            extra = {"voice_dirs": self.voice_dir} if self.tts_config.model == "tortoise" else {}
+            # Tortoise reads its voices from voice_dir/<speaker_name>/*.wav, Bark
+            # from voice_dir/<speaker_name>.npz
+            extra = ({"voice_dirs": self.voice_dir}
+                     if self.tts_config.model in ("tortoise", "bark") else {})
             for sen in sens:
                 outputs = model.synthesize(
                     text=sen, config=self.tts_config, speaker_id=speaker_name,
