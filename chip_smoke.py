@@ -9,8 +9,9 @@ Phases; each raises on failure and the script then exits non-zero:
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit; TF32 is switched off for the comparison phases;
-2. build: the hand-written kernels of the serving path are compiled from
-   ``tts_tpu_torch/csrc`` (ptxas register / shared-memory use printed);
+2. build: the hand-written kernels of the serving path (K1, K4) are
+   compiled from ``tts_tpu_torch/csrc``, one ``nvcc`` each, at once
+   (ptxas register / shared-memory use printed);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    decode shapes (B 1 and 4, S 685, 720 and 1024, H 16, dh 64, fp32 and
    bf16 caches, per-row, scalar and the real decode's lengths; Tortoise's
@@ -283,9 +284,10 @@ Phases; each raises on failure and the script then exits non-zero:
     sampled semantic and coarse tokens identical through K1 and the plain
     attention on one generator, K1 launching 24 times a step; HuBERT-base
     and its tokenizer card against CPU on a 3 s clip, ``generate_voice``'s
-    prompt saved as ``clone.npz``; one whole ``synthesize`` at random and
-    one from that prompt (random weights never emit EOS: 399 semantic
-    tokens, 20 coarse windows, 599 frames, 7.99 s of audio), each with its
+    prompt saved as ``clone.npz``; one whole ``synthesize`` at random
+    (random weights never emit EOS: 399 semantic tokens, 20 coarse windows,
+    599 frames, 7.99 s of audio) and one from that prompt at a 4 s budget
+    (``BARK_CLONE_BUDGET_S``, a depth cut), each with its
     stages, ms a decode step and K1's launches, then one of each at a 0.5 s
     budget under ``torch.profiler`` (busy share, top kernels), and peak
     memory; ``bark`` by zoo name from the reference layout (its semantic
@@ -293,10 +295,27 @@ Phases; each raises on failure and the script then exits non-zero:
     path load, ``tts --model_name --voice_dir
     --speaker_idx`` within one int16 step of ``TTS.tts_to_file``, one
     ``/api/tts`` request; Tortoise's wav2vec2 aligner at
-    wav2vec2-large-robust's widths card against CPU on one clip.
+    wav2vec2-large-robust's widths card against CPU on one clip;
+20. int8 weight-only serving through K4 (``csrc/int8_linear.cu``): K4
+    against its plain version at the path's shapes (K 1024 with N 3072,
+    1024, 4096, K 4096 with N 1024, the heads 1026, 8194 and 10,048; M 1,
+    4, 16, 513, 1024; bf16 and fp32; the conditioning encoders' K 80 and
+    2730), each call made twice and required bit-identical, then timed
+    beside its bound, the plain version, a library yardstick and
+    ``F.linear`` on a float weight; XTTS v2 quantized (fp32 from seed 0):
+    card against CPU on the conditioning, the prefill and 8 greedy steps
+    (within 1e-4 of each peak), 40 greedy tokens identical through K4 and
+    the plain version, 121 launches a step; then from a model directory
+    whose ``config.json`` sets ``gpt_int8_weights``, through ``TTS``: the
+    resident bytes against the float load, ms a bf16 decode step at B=1
+    and B=4, one ``/api/tts-stream`` request through the ``StreamBatcher``;
+    Tortoise's AR stack (16 greedy candidates x 60 steps) and Bark's three
+    GPTs (the semantic stage and one coarse window) at their zoo widths,
+    drawn on the card: tokens identical through K4 and the plain version,
+    launches a step (121, 97), ms a step, resident bytes.
 
-It prints the card's name and power limit, then ``{"kernels": [...]}`` on
-the line before the last and, as the last line, ``{"ok": true, "device":
+It prints the card's name and power limit, then ``{"kernels": [...]}``
+(K1 and K4) on the line before the last and, as the last line, ``{"ok": true, "device":
 {...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax,
 ``tokenizers`` or ``transformers`` by then. Without CUDA, or outside a
 checkout, it exits 2 and prints no result.
@@ -450,18 +469,27 @@ def phase_environment() -> str:
     return card
 
 
+KERNEL_SOURCES = ("decode_attention", "int8_linear")  # K1, K4
+
+
 def phase_build() -> None:
+    """Both kernels' sources built at once, one ``nvcc`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tts_tpu_torch.ops.cuda_build import load_library
 
     t0 = time.time()
-    built = load_library("decode_attention")
-    log(f"built {os.path.relpath(built.path, REPO)} in {time.time() - t0:.1f} s")
-    for line in built.build_log.splitlines():
-        if "entry function" in line:
-            kind = "bf16" if "bfloat16" in line else "fp32" if "IfE" in line else "?"
-            log(f"  ptxas: {line.strip().split(' for ')[0]} ({kind} instance)")
-        elif "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = list(pool.map(load_library, KERNEL_SOURCES))
+    log(f"built {', '.join(os.path.relpath(b.path, REPO) for b in libs)} in "
+        f"{time.time() - t0:.1f} s (in parallel)")
+    for built in libs:
+        for line in built.build_log.splitlines():
+            if "entry function" in line:
+                kind = "bf16" if "bfloat16" in line else "fp32"
+                log(f"  ptxas: {line.strip().split(' for ')[0]} ({kind} instance)")
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet, at 700 W
@@ -6230,6 +6258,9 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
 BARK = "tts_models/multilingual/multi-dataset/bark"
 BARK_TOL = 1e-4  # card against CPU, as a share of each output's peak
 BARK_TEXT = "Hello there."  # the surfaces' sentence: their semantic head stops at once for it
+# the cloned voice's whole synthesize runs half the default 8 s budget: a
+# depth cut that keeps the script's time as phase 20 was added
+BARK_CLONE_BUDGET_S = 4.0
 BARK_GPT = dict(n_layer=24, n_head=16, n_embd=1024)  # suno's large text, coarse and fine models
 
 
@@ -6403,7 +6434,7 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
     launching 24 times a step; HuBERT-base and its tokenizer card against
     CPU on a 3 s clip, and ``generate_voice``'s prompt saved as
     ``voices/clone.npz``; one whole ``synthesize`` at random and one from
-    that prompt, each with its stages, ms a decode step, K1's launches,
+    that prompt at a 4 s budget, each with its stages, ms a decode step, K1's launches,
     busy share and top kernels and peak memory; the zoo's ``bark`` by name
     from a reference-layout directory (its semantic head set to stop at
     once for the surfaces' sentence) against the path load, ``tts
@@ -6537,10 +6568,12 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
         for voice in ("random", "clone"):
             decode_attention.launches = 0
             steps0 = model.semantic_model.decode_steps + model.coarse_model.decode_steps
+            budget = {} if voice == "random" else {"max_gen_duration_s": BARK_CLONE_BUDGET_S}
             with bark_stage_timer(model, device) as ms:
                 sync(device)
                 t0 = time.perf_counter()
-                out = model.synthesize(sentence, config, speaker_id=voice, voice_dirs=[voices])
+                out = model.synthesize(sentence, config, speaker_id=voice, voice_dirs=[voices],
+                                       **budget)
                 sync(device)
                 wall = (time.perf_counter() - t0) * 1e3
             steps = model.semantic_model.decode_steps + model.coarse_model.decode_steps - steps0
@@ -6672,6 +6705,522 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
     return launches_total
 
 
+# ---------------------------------------------------------------------------
+# phase 20: int8 weight-only serving through K4
+# ---------------------------------------------------------------------------
+
+INT8_TOL = {"fp32": 1e-5, "bf16": 2 ** -7}  # K4 against its plain version, share of the peak
+INT8_MODEL_TOL = 1e-4  # card against CPU, the int8 XTTS's outputs, share of each peak
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+INT8_CHECK_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024), (1024, 1026),
+                     (1024, 8194), (1024, 10_048))  # (K, N): the layers and the heads
+INT8_CHECK_ROWS = (1, 4, 16, 513, 1024)
+INT8_TIMED = [(M, K, N) for M in (1, 4, 16) for K, N in
+              ((1024, 3072), (4096, 1024), (1024, 1026), (1024, 8194), (1024, 10_048))] \
+    + [(513, 1024, 3072), (1024, 1024, 1056)]
+
+
+def int8_bound_ms(M: int, K: int, N: int, dtype, bias: bool) -> tuple:
+    """Least time for one K4 call: the int8 weights, the fp32 scales, the
+    activations (and bias) read once and the output written once over the
+    memory rate, or ``2 M N K`` operations at the working type's peak (bf16
+    tensor cores; fp32 outside them). Returns ``(ms, "bytes" or
+    "operations", bytes)``."""
+    import torch
+
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = N * K + 4 * N + M * K * elt + M * N * elt + (N * elt if bias else 0)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * N * K / peak
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+@contextlib.contextmanager
+def plain_int8_linear():
+    """The int8 modules call K4's plain PyTorch version instead of the
+    kernel, for one comparison only."""
+    from tts_tpu_torch.ops import quant
+
+    real = quant.int8_linear
+    quant.int8_linear = quant.int8_linear_torch
+    try:
+        yield
+    finally:
+        quant.int8_linear = real
+
+
+def int8_library_call(x, q, scale):
+    """The library yardstick the port never calls: ``torch._weight_int8pack_mm``
+    where this PyTorch runs it on the card, else dequantize + ``F.linear``
+    (two calls). Returns ``(fn, label)``."""
+    import torch
+    import torch.nn.functional as F
+
+    s = scale.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, q, s)
+        torch.cuda.synchronize()
+        return (lambda: torch._weight_int8pack_mm(x, q, s)), "torch._weight_int8pack_mm"
+    except (RuntimeError, NotImplementedError):
+        return (lambda: F.linear(x, q.to(x.dtype) * s[:, None])), "dequantize + F.linear"
+
+
+def phase_int8_kernel(card: str) -> dict:
+    """K4 against its plain version at the serving path's shapes (repeated
+    calls bit-identical), then timed beside its bound, the plain version,
+    the library yardstick and ``F.linear`` on a float weight."""
+    import torch
+    import torch.nn.functional as F
+
+    from tts_tpu_torch.ops.quant import int8_linear, int8_linear_torch, quantize_int8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    worst_abs = 0.0
+    n_checks = 0
+
+    def operands(M, K, N, dtype, bias=True):
+        w = torch.randn(N, K, generator=gen, device=dev) / K ** 0.5
+        q, s = quantize_int8(w)
+        b = torch.randn(N, generator=gen, device=dev).to(dtype) if bias else None
+        return torch.randn(M, K, generator=gen, device=dev).to(dtype), q, s, b
+
+    def check(M, K, N, dtype, bias):
+        nonlocal n_checks, worst_abs
+        x, q, s, b = operands(M, K, N, dtype, bias)
+        got, again = int8_linear(x, q, s, b), int8_linear(x, q, s, b)
+        want = int8_linear_torch(x, q, s, b)
+        torch.cuda.synchronize()
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        abs_err = (got.float() - want.float()).abs().max().item()
+        err = abs_err / want.float().abs().max().item()
+        worst[kind], worst_abs = max(worst[kind], err), max(worst_abs, abs_err)
+        n_checks += 1
+        if not err <= INT8_TOL[kind]:
+            raise AssertionError(f"int8_linear M={M} K={K} N={N} {kind}: {err:.3g} of the peak "
+                                 f"> {INT8_TOL[kind]}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"int8_linear M={M} K={K} N={N} {kind}: two calls differ")
+
+    for K, N in INT8_CHECK_SHAPES:
+        for M in INT8_CHECK_ROWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                check(M, K, N, dtype, bias=N != 10_048)  # Bark's heads have no bias
+    # the conditioning encoders' and the perceiver's K (no multiple of 16)
+    for M, K, N in ((300, 80, 1024), (3, 80, 1024), (32, 2730, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(M, K, N, dtype, bias=True)
+    log(f"int8_linear (K4): {n_checks} cases agree with the plain version, each called twice "
+        f"with bit-identical results; largest difference as a share of the output's peak: "
+        f"fp32 {worst['fp32']:.3g} (tol {INT8_TOL['fp32']:g}: summation order), bf16 "
+        f"{worst['bf16']:.3g} (tol 2^-7: one bf16 rounding of fp32 sums that differ in their "
+        f"last bits); largest absolute difference {worst_abs:.3g}")
+
+    times = {}
+    for M, K, N in INT8_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            # 32 weight copies (more bytes than the 50 MB L2 holds) at decode
+            # shapes, so each call reads its weights from device memory
+            copies = 32 if M <= 16 else 2
+            x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+            ws = [quantize_int8(torch.randn(N, K, generator=gen, device=dev) / K ** 0.5)
+                  for _ in range(copies)]
+            floats = [(q.to(dtype) * s[:, None].to(dtype)) for q, s in ws[:min(copies, 8)]]
+            kern = [lambda q=q, s=s: int8_linear(x, q, s) for q, s in ws]
+            plain = [lambda q=q, s=s: int8_linear_torch(x, q, s) for q, s in ws]
+            libs = [int8_library_call(x, q, s) for q, s in ws]
+            label = libs[0][1]
+            lin = [lambda w=w: F.linear(x, w) for w in floats]
+            # the slower yardsticks over fewer rounds: the same per-call mean
+            t = {"kernel": time_device(kern), "plain": time_device(plain, rounds=2),
+                 "library": time_device([fn for fn, _ in libs], rounds=2),
+                 "linear": time_device(lin, rounds=4)}
+            t["kernel2"] = time_device(kern)
+            t["kernel_call"] = time_host(kern[0], iters=50, warmup=5)
+            bound, bound_by, nbytes = int8_bound_ms(M, K, N, dtype, bias=False)
+            t.update(bound=bound, bound_by=bound_by, bytes=nbytes, library_label=label)
+            times[(M, K, N, dtype)] = t
+            log(f"int8_linear {str(dtype)[6:]} M={M} K={K} N={N}: device "
+                f"{t['kernel'] * 1e3:.2f} / {t['kernel2'] * 1e3:.2f} us kernel, "
+                f"{t['plain'] * 1e3:.2f} us plain, {t['library'] * 1e3:.2f} us library "
+                f"({label}), {t['linear'] * 1e3:.2f} us F.linear on a {str(dtype)[6:]} weight; "
+                f"bound {bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {bound_by}): "
+                f"{100 * bound / t['kernel']:.1f} % of bound; per call with launch "
+                f"{t['kernel_call'] * 1e3:.2f} us | {card}")
+            del ws, floats, kern, plain, libs, lin
+    t = times[(1, 1024, 3072, torch.bfloat16)]
+    return {
+        "name": "int8_linear",
+        "route": "cuda",
+        "source": "tts_tpu_torch/csrc/int8_linear.cu",
+        "replaces": "tts_tpu/ops/quant.py:56",
+        "max_abs_err": worst_abs,
+        "ms": t["kernel"],
+        "plain_ms": t["plain"],
+        "bound_ms": t["bound"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library"],
+    }
+
+
+def draw_on_device(module, seed: int, device):
+    """Random weights drawn where ``module`` lies (fast at a billion
+    parameters): norm scales 1, biases 0, linear and conv weights
+    N(0, 1/fan_in), everything else N(0, 0.02²)."""
+    import torch
+    import torch.nn as nn
+
+    gen = torch.Generator(device).manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            for name, p in m.named_parameters(recurse=False):
+                if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                    p.fill_(1.0 if name == "weight" else 0.0)
+                elif name.startswith("bias"):
+                    p.zero_()
+                elif isinstance(m, (nn.Linear, nn.Conv1d)):
+                    p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+                else:
+                    p.normal_(0.0, 0.02, generator=gen)
+    return module.requires_grad_(False)
+
+
+def allocated(device) -> int:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def int8_xtts(card: str, device, config=None) -> dict:
+    """XTTS v2 with ``gpt_int8_weights``: card against CPU (conditioning,
+    prefill, 8 greedy steps), K4 against the plain version on the card,
+    launches a step; then from a model directory whose ``config.json``
+    carries the flag, through ``TTS``: resident bytes, ms a bf16 decode step
+    at B=1 and B=4, one ``/api/tts-stream`` request's TTFA. Returns the K4
+    and K1 launches of the served paths."""
+    import torch
+
+    from tts_tpu_torch.api import TTS
+    from tts_tpu_torch.audio.numpy_transforms import save_wav
+    from tts_tpu_torch.models.xtts.config import XttsConfig
+    from tts_tpu_torch.models.xtts.model import Xtts
+    from tts_tpu_torch.models.xtts.tokenizer import write_char_vocab
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.ops.quant import int8_linear, quantized_bytes
+    from tts_tpu_torch.server.server import close_server, create_server
+
+    import shutil
+
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.time()
+    config = config or XttsConfig()
+    cpu = Xtts(config).init_params(seed=0, device="cpu")
+    stop = cpu.gpt.stop_audio_token
+    cpu.gpt.mel_head.bias[stop] = -1e4  # every stream decodes its whole length
+    n_layers = len(cpu.gpt.gpt.h)
+    per_step = 4 * n_layers + 1  # c_attn, c_proj, mlp_fc, mlp_proj a layer; the mel head
+    fp32_gpt = quantized_bytes(cpu.gpt)
+    d = tempfile.mkdtemp(prefix="xtts_int8_")
+    cfg = config.to_dict()
+    cfg["model_args"]["gpt_int8_weights"] = True
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg, f, default=str)
+    write_char_vocab(os.path.join(d, "vocab.json"), "abcdefghijklmnopqrstuvwxyz.,!?'-")
+    state = {k: v.bfloat16() if k.startswith("gpt.") else v
+             for k, v in cpu.state_dict_with_stats().items()}  # the served GPT in bf16
+    bf16_gpt = sum(v.numel() * v.element_size() for k, v in state.items() if k.startswith("gpt."))
+    torch.save(state, os.path.join(d, "model_torch.pt"))
+    del state
+    wav_path = os.path.join(d, "ref.wav")
+    save_wav(wav=reference_wav(seconds=4.0, seed=1), path=wav_path, sample_rate=22050)
+
+    model = Xtts(config)  # the same weights on the card (the GPT's lock cannot be copied)
+    model.load_state_dict_with_stats({k: v.to(device, copy=True)
+                                      for k, v in cpu.state_dict_with_stats().items()})
+    before = allocated(device)
+    model.quantize_weights_int8()
+    freed = before - allocated(device)
+    cpu.quantize_weights_int8()
+    log(f"XTTS v2 int8 ({n_layers} layers, fp32 weights from seed 0, ready in "
+        f"{time.time() - t0:.1f} s): GPT {fp32_gpt / 1e9:.3f} GB fp32 -> "
+        f"{quantized_bytes(model.gpt) / 1e9:.3f} GB int8 with scales; quantizing on the card "
+        f"freed {freed / 1e9:.3f} GB")
+
+    # card against CPU, fp32
+    wav = reference_wav(seconds=4.0, seed=1)
+    rs = np.random.RandomState(20)
+    n_text = min(200, model.args.gpt_number_text_tokens)
+    text = torch.from_numpy(rs.randint(5, n_text, (1, 40)))
+    lengths = torch.tensor([40])
+    outs = {}
+    for m, dev in ((model, device), (cpu, "cpu")):
+        cond = m.get_gpt_cond_latents(wav, 22050, chunk_length=4)
+        state = m.gpt.prefill(cond, text.to(dev), lengths.to(dev), max_new_tokens=8)
+        g = m.gpt.generate(cond, text.to(dev), lengths.to(dev), None, max_new_tokens=8, top_k=1)
+        outs[dev] = dict(cond=cond, logits=state["last_logits"], latents=g["latents"],
+                         codes=g["codes"])
+    errs = {k: peak_err(outs[device][k], outs["cpu"][k]) for k in ("cond", "logits", "latents")}
+    if not torch.equal(outs[device]["codes"].cpu(), outs["cpu"]["codes"]):
+        raise AssertionError("int8 XTTS: greedy codes differ card against CPU")
+    if not max(errs.values()) <= INT8_MODEL_TOL:
+        raise AssertionError(f"int8 XTTS card against CPU: {errs}")
+    log("int8 XTTS card against CPU (fp32; conditioning through the quantized encoder and "
+        "perceiver, the prefill, 8 greedy steps), as a share of each peak (tol 1e-4): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + " | " + card)
+    cond = outs[device]["cond"]
+    del cpu, outs
+
+    # K4 against its plain version on the card, 40 greedy tokens (fp32)
+    text, lengths = text.to(device), lengths.to(device)
+    int8_linear.launches = decode_attention.launches = 0
+    steps0 = model.gpt.decode_steps
+    with_k4 = model.gpt.generate(cond, text, lengths, None, max_new_tokens=40, top_k=1)
+    sync(device)
+    steps, launches = model.gpt.decode_steps - steps0, int8_linear.launches
+    with plain_int8_linear():
+        with_plain = model.gpt.generate(cond, text, lengths, None, max_new_tokens=40, top_k=1)
+    sync(device)
+    if not torch.equal(with_k4["codes"], with_plain["codes"]):
+        raise AssertionError("int8 XTTS: codes differ through K4 and its plain version")
+    lat_err = peak_err(with_k4["latents"], with_plain["latents"])
+    if cuda and (launches != per_step * (steps + 1) or int8_linear.launches != launches):
+        raise AssertionError(f"int8 XTTS: {launches} K4 launches for {steps} steps and a "
+                             f"prefill, want {per_step} each")
+    log(f"int8 XTTS: 40 greedy tokens identical through K4 and its plain version on the card "
+        f"(fp32), latents {lat_err:.3g} of their peak; K4 {launches} launches = {per_step} x "
+        f"({steps} steps + the prefill), K1 {decode_attention.launches} = {n_layers} x {steps}")
+    del model, with_k4, with_plain
+
+    # served from the model directory: the flag from config.json, the GPT in bf16
+    float_cfg = XttsConfig.from_dict(config.to_dict())
+    base = allocated(device)
+    floats = Xtts(float_cfg).load_checkpoint(float_cfg, checkpoint_dir=d, device=device)
+    float_resident, float_model = allocated(device) - base, quantized_bytes(floats)
+    del floats
+    base = allocated(device)
+    tts = TTS(model_path=d, device=device)
+    resident = allocated(device) - base
+    served = tts.synthesizer.tts_model
+    int8_gpt = quantized_bytes(served.gpt)
+    if served.gpt.dtype != torch.bfloat16 or not served.args.gpt_int8_weights:
+        raise AssertionError("int8 XTTS: the served GPT is not the bf16 int8 one")
+    # no float copy of a quantized weight stays: no linear or convolution
+    # module of quantizable size is left, and what the load allocated is the
+    # model's parameters and buffers within 64 MB (a float copy of the GPT's
+    # weights would be 0.76 GB)
+    left = [n for n, m in served.gpt.named_modules() if type(m) in (torch.nn.Linear,
+            torch.nn.Conv1d) and m.weight.numel() >= 4096]
+    if left or (cuda and resident > quantized_bytes(served) + (64 << 20)):
+        raise AssertionError(f"int8 XTTS: {resident} bytes resident for a "
+                             f"{quantized_bytes(served)}-byte model; float modules left: {left}")
+    log(f"int8 XTTS through TTS (gpt_int8_weights from config.json): GPT {bf16_gpt / 1e9:.3f} GB "
+        f"in bf16 -> {int8_gpt / 1e9:.3f} GB int8 with scales; whole model resident (allocated "
+        f"on the card) {float_resident / 1e9:.3f} GB float -> {resident / 1e9:.3f} GB int8, of "
+        f"which parameters and buffers {float_model / 1e9:.3f} -> "
+        f"{quantized_bytes(served) / 1e9:.3f} GB | {card}")
+
+    k4_total = k1_total = 0
+    cond, _ = served.resolve_conditioning(served.config, speaker_wav=wav_path)
+    tokens, lens = served._text_batch(["the quick brown fox jumps over the lazy dog."], "en")
+    for B in (1, 4):
+        state = served.gpt.prefill(cond.expand(B, -1, -1), tokens.expand(B, -1),
+                                   lens.expand(B), max_new_tokens=120)
+        state, _, _ = served.gpt.decode_chunk(state, None, chunk_size=20, top_k=1)
+        sync(device)
+        int8_linear.launches = decode_attention.launches = 0
+        t1 = time.perf_counter()
+        served.gpt.decode_chunk(state, None, chunk_size=100, top_k=1)
+        sync(device)
+        ms = (time.perf_counter() - t1) * 1e3 / 100
+        if cuda and (int8_linear.launches != per_step * 100
+                     or decode_attention.launches != n_layers * 100):
+            raise AssertionError(f"int8 XTTS B={B}: {int8_linear.launches} K4 and "
+                                 f"{decode_attention.launches} K1 launches for 100 steps")
+        k4_total += int8_linear.launches
+        k1_total += decode_attention.launches
+        log(f"int8 XTTS decode step, bf16, B={B}, cache ~{state['cur_index']}: {ms:.2f} ms "
+            f"(host clock, synchronized; phase 4's bf16 float figure beside it); K4 "
+            f"{int8_linear.launches // 100} and K1 {decode_attention.launches // 100} launches "
+            f"a step | {card}")
+
+    srv = create_server(tts.synthesizer, port=0, stream_batch=4, stream_window_ms=50)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    res: dict = {}
+    try:
+        int8_linear.launches = decode_attention.launches = 0
+        url = (f"http://127.0.0.1:{srv.server_address[1]}/api/tts-stream?text="
+               f"{urllib.parse.quote('the quick brown fox jumps over the lazy dog.')}"
+               f"&language_id=en&speaker_wav={urllib.parse.quote(wav_path)}")
+        _fetch(url, res, "stream")
+        sync(device)
+        k4, k1 = int8_linear.launches, decode_attention.launches
+    finally:
+        close_server(srv)
+        thread.join(timeout=60)
+    body = res["stream"]["body"]
+    pcm = np.frombuffer(body[44:], dtype="<i2")
+    if res["stream"]["status"] != 200 or body[:4] != b"RIFF" or pcm.std() < 30:
+        raise AssertionError(f"int8 /api/tts-stream: HTTP {res['stream']['status']}, "
+                             f"{len(pcm)} samples, std {pcm.std():.1f}")
+    if cuda and (k4 == 0 or k1 == 0):
+        raise AssertionError(f"int8 /api/tts-stream: K4 {k4}, K1 {k1} launches")
+    k4_total += k4
+    k1_total += k1
+    log(f"int8 XTTS /api/tts-stream through the StreamBatcher: TTFA {res['stream']['ttfa'] * 1e3:.0f}"
+        f" ms (50 ms batching window included), {len(pcm) / 24000:.1f} s of audio in "
+        f"{res['stream']['total']:.2f} s; K4 {k4}, K1 {k1} launches | {card}")
+    del tts, served
+    shutil.rmtree(d, ignore_errors=True)
+    return {"k4": k4_total, "k1": k1_total}
+
+
+def int8_tortoise(card: str, device, config=None) -> dict:
+    """Tortoise's ``UnifiedVoice`` at ``TortoiseArgs()`` widths, drawn on the
+    card from seed 0 (fp32), quantized: 16 greedy candidates through K4 and
+    through the plain version, launches and ms a step, resident bytes."""
+    import torch
+
+    from tts_tpu_torch.models.tortoise import model as tortoise
+    from tts_tpu_torch.models.tortoise.config import TortoiseConfig
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.ops.quant import int8_linear, quantized_bytes
+
+    cuda = torch.device(device).type == "cuda"
+    config = config or TortoiseConfig()
+    with torch.device(device):
+        model = tortoise.Tortoise(config)
+    model.diffusion = None  # the AR stack alone: quantization leaves the rest float
+    ar = draw_on_device(model.autoregressive, 0, device)
+    n_layers = len(ar.gpt.h)
+    per_step = 4 * n_layers + 1
+    fp32_bytes, before = quantized_bytes(ar), allocated(device)
+    model.quantize_weights_int8()
+    int8_bytes, freed = quantized_bytes(ar), before - allocated(device)
+    gen = torch.Generator(device).manual_seed(1)
+    cond = torch.randn(1, 1, ar.mel_embedding.embedding_dim, generator=gen, device=device)
+    ids = torch.tensor([model.tokenizer.encode("Tortoise speaks through sixteen candidates.")
+                        + [config.model_args.ar_stop_text_token]], device=device)
+    kw = dict(max_new_tokens=60, temperature=0.8, top_p=1e-6, repetition_penalty=2.0)
+    runs = {}
+    for name, ctx in (("K4", contextlib.nullcontext), ("plain", plain_int8_linear)):
+        int8_linear.launches = decode_attention.launches = 0
+        steps0 = ar.decode_steps
+        with ctx():
+            sync(device)
+            t0 = time.perf_counter()
+            out = ar.generate(cond.expand(16, -1, -1), ids.expand(16, -1), None, **kw)
+            sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+        runs[name] = (out["codes"], ar.decode_steps - steps0, int8_linear.launches,
+                      decode_attention.launches, wall)
+    (c1, steps, k4, k1, wall), (c2, _, k4_plain, _, wall_plain) = runs["K4"], runs["plain"]
+    if not torch.equal(c1, c2):
+        raise AssertionError("int8 Tortoise: codes differ through K4 and its plain version")
+    if cuda and (k4 != per_step * (steps + 1) or k4_plain != 0 or k1 != n_layers * steps):
+        raise AssertionError(f"int8 Tortoise: {k4} K4 ({k4_plain} plain) and {k1} K1 launches "
+                             f"for {steps} steps")
+    log(f"int8 Tortoise AR ({n_layers} layers, fp32 from seed 0; {fp32_bytes / 1e9:.3f} GB fp32 "
+        f"-> {int8_bytes / 1e9:.3f} GB int8, {freed / 1e9:.3f} GB freed on the card): 16 greedy "
+        f"candidates x {steps} steps identical through K4 and its plain version; "
+        f"{wall / steps:.2f} ms a step with K4, {wall_plain / steps:.2f} ms plain (host clock, "
+        f"prefill included); K4 {k4} launches = {per_step} x ({steps} steps + the prefill), "
+        f"K1 {k1} | {card}")
+    return {"k4": k4, "k1": k1}
+
+
+def int8_bark(card: str, device, config=None) -> dict:
+    """Bark's three GPTs at the zoo's widths, drawn on the card from seed 0
+    (fp32), quantized: the semantic stage and one coarse window, greedy,
+    through K4 and through the plain version; launches and ms a step,
+    resident bytes."""
+    import torch
+
+    from tts_tpu_torch.models.bark.model import Bark
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.ops.quant import int8_linear, quantized_bytes
+
+    cuda = torch.device(device).type == "cuda"
+    config = config or bark_config()
+    with torch.device(device):
+        model = Bark(config)
+    draw_on_device(model, 0, device)
+    n_layers = config.semantic_config.n_layer
+    per_step = 4 * n_layers + 1
+    gpts = ("semantic_model", "coarse_model", "fine_model")
+    fp32_bytes = sum(quantized_bytes(getattr(model, n)) for n in gpts)
+    before = allocated(device)
+    model.quantize_weights_int8()
+    int8_bytes, freed = sum(quantized_bytes(getattr(model, n)) for n in gpts), \
+        before - allocated(device)
+    text = np.frombuffer("Bark speaks through int8 weights.".encode(), np.uint8).astype(np.int64)
+    runs = {}
+    for name, ctx in (("K4", contextlib.nullcontext), ("plain", plain_int8_linear)):
+        int8_linear.launches = decode_attention.launches = 0
+        steps0 = model.semantic_model.decode_steps + model.coarse_model.decode_steps
+        with ctx():
+            sync(device)
+            t0 = time.perf_counter()
+            sem = model.generate_text_semantic(text, None, max_gen_duration_s=1.0, top_k=1)
+            coarse = model.generate_coarse(sem[:20], None, top_k=1)
+            sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+        steps = model.semantic_model.decode_steps + model.coarse_model.decode_steps - steps0
+        runs[name] = (sem, coarse, steps, int8_linear.launches, decode_attention.launches, wall)
+    (s1, c1, steps, k4, k1, wall), (s2, c2, _, k4_plain, _, wall_plain) = runs["K4"], runs["plain"]
+    if not (np.array_equal(s1, s2) and np.array_equal(c1, c2)):
+        raise AssertionError("int8 Bark: tokens differ through K4 and its plain version")
+    # one prefill each: the semantic prompt and the coarse window
+    if cuda and (k4 != per_step * (steps + 2) or k4_plain != 0 or k1 != n_layers * steps):
+        raise AssertionError(f"int8 Bark: {k4} K4 ({k4_plain} plain) and {k1} K1 launches for "
+                             f"{steps} steps")
+    log(f"int8 Bark (three GPTs {n_layers} x {config.semantic_config.n_embd}, fp32 from seed 0; "
+        f"{fp32_bytes / 1e9:.3f} GB fp32 -> {int8_bytes / 1e9:.3f} GB int8, "
+        f"{freed / 1e9:.3f} GB freed on the card): {len(s1)} greedy semantic tokens and one "
+        f"coarse window ({c1.size} tokens) identical through K4 and its plain version; "
+        f"{wall / steps:.2f} ms a step with K4, {wall_plain / steps:.2f} ms plain (host clock, "
+        f"two prefills included); K4 {k4} launches = {per_step} x ({steps} steps + 2 prefills), "
+        f"K1 {k1} | {card}")
+    return {"k4": k4, "k1": k1}
+
+
+def phase_int8(card: str, device="cuda", cut=None) -> tuple:
+    """Phase 20: K4 against its plain version and timed (on a card), then
+    int8 XTTS v2, Tortoise and Bark. ``cut(xtts, tortoise, bark)`` shrinks
+    the three configs in place for rehearsals on the CPU. Returns K4's
+    entry of the kernels line (None without a card) with its launches on
+    the served paths, and K1's launches there."""
+    import torch
+
+    from tts_tpu_torch.models.tortoise.config import TortoiseConfig
+    from tts_tpu_torch.models.xtts.config import XttsConfig
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    kernel = phase_int8_kernel(card) if cuda else None
+    log(f"  (phase 20 at {time.time() - t_phase:.1f} s: K4 checked and timed)")
+    configs = (XttsConfig(), TortoiseConfig(), bark_config())
+    if cut is not None:
+        cut(*configs)
+    counts = [int8_xtts(card, device, configs[0])]
+    log(f"  (phase 20 at {time.time() - t_phase:.1f} s: XTTS)")
+    counts.append(int8_tortoise(card, device, configs[1]))
+    counts.append(int8_bark(card, device, configs[2]))
+    k4, k1 = sum(c["k4"] for c in counts), sum(c["k1"] for c in counts)
+    if cuda and k4 == 0:
+        raise AssertionError("phase 20: K4 never launched on the served paths")
+    if kernel is not None:
+        kernel["launches"] = k4
+    log(f"phase 20 (int8 through K4) took {time.time() - t_phase:.1f} s; K4 launched {k4} times "
+        f"on the served paths | {card}")
+    return kernel, k1
+
+
 def main() -> int:
     try:
         import torch
@@ -6706,13 +7255,15 @@ def main() -> int:
     phase_style_tacotron(card)
     phase_voice_conversion(card)
     kernel["launches"] += phase_xtts_v1(card) + phase_tortoise(card) + phase_bark(card)
+    int8_kernel, k1_launches = phase_int8(card)
+    kernel["launches"] += k1_launches
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "transformers",
                                                    "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"chip_smoke.py: phases 1-19 took {time.time() - t_start:.1f} s | {card}")
-    print(json.dumps({"kernels": [kernel]}))
+    log(f"chip_smoke.py: phases 1-20 took {time.time() - t_start:.1f} s | {card}")
+    print(json.dumps({"kernels": [kernel, int8_kernel]}))
     print(json.dumps({
         "ok": True,
         "device": {

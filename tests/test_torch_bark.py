@@ -98,7 +98,7 @@ def port_of(jm):
     states = convert.bark_from_jax_params(jm.semantic_params, jm.coarse_params, jm.fine_params,
                                           jm.encodec_vocoder)
     if "encodec" in states:
-        pm.encodec = convert.load_reference_encodec(encodec_state())
+        pm.encodec = convert.load_reference_encodec(encodec_state(), device="cpu")
     for name, state in states.items():
         getattr(pm, name).load_state_dict(state, strict=True)
     return pm.requires_grad_(False).eval()
@@ -445,7 +445,7 @@ def test_reference_layout_round_trips(pair):
     # HF's names, weight norm folded, the codebooks' training buffers left out
     assert set(state) == {k for k in convert.fold_weight_norm(encodec_state())
                           if not k.startswith("quantizer.") or k.endswith(".codebook.embed")}
-    back = convert.load_reference_encodec(state).state_dict()
+    back = convert.load_reference_encodec(state, device="cpu").state_dict()
     want = pm.encodec.state_dict()
     assert set(back) == set(want) and all(torch.equal(back[k], want[k]) for k in want)
 

@@ -220,15 +220,6 @@ def test_cli_clones_a_voice_like_jax(model_dir, jax_reference, tmp_path, capsys)
     assert np.array_equal(scipy.io.wavfile.read(tmp_path / "banked.wav")[1], pcm)
 
 
-def test_int8_weights_raise_until_ported():
-    """ROADMAP.md F6: the JAX package quantizes the GPT on this flag, so
-    full-precision weights under it would give other audio."""
-    config = XttsConfig.from_dict(tiny_xtts_config().to_dict())
-    config.model_args.gpt_int8_weights = True
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 11"):
-        Xtts(config)
-
-
 def _fetch(url, bodies, key):
     with urllib.request.urlopen(url, timeout=120) as r:
         bodies[key] = (r.status, r.read())

@@ -298,6 +298,15 @@ class Bark(nn.Module):
         (:func:`load_bark_checkpoint`)."""
         return load_bark_checkpoint(self, checkpoint_dir, device=device)
 
+    def quantize_weights_int8(self, compute_dtype: Optional[torch.dtype] = None) -> None:
+        """Store the matmul weights of all three GPTs (semantic, coarse,
+        fine) as int8 with per-output-channel scales (``ops/quant.py``), in
+        place, the float weights freed; they then multiply through K4. The
+        embeddings and EnCodec stay float, as in the JAX package."""
+        from tts_tpu_torch.ops.quant import install_int8
+
+        install_int8(self, ("semantic_model", "coarse_model", "fine_model"), compute_dtype)
+
     # -- voice prompts (reference inference_funcs.py:105 generate_voice) ----
     @torch.no_grad()
     def generate_voice(self, wav: np.ndarray, hubert, tokenizer, output_path: str = None,

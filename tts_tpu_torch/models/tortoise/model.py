@@ -416,7 +416,7 @@ class Tortoise(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.autoregressive.mel_head.weight.device
+        return self.autoregressive.mel_pos_embedding.device
 
     def build_vocoder(self) -> UnivnetGenerator:
         """The bundled UnivNet variant (reference ``tortoise/vocoder.py:277``)."""
@@ -461,6 +461,17 @@ class Tortoise(nn.Module):
         """A model directory in the reference's tortoise-v2 layout
         (:func:`load_tortoise_checkpoint`)."""
         return load_tortoise_checkpoint(self, checkpoint_dir, device=device)
+
+    def quantize_weights_int8(self, compute_dtype: Optional[torch.dtype] = None) -> None:
+        """Store the ``UnifiedVoice`` AR stack's matmul and convolution
+        weights of at least 4096 elements as int8 with per-output-channel
+        scales (``ops/quant.py``), in place, the float weights freed: its
+        conditioning encoder (1x1 convolutions, dequantized once a voice),
+        the GPT core and the heads (through K4). CLVP and the diffusion
+        decoder stay float, as in the JAX package (``ar_params`` only)."""
+        from tts_tpu_torch.ops.quant import install_int8
+
+        install_int8(self, ("autoregressive",), compute_dtype)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -4,8 +4,9 @@ Redeclared on the port's own ``config.base.Config`` (a copy of
 ``tts_tpu/config/base.py``): the port imports nothing of ``tts_tpu``. The fields and defaults are the
 JAX package's, so a ``config.json`` written by either package loads in the
 other. The training-only fields for work the port does not do yet (remat,
-sequence-parallel fine-tuning) are kept for that compatibility and ignored;
-``gpt_int8_weights=True`` makes ``Xtts`` raise until int8 serving is ported.
+sequence-parallel fine-tuning) are kept for that compatibility and ignored.
+``gpt_int8_weights=True`` stores the GPT's matmul weights as int8 with
+per-channel scales (``Xtts.quantize_weights_int8``, ``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ class XttsArgs(Config):
     # training options of the JAX package (not ported yet, ignored)
     gpt_use_remat: bool = False
     gpt_seq_parallel: bool = False
-    # int8 serving (not ported yet): True raises in Xtts
+    # serving: the GPT's matmul weights as int8 with per-channel scales,
+    # multiplied by K4 (ops/quant.py), after load_checkpoint and init_params
     gpt_int8_weights: bool = False
 
     # fine-tune dataset limits

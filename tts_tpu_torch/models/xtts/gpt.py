@@ -164,9 +164,9 @@ class XttsGPT(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """Compute dtype, read from a named weight (not from whichever
-        floating parameter happens to come first)."""
-        return self.mel_head.weight.dtype
+        """Compute dtype, read from a named parameter that int8 serving
+        leaves float (not from whichever floating parameter comes first)."""
+        return self.mel_pos_embedding.dtype
 
     # ------------------------------------------------------------------
     def get_style_emb(self, cond_mels: torch.Tensor) -> torch.Tensor:

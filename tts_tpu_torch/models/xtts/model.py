@@ -60,11 +60,6 @@ class Xtts(nn.Module):
         super().__init__()
         self.config = config
         self.args = a = config.model_args
-        if a.gpt_int8_weights:
-            raise NotImplementedError(
-                "int8 GPT weights (gpt_int8_weights=True) are not ported to tts_tpu_torch yet "
-                "(ROADMAP.md item 11); full-precision weights would give other audio"
-            )
         self.gpt = XttsGPT(
             layers=a.gpt_layers,
             model_dim=a.gpt_n_model_channels,
@@ -98,7 +93,7 @@ class Xtts(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.gpt.mel_head.weight.device
+        return self.gpt.mel_pos_embedding.device
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -124,7 +119,20 @@ class Xtts(nn.Module):
                     p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
                 else:  # embeddings, position tables, perceiver latents
                     p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
-        return self.requires_grad_(False).to(device=device, dtype=dtype)
+        self.requires_grad_(False).to(device=device, dtype=dtype)
+        if self.args.gpt_int8_weights:
+            self.quantize_weights_int8()
+        return self
+
+    def quantize_weights_int8(self, compute_dtype: Optional[torch.dtype] = None) -> None:
+        """Store every GPT matmul weight of at least 4096 elements as int8
+        with a per-output-channel fp32 scale (``ops/quant.py``), in place;
+        the float weights are freed. The conditioning encoder, the perceiver,
+        the decoder core and both heads then multiply through K4. The JAX
+        package quantizes the same set (``gpt_params``)."""
+        from tts_tpu_torch.ops.quant import install_int8
+
+        install_int8(self, ("gpt",), compute_dtype)
 
     # ------------------------------------------------------------------
     def load_checkpoint(self, config: XttsConfig, checkpoint_dir: str, device="cuda"):
@@ -157,6 +165,7 @@ class Xtts(nn.Module):
                 f"No model weights in {checkpoint_dir} (need {PORT_WEIGHTS} or {REFERENCE_WEIGHTS})"
             )
         self.load_state_dict_with_stats(state)
+        del state  # the float weights go as the quantization swaps their modules
 
         spk_file = os.path.join(checkpoint_dir, "speakers_xtts.pth")
         if os.path.isfile(spk_file):
@@ -167,6 +176,8 @@ class Xtts(nn.Module):
                     "speaker_embedding": entry["speaker_embedding"].reshape(1, -1).to(
                         self.hifigan_decoder.dtype),
                 }
+        if self.args.gpt_int8_weights:
+            self.quantize_weights_int8()
         return self
 
     def load_state_dict_with_stats(self, state: Dict[str, torch.Tensor]) -> None:

@@ -39,7 +39,8 @@ class CudaLibrary:
 
 
 _loaded: Dict[str, CudaLibrary] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one a library: two sources build at once
 
 
 def find_nvcc() -> str:
@@ -63,8 +64,11 @@ def find_nvcc() -> str:
 
 def load_library(name: str) -> CudaLibrary:
     """Compile ``csrc/<name>.cu`` if its build is missing, load it, cache it
-    for the process."""
+    for the process. Other libraries may build meanwhile, from other
+    threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"

@@ -1,9 +1,8 @@
 """Copied from ``tts_tpu/text/characters.py`` (the port imports nothing of
 ``tts_tpu``): the grapheme and IPA phoneme symbol sets with
 ``parse_symbols``, ``BaseVocabulary``, ``BaseCharacters``, ``IPAPhonemes``,
-``Graphemes``, ``VitsCharacters`` and ``_chars_kwargs``, unchanged apart
-from this docstring and import paths. ``FairseqVocab`` is left out until the
-MMS loader is ported (ROADMAP.md).
+``Graphemes``, ``FairseqVocab``, ``VitsCharacters`` and ``_chars_kwargs``,
+unchanged apart from this docstring and import paths.
 
 Vocab construction order matches the reference exactly ([pad][eos][bos]
 [blank] + sorted characters + punctuations) so token ids are interchangeable
@@ -316,6 +315,20 @@ class Graphemes(BaseCharacters):
             return Graphemes(**_chars_kwargs(config.characters)), config
         characters = Graphemes()
         return characters, replace(config, characters=characters.to_config())
+
+
+class FairseqVocab(BaseVocabulary):
+    """Vocabulary from a fairseq MMS ``vocab.txt`` (one symbol per line;
+    line 0 is the blank token, pad is space — reference ``vits.py:1982``)."""
+
+    def __init__(self, vocab_file: str):
+        with open(vocab_file, encoding="utf-8") as f:
+            symbols = [line.rstrip("\n") for line in f]
+        super().__init__(
+            vocab={s: i for i, s in enumerate(symbols)},
+            pad=" ",
+            blank=symbols[0] if symbols else None,
+        )
 
 
 class VitsCharacters(BaseCharacters):

@@ -14,7 +14,12 @@ a handful of rules rather than a table:
   ``TorchConvTranspose1d``'s time-flipped ``[k, in, out]`` kernel →
   ``ConvTranspose1d`` ``[in, out, k]`` with ``k`` flipped back;
 * norm ``scale``/``shift`` → ``weight``/``bias`` (folded BatchNorm included);
-  ``embedding`` → ``weight``; other leaves keep their names.
+  ``embedding`` → ``weight``; other leaves keep their names;
+* an int8 kernel of the JAX package's ``quantize_int8`` (``{"int8",
+  "scale"}``) → the int8 module's ``weight_int8`` in the layout above (bit
+  for bit) and its per-output-channel ``scale [out]``
+  (``tts_tpu_torch.ops.quant``), so quantized XTTS, Tortoise and Bark trees
+  carry over as they are.
 
 ``tacotron2_from_jax_params`` adds one rule for Tacotron2: flax's LSTM
 cells, eight Denses each, are packed into torch's LSTM weights;
@@ -56,6 +61,10 @@ speaker encoder, ForwardTTS and Overflow parts of
 ``tts_tpu/utils/convert.py`` (numpy only; the port imports nothing of
 ``tts_tpu``): parity tests hold the copy equal to the JAX package's
 converters, leaf for leaf (``tests/test_torch_host_copies.py``).
+``convert_fairseq_vits`` renames a fairseq MMS VITS checkpoint into the
+coqui layout (``rehash_fairseq_vits``, the JAX package's rename list) and
+loads it as ``load_reference_vits`` does; nothing loads an MMS model
+directory yet (ROADMAP.md F35).
 Two additions, for multi-language and deterministic-duration checkpoints,
 which the JAX package's converter drops (ROADMAP.md F13): the stochastic
 duration predictor's ``cond_lang`` and the whole ``use_sdp=False``
@@ -83,9 +92,12 @@ _LEAF = {"scale": "weight", "shift": "bias", "embedding": "weight", "kernel": "w
 _INDEXED = re.compile(r"(.+)_(\d+)")
 
 
+_QUANTIZED = {"int8", "scale"}  # an int8 kernel of the JAX package's ``quantize_int8``
+
+
 def _flatten(tree: Mapping, path: Tuple[str, ...] = ()):
     for key, value in tree.items():
-        if isinstance(value, Mapping):
+        if isinstance(value, Mapping) and set(value) != _QUANTIZED:
             yield from _flatten(value, path + (key,))
         else:
             yield path + (key,), value
@@ -101,8 +113,8 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts + [_LEAF.get(path[-1], path[-1])])
 
 
-def _torch_value(path: Tuple[str, ...], value) -> np.ndarray:
-    a = np.asarray(value, dtype=np.float32)
+def _torch_value(path: Tuple[str, ...], value, dtype=np.float32) -> np.ndarray:
+    a = np.asarray(value, dtype=dtype)
     if path[-1] != "kernel":
         return a
     if a.ndim == 2:  # Dense
@@ -122,10 +134,17 @@ def flax_to_state_dict(params: Mapping, prefix: str = "") -> Dict[str, torch.Ten
     entries, fp32, keys prefixed with ``prefix``."""
     if "params" in params and len(params) == 1:
         params = params["params"]
-    return {
-        prefix + _torch_key(path): torch.from_numpy(np.array(_torch_value(path, v), order="C"))
-        for path, v in _flatten(params)
-    }
+    state = {}
+    for path, v in _flatten(params):
+        key = prefix + _torch_key(path)
+        if isinstance(v, Mapping):  # int8 kernel → the int8 module's buffers
+            base = key[: -len("weight")]
+            state[base + "weight_int8"] = torch.from_numpy(
+                np.array(_torch_value(path, v["int8"], np.int8), order="C"))
+            state[base + "scale"] = torch.from_numpy(np.array(v["scale"], np.float32).reshape(-1))
+        else:
+            state[key] = torch.from_numpy(np.array(_torch_value(path, v), order="C"))
+    return state
 
 
 def xtts_from_jax_params(gpt_params: Mapping, decoder_params: Mapping) -> Dict[str, torch.Tensor]:
@@ -586,6 +605,56 @@ def convert_vits_generator(state, args) -> Dict[str, Any]:
 # GlowTTS (copied from ``tts_tpu/utils/convert.py:363-436``) and the MelGAN
 # family (``:777-806``), unchanged.
 # ---------------------------------------------------------------------------
+
+
+# fairseq MMS VITS (copied from tts_tpu/utils/convert.py:720-770; reference
+# TTS/tts/utils/fairseq.py:4 + vits.py:1727). fairseq name → coqui name,
+# applied longest prefix first, so the order of the list matters. fairseq
+# keeps the trivial flip flows at odd indices, so the affine flows 0/2/4/6
+# renumber to 0..3; the SDP flow lists (0,1,3,5,7) renumber to 0..4 with the
+# first flow's m/logs becoming translation/log_scale.
+_FAIRSEQ_RENAMES = [
+    ("dp.flows.0.m", "duration_predictor.flows.0.translation"),
+    ("dp.flows.0.logs", "duration_predictor.flows.0.log_scale"),
+    ("dp.flows.1.", "duration_predictor.flows.1."),
+    ("dp.flows.3.", "duration_predictor.flows.2."),
+    ("dp.flows.5.", "duration_predictor.flows.3."),
+    ("dp.flows.7.", "duration_predictor.flows.4."),
+    ("dp.post_flows.0.m", "duration_predictor.post_flows.0.translation"),
+    ("dp.post_flows.0.logs", "duration_predictor.post_flows.0.log_scale"),
+    ("dp.post_flows.1.", "duration_predictor.post_flows.1."),
+    ("dp.post_flows.3.", "duration_predictor.post_flows.2."),
+    ("dp.post_flows.5.", "duration_predictor.post_flows.3."),
+    ("dp.post_flows.7.", "duration_predictor.post_flows.4."),
+    ("dp.", "duration_predictor."),
+    ("flow.flows.2.", "flow.flows.1."),
+    ("flow.flows.4.", "flow.flows.2."),
+    ("flow.flows.6.", "flow.flows.3."),
+    ("enc_p.", "text_encoder."),
+    ("enc_q.", "posterior_encoder."),
+    ("dec.", "waveform_decoder."),
+]
+
+
+def rehash_fairseq_vits(state):
+    """Rename a fairseq MMS VITS state dict to the coqui-VITS layout that
+    :func:`convert_vits_generator` consumes."""
+    out = {}
+    for k, v in state.items():
+        for old, new in _FAIRSEQ_RENAMES:
+            if k.startswith(old):
+                k = new + k[len(old):]
+                break
+        out[k] = v
+    return out
+
+
+def convert_fairseq_vits(state, args) -> Dict[str, torch.Tensor]:
+    """A fairseq MMS VITS checkpoint's ``"model"`` dict (``G_100000.pth``)
+    → the state_dict of the port's ``VitsModule``: renamed into the coqui
+    layout, then :func:`load_reference_vits`. The JAX package's
+    ``convert_fairseq_vits`` returns the flax params on the way."""
+    return load_reference_vits(rehash_fairseq_vits(state), args)
 
 
 def convert_glow_duration_predictor(state, prefix=""):
@@ -2818,12 +2887,15 @@ def bark_from_jax_params(semantic_params: Mapping, coarse_params: Mapping, fine_
     return states
 
 
-def load_reference_encodec(state: Mapping, device="cpu"):
+def load_reference_encodec(state: Mapping, device="cuda"):
     """A reference EnCodec state dict (HF ``EncodecModel`` or the
     ``encodec`` package's, numpy) → the port's ``EncodecVocoder`` on
-    ``device``, its SEANet dims read off the checkpoint; the encoder too
-    where the checkpoint holds it."""
+    ``device`` (the card unless the CPU is asked for), its SEANet dims read
+    off the checkpoint; the encoder too where the checkpoint holds it."""
+    from tts_tpu_torch import resolve_device
     from tts_tpu_torch.models.bark.encodec import EncodecDecoder, EncodecEncoder, EncodecVocoder
+
+    device = resolve_device(device)
 
     dims = infer_encodec_dims(state)
     kw = dict(upsampling_ratios=dims["upsampling_ratios"],

@@ -19,7 +19,10 @@ Differences from the source:
   JAX package may have written into the same shared directory: it takes the
   reference checkpoint.
 * The fairseq MMS models (``tts_models/<lang>/fairseq/vits``) raise
-  ``NotImplementedError`` (ROADMAP.md item 16).
+  ``NotImplementedError`` before any fetch: the JAX package cannot load
+  them and the reference's loader is not in the repository (ROADMAP.md
+  F35); ``utils.convert.convert_fairseq_vits`` and ``FairseqVocab`` are
+  ported.
 * ``_update_paths`` also points ``audio.stats_path`` at the directory's
   ``scale_stats.npy``, as the reference does and the JAX copy does not
   (ROADMAP.md F17), and ``speaker_encoder_model_path`` and
@@ -56,6 +59,9 @@ def get_user_data_dir(appname: str = "tts_tpu") -> str:
 # the catalog's vocoder families, every one the registry's generators run
 _VOCODER_FAMILIES = ("multiband-melgan", "fullband-melgan", "hifigan", "parallel-wavegan",
                      "univnet", "wavegrad")
+FAIRSEQ_REASON = ("the fairseq MMS models (tts_models/<lang>/fairseq/vits) cannot be loaded: "
+                  "the JAX package cannot load them and the reference's loader is not in the "
+                  "repository (ROADMAP.md item 16, F35)")
 
 
 def _family_reason(model: str, model_item: Dict) -> Optional[str]:
@@ -99,7 +105,7 @@ def unported_reason(model_name: str, models_dict: Dict) -> Optional[str]:
             return None
         return f"the vocoder {model} is not ported yet (ROADMAP.md item 16)"
     if dataset == "fairseq":  # the MMS models, named by language outside the catalog
-        return "the fairseq MMS models are not ported yet (ROADMAP.md item 16)"
+        return FAIRSEQ_REASON
     model_item = models_dict[model_type][lang][dataset][model]
     reason = _family_reason(model, model_item)
     vocoder = model_item.get("default_vocoder")
@@ -212,8 +218,7 @@ class ModelManager:
         config_path, model_item)``; ``model_path`` is the directory itself
         for multi-file models (XTTS), with ``config_path`` ``None``."""
         if "fairseq" in model_name:
-            raise NotImplementedError("the fairseq MMS models are not ported to tts_tpu_torch "
-                                      "yet (ROADMAP.md item 16)")
+            raise NotImplementedError(FAIRSEQ_REASON)
         model_item, _, output_path = self._set_model_item(model_name)
         if not os.path.exists(output_path):
             os.makedirs(output_path, exist_ok=True)
