@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``tts_tpu_torch``) once on one CUDA card.
 
-Run from the root of a checkout, with no arguments::
+Run from the root of a checkout, with no arguments (every phase)::
 
     python3 chip_smoke.py
 
@@ -300,19 +300,28 @@ Phases; each raises on failure and the script then exits non-zero:
     against its plain version at the path's shapes (K 1024 with N 3072,
     1024, 4096, K 4096 with N 1024, the heads 1026, 8194 and 10,048; M 1,
     4, 16, 513, 1024; bf16 and fp32; the conditioning encoders' K 80 and
-    2730), each call made twice and required bit-identical, then timed
-    beside its bound, the plain version, a library yardstick and
-    ``F.linear`` on a float weight; XTTS v2 quantized (fp32 from seed 0):
-    card against CPU on the conditioning, the prefill and 8 greedy steps
-    (within 1e-4 of each peak), 40 greedy tokens identical through K4 and
-    the plain version, 121 launches a step; then from a model directory
-    whose ``config.json`` sets ``gpt_int8_weights``, through ``TTS``: the
-    resident bytes against the float load, ms a bf16 decode step at B=1
-    and B=4, one ``/api/tts-stream`` request through the ``StreamBatcher``;
-    Tortoise's AR stack (16 greedy candidates x 60 steps) and Bark's three
-    GPTs (the semantic stage and one coarse window) at their zoo widths,
-    drawn on the card: tokens identical through K4 and the plain version,
-    launches a step (121, 97), ms a step, resident bytes.
+    2730) and each of its three kernels forced at M 1-16, each call made
+    twice and required bit-identical; the tensor-core instructions of its
+    kernels in the built library's SASS; then timed beside its bound, the
+    plain version, a library yardstick and ``F.linear`` on a float weight,
+    the old CUDA-core kernel against the tensor-core ones at M 1-16, and
+    the host cost of a call split into its parts; XTTS v2 quantized (fp32
+    from seed 0): card against CPU on the conditioning, the prefill and 8
+    greedy steps (within 1e-4 of each peak), 40 greedy tokens identical
+    through K4 and the plain version, 121 launches a step; then from a
+    model directory whose ``config.json`` sets ``gpt_int8_weights``,
+    through ``TTS``: the resident bytes against the float load, ms a bf16
+    decode step at B=1 and B=4 beside the float model's in turns, one
+    ``/api/tts-stream`` request through the ``StreamBatcher``; Tortoise's
+    AR stack (16 greedy candidates x 60 steps) and Bark's three GPTs (the
+    semantic stage and one coarse window) at their zoo widths, drawn on the
+    card: tokens identical through K4 and the plain version, launches a step
+    (121, 97), ms a step, resident bytes; last, K4 timed at every other
+    (M, K, N, type) those runs launched, counted as they ran.
+
+Phase selection: ``python3 chip_smoke.py 20`` (or any phase numbers) runs
+phases 1 and 2 and the ones named (5 brings 4); without arguments every
+phase runs.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}``
 (K1 and K4) on the line before the last and, as the last line, ``{"ok": true, "device":
@@ -6715,23 +6724,32 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 INT8_CHECK_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024), (1024, 1026),
                      (1024, 8194), (1024, 10_048))  # (K, N): the layers and the heads
 INT8_CHECK_ROWS = (1, 4, 16, 513, 1024)
+INT8_LAYERS = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))  # c_attn, c_proj, fc, proj
+# timed in both types (the decode steps' layers and heads at M 1, 4 and 16, the
+# 513-row prompt, Bark's 887-row coarse prompt, a fine window's head); the
+# shapes the served paths launch are recorded as they run and timed in
+# their own type; Bark's fine windows (1024 rows, fp32), which phase 20's
+# Bark run stops short of, are added
 INT8_TIMED = [(M, K, N) for M in (1, 4, 16) for K, N in
               ((1024, 3072), (4096, 1024), (1024, 1026), (1024, 8194), (1024, 10_048))] \
-    + [(513, 1024, 3072), (1024, 1024, 1056)]
+    + [(513, 1024, 3072), (887, 1024, 3072), (1024, 1024, 1056)]
+INT8_BARK_TIMED = [(1024, K, N) for K, N in INT8_LAYERS]
+INT8_VARIANT_ROWS = (1, 2, 4, 8, 16)  # each kernel forced at these M, old against new
+INT8_STEPS = 40  # decode steps a timing of the int8 and float XTTS steps
 
 
 def int8_bound_ms(M: int, K: int, N: int, dtype, bias: bool) -> tuple:
     """Least time for one K4 call: the int8 weights, the fp32 scales, the
     activations (and bias) read once and the output written once over the
-    memory rate, or ``2 M N K`` operations at the working type's peak (bf16
-    tensor cores; fp32 outside them). Returns ``(ms, "bytes" or
-    "operations", bytes)``."""
+    memory rate, or ``2 M N K`` operations at the bf16 tensor-core peak, for
+    either type: K4 runs fp32 activations through the tensor cores as three
+    exact bf16 parts (3x these operations), so no share can read over 100 %.
+    Returns ``(ms, "bytes" or "operations", bytes)``."""
     import torch
 
     elt = torch.finfo(dtype).bits // 8
     nbytes = N * K + 4 * N + M * K * elt + M * N * elt + (N * elt if bias else 0)
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * N * K / peak
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * N * K / BF16_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
@@ -6741,12 +6759,33 @@ def plain_int8_linear():
     kernel, for one comparison only."""
     from tts_tpu_torch.ops import quant
 
-    real = quant.int8_linear
-    quant.int8_linear = quant.int8_linear_torch
+    forward = quant.Int8Linear.forward
+    quant.Int8Linear.forward = lambda self, x: quant.int8_linear_torch(
+        x, self.weight_int8, self.scale, self.bias)
     try:
         yield
     finally:
-        quant.int8_linear = real
+        quant.Int8Linear.forward = forward
+
+
+@contextlib.contextmanager
+def recorded_int8_shapes(shapes: dict):
+    """Count the ``(M, K, N, type)`` of each int8 module call into
+    ``shapes``, for one run only (the recording costs host time)."""
+    from tts_tpu_torch.ops import quant
+
+    forward = quant.Int8Linear.forward
+
+    def recording(self, x):
+        key = (x.numel() // x.shape[-1], self.in_features, self.out_features, str(x.dtype)[6:])
+        shapes[key] = shapes.get(key, 0) + 1
+        return forward(self, x)
+
+    quant.Int8Linear.forward = recording
+    try:
+        yield
+    finally:
+        quant.Int8Linear.forward = forward
 
 
 def int8_library_call(x, q, scale):
@@ -6765,13 +6804,156 @@ def int8_library_call(x, q, scale):
         return (lambda: F.linear(x, q.to(x.dtype) * s[:, None])), "dequantize + F.linear"
 
 
-def phase_int8_kernel(card: str) -> dict:
-    """K4 against its plain version at the serving path's shapes (repeated
-    calls bit-identical), then timed beside its bound, the plain version,
-    the library yardstick and ``F.linear`` on a float weight."""
+def int8_sass_counts(path) -> dict:
+    """Tensor-core (HMMA, HGMMA) and fp32 FMA instructions of each K4 kernel
+    in the built library's SASS (``cuobjdump -sass``), summed over its
+    instances: ``{kernel: {op: count}}``."""
+    from tts_tpu_torch.ops.cuda_build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = next((k for k in ("k4_gemv", "k4_skinny", "k4_tile") if k in line), None)
+            counts.setdefault(kernel, {})
+        elif kernel:
+            for op in ("HGMMA", "HMMA", "FFMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[kernel][op] = counts[kernel].get(op, 0) + 1
+    counts.pop(None, None)
+    return counts
+
+
+def int8_timings(M: int, K: int, N: int, dtype, gen, card: str) -> dict:
+    """K4 at one shape: device time (CUDA graph replays over 32 weight copies
+    at M <= 16, more bytes than the L2 holds, so each call reads its weights
+    from device memory; 2 copies above), its bound, the plain version, the
+    library yardstick and ``F.linear`` on a float weight of x's type; host
+    time a call with its launch (back-to-back calls between CUDA events) of
+    the served module, of the public function and of ``F.linear``."""
     import torch
+    import torch.nn as nn
     import torch.nn.functional as F
 
+    from tts_tpu_torch.ops.quant import Int8Linear, int8_linear, int8_linear_torch, quantize_int8
+
+    dev = torch.device("cuda")
+    copies = 32 if M <= 16 else 2
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    ws = [quantize_int8(torch.randn(N, K, generator=gen, device=dev) / K ** 0.5)
+          for _ in range(copies)]
+    floats = [(q.to(dtype) * s[:, None].to(dtype)) for q, s in ws[:min(copies, 8)]]
+    kern = [lambda q=q, s=s: int8_linear(x, q, s) for q, s in ws]
+    plain = [lambda q=q, s=s: int8_linear_torch(x, q, s) for q, s in ws]
+    libs = [int8_library_call(x, q, s) for q, s in ws]
+    lin = [lambda w=w: F.linear(x, w) for w in floats]
+    with torch.device(dev):
+        module = Int8Linear(nn.Linear(K, N, bias=False)).to(dtype)
+    slow = M > 16  # the library yardstick takes milliseconds there
+    t = {"kernel": time_device(kern), "plain": time_device(plain, rounds=2),
+         "library": time_device([fn for fn, _ in libs], rounds=1, replays=2 if slow else 10),
+         "linear": time_device(lin, rounds=4)}
+    t["kernel2"] = time_device(kern, rounds=3)
+    t["module_call"] = time_host(lambda: module(x), iters=30, warmup=5)
+    t["kernel_call"] = time_host(kern[0], iters=30, warmup=5)
+    t["linear_call"] = time_host(lin[0], iters=30, warmup=5)
+    bound, bound_by, nbytes = int8_bound_ms(M, K, N, dtype, bias=False)
+    t.update(bound=bound, bound_by=bound_by, bytes=nbytes, library_label=libs[0][1])
+    log(f"int8_linear {str(dtype)[6:]} M={M} K={K} N={N}: device "
+        f"{t['kernel'] * 1e3:.2f} / {t['kernel2'] * 1e3:.2f} us kernel, "
+        f"{t['plain'] * 1e3:.2f} us plain, {t['library'] * 1e3:.2f} us library "
+        f"({libs[0][1]}), {t['linear'] * 1e3:.2f} us F.linear on a {str(dtype)[6:]} weight; "
+        f"bound {bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {bound_by}): "
+        f"{100 * bound / t['kernel']:.1f} % of bound; per call with launch "
+        f"{t['module_call'] * 1e3:.2f} us module, {t['kernel_call'] * 1e3:.2f} us function, "
+        f"{t['linear_call'] * 1e3:.2f} us F.linear | {card}")
+    return t
+
+
+def int8_variant_timings(card: str) -> None:
+    """Each of K4's kernels forced at the small M (graph replays over 32
+    weight copies): the CUDA-core k4_gemv (the only small-M kernel before the
+    tensor-core ones)
+    against the tensor-core k4_skinny and k4_tile, in one run."""
+    import torch
+
+    from tts_tpu_torch.ops.quant import int8_linear, quantize_int8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for K, N in ((1024, 3072), (4096, 1024)):
+        ws = [quantize_int8(torch.randn(N, K, generator=gen, device=dev) / K ** 0.5)
+              for _ in range(32)]
+        for dtype in (torch.bfloat16, torch.float32):
+            for M in INT8_VARIANT_ROWS:
+                x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+                us = {v: time_device([lambda q=q, s=s: int8_linear(x, q, s, variant=v)
+                                      for q, s in ws], rounds=3) * 1e3
+                      for v in ("gemv", "skinny", "tile")}
+                log(f"int8_linear variants {str(dtype)[6:]} M={M} K={K} N={N}: device us "
+                    + ", ".join(f"{v} {u:.2f}" for v, u in us.items()) + f" | {card}")
+        del ws
+
+
+def int8_host_costs(card: str, calls: int = 400) -> None:
+    """Host µs a call (``time.perf_counter`` over back-to-back calls, no
+    synchronisation inside; the device work of one call is shorter) of a
+    bf16 decode step's c_attn (x ``[1, 1, 1024]``, 1024 -> 3072): the
+    served module, the public function with bare tensors, ``F.linear`` on
+    the bf16 weight, and the pieces of the module's call."""
+    import torch
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from tts_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    with torch.device(dev):
+        lin = nn.Linear(1024, 3072).to(torch.bfloat16)
+    x = torch.randn(1, 1, 1024, device=dev, dtype=torch.bfloat16)
+    w = lin.weight.detach().clone()
+    module = quant.Int8Linear(lin)
+    q, s, b = module.weight_int8, module.scale, module.bias
+    built, _ = quant._kernel()
+    shape = x.shape[:-1] + (3072,)
+    pieces = {
+        "module call": lambda: module(x),
+        "public int8_linear (every check, a descriptor a call)":
+            lambda: quant.int8_linear(x, q, s, b),
+        "F.linear (bf16 weight, bias)": lambda: F.linear(x, w, lin.bias),
+        "  torch.empty of the output": lambda: torch.empty(shape, dtype=x.dtype, device=dev),
+        "  the current stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "  a ctypes call, no arguments": lambda: built.lib.tts_int8_linear_desc_bytes(),
+        "  x.is_contiguous() + data_ptr()": lambda: (x.is_contiguous(), x.data_ptr()),
+        "  the launch count": quant.int8_linear.count,
+    }
+    us = {}
+    for name, fn in pieces.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us[name] = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+    quant.int8_linear.launches = 0
+    log("int8_linear host µs a call (perf_counter, no sync inside; 1 x 1024 -> 3072 bf16): "
+        + "; ".join(f"{n.strip()} {u:.2f}" for n, u in us.items()) + f" | {card}")
+
+
+def phase_int8_kernel(card: str) -> tuple:
+    """K4 against its plain version at the serving path's shapes (repeated
+    calls bit-identical), each kernel forced at the small M, its SASS's
+    tensor-core instructions, then timed beside its bound, the plain
+    version, the library yardstick and ``F.linear``; old and new kernels at
+    the small M. Returns K4's entry of the kernels line and the timings by
+    ``(M, K, N, type)``."""
+    import torch
+
+    from tts_tpu_torch.ops.cuda_build import load_library
     from tts_tpu_torch.ops.quant import int8_linear, int8_linear_torch, quantize_int8
 
     dev = torch.device("cuda")
@@ -6786,10 +6968,10 @@ def phase_int8_kernel(card: str) -> dict:
         b = torch.randn(N, generator=gen, device=dev).to(dtype) if bias else None
         return torch.randn(M, K, generator=gen, device=dev).to(dtype), q, s, b
 
-    def check(M, K, N, dtype, bias):
+    def check(M, K, N, dtype, bias, variant="auto"):
         nonlocal n_checks, worst_abs
         x, q, s, b = operands(M, K, N, dtype, bias)
-        got, again = int8_linear(x, q, s, b), int8_linear(x, q, s, b)
+        got, again = int8_linear(x, q, s, b, variant), int8_linear(x, q, s, b, variant)
         want = int8_linear_torch(x, q, s, b)
         torch.cuda.synchronize()
         kind = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -6798,10 +6980,11 @@ def phase_int8_kernel(card: str) -> dict:
         worst[kind], worst_abs = max(worst[kind], err), max(worst_abs, abs_err)
         n_checks += 1
         if not err <= INT8_TOL[kind]:
-            raise AssertionError(f"int8_linear M={M} K={K} N={N} {kind}: {err:.3g} of the peak "
-                                 f"> {INT8_TOL[kind]}")
+            raise AssertionError(f"int8_linear M={M} K={K} N={N} {kind} {variant}: {err:.3g} of "
+                                 f"the peak > {INT8_TOL[kind]}")
         if not torch.equal(got, again):
-            raise AssertionError(f"int8_linear M={M} K={K} N={N} {kind}: two calls differ")
+            raise AssertionError(f"int8_linear M={M} K={K} N={N} {kind} {variant}: two calls "
+                                 f"differ")
 
     for K, N in INT8_CHECK_SHAPES:
         for M in INT8_CHECK_ROWS:
@@ -6811,46 +6994,39 @@ def phase_int8_kernel(card: str) -> dict:
     for M, K, N in ((300, 80, 1024), (3, 80, 1024), (32, 2730, 1024)):
         for dtype in (torch.float32, torch.bfloat16):
             check(M, K, N, dtype, bias=True)
-    log(f"int8_linear (K4): {n_checks} cases agree with the plain version, each called twice "
-        f"with bit-identical results; largest difference as a share of the output's peak: "
-        f"fp32 {worst['fp32']:.3g} (tol {INT8_TOL['fp32']:g}: summation order), bf16 "
+    n_auto = n_checks
+    for variant in ("gemv", "skinny", "tile"):
+        for M in INT8_VARIANT_ROWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                check(M, 1024, 1026, dtype, bias=True, variant=variant)
+    log(f"int8_linear (K4): {n_auto} cases agree with the plain version, and {n_checks - n_auto} "
+        f"with each kernel forced (gemv, skinny, tile at M {INT8_VARIANT_ROWS}), each called "
+        f"twice with bit-identical results; largest difference as a share of the output's "
+        f"peak: fp32 {worst['fp32']:.3g} (tol {INT8_TOL['fp32']:g}: summation order), bf16 "
         f"{worst['bf16']:.3g} (tol 2^-7: one bf16 rounding of fp32 sums that differ in their "
         f"last bits); largest absolute difference {worst_abs:.3g}")
 
+    sass = int8_sass_counts(load_library("int8_linear").path)
+    log("int8_linear SASS (cuobjdump -sass of the built library, all instances of each "
+        "kernel): " + "; ".join(f"{k} " + ", ".join(f"{op} {n}" for op, n in sorted(c.items()))
+                                for k, c in sorted(sass.items())))
+    if not all(sass.get(k, {}).get("HMMA", 0) > 0 for k in ("k4_skinny", "k4_tile")):
+        raise AssertionError(f"int8_linear: no tensor-core instruction in k4_skinny or k4_tile: "
+                             f"{sass}")
+
+    log(f"int8_linear bounds: bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, or 2 M N K operations "
+        f"at the bf16 tensor-core peak ({BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s) for fp32 too "
+        f"(K4's fp32 runs three exact bf16 parts through the tensor cores)")
     times = {}
     for M, K, N in INT8_TIMED:
         for dtype in (torch.bfloat16, torch.float32):
-            # 32 weight copies (more bytes than the 50 MB L2 holds) at decode
-            # shapes, so each call reads its weights from device memory
-            copies = 32 if M <= 16 else 2
-            x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
-            ws = [quantize_int8(torch.randn(N, K, generator=gen, device=dev) / K ** 0.5)
-                  for _ in range(copies)]
-            floats = [(q.to(dtype) * s[:, None].to(dtype)) for q, s in ws[:min(copies, 8)]]
-            kern = [lambda q=q, s=s: int8_linear(x, q, s) for q, s in ws]
-            plain = [lambda q=q, s=s: int8_linear_torch(x, q, s) for q, s in ws]
-            libs = [int8_library_call(x, q, s) for q, s in ws]
-            label = libs[0][1]
-            lin = [lambda w=w: F.linear(x, w) for w in floats]
-            # the slower yardsticks over fewer rounds: the same per-call mean
-            t = {"kernel": time_device(kern), "plain": time_device(plain, rounds=2),
-                 "library": time_device([fn for fn, _ in libs], rounds=2),
-                 "linear": time_device(lin, rounds=4)}
-            t["kernel2"] = time_device(kern)
-            t["kernel_call"] = time_host(kern[0], iters=50, warmup=5)
-            bound, bound_by, nbytes = int8_bound_ms(M, K, N, dtype, bias=False)
-            t.update(bound=bound, bound_by=bound_by, bytes=nbytes, library_label=label)
-            times[(M, K, N, dtype)] = t
-            log(f"int8_linear {str(dtype)[6:]} M={M} K={K} N={N}: device "
-                f"{t['kernel'] * 1e3:.2f} / {t['kernel2'] * 1e3:.2f} us kernel, "
-                f"{t['plain'] * 1e3:.2f} us plain, {t['library'] * 1e3:.2f} us library "
-                f"({label}), {t['linear'] * 1e3:.2f} us F.linear on a {str(dtype)[6:]} weight; "
-                f"bound {bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {bound_by}): "
-                f"{100 * bound / t['kernel']:.1f} % of bound; per call with launch "
-                f"{t['kernel_call'] * 1e3:.2f} us | {card}")
-            del ws, floats, kern, plain, libs, lin
-    t = times[(1, 1024, 3072, torch.bfloat16)]
-    return {
+            times[(M, K, N, str(dtype)[6:])] = int8_timings(M, K, N, dtype, gen, card)
+    for M, K, N in INT8_BARK_TIMED:
+        times[(M, K, N, "float32")] = int8_timings(M, K, N, torch.float32, gen, card)
+    int8_variant_timings(card)
+    int8_host_costs(card)
+    t = times[(1, 1024, 3072, "bfloat16")]
+    kernel = {
         "name": "int8_linear",
         "route": "cuda",
         "source": "tts_tpu_torch/csrc/int8_linear.cu",
@@ -6862,6 +7038,27 @@ def phase_int8_kernel(card: str) -> dict:
         "bound_by": t["bound_by"],
         "library_ms": t["library"],
     }
+    return kernel, times
+
+
+def int8_served_timings(shapes: dict, times: dict, card: str) -> None:
+    """Time the recorded served shapes not timed yet, then print one row a
+    served shape (calls in the recorded runs beside it) for PERF.md."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for (M, K, N, kind) in sorted(shapes):
+        if (M, K, N, kind) not in times:
+            times[(M, K, N, kind)] = int8_timings(M, K, N, getattr(torch, kind), gen, card)
+    log("int8_linear served shapes (M K N type: calls recorded | device us K4, bound (by), "
+        "share, plain, library, F.linear | host us with launch module, function, F.linear):")
+    for key in sorted(shapes):
+        t = times[key]
+        log(f"  {key[0]} {key[1]} {key[2]} {key[3]}: {shapes[key]} | {t['kernel'] * 1e3:.2f}, "
+            f"{t['bound'] * 1e3:.2f} ({t['bound_by']}), {100 * t['bound'] / t['kernel']:.1f} %, "
+            f"{t['plain'] * 1e3:.2f}, {t['library'] * 1e3:.2f}, {t['linear'] * 1e3:.2f} | "
+            f"{t['module_call'] * 1e3:.2f}, {t['kernel_call'] * 1e3:.2f}, "
+            f"{t['linear_call'] * 1e3:.2f} | {card}")
 
 
 def draw_on_device(module, seed: int, device):
@@ -6896,13 +7093,34 @@ def allocated(device) -> int:
     return torch.cuda.memory_allocated()
 
 
-def int8_xtts(card: str, device, config=None) -> dict:
+def bf16_step_ms(gpt, cond, tokens, lens, B: int, device) -> tuple:
+    """ms a decode step (host clock, synchronized) over ``INT8_STEPS`` steps
+    after a prefill and a 10-step chunk, with the K4 and K1 launches of the
+    timed steps."""
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.ops.quant import int8_linear
+
+    state = gpt.prefill(cond.expand(B, -1, -1), tokens.expand(B, -1), lens.expand(B),
+                        max_new_tokens=120)
+    state, _, _ = gpt.decode_chunk(state, None, chunk_size=10, top_k=1)
+    sync(device)
+    int8_linear.launches = decode_attention.launches = 0
+    t1 = time.perf_counter()
+    gpt.decode_chunk(state, None, chunk_size=INT8_STEPS, top_k=1)
+    sync(device)
+    return ((time.perf_counter() - t1) * 1e3 / INT8_STEPS, int8_linear.launches,
+            decode_attention.launches, state["cur_index"])
+
+
+def int8_xtts(card: str, device, config=None, shapes=None) -> dict:
     """XTTS v2 with ``gpt_int8_weights``: card against CPU (conditioning,
     prefill, 8 greedy steps), K4 against the plain version on the card,
     launches a step; then from a model directory whose ``config.json``
     carries the flag, through ``TTS``: resident bytes, ms a bf16 decode step
-    at B=1 and B=4, one ``/api/tts-stream`` request's TTFA. Returns the K4
-    and K1 launches of the served paths."""
+    at B=1 and B=4 beside the float model's from the same directory (in
+    turns), one ``/api/tts-stream`` request's TTFA. K4's shapes are counted
+    into ``shapes`` on untimed runs. Returns the K4 and K1 launches of the
+    served paths."""
     import torch
 
     from tts_tpu_torch.api import TTS
@@ -6917,6 +7135,7 @@ def int8_xtts(card: str, device, config=None) -> dict:
     import shutil
 
     cuda = torch.device(device).type == "cuda"
+    shapes = {} if shapes is None else shapes
     t0 = time.time()
     config = config or XttsConfig()
     cpu = Xtts(config).init_params(seed=0, device="cpu")
@@ -6959,9 +7178,11 @@ def int8_xtts(card: str, device, config=None) -> dict:
     lengths = torch.tensor([40])
     outs = {}
     for m, dev in ((model, device), (cpu, "cpu")):
-        cond = m.get_gpt_cond_latents(wav, 22050, chunk_length=4)
-        state = m.gpt.prefill(cond, text.to(dev), lengths.to(dev), max_new_tokens=8)
-        g = m.gpt.generate(cond, text.to(dev), lengths.to(dev), None, max_new_tokens=8, top_k=1)
+        with recorded_int8_shapes(shapes if m is model else {}):
+            cond = m.get_gpt_cond_latents(wav, 22050, chunk_length=4)
+            state = m.gpt.prefill(cond, text.to(dev), lengths.to(dev), max_new_tokens=8)
+            g = m.gpt.generate(cond, text.to(dev), lengths.to(dev), None, max_new_tokens=8,
+                               top_k=1)
         outs[dev] = dict(cond=cond, logits=state["last_logits"], latents=g["latents"],
                          codes=g["codes"])
     errs = {k: peak_err(outs[device][k], outs["cpu"][k]) for k in ("cond", "logits", "latents")}
@@ -6982,7 +7203,7 @@ def int8_xtts(card: str, device, config=None) -> dict:
     with_k4 = model.gpt.generate(cond, text, lengths, None, max_new_tokens=40, top_k=1)
     sync(device)
     steps, launches = model.gpt.decode_steps - steps0, int8_linear.launches
-    with plain_int8_linear():
+    with plain_int8_linear(), recorded_int8_shapes(shapes):
         with_plain = model.gpt.generate(cond, text, lengths, None, max_new_tokens=40, top_k=1)
     sync(device)
     if not torch.equal(with_k4["codes"], with_plain["codes"]):
@@ -7001,7 +7222,6 @@ def int8_xtts(card: str, device, config=None) -> dict:
     base = allocated(device)
     floats = Xtts(float_cfg).load_checkpoint(float_cfg, checkpoint_dir=d, device=device)
     float_resident, float_model = allocated(device) - base, quantized_bytes(floats)
-    del floats
     base = allocated(device)
     tts = TTS(model_path=d, device=device)
     resident = allocated(device) - base
@@ -7025,28 +7245,35 @@ def int8_xtts(card: str, device, config=None) -> dict:
         f"{quantized_bytes(served) / 1e9:.3f} GB | {card}")
 
     k4_total = k1_total = 0
-    cond, _ = served.resolve_conditioning(served.config, speaker_wav=wav_path)
-    tokens, lens = served._text_batch(["the quick brown fox jumps over the lazy dog."], "en")
+    with recorded_int8_shapes(shapes):  # untimed: the conditioning, a prefill and 2 steps a batch
+        cond, _ = served.resolve_conditioning(served.config, speaker_wav=wav_path)
+        tokens, lens = served._text_batch(["the quick brown fox jumps over the lazy dog."], "en")
+        for B in (1, 4):
+            state = served.gpt.prefill(cond.expand(B, -1, -1), tokens.expand(B, -1),
+                                       lens.expand(B), max_new_tokens=8)
+            served.gpt.decode_chunk(state, None, chunk_size=2, top_k=1)
+    sync(device)
+    # the float model from the same directory, its GPT in bf16 as served, in turns
+    floats.gpt.to(torch.bfloat16)
     for B in (1, 4):
-        state = served.gpt.prefill(cond.expand(B, -1, -1), tokens.expand(B, -1),
-                                   lens.expand(B), max_new_tokens=120)
-        state, _, _ = served.gpt.decode_chunk(state, None, chunk_size=20, top_k=1)
-        sync(device)
-        int8_linear.launches = decode_attention.launches = 0
-        t1 = time.perf_counter()
-        served.gpt.decode_chunk(state, None, chunk_size=100, top_k=1)
-        sync(device)
-        ms = (time.perf_counter() - t1) * 1e3 / 100
-        if cuda and (int8_linear.launches != per_step * 100
-                     or decode_attention.launches != n_layers * 100):
-            raise AssertionError(f"int8 XTTS B={B}: {int8_linear.launches} K4 and "
-                                 f"{decode_attention.launches} K1 launches for 100 steps")
-        k4_total += int8_linear.launches
-        k1_total += decode_attention.launches
-        log(f"int8 XTTS decode step, bf16, B={B}, cache ~{state['cur_index']}: {ms:.2f} ms "
-            f"(host clock, synchronized; phase 4's bf16 float figure beside it); K4 "
-            f"{int8_linear.launches // 100} and K1 {decode_attention.launches // 100} launches "
-            f"a step | {card}")
+        order = ("int8", "float", "int8 ", "float ") if B == 1 else ("int8", "float")
+        step = {}
+        for name in order:
+            gpt = served.gpt if name.startswith("int8") else floats.gpt
+            ms, k4, k1, cache = bf16_step_ms(gpt, cond, tokens, lens, B, device)
+            step[name] = ms
+            want_k4 = per_step * INT8_STEPS if name.startswith("int8") else 0
+            if cuda and (k4 != want_k4 or k1 != n_layers * INT8_STEPS):
+                raise AssertionError(f"XTTS {name.strip()} B={B}: {k4} K4 and {k1} K1 launches "
+                                     f"for {INT8_STEPS} steps")
+            if name.startswith("int8"):
+                k4_total += k4
+                k1_total += k1
+        log(f"int8 XTTS decode step, bf16, B={B}, cache ~{cache}: "
+            + ", ".join(f"{n.strip()} {step[n]:.2f}" for n in order)
+            + f" ms (host clock, synchronized; int8 and the float model from the same directory "
+            f"in turns); K4 {per_step} and K1 {n_layers} launches an int8 step | {card}")
+    del floats
 
     srv = create_server(tts.synthesizer, port=0, stream_batch=4, stream_window_ms=50)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -7080,10 +7307,11 @@ def int8_xtts(card: str, device, config=None) -> dict:
     return {"k4": k4_total, "k1": k1_total}
 
 
-def int8_tortoise(card: str, device, config=None) -> dict:
+def int8_tortoise(card: str, device, config=None, shapes=None) -> dict:
     """Tortoise's ``UnifiedVoice`` at ``TortoiseArgs()`` widths, drawn on the
     card from seed 0 (fp32), quantized: 16 greedy candidates through K4 and
-    through the plain version, launches and ms a step, resident bytes."""
+    through the plain version (whose run counts K4's shapes into
+    ``shapes``), launches and ms a step, resident bytes."""
     import torch
 
     from tts_tpu_torch.models.tortoise import model as tortoise
@@ -7111,7 +7339,9 @@ def int8_tortoise(card: str, device, config=None) -> dict:
     for name, ctx in (("K4", contextlib.nullcontext), ("plain", plain_int8_linear)):
         int8_linear.launches = decode_attention.launches = 0
         steps0 = ar.decode_steps
-        with ctx():
+        record = (recorded_int8_shapes(shapes) if shapes is not None and name == "plain"
+                  else contextlib.nullcontext())
+        with ctx(), record:
             sync(device)
             t0 = time.perf_counter()
             out = ar.generate(cond.expand(16, -1, -1), ids.expand(16, -1), None, **kw)
@@ -7134,11 +7364,11 @@ def int8_tortoise(card: str, device, config=None) -> dict:
     return {"k4": k4, "k1": k1}
 
 
-def int8_bark(card: str, device, config=None) -> dict:
+def int8_bark(card: str, device, config=None, shapes=None) -> dict:
     """Bark's three GPTs at the zoo's widths, drawn on the card from seed 0
     (fp32), quantized: the semantic stage and one coarse window, greedy,
-    through K4 and through the plain version; launches and ms a step,
-    resident bytes."""
+    through K4 and through the plain version (whose run counts K4's shapes
+    into ``shapes``); launches and ms a step, resident bytes."""
     import torch
 
     from tts_tpu_torch.models.bark.model import Bark
@@ -7163,7 +7393,9 @@ def int8_bark(card: str, device, config=None) -> dict:
     for name, ctx in (("K4", contextlib.nullcontext), ("plain", plain_int8_linear)):
         int8_linear.launches = decode_attention.launches = 0
         steps0 = model.semantic_model.decode_steps + model.coarse_model.decode_steps
-        with ctx():
+        record = (recorded_int8_shapes(shapes) if shapes is not None and name == "plain"
+                  else contextlib.nullcontext())
+        with ctx(), record:
             sync(device)
             t0 = time.perf_counter()
             sem = model.generate_text_semantic(text, None, max_gen_duration_s=1.0, top_k=1)
@@ -7191,10 +7423,11 @@ def int8_bark(card: str, device, config=None) -> dict:
 
 def phase_int8(card: str, device="cuda", cut=None) -> tuple:
     """Phase 20: K4 against its plain version and timed (on a card), then
-    int8 XTTS v2, Tortoise and Bark. ``cut(xtts, tortoise, bark)`` shrinks
-    the three configs in place for rehearsals on the CPU. Returns K4's
-    entry of the kernels line (None without a card) with its launches on
-    the served paths, and K1's launches there."""
+    int8 XTTS v2, Tortoise and Bark, then K4 timed at every other shape
+    they launched. ``cut(xtts, tortoise, bark)`` shrinks the three configs
+    in place for rehearsals on the CPU. Returns K4's entry of the kernels
+    line (None without a card) with its launches on the served paths, and
+    K1's launches there."""
     import torch
 
     from tts_tpu_torch.models.tortoise.config import TortoiseConfig
@@ -7202,18 +7435,25 @@ def phase_int8(card: str, device="cuda", cut=None) -> tuple:
 
     t_phase = time.time()
     cuda = torch.device(device).type == "cuda"
-    kernel = phase_int8_kernel(card) if cuda else None
+    kernel, times = phase_int8_kernel(card) if cuda else (None, {})
     log(f"  (phase 20 at {time.time() - t_phase:.1f} s: K4 checked and timed)")
     configs = (XttsConfig(), TortoiseConfig(), bark_config())
     if cut is not None:
         cut(*configs)
-    counts = [int8_xtts(card, device, configs[0])]
+    shapes: dict = {}  # (M, K, N, type) -> K4 calls in the recorded runs
+    counts = [int8_xtts(card, device, configs[0], shapes)]
     log(f"  (phase 20 at {time.time() - t_phase:.1f} s: XTTS)")
-    counts.append(int8_tortoise(card, device, configs[1]))
-    counts.append(int8_bark(card, device, configs[2]))
+    counts.append(int8_tortoise(card, device, configs[1], shapes))
+    counts.append(int8_bark(card, device, configs[2], shapes))
+    log(f"  (phase 20 at {time.time() - t_phase:.1f} s: Tortoise and Bark)")
     k4, k1 = sum(c["k4"] for c in counts), sum(c["k1"] for c in counts)
     if cuda and k4 == 0:
         raise AssertionError("phase 20: K4 never launched on the served paths")
+    if cuda:
+        int8_served_timings(shapes, times, card)
+    else:
+        log(f"int8 served shapes (M K N type: calls): "
+            + ", ".join(f"{k}: {n}" for k, n in sorted(shapes.items())))
     if kernel is not None:
         kernel["launches"] = k4
     log(f"phase 20 (int8 through K4) took {time.time() - t_phase:.1f} s; K4 launched {k4} times "
@@ -7221,7 +7461,24 @@ def phase_int8(card: str, device="cuda", cut=None) -> tuple:
     return kernel, k1
 
 
-def main() -> int:
+def selected_phases(args) -> set:
+    """The phases a run does: all 20 without arguments, else phases 1 and 2
+    (environment, build) and the numbers given (5 brings 4, whose model it
+    serves). Raises ``ValueError`` on anything else."""
+    if not args:
+        return set(range(1, 21))
+    chosen = {int(a) for a in args}  # ValueError on a word
+    if not chosen <= set(range(1, 21)):
+        raise ValueError(f"phases are 1-20, got {sorted(chosen)}")
+    return chosen | {1, 2} | ({4} if 5 in chosen else set())
+
+
+def main(argv=None) -> int:
+    try:
+        phases = selected_phases(sys.argv[1:] if argv is None else argv)
+    except ValueError as err:
+        print(f"chip_smoke: {err}; usage: chip_smoke.py [PHASE ...]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -7239,31 +7496,41 @@ def main() -> int:
     t_start = time.time()
     card = phase_environment()
     phase_build()
-    kernel = phase_kernels(card)
-    model = phase_slice(card)
-    kernel["launches"] = phase_serving(model, card)
-    del model
-    single_ms = phase_vits(card)
-    phase_batched_vits(card)
-    phase_multispeaker(card, single_ms)
-    phase_zoo_and_variants(card)
-    phase_glow_tts(card)
-    phase_tacotron2(card)
-    phase_speaker_and_forward_tts(card)
-    phase_hmm_align_delightful(card)
-    phase_vocoders(card)
-    phase_style_tacotron(card)
-    phase_voice_conversion(card)
-    kernel["launches"] += phase_xtts_v1(card) + phase_tortoise(card) + phase_bark(card)
-    int8_kernel, k1_launches = phase_int8(card)
-    kernel["launches"] += k1_launches
+    kernels = []
+    k1_launches = 0
+    if 3 in phases:
+        kernels.append(phase_kernels(card))
+    if 4 in phases:
+        model = phase_slice(card)
+        if 5 in phases:
+            k1_launches += phase_serving(model, card)
+        del model
+    single_ms = phase_vits(card) if 6 in phases else None
+    for n, phase in ((7, phase_batched_vits), (8, functools.partial(phase_multispeaker,
+                                                                    single_ms=single_ms)),
+                     (9, phase_zoo_and_variants), (10, phase_glow_tts), (11, phase_tacotron2),
+                     (12, phase_speaker_and_forward_tts), (13, phase_hmm_align_delightful),
+                     (14, phase_vocoders), (15, phase_style_tacotron),
+                     (16, phase_voice_conversion)):
+        if n in phases:
+            phase(card)
+    for n, phase in ((17, phase_xtts_v1), (18, phase_tortoise), (19, phase_bark)):
+        if n in phases:
+            k1_launches += phase(card)
+    if 20 in phases:
+        int8_kernel, launches = phase_int8(card)
+        k1_launches += launches
+        kernels.append(int8_kernel)
+    if 3 in phases:
+        kernels[0]["launches"] = k1_launches
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "transformers",
                                                    "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"chip_smoke.py: phases 1-20 took {time.time() - t_start:.1f} s | {card}")
-    print(json.dumps({"kernels": [kernel, int8_kernel]}))
+    ran = "1-20" if len(phases) == 20 else ", ".join(map(str, sorted(phases)))
+    log(f"chip_smoke.py: phases {ran} took {time.time() - t_start:.1f} s | {card}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -14,7 +14,9 @@ applied after the sum here, before it there). K4 itself runs only on a card
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+import copy
 import re
+import threading
 
 import flax.linen as fnn
 import jax.numpy as jnp
@@ -202,11 +204,204 @@ def test_swap_frees_float_weights_and_keeps_scales_fp32():
 
 def test_cuda_path_never_falls_back():
     """A tensor on neither the CPU nor a card is refused, not computed by
-    the plain version; the wrapper packs as many arguments as the C entry
-    point reads."""
+    the plain version, by the public function and by the module; the
+    wrapper's descriptor has the C entry point's fields in its order."""
     q = torch.zeros(8, 16, dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         quant.int8_linear(torch.zeros(2, 16, device="meta"), q, torch.ones(8, device="meta"))
-    enum = re.search(r"enum Arg \{(.*?)\};", (CSRC_DIR / "int8_linear.cu").read_text(), re.S)
-    names = [n.strip() for n in enum.group(1).split(",") if n.strip()]
-    assert names[-1] == "kNumArgs" and len(names) - 1 == quant._NUM_ARGS
+    mod = quant.Int8Linear(nn.Linear(16, 8)).to("meta")
+    assert mod._k4 is None  # a launch is prepared on a card only
+    with pytest.raises(ValueError, match="unsupported device"):
+        mod(torch.zeros(2, 16, device="meta"))
+    struct = re.search(r"struct Desc \{(.*?)\};", (CSRC_DIR / "int8_linear.cu").read_text(), re.S)
+    fields = re.findall(r"(\w+);", re.sub(r"//[^\n]*", "", struct.group(1)))
+    assert fields == [name for name, _ in quant._Desc._fields_]
+
+
+def _bad_module(what: str):
+    """An ``Int8Linear`` 32 -> 8 (or the ``nn.Linear`` it is built from)
+    with one buffer or the bias made unfit for the int8 path."""
+    lin = nn.Linear(32, 8)
+    if what == "bias_shape":
+        lin.bias = nn.Parameter(torch.zeros(9))
+        return lin
+    if what == "bias_int":
+        lin.bias = nn.Parameter(torch.zeros(8, dtype=torch.int64), requires_grad=False)
+        return lin
+    mod = quant.Int8Linear(lin)
+    if what == "scale_shape":
+        mod.scale = torch.ones(9)
+    elif what == "scale_dtype":
+        mod.scale = torch.ones(8, dtype=torch.float16)
+    elif what == "weight_dtype":
+        mod.weight_int8 = torch.zeros(8, 32, dtype=torch.int16)
+    elif what == "weight_layout":
+        mod.weight_int8 = torch.zeros(32, 8, dtype=torch.int8).t()
+    elif what == "weight_shape":
+        mod.weight_int8 = torch.zeros(8, 16, dtype=torch.int8)
+    elif what == "moved_bias_shape":
+        mod.bias = nn.Parameter(torch.zeros(7), requires_grad=False)
+    return mod
+
+
+@pytest.mark.parametrize("what", ["bias_shape", "bias_int"])
+def test_int8_linear_refuses_bad_bias_when_built(what):
+    with pytest.raises((TypeError, ValueError), match="Int8Linear"):
+        quant.Int8Linear(_bad_module(what))
+
+
+@pytest.mark.parametrize("what", ["scale_shape", "scale_dtype", "weight_dtype", "weight_layout",
+                                  "weight_shape", "moved_bias_shape"])
+def test_int8_linear_refuses_bad_buffers_when_moved(what):
+    """A buffer or bias assigned after the build is checked at the next move
+    (``_apply``: ``.to``, ``.cuda``, ``.bfloat16``), where the launch would
+    be prepared."""
+    mod = _bad_module(what)
+    with pytest.raises((TypeError, ValueError), match="Int8Linear"):
+        mod.to(torch.float32)
+
+
+def test_int8_linear_checked_once_and_moved_twice():
+    """A good module passes its checks at the build and at each move, keeps
+    no prepared launch off a card, and computes the plain version's values
+    in the moved type."""
+    lin = nn.Linear(64, 48)
+    mod = quant.Int8Linear(lin)
+    x = torch.randn(3, 64)
+    want = quant.int8_linear_torch(x, mod.weight_int8, mod.scale, mod.bias)
+    mod.to(torch.bfloat16).to(torch.float32)
+    assert mod._k4 is None and mod.scale.dtype == torch.float32
+    assert mod.bias.dtype == torch.float32
+    np.testing.assert_allclose(mod(x).numpy(), want.numpy(), rtol=0,
+                               atol=2 ** -7 * want.abs().max().item())
+
+
+CHECK_CASES = {  # what is wrong -> (error, message)
+    "x_width": (ValueError, "against weight"),
+    "x_dtype": (TypeError, "fp32 or bf16"),
+    "q_dtype": (TypeError, "int8 weight"),
+    "q_layout": (TypeError, "int8 weight"),
+    "scale_dtype": (TypeError, "fp32 scale"),
+    "scale_shape": (TypeError, "fp32 scale"),
+    "bias_shape": (ValueError, "bias"),
+    "q_device": (ValueError, "weight on cpu"),
+    "variant": (ValueError, "variant"),
+    "nothing": (ValueError, "unsupported device"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(CHECK_CASES))
+def test_public_int8_linear_checks_bare_tensors(what):
+    """``int8_linear`` with bare tensors off the CPU checks them all on every
+    call, before it would launch (``meta`` tensors: every check runs, and
+    the device is refused last)."""
+    meta = dict(device="meta")
+    x = torch.zeros(4, 16, **meta)
+    q = torch.zeros(8, 16, dtype=torch.int8, **meta)
+    scale, bias, kw = torch.ones(8, **meta), torch.zeros(8, **meta), {}
+    if what == "x_width":
+        x = torch.zeros(4, 12, **meta)
+    elif what == "x_dtype":
+        x = x.half()
+    elif what == "q_dtype":
+        q = q.to(torch.int16)
+    elif what == "q_layout":
+        q = torch.zeros(16, 8, dtype=torch.int8, **meta).t()
+    elif what == "scale_dtype":
+        scale = scale.double()
+    elif what == "scale_shape":
+        scale = torch.ones(9, **meta)
+    elif what == "bias_shape":
+        bias = torch.zeros(7, **meta)
+    elif what == "q_device":
+        q = torch.zeros(8, 16, dtype=torch.int8)
+    elif what == "variant":
+        kw = {"variant": "fastest"}
+    error, message = CHECK_CASES[what]
+    with pytest.raises(error, match=message):
+        quant.int8_linear(x, q, scale, bias, **kw)
+
+
+def split_values(kind: str) -> torch.Tensor:
+    rs = np.random.RandomState(7)
+    if kind == "random":
+        v = rs.randn(4096) * np.exp(rs.uniform(-8, 8, 4096))
+    elif kind == "huge":
+        v = rs.uniform(1.0, 9.9, 4096) * 10.0 ** rs.randint(30, 38, 4096)
+    elif kind == "tiny":  # down to 2^-100: the lowest part stays normal in bf16
+        v = rs.uniform(1.0, 2.0, 4096) * 2.0 ** rs.randint(-100, -80, 4096)
+    else:  # signed, all mantissa bits set, powers of two, zeros, halfway cases
+        bits = rs.randint(0, 2 ** 23, 4096).astype(np.uint32) | (127 << 23)
+        v = bits.view(np.float32).astype(np.float64)
+        v[:8] = [1.0, -1.0, 0.0, -0.0, 2.0 ** 20, -(2.0 ** -20), 1 + 2 ** -8, -(1 + 2 ** -9)]
+        v[8:16] = np.float32(np.nextafter(np.float32(1.0), np.float32(2.0)))
+    sign = np.where(rs.rand(4096) < 0.5, -1.0, 1.0)
+    return torch.from_numpy((v * sign).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["random", "huge", "tiny", "signed"])
+def test_bf16_split3_is_exact(kind):
+    """K4's fp32 path splits activations into three bf16 parts that sum to
+    them bit for bit: in float64, and in fp32 as the kernel adds them."""
+    x = split_values(kind)
+    hi, mid, lo = quant.bf16_split3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    assert torch.equal(hi.float() + (mid.float() + lo.float()), x)
+    # each part's product with any int8 value is exact in fp32 (where it
+    # stays below the fp32 maximum)
+    w = torch.arange(-127, 128, dtype=torch.float64)
+    for part in (hi, mid, lo):
+        prod = part.double()[:64, None] * w
+        finite = prod.abs() < torch.finfo(torch.float32).max
+        assert torch.equal(prod.float().double()[finite], prod[finite])
+
+
+@pytest.mark.parametrize("M,K,N,bias", [(5, 96, 40, True), (33, 80, 130, False),
+                                        (16, 1024, 64, True)])
+def test_split_product_matches_plain(M, K, N, bias):
+    """The three-part product (K4's fp32 arithmetic) against the plain
+    version within 1e-6 of the output's peak, on activations over 16
+    octaves."""
+    rs = np.random.RandomState(8)
+    x = torch.from_numpy((rs.randn(M, K) * np.exp(rs.uniform(-4, 4, (M, K)))).astype(np.float32))
+    q = torch.from_numpy(rs.randint(-127, 128, (N, K)).astype(np.int8))
+    scale = torch.from_numpy(rs.rand(N).astype(np.float32) * 0.01)
+    b = torch.from_numpy(rs.randn(N).astype(np.float32)) if bias else None
+    got = quant.int8_linear_split_torch(x, q, scale, b)
+    want = quant.int8_linear_torch(x, q, scale, b)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=REL * want.abs().max().item())
+
+
+def test_launch_count_is_kept_per_thread():
+    """Concurrent launches count in entries of their own threads: none is
+    lost, the count reads as their sum and resets to 0 only."""
+    quant.int8_linear.launches = 0
+    try:
+        def work():
+            for _ in range(2000):
+                quant.int8_linear.count()
+
+        threads = [threading.Thread(target=work) for _ in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        assert quant.int8_linear.launches == 8000
+        with pytest.raises(ValueError, match="reset to 0"):
+            quant.int8_linear.launches = 3
+    finally:
+        quant.int8_linear.launches = 0
+    assert quant.int8_linear.launches == 0
+
+
+def test_quantized_module_copies():
+    """A deep copy carries the buffers and no prepared launch (its raw
+    pointers would point into the original's tensors)."""
+    mod = quant.Int8Linear(nn.Linear(64, 32))
+    twin = copy.deepcopy(mod)
+    assert twin._k4 is None and twin.weight_int8.data_ptr() != mod.weight_int8.data_ptr()
+    x = torch.randn(2, 64)
+    assert torch.equal(twin(x), mod(x))

@@ -18,15 +18,21 @@ set is the image of the JAX set under the port's name map (a flax
 ``[in, out]`` / ``[k, in, out]`` kernel is torch's ``[out, in]`` /
 ``[out, in, k]`` weight; the scale is per output channel in both).
 
-:class:`Int8Linear` runs :func:`int8_linear`: on CUDA tensors K4, the
-hand-written kernel in ``csrc/int8_linear.cu`` (CUDA C++ for ``sm_90a``,
-built by ``ops/cuda_build.py`` at first use, bound through ``ctypes``); on
-CPU tensors, and only there, its plain version :func:`int8_linear_torch`.
-K4 replaces no Pallas kernel: it stands for XLA's fusion of ``dequantize``
-into the dot. :class:`Int8Conv1d` (Tortoise's conditioning encoder, run once
-a voice) dequantizes into a transient float weight and runs ``F.conv1d``, as
-the JAX package's eager paths do; its kernel-size-1 convolutions are not
-routed through K4.
+:class:`Int8Linear` runs K4, the hand-written kernel in
+``csrc/int8_linear.cu`` (CUDA C++ for ``sm_90a``, built by
+``ops/cuda_build.py`` at first use, bound through ``ctypes``), on CUDA
+tensors; on CPU tensors, and only there, its plain version
+:func:`int8_linear_torch`. K4 replaces no Pallas kernel: it stands for XLA's
+fusion of ``dequantize`` into the dot. The module checks its buffers when
+it is built and after every move, and keeps one C descriptor of them for
+each activation type it takes, so a call checks only ``x`` and passes six
+arguments to the kernel; the public :func:`int8_linear` checks bare tensors on
+every call. Launches share no state between threads: no lock, a descriptor
+per weight, and a launch count kept per thread (``int8_linear.launches``).
+:class:`Int8Conv1d` (Tortoise's conditioning encoder, run once a voice)
+dequantizes into a transient float weight and runs ``F.conv1d``, as the JAX
+package's eager paths do; its kernel-size-1 convolutions are not routed
+through K4.
 
 :func:`install_int8` is the model-side wiring (``quantize_weights_int8`` of
 ``Xtts``, ``Tortoise`` and ``Bark``); :func:`maybe_dequantize` gives the
@@ -38,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -75,41 +81,143 @@ def int8_linear_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype).reshape(*x.shape[:-1], q.shape[0])
 
 
-_NUM_ARGS = 13
-_args = (ctypes.c_longlong * _NUM_ARGS)()  # filled and passed under _launch_lock
-_launch_lock = threading.Lock()
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+def bf16_split3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The exact split K4 makes of fp32 activations: ``hi = bf16(x)``,
+    ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)`` (each remainder exact
+    in fp32), returned as bf16 tensors. ``hi + mid + lo == x`` bit for bit
+    barring underflow below ~2^-110 and overflow within 2^-8 of the fp32
+    maximum, and each part's product with an int8 value is exact in fp32."""
+    x = x.float()
+    hi = x.bfloat16()
+    r = x - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
+
+
+def int8_linear_split_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The arithmetic of K4's fp32 path in plain PyTorch: the three parts of
+    :func:`bf16_split3` multiplied with ``q`` apiece (exact products, fp32
+    sums) and added as ``hi + (mid + lo)`` before the scale and bias."""
+    parts = [(p.float().reshape(-1, x.shape[-1]) @ q.float().T) for p in bf16_split3(x)]
+    y = (parts[0] + (parts[1] + parts[2])) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], q.shape[0])
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # bit 0 of the descriptor's flags
+VARIANTS = {"auto": 0, "gemv": 1, "skinny": 2, "tile": 3}  # bits 1-2 (``csrc`` enum Variant)
+
+
+class _Desc(ctypes.Structure):
+    """One weight's constants for the C entry point (``struct Desc`` in the
+    source, field for field)."""
+
+    _fields_ = [("q", ctypes.c_void_p), ("scale", ctypes.c_void_p), ("bias", ctypes.c_void_p),
+                ("N", ctypes.c_int), ("K", ctypes.c_int), ("flags", ctypes.c_int),
+                ("device", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """Build (at first use) and bind the C entry point, which takes its
-    arguments packed in one int64 array (``enum Arg`` in the source)."""
+    """Build (at first use) and bind the C entry point ``tts_int8_linear(desc,
+    x, x_row_stride, out, M, stream)``."""
     built = load_library("int8_linear")
     fn = built.lib.tts_int8_linear
-    fn.argtypes = [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    n_args = built.lib.tts_int8_linear_num_args()
-    if n_args != _NUM_ARGS:
-        raise RuntimeError(f"int8_linear: the kernel takes {n_args} arguments, not {_NUM_ARGS}")
+    size = built.lib.tts_int8_linear_desc_bytes()
+    if size != ctypes.sizeof(_Desc):
+        raise RuntimeError(f"int8_linear: the kernel's descriptor has {size} bytes, the "
+                           f"wrapper's {ctypes.sizeof(_Desc)}")
     return built, fn
 
 
+class _Launcher:
+    """K4's launch for one checked weight: a C descriptor for each activation
+    type it takes (both without a bias, the bias's own with one), holding the
+    pointers of ``q``, ``scale`` and ``bias``, which it keeps alive. A call
+    passes x, its row stride, a new output, M and the current stream, and
+    shares nothing with another thread's call."""
+
+    __slots__ = ("N", "K", "device", "index", "addrs", "_descs", "_tensors", "_built", "_fn")
+
+    def __init__(self, q, scale, bias, dtypes, variant: int = 0):
+        self._built, self._fn = _kernel()
+        self.N, self.K = q.shape
+        self.device, self.index = q.device, q.device.index
+        self._descs = {dt: _Desc(q.data_ptr(), scale.data_ptr(),
+                                 0 if bias is None else bias.data_ptr(), self.N, self.K,
+                                 _DTYPES[dt] | variant << 1, self.index) for dt in dtypes}
+        self.addrs = {dt: ctypes.addressof(d) for dt, d in self._descs.items()}
+        self._tensors = (q, scale, bias)
+
+    def __call__(self, x: torch.Tensor, addr: int) -> torch.Tensor:
+        K = self.K
+        if x.is_contiguous():
+            rows, stride = x, K
+        else:
+            rows = x.reshape(-1, K)
+            if rows.stride(1) != 1:
+                rows = rows.contiguous()
+            stride = rows.stride(0)
+        out = torch.empty(x.shape[:-1] + (self.N,), dtype=x.dtype, device=self.device)
+        M = x.numel() // K
+        if M:
+            code = self._fn(addr, rows.data_ptr(), stride, out.data_ptr(), M,
+                            torch._C._cuda_getCurrentRawStream(self.index))
+            if code:
+                check_cuda(self._built, code, "int8_linear kernel launch")
+            int8_linear.count()
+        return out
+
+
+class _LaunchCounted:
+    """A kernel wrapper with its launch count: ``f.launches`` is the sum over
+    threads since the last reset (``f.launches = 0``). Each thread counts in
+    an entry of its own, so concurrent launches share no counter; reset
+    while no thread launches."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self._per_thread: Dict[int, int] = {}
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    def count(self) -> None:
+        ident = threading.get_ident()
+        self._per_thread[ident] = self._per_thread.get(ident, 0) + 1
+
+    @property
+    def launches(self) -> int:
+        return sum(list(self._per_thread.values()))
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if value != 0:
+            raise ValueError(f"a launch count is reset to 0, not set to {value}")
+        self._per_thread.clear()
+
+
+@_LaunchCounted
 def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, variant: str = "auto") -> torch.Tensor:
     """``y [..., N] = (x [..., K] · q [N, K]ᵀ) ⊙ scale [N] (+ bias [N])``, the
     sum in fp32, ``y`` in ``x``'s type (fp32 or bf16). CPU tensors take
     :func:`int8_linear_torch`; CUDA tensors launch K4 on the current stream,
-    or raise. ``x``'s rows may be strided; its last dim is made contiguous
-    if it is not."""
+    or raise; every check runs on every call. ``x``'s rows may be strided.
+    ``variant`` forces one of K4's kernels (:data:`VARIANTS`; ``"gemv"`` and
+    ``"skinny"`` take M ≤ 16 with ``K % 16 == 0`` and a 16-byte aligned
+    ``q``), for tests and timings; ``"auto"`` picks by shape."""
     dev = x.device
     if dev.type == "cpu":
         return int8_linear_torch(x, q, scale, bias)
-    if dev.type != "cuda":
-        raise ValueError(f"int8_linear: unsupported device {dev}")
-    N, K = q.shape
-    if x.shape[-1] != K:
+    if q.dim() != 2 or x.shape[-1] != q.shape[1]:
         raise ValueError(f"int8_linear: x {tuple(x.shape)} against weight {tuple(q.shape)}")
+    N = q.shape[0]
     if x.dtype not in _DTYPES:
         raise TypeError(f"int8_linear: the kernel takes fp32 or bf16 activations, got {x.dtype}")
     if q.dtype != torch.int8 or not q.is_contiguous():
@@ -117,49 +225,47 @@ def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if scale.dtype != torch.float32 or scale.shape != (N,) or not scale.is_contiguous():
         raise TypeError(f"int8_linear: want a contiguous fp32 scale [{N}], got "
                         f"{scale.dtype} {tuple(scale.shape)}")
+    if bias is not None and bias.shape != (N,):
+        raise ValueError(f"int8_linear: bias {tuple(bias.shape)}, N={N}")
     if q.device != dev or scale.device != dev or (bias is not None and bias.device != dev):
         raise ValueError(f"int8_linear: x on {dev}, weight on {q.device}, scale on {scale.device}")
+    if variant not in VARIANTS:
+        raise ValueError(f"int8_linear: variant {variant!r}, not one of {sorted(VARIANTS)}")
+    if dev.type != "cuda":
+        raise ValueError(f"int8_linear: unsupported device {dev}")
     if bias is not None:
-        if bias.shape != (N,):
-            raise ValueError(f"int8_linear: bias {tuple(bias.shape)}, N={N}")
         bias = bias.to(x.dtype).contiguous()
-    x2 = x.reshape(-1, K)
-    if x2.stride(1) != 1:
-        x2 = x2.contiguous()
-    M = x2.shape[0]
-    out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    if M == 0:
-        return out.reshape(*x.shape[:-1], N)
-    built, fn = _kernel()
-    device = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch._C._cuda_getCurrentRawStream(device)
-    # 16-byte weight loads need rows that start on 16 bytes
-    vec = int(K % 16 == 0 and q.data_ptr() % 16 == 0)
-    with _launch_lock:  # several serving threads may decode at once
-        _args[:] = (
-            x2.data_ptr(), x2.stride(0), q.data_ptr(), scale.data_ptr(),
-            0 if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
-            _DTYPES[x.dtype], vec, device, stream,
-        )
-        check_cuda(built, fn(_args), "int8_linear kernel launch")
-        int8_linear.launches += 1
-    return out.reshape(*x.shape[:-1], N)
-
-
-int8_linear.launches = 0  # kernel launches since the count was last reset
+    k4 = _Launcher(q, scale, bias, (x.dtype,), VARIANTS[variant])
+    return k4(x, k4.addrs[x.dtype])
 
 
 class _Int8Weight(nn.Module):
     """An int8 weight ``weight_int8 [out, ...]`` with its fp32 ``scale
     [out]`` (buffers) and an optional float ``bias``. Moving the module to
-    another dtype casts the bias; the scales stay fp32."""
+    another dtype casts the bias; the scales stay fp32. The three are checked
+    when the module is built and after every move (:meth:`_prepare`);
+    assigning one of them drops what was prepared until the next check."""
+
+    _WEIGHTS = ("weight_int8", "scale", "bias")
+    _k4: Optional[_Launcher] = None
 
     def _apply(self, fn, recurse=True):
         scale = self.scale
         super()._apply(fn, recurse)
         # fn casts floating tensors only: the int32 view keeps the bits
         self.scale = fn(scale.view(torch.int32)).view(torch.float32)
+        self._prepare()
         return self
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if name in self._WEIGHTS:
+            self.__dict__["_k4"] = None
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        state["_k4"] = None  # raw pointers stay with the tensors they point into
+        return state
 
     def _init_from(self, module: nn.Module) -> None:
         q, scale = quantize_int8(module.weight)
@@ -168,18 +274,62 @@ class _Int8Weight(nn.Module):
         self.bias = module.bias  # the same float parameter, or None
         if self.bias is not None:
             self.bias.requires_grad_(False)  # inference only, as the int8 weight
+        self._prepare()
+
+    def _prepare(self) -> Optional[_Launcher]:
+        """Refuse a weight, scale or bias that the int8 path cannot take."""
+        q, scale, bias = self.weight_int8, self.scale, self.bias
+        name = type(self).__name__
+        if q.dtype != torch.int8 or q.dim() < 2 or not q.is_contiguous():
+            raise TypeError(f"{name}: want a contiguous int8 weight [out, ...], got {q.dtype} "
+                            f"{tuple(q.shape)}")
+        N = q.shape[0]
+        if scale.dtype != torch.float32 or scale.shape != (N,) or not scale.is_contiguous():
+            raise TypeError(f"{name}: want a contiguous fp32 scale [{N}], got {scale.dtype} "
+                            f"{tuple(scale.shape)}")
+        if bias is not None and (not bias.is_floating_point() or bias.shape != (N,)):
+            raise ValueError(f"{name}: want a float bias [{N}], got {bias.dtype} "
+                             f"{tuple(bias.shape)}")
+        if scale.device != q.device or (bias is not None and bias.device != q.device):
+            raise ValueError(f"{name}: weight on {q.device}, scale on {scale.device}, bias on "
+                             f"{None if bias is None else bias.device}")
+        return None
 
 
 class Int8Linear(_Int8Weight):
     """``nn.Linear`` with int8 weights ``[out_features, in_features]``
-    through K4."""
+    through K4. On a card, the checked buffers' launch is prepared once (a
+    descriptor a working type), so a call checks only ``x``."""
 
     def __init__(self, linear: nn.Linear):
         super().__init__()
         self.in_features, self.out_features = linear.in_features, linear.out_features
         self._init_from(linear)
 
+    def _prepare(self) -> Optional[_Launcher]:
+        super()._prepare()
+        q, bias = self.weight_int8, self.bias
+        if q.shape != (self.out_features, self.in_features):
+            raise ValueError(f"Int8Linear: weight {tuple(q.shape)}, want "
+                             f"{(self.out_features, self.in_features)}")
+        k4 = None
+        if q.is_cuda:
+            if bias is None:
+                dtypes = tuple(_DTYPES)
+            else:  # x in the bias's type; another takes the checked path, which casts it
+                dtypes = (bias.dtype,) if bias.dtype in _DTYPES and bias.is_contiguous() else ()
+            k4 = _Launcher(q, self.scale, bias, dtypes)
+        self.__dict__["_k4"] = k4
+        return k4
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k4 = self._k4
+        if k4 is None and x.is_cuda:
+            k4 = self._prepare()
+        if k4 is not None and x.get_device() == k4.index and x.shape[-1] == k4.K:
+            addr = k4.addrs.get(x.dtype)
+            if addr is not None:
+                return k4(x, addr)
         return int8_linear(x, self.weight_int8, self.scale, self.bias)
 
     def extra_repr(self) -> str:
