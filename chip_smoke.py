@@ -9,7 +9,7 @@ Phases; each raises on failure and the script then exits non-zero:
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit; TF32 is switched off for the comparison phases;
-2. build: the hand-written kernels of the serving path (K1, K4) are
+2. build: the hand-written kernels (K1, K4 and K2) are
    compiled from ``tts_tpu_torch/csrc``, one ``nvcc`` each, at once
    (ptxas register / shared-memory use printed);
 3. kernels: each kernel against its plain PyTorch version on the card at the
@@ -201,12 +201,13 @@ Phases; each raises on failure and the script then exits non-zero:
     ParallelWaveGAN, UnivNet and the iSTFT generator; WaveGrad's ``y``
     before the clip after 50 steps, its largest difference after each 10
     steps and that of the FiLM positional table printed; WaveRNN's
-    teacher-forced logits and ``generate`` over 16 frames, a flipped
-    mixture component traced to its step and Gumbel margin); the four
+    teacher-forced logits and ``generate`` over ``WAVERNN_CHECK_FRAMES``
+    (10) frames, a flipped mixture component traced to its step and Gumbel
+    margin); the four
     fidelity fixtures on the card; each vocoder alone on the medium
     sentence's mel at the Tacotron2 phase's natural length (latency, RTF,
     operations, kernels and busy share, working memory; WaveGrad's two
-    branches of a step; WaveRNN's us a sample on a 32-frame clip and kernels
+    branches of a step; WaveRNN's us a sample on a 16-frame clip and kernels
     a sample on a 6-frame one); ``en/ek1/tacotron2``,
     ``en/ljspeech/tacotron2-DDC_ph`` and ``nl/mai/tacotron2-DDC`` by zoo
     name with their default vocoders from reference-layout directories,
@@ -272,24 +273,27 @@ Phases; each raises on failure and the script then exits non-zero:
     ``synthesize`` from a voice folder and one from the random voice (16
     candidates, ``TORTOISE_CAP`` codes each since random weights never stop,
     30 DDIM steps with classifier-free guidance) with their stages and
-    peak memory, the random one's busy share; ``tortoise-v2`` by zoo name
+    peak memory, the random voice's busy share on a 16-code call
+    (``TORTOISE_PROFILE_CAP``); ``tortoise-v2`` by zoo name
     from the reference layout equal to the path load; ``tts --model_name
-    --voice_dir`` within one int16 step of ``TTS.tts_to_file``;
+    --voice_dir`` within one int16 step of ``TTS.tts_to_file`` (the zoo
+    directory's AR head emits the stop token first, so those calls decode
+    one code a candidate, a depth cut of the surfaces);
 19. Bark at the zoo's widths (24 x 1024 x 16 in all three GPTs, the text
     model's head 10,048 wide over 129,600 tokens, F48; EnCodec at the 24 kHz
     model's dims), fp32 weights from seed 0: card against CPU within 1e-4
     of each peak on short inputs (the semantic prefill with
     ``merge_context``, 8 greedy decode steps, one coarse window's prefill
-    and 60 greedy tokens, one fine window's logits, EnCodec on 50 frames);
+    and 20 greedy tokens, one fine window's logits, EnCodec on 50 frames);
     sampled semantic and coarse tokens identical through K1 and the plain
     attention on one generator, K1 launching 24 times a step; HuBERT-base
     and its tokenizer card against CPU on a 3 s clip, ``generate_voice``'s
-    prompt saved as ``clone.npz``; one whole ``synthesize`` at random
-    (random weights never emit EOS: 399 semantic tokens, 20 coarse windows,
-    599 frames, 7.99 s of audio) and one from that prompt at a 4 s budget
-    (``BARK_CLONE_BUDGET_S``, a depth cut), each with its
-    stages, ms a decode step and K1's launches, then one of each at a 0.5 s
-    budget under ``torch.profiler`` (busy share, top kernels), and peak
+    prompt saved as ``clone.npz``; one ``synthesize`` at random and one
+    from that prompt, each at a 2 s budget (``BARK_BUDGET_S``, a depth cut:
+    random weights never emit EOS, so a call runs its whole budget; the
+    default is 8 s), each with its
+    stages, ms a decode step and K1's launches, then the random voice at a
+    0.5 s budget under ``torch.profiler`` (busy share, top kernels), and peak
     memory; ``bark`` by zoo name from the reference layout (its semantic
     head set to emit EOS first for the surfaces' sentence) equal to the
     path load, ``tts --model_name --voice_dir
@@ -317,14 +321,31 @@ Phases; each raises on failure and the script then exits non-zero:
     semantic stage and one coarse window) at their zoo widths, drawn on the
     card: tokens identical through K4 and the plain version, launches a step
     (121, 97), ms a step, resident bytes; last, K4 timed at every other
-    (M, K, N, type) those runs launched, counted as they ran.
+    (M, K, N, type) those runs launched, counted as they ran;
+21. VITS training through MAS (K2, ``csrc/mas.cu``): the LJSpeech recipe's
+    GAN step (``Vits.make_train_step``, the recipe's AdamW and
+    ExponentialLR) at full width on a synthetic batch from seed 0 (32 rows,
+    61-381 ids with blanks, 2-10 s of 22.05 kHz audio, the longest row 861
+    frames, its linear spectrogram). K2 against its plain version at these
+    shapes on random, tied, ragged and bf16 scores and an item without
+    tokens, with the direction bits in shared memory and in the scratch
+    buffer, each call made twice: paths identical, repeats bit-identical;
+    then K2 timed beside its bound and its plain version (no library call
+    computes MAS). One step at a tiny width card against CPU (fp32, TF32
+    off, dropout on, the same host draws and alignment): losses within
+    1e-4, gradients within 1e-4 of each tensor's peak (the stochastic
+    duration predictor's against a float64 run, see
+    ``train_step_card_against_cpu``). Then 2 warm-up and 5 timed steps in
+    fp32 and under bf16 autocast: ms a step, the losses (finite), peak
+    memory, busy share and top kernels of one profiled step; K2 launches
+    once a step.
 
 Phase selection: ``python3 chip_smoke.py 20`` (or any phase numbers) runs
 phases 1 and 2 and the ones named (5 brings 4); without arguments every
 phase runs.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}``
-(K1 and K4) on the line before the last and, as the last line, ``{"ok": true, "device":
+(K1, K4 and K2) on the line before the last and, as the last line, ``{"ok": true, "device":
 {...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax,
 ``tokenizers`` or ``transformers`` by then. Without CUDA, or outside a
 checkout, it exits 2 and prints no result.
@@ -354,8 +375,11 @@ H, DH = 16, 64  # XTTS v2 attention heads and head width
 STREAM_CHUNK = 20  # tokens per streamed chunk (XTTS default)
 
 
+T0 = time.time()  # the script's start: every log line shows the seconds since
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.time() - T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -471,14 +495,14 @@ def phase_environment() -> str:
     log(f"python {sys.version.split()[0]} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| nvcc: {nvcc_ver}")
     card = card_line()
-    log(card)  # name and power limit, exactly as nvidia-smi prints them
+    print(card, flush=True)  # name and power limit, exactly as nvidia-smi prints them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmuls and cuDNN convolutions: comparisons run in full fp32")
     return card
 
 
-KERNEL_SOURCES = ("decode_attention", "int8_linear")  # K1, K4
+KERNEL_SOURCES = ("decode_attention", "int8_linear", "mas")  # K1, K4, K2
 
 
 def phase_build() -> None:
@@ -746,7 +770,9 @@ def phase_slice(card: str, device="cuda", config=None):
 def log_profile(prof, what: str, wall_us: float, card: str, top: int = 6) -> None:
     """Device busy share and top kernels of a profiled window. Only the
     kernel rows count: an operator's row repeats the device time of the
-    kernels it launched."""
+    kernels it launched. The windows record device activity alone (no CPU
+    operator rows): the profiler takes ~0.2 ms a kernel to digest, and
+    about twice that with every operator recorded beside it."""
     from torch.autograd import DeviceType
 
     rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
@@ -756,9 +782,11 @@ def log_profile(prof, what: str, wall_us: float, card: str, top: int = 6) -> Non
         return
     busy_us = sum(e.self_device_time_total for e in rows)
     all_rows_us = sum(e.self_device_time_total for e in prof.key_averages())
+    others = (f"; all rows {all_rows_us / 1e3:.2f} ms" if all_rows_us > busy_us * (1 + 1e-6)
+              else "")
     log(f"profile, {what}: device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
-        f"({100 * busy_us / wall_us:.1f} % busy; {sum(e.count for e in rows)} kernels; the sum "
-        f"over operator and kernel rows together is {all_rows_us / 1e3:.2f} ms) | {card}")
+        f"({100 * busy_us / wall_us:.1f} % busy; {sum(e.count for e in rows)} kernels{others}) "
+        f"| {card}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
 
@@ -770,7 +798,7 @@ def profile_decode(model, cond, text, lengths, card: str, device="cuda") -> None
     state = model.gpt.prefill(cond, text, lengths, max_new_tokens=60)
     model.gpt.decode_chunk(state, None, chunk_size=20, top_k=1)
     sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         model.gpt.decode_chunk(state, None, chunk_size=20, top_k=1)
         sync(device)
@@ -1124,7 +1152,7 @@ def profile_vits(model, text: str, card: str) -> None:
 
     synthesis(model, text)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         synthesis(model, text)
         torch.cuda.synchronize()
@@ -1472,7 +1500,7 @@ def profile_call(fn, what: str, card: str) -> None:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3075,7 +3103,7 @@ def kernels_per_step(decode, what: str, card: str, lo: int, hi: int):
         with torch.no_grad():
             decode(n)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
                 decode(n)
                 torch.cuda.synchronize()
@@ -3358,17 +3386,17 @@ def phase_tacotron2(card: str, device="cuda", cut=None) -> None:
                 parts.update(model=(t1 - t0) * 1e3, vocoder=(time.perf_counter() - t1) * 1e3,
                              seconds=len(wav) / sr)
 
-            ms, lo, hi = median_ms(natural, device)
+            ms, lo, hi = median_ms(natural, device, reps=3)
             samples = []
             full, flo, fhi = median_ms(lambda: samples.append(len(silent(synth.tts, text))),
-                                       device, reps=3)
+                                       device, reps=1)
             full_s = (samples[-1] - SENTENCE_GAP * len(split_into_sentences(text))) / sr
             log(f"Tacotron2 + HiFiGAN {key} ({n_tokens} tokens): natural length ({steps} steps, "
-                f"3 a token) {parts['seconds']:.2f} s of audio in {ms:.1f} ms (median of 5; "
+                f"3 a token) {parts['seconds']:.2f} s of audio in {ms:.1f} ms (median of 3; "
                 f"{lo:.1f}-{hi:.1f}), RTF {parts['seconds'] / ms * 1e3:.1f}, HiFiGAN "
                 f"{parts['vocoder']:.1f} ms ({100 * parts['vocoder'] / ms:.1f} %); whole budget "
-                f"through Synthesizer.tts {full_s:.2f} s in {full:.1f} ms (median of 3; "
-                f"{flo:.1f}-{fhi:.1f}), RTF {full_s / full * 1e3:.1f} | {card}")
+                f"through Synthesizer.tts {full_s:.2f} s in {full:.1f} ms (one call), RTF "
+                f"{full_s / full * 1e3:.1f} | {card}")
         if cuda:
             n_tokens = len(model.tokenizer.text_to_ids(medium))
             xm, xlm = t2_ids(model, [medium], device)
@@ -4665,8 +4693,8 @@ ZOO_PAIRINGS = {  # the Tacotron2 entries whose default vocoders phase 14 brings
 }
 VOCODER_TOL = 1e-4  # card vs CPU, the vocoders of phase 14, fp32 with TF32 off
 VOCODER_CHECK_FRAMES = 64  # the mel of the card-against-CPU checks
-WAVERNN_CHECK_FRAMES = 16  # WaveRNN's: (16 - 2 pad) x 256 = 3072 samples a side
-WAVERNN_TIMING_FRAMES = 32  # the clip WaveRNN's us per sample is timed on
+WAVERNN_CHECK_FRAMES = 10  # WaveRNN's: (10 - 4) x 256 = 1536 samples a side
+WAVERNN_TIMING_FRAMES = 16  # the clip WaveRNN's us per sample is timed on
 WAVERNN_PROFILE_FRAMES = 6  # the clip its kernels per sample are counted on
 T2_STOP_BIAS = 10.0  # the stopnet fires at step 1: one step of r = 6 frames for the surfaces
 
@@ -4855,7 +4883,7 @@ def kernels_and_device_us(fn) -> tuple:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
@@ -5316,7 +5344,7 @@ def compare_style_path(name: str, synth, cpu_synth, style_wav: str, device, card
 def style_latency(name: str, synth, style_wav: str, device, card: str,
                   griffin_lim: bool = False) -> None:
     """The medium sentence with a style reference at natural length (3
-    decode steps a token): latency and RTF (median of 3), ms per decode step
+    decode steps a token): latency and RTF (one call), ms per decode step
     (the slope between 100 and 300 steps), and the kernels and busy share of
     one call under ``torch.profiler``; the vocoder's (or Griffin-Lim's) part
     of it."""
@@ -5340,12 +5368,12 @@ def style_latency(name: str, synth, style_wav: str, device, card: str,
         parts.update(model=(t1 - t0) * 1e3, vocoder=(time.perf_counter() - t1) * 1e3,
                      seconds=len(wav) / synth.output_sample_rate)
 
-    ms, lo, hi = median_ms(natural, device, reps=3)
+    ms, lo, hi = median_ms(natural, device, reps=1)
     step = step_ms(lambda n: model.inference(x, xl, max_steps=n, aux_input=aux), device, 100, 300)
     vocoder = "Griffin-Lim (host)" if griffin_lim else "HiFiGAN"
     log(f"{name}, medium sentence with a style reference ({n_tokens} tokens) at natural length "
-        f"({3 * n_tokens} steps): {parts['seconds']:.2f} s of audio in {ms:.1f} ms (median of 3; "
-        f"{lo:.1f}-{hi:.1f}), RTF {parts['seconds'] / ms * 1e3:.2f}; model {parts['model']:.1f} "
+        f"({3 * n_tokens} steps): {parts['seconds']:.2f} s of audio in {ms:.1f} ms (one call), "
+        f"RTF {parts['seconds'] / ms * 1e3:.2f}; model {parts['model']:.1f} "
         f"ms, {vocoder} {parts['vocoder']:.1f} ms; decode step {step:.3f} ms wall (the slope "
         f"between 100 and 300 steps, median of 3) | {card}")
     profile_call(natural, f"{name}, medium sentence at natural length", card)
@@ -5939,7 +5967,8 @@ def phase_xtts_v1(card: str, device="cuda", cut=None) -> int:
 
 # ---------------------------------------------------------------------------
 TORTOISE = "tts_models/en/multi-dataset/tortoise-v2"
-TORTOISE_CAP = 160  # codes a candidate: random weights never emit the stop token
+TORTOISE_CAP = 64  # codes a candidate: random weights never emit the stop token
+TORTOISE_PROFILE_CAP = 16  # the profiled call's: ~16k kernels, not ~64k
 TORTOISE_TOL = 1e-4  # card against CPU, as a share of each output's peak
 
 
@@ -6208,13 +6237,18 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t1 = time.perf_counter()
                     model.synthesize(sentence, config, speaker_id=voice, voice_dirs=[voices],
-                                     max_mel_tokens=TORTOISE_CAP)
+                                     max_mel_tokens=TORTOISE_PROFILE_CAP)
                     torch.cuda.synchronize()
                     wall_us = (time.perf_counter() - t1) * 1e6
-                log_profile(prof, f"Tortoise synthesize ({voice})", wall_us, card, top=5)
+                log_profile(prof, f"Tortoise synthesize ({voice}, {TORTOISE_PROFILE_CAP} codes)",
+                            wall_us, card, top=5)
             log(f"  (phase 18 at {time.time() - t_phase:.1f} s)")
 
-        # the zoo's tortoise-v2 (reference layout), the command line's --voice_dir
+        # the zoo's tortoise-v2 (reference layout), the command line's --voice_dir;
+        # its AR head emits the stop token first, so the surfaces' calls stop at
+        # once where random weights would run all 500 codes (a depth cut)
+        with torch.no_grad():
+            model.autoregressive.mel_head.bias[config.model_args.ar_stop_mel_token] = 100.0
         home = os.path.join(d, "home")
         zoo = os.path.join(home, "tts_tpu", TORTOISE.replace("/", "--"))
         write_tortoise_dir(zoo, model, with_clvp=not clvp_kw)
@@ -6252,7 +6286,8 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
             raise AssertionError(f"tts --voice_dir: {steps_} int16 steps from the API at {sr} Hz")
         log(f"tortoise-v2 by zoo name (nothing fetched) equals the path load ({len(x)} samples); "
             f"tts --model_name --voice_dir --speaker_idx emma within {steps_} int16 step of "
-            f"TTS.tts_to_file at {sr} Hz (the defaults: 500 codes, 16 candidates)")
+            f"TTS.tts_to_file at {sr} Hz (16 candidates stopping at their first code, "
+            f"the directory's AR head set to emit the stop token)")
         del by_name
     gc.collect()
     line = f"phase 18 (Tortoise) took {time.time() - t_phase:.1f} s"
@@ -6267,9 +6302,9 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
 BARK = "tts_models/multilingual/multi-dataset/bark"
 BARK_TOL = 1e-4  # card against CPU, as a share of each output's peak
 BARK_TEXT = "Hello there."  # the surfaces' sentence: their semantic head stops at once for it
-# the cloned voice's whole synthesize runs half the default 8 s budget: a
-# depth cut that keeps the script's time as phase 20 was added
-BARK_CLONE_BUDGET_S = 4.0
+# both timed synthesize calls run a quarter of the default 8 s budget: a
+# depth cut that keeps the script's time as phases 20 and 21 were added
+BARK_BUDGET_S = 2.0
 BARK_GPT = dict(n_layer=24, n_head=16, n_embd=1024)  # suno's large text, coarse and fine models
 
 
@@ -6366,7 +6401,7 @@ def bark_short_checks(model, device) -> dict:
     """The short inputs of phase 19 through ``model`` on ``device``: the
     semantic prefill's logits with ``merge_context``, 8 greedy decode steps
     (their logits and tokens), one coarse window (its prefill's logits
-    under the window mask and 60 greedy tokens), one fine window's logits,
+    under the window mask and 20 greedy tokens), one fine window's logits,
     EnCodec on 50 frames."""
     import torch
 
@@ -6390,7 +6425,7 @@ def bark_short_checks(model, device) -> dict:
         out["semantic decode"] = torch.stack(steps, dim=1)[0]
         out["semantic tokens"] = torch.stack(toks, dim=1)[0]
         # one coarse window: 256 semantic tokens, the infer token, a tail of 300
-        # valid coarse tokens padded to 630, 60 greedy steps
+        # valid coarse tokens padded to 630, 20 greedy steps
         semantic = torch.from_numpy(rs.randint(0, c.SEMANTIC_VOCAB_SIZE, (1, 256))).to(device)
         tail = torch.zeros(1, 630, dtype=torch.long, device=device)
         tail[0, :300] = torch.from_numpy(rs.randint(0, 2 * c.CODEBOOK_SIZE, 300)
@@ -6399,11 +6434,11 @@ def bark_short_checks(model, device) -> dict:
         mask = (rows[None] <= rows[:, None]) & (rows[None] < 557)
         win_prompt = torch.cat([semantic, torch.full((1, 1), c.COARSE_INFER_TOKEN, device=device),
                                 tail], dim=1)
-        ccache = coarse.core.init_cache(1, 887 + 60, device=device)
+        ccache = coarse.core.init_cache(1, 887 + 20, device=device)
         out["coarse window prefill"] = coarse(win_prompt, cache=ccache, attn_mask=mask)[0, :557]
         buf = coarse.generate_coarse_windows(
             semantic, torch.zeros(1, 660, dtype=torch.long, device=device), [0], [0], [300],
-            [300], None, window_steps=60, max_coarse_history=630,
+            [300], None, window_steps=20, max_coarse_history=630,
             infer_token=c.COARSE_INFER_TOKEN, temperature=0.7, top_k=1, top_p=0.95,
             codebook_cycle=(c.SEMANTIC_VOCAB_SIZE, c.CODEBOOK_SIZE, c.N_COARSE_CODEBOOKS))
         out["coarse tokens"] = buf[0, 300:]
@@ -6442,8 +6477,8 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
     through K1 and through the plain attention on one generator, K1
     launching 24 times a step; HuBERT-base and its tokenizer card against
     CPU on a 3 s clip, and ``generate_voice``'s prompt saved as
-    ``voices/clone.npz``; one whole ``synthesize`` at random and one from
-    that prompt at a 4 s budget, each with its stages, ms a decode step, K1's launches,
+    ``voices/clone.npz``; one ``synthesize`` at random and one from that
+    prompt, each at ``BARK_BUDGET_S``, with its stages, ms a decode step, K1's launches,
     busy share and top kernels and peak memory; the zoo's ``bark`` by name
     from a reference-layout directory (its semantic head set to stop at
     once for the surfaces' sentence) against the path load, ``tts
@@ -6507,7 +6542,7 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
         raise AssertionError(f"Bark card against CPU: {errs}")
     log("Bark card against CPU on short inputs, as a share of each peak (tol 1e-4): "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + "; 8 greedy semantic tokens and 60 greedy coarse tokens identical | " + card)
+        + "; 8 greedy semantic tokens and 20 greedy coarse tokens identical | " + card)
     del card_out, cpu_out
     stamp("short inputs")
 
@@ -6570,14 +6605,15 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
         del hub_cpu, tok_cpu, hub_card, tok_card, feats
         stamp("voice prompt")
 
-        # whole synthesize calls, at random and from the voice prompt; then a
-        # short one of each under the profiler (a whole call launches ~520k
-        # kernels, which the profiler takes ~2 min to digest)
+        # synthesize calls at BARK_BUDGET_S, at random and from the voice
+        # prompt; then a short random one under the profiler (a whole 8 s
+        # call launches ~520k kernels, which the profiler takes ~2 min to
+        # digest)
         sentence = "The quick brown fox jumps over the lazy dog."
         for voice in ("random", "clone"):
             decode_attention.launches = 0
             steps0 = model.semantic_model.decode_steps + model.coarse_model.decode_steps
-            budget = {} if voice == "random" else {"max_gen_duration_s": BARK_CLONE_BUDGET_S}
+            budget = {"max_gen_duration_s": BARK_BUDGET_S}
             with bark_stage_timer(model, device) as ms:
                 sync(device)
                 t0 = time.perf_counter()
@@ -6603,7 +6639,7 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
                 + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
                 + f"; {steps} decode steps, {per_step:.2f} ms a step (semantic and coarse), "
                 f"K1 {decode_attention.launches} launches | {card}")
-            if cuda:
+            if cuda and voice == "random":  # one voice: ~50k kernels a profile
                 decode_attention.launches = 0
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t1 = time.perf_counter()
@@ -6735,7 +6771,7 @@ INT8_TIMED = [(M, K, N) for M in (1, 4, 16) for K, N in
     + [(513, 1024, 3072), (887, 1024, 3072), (1024, 1024, 1056)]
 INT8_BARK_TIMED = [(1024, K, N) for K, N in INT8_LAYERS]
 INT8_VARIANT_ROWS = (1, 2, 4, 8, 16)  # each kernel forced at these M, old against new
-INT8_STEPS = 40  # decode steps a timing of the int8 and float XTTS steps
+INT8_STEPS = 20  # decode steps a timing of the int8 and float XTTS steps
 
 
 def int8_bound_ms(M: int, K: int, N: int, dtype, bias: bool) -> tuple:
@@ -7461,15 +7497,370 @@ def phase_int8(card: str, device="cuda", cut=None) -> tuple:
     return kernel, k1
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the VITS train step, with MAS through K2
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 32  # the recipe's batch_size
+TRAIN_TEXT = (61, 381)  # ids with add_blank, the longest row present
+TRAIN_FRAMES = (172, 861)  # 2-10 s at 22.05 kHz, hop 256; the longest row present
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_TOL = 1e-4  # card against CPU, a share of each tensor's peak
+
+
+def mas_bound_ms(value, mask) -> tuple:
+    """Least time for one K2 call: value and mask read once and the path
+    written once (value's type), over the memory rate; the forward pass's
+    few operations a cell are far under the fp32 rate."""
+    nbytes = value.numel() * value.element_size() * 2 + mask.numel() * mask.element_size()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * value.numel() / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
+def synthetic_train_batch(model, device, seed: int = 0) -> dict:
+    """``TRAIN_BATCH`` rows from ``seed``: phoneme ids with blanks between
+    them (61-381 ids), a voiced waveform of 2-10 s at 22.05 kHz a row (frames
+    roughly 2.26 a token, as LJSpeech's), its linear spectrogram (the
+    recipe's STFT), zero padding past each length."""
+    import torch
+
+    from tts_tpu_torch.audio.torch_transforms import wav_to_spec
+
+    audio = model.config.audio
+    rs = np.random.RandomState(seed)
+    B = TRAIN_BATCH
+    x_len = rs.randint(TRAIN_TEXT[0] // 2, TRAIN_TEXT[1] // 2 + 1, B) * 2 + 1
+    x_len[0], x_len[1] = TRAIN_TEXT[1], TRAIN_TEXT[0]
+    y_len = np.clip((x_len * rs.uniform(2.0, 2.5, B)).astype(int), *TRAIN_FRAMES)
+    y_len[0] = TRAIN_FRAMES[1]
+    chars = model.tokenizer.characters
+    blank = chars.char_to_id(chars.blank)
+    ids = np.full((B, TRAIN_TEXT[1]), blank, np.int64)
+    for b in range(B):
+        phones = rs.randint(0, chars.num_chars - 1, x_len[b] // 2)
+        phones[phones >= blank] += 1  # every id but the blank's
+        ids[b, 1 : x_len[b] : 2] = phones
+        ids[b, x_len[b]:] = 0
+    hop = audio.hop_length
+    wav = np.zeros((B, TRAIN_FRAMES[1] * hop), np.float32)
+    for b in range(B):
+        n = y_len[b] * hop
+        wav[b, :n] = reference_wav(seconds=(n + 1) / audio.sample_rate, sr=audio.sample_rate,
+                                   seed=seed + b)[:n]
+    wav_t = torch.from_numpy(wav).to(device)
+    spec = wav_to_spec(wav_t, audio.fft_size, hop, audio.win_length).transpose(1, 2)
+    frame = torch.arange(spec.shape[1], device=device)[None, :, None]
+    spec = spec * (frame < torch.from_numpy(y_len).to(device)[:, None, None])
+    return {"text_input": torch.from_numpy(ids).to(device),
+            "text_lengths": torch.from_numpy(x_len.astype(np.int32)).to(device),
+            "spec": spec.contiguous(),
+            "spec_lengths": torch.from_numpy(y_len.astype(np.int32)).to(device),
+            "waveform": wav_t[..., None]}
+
+
+@contextlib.contextmanager
+def host_draws(seed: int = 0):
+    """The training step's draws (normals, segment uniforms, dropout keep
+    masks) made on the host from one CPU generator, the n-th draw of each
+    kind and shape the same in every run, then copied to the device: a card
+    run and a CPU run get the same draws."""
+    import torch
+
+    from tts_tpu_torch.layers import common
+    from tts_tpu_torch.models.vits import modules
+    from tts_tpu_torch.ops import helpers
+
+    gen = torch.Generator().manual_seed(seed)
+    table, seen = {}, {}
+
+    def draw(kind, shape, make, device):
+        n = seen.get((kind, shape), 0)
+        seen[(kind, shape)] = n + 1
+        key = (kind, shape, n)
+        if key not in table:
+            table[key] = make(shape)
+        return table[key].to(device)
+
+    real = modules.normal, helpers.uniform, common.bernoulli
+    modules.normal = lambda shape, g: draw("normal", tuple(shape), lambda s: torch.randn(
+        s, generator=gen), g.device)
+    helpers.uniform = lambda shape, g: draw("uniform", tuple(shape), lambda s: torch.rand(
+        s, generator=gen), g.device)
+    common.bernoulli = lambda shape, keep, g: draw(("keep", keep), tuple(shape), lambda s: (
+        torch.rand(s, generator=gen) < keep), g.device)
+    try:
+        yield
+    finally:
+        modules.normal, helpers.uniform, common.bernoulli = real
+
+
+def k2_checks(batch, card: str) -> dict:
+    """K2 against its plain version at the step's shapes on random, tied
+    and ragged scores (the batch's masks; an item without tokens too), each
+    call made twice: paths identical, repeats bit-identical. Then K2 timed
+    beside its bound and its plain version. Returns its kernels-line entry
+    (launches filled in by the caller)."""
+    import torch
+
+    from tts_tpu_torch.ops.mas import maximum_path, maximum_path_torch
+
+    dev = batch["text_input"].device
+    B, T_x, T_y = TRAIN_BATCH, TRAIN_TEXT[1], TRAIN_FRAMES[1]
+    x_len, y_len = batch["text_lengths"].long(), batch["spec_lengths"].long()
+    mask = ((torch.arange(T_x, device=dev)[None, :, None] < x_len[:, None, None])
+            & (torch.arange(T_y, device=dev)[None, None, :] < y_len[:, None, None])).float()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    empty = mask.clone()
+    empty[3] = 0
+    ragged = torch.rand(B, T_x, T_y, generator=gen, device=dev) < 0.999  # holes in the masks
+    cases = {
+        "random": (-torch.rand(B, T_x, T_y, generator=gen, device=dev) * 100, mask),
+        "tied": (torch.round(torch.randn(B, T_x, T_y, generator=gen, device=dev) * 2), mask),
+        "ragged": (torch.randn(B, T_x, T_y, generator=gen, device=dev), mask * ragged),
+        "empty item": (torch.randn(B, T_x, T_y, generator=gen, device=dev), empty),
+        "bf16": (torch.randn(B, T_x, T_y, generator=gen, device=dev).bfloat16(), mask),
+    }
+    launches = maximum_path.launches
+    for name, (value, m) in cases.items():
+        for shared in (None, False):
+            got = maximum_path(value, m, shared_bits=shared)
+            again = maximum_path(value, m, shared_bits=shared)
+            want = maximum_path_torch(value, m)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                where = "scratch" if shared is False else "shared memory"
+                raise AssertionError(f"K2 ({name}, bits in {where}): the path differs from the "
+                                     f"plain version's ({int((got != want).sum())} cells) or "
+                                     f"between calls")
+    checked = maximum_path.launches - launches
+    maximum_path.launches = launches  # comparisons do not count as the main path's
+    value, m = cases["random"]
+    k2_ms = time_device([lambda: maximum_path(value, m)], rounds=5, replays=4)
+    scratch_ms = time_device([lambda: maximum_path(value, m, shared_bits=False)], rounds=5,
+                             replays=4)
+    maximum_path.launches = launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    maximum_path_torch(value, m)
+    start.record()
+    for _ in range(2):
+        maximum_path_torch(value, m)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end) / 2
+    bound, bound_by, nbytes = mas_bound_ms(value, m)
+    log(f"K2 (maximum_path) against its plain version at B={B}, T_x={T_x}, T_y={T_y} "
+        f"(the step's batch masks): {', '.join(cases)}, the bits in shared memory and in the "
+        f"scratch buffer: {checked} calls, paths identical, repeats bit-identical | {card}")
+    log(f"K2 fp32 B={B} x {T_x} x {T_y}: device {k2_ms * 1e3:.1f} us (bits in scratch "
+        f"{scratch_ms * 1e3:.1f} us), plain {plain_ms:.2f} ms, bound {bound * 1e3:.1f} us "
+        f"({nbytes / 1e6:.1f} MB, {bound_by}): {100 * bound / k2_ms:.1f} % of bound, "
+        f"{k2_ms * 1e3 / T_y:.3f} us a frame; no library call computes MAS | {card}")
+    return {"name": "maximum_path", "route": "cuda", "source": "tts_tpu_torch/csrc/mas.cu",
+            "replaces": "tts_tpu/ops/mas.py:29", "max_abs_err": 0.0, "ms": k2_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def tiny_train_config():
+    """The recipe shrunk for the card-against-CPU step: hidden 32, 2 encoder
+    layers, 2 flows of 2 WN layers, HiFiGAN 32 channels (its upsampling kept,
+    so the hop stays 256), a discriminator at width_mult 1/16."""
+    config = vits_recipe_config()
+    a = config.model_args
+    a.hidden_channels, a.hidden_channels_ffn_text_encoder = 32, 64
+    a.num_layers_text_encoder = a.num_layers_posterior_encoder = a.num_layers_flow = 2
+    a.upsample_initial_channel_decoder = 32
+    a.discriminator_width_mult = 1 / 16
+    a.spec_segment_size = 16
+    return config
+
+
+def train_step_card_against_cpu(card: str, device) -> None:
+    """One step at a tiny width on the card and on the CPU, same weights,
+    the same host draws (dropout on) and the same alignment, fp32 with TF32
+    off: losses within 1e-4 of each value, both groups' gradients within
+    1e-4 of each tensor's peak (the attention key biases, zero in exact
+    arithmetic, both below 1e-6 of the group's peak). The stochastic
+    duration predictor's gradients are held against a float64 run on the
+    CPU: its NLL takes the log of ``durations - sigmoid(z)``, which
+    cancels for one-frame tokens, so an fp32 run lies up to a few 1e-4 of
+    the peak from the exact gradient (2.63e-4 on the card's host at 381
+    ids); the card's elementwise kernels contract multiply-adds where the
+    CPU's do not, so its rounding differs in kind (measured 2.0x the CPU's
+    distance): it must lie within 4x the CPU fp32 run's distance (at least
+    1e-4)."""
+    import torch
+
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.models.vits import train as vits_train
+
+    base = Vits.init_from_config(tiny_train_config()).init_params(seed=0, device="cpu",
+                                                                  discriminator=True)
+    names = vits_train.param_names(base)
+    runs, paths = {}, {}
+    for run, dev, dtype in (("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64),
+                            ("card", device, torch.float32)):
+        model = copy.deepcopy(base)
+        model.module.to(dtype)
+        model.discriminator.to(dtype)
+        # MAS is a discrete choice: fp32 rounding of the scores (other matmul
+        # orders here and there) may flip a near-tie. Every run takes the
+        # CPU's alignment; how far K2's own differs is printed.
+        mas = model.module._forward_mas
+
+        def aligned(*args, mas=mas):
+            path = mas(*args)
+            if "cpu" not in paths:  # the first run, on the CPU
+                paths["cpu"] = path
+                return path
+            paths["flipped"] = int((path.cpu() != paths["cpu"]).sum())
+            return paths["cpu"].to(path.device)
+
+        model.module._forward_mas = aligned
+        step, _, state = model.make_train_step(model.config, torch.Generator(dev).manual_seed(0),
+                                               device=dev)
+        grads = {}
+        apply = state.apply_updates
+
+        def capture(g, grads=grads, apply=apply):
+            grads.update({k: [t.detach().double().cpu() for t in v] for k, v in g.items()})
+            return apply(g)
+
+        state.apply_updates = capture
+        batch = synthetic_train_batch(model, dev, seed=5)
+        rows = torch.argsort(batch["text_lengths"].cpu())[:2].to(dev)  # the two shortest
+        batch = {k: v[rows] for k, v in batch.items()}
+        short = int(batch["text_lengths"].max()), int(batch["spec_lengths"].max())
+        batch["text_input"] = batch["text_input"][:, : short[0]]
+        batch["spec"] = batch["spec"][:, : short[1]].to(dtype)
+        batch["waveform"] = batch["waveform"][:, : short[1] * 256].to(dtype)
+        with host_draws(3):
+            _, metrics = step(state, batch)
+        sync(dev)
+        runs[run] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (m_cpu, g_cpu), (_, g64), (m_card, g_card) = runs["cpu"], runs["cpu64"], runs["card"]
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    if not loss_err <= TRAIN_TOL:
+        raise AssertionError(f"train step card against CPU: losses {m_card} against {m_cpu}")
+    sdp = [i for i, n in enumerate(names["gen"]) if n.startswith("duration_predictor.")]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    cpu_floor = max(max(rel(g_cpu["gen"][i], g64["gen"][i]) for i in sdp), TRAIN_TOL)
+    worst = {"gen": 0.0, "disc": 0.0, "sdp": 0.0}
+    for group in ("gen", "disc"):
+        peak = max(float(t.abs().max()) for t in g_cpu[group])
+        for i, (name, a, b) in enumerate(zip(names[group], g_card[group], g_cpu[group])):
+            if name.endswith("conv_k.bias"):
+                if not max(float(a.abs().max()), float(b.abs().max())) < 1e-6 * peak:
+                    raise AssertionError(f"train step: {name}'s gradient is not noise")
+            elif group == "gen" and i in sdp:
+                err = rel(a, g64[group][i])
+                worst["sdp"] = max(worst["sdp"], err)
+                if not err <= 4 * cpu_floor:
+                    raise AssertionError(f"train step: the card's {name} gradient lies {err:.3g} "
+                                         f"of its peak from float64, the CPU's fp32 "
+                                         f"{cpu_floor:.3g}")
+            else:
+                err = rel(a, b)
+                worst[group] = max(worst[group], err)
+                if not err <= TRAIN_TOL:
+                    raise AssertionError(f"train step card against CPU: {group} {name} "
+                                         f"gradient {err:.3g} of its peak > {TRAIN_TOL}")
+    log(f"VITS train step card against CPU at a tiny width (hidden 32, the batch's 2 shortest "
+        f"rows, {short[0]} ids at most, fp32, TF32 off, dropout on, the same host draws and the CPU's alignment; K2's "
+        f"own path differed in {paths['flipped']} cells): losses within {loss_err:.3g} of each "
+        f"value; gradients within {worst['gen']:.3g} (gen) and {worst['disc']:.3g} (disc) of "
+        f"each tensor's peak (tol {TRAIN_TOL}); the duration predictor's {worst['sdp']:.3g} "
+        f"from float64, the CPU fp32 run's {cpu_floor:.3g} | {card}")
+
+
+def phase_vits_train(card: str, device="cuda", cut=None) -> dict:
+    """Phase 21: the LJSpeech VITS recipe's GAN step at full width (B=32)
+    on a synthetic batch from seed 0, through ``Vits.make_train_step``; MAS
+    through K2 once a step. Returns K2's kernels-line entry (None off a
+    card) with its launches over the full-width steps. ``cut(config)``
+    shrinks the config in place for rehearsals on the CPU."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.ops.mas import maximum_path
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+    config = vits_recipe_config()
+    if cut is not None:
+        cut(config)
+    model = Vits.init_from_config(config).init_params(seed=0, device=device, discriminator=True)
+    batch = synthetic_train_batch(model, device)
+    n_gen = sum(p.numel() for p in model.module.parameters()) / 1e6
+    n_disc = sum(p.numel() for p in model.discriminator.parameters()) / 1e6
+    log(f"VITS training (LJSpeech recipe, B={TRAIN_BATCH}: text {TRAIN_TEXT[0]}-{TRAIN_TEXT[1]} "
+        f"ids, {TRAIN_FRAMES[0]}-{TRAIN_FRAMES[1]} frames, segments of "
+        f"{config.model_args.spec_segment_size} frames): generator {n_gen:.2f} M, "
+        f"discriminator {n_disc:.2f} M parameters (seed 0); ready in "
+        f"{time.time() - t_phase:.1f} s")
+    kernel = k2_checks(batch, card) if cuda else None
+    if cuda:
+        train_step_card_against_cpu(card, device)
+        log(f"  (phase 21 at {time.time() - t_phase:.1f} s: K2 and the tiny step checked)")
+
+    maximum_path.launches = 0
+    steps_run = 0
+    for mixed in (False, True):
+        config.mixed_precision = mixed
+        what = "bf16 autocast" if mixed else "fp32"
+        step, _, state = model.make_train_step(config, torch.Generator(device).manual_seed(0),
+                                               device=device)
+        for _ in range(TRAIN_WARMUP):
+            step(state, batch)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(TRAIN_TIMED):
+            _, metrics = step(state, batch)
+            losses.append(metrics)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+        steps_run += TRAIN_WARMUP + TRAIN_TIMED
+        last = {k: float(v) for k, v in losses[-1].items()}
+        if not all(np.isfinite(float(v)) for m in losses for v in m.values()):
+            raise AssertionError(f"VITS train step ({what}): a loss is not finite: {last}")
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        log(f"VITS train step {what}, B={TRAIN_BATCH}: {ms:.1f} ms a step (mean of "
+            f"{TRAIN_TIMED} after {TRAIN_WARMUP} warm-up), {1e3 / ms * TRAIN_BATCH:.1f} "
+            f"utterances/s; peak memory {peak:.2f} GB; last losses "
+            + ", ".join(f"{k} {v:.4g}" for k, v in last.items()) + f" | {card}")
+        if cuda:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                step(state, batch)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t1) * 1e6
+            steps_run += 1
+            log_profile(prof, f"VITS train step ({what})", wall_us, card, top=6)
+    k2 = maximum_path.launches
+    if cuda and k2 != steps_run:
+        raise AssertionError(f"VITS training: K2 launched {k2} times in {steps_run} steps")
+    if kernel is not None:
+        kernel["launches"] = k2
+    log(f"phase 21 (VITS train step) took {time.time() - t_phase:.1f} s; K2 launched {k2} "
+        f"times in {steps_run} steps | {card}")
+    return kernel
+
+
 def selected_phases(args) -> set:
-    """The phases a run does: all 20 without arguments, else phases 1 and 2
+    """The phases a run does: all 21 without arguments, else phases 1 and 2
     (environment, build) and the numbers given (5 brings 4, whose model it
     serves). Raises ``ValueError`` on anything else."""
     if not args:
-        return set(range(1, 21))
+        return set(range(1, 22))
     chosen = {int(a) for a in args}  # ValueError on a word
-    if not chosen <= set(range(1, 21)):
-        raise ValueError(f"phases are 1-20, got {sorted(chosen)}")
+    if not chosen <= set(range(1, 22)):
+        raise ValueError(f"phases are 1-21, got {sorted(chosen)}")
     return chosen | {1, 2} | ({4} if 5 in chosen else set())
 
 
@@ -7523,12 +7914,14 @@ def main(argv=None) -> int:
         kernels.append(int8_kernel)
     if 3 in phases:
         kernels[0]["launches"] = k1_launches
+    if 21 in phases:
+        kernels.append(phase_vits_train(card))
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "transformers",
                                                    "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    ran = "1-20" if len(phases) == 20 else ", ".join(map(str, sorted(phases)))
+    ran = "1-21" if len(phases) == 21 else ", ".join(map(str, sorted(phases)))
     log(f"chip_smoke.py: phases {ran} took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -388,8 +388,10 @@ def test_concurrent_requests_through_the_batching_server(model_dir):
             parts += [made[tuple(tokenizer.text_to_ids(sen))], np.zeros(SENTENCE_GAP)]
         want = np.concatenate(parts)
         assert sr == 22050 and pcm.shape == want.shape
-        scaled = want * (32767 / max(0.01, float(np.abs(want).max())))
-        np.testing.assert_allclose(pcm, scaled, rtol=0, atol=1.0)
+        # the server's arithmetic: scaled in float32, truncated to int16
+        arr = np.asarray(want, np.float32)
+        scaled = (arr * (32767 / max(0.01, float(np.abs(arr).max())))).astype(np.int16)
+        np.testing.assert_array_equal(pcm, scaled)
 
 
 def test_batcher_under_many_threads(model_dir):

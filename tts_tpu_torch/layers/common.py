@@ -1,7 +1,13 @@
 """Common conv/norm blocks (port of ``tts_tpu/layers/common.py``): ``Conv1d``,
 ``LayerNorm``, ``ConvLayerNormBlock`` (the GlowTTS prenet) and
 ``DurationPredictor`` (the VITS ``use_sdp=False`` and GlowTTS predictor),
-inference only (no dropout).
+and ``Dropout``, flax's ``nn.Dropout`` for the layers that train.
+
+``Dropout`` acts only in training mode (``module.train()``) and at a rate
+above 0; its keep masks come from :func:`bernoulli`, drawn from the
+generator that :func:`use_dropout_generator` gives it, never from torch's
+global generator. In eval mode a layer computes exactly what it did
+without it.
 
 ``Conv1d`` runs on channel-first ``[B, C, T]`` as torch's convolutions do;
 ``LayerNorm`` normalises the last axis of a time-major ``[B, T, C]`` tensor,
@@ -17,6 +23,48 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def bernoulli(shape, keep: float, generator: torch.Generator) -> torch.Tensor:
+    """A boolean keep mask of ``shape``, each element True with probability
+    ``keep``, drawn from ``generator`` on its device."""
+    probs = torch.full(tuple(shape), keep, device=generator.device)
+    return torch.bernoulli(probs, generator=generator).bool()
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(p)``: in training mode each element is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``, else set to 0; at
+    ``p == 1`` everything is 0. The mask is drawn by :func:`bernoulli` from
+    ``self.generator``; training mode without one raises. In eval mode, or
+    at ``p == 0``, the input passes unchanged and nothing is drawn."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("Dropout in training mode draws from an explicit generator: "
+                               "give the model one with use_dropout_generator")
+        keep = 1.0 - self.p
+        mask = bernoulli(x.shape, keep, self.generator).to(x.device)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def use_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Every :class:`Dropout` under ``module`` draws from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class Conv1d(nn.Conv1d):
@@ -65,14 +113,15 @@ class ConvLayerNormBlock(nn.Module):
 
 
 class DurationPredictor(nn.Module):
-    """Token log-duration regressor: conv-relu-norm ×2 → 1 channel
+    """Token log-duration regressor: conv-relu-norm-dropout ×2 → 1 channel
     (the ``use_sdp=False`` predictor of VITS). ``[B, T, C]`` in, ``[B, T, 1]``
     out. With ``cond_channels`` a speaker vector ``g [B, C_g]`` is added to
     every frame of the input through the linear ``cond``."""
 
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int,
-                 cond_channels: int = 0):
+                 cond_channels: int = 0, dropout_p: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout_p)
         if cond_channels:
             self.cond = nn.Linear(cond_channels, in_channels)
         self.conv_1 = Conv1d(in_channels, hidden_channels, kernel_size)
@@ -88,5 +137,5 @@ class DurationPredictor(nn.Module):
         x, mask = x.transpose(1, 2), x_mask.transpose(1, 2)  # [B, C, T]
         for conv, norm in ((self.conv_1, self.norm_1), (self.conv_2, self.norm_2)):
             x = F.relu(conv(x * mask))
-            x = norm(x.transpose(1, 2)).transpose(1, 2)
+            x = self.dropout(norm(x.transpose(1, 2))).transpose(1, 2)
         return (self.proj(x * mask) * mask).transpose(1, 2)  # [B, T, 1] log durations

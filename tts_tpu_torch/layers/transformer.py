@@ -1,7 +1,9 @@
 """Relative-position transformer (port of ``tts_tpu/layers/transformer.py``)
 as the VITS text encoder uses it: self-attention with relative-position
-tables shared across heads, output width equal to the input's, inference
-only. Time-major ``[B, T, C]`` like the JAX package; the feed-forward convs
+tables shared across heads, output width equal to the input's, with the
+JAX package's dropouts (on the attention weights, after the first
+feed-forward conv, after each sublayer; ``layers.common.Dropout``, active in
+training mode only). Time-major ``[B, T, C]`` like the JAX package; the feed-forward convs
 run channel-first inside.
 
 The relative ↔ absolute position reshapes are the JAX package's, pad for
@@ -16,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Conv1d, LayerNorm
+from .common import Conv1d, Dropout, LayerNorm
 
 
 def _relative_position_to_absolute_position(x: torch.Tensor) -> torch.Tensor:
@@ -42,8 +44,10 @@ class RelativePositionMultiHeadAttention(nn.Module):
     """Self-attention with learned relative-position key/value embeddings
     over a ±window (reference ``transformer.py:10``)."""
 
-    def __init__(self, channels: int, num_heads: int, rel_attn_window_size: int):
+    def __init__(self, channels: int, num_heads: int, rel_attn_window_size: int,
+                 dropout_p: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout_p)
         self.channels = channels
         self.num_heads = num_heads
         self.k_channels = channels // num_heads
@@ -78,7 +82,7 @@ class RelativePositionMultiHeadAttention(nn.Module):
         scores = scores + _relative_position_to_absolute_position(rel_logits) / math.sqrt(d)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
 
-        p_attn = torch.softmax(scores, dim=-1)  # [B, H, T, T]
+        p_attn = self.dropout(torch.softmax(scores, dim=-1))  # [B, H, T, T]
         out = torch.einsum("bhts,bshd->bthd", p_attn, v)
         rel_weights = _absolute_position_to_relative_position(p_attn)  # [B, H, T, 2T-1]
         value_rel = self._get_relative_embeddings(self.emb_rel_v, T)
@@ -89,14 +93,18 @@ class RelativePositionMultiHeadAttention(nn.Module):
 class FeedForwardNetwork(nn.Module):
     """Conv feed-forward block (reference ``transformer.py:260``)."""
 
-    def __init__(self, channels: int, hidden_channels: int, kernel_size: int):
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
+                 dropout_p: float = 0.0):
         super().__init__()
         self.conv_1 = Conv1d(channels, hidden_channels, kernel_size)
         self.conv_2 = Conv1d(hidden_channels, channels, kernel_size)
+        self.dropout = Dropout(dropout_p)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         x, mask = x.transpose(1, 2), x_mask.transpose(1, 2)  # [B, C, T]
         x = F.relu(self.conv_1(x * mask))
+        if self.dropout.training and self.dropout.p:  # drawn time-major, as in the JAX package
+            x = self.dropout(x.transpose(1, 2)).transpose(1, 2)
         return (self.conv_2(x * mask) * mask).transpose(1, 2)
 
 
@@ -106,23 +114,26 @@ class RelativePositionTransformer(nn.Module):
     ``[B, T, 1]``."""
 
     def __init__(self, hidden_channels: int, hidden_channels_ffn: int, num_heads: int,
-                 num_layers: int, kernel_size: int, rel_attn_window_size: int):
+                 num_layers: int, kernel_size: int, rel_attn_window_size: int,
+                 dropout_p: float = 0.0):
         super().__init__()
         self.attn = nn.ModuleList(
-            RelativePositionMultiHeadAttention(hidden_channels, num_heads, rel_attn_window_size)
+            RelativePositionMultiHeadAttention(hidden_channels, num_heads, rel_attn_window_size,
+                                               dropout_p)
             for _ in range(num_layers)
         )
         self.norm1 = nn.ModuleList(LayerNorm(hidden_channels) for _ in range(num_layers))
         self.ffn = nn.ModuleList(
-            FeedForwardNetwork(hidden_channels, hidden_channels_ffn, kernel_size)
+            FeedForwardNetwork(hidden_channels, hidden_channels_ffn, kernel_size, dropout_p)
             for _ in range(num_layers)
         )
+        self.dropout = Dropout(dropout_p)
         self.norm2 = nn.ModuleList(LayerNorm(hidden_channels) for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         attn_mask = x_mask[:, None, :, 0:1] * x_mask[:, None, None, :, 0]  # [B, 1, T, T]
         for attn, norm1, ffn, norm2 in zip(self.attn, self.norm1, self.ffn, self.norm2):
             x = x * x_mask
-            x = norm1(x + attn(x, attn_mask))
-            x = norm2(x + ffn(x, x_mask))
+            x = norm1(x + self.dropout(attn(x, attn_mask)))
+            x = norm2(x + self.dropout(ffn(x, x_mask)))
         return x * x_mask

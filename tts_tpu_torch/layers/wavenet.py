@@ -1,5 +1,6 @@
 """Gated dilated-conv WaveNet stack (port of ``tts_tpu/layers/wavenet.py``),
-inference only. Shared by the VITS posterior encoder and its coupling
+with the JAX package's dropout on each dilated conv's output
+(``layers.common.Dropout``, training mode only; VITS builds it at 0). Shared by the VITS posterior encoder and its coupling
 flows. Time-major ``[B, T, C]`` at the boundary; the stack runs channel-first
 inside, so the 1x1 ``res_skip_layer`` (a ``Linear``, as the JAX package's
 Dense) is applied as a width-1 convolution. Weight norm is folded into
@@ -14,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Conv1d
+from .common import Conv1d, Dropout
 
 
 class WN(nn.Module):
@@ -22,9 +23,10 @@ class WN(nn.Module):
     ``[B, C_g]`` (a global vector) or ``[B, T, C_g]`` (per-frame features)."""
 
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
-                 num_layers: int, c_in_channels: int = 0):
+                 num_layers: int, c_in_channels: int = 0, dropout_p: float = 0.0):
         super().__init__()
         self.hidden_channels = hidden_channels
+        self.dropout = Dropout(dropout_p)
         if c_in_channels:
             # one shared 1x1 conv producing all per-layer conditioning at once
             self.cond_layer = nn.Linear(c_in_channels, 2 * hidden_channels * num_layers)
@@ -51,6 +53,8 @@ class WN(nn.Module):
         last = len(self.in_layer) - 1
         for i, (in_layer, res_skip_layer) in enumerate(zip(self.in_layer, self.res_skip_layer)):
             acts = in_layer(x)
+            if self.dropout.training and self.dropout.p:  # drawn time-major, as in JAX
+                acts = self.dropout(acts.transpose(1, 2)).transpose(1, 2)
             if g is not None:
                 acts = acts + g[:, i * 2 * H : (i + 1) * 2 * H]
             acts = torch.tanh(acts[:, :H]) * torch.sigmoid(acts[:, H:])

@@ -18,8 +18,18 @@ upsampling carries the factor. Neither variant takes the packed decode
 ``voice_conversion`` (speaker ids or d-vectors) runs the posterior encoder
 and the flow forward with the source speaker, the flow back with the target
 and the decoder, upsampling the latent as ``inference`` does, where the
-reference does not (the JAX package's named divergence). Training waits
-for its own slice (ROADMAP.md item 17).
+reference does not (the JAX package's named divergence).
+
+Training (port of ``tts_tpu/models/vits/model.py:149-245`` and the losses
+``:449-484``): ``VitsModule.forward`` is the training forward (posterior,
+flow, MAS through K2, ``ops/mas.py``, the duration loss, the prior expanded
+over the alignment, a random segment decoded), ``Vits.discriminator`` the
+multi-period and scale discriminator, and ``Vits.make_train_step`` the GAN
+step of ``models/vits/train.py``. Like the JAX package, the training
+forward feeds the duration predictor the prior means ``m_p``, where
+inference feeds it the encoder's output (ROADMAP.md F12). Training runs one
+speaker and one language; the multi-speaker and multi-language variants
+raise (ROADMAP.md item 17a's queue).
 
 D-vectors are L2-normalised before they condition anything, in inference
 and in voice conversion, as the reference VITS does; the JAX package feeds
@@ -41,6 +51,8 @@ after it agree, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 from types import SimpleNamespace
 from typing import Any, Dict, Optional
@@ -52,7 +64,8 @@ import torch.nn.functional as F
 
 from tts_tpu_torch import resolve_device
 from tts_tpu_torch.layers.common import DurationPredictor
-from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
+from tts_tpu_torch.ops.helpers import generate_path, rand_segments, sequence_mask
+from tts_tpu_torch.ops.mas import maximum_path
 from tts_tpu_torch.text.tokenizer import TTSTokenizer
 from tts_tpu_torch.utils.managers import init_speaker_manager
 from tts_tpu_torch.vocoder.models.hifigan_generator import HifiganGenerator
@@ -153,6 +166,7 @@ class VitsModule(nn.Module):
             num_layers=args.num_layers_text_encoder,
             kernel_size=args.kernel_size_text_encoder,
             language_emb_dim=lang_dim,
+            dropout_p=args.dropout_p_text_encoder,
         )
         self.posterior_encoder = modules.PosteriorEncoder(
             in_channels=args.out_channels,
@@ -176,11 +190,13 @@ class VitsModule(nn.Module):
             self.duration_predictor = modules.StochasticDurationPredictor(
                 in_channels=args.hidden_channels + lang_dim, hidden_channels=192,
                 kernel_size=3, num_flows=4, cond_channels=dp_cond, language_emb_dim=lang_dim,
+                dropout_p=args.dropout_p_duration_predictor,
             )
         else:
             self.duration_predictor = DurationPredictor(
                 in_channels=args.hidden_channels + lang_dim, hidden_channels=256,
                 kernel_size=3, cond_channels=dp_cond,
+                dropout_p=args.dropout_p_duration_predictor,
             )
         decoder = dict(
             in_channels=args.hidden_channels,
@@ -228,6 +244,77 @@ class VitsModule(nn.Module):
         z = F.interpolate(z.transpose(1, 2), size=z.shape[1] * f, mode="linear",
                           align_corners=False)
         return z.transpose(1, 2)
+
+    def _forward_mas(self, z_p, m_p, logs_p, x_mask, y_mask) -> torch.Tensor:
+        """The alignment ``[B, T_x, T_y]``: MAS (K2) over the log-likelihood of
+        the flow latents under each token's prior, without gradient (port of
+        ``tts_tpu/models/vits/model.py:149-158``; the two einsums are matmuls)."""
+        attn_mask = x_mask * y_mask.transpose(1, 2)
+        with torch.no_grad():
+            o_scale = torch.exp(-2.0 * logs_p)
+            logp1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p, dim=-1)[:, :, None]
+            logp2 = torch.matmul(o_scale, (-0.5 * z_p**2).transpose(1, 2))
+            logp3 = torch.matmul(m_p * o_scale, z_p.transpose(1, 2))
+            logp4 = torch.sum(-0.5 * (m_p**2) * o_scale, dim=-1)[:, :, None]
+            logp = logp1 + logp2 + logp3 + logp4
+            return maximum_path(logp, attn_mask)
+
+    def forward(self, x, x_lengths, y, y_lengths, generator: torch.Generator,
+                aux_input: Optional[Dict] = None) -> Dict[str, Any]:
+        """The training forward (reference ``vits.py:961``; port of
+        ``tts_tpu/models/vits/model.py:174-245``): ids ``[B, T_x]``, the linear
+        spectrogram ``y [B, T_y, C_spec]`` and their lengths → the decoded
+        segment ``model_outputs [B, spec_segment_size * hop, 1]``, its start
+        frames ``slice_ids``, the alignment, the prior expanded over it, the
+        posterior and flow latents and ``loss_duration``. Draws, all from
+        ``generator``: the posterior's noise and the duration posterior's
+        (``modules.normal``), the segment starts (``ops.helpers.uniform``)
+        and, in training mode, the dropout masks. The duration predictor
+        reads the prior means ``m_p`` (detached under ``detach_dp_input``),
+        as the JAX package's training does (ROADMAP.md F12)."""
+        a = self.args
+        g, lang = self._cond_vectors(aux_input)
+        if g is not None or lang is not None:
+            raise NotImplementedError("VITS training runs one speaker and one language; the "
+                                      "multi-speaker and multi-language variants are queued "
+                                      "(ROADMAP.md item 17a)")
+        _, m_p, logs_p, x_mask = self.text_encoder(x, x_lengths)
+        z, m_q, logs_q, y_mask = self.posterior_encoder(y, y_lengths, generator)
+        z_p = self.flow(z, y_mask, reverse=False)
+        attn = self._forward_mas(z_p, m_p, logs_p, x_mask, y_mask)
+        # in fp32 (or wider): bf16 under autocast holds no integer above 256
+        attn_durations = torch.sum(attn.to(torch.promote_types(m_p.dtype, torch.float32)),
+                                   dim=-1, keepdim=True)  # [B, T_x, 1]
+        x_dp = m_p.detach() if a.detach_dp_input else m_p
+        if a.use_sdp:
+            nll = self.duration_predictor.nll(x_dp, x_mask, attn_durations, generator)
+            loss_duration = torch.sum(nll) / torch.sum(x_mask)
+        else:
+            attn_log_durations = torch.log(attn_durations + 1e-6) * x_mask
+            log_durations = self.duration_predictor(x_dp, x_mask)
+            loss_duration = torch.sum((log_durations - attn_log_durations) ** 2) / torch.sum(
+                x_mask)
+        attn_t = attn.transpose(1, 2).to(m_p.dtype)
+        m_p_e = torch.matmul(attn_t, m_p)  # [B, T_y, C]
+        logs_p_e = torch.matmul(attn_t, logs_p)
+        z_slice, slice_ids = rand_segments(generator, z, y_lengths, a.spec_segment_size,
+                                           let_short_samples=True, pad_short=True)
+        o = self.waveform_decoder(self._upsample_z(z_slice))
+        return {
+            "model_outputs": o,
+            "alignments": attn.transpose(1, 2),
+            "m_p": m_p_e,
+            "logs_p": logs_p_e,
+            "z": z,
+            "z_p": z_p,
+            "m_q": m_q,
+            "logs_q": logs_q,
+            "durations": attn_durations,
+            "loss_duration": loss_duration,
+            "slice_ids": slice_ids,
+            "x_mask": x_mask,
+            "y_mask": y_mask,
+        }
 
     def _durations(self, x, x_lengths, generator, g=None, lang=None):
         """Text encoder and duration predictor: ``(w_ceil [B, T_x, 1], m_p,
@@ -368,8 +455,54 @@ class VitsModule(nn.Module):
         return self.waveform_decoder(self._upsample_z(z_hat * y_mask), g=g_tgt)
 
 
+# ---------------------------------------------------------------------------
+# losses (port of tts_tpu/models/vits/model.py:449-484; reference
+# TTS/tts/layers/losses.py:619-778)
+# ---------------------------------------------------------------------------
+
+
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
+    """KL(q || p) over the masked frames (reference ``losses.py:663``)."""
+    kl = logs_p - logs_q - 0.5
+    kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
+    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+
+
+def feature_loss(feats_real, feats_generated) -> torch.Tensor:
+    """L1 feature matching x 2, the real features detached (reference
+    ``losses.py:692``)."""
+    loss = 0.0
+    for dr_feats, dg_feats in zip(feats_real, feats_generated):
+        for dr, dg in zip(dr_feats, dg_feats):
+            loss = loss + torch.mean(torch.abs(dr.detach() - dg))
+    return loss * 2.0
+
+
+def generator_adv_loss(scores_fake) -> torch.Tensor:
+    """LSGAN generator loss (reference ``losses.py:704``)."""
+    loss = 0.0
+    for dg in scores_fake:
+        loss = loss + torch.mean((1.0 - dg) ** 2)
+    return loss
+
+
+def discriminator_adv_loss(scores_real, scores_fake):
+    """LSGAN discriminator loss → ``(loss, real losses, fake losses)``
+    (reference ``losses.py:744``)."""
+    loss = 0.0
+    real_losses, fake_losses = [], []
+    for dr, dg in zip(scores_real, scores_fake):
+        real_l = torch.mean((1.0 - dr) ** 2)
+        fake_l = torch.mean(dg**2)
+        loss = loss + real_l + fake_l
+        real_losses.append(real_l)
+        fake_losses.append(fake_l)
+    return loss, real_losses, fake_losses
+
+
 class Vits:
-    """Host wrapper: tokenizer, weights and noise around :class:`VitsModule`."""
+    """Host wrapper: tokenizer, weights and noise around :class:`VitsModule`,
+    and the discriminator of training."""
 
     # inference() returns a waveform [B, T, 1] directly (no vocoder stage),
     # which the server's DynamicBatcher asks of a model
@@ -379,7 +512,14 @@ class Vits:
         check_supported(config)
         self.config = config
         self.args = config.model_args
-        self.module = VitsModule(self.args, interpolate_factor(config))
+        # eval mode: dropout acts only inside a training step (models/vits/train.py)
+        self.module = VitsModule(self.args, interpolate_factor(config)).eval()
+        # built without storage; init_params(discriminator=True) or
+        # init_discriminator draws it, for training
+        with torch.device("meta"):
+            self.discriminator = modules.VitsDiscriminator(
+                tuple(self.args.periods_multi_period_discriminator),
+                width_mult=self.args.discriminator_width_mult)
         self.tokenizer: Optional[TTSTokenizer] = None
         self.speaker_manager = None
         self.language_manager = None
@@ -441,14 +581,17 @@ class Vits:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def init_params(self, seed: int = 0, device="cuda") -> "Vits":
+    def init_params(self, seed: int = 0, device="cuda", discriminator: bool = False) -> "Vits":
         """Random fp32 weights from ``seed``, drawn on the CPU (the same on
         every machine), then moved to ``device``. Norm scales are 1, biases
         and the duration flows' affine terms 0; linear and conv weights
         N(0, 1/fan_in), the last projection of each flow a tenth of that (so
         the flows start near the identity); the token embedding
         N(0, 1/hidden) and the relative-position tables N(0, 1/head width),
-        the JAX package's scales for those two."""
+        the JAX package's scales for those two. With ``discriminator`` the
+        discriminator is drawn too, after the generator from the same
+        stream (:meth:`init_discriminator`), so the generator's weights do
+        not depend on it."""
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         module = self.module.to_empty(device="cpu")
@@ -470,7 +613,68 @@ class Vits:
                     ".flow." in name) else 1.0
                 p.copy_(torch.randn(p.shape, generator=gen) * scale / fan_in**0.5)
         self.module.to(device).requires_grad_(False)
+        if discriminator:
+            self._draw_discriminator(gen, device)
         return self
+
+    @property
+    def has_discriminator(self) -> bool:
+        """Whether the discriminator holds weights (not only its shapes)."""
+        return not any(p.is_meta for p in self.discriminator.parameters())
+
+    @torch.no_grad()
+    def init_discriminator(self, seed: int = 0, device="cuda") -> "Vits":
+        """Random fp32 discriminator weights from ``seed`` (drawn on the CPU,
+        then moved to ``device``): conv weights N(0, 1/fan_in), biases 0."""
+        self._draw_discriminator(torch.Generator().manual_seed(seed), resolve_device(device))
+        return self
+
+    def _draw_discriminator(self, gen: torch.Generator, device) -> None:
+        disc = self.discriminator.to_empty(device="cpu")
+        for name, p in disc.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5)
+        self.discriminator = disc.to(device).requires_grad_(False)
+
+    def load_discriminator_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Discriminator weights as they are (strict), e.g. from
+        ``utils.convert.vits_discriminator_from_jax_params``."""
+        self.discriminator.load_state_dict(state, strict=True, assign=True)
+        self.discriminator.requires_grad_(False)
+
+    def make_train_step(self, config: VitsConfig, generator: torch.Generator, device="cuda"):
+        """The training hook (port of ``tts_tpu/models/vits/model.py:551``):
+        ``(train_step, optimizers, state)`` for ``config``'s optimizers,
+        schedules and loss weights, on ``device`` (CUDA unless the caller
+        asks for the CPU). The generator network keeps its current weights;
+        a discriminator not drawn yet is drawn from seed 0. ``train_step(state,
+        batch)`` makes every draw from ``generator``, which must live on
+        ``device`` (see ``models/vits/train.py``)."""
+        from .train import create_train_state, make_train_step
+
+        device = resolve_device(device)
+        if generator.device.type != device.type:
+            raise ValueError(f"the step's generator is on {generator.device}, the model on "
+                             f"{device}")
+        if not self.has_discriminator:
+            self.init_discriminator(0, device)
+        self.module.to(device)
+        self.discriminator.to(device)
+        state = create_train_state(self, config)
+        step_fn, eval_fn, optimizers = make_train_step(self, config)
+        self._eval_step_fn = eval_fn
+        return functools.partial(step_fn, generator=generator), optimizers, state
+
+    def make_eval_step(self, config: VitsConfig):
+        """The deterministic no-grad evaluation of the losses (port of
+        ``tts_tpu/models/vits/model.py:560``)."""
+        if getattr(self, "_eval_step_fn", None) is None:
+            from .train import make_train_step
+
+            _, self._eval_step_fn, _ = make_train_step(self, config)
+        return self._eval_step_fn
 
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
         """Take the tensors as they are (strict: no key missing or extra)."""

@@ -2,3 +2,4 @@
 PyTorch versions."""
 
 from .decode_attention import decode_attention, decode_attention_torch  # noqa: F401
+from .mas import maximum_path, maximum_path_torch  # noqa: F401

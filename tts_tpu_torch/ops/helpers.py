@@ -1,13 +1,27 @@
 """Sequence helpers (port of ``tts_tpu/ops/helpers.py``): ``sequence_mask``
-and ``generate_path``, which VITS inference calls. Values are time-major
-``[B, T, C]`` as in the JAX package. The segment, prior and
-duration-averaging helpers serve training and wait for it.
+and ``generate_path``, which VITS inference calls; ``segment``,
+``rand_segments`` and ``average_over_durations``, which training calls.
+Values are time-major ``[B, T, C]`` as in the JAX package. The attention
+prior helpers (host numpy, for the data pipeline) wait for it (ROADMAP.md
+item 17b).
+
+``rand_segments`` draws its uniforms through :func:`uniform`, from an
+explicit generator; tests replace that one function to replay the JAX
+package's draws.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
+
+
+def uniform(shape: Tuple[int, ...], generator: torch.Generator) -> torch.Tensor:
+    """U[0, 1) fp32 of ``shape`` from ``generator``, on the generator's
+    device."""
+    return torch.rand(shape, generator=generator, device=generator.device)
 
 
 def sequence_mask(sequence_lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -29,3 +43,61 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     y_range = torch.arange(t_y, device=duration.device)[None, None, :]
     path = (y_range < cum_duration[:, :, None]) & (y_range >= cum_prev[:, :, None])
     return path.to(mask.dtype) * mask
+
+
+def segment(x: torch.Tensor, segment_indices: torch.Tensor, segment_size: int,
+            pad_short: bool = False) -> torch.Tensor:
+    """``segment_size`` frames of each row of ``x [B, T, C]`` from its start
+    index ``[B]`` → ``[B, segment_size, C]`` (differentiable in ``x``). A
+    start past ``T - segment_size`` is moved back to it, as the JAX
+    package's ``dynamic_slice`` clamps; with ``pad_short`` a shorter ``x`` is
+    zero-padded to ``segment_size`` first (port of
+    ``tts_tpu/ops/helpers.py:44-72``)."""
+    if pad_short and x.shape[1] < segment_size:
+        x = F.pad(x, (0, 0, 0, segment_size - x.shape[1]))
+    T = x.shape[1]
+    if T < segment_size:
+        raise ValueError(f"segment: {segment_size} frames from a sequence of {T}")
+    start = torch.clamp(segment_indices.long(), 0, T - segment_size)
+    pos = start[:, None] + torch.arange(segment_size, device=x.device)[None, :]
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], pos]
+
+
+def rand_segments(generator: torch.Generator, x: torch.Tensor,
+                  x_lengths: Optional[torch.Tensor] = None, segment_size: int = 4,
+                  let_short_samples: bool = False,
+                  pad_short: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A random ``segment_size`` window of each row of ``x [B, T, C]`` inside
+    its length → ``(segments [B, segment_size, C], start indices [B] int32)``.
+    The start is ``floor(u * (length - segment_size + 1))`` for a uniform
+    ``u`` from :func:`uniform` (port of ``tts_tpu/ops/helpers.py:75-106``)."""
+    B, T, _ = x.shape
+    if pad_short and T < segment_size:
+        x = F.pad(x, (0, 0, 0, segment_size - T))
+        T = segment_size
+    if x_lengths is None:
+        x_lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    len_diff = x_lengths.to(torch.int32) - segment_size
+    if let_short_samples or pad_short:
+        len_diff = torch.clamp(len_diff, min=0)
+    u = uniform((B,), generator).to(x.device)
+    segment_indices = (u * (len_diff + 1)).to(torch.int32)
+    return segment(x, segment_indices, segment_size, pad_short=pad_short), segment_indices
+
+
+def average_over_durations(values: torch.Tensor, durs: torch.Tensor) -> torch.Tensor:
+    """Frame values ``[B, T_de, C]`` averaged over each token's frames
+    (``durs [B, T_en]``), zeros counting as unset → ``[B, T_en, C]`` (port
+    of ``tts_tpu/ops/helpers.py:109-128``)."""
+    durs_ends = torch.cumsum(durs, dim=1)
+    durs_starts = F.pad(durs_ends[:, :-1], (1, 0))
+    nonzero = (values != 0.0).to(values.dtype)
+    csum = F.pad(torch.cumsum(values, dim=1), (0, 0, 1, 0))
+    cnum = F.pad(torch.cumsum(nonzero, dim=1), (0, 0, 1, 0))
+    ends = torch.clamp(durs_ends, 0, values.shape[1]).long()[:, :, None].expand(
+        -1, -1, values.shape[2])
+    starts = torch.clamp(durs_starts, 0, values.shape[1]).long()[:, :, None].expand(
+        -1, -1, values.shape[2])
+    sums = torch.gather(csum, 1, ends) - torch.gather(csum, 1, starts)
+    nelems = torch.gather(cnum, 1, ends) - torch.gather(cnum, 1, starts)
+    return torch.where(nelems == 0.0, 0.0, sums / torch.clamp(nelems, min=1.0))

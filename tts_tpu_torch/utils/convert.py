@@ -161,6 +161,15 @@ def vits_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return flax_to_state_dict(params)
 
 
+def vits_discriminator_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``VitsDiscriminator`` params (``disc_s``,
+    ``disc_p{p}``) → the state_dict of
+    ``tts_tpu_torch.models.vits.modules.VitsDiscriminator``: flax's 2-D
+    kernels ``[k, 1, in, out]`` become ``[out, in, k, 1]``, the 1-D ones
+    ``[out, in / groups, k]``."""
+    return flax_to_state_dict(params)
+
+
 def glow_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's ``GlowTTSModule`` params → the state_dict of
     ``tts_tpu_torch.models.glow_tts.model.GlowTTSModule``."""
