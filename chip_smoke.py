@@ -328,11 +328,19 @@ Phases; each raises on failure and the script then exits non-zero:
     61-381 ids with blanks, 2-10 s of 22.05 kHz audio, the longest row 861
     frames, its linear spectrogram). K2 against its plain version at these
     shapes on random, tied, ragged and bf16 scores and an item without
-    tokens, with the direction bits in shared memory and in the scratch
-    buffer, each call made twice: paths identical, repeats bit-identical;
-    then K2 timed beside its bound and its plain version (no library call
-    computes MAS). One step at a tiny width card against CPU (fp32, TF32
-    off, dropout on, the same host draws and alignment): losses within
+    tokens, the direction bits where the plan puts them, in the scratch
+    buffer and in shared memory; and at the ring kernel's boundaries (383 x
+    203, 385 x 861, 513 x 99, 1030 x 861, an unaligned view with a bool
+    mask, 4200 tokens through the columns kernel): each call made twice,
+    paths identical, repeats bit-identical; then K2 timed beside its bound
+    and its plain version (no library call computes MAS), with the bits in
+    the other place, at the aligners' 190 tokens, with bf16 values and a
+    bool mask, and against the columns kernel (the first design) in the same
+    run; host
+    microseconds a call; K2's parts by ``clock64`` in block 0, as
+    ``scripts/k2_probes.py`` reads them. One step at a tiny width card
+    against CPU (fp32, TF32 off, dropout on, the same host draws and
+    alignment): losses within
     1e-4, gradients within 1e-4 of each tensor's peak (the stochastic
     duration predictor's against a float64 run, see
     ``train_step_card_against_cpu``). Then 2 warm-up and 5 timed steps in
@@ -7517,6 +7525,17 @@ def mas_bound_ms(value, mask) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
 
 
+def train_lengths(rs) -> tuple:
+    """``TRAIN_BATCH`` text lengths (61-381 ids with blanks, odd) and frame
+    lengths (roughly 2.26 frames a token, 172-861) drawn from ``rs``; row 0
+    the longest of both, row 1 the shortest text."""
+    x_len = rs.randint(TRAIN_TEXT[0] // 2, TRAIN_TEXT[1] // 2 + 1, TRAIN_BATCH) * 2 + 1
+    x_len[0], x_len[1] = TRAIN_TEXT[1], TRAIN_TEXT[0]
+    y_len = np.clip((x_len * rs.uniform(2.0, 2.5, TRAIN_BATCH)).astype(int), *TRAIN_FRAMES)
+    y_len[0] = TRAIN_FRAMES[1]
+    return x_len, y_len
+
+
 def synthetic_train_batch(model, device, seed: int = 0) -> dict:
     """``TRAIN_BATCH`` rows from ``seed``: phoneme ids with blanks between
     them (61-381 ids), a voiced waveform of 2-10 s at 22.05 kHz a row (frames
@@ -7529,10 +7548,7 @@ def synthetic_train_batch(model, device, seed: int = 0) -> dict:
     audio = model.config.audio
     rs = np.random.RandomState(seed)
     B = TRAIN_BATCH
-    x_len = rs.randint(TRAIN_TEXT[0] // 2, TRAIN_TEXT[1] // 2 + 1, B) * 2 + 1
-    x_len[0], x_len[1] = TRAIN_TEXT[1], TRAIN_TEXT[0]
-    y_len = np.clip((x_len * rs.uniform(2.0, 2.5, B)).astype(int), *TRAIN_FRAMES)
-    y_len[0] = TRAIN_FRAMES[1]
+    x_len, y_len = train_lengths(rs)
     chars = model.tokenizer.characters
     blank = chars.char_to_id(chars.blank)
     ids = np.full((B, TRAIN_TEXT[1]), blank, np.int64)
@@ -7594,51 +7610,145 @@ def host_draws(seed: int = 0):
         modules.normal, helpers.uniform, common.bernoulli = real
 
 
-def k2_checks(batch, card: str) -> dict:
-    """K2 against its plain version at the step's shapes on random, tied
-    and ragged scores (the batch's masks; an item without tokens too), each
-    call made twice: paths identical, repeats bit-identical. Then K2 timed
-    beside its bound and its plain version. Returns its kernels-line entry
-    (launches filled in by the caller)."""
+def length_mask(x_len, y_len, T_x: int, T_y: int):
+    """The MAS mask [B, T_x, T_y] of token and frame lengths (fp32)."""
     import torch
 
+    dev = x_len.device
+    return ((torch.arange(T_x, device=dev)[None, :, None] < x_len[:, None, None])
+            & (torch.arange(T_y, device=dev)[None, None, :] < y_len[:, None, None])).float()
+
+
+def k2_parts(value, mask, plan=None) -> dict:
+    """One K2 launch with block 0's clock64 stamps (block 0: the batch's
+    longest item): microseconds of each part by that SM's clock (cycles
+    over ``%globaltimer``). The ring kernel under ``plan``: the forward pass
+    (its copying warps' end, the path's zeros included, beside it), the
+    scratch bits' copy into the ring, the start count and the walk back,
+    the path's ones. ``plan=None``: the columns kernel (the first design): the
+    forward pass, the zeroing, the start count, the walk back."""
+    import torch
+
+    from tts_tpu_torch.ops import mas
+
+    stamps = torch.zeros(16, dtype=torch.int64, device=value.device)
+    if plan is None:
+        mas.launch_columns(value, mask, stamps=stamps)
+    else:
+        mas.launch_ring(value, mask, plan, stamps=stamps)
+    torch.cuda.synchronize()
+    s = stamps.tolist()
+    if plan is None:
+        ghz = s[4] / s[7]
+        parts = {"forward": s[1], "zeroing": s[2] - s[1], "start count": s[3] - s[2],
+                 "walk back": s[4] - s[3]}
+    else:
+        ghz = s[6] / s[7]
+        parts = {"forward": s[3], "copying warps (zeros included)": s[2],
+                 "bits copy": s[4] - s[3], "start count and walk back": s[5] - s[4],
+                 "path ones": s[6] - s[5]}
+    return {"GHz": ghz, **{k: v / ghz / 1e3 for k, v in parts.items()},
+            "cycles a frame": s[1] / value.shape[2]}
+
+
+def format_parts(parts: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" + ("" if k in ("GHz", "cycles a frame") else " us")
+                     for k, v in parts.items())
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds a call (the Python call and its launch, the device
+    not awaited), over ``calls`` calls after a warm one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued / calls * 1e6
+
+
+def k2_checks(batch, card: str) -> dict:
+    """K2 against its plain version at the step's shapes on random, tied
+    and ragged scores (the batch's masks; an item without tokens too) and at
+    the ring kernel's boundaries, each call made twice: paths identical,
+    repeats bit-identical. Then K2 timed beside its bound and its plain
+    version, with the bits in the other place than the plan's, at the
+    aligners' 190 tokens, with bf16 values and a bool mask, and against the
+    columns kernel (the first design) in the same run; its host cost and
+    its parts by clock64. Returns its kernels-line entry (launches filled
+    in by the caller)."""
+    import torch
+
+    from tts_tpu_torch.ops import mas
     from tts_tpu_torch.ops.mas import maximum_path, maximum_path_torch
 
     dev = batch["text_input"].device
     B, T_x, T_y = TRAIN_BATCH, TRAIN_TEXT[1], TRAIN_FRAMES[1]
     x_len, y_len = batch["text_lengths"].long(), batch["spec_lengths"].long()
-    mask = ((torch.arange(T_x, device=dev)[None, :, None] < x_len[:, None, None])
-            & (torch.arange(T_y, device=dev)[None, None, :] < y_len[:, None, None])).float()
+    mask = length_mask(x_len, y_len, T_x, T_y)
     gen = torch.Generator(device=dev).manual_seed(1)
     empty = mask.clone()
     empty[3] = 0
     ragged = torch.rand(B, T_x, T_y, generator=gen, device=dev) < 0.999  # holes in the masks
+
+    def small(b, tx, ty):
+        xl = torch.randint(1, tx + 1, (b,), generator=gen, device=dev)
+        yl = torch.randint(1, ty + 1, (b,), generator=gen, device=dev)
+        xl[0], yl[0] = tx, ty
+        return torch.randn(b, tx, ty, generator=gen, device=dev), length_mask(xl, yl, tx, ty)
+
+    big_v = torch.randn(4, 385, 870, generator=gen, device=dev)
+    big_m = torch.rand(4, 385, 870, generator=gen, device=dev) < 0.99
     cases = {
         "random": (-torch.rand(B, T_x, T_y, generator=gen, device=dev) * 100, mask),
         "tied": (torch.round(torch.randn(B, T_x, T_y, generator=gen, device=dev) * 2), mask),
         "ragged": (torch.randn(B, T_x, T_y, generator=gen, device=dev), mask * ragged),
         "empty item": (torch.randn(B, T_x, T_y, generator=gen, device=dev), empty),
         "bf16": (torch.randn(B, T_x, T_y, generator=gen, device=dev).bfloat16(), mask),
+        "383 x 203": small(4, 383, 203), "385 x 861": small(4, 385, 861),
+        "513 x 99": small(4, 513, 99), "1030 x 861": small(4, 1030, 861),
+        "unaligned view, bool mask": (big_v[:, 3:384, 5:866], big_m[:, 3:384, 5:866]),
+        "4200 x 12 (columns)": small(2, 4200, 12),
     }
     launches = maximum_path.launches
-    for name, (value, m) in cases.items():
-        for shared in (None, False):
+    for i, (name, (value, m)) in enumerate(cases.items()):
+        # the step's shapes also with the bits forced into shared memory (the
+        # plan keeps them in scratch there, beside 32-frame tiles)
+        for shared in (None, False, True) if i < 5 else (None, False):
             got = maximum_path(value, m, shared_bits=shared)
             again = maximum_path(value, m, shared_bits=shared)
             want = maximum_path_torch(value, m)
             torch.cuda.synchronize()
             if not (torch.equal(got, want) and torch.equal(got, again)):
-                where = "scratch" if shared is False else "shared memory"
+                where = {None: "the planned place", False: "scratch", True: "shared memory"}[shared]
                 raise AssertionError(f"K2 ({name}, bits in {where}): the path differs from the "
                                      f"plain version's ({int((got != want).sum())} cells) or "
                                      f"between calls")
     checked = maximum_path.launches - launches
-    maximum_path.launches = launches  # comparisons do not count as the main path's
+    limit = mas.shared_limit(dev.index or 0)
+    plan = mas.ring_plan(T_x, T_y, limit)
     value, m = cases["random"]
+    # the aligners' width: the same corpus without the blanks (30-190 ids)
+    m190 = length_mask((x_len - 1) // 2, y_len, 190, T_y)
+    v190 = value[:, :190].contiguous()
+    vb, mb = value.bfloat16(), m.bool()
     k2_ms = time_device([lambda: maximum_path(value, m)], rounds=5, replays=4)
-    scratch_ms = time_device([lambda: maximum_path(value, m, shared_bits=False)], rounds=5,
-                             replays=4)
-    maximum_path.launches = launches
+    other = not plan.bits_shared  # the bits in the other place than the plan's
+    other_ms = time_device([lambda: maximum_path(value, m, shared_bits=other)], rounds=5,
+                           replays=4)
+    ms190 = time_device([lambda: maximum_path(v190, m190)], rounds=5, replays=4)
+    bf16_ms = time_device([lambda: maximum_path(vb, mb)], rounds=5, replays=4)
+    columns_ms = time_device([lambda: mas.launch_columns(value, m)], rounds=5, replays=4)
+    k2_again = time_device([lambda: maximum_path(value, m)], rounds=5, replays=4)
+    host = host_us(lambda: maximum_path(value, m))
+    back_to_back = time_host(lambda: maximum_path(value, m), iters=20, warmup=2) * 1e3
+    parts = k2_parts(value, m, plan)
+    old_parts = k2_parts(value, m)
+    maximum_path.launches = launches  # comparisons and timings are not the main path's
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     maximum_path_torch(value, m)
     start.record()
@@ -7648,13 +7758,26 @@ def k2_checks(batch, card: str) -> dict:
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end) / 2
     bound, bound_by, nbytes = mas_bound_ms(value, m)
-    log(f"K2 (maximum_path) against its plain version at B={B}, T_x={T_x}, T_y={T_y} "
-        f"(the step's batch masks): {', '.join(cases)}, the bits in shared memory and in the "
-        f"scratch buffer: {checked} calls, paths identical, repeats bit-identical | {card}")
-    log(f"K2 fp32 B={B} x {T_x} x {T_y}: device {k2_ms * 1e3:.1f} us (bits in scratch "
-        f"{scratch_ms * 1e3:.1f} us), plain {plain_ms:.2f} ms, bound {bound * 1e3:.1f} us "
-        f"({nbytes / 1e6:.1f} MB, {bound_by}): {100 * bound / k2_ms:.1f} % of bound, "
-        f"{k2_ms * 1e3 / T_y:.3f} us a frame; no library call computes MAS | {card}")
+    bound190 = mas_bound_ms(v190, m190)[0]
+    log(f"K2 (maximum_path) against its plain version: B={B} x {T_x} x {T_y} (the step's "
+        f"batch masks) {', '.join(list(cases)[:5])}, the bits where planned, in scratch and in "
+        f"shared memory; the ring kernel's boundaries {', '.join(list(cases)[5:])}, the bits "
+        f"where planned and in scratch: "
+        f"{checked} calls, paths identical, repeats bit-identical | {card}")
+    log(f"K2 plan at {T_x} x {T_y}: {plan} | {card}")
+    log(f"K2 fp32 B={B} x {T_x} x {T_y}: device {k2_ms * 1e3:.1f} us (again "
+        f"{k2_again * 1e3:.1f}; bits in {'shared memory' if other else 'scratch'} "
+        f"{other_ms * 1e3:.1f} us; the columns "
+        f"kernel {columns_ms * 1e3:.1f} us in this run), plain {plain_ms:.2f} ms, bound "
+        f"{bound * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, {bound_by}): {100 * bound / k2_ms:.1f} "
+        f"% of bound; host {host:.1f} us a call with launch (device not awaited), "
+        f"{back_to_back:.1f} us back to back; no library call computes MAS | {card}")
+    log(f"K2 B={B} x 190 x {T_y} (the aligners' width): device {ms190 * 1e3:.1f} us, bound "
+        f"{bound190 * 1e3:.1f} us ({100 * bound190 / ms190:.1f} %); bf16 values and a bool "
+        f"mask at {T_x} x {T_y}: {bf16_ms * 1e3:.1f} us, the two widenings to fp32 included "
+        f"| {card}")
+    log(f"K2 parts, block 0 ({T_x} x {T_y}), ring kernel: {format_parts(parts)} | {card}")
+    log(f"K2 parts, block 0, the columns kernel: {format_parts(old_parts)} | {card}")
     return {"name": "maximum_path", "route": "cuda", "source": "tts_tpu_torch/csrc/mas.cu",
             "replaces": "tts_tpu/ops/mas.py:29", "max_abs_err": 0.0, "ms": k2_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None}

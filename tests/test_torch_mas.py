@@ -115,3 +115,91 @@ def test_direction_words():
     recipe's longest item (it fits the card's shared memory)."""
     assert mas.direction_words(381, 861) == 12 * 861
     assert 4 * mas.direction_words(381, 861) == 41328
+
+
+# ---- the ring kernel's plan (plain Python: what the wrapper hands the kernel) ----
+
+H100_SHARED = 232448  # bytes of shared memory a block may opt into on an H100
+
+PLAN_SHAPES = [  # (T_x, T_y): the recipe, the aligners' width, the card tests' edges
+    (381, 861), (190, 861), (13, 40), (1, 17), (6, 1), (33, 64), (100, 300), (385, 75),
+    (513, 99), (1030, 861), (1536, 20), (200, 9000), (1, 10000), (5, 1000),
+]
+
+
+def plan_invariants(plan, T_x, T_y):
+    slots = plan.scoring_warps * 32 * plan.k
+    assert slots == plan.slots >= T_x  # every token has a slot, with the least k that does it
+    smaller = [k for k in mas.RING_K if k < plan.k]
+    assert not smaller or plan.scoring_warps * 32 * smaller[-1] < T_x
+    assert plan.k in mas.RING_K and 1 <= plan.scoring_warps <= mas.RING_MAX_SCORING
+    assert 1 <= plan.copying_warps and plan.scoring_warps + plan.copying_warps <= mas.RING_WARPS
+    assert plan.frames in (8, 16, 32)
+    tiles = -(-T_y // plan.frames)
+    assert 1 <= plan.stages <= min(mas.RING_MAX_STAGES, tiles)
+    assert plan.stages >= min(mas.RING_MIN_STAGES, tiles)
+    # the padded row holds every slot and puts a copy instruction's 32 stores on 32 banks
+    assert plan.pad >= slots and plan.pad % 32 == (32 // plan.frames) % 32
+    ring = 8 * plan.stages * plan.frames * plan.pad
+    bits = 4 * -(-T_y // 32) * slots
+    header = -(-36 * plan.scoring_warps // 16) * 16
+    assert plan.smem_bytes == 16 * plan.stages + header + ring + (bits if plan.bits_shared else 0)
+    assert plan.smem_bytes <= H100_SHARED
+    walk = -(-4 * (T_x + 2) // 16) * 16
+    assert plan.bits_copied == (not plan.bits_shared and walk + bits <= ring)
+    assert plan.bit_words(T_y) * 4 == bits
+    assert len(plan.as_ints()) == 9
+
+
+@pytest.mark.parametrize("T_x,T_y", PLAN_SHAPES)
+def test_ring_plan_fits_the_card(T_x, T_y):
+    """Every plan covers the text, keeps the kernel's bounds and fits the
+    H100's 227 KB a block, its bytes summed as the kernel lays them out."""
+    plan_invariants(mas.ring_plan(T_x, T_y, H100_SHARED), T_x, T_y)
+
+
+def test_ring_plan_at_the_recipe():
+    """B=32 x 381 x 861: one scoring warp of 12 tokens a lane, two 32-frame
+    tiles (97 KB each), so the 41.5 KB of bits go to the scratch buffer and
+    come back into the freed ring for the walk; forced into shared memory,
+    the ring shrinks to three 16-frame tiles."""
+    plan = mas.ring_plan(381, 861, H100_SHARED)
+    assert (plan.k, plan.scoring_warps, plan.copying_warps, plan.frames, plan.stages) == (
+        12, 1, 3, 32, 2)
+    assert not plan.bits_shared and plan.bits_copied and plan.pad == 385
+    shared = mas.ring_plan(381, 861, H100_SHARED, shared_bits=True)
+    assert shared.bits_shared and (shared.frames, shared.stages) == (16, 3)
+    plan_invariants(shared, 381, 861)
+    assert mas.ring_plan(381, 861, H100_SHARED, shared_bits=False) == plan
+    aligner = mas.ring_plan(190, 861, H100_SHARED)
+    assert (aligner.k, aligner.frames, aligner.stages, aligner.bits_shared) == (6, 32, 4, True)
+
+
+def test_ring_plan_bits_placement():
+    """Bits too many for shared memory go to scratch unasked; walked there
+    when the freed ring cannot take them either; forcing them into shared
+    memory then raises."""
+    plan = mas.ring_plan(200, 9000, H100_SHARED)
+    assert not plan.bits_shared and not plan.bits_copied
+    with pytest.raises(ValueError, match="do not fit"):
+        mas.ring_plan(200, 9000, H100_SHARED, shared_bits=True)
+
+
+@pytest.mark.parametrize("T_x", [1600, 4200])
+def test_ring_plan_hands_long_texts_to_the_columns_kernel(T_x):
+    """Past 1,536 tokens two 8-frame tiles no longer fit: no plan, and the
+    wrapper launches the columns kernel."""
+    assert mas.ring_plan(T_x, 12, H100_SHARED) is None
+
+
+@pytest.mark.parametrize("warps,frames,stages", [(4, None, None), (2, 16, None),
+                                                 (1, 8, 3), (3, 32, None)])
+def test_ring_plan_overrides(warps, frames, stages):
+    """The measurement overrides: scoring warps (k shrinks to cover the text
+    with them), frames a tile, tiles in the ring."""
+    plan = mas.ring_plan(381, 861, H100_SHARED, scoring_warps=warps, frames=frames,
+                         stages=stages)
+    assert plan.scoring_warps == warps and plan.slots >= 381
+    assert frames is None or plan.frames == frames
+    assert stages is None or plan.stages == stages
+    plan_invariants(plan, 381, 861)

@@ -14,7 +14,14 @@ fp32 operations in its order) and two calls bit-identical. Inputs: random,
 tied (integer-valued) and ragged scores, more tokens than frames, an item
 with an empty mask, bf16 values, boolean and bf16 masks, strided views, the
 VITS recipe's B=32 × 381 tokens × 861 frames, and the direction bits kept
-in the global scratch buffer instead of shared memory.
+in the global scratch buffer instead of shared memory. Then the ring
+kernel's boundaries: token counts at 32k ± 1 (a lane's tokens, a warp's
+512), 1024 ± 1 and 1030 (several scoring warps); frame counts off the
+tile's and wrapping the ring many times; every frames-a-tile and up to four
+scoring warps forced through its plan; items whose bits leave shared memory
+unasked (copied back into the ring for the walk, or walked in the scratch
+buffer); unaligned views; and a text longer than the ring kernel takes
+(the columns kernel).
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -106,7 +113,7 @@ def test_strided_views(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shared_bits", [None, False], ids=["shared", "scratch"])
+@pytest.mark.parametrize("shared_bits", [None, False, True], ids=["planned", "scratch", "shared"])
 def test_recipe_shapes(card, shared_bits):
     """B=32, text 61-381 ids, 861 frames at most, as a VITS step runs it."""
     gen = torch.Generator().manual_seed(0)
@@ -117,6 +124,74 @@ def test_recipe_shapes(card, shared_bits):
     mask = ((torch.arange(381)[None, :, None] < x_len[:, None, None])
             & (torch.arange(861)[None, None, :] < y_len[:, None, None])).float()
     check(value.to(card), mask.to(card), shared_bits=shared_bits)
+
+
+BOUNDARY_TOKENS = [31, 33, 63, 65, 191, 193, 383, 385, 511, 513, 1023, 1025, 1030]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_x", BOUNDARY_TOKENS)
+def test_token_boundaries(card, T_x):
+    """Lanes of 2-16 tokens, one scoring warp up to 512 tokens and several
+    past it; 75 frames: past T_x for the short texts, off the 8-frame tile."""
+    check(*ragged(2, T_x, 75, card, tied=T_x % 2 == 1, seed=T_x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_x,T_y", [(20, 203), (381, 861), (100, 1), (40, 9), (5, 1000)])
+def test_ring_wraps(card, T_x, T_y):
+    """Frame counts that end mid-tile, one frame, and many rounds of the
+    ring (861 frames in 7 tiles of 8; 1000 frames of a 5-token text)."""
+    check(*ragged(3, T_x, T_y, card, seed=T_y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 3, 4])
+@pytest.mark.parametrize("frames", [8, 16, 32])
+def test_forced_plans(card, warps, frames):
+    """Every tile height the kernel takes, with 1-4 scoring warps (the
+    named barrier a frame between them), the bits in shared memory; 131
+    frames: 16 chunks of 8 and a tail of 3."""
+    value, mask = ragged(3, 190, 131, card, tied=True, seed=frames + warps)
+    plan = mas.ring_plan(190, 131, mas.shared_limit(0), scoring_warps=warps, frames=frames)
+    assert plan.scoring_warps == warps and plan.frames == frames and plan.bits_shared
+    got = mas.launch_ring(value, mask, plan)
+    again = mas.launch_ring(value, mask, plan)
+    want = mas.maximum_path_torch(value, mask)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_x,T_y,copied", [(381, 861, True), (200, 9000, False)])
+def test_bits_leave_shared_memory_unasked(card, T_x, T_y, copied):
+    """Items whose bits do not fit beside a ring of 32-frame tiles: the plan
+    puts them in the scratch buffer by itself, and copies them into the
+    freed ring for the walk where they fit there."""
+    plan = mas.ring_plan(T_x, T_y, mas.shared_limit(0))
+    assert not plan.bits_shared and plan.bits_copied == copied
+    check(*ragged(2, T_x, T_y, card, seed=T_x))
+
+
+@pytest.mark.cuda
+def test_unaligned_views_and_bool_mask(card):
+    """Views that start off any 16-byte line with odd strides, and a bool
+    mask, against the contiguous fp32 inputs."""
+    value, mask = ragged(3, 45, 97, card, seed=17)
+    big_v = torch.randn(3, 47, 101, device=card)
+    big_v[:, 1:46, 2:99] = value
+    big_m = torch.zeros(3, 47, 101, device=card, dtype=torch.bool)
+    big_m[:, 1:46, 2:99] = mask > 0
+    vv, mv = big_v[:, 1:46, 2:99], big_m[:, 1:46, 2:99]  # 103 elements in: 412 bytes
+    assert vv.data_ptr() % 16 and not vv.is_contiguous()
+    assert torch.equal(check(vv, mv), mas.maximum_path(value, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_x", [1600, 4200])
+def test_past_the_ring_kernel(card, T_x):
+    """Texts longer than the ring kernel takes: the columns kernel."""
+    assert mas.ring_plan(T_x, 12, mas.shared_limit(0)) is None
+    check(*ragged(2, T_x, 12, card, seed=4))
 
 
 @pytest.mark.cuda
