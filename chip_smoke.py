@@ -20,8 +20,8 @@ Phases; each raises on failure and the script then exits non-zero:
    made twice and the two results required bit-identical; then timed
    beside its bound, its plain version and one PyTorch library call
    (``scaled_dot_product_attention``) computing the same function;
-4. slice: XTTS v2 at full width (``XttsConfig()``; fp32 weights drawn from a
-   seed) conditions on a reference wav and decodes 40 greedy tokens twice,
+4. slice: XTTS v2 at full width (``XttsConfig()``; fp32 weights built and
+   drawn on the card from a seed) conditions on a reference wav and decodes 40 greedy tokens twice,
    through the kernel and through the plain attention; tokens must match
    and latents agree within 1e-4. Then the decode step is timed in bf16;
 5. serving: the same weights (GPT in bf16) go into a model directory, the
@@ -256,7 +256,7 @@ Phases; each raises on failure and the script then exits non-zero:
     FreeVC loaded by name on first use; peak memory. ``decode_attention``
     must not launch;
 17. XTTS v1 at full XTTS width (``XttsConfig()`` without the perceiver,
-    fp32 weights from seed 0): a 30 s clip's one coarse mel (``n_fft``
+    fp32 weights built and drawn on the card from seed 0): a 30 s clip's one coarse mel (``n_fft``
     4096, hop 1024) gives 646 prompt latents; 40 greedy tokens through K1
     and through the plain attention must be identical (latents within
     1e-4) and launch K1 30 times a step; the time to first audio in parts
@@ -264,7 +264,8 @@ Phases; each raises on failure and the script then exits non-zero:
     equal to the path load;
 18. Tortoise at the default ``TortoiseArgs`` (AR 30 x 1024 x 16, diffusion
     1024 x 10, CLVP 768 x 20 a side, the bundled UnivNet 32 channels), fp32
-    weights from seed 0, random latent generators and mel norms drawn
+    weights drawn on the card from seed 0 (``init_params``' rules; the CPU
+    model a copy), random latent generators and mel norms drawn
     here: card against CPU within 1e-4 of each peak on short inputs (the
     AR's conditioning and teacher-forced pass, 8 greedy decode steps, one
     guided diffusion step, CLVP's scores, the vocoder on a 20-frame mel);
@@ -281,7 +282,8 @@ Phases; each raises on failure and the script then exits non-zero:
     one code a candidate, a depth cut of the surfaces);
 19. Bark at the zoo's widths (24 x 1024 x 16 in all three GPTs, the text
     model's head 10,048 wide over 129,600 tokens, F48; EnCodec at the 24 kHz
-    model's dims), fp32 weights from seed 0: card against CPU within 1e-4
+    model's dims), fp32 weights drawn on the card from seed 0 (the CPU
+    model a copy): card against CPU within 1e-4
     of each peak on short inputs (the semantic prefill with
     ``merge_context``, 8 greedy decode steps, one coarse window's prefill
     and 20 greedy tokens, one fine window's logits, EnCodec on 50 frames);
@@ -293,7 +295,7 @@ Phases; each raises on failure and the script then exits non-zero:
     random weights never emit EOS, so a call runs its whole budget; the
     default is 8 s), each with its
     stages, ms a decode step and K1's launches, then the random voice at a
-    0.5 s budget under ``torch.profiler`` (busy share, top kernels), and peak
+    0.25 s budget under ``torch.profiler`` (busy share, top kernels), and peak
     memory; ``bark`` by zoo name from the reference layout (its semantic
     head set to emit EOS first for the surfaces' sentence) equal to the
     path load, ``tts --model_name --voice_dir
@@ -346,15 +348,36 @@ Phases; each raises on failure and the script then exits non-zero:
     ``train_step_card_against_cpu``). Then 2 warm-up and 5 timed steps in
     fp32 and under bf16 autocast: ms a step, the losses (finite), peak
     memory, busy share and top kernels of one profiled step; K2 launches
-    once a step.
+    once a step;
+22. VITS training through the trainer loop, the data pipeline and
+    ``train_tts``: an LJSpeech-layout corpus (80 clips of synthetic 22.05
+    kHz 16-bit audio, 2-10 s, texts of ~a token per 2.26 frames) under a
+    temporary directory; the LJSpeech recipe (B=32, eval batch 16, 16 clips
+    to evaluate, phonemes from the rule G2P, ``print_step`` 1, the console
+    dashboard) through ``tts_tpu_torch.bin.train_tts.main`` on the card, one
+    epoch of two steps, a full evaluation and a test sentence, once with
+    ``num_loader_workers`` 0 and once with 4 (threads): ms a step on the
+    trainer's clock beside phase 21's bare step, the loader's wait before
+    each step, the busy share over step 2, peak memory; ``--continue_path``
+    on the first run (the step count, the best loss and the optimizer's
+    update count go on), one more epoch; its ``best_model.pth`` spoken
+    through the ``tts`` command line (finite, non-empty); the multilingual
+    recipe (speaker and language embeddings, both balancer samplers) over
+    48 of the clips relabelled as four speakers in two languages, one step
+    at B=32; a tiny config through ``Trainer.fit`` on the CPU and on the
+    card, single-speaker and with speakers and languages (the same host
+    draws and the CPU's alignments): each step's losses within 1e-4 of
+    their peak. K2 launches once a train step
+    and once an evaluation batch; its card checks run here when phase 21
+    does not.
 
 Phase selection: ``python3 chip_smoke.py 20`` (or any phase numbers) runs
 phases 1 and 2 and the ones named (5 brings 4); without arguments every
 phase runs.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}``
-(K1, K4 and K2) on the line before the last and, as the last line, ``{"ok": true, "device":
-{...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax,
+(K1, K4 and K2, K2's launches those of phases 21 and 22) on the line
+before the last and, as the last line, ``{"ok": true, "device": {...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax,
 ``tokenizers`` or ``transformers`` by then. Without CUDA, or outside a
 checkout, it exits 2 and prints no result.
 """
@@ -365,6 +388,7 @@ import contextlib
 import copy
 import functools
 import gc
+import io
 import json
 import os
 import subprocess
@@ -479,6 +503,18 @@ def sync(device) -> None:
 
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def built_on(device):
+    """Modules built inside this context allocate, and run their default
+    initialisation, on ``device``: on a card, a billion parameters in a
+    fraction of the CPU's time (their values are drawn again by
+    ``init_params(..., device=device)``)."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    return torch.device(device)
 
 
 def reference_wav(seconds: float = 6.0, sr: int = 22050, seed: int = 0) -> np.ndarray:
@@ -707,7 +743,9 @@ def phase_slice(card: str, device="cuda", config=None):
     from tts_tpu_torch.ops.decode_attention import decode_attention
 
     t0 = time.time()
-    model = Xtts(config or XttsConfig()).init_params(seed=0, device=device, dtype=torch.float32)
+    with built_on(device):
+        model = Xtts(config or XttsConfig())
+    model.init_params(seed=0, device=device, dtype=torch.float32)
     n_params = sum(p.numel() for p in model.parameters())
     n_layers = len(model.gpt.gpt.h)
     log(f"XTTS v2: {n_layers} layers, width {model.args.gpt_n_model_channels}, "
@@ -787,7 +825,7 @@ def log_profile(prof, what: str, wall_us: float, card: str, top: int = 6) -> Non
             and e.self_device_time_total > 0]
     if not rows:
         log(f"profile, {what}: the profiler reported no device time (busy share not measured)")
-        return
+        return None
     busy_us = sum(e.self_device_time_total for e in rows)
     all_rows_us = sum(e.self_device_time_total for e in prof.key_averages())
     others = (f"; all rows {all_rows_us / 1e3:.2f} ms" if all_rows_us > busy_us * (1 + 1e-6)
@@ -797,6 +835,7 @@ def log_profile(prof, what: str, wall_us: float, card: str, top: int = 6) -> Non
         f"| {card}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return busy_us / wall_us
 
 
 def profile_decode(model, cond, text, lengths, card: str, device="cuda") -> None:
@@ -5878,7 +5917,9 @@ def phase_xtts_v1(card: str, device="cuda", cut=None) -> int:
     config = XttsConfig()
     config.model_args.gpt_use_perceiver_resampler = False
     (cut or (lambda c: None))(config)
-    model = Xtts(config).init_params(seed=0, device=device, dtype=torch.float32)
+    with built_on(device):
+        model = Xtts(config)
+    model.init_params(seed=0, device=device, dtype=torch.float32)
     n_layers = len(model.gpt.gpt.h)
     D = model.args.gpt_n_model_channels
     wav = reference_wav(seconds=XTTS_V1_CLIP_S)
@@ -5976,7 +6017,7 @@ def phase_xtts_v1(card: str, device="cuda", cut=None) -> int:
 # ---------------------------------------------------------------------------
 TORTOISE = "tts_models/en/multi-dataset/tortoise-v2"
 TORTOISE_CAP = 64  # codes a candidate: random weights never emit the stop token
-TORTOISE_PROFILE_CAP = 16  # the profiled call's: ~16k kernels, not ~64k
+TORTOISE_PROFILE_CAP = 8  # the profiled call's codes (16 gave ~43k kernels, ~10 s to digest)
 TORTOISE_TOL = 1e-4  # card against CPU, as a share of each output's peak
 
 
@@ -6116,16 +6157,19 @@ def phase_tortoise(card: str, device="cuda", cut=None) -> int:
     config = TortoiseConfig()
     clvp_kw = (cut or (lambda c: None))(config) or {}
     a = config.model_args
-    model = tortoise.Tortoise(config)
-    model.clvp = CLVP(**clvp_kw)
-    model.init_params(seed=0, device="cpu", clvp=False)
+    with built_on(device):
+        model = tortoise.Tortoise(config)
+        model.clvp = CLVP(**clvp_kw)
+    # built and drawn on the card (by init_params' rules, from a card
+    # generator), then copied to the CPU: built and drawn on the CPU, these
+    # 951 M weights took ~17 s
+    model.init_params(seed=0, device=device, clvp=False)
     calibrate_univnet(model.vocoder)
     gen = torch.Generator().manual_seed(1)
     model.mel_norms = 1.0 + 0.1 * torch.rand(80, generator=gen)
     model.rlg_auto = rlg_state(a.ar_model_dim, 2)
     model.rlg_diffuser = rlg_state(2 * a.diff_model_channels, 3)
-    cpu = copy.deepcopy(model)
-    model.to(device)
+    cpu = copy.deepcopy(model).to("cpu")
     model.mel_norms = model.mel_norms.to(device)
     model.rlg_auto = {k: v.to(device) for k, v in model.rlg_auto.items()}
     model.rlg_diffuser = {k: v.to(device) for k, v in model.rlg_diffuser.items()}
@@ -6313,6 +6357,7 @@ BARK_TEXT = "Hello there."  # the surfaces' sentence: their semantic head stops 
 # both timed synthesize calls run a quarter of the default 8 s budget: a
 # depth cut that keeps the script's time as phases 20 and 21 were added
 BARK_BUDGET_S = 2.0
+BARK_PROFILE_S = 0.25  # the profiled call's budget (0.5 s gave ~49k kernels, ~13 s to digest)
 BARK_GPT = dict(n_layer=24, n_head=16, n_embd=1024)  # suno's large text, coarse and fine models
 
 
@@ -6527,8 +6572,13 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
     hubert_cfg, w2v_cfg = hubert.hubert_base_config(), w2v.wav2vec2_large_robust_config()
     if cut is not None:
         cut(config, hubert_cfg, w2v_cfg)
-    cpu = Bark(config).init_params(seed=0, device="cpu")
-    model = copy.deepcopy(cpu).to(device)
+    # built and drawn on the card (by init_params' rules, from a card
+    # generator), then copied to the CPU: built and drawn on the CPU, these
+    # 1.1 B weights took ~19 s
+    with built_on(device):
+        model = Bark(config)
+    model.init_params(seed=0, device=device)
+    cpu = copy.deepcopy(model).to("cpu")
     n_layers = config.semantic_config.n_layer
     counts = {name: sum(p.numel() for p in getattr(cpu, name).parameters()) / 1e6
               for name in ("semantic_model", "coarse_model", "fine_model", "encodec")}
@@ -6647,16 +6697,17 @@ def phase_bark(card: str, device="cuda", cut=None) -> int:
                 + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
                 + f"; {steps} decode steps, {per_step:.2f} ms a step (semantic and coarse), "
                 f"K1 {decode_attention.launches} launches | {card}")
-            if cuda and voice == "random":  # one voice: ~50k kernels a profile
+            if cuda and voice == "random":  # one voice: ~25k kernels a profile
                 decode_attention.launches = 0
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t1 = time.perf_counter()
                     short = model.synthesize(sentence, config, speaker_id=voice,
-                                             voice_dirs=[voices], max_gen_duration_s=0.5)
+                                             voice_dirs=[voices],
+                                             max_gen_duration_s=BARK_PROFILE_S)
                     torch.cuda.synchronize()
                     wall_us = (time.perf_counter() - t1) * 1e6
                 launches_total += decode_attention.launches
-                log_profile(prof, f"Bark synthesize ({voice}) at a 0.5 s budget "
+                log_profile(prof, f"Bark synthesize ({voice}) at a {BARK_PROFILE_S} s budget "
                             f"({len(short['semantic'])} semantic tokens, "
                             f"{short['coarse'].shape[1]} frames)", wall_us, card, top=5)
                 log(f"  peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
@@ -7514,6 +7565,7 @@ TRAIN_TEXT = (61, 381)  # ids with add_blank, the longest row present
 TRAIN_FRAMES = (172, 861)  # 2-10 s at 22.05 kHz, hop 256; the longest row present
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 TRAIN_TOL = 1e-4  # card against CPU, a share of each tensor's peak
+BARE_STEP_MS: dict = {}  # phase 21's ms a bare step, by precision, for phase 22
 
 
 def mas_bound_ms(value, mask) -> tuple:
@@ -7948,6 +8000,7 @@ def phase_vits_train(card: str, device="cuda", cut=None) -> dict:
             losses.append(metrics)
         sync(device)
         ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+        BARE_STEP_MS[what] = ms
         steps_run += TRAIN_WARMUP + TRAIN_TIMED
         last = {k: float(v) for k, v in losses[-1].items()}
         if not all(np.isfinite(float(v)) for m in losses for v in m.values()):
@@ -7975,15 +8028,491 @@ def phase_vits_train(card: str, device="cuda", cut=None) -> dict:
     return kernel
 
 
+
+# ---------------------------------------------------------------------------
+# phase 22: VITS training through the trainer loop, the data pipeline and
+# train_tts
+# ---------------------------------------------------------------------------
+
+CORPUS_CLIPS = 80
+CORPUS_SECONDS = (2.0, 10.0)
+FRAMES_PER_ID = 2.26  # LJSpeech's pace with blanks, as phase 21's batch
+CORPUS_WORDS = ("the quick brown fox jumps over a lazy dog while seven bright stars glow "
+                "above quiet hills and rivers run past old stone walls toward the sea").split()
+LOOP_EVAL = 16  # eval_split_size; the recipe's eval_batch_size
+LOOP_TOL = 1e-4  # the tiny fit, card against CPU: each loss, a share of its own value
+LOOP_FLOOR = 1e-3  # ... or of this, for a loss nearer 0
+ML_LANGUAGES = ("en", "de")  # the multilingual run: four speakers in two languages
+ML_CLIPS = 48  # 32 to train (one step at B=32) and LOOP_EVAL to evaluate
+
+
+def write_train_corpus(root: str, tokenizer, audio, n: int = CORPUS_CLIPS, seed: int = 0):
+    """An LJSpeech-layout corpus under ``root`` (``wavs/*.wav``, 16-bit, and
+    ``metadata.csv``): ``n`` clips of 2-10 s drawn from ``seed`` (clip 0 the
+    longest, clip 1 the shortest), voiced synthetic audio, each with a text
+    whose ids (phonemes with blanks, through ``tokenizer``) come to about a
+    token every 2.26 frames. Returns ``(names, seconds, ids)``."""
+    import scipy.io.wavfile
+
+    rs = np.random.RandomState(seed)
+    sr, hop = audio.sample_rate, audio.hop_length
+    probe = " ".join(CORPUS_WORDS)
+    ids_per_word = (len(tokenizer.text_to_ids(probe)) - 1) / len(CORPUS_WORDS)
+    seconds = rs.uniform(*CORPUS_SECONDS, n)
+    seconds[0], seconds[1] = CORPUS_SECONDS[1], CORPUS_SECONDS[0]
+    os.makedirs(os.path.join(root, "wavs"), exist_ok=True)
+    names, n_ids, lines = [], [], []
+    for i, sec in enumerate(seconds):
+        name = f"LJ000-{i:04d}"
+        wav = reference_wav(seconds=sec, sr=sr, seed=seed + i)
+        scipy.io.wavfile.write(os.path.join(root, "wavs", name + ".wav"), sr,
+                               (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        target = sec * sr / hop / FRAMES_PER_ID
+        n_words = max(1, int(round((target - 1) / ids_per_word)))
+        text = " ".join(rs.choice(CORPUS_WORDS, n_words)).capitalize() + "."
+        lines.append(f"{name}|{text}|{text}")
+        names.append(name)
+        n_ids.append(len(tokenizer.text_to_ids(text)))
+    with open(os.path.join(root, "metadata.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return names, seconds, np.asarray(n_ids)
+
+
+def write_mailabs_corpus(root: str, lj_root: str, names, seed: int = 0) -> list:
+    """The LJSpeech corpus's clips ``names`` relabelled as four speakers in
+    two languages, in M-AILABS's layout (``<lang>/by_book/<gender>/<speaker>/
+    <book>/{metadata.csv,wavs}``, the wavs linked): speaker by clip index
+    modulo 4. Returns the language folders."""
+    texts = {}
+    with open(os.path.join(lj_root, "metadata.csv"), encoding="utf-8") as f:
+        for line in f:
+            cols = line.rstrip("\n").split("|")
+            texts[cols[0]] = cols[1]
+    speakers = [(lang, g, f"{g}_{lang}") for lang in ML_LANGUAGES for g in ("female", "male")]
+    folders = {}
+    for i, name in enumerate(names):
+        lang, gender, spk = speakers[i % len(speakers)]
+        book = os.path.join(root, lang, "by_book", gender, spk, "book")
+        os.makedirs(os.path.join(book, "wavs"), exist_ok=True)
+        os.symlink(os.path.join(lj_root, "wavs", name + ".wav"),
+                   os.path.join(book, "wavs", name + ".wav"))
+        with open(os.path.join(book, "metadata.csv"), "a", encoding="utf-8") as f:
+            f.write(f"{name}|{texts[name]}|{texts[name]}\n")
+        folders[lang] = os.path.join(root, lang)
+    return [folders[lang] for lang in ML_LANGUAGES]
+
+
+def loop_recipe_config(corpus: str):
+    """``recipes/ljspeech/vits/train_vits.py`` as published (B=32, eval
+    batch 16, ``english_cleaners``, ``en-us`` phonemes from the port's rule
+    G2P, blanks, the linear spectrogram and the waveform, the ``VitsArgs``
+    defaults) over ``corpus``, with ``eval_split_size`` 16, ``print_step``
+    1, the console dashboard, one epoch and one test sentence."""
+    from tts_tpu_torch.config.shared import BaseDatasetConfig
+
+    config = vits_recipe_config()
+    config.batch_size, config.eval_batch_size, config.epochs = TRAIN_BATCH, LOOP_EVAL, 1
+    config.compute_linear_spec = config.return_wav = True
+    config.eval_split_size, config.print_step = LOOP_EVAL, 1
+    config.dashboard_logger = "console"
+    config.test_sentences = ["It took me quite a long time to develop a voice."]
+    config.datasets = [BaseDatasetConfig(formatter="ljspeech", dataset_name="ljspeech",
+                                         meta_file_train="metadata.csv", path=corpus,
+                                         language="en")]
+    return config
+
+
+def multilingual_train_config(folders, d: str):
+    """``recipes/multilingual/vits_tts/train_vits_tts.py``: B=32, eval batch
+    16, graphemes with ``multilingual_cleaners``, speaker and language
+    embeddings (the ``VitsArgs`` defaults: 256 and 4 channels), both
+    balancer samplers, M-AILABS datasets; its speakers and languages
+    written as id files (the recipe builds the same managers from the
+    samples); one epoch, no test sentence (``test_run`` passes no speaker
+    or language, as the JAX trainer's does). The eval split is taken per
+    dataset: 8 clips of each language's 24."""
+    from tts_tpu_torch.config.shared import BaseDatasetConfig
+    from tts_tpu_torch.models.vits import VitsConfig
+
+    datasets = [BaseDatasetConfig(formatter="mailabs", dataset_name="mailabs", path=p,
+                                  meta_file_train="", language=os.path.basename(p))
+                for p in folders]
+    config = VitsConfig(batch_size=TRAIN_BATCH, eval_batch_size=LOOP_EVAL, epochs=1,
+                        text_cleaner="multilingual_cleaners", use_phonemes=False,
+                        compute_linear_spec=True, return_wav=True,
+                        use_language_weighted_sampler=True, use_speaker_weighted_sampler=True,
+                        print_step=1, datasets=datasets, dashboard_logger="console",
+                        eval_split_size=LOOP_EVAL // len(folders), test_sentences=[])
+    a = config.model_args
+    a.num_chars = None
+    a.use_speaker_embedding = a.use_language_embedding = True
+    speakers = sorted(f"{g}_{lang}" for lang in ML_LANGUAGES for g in ("female", "male"))
+    a.speakers_file = write_json(os.path.join(d, "speakers.json"),
+                                 {n: i for i, n in enumerate(speakers)})
+    a.language_ids_file = write_json(os.path.join(d, "language_ids.json"),
+                                     {c: i for i, c in enumerate(ML_LANGUAGES)})
+    return config
+
+
+class LoopWatch:
+    """Trainer callbacks that count the steps and evaluation batches a run
+    makes, time each step on the device's clock edge (synchronized at both
+    ends), read the loader's wait, and profile one step's device activity."""
+
+    def __init__(self, device, profile_step: int = 0):
+        import torch
+
+        self.device = device
+        self.cuda = torch.device(device).type == "cuda"
+        self.profile_step, self.busy = profile_step, None
+        self.steps = self.eval_batches = 0
+        self.step_ms, self.wait_ms = [], []
+
+    def start(self, trainer):
+        sync(self.device)
+        self.steps += 1
+        self.wait_ms.append(trainer.loader_time * 1e3)
+        self.prof = None
+        if self.cuda and self.steps == self.profile_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def end(self, trainer):
+        sync(self.device)
+        self.step_ms.append((time.perf_counter() - self.t0) * 1e3)
+        if self.prof is not None:
+            self.prof.__exit__(None, None, None)
+            self.busy = log_profile(self.prof, "train_tts step", self.step_ms[-1] * 1e3,
+                                    self.card, top=4)
+
+    def epoch_end(self, trainer):
+        n_eval = len(trainer.eval_samples)
+        if n_eval and trainer.config.run_eval:
+            self.eval_batches += -(-n_eval // max(1, trainer.config.eval_batch_size))
+
+    def callbacks(self, card: str) -> dict:
+        self.card = card
+        return {"on_train_step_start": self.start, "on_train_step_end": self.end,
+                "on_epoch_end": self.epoch_end}
+
+
+class LossRecorder:
+    """A dashboard that keeps the trainer's scalars (the console's prints
+    stay the trainer's own)."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalars(self, scope, scalars, step):
+        self.scalars.append((scope, step, {k: float(v) for k, v in scalars.items()}))
+
+    def add_figures(self, *args):
+        pass
+
+    def add_audios(self, *args):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def tiny_fit(config, samples, device, paths: dict, seed: int = 3) -> list:
+    """One ``Trainer.fit`` of ``config`` (weights from ``config.seed``, drawn
+    on the host) on ``device`` with the host's draws (``host_draws``) and
+    MAS taken from ``paths`` when it holds the CPU run's alignments (else
+    recorded there). Returns the loss scalars of every step and of the
+    evaluation."""
+    import torch
+
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.trainer.trainer import Trainer, TrainerArgs
+
+    model = Vits.init_from_config(copy.deepcopy(config))
+    mas = model.module._forward_mas
+    record = "cpu" not in paths
+    calls = paths.setdefault("cpu", [])
+    idx = iter(range(10**6))
+
+    def aligned(*args):
+        path = mas(*args)
+        if record:
+            calls.append(path.cpu())
+            return path
+        want = calls[next(idx)]
+        paths["flipped"] = paths.get("flipped", 0) + int((path.cpu() != want).sum())
+        return want.to(path.device)
+
+    model.module._forward_mas = aligned
+    recorder = LossRecorder()
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+        t = Trainer(TrainerArgs(), copy.deepcopy(config), out, model,
+                    copy.deepcopy(samples[0]), copy.deepcopy(samples[1]), device=device)
+        t.dashboard = recorder
+        with host_draws(seed):
+            t.fit()
+    sync(device)
+    del model, t
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return [(scope, step, {k: v for k, v in m.items() if k.startswith("loss")})
+            for scope, step, m in recorder.scalars]
+
+
+def tiny_loop_configs(lj_root: str, ml_folders, d: str) -> dict:
+    """The card-against-CPU fits: ``tiny_train_config`` (hidden 32, the hop
+    kept) at B=4, two steps an epoch, no evaluation (4 clips held out);
+    single-speaker over the LJSpeech corpus's ``metadata_tiny.csv``, and
+    with speaker and language embeddings over the short M-AILABS tree
+    (graphemes)."""
+    from tts_tpu_torch.config.shared import BaseDatasetConfig
+
+    single = tiny_train_config()
+    multi = tiny_train_config()
+    for c in (single, multi):
+        c.batch_size = c.eval_batch_size = c.eval_split_size = 4
+        c.epochs, c.print_step, c.dashboard_logger = 1, 1, "console"
+        c.compute_linear_spec = c.return_wav = True
+        c.test_sentences, c.run_eval = [], False
+    single.datasets = [BaseDatasetConfig(formatter="ljspeech", dataset_name="ljspeech",
+                                         meta_file_train="metadata_tiny.csv", path=lj_root,
+                                         language="en")]
+    multi.text_cleaner, multi.use_phonemes, multi.phoneme_language = (
+        "multilingual_cleaners", False, None)
+    multi.datasets = [BaseDatasetConfig(formatter="mailabs", dataset_name="mailabs", path=p,
+                                        meta_file_train="", language=os.path.basename(p))
+                      for p in ml_folders]
+    multi.eval_split_size = 4 // len(ml_folders)  # the split is taken per dataset
+    a = multi.model_args
+    a.use_speaker_embedding = a.use_language_embedding = True
+    speakers = sorted(f"{g}_{lang}" for lang in ML_LANGUAGES for g in ("female", "male"))
+    a.speakers_file = write_json(os.path.join(d, "tiny_speakers.json"),
+                                 {n: i for i, n in enumerate(speakers)})
+    a.language_ids_file = write_json(os.path.join(d, "tiny_language_ids.json"),
+                                     {c: i for i, c in enumerate(ML_LANGUAGES)})
+    return {"single-speaker": single, "multi-speaker": multi}
+
+
+def fit_card_against_cpu(configs: dict, device, card: str) -> int:
+    """Each tiny config through ``Trainer.fit`` on the CPU, then on the card,
+    with the same weights, host draws (dropout on) and the CPU run's
+    alignments, fp32 with TF32 off: every loss of every step within
+    ``LOOP_TOL`` of its own value (of ``LOOP_FLOOR`` nearer 0). Returns the
+    card runs' train steps (K2's launches there)."""
+    from tts_tpu_torch.data import load_tts_samples
+
+    k2 = 0
+    for name, config in configs.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            samples = load_tts_samples([ds.to_dict() for ds in config.datasets], eval_split=True,
+                                       eval_split_size=config.eval_split_size)
+        paths: dict = {}
+        cpu = tiny_fit(config, samples, "cpu", paths)
+        card_run = tiny_fit(config, samples, device, paths)
+        if [(s, n) for s, n, _ in cpu] != [(s, n) for s, n, _ in card_run] or len(cpu) < 2:
+            raise AssertionError(f"tiny fit ({name}): the runs logged {cpu} and {card_run}")
+        worst = 0.0
+        for (scope, step, want), (_, _, got) in zip(cpu, card_run):
+            err = max(abs(got[k] - want[k]) / max(abs(want[k]), LOOP_FLOOR) for k in want)
+            worst = max(worst, err)
+            if not err <= LOOP_TOL:
+                raise AssertionError(f"tiny fit ({name}) card against CPU, {scope} at step "
+                                     f"{step}: {got} against {want}")
+        n_steps = sum(scope == "train" for scope, _, _ in cpu)
+        k2 += n_steps + sum(scope == "eval" for scope, _, _ in cpu)
+        log(f"tiny fit card against CPU ({name}; hidden 32, B=4, {n_steps} steps through "
+            f"Trainer.fit, fp32, TF32 off, dropout on, host draws, the CPU's "
+            f"alignment; K2's own path differed in {paths.get('flipped', 0)} cells): losses "
+            f"each within {worst:.3g} of its own value (tol {LOOP_TOL}) | {card}")
+    return k2
+
+
+def phase_train_loop(card: str, kernel=None, device="cuda", cut=None):
+    """Phase 22: the LJSpeech VITS recipe trained from a corpus on disk
+    through ``tts_tpu_torch.bin.train_tts`` on the card (0 and 4 loader
+    workers), resumed with ``--continue_path``, its ``best_model.pth`` spoken
+    through the ``tts`` command line; the multilingual recipe (speakers,
+    languages, both balancer samplers) for one step; a tiny config through
+    ``Trainer.fit`` card against CPU, with and without speakers. K2 launches
+    once a train step and once an evaluation batch. ``kernel``: K2's
+    kernels-line entry from phase 21, else K2 is checked here. Returns the
+    entry with this phase's launches added. ``cut(config)`` shrinks the
+    recipe configs in place for rehearsals on the CPU."""
+    import scipy.io.wavfile
+    import torch
+
+    from tts_tpu_torch.bin import synthesize, train_tts
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.ops.mas import maximum_path
+    from tts_tpu_torch.text.tokenizer import TTSTokenizer
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+
+    def stamp(what: str) -> None:
+        log(f"  (phase 22 at {time.time() - t_phase:.1f} s: {what})")
+
+    if kernel is None and cuda:  # phase 21 did not run: K2's card checks here
+        batch = synthetic_train_batch(Vits.init_from_config(vits_recipe_config()), device)
+        kernel = k2_checks(batch, card)
+        kernel["launches"] = 0
+        del batch
+        stamp("K2 checked")
+    with tempfile.TemporaryDirectory() as d:
+        lj = os.path.join(d, "LJSpeech")
+        config = loop_recipe_config(lj)
+        if cut is not None:
+            cut(config)
+        tokenizer, _ = TTSTokenizer.init_from_config(copy.deepcopy(config))
+        names, seconds, n_ids = write_train_corpus(lj, tokenizer, config.audio)
+        order = np.argsort(seconds)
+        ml_root, tiny_ml = os.path.join(d, "mailabs"), os.path.join(d, "mailabs_tiny")
+        ml_folders = write_mailabs_corpus(ml_root, lj, [names[i] for i in range(ML_CLIPS)])
+        tiny_folders = write_mailabs_corpus(tiny_ml, lj, [names[i] for i in order[:12]])
+        with open(os.path.join(lj, "metadata.csv"), encoding="utf-8") as f:
+            rows = f.read().splitlines()
+        with open(os.path.join(lj, "metadata_tiny.csv"), "w", encoding="utf-8") as f:
+            f.write("\n".join(rows[i] for i in order[:12]) + "\n")
+        frames = (seconds * config.audio.sample_rate / config.audio.hop_length).astype(int)
+        log(f"corpus: {len(names)} clips of synthetic 22.05 kHz 16-bit audio from seed 0, "
+            f"{seconds.min():.1f}-{seconds.max():.1f} s ({frames.min()}-{frames.max()} frames), "
+            f"{n_ids.min()}-{n_ids.max()} ids (phonemes with blanks), "
+            f"{frames.sum() / n_ids.sum():.2f} frames an id; the multilingual run's "
+            f"{ML_CLIPS} relabelled as 4 speakers in 2 languages")
+
+        maximum_path.launches = 0
+        expected = 0
+        runs = {}
+        for workers in (0, 4):
+            run_dir = os.path.join(d, f"run{workers}")
+            config.num_loader_workers = workers
+            cfg_path = os.path.join(d, f"config{workers}.json")
+            config.save_json(cfg_path)
+            # the second run keeps no best model: only the first's is spoken
+            extra = ["--coqpit.save_best_after", "1000000000"] if workers else []
+            watch = LoopWatch(device, profile_step=2)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            t = train_tts.main(["--config_path", cfg_path, "--output_path", run_dir,
+                                "--device", str(device)] + extra,
+                               callbacks=watch.callbacks(card))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+            expected += watch.steps + watch.eval_batches
+            runs[workers] = (t, watch)
+            files = sorted(os.listdir(run_dir))
+            want = ["best_model.pth"] * (not workers) + [f"checkpoint_{t.global_step}.pth",
+                                                         "config.json"]
+            if files != want:
+                raise AssertionError(f"train_tts ({workers} workers) wrote {files}")
+            if not t.last_test_audios or not all(
+                    np.isfinite(w).all() and len(w) for w in t.last_test_audios.values()):
+                raise AssertionError("train_tts: the test sentence gave no finite audio")
+            if not np.isfinite(t.best_loss):
+                raise AssertionError(f"train_tts: best loss {t.best_loss}")
+            bare = BARE_STEP_MS.get("fp32")
+            log(f"train_tts, LJSpeech recipe, B={TRAIN_BATCH}, {workers} loader workers "
+                f"({'thread' if workers else 'in the loop'}): {watch.steps} steps "
+                + ", ".join(f"{ms:.1f}" for ms in watch.step_ms) + " ms on the trainer's "
+                f"clock (synchronized; the first warms up) against phase 21's bare fp32 step "
+                + (f"{bare:.1f} ms" if bare else "(phase 21 not run)")
+                + "; the loop waited on the loader "
+                + ", ".join(f"{ms:.1f}" for ms in watch.wait_ms) + " ms before them; busy "
+                + (f"{100 * watch.busy:.1f} %" if watch.busy is not None else "not measured")
+                + f" over step 2; {watch.eval_batches} eval batch of {LOOP_EVAL}, a test "
+                f"sentence, best loss {t.best_loss:.4g}; peak memory {peak:.2f} GB; "
+                f"{wall:.1f} s in all | {card}")
+            stamp(f"{workers} workers")
+
+        # 2. --continue_path: the step, the best loss and the optimizer's
+        # update count go on where they stopped, then one more epoch
+        first, _ = runs[0]
+        run0 = os.path.join(d, "run0")
+        watch = LoopWatch(device)
+        r = train_tts.main(["--config_path", os.path.join(run0, "config.json"),
+                            "--continue_path", run0, "--device", str(device),
+                            "--coqpit.epochs", "2"], callbacks=watch.callbacks(card))
+        expected += watch.steps + watch.eval_batches
+        counts = {k: o.count for k, o in r.state.opt_states.items()}
+        if (r.global_step != 2 * first.global_step or r.epochs_done != 2
+                or any(c != r.global_step for c in counts.values())
+                or not r.best_loss <= first.best_loss):
+            raise AssertionError(f"--continue_path: step {r.global_step}, epochs "
+                                 f"{r.epochs_done}, updates {counts}, best loss "
+                                 f"{r.best_loss} after {first.best_loss}")
+        log(f"--continue_path: resumed at step {first.global_step} (best loss "
+            f"{first.best_loss:.4g}, epochs done 1), ran to step {r.global_step} (updates "
+            f"{counts}, best loss {r.best_loss:.4g}, epochs done {r.epochs_done}); steps "
+            + ", ".join(f"{ms:.1f}" for ms in watch.step_ms) + f" ms | {card}")
+        del first, runs, r
+        stamp("resumed")
+
+        # 3. best_model.pth speaks through the tts command line
+        wav_path = os.path.join(d, "best.wav")
+        with contextlib.redirect_stdout(io.StringIO()):
+            synthesize.main(["--text", "It took me quite a long time to develop a voice.",
+                             "--model_path", os.path.join(run0, "best_model.pth"),
+                             "--config_path", os.path.join(run0, "config.json"),
+                             "--out_path", wav_path, "--device", str(device)])
+        sr, pcm = scipy.io.wavfile.read(wav_path)
+        if not len(pcm) or not np.isfinite(pcm.astype(np.float64)).all():
+            raise AssertionError(f"tts on best_model.pth: {len(pcm)} samples")
+        log(f"tts --model_path run/best_model.pth: {len(pcm)} samples ({len(pcm) / sr:.2f} s at "
+            f"{sr} Hz), finite | {card}")
+
+        # 4. the multilingual recipe, one step
+        ml = multilingual_train_config(ml_folders, d)
+        if cut is not None:
+            cut(ml)
+        ml_path = os.path.join(d, "multilingual.json")
+        ml.save_json(ml_path)
+        watch = LoopWatch(device)
+        m = train_tts.main(["--config_path", ml_path, "--output_path",
+                            os.path.join(d, "run_ml"), "--device", str(device),
+                            "--coqpit.save_best_after", "1000000000"],
+                           callbacks=watch.callbacks(card))
+        expected += watch.steps + watch.eval_batches
+        if watch.steps != 1 or not np.isfinite(m.best_loss):
+            raise AssertionError(f"multilingual: {watch.steps} steps, best loss {m.best_loss}")
+        log(f"train_tts, multilingual recipe (B={TRAIN_BATCH}, {m.model.args.num_speakers} "
+            f"speakers, {m.model.args.num_languages} languages, speaker and language weighted "
+            f"sampling): 1 step {watch.step_ms[0]:.1f} ms (the loader waited "
+            f"{watch.wait_ms[0]:.1f} ms), eval loss {m.best_loss:.4g} | {card}")
+        del m
+        stamp("multilingual")
+
+        # 5. a tiny config through Trainer.fit, card against CPU
+        if cuda:
+            expected += fit_card_against_cpu(tiny_loop_configs(lj, tiny_folders, d), device,
+                                             card)
+            stamp("tiny fits")
+    launches = maximum_path.launches
+    if cuda and launches != expected:
+        raise AssertionError(f"phase 22: K2 launched {launches} times, the train steps and "
+                             f"eval batches were {expected}")
+    if kernel is not None:
+        kernel["launches"] += launches
+    log(f"phase 22 (train_tts, the trainer loop and the data pipeline) took "
+        f"{time.time() - t_phase:.1f} s; K2 launched {launches} times = {expected} train steps "
+        f"and eval batches | {card}")
+    return kernel
+
+
 def selected_phases(args) -> set:
-    """The phases a run does: all 21 without arguments, else phases 1 and 2
+    """The phases a run does: all 22 without arguments, else phases 1 and 2
     (environment, build) and the numbers given (5 brings 4, whose model it
     serves). Raises ``ValueError`` on anything else."""
     if not args:
-        return set(range(1, 22))
+        return set(range(1, 23))
     chosen = {int(a) for a in args}  # ValueError on a word
-    if not chosen <= set(range(1, 22)):
-        raise ValueError(f"phases are 1-21, got {sorted(chosen)}")
+    if not chosen <= set(range(1, 23)):
+        raise ValueError(f"phases are 1-22, got {sorted(chosen)}")
     return chosen | {1, 2} | ({4} if 5 in chosen else set())
 
 
@@ -8037,14 +8566,17 @@ def main(argv=None) -> int:
         kernels.append(int8_kernel)
     if 3 in phases:
         kernels[0]["launches"] = k1_launches
-    if 21 in phases:
-        kernels.append(phase_vits_train(card))
+    k2 = phase_vits_train(card) if 21 in phases else None
+    if 22 in phases:
+        k2 = phase_train_loop(card, k2)
+    if k2 is not None:
+        kernels.append(k2)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "transformers",
                                                    "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    ran = "1-21" if len(phases) == 21 else ", ".join(map(str, sorted(phases)))
+    ran = "1-22" if len(phases) == 22 else ", ".join(map(str, sorted(phases)))
     log(f"chip_smoke.py: phases {ran} took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

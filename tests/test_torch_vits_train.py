@@ -249,17 +249,12 @@ def test_make_train_step_defaults_to_cuda():
 
 
 def test_refuses_what_is_not_ported():
+    """The YourTTS speaker-consistency loss raises. (Speakers and languages
+    train: ``tests/test_torch_vits_train_speakers.py``.)"""
     _, _, _, port, pcfg = train_pair(True)
     port.args.use_speaker_encoder_as_loss = True
     with pytest.raises(NotImplementedError, match="17a"):
         port.make_train_step(pcfg, torch.Generator(), device="cpu")
-    port.args.use_speaker_encoder_as_loss = False
-    batch = torch_batch(train_batch())
-    port.args.use_d_vector_file = True
-    with pytest.raises(NotImplementedError, match="17a"):
-        port.module(batch["text_input"], batch["text_lengths"], batch["spec"],
-                    batch["spec_lengths"], torch.Generator(),
-                    aux_input={"d_vectors": torch.ones(3, 8)})
 
 
 def test_step_leaves_eval_mode_and_inference_unchanged():

@@ -297,8 +297,9 @@ def test_port_imports_no_jax_flax_or_tokenizers():
     the ForwardTTS family with its feed-forward layers, Overflow and
     NeuralHMM, AlignTTS and DelightfulTTS, the ParallelWaveGAN, UnivNet,
     WaveGrad and WaveRNN vocoders, the GST and Capacitron layers,
-    Tacotron v1, FreeVC with WavLM (``vc/``), Tortoise with its wav2vec aligner and Bark
-    included: this test process
+    Tacotron v1, FreeVC with WavLM (``vc/``), Tortoise with its wav2vec aligner, Bark,
+    and the training side (the data pipeline, the trainer with its callbacks
+    and loggers, checkpoint files, ``train_tts``) included: this test process
     has JAX and ``tts_tpu`` loaded already (tests/conftest.py). The zoo
     manager reads the port's own catalog, no file under ``tts_tpu/``."""
     code = (
@@ -356,6 +357,11 @@ def test_port_imports_no_jax_flax_or_tokenizers():
         "assert {'tts_tpu_torch.models.bark.model', 'tts_tpu_torch.models.bark.encodec',\n"
         "        'tts_tpu_torch.models.bark.hubert',\n"
         "        'tts_tpu_torch.models.tortoise.wav2vec_alignment'} <= set(mods), mods\n"
+        "assert {'tts_tpu_torch.data', 'tts_tpu_torch.data.dataset', 'tts_tpu_torch.data.formatters',\n"
+        "        'tts_tpu_torch.data.samplers', 'tts_tpu_torch.trainer.trainer',\n"
+        "        'tts_tpu_torch.trainer.callbacks', 'tts_tpu_torch.trainer.logging',\n"
+        "        'tts_tpu_torch.utils.io', 'tts_tpu_torch.utils.generic', 'tts_tpu_torch.utils.visual',\n"
+        "        'tts_tpu_torch.bin.train_tts'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'tokenizers', 'tts_tpu',\n"
         "                                             'transformers')\n"
         "             or m.startswith('tts_tpu.'))\n"

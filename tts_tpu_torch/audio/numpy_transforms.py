@@ -7,9 +7,9 @@ endpoint (``find_endpoint``), the leading and trailing silence trim
 (``trim_silence``), the volume norms, and wav I/O with resampling.
 
 ``griffin_lim`` draws its first phases from numpy's global generator, as
-its source does: seed ``np.random`` before a call to repeat it. f0,
-energy and the mu-law and bit-depth codecs serve training datasets and wait
-for them.
+its source does: seed ``np.random`` before a call to repeat it. f0 (YIN)
+and energy serve the training dataset's feature caches; the mu-law and
+bit-depth codecs serve the vocoders' datasets and wait for them.
 """
 
 from __future__ import annotations
@@ -175,6 +175,90 @@ def griffin_lim(*, spec: np.ndarray = None, num_iter=60, **kwargs) -> np.ndarray
         angles = np.exp(1j * np.angle(stft(y=y, **kwargs)))
         y = istft(y=S_complex * angles, **kwargs)
     return y
+
+
+def compute_f0(
+    *,
+    x: np.ndarray = None,
+    pitch_fmax: float = None,
+    pitch_fmin: float = None,
+    hop_length: int = None,
+    win_length: int = None,
+    sample_rate: int = None,
+    stft_pad_mode: str = "reflect",
+    center: bool = True,
+    threshold: float = 0.1,
+    **kwargs,
+) -> np.ndarray:
+    """Frame-wise f0 via YIN. Unvoiced frames are set to 0 (matching the
+    reference's pyin post-processing, ``numpy_transforms.py:299-301``).
+
+    Returns shape ``[T_frames]`` aligned with the mel frames (same hop)."""
+    assert pitch_fmax is not None, " [!] Set `pitch_fmax` before calling `compute_f0`."
+    assert pitch_fmin is not None, " [!] Set `pitch_fmin` before calling `compute_f0`."
+    frame_length = win_length
+    x = x.astype(np.float64)
+    if center:
+        x = np.pad(x, frame_length // 2, mode=stft_pad_mode)
+    frames = _frame(x, frame_length, hop_length).T.copy()  # [n_frames, frame_length]
+    n_frames = frames.shape[0]
+
+    tau_min = max(1, int(sample_rate / pitch_fmax))
+    tau_max = min(frame_length - 1, int(sample_rate / max(pitch_fmin, 1e-6)))
+
+    # difference function d(tau) via FFT autocorrelation:
+    #   d(tau) = r(0) + r_tau-shifted energy - 2*acf(tau)
+    w = frame_length
+    fsize = int(2 ** np.ceil(np.log2(2 * w)))
+    fft = np.fft.rfft(frames, fsize, axis=1)
+    acf = np.fft.irfft(fft * np.conj(fft), fsize, axis=1)[:, : tau_max + 1]
+    # cumulative energy terms
+    sq = frames**2
+    # energy of x[tau:w] for each tau: e(tau) = sum_{j=tau}^{w-1} x_j^2
+    cum = np.concatenate([np.zeros((n_frames, 1)), np.cumsum(sq, axis=1)], axis=1)
+    total = cum[:, w : w + 1]
+    e_tail = total - cum[:, : tau_max + 1]  # energy of x[tau:]
+    e_head = cum[:, w - np.arange(tau_max + 1)]  # energy of x[0 : w - tau]
+    d = e_head + e_tail - 2 * acf
+    d = np.maximum(d, 0.0)
+
+    # cumulative mean normalized difference
+    tau_range = np.arange(1, tau_max + 1)
+    cumsum_d = np.cumsum(d[:, 1:], axis=1)
+    cmnd = d[:, 1:] * tau_range / np.maximum(cumsum_d, 1e-12)
+    # classic YIN: when there is no signal energy, CMND is defined as 1
+    cmnd[cumsum_d < 1e-10] = 1.0
+    cmnd = np.concatenate([np.ones((n_frames, 1)), cmnd], axis=1)  # cmnd[0] = 1
+
+    f0 = np.zeros(n_frames)
+    below = cmnd < threshold
+    below[:, :tau_min] = False
+    for i in range(n_frames):
+        idx = np.nonzero(below[i])[0]
+        if len(idx) == 0:
+            # unvoiced: reference pyin writes 0
+            continue
+        # first run below threshold → local min within it
+        tau = idx[0]
+        while tau + 1 <= tau_max and cmnd[i, tau + 1] < cmnd[i, tau]:
+            tau += 1
+        # parabolic interpolation around tau
+        if 0 < tau < tau_max:
+            a, b, c = d[i, tau - 1], d[i, tau], d[i, tau + 1]
+            denom = a + c - 2 * b
+            shift = 0.5 * (a - c) / denom if abs(denom) > 1e-12 else 0.0
+            shift = np.clip(shift, -1, 1)
+        else:
+            shift = 0.0
+        f0[i] = sample_rate / (tau + shift)
+    return f0
+
+
+def compute_energy(y: np.ndarray, **kwargs) -> np.ndarray:
+    """Frame-wise magnitude energy (reference ``numpy_transforms.py:306``)."""
+    x = stft(y=y, **kwargs)
+    mag = np.abs(x)
+    return np.sqrt(np.sum(mag**2, axis=0))
 
 
 # --------------------------------------------------------------------------

@@ -10,8 +10,9 @@ and ``load_wav``/``save_wav``.
 
 The ``Synthesizer`` builds one per model: the TTS model's turns its mel
 back into decibels, the vocoder's normalises them for the vocoder, and
-Griffin-Lim speaks a mel model without one. f0 and the mu-law codecs serve
-training and wait for it.
+Griffin-Lim speaks a mel model without one. ``compute_f0`` (YIN, aligned
+to the mel frames) serves the training dataset; the mu-law codecs wait for
+the vocoders' training.
 """
 
 from __future__ import annotations
@@ -299,6 +300,23 @@ class AudioProcessor:
             fft_size=self.fft_size,
             pad_mode=self.stft_pad_mode,
         )
+
+    # ---- f0 ---------------------------------------------------------------
+    def compute_f0(self, x: np.ndarray) -> np.ndarray:
+        # match the reference's length alignment (processor.py:486+): pad wav
+        # so frame count equals mel frame count
+        if len(x) % self.hop_length == 0:
+            x = np.pad(x, (0, self.hop_length // 2), mode=self.stft_pad_mode)
+        f0 = nt.compute_f0(
+            x=x,
+            pitch_fmax=self.pitch_fmax,
+            pitch_fmin=self.pitch_fmin,
+            hop_length=self.hop_length,
+            win_length=self.win_length,
+            sample_rate=self.sample_rate,
+            stft_pad_mode=self.stft_pad_mode,
+        )
+        return f0
 
     # ---- silence/volume ---------------------------------------------------
     def find_endpoint(self, wav: np.ndarray, min_silence_sec=0.8) -> int:

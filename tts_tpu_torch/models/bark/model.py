@@ -262,18 +262,20 @@ class Bark(nn.Module):
     @torch.no_grad()
     def init_params(self, seed: int = 0, device="cuda", dtype=torch.float32,
                     encodec: bool = True) -> "Bark":
-        """Random weights from ``seed``, drawn on the CPU, then moved to
-        ``device``: norm scales 1 and biases 0, linear, conv and LSTM
-        weights N(0, 1/fan_in), embeddings and position tables N(0, 0.02²);
-        with ``encodec``, an EnCodec at the 24 kHz model's dims with
-        codebooks N(0, 1)."""
+        """Random weights from ``seed``, drawn on ``device`` by a generator of
+        that device (a CPU draw is the same on every machine; a card's differs
+        from it), then cast to ``dtype``: norm scales 1 and biases 0, linear,
+        conv and LSTM weights N(0, 1/fan_in), embeddings and position tables
+        N(0, 0.02²); with ``encodec``, an EnCodec at the 24 kHz model's dims
+        with codebooks N(0, 1)."""
         from .encodec import EncodecDecoder, EncodecEncoder
 
         device = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator(device).manual_seed(seed)
         if encodec:
             self.encodec = EncodecVocoder(EncodecDecoder(), torch.empty(8, 1024, 128),
                                           EncodecEncoder())
+        self.to(device)
         for module in self.modules():
             for name, p in module.named_parameters(recurse=False):
                 if isinstance(module, nn.LayerNorm):
@@ -281,16 +283,16 @@ class Bark(nn.Module):
                 elif name.startswith("bias"):
                     p.zero_()
                 elif isinstance(module, nn.LSTM):
-                    p.copy_(torch.randn(p.shape, generator=gen) / p.shape[1] ** 0.5)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) / p.shape[1] ** 0.5)
                 elif isinstance(module, (nn.Linear, nn.Conv1d)):
-                    p.copy_(torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) / p[0].numel() ** 0.5)
                 elif isinstance(module, nn.ConvTranspose1d):
                     fan_in = p.shape[0] * p.shape[2] // module.stride[0]
-                    p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) / fan_in**0.5)
                 else:
-                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
         if encodec:
-            self.encodec.codebooks.copy_(torch.randn(8, 1024, 128, generator=gen))
+            self.encodec.codebooks.copy_(torch.randn(8, 1024, 128, generator=gen, device=device))
         return self.requires_grad_(False).to(device=device, dtype=dtype)
 
     def load_checkpoint(self, config=None, checkpoint_dir: str = None, device="cuda", **kwargs):

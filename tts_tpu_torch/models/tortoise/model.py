@@ -429,18 +429,20 @@ class Tortoise(nn.Module):
     @torch.no_grad()
     def init_params(self, seed: int = 0, device="cuda", dtype=torch.float32,
                     clvp: bool = True, vocoder: bool = True) -> "Tortoise":
-        """Random weights from ``seed``, drawn on the CPU, then moved to
-        ``device``: norm scales 1 and biases 0, linear and conv weights
-        N(0, 1/fan_in), embeddings, position tables and the unconditioned
-        embedding N(0, 0.02²), relative-position tables N(0, 0.02²), CLVP's
-        temperature 1. CLVP (at its defaults) and the vocoder are built
-        unless told not to."""
+        """Random weights from ``seed``, drawn on ``device`` by a generator of
+        that device (a CPU draw is the same on every machine; a card's differs
+        from it), then cast to ``dtype``: norm scales 1 and biases 0, linear
+        and conv weights N(0, 1/fan_in), embeddings, position tables and the
+        unconditioned embedding N(0, 0.02²), relative-position tables
+        N(0, 0.02²), CLVP's temperature 1. CLVP (at its defaults) and the
+        vocoder are built unless told not to."""
         device = resolve_device(device)
         if clvp:
             self.clvp = CLVP()
         if vocoder:
             self.vocoder = self.build_vocoder()
-        gen = torch.Generator().manual_seed(seed)
+        self.to(device)
+        gen = torch.Generator(device).manual_seed(seed)
         for module in self.modules():
             for name, p in module.named_parameters(recurse=False):
                 if isinstance(module, (nn.LayerNorm, nn.GroupNorm)) or name == "g":
@@ -452,9 +454,9 @@ class Tortoise(nn.Module):
                 elif isinstance(module, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
                     fan_in = p[0].numel() if not isinstance(module, nn.ConvTranspose1d) else (
                         p.shape[0] * p.shape[2])
-                    p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) / fan_in**0.5)
                 else:
-                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
         return self.requires_grad_(False).to(device=device, dtype=dtype)
 
     def load_checkpoint(self, config=None, checkpoint_dir: str = None, device="cuda", **kwargs):

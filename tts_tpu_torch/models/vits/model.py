@@ -27,9 +27,13 @@ over the alignment, a random segment decoded), ``Vits.discriminator`` the
 multi-period and scale discriminator, and ``Vits.make_train_step`` the GAN
 step of ``models/vits/train.py``. Like the JAX package, the training
 forward feeds the duration predictor the prior means ``m_p``, where
-inference feeds it the encoder's output (ROADMAP.md F12). Training runs one
-speaker and one language; the multi-speaker and multi-language variants
-raise (ROADMAP.md item 17a's queue).
+inference feeds it the encoder's output (ROADMAP.md F12). It trains one
+speaker or many (ids or d-vectors) and one language or many, conditioned
+where the JAX training forward conditions. ``Vits.format_batch`` and
+``Vits.format_batch_on_device`` map the data pipeline's batch to the step's
+keys (the trainer, ``trainer/trainer.py``); the posterior encoder reads the
+linear magnitude spectrogram of the waveform, as in the reference, where the
+JAX package feeds decibels (ROADMAP.md F54).
 
 D-vectors are L2-normalised before they condition anything, in inference
 and in voice conversion, as the reference VITS does; the JAX package feeds
@@ -259,6 +263,19 @@ class VitsModule(nn.Module):
             logp = logp1 + logp2 + logp3 + logp4
             return maximum_path(logp, attn_mask)
 
+    def _dp_input(self, m_p: torch.Tensor) -> torch.Tensor:
+        """The training forward's duration-predictor input: the prior means,
+        zero-padded to the predictor's input width. A language embedding
+        widens the text encoder's output, which inference feeds the
+        predictor, by its own channels; the means are ``hidden_channels``
+        wide (ROADMAP.md F12). The means fill the first inputs and the
+        language's channels read zero, which computes what the JAX
+        package's predictor, sized from the means by its training forward,
+        computes."""
+        a = self.args
+        extra = a.embedded_language_dim if a.use_language_embedding else 0
+        return F.pad(m_p, (0, extra)) if extra else m_p
+
     def forward(self, x, x_lengths, y, y_lengths, generator: torch.Generator,
                 aux_input: Optional[Dict] = None) -> Dict[str, Any]:
         """The training forward (reference ``vits.py:961``; port of
@@ -271,27 +288,36 @@ class VitsModule(nn.Module):
         (``modules.normal``), the segment starts (``ops.helpers.uniform``)
         and, in training mode, the dropout masks. The duration predictor
         reads the prior means ``m_p`` (detached under ``detach_dp_input``),
-        as the JAX package's training does (ROADMAP.md F12)."""
+        as the JAX package's training does (ROADMAP.md F12).
+
+        ``aux_input`` (``speaker_ids``, ``d_vectors``, ``language_ids`` per
+        row) conditions as the JAX training forward does
+        (``tts_tpu/models/vits/model.py:174-245``): the language embedding
+        joins the text encoder's input and conditions the stochastic
+        duration predictor; the speaker vector ``g`` conditions the
+        posterior encoder, the flow, the decoder and, under
+        ``condition_dp_on_speaker``, the duration predictor, detached there
+        under ``detach_dp_input``."""
         a = self.args
         g, lang = self._cond_vectors(aux_input)
-        if g is not None or lang is not None:
-            raise NotImplementedError("VITS training runs one speaker and one language; the "
-                                      "multi-speaker and multi-language variants are queued "
-                                      "(ROADMAP.md item 17a)")
-        _, m_p, logs_p, x_mask = self.text_encoder(x, x_lengths)
-        z, m_q, logs_q, y_mask = self.posterior_encoder(y, y_lengths, generator)
-        z_p = self.flow(z, y_mask, reverse=False)
+        _, m_p, logs_p, x_mask = self.text_encoder(x, x_lengths, lang)
+        z, m_q, logs_q, y_mask = self.posterior_encoder(y, y_lengths, generator, g=g)
+        z_p = self.flow(z, y_mask, g=g, reverse=False)
         attn = self._forward_mas(z_p, m_p, logs_p, x_mask, y_mask)
         # in fp32 (or wider): bf16 under autocast holds no integer above 256
         attn_durations = torch.sum(attn.to(torch.promote_types(m_p.dtype, torch.float32)),
                                    dim=-1, keepdim=True)  # [B, T_x, 1]
-        x_dp = m_p.detach() if a.detach_dp_input else m_p
+        x_dp = self._dp_input(m_p.detach() if a.detach_dp_input else m_p)
+        dp_g = None
+        if g is not None and a.condition_dp_on_speaker:
+            dp_g = g.detach() if a.detach_dp_input else g
         if a.use_sdp:
-            nll = self.duration_predictor.nll(x_dp, x_mask, attn_durations, generator)
+            nll = self.duration_predictor.nll(x_dp, x_mask, attn_durations, generator, g=dp_g,
+                                              lang_emb=lang)
             loss_duration = torch.sum(nll) / torch.sum(x_mask)
         else:
             attn_log_durations = torch.log(attn_durations + 1e-6) * x_mask
-            log_durations = self.duration_predictor(x_dp, x_mask)
+            log_durations = self.duration_predictor(x_dp, x_mask, g=dp_g)
             loss_duration = torch.sum((log_durations - attn_log_durations) ** 2) / torch.sum(
                 x_mask)
         attn_t = attn.transpose(1, 2).to(m_p.dtype)
@@ -299,7 +325,7 @@ class VitsModule(nn.Module):
         logs_p_e = torch.matmul(attn_t, logs_p)
         z_slice, slice_ids = rand_segments(generator, z, y_lengths, a.spec_segment_size,
                                            let_short_samples=True, pad_short=True)
-        o = self.waveform_decoder(self._upsample_z(z_slice))
+        o = self.waveform_decoder(self._upsample_z(z_slice), g=g)
         return {
             "model_outputs": o,
             "alignments": attn.transpose(1, 2),
@@ -507,6 +533,10 @@ class Vits:
     # inference() returns a waveform [B, T, 1] directly (no vocoder stage),
     # which the server's DynamicBatcher asks of a model
     emits_waveform = True
+    # what the training step reads of the data pipeline's host work: the
+    # waveform alone, its spectrograms taken on the device
+    # (format_batch_on_device, F54), whatever the config's feature flags say
+    dataset_features = {"compute_linear_spec": False, "compute_mel": False, "return_wav": True}
 
     def __init__(self, config: VitsConfig):
         check_supported(config)
@@ -523,6 +553,9 @@ class Vits:
         self.tokenizer: Optional[TTSTokenizer] = None
         self.speaker_manager = None
         self.language_manager = None
+        # whether the generator holds drawn or loaded weights (init_params,
+        # load_state_dict); the trainer draws a fresh model from config.seed
+        self.initialized = False
 
     @classmethod
     def init_from_config(cls, config: VitsConfig) -> "Vits":
@@ -613,6 +646,7 @@ class Vits:
                     ".flow." in name) else 1.0
                 p.copy_(torch.randn(p.shape, generator=gen) * scale / fan_in**0.5)
         self.module.to(device).requires_grad_(False)
+        self.initialized = True
         if discriminator:
             self._draw_discriminator(gen, device)
         return self
@@ -676,10 +710,64 @@ class Vits:
             _, self._eval_step_fn, _ = make_train_step(self, config)
         return self._eval_step_fn
 
+    def format_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The data pipeline's numpy batch → the step's keys, on the host
+        (port of ``tts_tpu/models/vits/model.py:568``): ``spec_lengths`` from
+        ``mel_lengths``, with or without a host ``spec`` (the step's is taken
+        on the device, :meth:`format_batch_on_device`). With ``encoder_sample_rate`` below the output rate
+        the posterior encoder reads spectrograms at the encoder's rate: the
+        waveform is resampled down and its spectrogram taken here, as the
+        JAX package does (reference ``vits.py:1495-1516``), but as the
+        reference's linear magnitude (``wav_to_spec``), not the
+        ``AudioProcessor``'s decibels (ROADMAP.md F54)."""
+        if "mel_lengths" in batch and "spec_lengths" not in batch:
+            batch["spec_lengths"] = batch["mel_lengths"]
+        f = int(round(self.module.interpolate_factor))
+        if f > 1 and batch.get("waveform") is not None:
+            from tts_tpu_torch.audio import numpy_transforms as nt
+            from tts_tpu_torch.audio.torch_transforms import wav_to_spec
+
+            audio = self.config.audio
+            sr = audio.sample_rate
+            wavs = np.asarray(batch["waveform"], np.float32)[..., 0]
+            specs = [
+                wav_to_spec(torch.from_numpy(np.ascontiguousarray(
+                    nt.resample_wav(w, sr, self.args.encoder_sample_rate),
+                    dtype=np.float32))[None], audio.fft_size, audio.hop_length,
+                    audio.win_length)[0].T.numpy()
+                for w in wavs
+            ]
+            T = max(s.shape[0] for s in specs)
+            batch["spec"] = np.stack([np.pad(s, ((0, T - s.shape[0]), (0, 0))) for s in specs])
+            batch["spec_lengths"] = np.minimum(
+                np.asarray(batch["mel_lengths"]) // f, T
+            ).astype(np.int32)
+        return batch
+
+    def format_batch_on_device(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The posterior encoder's input from the waveform on the device:
+        the linear magnitude spectrogram ``[B, T, C]`` of ``wav_to_spec``, as
+        the reference's ``format_batch_on_device`` computes it
+        (``vits.py:1495-1516``). The JAX package feeds the data pipeline's
+        ``AudioProcessor`` spectrogram, in decibels (ROADMAP.md F54, as F15
+        for voice conversion). A batch without a waveform keeps its
+        ``spec``; the ``encoder_sample_rate`` variant's comes from
+        :meth:`format_batch`."""
+        if batch.get("waveform") is None or int(round(self.module.interpolate_factor)) > 1:
+            return batch
+        from tts_tpu_torch.audio.torch_transforms import wav_to_spec
+
+        audio = self.config.audio
+        spec = wav_to_spec(batch["waveform"][..., 0].float(), audio.fft_size, audio.hop_length,
+                           audio.win_length)
+        batch["spec"] = spec.transpose(1, 2).contiguous()
+        return batch
+
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
         """Take the tensors as they are (strict: no key missing or extra)."""
         self.module.load_state_dict(state, strict=True, assign=True)
         self.module.requires_grad_(False)
+        self.initialized = True
 
     def load_checkpoint(self, config: VitsConfig, checkpoint_dir: Optional[str] = None,
                         checkpoint_path: Optional[str] = None, device="cuda") -> "Vits":

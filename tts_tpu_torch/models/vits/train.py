@@ -25,7 +25,9 @@ Every draw of a step comes from the step's ``torch.Generator``: the
 posterior's and the duration posterior's noise (``modules.normal``), the
 segment starts (``ops.helpers.uniform``) and the dropout masks
 (``layers.common.Dropout``). The module is in training mode only inside a
-step. ``mixed_precision`` runs the forward under bf16 autocast with fp32
+step. The batch's ``speaker_ids``, ``d_vectors`` and ``language_ids``
+condition the training forward (``VitsModule.forward``), as the JAX step's
+``aux_input`` does. ``mixed_precision`` runs the forward under bf16 autocast with fp32
 master weights (``trainer/precision.py``). The YourTTS speaker-consistency
 loss (``use_speaker_encoder_as_loss``) raises: it waits for its own slice
 (ROADMAP.md item 17a's queue).
@@ -56,6 +58,13 @@ SPEAKER_LOSS_REASON = (
     "use_speaker_encoder_as_loss (the YourTTS speaker-consistency loss) is not ported yet: "
     "the JAX step resizes with jax.image.resize, which antialiases when it downsamples, and "
     "needs parity work of its own (ROADMAP.md item 17a's queue)")
+
+
+def aux_input(batch) -> Dict:
+    """The batch's conditioning, as the JAX step passes it
+    (``tts_tpu/models/vits/train.py:126-128``): ``d_vectors``,
+    ``speaker_ids`` and ``language_ids``, each ``None`` where absent."""
+    return {k: batch.get(k) for k in ("d_vectors", "speaker_ids", "language_ids")}
 
 
 def make_optimizers(config) -> Dict:
@@ -99,8 +108,9 @@ def make_train_step(model: Vits, config):
     ``eval_step(state, batch) -> metrics`` evaluates the losses without
     gradient on draws from a generator seeded 0. ``batch``: ``text_input
     [B, T_x]`` and ``text_lengths [B]``, the linear spectrogram ``spec [B,
-    T_y, C]`` and ``spec_lengths [B]``, ``waveform [B, T_y * hop, 1]``, on
-    the model's device."""
+    T_y, C]`` and ``spec_lengths [B]``, ``waveform [B, T_y * hop, 1]`` and,
+    for a multi-speaker or multi-language model, ``speaker_ids [B]`` or
+    ``d_vectors [B, C]`` and ``language_ids [B]``, on the model's device."""
     if getattr(model.args, "use_speaker_encoder_as_loss", False):
         raise NotImplementedError(SPEAKER_LOSS_REASON)
     audio = config.audio
@@ -117,7 +127,7 @@ def make_train_step(model: Vits, config):
         device = batch["text_input"].device
         with autocast(device, mixed):
             out = model.module(batch["text_input"], batch["text_lengths"], batch["spec"],
-                               batch["spec_lengths"], generator)
+                               batch["spec_lengths"], generator, aux_input=aux_input(batch))
             wav_fake = out["model_outputs"]  # [B, seg * hop, 1]
             wav_real = segment(batch["waveform"], out["slice_ids"] * hop, seg_frames * hop,
                                pad_short=True)

@@ -98,12 +98,14 @@ class Xtts(nn.Module):
     # ------------------------------------------------------------------
     @torch.no_grad()
     def init_params(self, seed: int = 0, device="cuda", dtype=torch.float32) -> "Xtts":
-        """Random weights from ``seed``, drawn on the CPU (the same on every
-        machine), then moved to ``device`` / ``dtype``. Norm scales are 1 and
-        biases 0; linear and conv weights are N(0, 1/fan_in); embeddings, the
-        position tables and the perceiver latents are N(0, 0.02²)."""
+        """Random weights from ``seed``, drawn on ``device`` by a generator of
+        that device (a CPU draw is the same on every machine; a card's differs
+        from it), then cast to ``dtype``. Norm scales are 1 and biases 0;
+        linear and conv weights are N(0, 1/fan_in); embeddings, the position
+        tables and the perceiver latents are N(0, 0.02²)."""
         device = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
+        self.to(device)
+        gen = torch.Generator(device).manual_seed(seed)
         norms = (nn.LayerNorm, nn.GroupNorm)
         for module in self.modules():
             for name, p in module.named_parameters(recurse=False):
@@ -116,9 +118,9 @@ class Xtts(nn.Module):
                 elif isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
                     fan_in = p[0].numel() if not isinstance(module, nn.ConvTranspose1d) else (
                         p.shape[0] * p.shape[2])
-                    p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) / fan_in**0.5)
                 else:  # embeddings, position tables, perceiver latents
-                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
         self.requires_grad_(False).to(device=device, dtype=dtype)
         if self.args.gpt_int8_weights:
             self.quantize_weights_int8()

@@ -2,8 +2,9 @@
 and ``generate_path``, which VITS inference calls; ``segment``,
 ``rand_segments`` and ``average_over_durations``, which training calls.
 Values are time-major ``[B, T, C]`` as in the JAX package. The attention
-prior helpers (host numpy, for the data pipeline) wait for it (ROADMAP.md
-item 17b).
+prior helpers, ``beta_binomial_prior_distribution`` and
+``compute_attn_prior``, are host numpy for the data pipeline
+(``data/dataset.py``), copied unchanged.
 
 ``rand_segments`` draws its uniforms through :func:`uniform`, from an
 explicit generator; tests replace that one function to replay the JAX
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -101,3 +103,30 @@ def average_over_durations(values: torch.Tensor, durs: torch.Tensor) -> torch.Te
     sums = torch.gather(csum, 1, ends) - torch.gather(csum, 1, starts)
     nelems = torch.gather(cnum, 1, ends) - torch.gather(cnum, 1, starts)
     return torch.where(nelems == 0.0, 0.0, sums / torch.clamp(nelems, min=1.0))
+
+
+# ---------------------------------------------------------------------------
+# host-side priors (numpy; the dataset's attention prior, port of
+# tts_tpu/ops/helpers.py:156-174)
+# ---------------------------------------------------------------------------
+
+
+def beta_binomial_prior_distribution(
+    phoneme_count: int, mel_count: int, scaling_factor: float = 1.0
+) -> np.ndarray:
+    """Beta-binomial alignment prior ``[mel_count, phoneme_count]``
+    (reference ``helpers.py:240-250``)."""
+    from scipy.stats import betabinom
+
+    P, M = phoneme_count, mel_count
+    x = np.arange(0, P)
+    rows = []
+    for i in range(1, M + 1):
+        a, b = scaling_factor * i, scaling_factor * (M + 1 - i)
+        rows.append(betabinom(P, a, b).pmf(x))
+    return np.array(rows)
+
+
+def compute_attn_prior(x_len: int, y_len: int, scaling_factor: float = 1.0) -> np.ndarray:
+    """[y_len, x_len] attention prior (reference ``helpers.py:253``)."""
+    return beta_binomial_prior_distribution(x_len, y_len, scaling_factor)

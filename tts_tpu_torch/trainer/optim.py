@@ -231,6 +231,26 @@ class OptimizerState:
         self.count += 1
         return True
 
+    def state_dict(self) -> dict:
+        """The counts, the accumulation buffer (``None`` between updates) and
+        the ``torch.optim`` state (moments, its own step counts), in plain
+        types and tensors: a checkpoint that loads with ``weights_only``."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                "notfinite_count": self.notfinite_count,
+                "acc": None if self.acc is None else [a.detach().clone() for a in self.acc],
+                "torch_optimizer": self.torch_optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output onto these parameters (their
+        device): the schedule reads the restored ``count`` and
+        ``grad_accum`` resumes its running mean."""
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.notfinite_count = int(state["notfinite_count"])
+        device = self.params[0].device if self.params else None
+        self.acc = None if state["acc"] is None else [a.to(device) for a in state["acc"]]
+        self.torch_optimizer.load_state_dict(state["torch_optimizer"])
+
 
 def build_optimizer(name: str, lr: Schedule, params: Optional[dict] = None,
                     grad_clip: float = 0.0, grad_accum: int = 1,

@@ -6,6 +6,10 @@ The JAX ``TrainState`` is an immutable pytree and ``apply_updates``
 returns a new one; here the parameters are the model's own tensors,
 updated in place by ``torch.optim`` (no second copy of the weights), and
 ``apply_updates`` returns the same state with its step advanced.
+``state_dict``/``load_state_dict`` carry the step and every group's
+optimizer state (moments, the schedule's update count, the accumulation
+buffer) through a checkpoint; the parameters travel as the model's own
+``state_dict``.
 """
 
 from __future__ import annotations
@@ -38,3 +42,16 @@ class TrainState:
             self.opt_states[k].update(g)
         self.step += 1
         return self
+
+    def state_dict(self) -> Dict:
+        """``{"step": int, "<group>": OptimizerState.state_dict(), ...}``."""
+        return {"step": self.step, **{k: v.state_dict() for k, v in self.opt_states.items()}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s output; every group must be there."""
+        missing = set(self.opt_states) - set(state)
+        if missing:
+            raise KeyError(f"optimizer state lacks the groups {sorted(missing)}")
+        for k, opt in self.opt_states.items():
+            opt.load_state_dict(state[k])
+        self.step = int(state["step"])
