@@ -370,6 +370,26 @@ Phases; each raises on failure and the script then exits non-zero:
     their peak. K2 launches once a train step
     and once an evaluation batch; its card checks run here when phase 21
     does not.
+23. Vocoder training (``phase_vocoder_train``): 106 clips of synthetic
+    22.05 kHz audio (2-10 s) under a temporary directory; the LJSpeech
+    HiFiGAN recipe (v1 at its published width, B=32, 8192-sample segments,
+    noise augmentation, MPD and MSD, the mel L1, feature matching and mse)
+    through ``tts_tpu_torch.bin.train_vocoder.main`` with 4 loader threads:
+    an epoch of three steps, an evaluation and a checkpoint, ms a step on
+    the trainer's clock, the loader's wait, the busy share over step 2
+    (kernel time summed, and the share of the step in which the device ran
+    anything: cuDNN's kernels overlap on several streams), peak memory, the
+    run's stages; ``--continue_path`` for a second epoch (the step and the
+    optimizers' update counts go on); the checkpoint's generator through
+    the ``Synthesizer``'s vocoder path, bit-equal to the trained module on
+    an eval mel. Two steps each of the multi-band MelGAN (PQMF, sub-band
+    STFT loss, the discriminator gated off), UnivNet (noise drawn from the
+    step's generator, F55), WaveGrad (the generic step) and WaveRNN (mold)
+    recipes at their widths. Each family's tiny fit through
+    ``Trainer.fit`` on the CPU and on the card with the same weights and
+    host draws: every loss within 1e-4 of its value (the two families
+    under an STFT loss at lr 1e-6, ``tiny_vocoder_configs``). K1, K4 and K2
+    must launch 0 times on this path.
 
 Phase selection: ``python3 chip_smoke.py 20`` (or any phase numbers) runs
 phases 1 and 2 and the ones named (5 brings 4); without arguments every
@@ -8154,22 +8174,45 @@ def multilingual_train_config(folders, d: str):
     return config
 
 
+def device_union(prof, wall_us: float) -> tuple:
+    """``(share of the wall time in which the device ran anything, streams
+    used)``: the union of the window's CUDA activities' intervals (kernels,
+    copies) over ``wall_us``. Kernels on several streams overlap, so the sum
+    of their times can pass the wall time."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    covered, end = 0, None
+    for start, stop in sorted((e.start_ns(), e.end_ns()) for e in events):
+        if end is None or start > end:
+            covered += stop - start
+            end = stop
+        elif stop > end:
+            covered += stop - end
+            end = stop
+    return covered / 1e3 / wall_us, len({e.device_resource_id() for e in events})
+
+
 class LoopWatch:
     """Trainer callbacks that count the steps and evaluation batches a run
     makes, time each step on the device's clock edge (synchronized at both
     ends), read the loader's wait, and profile one step's device activity."""
 
-    def __init__(self, device, profile_step: int = 0):
+    def __init__(self, device, profile_step: int = 0, what: str = "train_tts step"):
         import torch
 
         self.device = device
         self.cuda = torch.device(device).type == "cuda"
-        self.profile_step, self.busy = profile_step, None
+        self.profile_step, self.busy, self.what = profile_step, None, what
+        self.union_busy, self.streams = None, 0
+        self.marks = {"made": time.perf_counter()}  # perf_counter at each stage of a run
         self.steps = self.eval_batches = 0
         self.step_ms, self.wait_ms = [], []
 
     def start(self, trainer):
         sync(self.device)
+        self.marks.setdefault("first_step", time.perf_counter())
         self.steps += 1
         self.wait_ms.append(trainer.loader_time * 1e3)
         self.prof = None
@@ -8185,18 +8228,23 @@ class LoopWatch:
         self.step_ms.append((time.perf_counter() - self.t0) * 1e3)
         if self.prof is not None:
             self.prof.__exit__(None, None, None)
-            self.busy = log_profile(self.prof, "train_tts step", self.step_ms[-1] * 1e3,
-                                    self.card, top=4)
+            self.busy = log_profile(self.prof, self.what, self.step_ms[-1] * 1e3, self.card,
+                                    top=4)
+            self.union_busy, self.streams = device_union(self.prof, self.step_ms[-1] * 1e3)
+
+    def init_end(self, trainer):
+        self.marks["built"] = time.perf_counter()
 
     def epoch_end(self, trainer):
+        self.marks.setdefault("epoch_end", time.perf_counter())
         n_eval = len(trainer.eval_samples)
         if n_eval and trainer.config.run_eval:
             self.eval_batches += -(-n_eval // max(1, trainer.config.eval_batch_size))
 
     def callbacks(self, card: str) -> dict:
         self.card = card
-        return {"on_train_step_start": self.start, "on_train_step_end": self.end,
-                "on_epoch_end": self.epoch_end}
+        return {"on_init_end": self.init_end, "on_train_step_start": self.start,
+                "on_train_step_end": self.end, "on_epoch_end": self.epoch_end}
 
 
 class LossRecorder:
@@ -8504,15 +8552,377 @@ def phase_train_loop(card: str, kernel=None, device="cuda", cut=None):
     return kernel
 
 
+VOC_CLIPS = 106  # 96 to train (three full steps at B=32) and VOC_EVAL to evaluate
+VOC_EVAL = 10  # the vocoder configs' eval_split_size
+VOC_WORKERS = 4  # loader threads
+VOC_TOL = 1e-4  # the tiny fits, card against CPU: each loss, a share of its own value
+VOC_FLOOR = 1e-3  # ... or of this, for a loss nearer 0
+VOC_TINY_CLIPS = 12  # the tiny fits' corpus: 8 to train (two steps at B=4), 4 to evaluate
+
+
+def write_wav_corpus(root: str, n: int = VOC_CLIPS, sr: int = 22050, seed: int = 0):
+    """``n`` clips of 2-10 s (clip 0 the longest, clip 1 the shortest) of
+    synthetic 22.05 kHz 16-bit audio under ``root``. Returns the seconds."""
+    import scipy.io.wavfile
+
+    rs = np.random.RandomState(seed)
+    seconds = rs.uniform(*CORPUS_SECONDS, n)
+    seconds[0], seconds[1] = CORPUS_SECONDS[1], CORPUS_SECONDS[0]
+    os.makedirs(root, exist_ok=True)
+    for i, sec in enumerate(seconds):
+        wav = reference_wav(seconds=sec, sr=sr, seed=seed + i)
+        scipy.io.wavfile.write(os.path.join(root, f"clip{i:04d}.wav"), sr,
+                               (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+    return seconds
+
+
+def vocoder_recipe_config(name: str, data_path: str):
+    """The LJSpeech vocoder recipes (``recipes/ljspeech/{hifigan,
+    multiband_melgan,univnet,wavegrad,wavernn}``) as published, over
+    ``data_path``, with ``print_step`` 1, the console dashboard, one epoch
+    and ``VOC_WORKERS`` loader threads."""
+    from tts_tpu_torch.vocoder import configs
+
+    common = dict(eval_batch_size=16, epochs=1, print_step=1, data_path=data_path,
+                  dashboard_logger="console", num_loader_workers=VOC_WORKERS, save_step=0)
+    if name == "hifigan":
+        return configs.HifiganConfig(batch_size=32, seq_len=8192, pad_short=2000,
+                                     use_noise_augment=True, **common)
+    if name == "multiband_melgan":
+        return configs.MultibandMelganConfig(batch_size=64, seq_len=8192, pad_short=2000,
+                                             **common)
+    if name == "univnet":
+        return configs.UnivnetConfig(batch_size=64, seq_len=8192, pad_short=2000,
+                                     use_noise_augment=True, lr_gen=1e-4, lr_disc=1e-4,
+                                     **common)
+    if name == "wavegrad":
+        return configs.WavegradConfig(batch_size=32, seq_len=6144, pad_short=2000,
+                                      use_noise_augment=True, **common)
+    return configs.WavernnConfig(batch_size=64, seq_len=1280, pad_short=2000, **common)
+
+
+def tiny_vocoder_configs(data_path: str) -> dict:
+    """The card-against-CPU fits: each family at a tiny width (hop 256 kept,
+    2048-sample segments, B=4, two steps an epoch, an evaluation of 4
+    clips); multi-band MelGAN's discriminator starts at step 1, so the fit
+    runs the gate off, then on. The two families under an STFT loss
+    (multi-band MelGAN, UnivNet) step at lr 1e-6: their generator gradients
+    are ill-conditioned (the log magnitude divides by each bin's size; any
+    two fp32 evaluations sit ~1e-3 of the peak apart,
+    ``tests/test_torch_gan_train.py``), so an update at the recipe's lr
+    (1e-4, AdamW) put the eval losses 8e-4 apart card against CPU after two
+    updates, and at lr 1e-3 by SGD 1.2e-4 after one (H100 runs recorded in
+    PERF.md); at 1e-6 the updates, and what rounding makes of them, are
+    100x smaller. The recipe steps run the recipes' lr at full width."""
+    from tts_tpu_torch.vocoder import configs
+
+    common = dict(batch_size=4, eval_batch_size=4, eval_split_size=4, epochs=1, print_step=1,
+                  data_path=data_path, dashboard_logger="console", seq_len=2048, pad_short=0,
+                  save_step=0, test_delay_epochs=10**9)
+    small_lr = dict(lr_gen=1e-6, lr_disc=1e-6)
+    return {
+        "hifigan": configs.HifiganConfig(
+            generator_model_params=dict(upsample_factors=[8, 8, 4],
+                                        upsample_kernel_sizes=[16, 16, 8],
+                                        upsample_initial_channel=32, resblock_kernel_sizes=[3],
+                                        resblock_dilation_sizes=[[1, 3]], resblock_type="1"),
+            discriminator_model_params=dict(width_mult=1 / 32), use_noise_augment=True,
+            **common),
+        "multiband_melgan": configs.MultibandMelganConfig(
+            generator_model_params=dict(upsample_factors=[8, 4, 2], base_channels=32,
+                                        num_res_blocks=1),
+            discriminator_model_params=dict(base_channels=4, max_channels=32,
+                                            downsample_factors=[4, 4]),
+            steps_to_start_discriminator=1, **small_lr, **common),
+        "univnet": configs.UnivnetConfig(
+            generator_model_params=dict(in_channels=8, hidden_channels=8,
+                                        upsample_factors=[8, 8, 4], lvc_layers_each_block=2,
+                                        kpnet_hidden_channels=8),
+            discriminator_model="parallel_wavegan_discriminator",
+            discriminator_model_params=dict(num_layers=4, conv_channels=8), **small_lr,
+            **common),
+        "wavegrad": configs.WavegradConfig(
+            model_params=dict(y_conv_channels=8, x_conv_channels=16,
+                              dblock_out_channels=[8, 8, 16, 16],
+                              ublock_out_channels=[16, 16, 8, 8, 8]),
+            train_noise_schedule={"min_val": 1e-6, "max_val": 1e-2, "num_steps": 50},
+            **common),
+        "wavernn": configs.WavernnConfig(
+            model_args=dict(rnn_dims=16, fc_dims=16, compute_dims=8, res_out_dims=8,
+                            num_res_blocks=1, upsample_factors=[4, 8, 8]), **common),
+    }
+
+
+@contextlib.contextmanager
+def vocoder_host_draws():
+    """The vocoders' step draws made on the host: WaveGrad's ``draw`` and
+    the noise of ParallelWaveGAN and UnivNet come from a CPU generator
+    seeded with the step generator's seed, so the CPU and the card draw
+    the same numbers (each draws once a step)."""
+    import torch
+
+    from tts_tpu_torch.vocoder.models.parallel_wavegan_generator import ParallelWaveganGenerator
+    from tts_tpu_torch.vocoder.models.univnet_generator import UnivnetGenerator
+    from tts_tpu_torch.vocoder.models.wavegrad import WavegradVocoder
+
+    def on_host(fn):
+        def wrapped(self, x, generator=None):
+            return fn(self, x, torch.Generator().manual_seed(generator.initial_seed()))
+        return wrapped
+
+    saved = [(cls, name, getattr(cls, name)) for cls, name in (
+        (WavegradVocoder, "draw"), (ParallelWaveganGenerator, "noise"),
+        (UnivnetGenerator, "noise"))]
+    for cls, name, fn in saved:
+        setattr(cls, name, on_host(fn))
+    try:
+        yield
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def tiny_vocoder_fit(config, data_path: str, device) -> list:
+    """One ``Trainer.fit`` of ``config`` (weights from ``config.seed``, drawn
+    on the host) on ``device`` with host draws; its train and eval scalars
+    (the times left out)."""
+    import torch
+
+    from tts_tpu_torch.trainer.trainer import Trainer, TrainerArgs
+    from tts_tpu_torch.vocoder.dataset import load_wav_data
+    from tts_tpu_torch.vocoder.models import setup_model
+
+    eval_files, train_files = load_wav_data(data_path, config.eval_split_size)
+    recorder = LossRecorder()
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+        t = Trainer(TrainerArgs(), copy.deepcopy(config), out, setup_model(copy.deepcopy(config)),
+                    train_files, eval_files, device=device)
+        t.dashboard = recorder
+        with vocoder_host_draws():
+            t.fit()
+    sync(device)
+    del t
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return [(scope, step, {k: v for k, v in m.items() if not k.endswith("_time")})
+            for scope, step, m in recorder.scalars]
+
+
+def vocoder_fits_card_against_cpu(data_path: str, device, card: str) -> None:
+    """Each family's tiny fit on the CPU, then on the card, fp32 with TF32
+    off, the same weights and host draws: every loss of every step and of
+    the evaluation within ``VOC_TOL`` of its own value (of ``VOC_FLOOR``
+    nearer 0)."""
+    for name, config in tiny_vocoder_configs(data_path).items():
+        cpu = tiny_vocoder_fit(config, data_path, "cpu")
+        got = tiny_vocoder_fit(config, data_path, device)
+        if [(s, n) for s, n, _ in cpu] != [(s, n) for s, n, _ in got] or len(cpu) < 3:
+            raise AssertionError(f"tiny {name} fit: the runs logged {cpu} and {got}")
+        worst = 0.0
+        for (scope, step, want), (_, _, have) in zip(cpu, got):
+            if set(want) != set(have):
+                raise AssertionError(f"tiny {name} fit: {sorted(have)} against {sorted(want)}")
+            err = max(abs(have[k] - want[k]) / max(abs(want[k]), VOC_FLOOR) for k in want)
+            worst = max(worst, err)
+            if not err <= VOC_TOL:
+                raise AssertionError(f"tiny {name} fit card against CPU, {scope} at step {step}: "
+                                     f"{have} against {want}")
+        n_steps = sum(scope == "train" for scope, _, _ in cpu)
+        log(f"tiny {name} fit card against CPU ({n_steps} steps and an evaluation through "
+            f"Trainer.fit, B=4, fp32, TF32 off, host draws): {len(cpu[0][2])} scalars a step, "
+            f"each within {worst:.3g} of its own value (tol {VOC_TOL}) | {card}")
+
+
+def recipe_step(name: str, data_path: str, files, device, card: str, cut=None) -> None:
+    """One recipe's steps at its published width through the trainer's
+    hooks (the GAN step or the generic one): the first batch of its data
+    pipeline, two steps, each timed on the device's clock edge; the losses
+    finite."""
+    import torch
+
+    from tts_tpu_torch.trainer.trainer import Trainer, TrainerArgs, step_seed
+    from tts_tpu_torch.vocoder.models import setup_model
+
+    config = vocoder_recipe_config(name, data_path)
+    if cut is not None:
+        cut(name, config)
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+        model = setup_model(config)
+        t = Trainer(TrainerArgs(), config, out, model, [], device=device)
+        ds = model.get_dataset(config, files[:config.batch_size])
+        batch = t._format_batch(next(ds.batches(config.batch_size, seed=0,
+                                                num_workers=VOC_WORKERS)))
+        ready = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], {}
+        for i in range(2):
+            t.generator.manual_seed(step_seed(t.seed, i))
+            sync(device)
+            t1 = time.perf_counter()
+            t.state, metrics = t.train_step_fn(t.state, batch)
+            sync(device)
+            ms.append((time.perf_counter() - t1) * 1e3)
+    host = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in host.values()):
+        raise AssertionError(f"{name} recipe step: {host}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    n_params = sum(p.numel() for p in model.module.parameters()) + sum(
+        p.numel() for p in getattr(model, "discriminator", torch.nn.Module()).parameters())
+    loss = host.get("loss")
+    log(f"{name} recipe step (B={config.batch_size}, seq_len {config.seq_len}, "
+        f"{n_params / 1e6:.1f} M parameters, fp32): " + ", ".join(f"{v:.1f}" for v in ms)
+        + f" ms (the first warms up), loss {loss:.4g}, peak {peak:.2f} GB; built and first "
+        f"batch in {ready:.1f} s | {card}")
+    del model, t, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def phase_vocoder_train(card: str, device="cuda", cut=None) -> None:
+    """Phase 23: vocoder training. A corpus of ``VOC_CLIPS`` synthetic clips
+    (2-10 s, 22.05 kHz) written under a temporary directory; the LJSpeech
+    HiFiGAN recipe (v1, B=32, 8192-sample segments, noise augmentation,
+    MPD and MSD, the mel L1, feature matching, mse) through
+    ``tts_tpu_torch.bin.train_vocoder`` on the card: an epoch of three steps
+    with ``VOC_WORKERS`` loader threads, an evaluation, a checkpoint (no
+    best model: each file holds ~1 GB), then ``--continue_path`` for a
+    second epoch; the checkpoint's generator
+    through the ``Synthesizer``'s vocoder path vocodes an eval mel bit-equal
+    to the trained module. Then two steps each of the multi-band MelGAN,
+    UnivNet, WaveGrad and WaveRNN (mold) recipes at their widths, and each
+    family's tiny fit on the card against the CPU. No hand-written kernel
+    lies on the path: K1, K4 and K2 must launch 0 times. ``cut(name,
+    config)`` shrinks each recipe config in place for rehearsals on the
+    CPU."""
+    import torch
+
+    from tts_tpu_torch.bin import train_vocoder
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.ops.mas import maximum_path
+    from tts_tpu_torch.ops.quant import int8_linear
+    from tts_tpu_torch.utils.synthesizer import Synthesizer
+    from tts_tpu_torch.vocoder.dataset import GANDataset, load_wav_data
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+
+    def stamp(what: str) -> None:
+        log(f"  (phase 23 at {time.time() - t_phase:.1f} s: {what})")
+
+    decode_attention.launches = int8_linear.launches = maximum_path.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        wavs = os.path.join(d, "wavs")
+        seconds = write_wav_corpus(wavs)
+        log(f"vocoder corpus: {len(seconds)} clips of synthetic 22.05 kHz 16-bit audio from "
+            f"seed 0, {seconds.min():.1f}-{seconds.max():.1f} s")
+        stamp("corpus written")
+
+        # 1. HiFiGAN v1 through train_vocoder, then resumed
+        config = vocoder_recipe_config("hifigan", wavs)
+        config.save_best_after = 10**9  # one checkpoint a run: each holds ~1 GB
+        if cut is not None:
+            cut("hifigan", config)
+        cfg_path = os.path.join(d, "hifigan.json")
+        config.save_json(cfg_path)
+        run = os.path.join(d, "run")
+        watch = LoopWatch(device, profile_step=2, what="train_vocoder step")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t = train_vocoder.main(["--config_path", cfg_path, "--output_path", run, "--device",
+                                str(device)], callbacks=watch.callbacks(card))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        files = sorted(os.listdir(run))
+        want = [f"checkpoint_{t.global_step}.pth", "config.json"]
+        if files != want or not np.isfinite(t.best_loss):
+            raise AssertionError(f"train_vocoder wrote {files}, best loss {t.best_loss}")
+        m = watch.marks
+        stages = (f"built in {m['built'] - m['made']:.1f} s, first batch after "
+                  f"{m['first_step'] - m['built']:.1f} s, the epoch's steps "
+                  f"{m['epoch_end'] - m['first_step']:.1f} s, evaluation and checkpoint "
+                  f"{t0 + wall - m['epoch_end']:.1f} s")
+        n_gen = sum(p.numel() for p in t.model.module.parameters())
+        n_disc = sum(p.numel() for p in t.model.discriminator.parameters())
+        log(f"train_vocoder, LJSpeech HiFiGAN recipe (v1: {n_gen / 1e6:.2f} M generator, "
+            f"{n_disc / 1e6:.2f} M MPD + MSD parameters), B={config.batch_size}, seq_len "
+            f"{config.seq_len}, {VOC_WORKERS} loader threads: {watch.steps} steps "
+            + ", ".join(f"{ms:.1f}" for ms in watch.step_ms) + " ms on the trainer's clock "
+            "(synchronized; the first warms up); the loop waited on the loader "
+            + ", ".join(f"{ms:.1f}" for ms in watch.wait_ms) + " ms before them; busy "
+            + (f"{100 * watch.busy:.1f} % (kernel time summed), the device active "
+               f"{100 * watch.union_busy:.1f} % of the wall time on {watch.streams} streams"
+               if watch.busy is not None else "not measured")
+            + f" over step 2; eval loss {t.best_loss:.4g}; peak memory {peak:.2f} GB; "
+            f"{wall:.1f} s in all ({stages}) | {card}")
+        first_step, first_best = t.global_step, t.best_loss
+        del t
+        stamp("HiFiGAN trained")
+        watch = LoopWatch(device)
+        r = train_vocoder.main(["--continue_path", run, "--device", str(device),
+                                "--coqpit.epochs", "2"], callbacks=watch.callbacks(card))
+        counts = {k: o.count for k, o in r.state.opt_states.items()}
+        if (r.global_step != 2 * first_step or r.epochs_done != 2
+                or any(c != r.global_step for c in counts.values())):
+            raise AssertionError(f"--continue_path: step {r.global_step}, epochs "
+                                 f"{r.epochs_done}, updates {counts}")
+        log(f"--continue_path: resumed at step {first_step} (eval loss {first_best:.4g}), ran "
+            f"to step {r.global_step} (updates {counts}, best loss {r.best_loss:.4g}); steps "
+            + ", ".join(f"{ms:.1f}" for ms in watch.step_ms) + f" ms | {card}")
+        stamp("resumed")
+
+        # 2. the checkpoint's generator through the Synthesizer's vocoder path
+        eval_files, train_files = load_wav_data(wavs, config.eval_split_size)
+        mel = next(GANDataset(r.config, eval_files[:1], is_eval=True).batches(1, shuffle=False))
+        mel = torch.from_numpy(mel["mel"]).to(device)
+        synth = Synthesizer(vocoder_checkpoint=os.path.join(run, f"checkpoint_{r.global_step}.pth"),
+                            vocoder_config=os.path.join(run, "config.json"), device=device)
+        with torch.no_grad():
+            got, want = synth.vocoder_model.inference(mel), r.model.module.inference(mel)
+        if not torch.equal(got, want) or not torch.isfinite(got).all():
+            raise AssertionError("the Synthesizer's vocoder differs from the trained generator")
+        log(f"Synthesizer(vocoder_checkpoint=run/checkpoint_{r.global_step}.pth): an eval mel "
+            f"of {mel.shape[1]} frames vocoded bit-equal to the trained generator "
+            f"({got.shape[1]} samples, finite) | {card}")
+        del r, synth, got, want
+        if cuda:
+            torch.cuda.empty_cache()
+        stamp("vocoded through the Synthesizer")
+
+        # 3. one recipe step each of the other families
+        for name in ("multiband_melgan", "univnet", "wavegrad", "wavernn"):
+            recipe_step(name, wavs, train_files, device, card, cut)
+            stamp(f"{name} step")
+
+        # 4. the tiny fits, card against CPU (CPU against CPU in a rehearsal)
+        tiny = os.path.join(d, "tiny")
+        os.makedirs(tiny)
+        for i in np.argsort(seconds)[:VOC_TINY_CLIPS]:
+            os.symlink(os.path.join(wavs, f"clip{i:04d}.wav"),
+                       os.path.join(tiny, f"clip{i:04d}.wav"))
+        vocoder_fits_card_against_cpu(tiny, device, card)
+        stamp("tiny fits")
+    launches = {"K1": decode_attention.launches, "K4": int8_linear.launches,
+                "K2": maximum_path.launches}
+    if any(launches.values()):
+        raise AssertionError(f"phase 23: kernels launched on the vocoder training path: "
+                             f"{launches}")
+    log(f"phase 23 (vocoder training) took {time.time() - t_phase:.1f} s; launches on its path: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" | {card}")
+
+
 def selected_phases(args) -> set:
-    """The phases a run does: all 22 without arguments, else phases 1 and 2
+    """The phases a run does: all 23 without arguments, else phases 1 and 2
     (environment, build) and the numbers given (5 brings 4, whose model it
     serves). Raises ``ValueError`` on anything else."""
     if not args:
-        return set(range(1, 23))
+        return set(range(1, 24))
     chosen = {int(a) for a in args}  # ValueError on a word
-    if not chosen <= set(range(1, 23)):
-        raise ValueError(f"phases are 1-22, got {sorted(chosen)}")
+    if not chosen <= set(range(1, 24)):
+        raise ValueError(f"phases are 1-23, got {sorted(chosen)}")
     return chosen | {1, 2} | ({4} if 5 in chosen else set())
 
 
@@ -8571,12 +8981,14 @@ def main(argv=None) -> int:
         k2 = phase_train_loop(card, k2)
     if k2 is not None:
         kernels.append(k2)
+    if 23 in phases:
+        phase_vocoder_train(card)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "transformers",
                                                    "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    ran = "1-22" if len(phases) == 22 else ", ".join(map(str, sorted(phases)))
+    ran = "1-23" if len(phases) == 23 else ", ".join(map(str, sorted(phases)))
     log(f"chip_smoke.py: phases {ran} took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

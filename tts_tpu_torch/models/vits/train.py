@@ -42,7 +42,7 @@ import torch
 from tts_tpu_torch.audio.torch_transforms import wav_to_mel
 from tts_tpu_torch.layers.common import use_dropout_generator
 from tts_tpu_torch.ops.helpers import segment
-from tts_tpu_torch.trainer.optim import build_lr_schedule, build_optimizer
+from tts_tpu_torch.trainer.optim import build_gan_optimizers
 from tts_tpu_torch.trainer.precision import autocast, is_mixed_precision
 from tts_tpu_torch.trainer.state import TrainState
 
@@ -69,20 +69,8 @@ def aux_input(batch) -> Dict:
 
 def make_optimizers(config) -> Dict:
     """The ``gen`` and ``disc`` optimizers of ``config`` (port of
-    ``tts_tpu/models/vits/train.py:35-47``)."""
-    gen_sched = build_lr_schedule(config.lr_scheduler_gen, config.lr_gen,
-                                  config.lr_scheduler_gen_params)
-    disc_sched = build_lr_schedule(config.lr_scheduler_disc, config.lr_disc,
-                                   config.lr_scheduler_disc_params)
-    clip = config.grad_clip if isinstance(config.grad_clip, (int, float)) else config.grad_clip[0]
-    accum = int(getattr(config, "grad_accum_steps", 1) or 1)
-    skip_nf = bool(getattr(config, "skip_non_finite_grads", False))
-    return {
-        "gen": build_optimizer(config.optimizer, gen_sched, config.optimizer_params, clip, accum,
-                               skip_nf),
-        "disc": build_optimizer(config.optimizer, disc_sched, config.optimizer_params, clip,
-                                accum, skip_nf),
-    }
+    ``tts_tpu/models/vits/train.py:35-47``; ``trainer.optim.build_gan_optimizers``)."""
+    return build_gan_optimizers(config)
 
 
 def param_names(model: Vits) -> Dict[str, List[str]]:

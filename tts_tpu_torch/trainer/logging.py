@@ -33,7 +33,13 @@ class ConsoleLogger:
         pass
 
     def add_figures(self, scope: str, figures: Dict, step: int):
-        pass
+        """Shows nothing; closes the figures (matplotlib keeps every open one)."""
+        if figures:
+            import matplotlib.pyplot as plt
+
+            for fig in figures.values():
+                if fig is not None:
+                    plt.close(fig)
 
     def add_audios(self, scope: str, audios: Dict[str, np.ndarray], step: int, sample_rate: int):
         pass

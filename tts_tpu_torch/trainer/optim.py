@@ -32,7 +32,8 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-__all__ = ["build_lr_schedule", "build_optimizer", "Optimizer", "OptimizerState"]
+__all__ = ["build_lr_schedule", "build_optimizer", "build_gan_optimizers", "Optimizer",
+           "OptimizerState"]
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -272,3 +273,24 @@ def build_optimizer(name: str, lr: Schedule, params: Optional[dict] = None,
         grad_clip=grad_clip or 0.0, grad_accum=int(grad_accum or 1),
         skip_non_finite=bool(skip_non_finite),
     )
+
+
+def build_gan_optimizers(config) -> dict:
+    """The ``gen`` and ``disc`` optimizers of a GAN config (VITS, the GAN
+    vocoders): ``optimizer`` and ``optimizer_params`` for both, each group's
+    ``lr_gen``/``lr_disc`` and schedule, the first of ``grad_clip`` (a number
+    or a list), ``grad_accum_steps``, ``skip_non_finite_grads`` (port of
+    ``tts_tpu/models/vits/train.py:35-47`` and
+    ``tts_tpu/vocoder/models/gan.py:60-70``)."""
+    clip = config.grad_clip[0] if isinstance(config.grad_clip, (list, tuple)) \
+        else config.grad_clip
+    accum = int(getattr(config, "grad_accum_steps", 1) or 1)
+    skip_nf = bool(getattr(config, "skip_non_finite_grads", False))
+    return {
+        group: build_optimizer(config.optimizer,
+                               build_lr_schedule(getattr(config, f"lr_scheduler_{group}"),
+                                                 getattr(config, f"lr_{group}"),
+                                                 getattr(config, f"lr_scheduler_{group}_params")),
+                               config.optimizer_params, clip, accum, skip_nf)
+        for group in ("gen", "disc")
+    }

@@ -4,7 +4,11 @@ config, output_path, model, train_samples, eval_samples).fit()``).
 
 A model brings its own step through the ``make_train_step`` and
 ``make_eval_step`` hooks (VITS: the fused GAN step of
-``models/vits/train.py``). What the JAX trainer does, the port does:
+``models/vits/train.py``; the GAN vocoders: ``vocoder/models/gan.py``), or
+gives its loss through ``train_step`` and takes the trainer's generic
+single-optimizer step (WaveGrad, WaveRNN; port of the JAX trainer's
+``_build_generic_step`` and ``_build_eval_step``). What the JAX trainer
+does, the port does:
 
 - a model that holds no weights yet is drawn from ``config.seed`` through
   its ``init_params``;
@@ -33,13 +37,22 @@ Exact resume: a step's draws (noise, segments, dropout) come from one
 ``(config.seed, step)``, as the JAX step draws from ``fold_in(rng,
 step)``, so a resumed run draws what an uninterrupted one would.
 
+The generic step: one optimizer (``config.optimizer``, ``lr``,
+``lr_scheduler``, ``grad_clip``, ``grad_accum_steps``,
+``skip_non_finite_grads``) over the ``model`` group, the parameters of the
+model's ``module``; ``model.train_step(batch, generator, train=True) ->
+(loss, metrics)`` under bf16 autocast with ``mixed_precision``; the
+metrics gain ``loss`` and ``grad_norm`` (the global norm of the gradients,
+before the clip). The JAX step's three streams (``dropout``, ``noise``,
+``segments``, folded from the step's key) are the one generator here. The
+evaluation, where the model has no ``make_eval_step``, runs
+``train_step(..., train=False)`` without gradient on a generator seeded 0.
+
 The JAX trainer's mesh calls (``get_mesh``, ``replicate``,
 ``with_data_parallel``) and its ``rank`` and ``use_ddp`` arguments have no
 counterpart on one device; they wait for data parallelism (ROADMAP.md
-item 18). The JAX trainer's generic single-optimizer step (its
-``_build_generic_step``) serves models the port does not train yet: a
-model without ``make_train_step`` raises, naming ROADMAP.md items 17c and
-17d.
+item 18). A model with neither ``make_train_step`` nor ``train_step``
+raises: the acoustic models' training is ROADMAP.md item 17d.
 """
 
 from __future__ import annotations
@@ -56,14 +69,17 @@ import torch
 from tts_tpu_torch import resolve_device
 from tts_tpu_torch.trainer.callbacks import TrainerCallback
 from tts_tpu_torch.trainer.logging import logger_factory
+from tts_tpu_torch.trainer.optim import build_lr_schedule, build_optimizer
+from tts_tpu_torch.trainer.precision import autocast, is_mixed_precision
+from tts_tpu_torch.trainer.state import TrainState
 from tts_tpu_torch.utils.io import load_checkpoint_full, save_checkpoint, save_config
 
 CHECKPOINT_EXT = ".pth"
 
-GENERIC_STEP_REASON = (
-    "the trainer runs models that bring their own step (make_train_step, as VITS does); the "
-    "generic single-optimizer step comes with the vocoders' and the acoustic models' training "
-    "(ROADMAP.md items 17c and 17d)")
+NO_STEP_REASON = (
+    "the trainer runs models that bring their own step (make_train_step: VITS, the GAN "
+    "vocoders) or their loss (train_step: WaveGrad, WaveRNN); this model has neither, and the "
+    "acoustic models' training is ROADMAP.md item 17d")
 
 
 @dataclass
@@ -132,16 +148,18 @@ class Trainer:
         if args.grad_accum_steps and args.grad_accum_steps > 1:
             config.grad_accum_steps = args.grad_accum_steps
         self.seed = int(getattr(config, "seed", 54321))
-        if not (hasattr(type(model), "make_train_step") or hasattr(model, "make_train_step")):
-            raise NotImplementedError(GENERIC_STEP_REASON)
+        if not (hasattr(model, "make_train_step") or hasattr(model, "train_step")):
+            raise NotImplementedError(NO_STEP_REASON)
         if not getattr(model, "initialized", True):
             model.init_params(seed=self.seed, device=self.device, discriminator=True)
         # one generator for every step's draws, reseeded before each step
         self.generator = torch.Generator(device=self.device)
-        self.train_step_fn, self.optimizers, self.state = model.make_train_step(
-            config, self.generator, device=self.device)
-        self.eval_step_fn = model.make_eval_step(config) if hasattr(model, "make_eval_step") \
-            else None
+        if hasattr(model, "make_train_step"):
+            self.train_step_fn, self.optimizers, self.state = model.make_train_step(
+                config, self.generator, device=self.device)
+        else:
+            self._build_generic_step()
+        self._build_eval_step()
         self.global_step = int(self.state.step)
         self.best_loss = float("inf")
         self.epochs_done = 0
@@ -154,6 +172,63 @@ class Trainer:
         self.callbacks.on_init_end(self)
 
     # ------------------------------------------------------------------
+    def _build_generic_step(self):
+        """One optimizer over the model's ``module`` and its loss from
+        ``model.train_step`` (port of the JAX ``_build_generic_step``)."""
+        config, model = self.config, self.model
+        sched = build_lr_schedule(getattr(config, "lr_scheduler", None), config.lr,
+                                  getattr(config, "lr_scheduler_params", {}))
+        clip = getattr(config, "grad_clip", 0.0)
+        clip = clip[0] if isinstance(clip, (list, tuple)) else clip
+        tx = build_optimizer(config.optimizer, sched, getattr(config, "optimizer_params", {}) or {},
+                             clip, int(getattr(config, "grad_accum_steps", 1) or 1),
+                             bool(getattr(config, "skip_non_finite_grads", False)))
+        self.optimizers = {"model": tx}
+        module = model.module.to(self.device).requires_grad_(True)
+        self.state = TrainState.create({"model": list(module.parameters())}, self.optimizers)
+        mixed = is_mixed_precision(config)
+        generator = self.generator
+
+        def train_step(state: TrainState, batch):
+            module.train()
+            try:
+                with autocast(self.device, mixed):
+                    loss, aux = model.train_step(batch, generator, train=True)
+                params = state.params["model"]
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+            finally:
+                module.eval()
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+            metrics = {k: v.detach() for k, v in aux.items() if k != "outputs"}
+            metrics["loss"] = loss.detach()
+            metrics["grad_norm"] = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+            return state.apply_updates({"model": grads}), metrics
+
+        self.train_step_fn = train_step
+
+    def _build_eval_step(self):
+        """The evaluation without gradient (port of the JAX
+        ``_build_eval_step``): the model's ``make_eval_step``, else
+        ``train_step(..., train=False)`` (where it takes ``train``) on a
+        generator seeded 0."""
+        model = self.model
+        self.eval_step_fn = None
+        if hasattr(model, "make_eval_step"):
+            self.eval_step_fn = model.make_eval_step(self.config)
+        elif hasattr(model, "train_step"):
+            accepts_train = "train" in inspect.signature(model.train_step).parameters
+            mixed = is_mixed_precision(self.config)
+
+            @torch.no_grad()
+            def eval_step(state, batch):
+                generator = torch.Generator(device=self.device).manual_seed(0)
+                kwargs = {"train": False} if accepts_train else {}
+                with autocast(self.device, mixed):
+                    loss, aux = model.train_step(batch, generator, **kwargs)
+                return {**{k: v for k, v in aux.items() if k != "outputs"}, "loss": loss}
+
+            self.eval_step_fn = eval_step
+
     def _checkpoint_state(self) -> Dict:
         """The model's weights and the optimizer states as checkpoint parts."""
         parts = {"model": self.model.module.state_dict(), "optimizer": self.state.state_dict()}

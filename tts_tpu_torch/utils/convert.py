@@ -35,7 +35,11 @@ aligner and prosody encoders. ``parallel_wavegan_from_jax_params``,
 ``univnet_from_jax_params`` and ``wavegrad_from_jax_params`` are the generic
 rules; ``wavernn_from_jax_params`` packs flax's ``GRUCell`` Denses into
 ``nn.GRUCell`` (``bias_hh`` zeros for ``r`` and ``z``, ``hn``'s bias for
-``n``).
+``n``). The vocoders' discriminators
+(``vocoder_discriminator_from_jax_params``, every family) take the
+generic rules; ``vocoder_train_state_from_jax_params`` carries a JAX
+vocoder train state (``{"gen", "disc"}`` or ``{"model"}``) into the groups
+of the port's trainer checkpoints.
 
 ``reference_vits_state``, ``reference_glow_tts_state``,
 ``reference_melgan_state``, ``reference_tacotron2_state``,
@@ -1970,6 +1974,42 @@ def wavernn_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         state.update({f"{name}.{k}": torch.from_numpy(np.ascontiguousarray(v))
                       for k, v in _pack_gru(params[name]).items()})
     return state
+
+
+def vocoder_discriminator_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX vocoder discriminator's params → the state_dict of the port's
+    (``vocoder/models/``): ``HifiganDiscriminator`` (``mpd``/``msd``,
+    ``disc_p<p>``/``disc_s<i>``, ``convs_<i>``), ``MelganDiscriminator`` and
+    ``MelganMultiscaleDiscriminator`` (``disc_<i>``, ``conv_down_<i>``),
+    ``UnivnetDiscriminator`` (``mrsd``, ``spec_<i>``, 2-D kernels ``[kh, kw,
+    in, out]`` → ``[out, in, kh, kw]``), ``ParallelWaveganDiscriminator``
+    and ``RandomWindowDiscriminator``: the generic rules, every module named
+    as in flax."""
+    return flax_to_state_dict(params)
+
+
+def vocoder_generator_from_jax_params(params: Mapping, generator_model: str
+                                      ) -> Dict[str, torch.Tensor]:
+    """A JAX vocoder generator's params → the port's state_dict, by the
+    carrier of ``generator_model`` (WaveRNN's packs its GRU cells; every
+    other generator takes the generic rules)."""
+    if generator_model.lower() == "wavernn":
+        return wavernn_from_jax_params(params)
+    return flax_to_state_dict(params)
+
+
+def vocoder_train_state_from_jax_params(params: Mapping, generator_model: str
+                                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX vocoder train state's params (``{"gen", "disc"}`` of the GAN
+    step, or ``{"model"}`` of the generic step) → ``{"model": generator
+    state_dict}`` plus ``{"discriminator": ...}`` for a GAN: the groups of
+    the port's trainer checkpoints (``utils/io.py``), which
+    ``Trainer(--restore_path)`` and the ``Synthesizer``'s vocoder load."""
+    gen = params["gen"] if "gen" in params else params["model"]
+    out = {"model": vocoder_generator_from_jax_params(gen, generator_model)}
+    if "disc" in params:
+        out["discriminator"] = vocoder_discriminator_from_jax_params(params["disc"])
+    return out
 
 
 def _with_conv_axis(key: str, v: np.ndarray) -> np.ndarray:

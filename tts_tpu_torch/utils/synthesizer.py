@@ -234,15 +234,25 @@ class Synthesizer:
         """A vocoder checkpoint file with its config: the generator its
         config names, its own
         ``AudioProcessor`` for the bridge, and its sample rate for the
-        output (port of ``tts_tpu/utils/synthesizer.py:131-152``)."""
+        output (port of ``tts_tpu/utils/synthesizer.py:131-152``). The file
+        holds the generator's state_dict, a trainer checkpoint (its
+        ``model`` group, or a train state's ``gen``, as the JAX loader takes
+        them), or a reference-layout checkpoint. A WaveRNN whose file holds
+        layer norms (trained, not converted from the reference) is built
+        with them; the JAX loader builds folded norms whatever the file
+        holds (ROADMAP.md F58)."""
         config = config_from_dict(read_json_with_comments(config_path))
         if not hasattr(config, "generator_model"):
             raise ValueError(f"{config_path} is not a vocoder config (model {config.model!r})")
-        with torch.device("meta"):
-            generator = make_generator_from_config(config)
         state = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(state, dict) and "model" in state:
-            state = state["model"]
+        if isinstance(state, dict) and ("model" in state or "gen" in state):
+            state = state["model"] if "model" in state else state["gen"]
+        overrides = {}
+        if config.generator_model.lower() == "wavernn" and any(
+                k.endswith("resnet.norm_in.weight") for k in state):
+            overrides["norm_type"] = "layer"  # trained, not converted (F58)
+        with torch.device("meta"):
+            generator = make_generator_from_config(config, **overrides)
         if not set(state) >= set(generator.state_dict()):
             from tts_tpu_torch.utils.convert import load_reference_vocoder
 

@@ -3,14 +3,16 @@
 reference ``TTS/vocoder/layers/pqmf.py``), and what ParallelWaveGAN,
 UnivNet, WaveGrad and WaveRNN share: the 1x1 convolution of a flax ``Dense``
 on ``[B, C, T]``, the nearest-repeat upsampling with one smoothing tap shared
-across channels, and the default noise generator.
+across channels, the default noise generator, and the random weights a
+vocoder starts training from (:func:`init_weights`).
 
 The synthesis side serves the multi-band iSTFT decoder
 (``istft_subbands_decoder > 1``) and the multi-band MelGAN generator; the
-analysis side serves training and waits for it (ROADMAP.md item 17). The
+analysis side splits the real waveform into its bands for the sub-band
+STFT loss of multi-band MelGAN training (``vocoder/models/gan.py``). The
 filters are designed on the host in float64 (``scipy.signal.firwin``) and
-cast to float32, as in the JAX package; the synthesis filter moves to the
-signal's device and dtype at its first call there and stays.
+cast to float32, as in the JAX package; each filter moves to the signal's
+device and dtype at its first call there and stays.
 """
 
 from __future__ import annotations
@@ -67,15 +69,24 @@ def pqmf_filters(N: int = 4, taps: int = 62, cutoff: float = 0.15,
 
 
 class PQMF:
-    """Pseudo-QMF multi-band synthesis on ``[B, T, C]`` tensors; stateless
-    apart from the filters. The analysis side serves training and the
-    MelGAN family, and waits for them."""
+    """Pseudo-QMF multi-band analysis and synthesis on ``[B, T, C]``
+    tensors; stateless apart from the filters."""
 
     def __init__(self, N: int = 4, taps: int = 62, cutoff: float = 0.15, beta: float = 9.0):
         self.N = N
         self.taps = taps
-        _, G = pqmf_filters(N, taps, cutoff, beta)
+        H, G = pqmf_filters(N, taps, cutoff, beta)
+        self.H = torch.from_numpy(H)[:, None]  # conv1d weight [N, 1, taps + 1]
         self.G = torch.from_numpy(G)[None]  # conv1d weight [1, N, taps + 1]
+
+    def analysis(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, T, 1]`` → ``[B, T // N, N]``: the analysis filter of each
+        band, then every ``N``-th sample (a stride-``N`` convolution, zero
+        padding ``taps // 2`` on each side)."""
+        if self.H.device != x.device or self.H.dtype != x.dtype:
+            self.H = self.H.to(x)
+        return F.conv1d(x.transpose(1, 2), self.H, stride=self.N,
+                        padding=self.taps // 2).transpose(1, 2)
 
     def synthesis(self, x: torch.Tensor) -> torch.Tensor:
         """``[B, T // N, N]`` → ``[B, T, 1]``: each band upsampled by ``N``
@@ -86,3 +97,32 @@ class PQMF:
         if self.G.device != x.device or self.G.dtype != x.dtype:
             self.G = self.G.to(x)
         return F.conv1d(up, self.G, padding=self.taps // 2).transpose(1, 2)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator,
+                 zero: Tuple[str, ...] = ()) -> nn.Module:
+    """Random fp32 weights for ``module`` from ``generator`` (on the CPU, so
+    the draw is the same on every machine), in the order of its
+    parameters, as flax's default initialisers set them: a bias 0, a norm's
+    scale 1 and shift 0, a shared smoothing tap ``(2f + 1, 1, 1)`` the mean
+    ``1 / (2f + 1)``, every other weight N(0, 1 / fan_in) (fan_in: a
+    transposed convolution's ``in x k``, else the elements a row of the
+    weight holds). Parameters whose names end with a suffix in ``zero``
+    are 0 (WaveGrad's head, which the JAX module zero-initialises)."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
+        if name.endswith(zero) and zero:
+            p.zero_()
+        elif isinstance(owner, (nn.LayerNorm, nn.GroupNorm)) or leaf.endswith("_scale"):
+            p.fill_(1.0 if leaf == "weight" or leaf.endswith("_scale") else 0.0)
+        elif leaf.startswith("bias") or leaf.endswith("_shift"):
+            p.zero_()
+        elif p.dim() == 3 and p.shape[1:] == (1, 1) and leaf.startswith("up_"):
+            p.fill_(1.0 / p.shape[0])
+        else:
+            fan_in = p.shape[0] * p.shape[2] if isinstance(owner, nn.ConvTranspose1d) else \
+                p[0].numel()
+            p.copy_(torch.randn(p.shape, generator=generator) / fan_in**0.5)
+    return module

@@ -1,7 +1,10 @@
-"""HiFiGAN's period and scale discriminators (port of ``DiscriminatorP``
-and ``DiscriminatorS`` in ``tts_tpu/vocoder/models/hifigan_discriminator.py``;
-reference ``TTS/vocoder/models/hifigan_discriminator.py``), as VITS training
-uses them (``models/vits/modules.py::VitsDiscriminator``).
+"""HiFiGAN's discriminators (port of
+``tts_tpu/vocoder/models/hifigan_discriminator.py``; reference
+``TTS/vocoder/models/hifigan_discriminator.py``): the period and scale
+discriminators, as VITS training uses them
+(``models/vits/modules.py::VitsDiscriminator``), and the vocoders'
+``MultiPeriodDiscriminator``, ``MultiScaleDiscriminator`` (the waveform
+average-pooled between scales) and ``HifiganDiscriminator`` (both).
 
 Each takes a waveform ``[B, T, 1]`` and returns ``(score [B, n],
 feature maps)``, keeping the JAX package's quirks:
@@ -14,14 +17,17 @@ feature maps)``, keeping the JAX package's quirks:
   ``[B, T', period, C]`` for a period discriminator, ``[B, T', C]`` for the
   scale one; the score flattens them in that order.
 Spectral and weight norms are left out (plain kernels), as in the JAX
-package. The multi-period and multi-scale wrappers of the vocoders wait
-for vocoder training (ROADMAP.md item 17c).
+package. The wrappers return ``(scores, feature maps)`` as lists, one entry
+a sub-discriminator; module names follow the flax modules' (``mpd``,
+``msd``, ``disc_p<period>``, ``disc_s<i>``), so
+``utils.convert.vocoder_discriminator_from_jax_params`` maps the JAX
+parameters one to one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -97,3 +103,67 @@ class DiscriminatorS(nn.Module):
         h = self.conv_post(h)
         feats.append(h.transpose(1, 2))
         return h.reshape(h.shape[0], -1), feats
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """A period discriminator for each of ``periods`` (port of
+    ``hifigan_discriminator.py:70-82``)."""
+
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11), width_mult: float = 1.0):
+        super().__init__()
+        self.periods = tuple(periods)
+        for p in self.periods:
+            self.add_module(f"disc_p{p}", DiscriminatorP(p, width_mult=width_mult))
+
+    def forward(self, x: torch.Tensor):
+        scores, feats = [], []
+        for p in self.periods:
+            score, feat = getattr(self, f"disc_p{p}")(x)
+            scores.append(score)
+            feats.append(feat)
+        return scores, feats
+
+
+def avg_pool(x: torch.Tensor, window: int = 4, stride: int = 2, pad: int = 2) -> torch.Tensor:
+    """``[B, T, C]``: zeros padded on each side, then the mean of each
+    ``window`` (the zeros counted), every ``stride`` samples."""
+    h = F.pad(x.transpose(1, 2), (pad, pad))
+    return F.avg_pool1d(h, window, stride).transpose(1, 2)
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """Scale discriminators at 1x, 2x and 4x downsampling, the waveform
+    average-pooled before each but the first (port of
+    ``hifigan_discriminator.py:123-137``)."""
+
+    def __init__(self, n_scales: int = 3, width_mult: float = 1.0):
+        super().__init__()
+        self.n_scales = n_scales
+        for i in range(n_scales):
+            self.add_module(f"disc_s{i}", DiscriminatorS(width_mult=width_mult))
+
+    def forward(self, x: torch.Tensor):
+        scores, feats = [], []
+        for i in range(self.n_scales):
+            if i:
+                x = avg_pool(x)
+            score, feat = getattr(self, f"disc_s{i}")(x)
+            scores.append(score)
+            feats.append(feat)
+        return scores, feats
+
+
+class HifiganDiscriminator(nn.Module):
+    """The multi-period then the multi-scale discriminator, their scores and
+    feature maps concatenated (port of ``hifigan_discriminator.py:140-158``)."""
+
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11), n_scales: int = 3,
+                 width_mult: float = 1.0):
+        super().__init__()
+        self.mpd = MultiPeriodDiscriminator(periods, width_mult)
+        self.msd = MultiScaleDiscriminator(n_scales, width_mult)
+
+    def forward(self, x: torch.Tensor):
+        scores_p, feats_p = self.mpd(x)
+        scores_s, feats_s = self.msd(x)
+        return scores_p + scores_s, feats_p + feats_s

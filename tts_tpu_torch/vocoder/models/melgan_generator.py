@@ -2,7 +2,7 @@
 reference ``TTS/vocoder/models/melgan_generator.py``,
 ``fullband_melgan_generator.py`` and ``multiband_melgan_generator.py``):
 ``ResidualStack``, ``MelganGenerator``, ``FullbandMelganGenerator`` and
-``MultibandMelganGenerator``, inference only.
+``MultibandMelganGenerator``.
 
 Public layout is the JAX package's: mel ``[B, T, C]`` in, ``[B, T', C_out]``
 out; the convolutions run on ``[B, C, T]`` inside. Upsampling is
@@ -11,8 +11,8 @@ output padding; the JAX ``TorchConvTranspose1d`` exists only to reproduce
 it, and ``utils.convert`` flips its time-reversed kernel back.
 ``inference`` pads the mel by repeating its two edge frames on each side
 (``inference_padding``); the multi-band generator then merges its four
-bands with the pseudo-QMF synthesis filter (``vocoder.layers.PQMF``). Its
-analysis side serves training and waits for it (ROADMAP.md item 17).
+bands with the pseudo-QMF synthesis filter (``vocoder.layers.PQMF``).
+Training (``vocoder/models/gan.py``) runs ``forward`` on the mel as it is.
 Module and parameter names follow the flax modules', so
 ``utils.convert.flax_to_state_dict`` maps the JAX parameters one to one.
 """
@@ -66,6 +66,7 @@ class MelganGenerator(nn.Module):
                  res_kernel: int = 3, num_res_blocks: int = 3, inference_padding: int = 2):
         super().__init__()
         self.proj_kernel = proj_kernel
+        self.out_channels = out_channels
         self.inference_padding = inference_padding
         self.upsample_factors = tuple(upsample_factors)
         self.conv_pre = nn.Conv1d(in_channels, base_channels, proj_kernel)

@@ -2,7 +2,7 @@
 ``tts_tpu/vocoder/models/parallel_wavegan_generator.py:19-132``, reference
 ``TTS/vocoder/models/parallel_wavegan_generator.py`` and
 ``layers/parallel_wavegan.py``): ``PWGANResidualBlock``, ``ConvUpsample``
-and ``ParallelWaveganGenerator``, inference only. A non-causal WaveNet over
+and ``ParallelWaveganGenerator``. A non-causal WaveNet over
 noise, conditioned on the mel upsampled to the sample rate.
 
 Public layout is the JAX package's: mel ``[B, T, M]`` and noise
@@ -17,13 +17,18 @@ upsampling's smoothing taps keep the JAX shape ``(2f + 1, 1, 1)``.
 pads the mel by ``inference_padding`` edge frames on each side, as the JAX
 HiFiGAN and MelGAN ``inference`` methods do, and draws the input noise from
 an explicit ``torch.Generator``; ``forward(c, x)`` takes the noise as given.
-The discriminator serves training and waits for it (ROADMAP.md item 17).
+
+``ParallelWaveganDiscriminator`` (port of
+``parallel_wavegan_generator.py:135-161``, reference
+``parallel_wavegan_discriminator.py``) serves training: stacked non-causal
+convolutions, layer ``i`` dilated by ``i`` (the first by 1), as the JAX
+module has them; its score and feature maps are time-major ``[B, T, C]``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -126,3 +131,31 @@ class ParallelWaveganGenerator(nn.Module):
         p = self.inference_padding
         c = F.pad(c.transpose(1, 2), (p, p), mode="replicate").transpose(1, 2)
         return self(c, self.noise(c, generator) if x is None else x)
+
+
+class ParallelWaveganDiscriminator(nn.Module):
+    """``num_layers - 1`` dilated convolutions with leaky ReLUs (0.2), then
+    the score convolution; ``[B, T, 1]`` → ``(score [B, T, 1], feature
+    maps)``."""
+
+    def __init__(self, num_layers: int = 10, conv_channels: int = 64, kernel_size: int = 3):
+        super().__init__()
+        self.num_layers = num_layers
+        cin = 1
+        for i in range(num_layers - 1):
+            dilation = i if i > 0 else 1
+            self.add_module(f"conv_{i}", nn.Conv1d(cin, conv_channels, kernel_size,
+                                                   dilation=dilation,
+                                                   padding=(kernel_size - 1) // 2 * dilation))
+            cin = conv_channels
+        self.conv_out = nn.Conv1d(cin, 1, kernel_size, padding=(kernel_size - 1) // 2)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        h = x.transpose(1, 2)
+        feats = []
+        for i in range(self.num_layers - 1):
+            h = F.leaky_relu(getattr(self, f"conv_{i}")(h), 0.2)
+            feats.append(h.transpose(1, 2))
+        score = self.conv_out(h).transpose(1, 2)
+        feats.append(score)
+        return score, feats

@@ -1,8 +1,7 @@
 """UnivNet generator (port of ``tts_tpu/vocoder/models/univnet_generator.py:22-195``,
 reference ``TTS/vocoder/models/univnet_generator.py`` and
 ``layers/lvc_block.py``): ``KernelPredictor``,
-``location_variable_convolution``, ``LVCBlock`` and ``UnivnetGenerator``,
-inference only.
+``location_variable_convolution``, ``LVCBlock`` and ``UnivnetGenerator``.
 
 Each LVC block predicts, from the mel, one small convolution kernel per mel
 frame and layer, and applies it to that frame's ``hop`` samples
@@ -23,8 +22,9 @@ convolutions, 0.2 slopes, a residual add per block).
 ``inference``, so the JAX ``Synthesizer`` raises on this vocoder. Here it
 draws ``[B, L, in_channels]`` noise from an explicit ``torch.Generator`` and
 pads nothing (the JAX module has no padding field); ``forward(c, x)`` takes
-the noise as given. The discriminator serves training and waits for it
-(ROADMAP.md item 17).
+the noise as given. Training (``vocoder/models/gan.py``) draws that noise
+from the step's generator (ROADMAP.md F55); the discriminator is
+``vocoder/models/univnet_discriminator.py``.
 """
 
 from __future__ import annotations

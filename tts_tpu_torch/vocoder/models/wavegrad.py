@@ -1,8 +1,9 @@
 """WaveGrad, the diffusion vocoder (port of ``tts_tpu/vocoder/models/wavegrad.py``,
 reference ``TTS/vocoder/models/wavegrad.py`` and ``layers/wavegrad.py``):
 ``_interp_nearest``, ``FiLM``, ``UBlock``, ``DBlock`` and ``Wavegrad``
-(``:19-132``), ``compute_noise_schedule`` (``:135-146``) and
-``wavegrad_inference`` (``:208-235``), inference only.
+(``:19-132``), ``compute_noise_schedule`` (``:135-146``),
+``wavegrad_train_loss`` and ``WavegradVocoder`` (``:149-205``, the training
+wrapper) and ``wavegrad_inference`` (``:208-235``).
 
 ``Wavegrad`` predicts the noise in a noisy waveform from the mel and the
 noise level: a downsampling branch over the waveform gives each level a FiLM
@@ -17,20 +18,26 @@ Module and parameter names follow the flax modules', so
 ``utils.convert.flax_to_state_dict`` maps the JAX parameters one to one. The
 FiLM positional table is built as the JAX module builds it (``arange(T) /
 div`` in float32, sine and cosine of arguments up to ``T``) and cached per
-length and device. Training (the loss, the train schedule, the noise-level
-search of ``bin/tune_wavegrad``) waits for ROADMAP.md item 17.
+length and device.
+
+Training denoises: a random step ``s`` of the train schedule, a noise level
+uniform between its two bounds, the waveform corrupted at that level, the
+network's predicted noise held to the drawn noise by L1. The three draws
+come from the step's ``torch.Generator`` (``WavegradVocoder.draw``), or
+are given; the trainer's generic step runs ``WavegradVocoder.train_step``.
+``bin/tune_wavegrad.py`` searches the inference schedule.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tts_tpu_torch.vocoder.layers import noise_generator, pointwise
+from tts_tpu_torch.vocoder.layers import init_weights, noise_generator, pointwise
 
 
 def _interp_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -224,3 +231,85 @@ def wavegrad_inference(model: Wavegrad, mel: torch.Tensor, schedule,
                             / (np.float32(1.0) - alpha_hat[idx]) * beta[idx])
             y = y + float(sigma) * z
     return torch.clamp(y, -1.0, 1.0) if clip else y
+
+
+def wavegrad_train_loss(model: Wavegrad, batch: Dict[str, torch.Tensor], schedule,
+                        draws: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The denoising L1 of one batch (port of ``wavegrad.py:149-162``):
+    ``draws`` ``(s [B] steps in 1..n-1, u [B] uniforms, noise like the
+    waveform)``, the noise level ``l_s + u (l_{s+1} - l_s)`` of the
+    schedule's float32 levels. ``batch``: ``waveform [B, T, 1]``, ``mel [B,
+    T / hop, M]``."""
+    y, mel = batch["waveform"], batch["mel"]
+    levels = torch.as_tensor(np.asarray(schedule[3], np.float32), device=y.device)
+    s, u, noise = draws
+    l_a, l_b = levels[s], levels[s + 1]
+    nl = l_a + u * (l_b - l_a)
+    noisy = nl[:, None, None] * y + torch.sqrt(1 - nl**2)[:, None, None] * noise
+    noise_hat = model(noisy, mel, nl)
+    return torch.mean(torch.abs(noise - noise_hat))
+
+
+class WavegradVocoder:
+    """WaveGrad's training wrapper (port of ``wavegrad.py:165-205``): the
+    network (``module``), the train schedule, and the hooks of the trainer's
+    generic single-optimizer step."""
+
+    def __init__(self, config):
+        import inspect
+
+        self.config = config
+        valid = set(inspect.signature(Wavegrad.__init__).parameters) - {"self"}
+        kwargs = {k: v for k, v in (config.model_params or {}).items() if k in valid}
+        kwargs.setdefault("in_channels", config.audio.num_mels)
+        with torch.device("meta"):
+            self.module = Wavegrad(**kwargs).eval()
+        ns = config.train_noise_schedule
+        self.schedule = compute_noise_schedule(ns["num_steps"], ns["min_val"], ns["max_val"])
+        self.initialized = False
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0, device="cuda", discriminator: bool = False):
+        """Random fp32 weights from ``seed`` (``vocoder.layers.init_weights``),
+        the head zero as the JAX module initialises it (the untrained model
+        predicts no noise); ``discriminator`` is ignored (there is none)."""
+        from tts_tpu_torch import resolve_device
+
+        gen = torch.Generator().manual_seed(seed)
+        module = init_weights(self.module.to_empty(device="cpu"), gen,
+                              zero=("out_conv.weight", "out_conv.bias"))
+        self.module = module.to(resolve_device(device)).requires_grad_(False)
+        self.initialized = True
+        return self
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.module.load_state_dict(state, strict=True, assign=True)
+        self.module.requires_grad_(False)
+        self.initialized = True
+
+    def draw(self, y: torch.Tensor, generator: torch.Generator):
+        """A step's draws for the waveform ``y`` ``[B, T, 1]``: ``(s, u,
+        noise)`` from ``generator`` (on its device), moved to ``y``'s."""
+        B, g = y.shape[0], generator
+        s = torch.randint(1, len(self.schedule[0]), (B,), generator=g, device=g.device)
+        u = torch.rand(B, generator=g, device=g.device)
+        noise = torch.randn(y.shape, generator=g, device=g.device)
+        return s.to(y.device), u.to(y), noise.to(y)
+
+    def train_step(self, batch, generator: torch.Generator, train: bool = True):
+        """``(loss, {"wavegrad_l1": loss})``; with ``train`` false the draws
+        come from a generator seeded 0 on the batch's device (the JAX eval's
+        fixed key)."""
+        y = batch["waveform"]
+        if not train:
+            generator = torch.Generator(device=y.device).manual_seed(0)
+        loss = wavegrad_train_loss(self.module, batch, self.schedule, self.draw(y, generator))
+        return loss, {"wavegrad_l1": loss}
+
+    def get_dataset(self, config, samples, is_eval: bool = False):
+        from tts_tpu_torch.vocoder.dataset import GANDataset
+
+        return GANDataset(config, samples, is_eval=is_eval)
+
+    def format_batch(self, batch: dict) -> dict:
+        return batch

@@ -2,8 +2,9 @@
 reference ``TTS/vocoder/models/wavernn.py``): ``MelResNet`` (layer norms, or
 the ``folded`` eval-mode BatchNorms of a converted checkpoint),
 ``UpsampleNetwork``, ``Wavernn`` with its teacher-forced ``forward`` and its
-sample-by-sample ``generate``, and ``sample_from_discretized_mix_logistic``,
-inference only.
+sample-by-sample ``generate``, ``sample_from_discretized_mix_logistic``,
+and training (``:247-354``): ``mulaw_encode``, ``mixture_of_logistics_loss``
+and ``WavernnVocoder``, the wrapper the trainer's generic step runs.
 
 Each output sample runs one step: a dense layer over the previous sample,
 the upsampled mel and the first aux quarter, two ``GRUCell``s with residuals,
@@ -28,12 +29,22 @@ Public layout is the JAX package's: mel ``[B, T_mel, M]``; ``forward`` takes
 ``x`` ``[B, T_wav]`` and returns logits ``[B, T_wav, n_classes]``,
 ``generate`` returns ``[B, T_wav]``. Names follow the flax modules', so
 ``utils.convert.wavernn_from_jax_params`` maps the JAX parameters (flax's
-``GRUCell`` Denses packed into ``nn.GRUCell``). Training waits for ROADMAP.md
-item 17.
+``GRUCell`` Denses packed into ``nn.GRUCell``).
+
+The teacher-forced ``forward`` (training) knows every step's input ahead:
+the first GRU reads the given samples and the conditioning, the second the
+first's outputs. So each GRU runs over the whole sequence in one call that
+shares the cell's weights (``torch._VF.gru``, cuDNN's on the card), where
+the JAX module scans the two cells a sample; both compute the same
+recurrence (``tests/test_torch_vocoders.py`` holds the logits against the
+JAX ``Wavernn.__call__``). ``generate`` keeps its loop: each step there
+reads the sample it drew before.
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -41,7 +52,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tts_tpu_torch.vocoder.layers import noise_generator, shared_tap_upsample
+from tts_tpu_torch.vocoder.layers import init_weights, noise_generator, shared_tap_upsample
 
 
 class MelResNet(nn.Module):
@@ -129,6 +140,18 @@ def sample_from_discretized_mix_logistic(logits: torch.Tensor, gumbel: torch.Ten
     return torch.clamp(x, -1.0, 1.0)
 
 
+def _gru_sequence(cell: nn.GRUCell, x: torch.Tensor) -> torch.Tensor:
+    """``cell`` over a whole sequence ``[T, B, C_in]`` from a zero state →
+    every step's state ``[T, B, hidden]``: one multi-step GRU call on the
+    cell's own weights (the same recurrence as ``cell`` step by step)."""
+    h0 = x.new_zeros(1, x.shape[1], cell.hidden_size)
+    weights = [cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh]
+    with warnings.catch_warnings():  # cuDNN copies the four weights into one buffer
+        warnings.simplefilter("ignore", UserWarning)
+        out, _ = torch._VF.gru(x, h0, weights, True, 1, 0.0, cell.training, False, False)
+    return out
+
+
 class Wavernn(nn.Module):
     """Mel ``[B, T_mel, feat_dims]`` → ``(T_mel - 2 pad) * hop`` samples, one
     step a sample."""
@@ -193,15 +216,16 @@ class Wavernn(nn.Module):
 
     def forward(self, x: torch.Tensor, mels: torch.Tensor) -> torch.Tensor:
         """Teacher forced: the samples ``x`` ``[B, T]`` (each step reads the
-        one before it) → logits ``[B, T, n_classes]``."""
+        one before it) → logits ``[B, T, n_classes]``, each GRU over the
+        whole sequence at once."""
         B, T = x.shape
         pre, a2, a3, a4 = self._conditioning(mels, T)
-        h1 = h2 = x.new_zeros(B, self.rnn_dims)
-        logits = []
-        for t in range(T):
-            out, h1, h2 = self._step(x[:, t], pre[t], a2[t], a3[t], a4[t], h1, h2)
-            logits.append(out)
-        return torch.stack(logits, 1)
+        h = pre + x.t()[..., None] * self.I.weight[:, 0]  # [T, B, rnn_dims]
+        h = _gru_sequence(self.rnn1, h) + h
+        h = _gru_sequence(self.rnn2, torch.cat([h, a2], -1)) + h
+        h = F.relu(self.fc1(torch.cat([h, a3], -1)))
+        h = F.relu(self.fc2(torch.cat([h, a4], -1)))
+        return self.fc3(h).transpose(0, 1)
 
     def noise_shapes(self, T: int, B: int) -> Dict[str, tuple]:
         """The draws ``generate`` takes for ``T`` samples of ``B`` rows: Gumbel
@@ -257,3 +281,126 @@ class Wavernn(nn.Module):
                 sample = 2.0 * idx.to(mels.dtype) / (self.n_classes - 1.0) - 1.0
             samples.append(sample)
         return torch.stack(samples, 1)
+
+
+def mulaw_encode(w: torch.Tensor, mu: int) -> torch.Tensor:
+    """mu-law companding to integer labels in ``[0, mu]`` (port of
+    ``mulaw_encode_jnp``, ``wavernn.py:257-261``)."""
+    comp = torch.sign(w) * torch.log1p(mu * torch.abs(w)) / math.log1p(mu)
+    return torch.clamp(torch.floor((comp + 1) / 2 * mu + 0.5), 0, mu).long()
+
+
+def mixture_of_logistics_loss(logits: torch.Tensor, y: torch.Tensor, num_classes: int = 65536,
+                              log_scale_min: float = -32.23) -> torch.Tensor:
+    """The discretized mixture-of-logistics NLL of targets ``y`` ``[B, T]``
+    in ``[-1, 1]`` under ``logits`` ``[B, T, 3 n_mix]`` (port of
+    ``wavernn.py:324-354``, reference ``distribution.py:89``)."""
+    nr_mix = logits.shape[-1] // 3
+    logit_probs = logits[..., :nr_mix]
+    means = logits[..., nr_mix:2 * nr_mix]
+    log_scales = torch.clamp(logits[..., 2 * nr_mix:], min=log_scale_min)
+    y = y[..., None]
+    centered = y - means
+    inv_stdv = torch.exp(-log_scales)
+    plus_in = inv_stdv * (centered + 1.0 / (num_classes - 1))
+    min_in = inv_stdv * (centered - 1.0 / (num_classes - 1))
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - F.softplus(plus_in)
+    log_one_minus_cdf_min = -F.softplus(min_in)
+    mid_in = inv_stdv * centered
+    log_pdf_mid = mid_in - log_scales - 2.0 * F.softplus(mid_in)
+    inner = torch.where(cdf_delta > 1e-5, torch.log(torch.clamp(cdf_delta, min=1e-12)),
+                        log_pdf_mid - np.log((num_classes - 1) / 2))
+    log_probs = torch.where(y < -0.999, log_cdf_plus,
+                            torch.where(y > 0.999, log_one_minus_cdf_min, inner))
+    log_probs = log_probs + F.log_softmax(logit_probs, -1)
+    return -torch.mean(torch.logsumexp(log_probs, dim=-1))
+
+
+class WavernnVocoder:
+    """WaveRNN's training wrapper (port of ``wavernn.py:264-321``): the
+    network (``module``, layer norms unless ``model_args`` says otherwise),
+    the teacher-forcing targets and the loss by output mode, the hooks of
+    the trainer's generic single-optimizer step.
+
+    A batch's waveform ``[B, seq_len, 1]`` loses ``pad`` frames at each end
+    (the resnet's valid convolution): the ``usable`` samples from
+    ``offset`` are the targets, each predicted from the one before (its
+    mu-law or linear class for an integer ``mode``). The loss: the mixture
+    of logistics (``"mold"``), a Gaussian NLL with the log deviation
+    clipped at -7 (``"gauss"``), else the cross-entropy over the classes."""
+
+    def __init__(self, config):
+        import inspect
+
+        self.config = config
+        valid = set(inspect.signature(Wavernn.__init__).parameters) - {"self"}
+        kwargs = {k: v for k, v in (config.model_args or {}).items() if k in valid}
+        kwargs.setdefault("feat_dims", config.audio.num_mels)
+        kwargs.setdefault("mode", config.mode)
+        kwargs.setdefault("mulaw", getattr(config, "mulaw", True))
+        with torch.device("meta"):
+            self.module = Wavernn(**kwargs).eval()
+        self.pad = int(kwargs.get("pad", 2))
+        hop = self.module.hop
+        frames = max(2 * self.pad + 1, config.seq_len // hop)
+        self.usable = (frames - 2 * self.pad) * hop
+        self.offset = self.pad * hop
+        self.initialized = False
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0, device="cuda", discriminator: bool = False):
+        """Random fp32 weights from ``seed`` (``vocoder.layers.init_weights``);
+        ``discriminator`` is ignored (there is none)."""
+        from tts_tpu_torch import resolve_device
+
+        gen = torch.Generator().manual_seed(seed)
+        module = init_weights(self.module.to_empty(device="cpu"), gen)
+        self.module = module.to(resolve_device(device)).requires_grad_(False)
+        self.initialized = True
+        return self
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.module.load_state_dict(state, strict=True, assign=True)
+        self.module.requires_grad_(False)
+        self.initialized = True
+
+    def targets(self, wav: torch.Tensor):
+        """``wav [B, T, 1]`` → the teacher-forcing input ``x [B, usable - 1]``
+        (float) and the targets ``y [B, usable - 1]`` (samples, or class
+        ids for an integer ``mode``)."""
+        start = max(0, min(self.offset, wav.shape[1] - self.usable))  # dynamic_slice clamps so
+        w = wav[:, start:start + self.usable, 0]
+        mode = self.module.mode
+        if isinstance(mode, int):
+            n = self.module.n_classes
+            labels = (mulaw_encode(w, n - 1) if self.module.mulaw
+                      else torch.clamp(torch.floor((w + 1) / 2 * (n - 1) + 0.5), 0, n - 1).long())
+            return 2.0 * labels[:, :-1].float() / (n - 1.0) - 1.0, labels[:, 1:]
+        return w[:, :-1], w[:, 1:]
+
+    def train_step(self, batch, generator: Optional[torch.Generator] = None,
+                   train: bool = True):
+        """``(loss, {"wavernn_loss": loss})`` of the teacher-forced pass; it
+        draws nothing, so ``generator`` and ``train`` change nothing."""
+        x, y = self.targets(batch["waveform"])
+        logits = self.module(x, batch["mel"]).float()
+        mode = self.module.mode
+        if mode == "mold":
+            loss = mixture_of_logistics_loss(logits, y)
+        elif mode == "gauss":
+            mean, logstd = logits[..., 0], torch.clamp(logits[..., 1], min=-7.0)
+            loss = torch.mean(0.5 * np.log(2 * np.pi) + logstd
+                              + 0.5 * ((y - mean) * torch.exp(-logstd)) ** 2)
+        else:
+            logp = F.log_softmax(logits, dim=-1)
+            loss = -torch.mean(torch.gather(logp, -1, y[..., None]))
+        return loss, {"wavernn_loss": loss}
+
+    def get_dataset(self, config, samples, is_eval: bool = False):
+        from tts_tpu_torch.vocoder.dataset import GANDataset
+
+        return GANDataset(config, samples, is_eval=is_eval)
+
+    def format_batch(self, batch: dict) -> dict:
+        return batch

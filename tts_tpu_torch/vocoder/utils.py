@@ -27,7 +27,7 @@ def interpolate_vocoder_input(scale_factor, spec: np.ndarray) -> np.ndarray:
     return spec[:, x0c] * (1.0 - frac) + spec[:, x1c] * frac
 
 
-def make_generator_from_config(config):
+def make_generator_from_config(config, **overrides):
     """The generator named by ``config.generator_model``, built from its
     parameters as the JAX package builds it (``tts_tpu/vocoder/utils.py:29-62``):
     ``generator_model_params``, else ``model_params`` (WaveGrad, a UnivNet
@@ -39,7 +39,8 @@ def make_generator_from_config(config):
     the JAX package sets no ``in_channels`` for the iSTFT generator and
     WaveGrad; the port's modules need it, and take the mel width there too.
     Parameters the module does not take (such as ``use_weight_norm``,
-    folded away by the converter) are dropped."""
+    folded away by the converter) are dropped; ``overrides`` replace the
+    config's (the ``Synthesizer``'s WaveRNN with layer norms)."""
     from tts_tpu_torch.vocoder.models import setup_generator
 
     name = config.generator_model.lower()
@@ -61,6 +62,7 @@ def make_generator_from_config(config):
         params.setdefault("mode", getattr(config, "mode", "mold"))
         params.setdefault("mulaw", getattr(config, "mulaw", True))
         params.setdefault("norm_type", "folded")
+    params.update(overrides)
     valid = set()
     for klass in cls.__mro__:
         if klass.__init__ is not object.__init__ and "__init__" in vars(klass):
