@@ -29,12 +29,13 @@ Phases; each raises on failure and the script then exits non-zero:
    a free local port, and 4 concurrent ``/api/tts-stream`` requests and one
    ``/api/tts`` request clone the reference voice. The decode-attention
    launch count of this phase proves the decode went through the kernel,
-   and each request decodes ``max_mel_tokens - 3`` tokens (602), a
-   stream's last chunk cut short there. Then one stream on the idle server, and its time to first audio split
+   and each request decodes ``SERVED_TOKENS`` (123), a stream's last chunk
+   cut short there. Then one stream on the idle server, and its time to first audio split
    into conditioning, prefill, one chunk's decode and its vocoding. Last,
    one call of the ``tts`` command line (``tts_tpu_torch.bin.synthesize``)
-   on the same model directory clones the voice into a file; the kernel's
-   launches in that call must be 30 x its decode steps;
+   on the same model directory clones the voice into a file, decoding
+   ``max_mel_tokens - 3`` tokens (602) to the end of the position table
+   (F5); the kernel's launches in that call must be 30 x its decode steps;
 6. VITS: the LJSpeech VITS recipe as published, phonemes from the rule G2P
    (``english_cleaners``, ``use_phonemes=True``, ``phoneme_language="en-us"``,
    blanks; the ``VitsArgs`` defaults, the embedding sized by the phoneme
@@ -229,8 +230,8 @@ Phases; each raises on failure and the script then exits non-zero:
     mel or linear spectrogram, the audio: within 1e-4; Griffin-Lim's
     magnitude spectrogram within 1e-2 relative L2, its waveform's share of
     the peak printed); the medium sentence with a style reference at
-    natural length (3 steps a token): latency, RTF, ms per decode step, the
-    kernels and busy share under ``torch.profiler``. Then the zoo's
+    natural length (3 steps a token): latency, RTF, ms per decode step; the
+    short sentence's kernels and busy share under ``torch.profiler``. Then the zoo's
     ``capacitron-t2-c50`` and ``capacitron-t2-c150_v2`` by name with the
     blizzard2013 ``hifigan_v2``, with and without a style reference, equal
     to the path load; ``tts --model_name --capacitron_style_wav
@@ -312,7 +313,8 @@ Phases; each raises on failure and the script then exits non-zero:
     plain version, a library yardstick and ``F.linear`` on a float weight,
     the old CUDA-core kernel against the tensor-core ones at M 1-16, and
     the host cost of a call split into its parts; XTTS v2 quantized (fp32
-    from seed 0): card against CPU on the conditioning, the prefill and 8
+    from seed 0, drawn on the card, its CPU copy taken from there): card
+    against CPU on the conditioning, the prefill and 8
     greedy steps (within 1e-4 of each peak), 40 greedy tokens identical
     through K4 and the plain version, 121 launches a step; then from a
     model directory whose ``config.json`` sets ``gpt_int8_weights``,
@@ -388,15 +390,36 @@ Phases; each raises on failure and the script then exits non-zero:
     recipes at their widths. Each family's tiny fit through
     ``Trainer.fit`` on the CPU and on the card with the same weights and
     host draws: every loss within 1e-4 of its value (the two families
-    under an STFT loss at lr 1e-6, ``tiny_vocoder_configs``). K1, K4 and K2
-    must launch 0 times on this path.
+    under an STFT loss at lr 1e-6, ``tiny_vocoder_configs``); beside them,
+    at the recipes' lr, those two families' generator gradients of one step
+    on the card against a float64 CPU run, within 2.5e-3 of each tensor's
+    peak (``vocoder_grads_against_float64``). K1, K4 and K2 must launch 0
+    times on this path.
+24. The aligner families' training (``phase_aligner_train``): 80 clips of
+    synthetic 22.05 kHz audio (2-10 s, ~4.5 frames a phoneme) under a
+    temporary directory; the LJSpeech FastPitch recipe at its width (384
+    wide, 6 + 6 FFT layers, the aligner, pitch; B=32, f0 cached, 4 loader
+    threads) through ``tts_tpu_torch.bin.train_tts.main``: an epoch of two
+    steps, an evaluation and a checkpoint, ms a step on the trainer's clock,
+    the loader's wait, the busy share over step 2, the f0 pass's seconds
+    (cache and F60's statistics), peak memory; ``--continue_path`` for a
+    second epoch; the forward-sum loss's forward and backward time beside
+    the step's; the checkpoint (the aligner in it) through the
+    ``Synthesizer``, one sentence spoken. One recipe step each of GlowTTS,
+    AlignTTS (the MDN loss's share of the step timed) and FastSpeech2
+    (energy on). K2 against its plain version on each family's first MAS
+    input (ForwardTTS's masked with -1e9), paths identical, and timed
+    beside its bound; each family's tiny fit through ``Trainer.fit`` on the
+    CPU and on the card (the same weights, host draws, the CPU's paths):
+    every loss within 1e-4 of its value. K2 launches once a train step and
+    once an evaluation batch; K1 and K4 0.
 
 Phase selection: ``python3 chip_smoke.py 20`` (or any phase numbers) runs
 phases 1 and 2 and the ones named (5 brings 4); without arguments every
 phase runs.
 
 It prints the card's name and power limit, then ``{"kernels": [...]}``
-(K1, K4 and K2, K2's launches those of phases 21 and 22) on the line
+(K1, K4 and K2, K2's launches those of phases 21, 22 and 24) on the line
 before the last and, as the last line, ``{"ok": true, "device": {...}}``. The port must have imported nothing of ``tts_tpu``, JAX, flax,
 ``tokenizers`` or ``transformers`` by then. Without CUDA, or outside a
 checkout, it exits 2 and prints no result.
@@ -425,6 +448,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 H, DH = 16, 64  # XTTS v2 attention heads and head width
 STREAM_CHUNK = 20  # tokens per streamed chunk (XTTS default)
+# tokens a served request decodes in phases 5 and 20: enough for TTFA and the
+# decode rate, and not a multiple of STREAM_CHUNK, so each stream's last chunk
+# is cut short at its budget (F5's rule); the tts command-line call still
+# decodes the whole max_mel_tokens - 3 (602), to the end of the position table
+SERVED_TOKENS = 123
 
 
 T0 = time.time()  # the script's start: every log line shows the seconds since
@@ -957,6 +985,16 @@ def xtts_cli_call(model_dir: str, text: str, n_layers: int, card: str, device="c
         f"decode_attention launches {launches} = {n_layers} x {steps} | {card}")
 
 
+def capped(model):
+    """The served XTTS decodes ``SERVED_TOKENS`` tokens a request, batched
+    streams and whole utterances alike (the stream batcher cannot cancel a
+    stream whose client has its first chunk)."""
+    for name in ("inference_stream_batched", "inference"):
+        setattr(model, name, functools.partial(getattr(model, name),
+                                               max_new_tokens=SERVED_TOKENS))
+    return model
+
+
 def phase_serving(model, card: str, device="cuda") -> int:
     """Serve 4 concurrent streams and one full request through the port's
     HTTP server; returns the decode-attention launches of this phase."""
@@ -991,6 +1029,7 @@ def phase_serving(model, card: str, device="cuda") -> int:
         )
         srv = server_from_args(args)
         served = srv.stream_batcher.model
+        capped(served)
         if served.gpt.dtype != torch.bfloat16:
             raise AssertionError(f"served GPT dtype {served.gpt.dtype}, want bf16")
         n_layers = len(served.gpt.gpt.h)
@@ -1057,9 +1096,9 @@ def phase_serving(model, card: str, device="cuda") -> int:
             f"decode_attention launched {launches} times for {steps} decode steps of "
             f"{n_layers} layers ({tokens} tokens)"
         )
-    # every request decodes to the bound of every decode, max_mel_tokens - 3
-    # tokens: a stream's last chunk is cut short there (ROADMAP.md F5)
-    max_new = served.gpt.max_mel_tokens - 3
+    # every request decodes to its budget, a stream's last chunk cut short
+    # there (ROADMAP.md F5); the command-line call above reached the table's end
+    max_new = SERVED_TOKENS
     if tokens != len(urls) * max_new:
         raise AssertionError(f"{tokens} tokens decoded for {len(urls)} requests, want "
                              f"{len(urls)} x {max_new}")
@@ -5413,8 +5452,8 @@ def style_latency(name: str, synth, style_wav: str, device, card: str,
     """The medium sentence with a style reference at natural length (3
     decode steps a token): latency and RTF (one call), ms per decode step
     (the slope between 100 and 300 steps), and the kernels and busy share of
-    one call under ``torch.profiler``; the vocoder's (or Griffin-Lim's) part
-    of it."""
+    one call of the short sentence under ``torch.profiler``; the vocoder's
+    (or Griffin-Lim's) part of it."""
     import torch
 
     model, medium = synth.tts_model, VITS_SENTENCES["medium"]
@@ -5435,6 +5474,18 @@ def style_latency(name: str, synth, style_wav: str, device, card: str,
         parts.update(model=(t1 - t0) * 1e3, vocoder=(time.perf_counter() - t1) * 1e3,
                      seconds=len(wav) / synth.output_sample_rate)
 
+    short = VITS_SENTENCES["short"]
+    xs, xls = t2_ids(model, [short], device)
+    n_short = len(model.tokenizer.text_to_ids(short))
+
+    def natural_short():
+        with torch.no_grad():
+            o = model.inference(xs, xls, max_steps=3 * n_short, aux_input=aux)
+            out = o["model_outputs"][0, : int(o["mel_lengths"][0])].float().cpu().numpy()
+        wav = synth.ap.inv_spectrogram(out.T) if griffin_lim else synth._vocode(out)
+        sync(device)
+        return wav
+
     ms, lo, hi = median_ms(natural, device, reps=1)
     step = step_ms(lambda n: model.inference(x, xl, max_steps=n, aux_input=aux), device, 100, 300)
     vocoder = "Griffin-Lim (host)" if griffin_lim else "HiFiGAN"
@@ -5443,7 +5494,10 @@ def style_latency(name: str, synth, style_wav: str, device, card: str,
         f"RTF {parts['seconds'] / ms * 1e3:.2f}; model {parts['model']:.1f} "
         f"ms, {vocoder} {parts['vocoder']:.1f} ms; decode step {step:.3f} ms wall (the slope "
         f"between 100 and 300 steps, median of 3) | {card}")
-    profile_call(natural, f"{name}, medium sentence at natural length", card)
+    # the short sentence's window: a quarter of the medium one's kernels, each
+    # ~0.2 ms of the profiler's digest
+    profile_call(natural_short, f"{name}, short sentence ({n_short} tokens) at natural length",
+                 card)
 
 
 def phase_style_tacotron(card: str, device="cuda", cut=None) -> None:
@@ -7253,9 +7307,16 @@ def int8_xtts(card: str, device, config=None, shapes=None) -> dict:
     shapes = {} if shapes is None else shapes
     t0 = time.time()
     config = config or XttsConfig()
-    cpu = Xtts(config).init_params(seed=0, device="cpu")
+    with built_on(device):
+        model = Xtts(config)
+    model.init_params(seed=0, device=device)  # on the card: seconds faster than the CPU's draw
+    with torch.device("meta"):  # its CPU copy, built without an initialisation of its own
+        cpu = Xtts(config)
+    cpu.load_state_dict_with_stats({k: v.to("cpu", copy=True)
+                                    for k, v in model.state_dict_with_stats().items()})
     stop = cpu.gpt.stop_audio_token
-    cpu.gpt.mel_head.bias[stop] = -1e4  # every stream decodes its whole length
+    for m in (model, cpu):
+        m.gpt.mel_head.bias[stop] = -1e4  # every stream decodes its whole length
     n_layers = len(cpu.gpt.gpt.h)
     per_step = 4 * n_layers + 1  # c_attn, c_proj, mlp_fc, mlp_proj a layer; the mel head
     fp32_gpt = quantized_bytes(cpu.gpt)
@@ -7273,14 +7334,11 @@ def int8_xtts(card: str, device, config=None, shapes=None) -> dict:
     wav_path = os.path.join(d, "ref.wav")
     save_wav(wav=reference_wav(seconds=4.0, seed=1), path=wav_path, sample_rate=22050)
 
-    model = Xtts(config)  # the same weights on the card (the GPT's lock cannot be copied)
-    model.load_state_dict_with_stats({k: v.to(device, copy=True)
-                                      for k, v in cpu.state_dict_with_stats().items()})
     before = allocated(device)
     model.quantize_weights_int8()
     freed = before - allocated(device)
     cpu.quantize_weights_int8()
-    log(f"XTTS v2 int8 ({n_layers} layers, fp32 weights from seed 0, ready in "
+    log(f"XTTS v2 int8 ({n_layers} layers, fp32 weights from seed 0 drawn on {device}, ready in "
         f"{time.time() - t0:.1f} s): GPT {fp32_gpt / 1e9:.3f} GB fp32 -> "
         f"{quantized_bytes(model.gpt) / 1e9:.3f} GB int8 with scales; quantizing on the card "
         f"freed {freed / 1e9:.3f} GB")
@@ -7391,6 +7449,7 @@ def int8_xtts(card: str, device, config=None, shapes=None) -> dict:
     del floats
 
     srv = create_server(tts.synthesizer, port=0, stream_batch=4, stream_window_ms=50)
+    capped(srv.stream_batcher.model)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     res: dict = {}
@@ -8066,12 +8125,14 @@ ML_LANGUAGES = ("en", "de")  # the multilingual run: four speakers in two langua
 ML_CLIPS = 48  # 32 to train (one step at B=32) and LOOP_EVAL to evaluate
 
 
-def write_train_corpus(root: str, tokenizer, audio, n: int = CORPUS_CLIPS, seed: int = 0):
+def write_train_corpus(root: str, tokenizer, audio, n: int = CORPUS_CLIPS, seed: int = 0,
+                       frames_per_id: float = FRAMES_PER_ID):
     """An LJSpeech-layout corpus under ``root`` (``wavs/*.wav``, 16-bit, and
     ``metadata.csv``): ``n`` clips of 2-10 s drawn from ``seed`` (clip 0 the
     longest, clip 1 the shortest), voiced synthetic audio, each with a text
-    whose ids (phonemes with blanks, through ``tokenizer``) come to about a
-    token every 2.26 frames. Returns ``(names, seconds, ids)``."""
+    whose ids (through ``tokenizer``: phonemes with blanks for VITS) come to
+    about a token every ``frames_per_id`` frames. Returns ``(names,
+    seconds, ids)``."""
     import scipy.io.wavfile
 
     rs = np.random.RandomState(seed)
@@ -8087,7 +8148,7 @@ def write_train_corpus(root: str, tokenizer, audio, n: int = CORPUS_CLIPS, seed:
         wav = reference_wav(seconds=sec, sr=sr, seed=seed + i)
         scipy.io.wavfile.write(os.path.join(root, "wavs", name + ".wav"), sr,
                                (np.clip(wav, -1, 1) * 32767).astype(np.int16))
-        target = sec * sr / hop / FRAMES_PER_ID
+        target = sec * sr / hop / frames_per_id
         n_words = max(1, int(round((target - 1) / ids_per_word)))
         text = " ".join(rs.choice(CORPUS_WORDS, n_words)).capitalize() + "."
         lines.append(f"{name}|{text}|{text}")
@@ -8708,6 +8769,86 @@ def tiny_vocoder_fit(config, data_path: str, device) -> list:
             for scope, step, m in recorder.scalars]
 
 
+VOC_F64_TOL = 2.5e-3  # of each gradient's float64 peak: test_generator_gradients_against_float64
+
+
+@contextlib.contextmanager
+def float_means_double():
+    """``Tensor.float()`` gives float64, so that a GAN step, whose loss
+    islands cast to fp32, runs wholly in float64 on float64 modules."""
+    import torch
+
+    orig = torch.Tensor.float
+    torch.Tensor.float = lambda self: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+def vocoder_grads_against_float64(data_path: str, device, card: str) -> None:
+    """The STFT-loss families' check at the recipes' lr: multi-band MelGAN's
+    and UnivNet's generator gradients of one step from their tiny fits'
+    weights, configs and first batch, with ``lr_gen`` at the recipes' 1e-4
+    (no gradient reads it, so the check holds at any lr), on ``device`` in
+    fp32 (TF32 off) against a float64 run of the same step on the CPU
+    (UnivNet's noise one host draw): each tensor within ``VOC_F64_TOL`` of
+    its float64 peak, the bound ``tests/test_torch_gan_train.py`` holds
+    both packages' CPU steps to. The log-magnitude term divides by each
+    bin's size, so fp32 rounding grows ~1e-3 of the peak in any two runs:
+    hence this check beside the lr 1e-6 fits."""
+    import torch
+
+    from tts_tpu_torch.vocoder.dataset import load_wav_data
+    from tts_tpu_torch.vocoder.models import setup_model
+    from tts_tpu_torch.vocoder.models.univnet_generator import UnivnetGenerator
+
+    for name in ("multiband_melgan", "univnet"):
+        config = tiny_vocoder_configs(data_path)[name]
+        config.lr_gen = config.lr_disc = 1e-4
+        model = setup_model(copy.deepcopy(config))
+        model.init_params(seed=config.seed, device="cpu")
+        _, train_files = load_wav_data(data_path, config.eval_split_size)
+        ds = model.get_dataset(config, train_files[:config.batch_size])
+        batch = next(ds.batches(config.batch_size, seed=0))
+        frames = batch["mel"].shape[1]
+        channels = getattr(model.module, "in_channels", 1)
+        noise = torch.from_numpy(np.random.RandomState(7).standard_normal(
+            (config.batch_size, frames, channels)).astype(np.float32))
+        disc_on = config.steps_to_start_discriminator == 0
+        grads = {}
+        saved = UnivnetGenerator.noise
+        UnivnetGenerator.noise = lambda self, c, generator=None: noise.to(c)
+        try:
+            for run, dev, dtype in (("card", device, torch.float32), ("f64", "cpu", torch.float64)):
+                m = copy.deepcopy(model)
+                m.module.to(dev, dtype).requires_grad_(True)
+                m.discriminator.to(dev, dtype).requires_grad_(True)
+                if m.pqmf is not None:
+                    m.pqmf.H, m.pqmf.G = m.pqmf.H.to(dev, dtype), m.pqmf.G.to(dev, dtype)
+                tb = {k: torch.from_numpy(v).to(dev, dtype) for k, v in batch.items()
+                      if isinstance(v, np.ndarray)}
+                with float_means_double() if dtype == torch.float64 else contextlib.nullcontext():
+                    gen_loss, _, _ = m.losses(tb, torch.Generator(device=dev), disc_on)
+                    g = torch.autograd.grad(gen_loss, list(m.module.parameters()))
+                grads[run] = {n: t.detach().double().cpu()
+                              for (n, _), t in zip(m.module.named_parameters(), g)}
+                del m
+        finally:
+            UnivnetGenerator.noise = saved
+        rows = sorted(((float((grads["card"][n] - e).abs().max()) / max(float(e.abs().max()),
+                                                                          1e-30), n)
+                       for n, e in grads["f64"].items()), reverse=True)
+        worst = ", ".join(f"{n} {err:.3g}" for err, n in rows[:3])
+        if not rows[0][0] <= VOC_F64_TOL:
+            raise AssertionError(f"{name}: the generator's gradients on {device} against float64, "
+                                 f"the worst as shares of their peaks: {worst} (tol {VOC_F64_TOL})")
+        log(f"{name} generator gradients of one step (tiny fit's weights and first batch, "
+            f"B={config.batch_size}, lr_gen 1e-4 as the recipe), {device} fp32 TF32 off "
+            f"against a float64 CPU run: {len(rows)} tensors, the worst as shares of their "
+            f"float64 peaks: {worst} (tol {VOC_F64_TOL}) | {card}")
+
+
 def vocoder_fits_card_against_cpu(data_path: str, device, card: str) -> None:
     """Each family's tiny fit on the CPU, then on the card, fp32 with TF32
     off, the same weights and host draws: every loss of every step and of
@@ -8904,7 +9045,8 @@ def phase_vocoder_train(card: str, device="cuda", cut=None) -> None:
             os.symlink(os.path.join(wavs, f"clip{i:04d}.wav"),
                        os.path.join(tiny, f"clip{i:04d}.wav"))
         vocoder_fits_card_against_cpu(tiny, device, card)
-        stamp("tiny fits")
+        vocoder_grads_against_float64(tiny, device, card)
+        stamp("tiny fits and the STFT families' gradients against float64")
     launches = {"K1": decode_attention.launches, "K4": int8_linear.launches,
                 "K2": maximum_path.launches}
     if any(launches.values()):
@@ -8914,15 +9056,491 @@ def phase_vocoder_train(card: str, device="cuda", cut=None) -> None:
         + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" | {card}")
 
 
+ALIGN_BATCH = 32  # the recipes' batch_size
+ALIGN_EVAL = 16  # eval_split_size; the recipes' eval_batch_size
+ALIGN_FRAMES_PER_ID = 2 * FRAMES_PER_ID  # phase 22's pace without blanks: ~4.5 frames a phoneme
+ALIGN_TINY_CLIPS = 12  # the tiny fits' corpus: 8 to train (two steps at B=4), 4 held out
+ALIGN_WORKERS = 4  # loader threads
+ALIGN_TOL = 1e-4  # the tiny fits, card against CPU: each loss, a share of its own value
+ALIGN_FLOOR = 1e-3  # ... or of this, for a loss nearer 0
+ALIGN_FAMILIES = ("fast_pitch", "glow_tts", "align_tts")
+
+
+def aligner_recipe_config(name: str, corpus: str, cache: str):
+    """The LJSpeech recipes of the aligner families (``recipes/ljspeech/
+    {fast_pitch,fastspeech2,glow_tts,align_tts}``) as published over
+    ``corpus``: B=32, eval batch 16, the recipes' text and audio fields
+    (phonemes from the port's rule G2P where ``espeak`` is named), f0 and
+    energy cached under ``cache``; with ``eval_split_size`` 16,
+    ``print_step`` 1, the console dashboard, one epoch, no test sentence and
+    ``ALIGN_WORKERS`` loader threads. GlowTTS's recipe sets
+    ``mixed_precision``; here it runs fp32 (TF32 off), as every phase from
+    21 on does."""
+    from tts_tpu_torch.config.shared import BaseAudioConfig, BaseDatasetConfig
+    from tts_tpu_torch.models.align_tts import AlignTTSConfig
+    from tts_tpu_torch.models.forward_tts.config import FastPitchConfig, Fastspeech2Config
+    from tts_tpu_torch.models.glow_tts.config import GlowTTSConfig
+
+    common = dict(batch_size=ALIGN_BATCH, eval_batch_size=ALIGN_EVAL, run_eval=True, epochs=1,
+                  eval_split_size=ALIGN_EVAL, print_step=1, dashboard_logger="console",
+                  test_sentences=[], save_step=0, num_loader_workers=ALIGN_WORKERS,
+                  datasets=[BaseDatasetConfig(formatter="ljspeech", dataset_name="ljspeech",
+                                              meta_file_train="metadata.csv", path=corpus,
+                                              language="en")])
+    phonemes = dict(text_cleaner="english_cleaners", use_phonemes=True, phoneme_language="en-us")
+    if name == "fast_pitch":
+        return FastPitchConfig(compute_f0=True, f0_cache_path=os.path.join(cache, "f0"),
+                               **phonemes, **common)
+    if name == "fastspeech2":
+        audio = BaseAudioConfig(sample_rate=22050, do_trim_silence=True, trim_db=60.0,
+                                signal_norm=False, mel_fmin=0.0, mel_fmax=8000, spec_gain=1.0,
+                                log_func="np.log", ref_level_db=20, preemphasis=0.0)
+        return Fastspeech2Config(audio=audio, compute_f0=True, compute_energy=True,
+                                 f0_cache_path=os.path.join(cache, "f0_fs2"),
+                                 energy_cache_path=os.path.join(cache, "energy_fs2"),
+                                 **phonemes, **common)
+    if name == "glow_tts":
+        return GlowTTSConfig(text_cleaner="phoneme_cleaners", use_phonemes=True,
+                             phoneme_language="en-us", mixed_precision=False, **common)
+    return AlignTTSConfig(text_cleaner="english_cleaners", use_phonemes=False, **common)
+
+
+def aligner_modules():
+    """The three model modules whose ``maximum_path`` (K2) the families call."""
+    from tts_tpu_torch.models.align_tts import model as align_model
+    from tts_tpu_torch.models.forward_tts import model as forward_model
+    from tts_tpu_torch.models.glow_tts import model as glow_model
+
+    return (forward_model, glow_model, align_model)
+
+
+@contextlib.contextmanager
+def mas_through(fn):
+    """Each family's ``maximum_path`` is ``fn(real, value, mask)``."""
+    mods = aligner_modules()
+    real = [m.maximum_path for m in mods]
+    for m, r in zip(mods, real):
+        m.maximum_path = functools.partial(fn, r)
+    try:
+        yield
+    finally:
+        for m, r in zip(mods, real):
+            m.maximum_path = r
+
+
+def first_mas_input(store: dict, key: str):
+    """``mas_through`` keeping the first call's ``(value, mask)`` under
+    ``key``."""
+    def keep(real, value, mask, *args, **kwargs):
+        store.setdefault(key, (value.detach().clone(), mask.detach().clone()))
+        return real(value, mask, *args, **kwargs)
+    return mas_through(keep)
+
+
+def k2_on_mas_inputs(inputs: dict, card: str) -> None:
+    """K2 against its plain version on each family's MAS input from its step
+    (ForwardTTS's log-probabilities masked with -1e9 among them): the paths
+    identical, each call twice and bit-identical; then its device time
+    beside its bound. The launches made here are the caller's to
+    discount."""
+    import torch
+
+    from tts_tpu_torch.ops.mas import maximum_path, maximum_path_torch
+
+    for key, (value, mask) in inputs.items():
+        got, again = maximum_path(value, mask), maximum_path(value, mask)
+        want = maximum_path_torch(value, mask)
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"K2 on {key}'s MAS input: {int((got != want).sum())} cells "
+                                 f"differ from the plain version's path")
+        masked = int((value <= -1e8).sum())
+        ms = time_device([lambda: maximum_path(value, mask)], rounds=5, replays=4)
+        bound, by, _ = mas_bound_ms(value, mask)
+        log(f"K2 on {key}'s MAS input {tuple(value.shape)} ({value.dtype}, "
+            f"{int(mask.sum())} cells in the mask, {masked} values at -1e9): the path identical "
+            f"to the plain version's, {int(got.sum())} cells, repeats bit-identical; device "
+            f"{ms * 1e3:.1f} us (CUDA graph replays), bound {bound * 1e3:.1f} us ({by}): "
+            f"{100 * bound / ms:.1f} % | {card}")
+
+
+def loss_share(loss_fn, args, step_ms: float, device) -> tuple:
+    """``(ms, share of step_ms)`` of ``loss_fn(*args)``'s forward and
+    backward, synchronized, the median of 5 after one warm call; the first
+    argument is the one differentiated."""
+    import torch
+
+    x = args[0].detach().requires_grad_(True)
+
+    def run():
+        (g,) = torch.autograd.grad(loss_fn(x, *args[1:]), [x])
+        return g
+
+    run()
+    ms, _, _ = median_ms(run, device, reps=5)
+    return ms, ms / step_ms
+
+
+def aligner_recipe_step(name: str, corpus: str, cache: str, device, card: str,
+                        mas_inputs: dict, cut=None) -> dict:
+    """One recipe of ``name`` at its published width through the trainer's
+    generic step: its first batch of the corpus (B=32), two steps timed on
+    the device's clock edge (the first warms up), the losses finite, MAS's
+    first input kept in ``mas_inputs``; AlignTTS's MDN loss timed forward
+    and backward on the step's log-likelihoods. Returns ``{"steps", "ms",
+    "metrics", ...}``."""
+    import torch
+
+    from tts_tpu_torch.data import load_tts_samples
+    from tts_tpu_torch.models import setup_model
+    from tts_tpu_torch.trainer.trainer import Trainer, TrainerArgs, step_seed
+
+    config = aligner_recipe_config(name, corpus, cache)
+    if cut is not None:
+        cut(name, config)
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+        samples, _ = load_tts_samples([d.to_dict() for d in config.datasets], eval_split=True,
+                                      eval_split_size=config.eval_split_size)
+        model = setup_model(config)
+        t = Trainer(TrainerArgs(), config, out, model, samples, device=device)
+        ds = t.get_dataset(samples)
+        batch = t._format_batch(next(ds.batches(config.batch_size, seed=0,
+                                                num_workers=ALIGN_WORKERS)))
+        ready = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], {}
+        with first_mas_input(mas_inputs, name):
+            for i in range(2):
+                t.generator.manual_seed(step_seed(t.seed, i))
+                sync(device)
+                t1 = time.perf_counter()
+                t.state, metrics = t.train_step_fn(t.state, batch)
+                sync(device)
+                ms.append((time.perf_counter() - t1) * 1e3)
+    host = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in host.values()):
+        raise AssertionError(f"{name} recipe step: {host}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    n_params = sum(p.numel() for p in model.module.parameters())
+    extra, steps = "", 2
+    if name == "align_tts":
+        from tts_tpu_torch.models.align_tts.model import mdn_loss
+
+        with torch.no_grad():
+            outputs = model.train_step(batch, t.generator, train=False)[1]["outputs"]
+        steps += 1
+        mdn_ms, share = loss_share(mdn_loss, (outputs["logp"], batch["text_lengths"],
+                                              batch["mel_lengths"]), ms[-1], device)
+        extra = (f"; mdn_loss forward and backward {mdn_ms:.1f} ms ({100 * share:.1f} % of the "
+                 f"step; a loop over {outputs['logp'].shape[2]} frames)")
+    shape = tuple(batch["text_input"].shape) + (batch["mel_input"].shape[1],)
+    log(f"{name} recipe step (B={config.batch_size}, ids x frames {shape[1]} x {shape[2]}, "
+        f"{n_params / 1e6:.1f} M parameters, fp32, TF32 off): "
+        + ", ".join(f"{v:.1f}" for v in ms) + f" ms (the first warms up), loss "
+        f"{host['loss']:.4g} (" + ", ".join(f"{k} {v:.3g}" for k, v in sorted(host.items())
+                                          if k.startswith("loss_") or k == "log_mle")
+        + f"), peak {peak:.2f} GB; built and first batch in {ready:.1f} s{extra} | {card}")
+    del model, t, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"steps": steps, "ms": ms}
+
+
+def tiny_aligner_config(name: str, corpus: str, cache: str):
+    """The card-against-CPU fits: each family at a tiny width over the
+    corpus's ``metadata_tiny.csv`` (the recipes' audio and text fields), B=4,
+    two steps an epoch, no evaluation (4 clips held out)."""
+    from tts_tpu_torch.config.shared import BaseDatasetConfig
+
+    config = aligner_recipe_config(name, corpus, os.path.join(cache, "tiny"))
+    config.batch_size = config.eval_batch_size = config.eval_split_size = 4
+    config.run_eval, config.num_loader_workers = False, 0
+    config.datasets = [BaseDatasetConfig(formatter="ljspeech", dataset_name="ljspeech",
+                                         meta_file_train="metadata_tiny.csv", path=corpus,
+                                         language="en")]
+    fft = {"hidden_channels_ffn": 64, "num_heads": 2, "num_layers": 1, "dropout_p": 0.1}
+    if name == "fast_pitch":
+        a = config.model_args
+        a.hidden_channels, a.encoder_params, a.decoder_params = 32, dict(fft), dict(fft)
+        a.duration_predictor_hidden_channels = a.pitch_predictor_hidden_channels = 32
+    elif name == "glow_tts":
+        config.hidden_channels_enc = config.hidden_channels_dec = config.hidden_channels_dp = 32
+        config.num_flow_blocks_dec, config.num_block_layers = 2, 2
+        config.encoder_params = {"kernel_size": 3, "dropout_p": 0.1, "num_layers": 1,
+                                 "num_heads": 2, "hidden_channels_ffn": 64}
+    else:
+        a = config.model_args
+        a.hidden_channels, a.hidden_channels_dp = 32, 32
+        a.encoder_params, a.decoder_params = dict(fft), dict(fft)
+    return config
+
+
+def tiny_aligner_fit(config, samples, device, paths: dict, seed: int = 3) -> list:
+    """One ``Trainer.fit`` of ``config`` (weights from ``config.seed``, drawn
+    on the host) on ``device`` with the host's draws (``host_draws``: the
+    dropout masks) and MAS's paths taken from ``paths`` when it holds the
+    CPU run's (else recorded there; K2 still runs on the card). Returns the
+    loss scalars of every step."""
+    import torch
+
+    from tts_tpu_torch.models import setup_model
+    from tts_tpu_torch.trainer.trainer import Trainer, TrainerArgs
+
+    record = "cpu" not in paths
+    calls = paths.setdefault("cpu", [])
+    idx = iter(range(10**6))
+
+    def aligned(real, value, mask, *args, **kwargs):
+        path = real(value, mask, *args, **kwargs)
+        if record:
+            calls.append(path.cpu())
+            return path
+        want = calls[next(idx)]
+        paths["flipped"] = paths.get("flipped", 0) + int((path.cpu() != want).sum())
+        return want.to(path.device)
+
+    recorder = LossRecorder()
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+        t = Trainer(TrainerArgs(), copy.deepcopy(config), out, setup_model(copy.deepcopy(config)),
+                    copy.deepcopy(samples), device=device)
+        t.dashboard = recorder
+        with host_draws(seed), mas_through(aligned):
+            t.fit()
+    sync(device)
+    del t
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return [(scope, step, {k: v for k, v in m.items() if k.startswith("loss") or k == "log_mle"})
+            for scope, step, m in recorder.scalars]
+
+
+def aligner_fits_card_against_cpu(corpus: str, cache: str, device, card: str) -> int:
+    """Each family's tiny fit on the CPU, then on the card, with the same
+    weights, host draws (dropout on) and the CPU run's paths, fp32 with
+    TF32 off: every loss of every step within ``ALIGN_TOL`` of its own value
+    (of ``ALIGN_FLOOR`` nearer 0). Returns the card runs' train steps (K2's
+    launches there)."""
+    from tts_tpu_torch.data import load_tts_samples
+
+    k2 = 0
+    for name in ALIGN_FAMILIES:
+        config = tiny_aligner_config(name, corpus, cache)
+        with contextlib.redirect_stdout(io.StringIO()):
+            samples, _ = load_tts_samples([ds.to_dict() for ds in config.datasets],
+                                          eval_split=True, eval_split_size=config.eval_split_size)
+        paths: dict = {}
+        cpu = tiny_aligner_fit(config, samples, "cpu", paths)
+        got = tiny_aligner_fit(config, samples, device, paths)
+        if [(s, n) for s, n, _ in cpu] != [(s, n) for s, n, _ in got] or len(cpu) < 2:
+            raise AssertionError(f"tiny {name} fit: the runs logged {cpu} and {got}")
+        worst = 0.0
+        for (scope, step, want), (_, _, have) in zip(cpu, got):
+            if set(want) != set(have):
+                raise AssertionError(f"tiny {name} fit: {sorted(have)} against {sorted(want)}")
+            err = max(abs(have[k] - want[k]) / max(abs(want[k]), ALIGN_FLOOR) for k in want)
+            worst = max(worst, err)
+            if not err <= ALIGN_TOL:
+                raise AssertionError(f"tiny {name} fit card against CPU, {scope} at step "
+                                     f"{step}: {have} against {want}")
+        n_steps = sum(scope == "train" for scope, _, _ in cpu)
+        k2 += n_steps
+        log(f"tiny {name} fit card against CPU ({n_steps} steps through Trainer.fit, B=4, "
+            f"hidden 32, fp32, TF32 off, dropout on, host draws, the CPU's paths; K2's own "
+            f"differed in {paths.get('flipped', 0)} cells): {len(cpu[0][2])} losses a step, "
+            f"each within {worst:.3g} of its own value (tol {ALIGN_TOL}) | {card}")
+    return k2
+
+
+def phase_aligner_train(card: str, kernel=None, device="cuda", cut=None):
+    """Phase 24: the aligner families' training. An LJSpeech-layout corpus
+    (phase 22's writer: 80 clips of 2-10 s at 22.05 kHz, ~4.5 frames a
+    phoneme); FastPitch at the LJSpeech recipe's width (384 wide, 6 + 6 FFT
+    layers, the aligner, pitch; B=32) through ``tts_tpu_torch.bin.train_tts``
+    on the card: an epoch of two steps with ``ALIGN_WORKERS`` loader
+    threads, the f0 pass (cache and F60's statistics), an evaluation and a
+    checkpoint, then ``--continue_path`` for a second; the checkpoint holds
+    the aligner and speaks through the ``Synthesizer``. The forward-sum
+    loss timed forward and backward on a step's log-probabilities. One
+    recipe step each of GlowTTS, AlignTTS (its MDN loss timed) and
+    FastSpeech2 (energy on). K2 against its plain version on each family's
+    real MAS input. Each family's tiny fit card against CPU. K2 launches once
+    a train step and once an evaluation batch; K1 and K4 0. ``kernel``: K2's
+    kernels-line entry from phases 21-22, else K2 is checked here; returned
+    with this phase's launches added. ``cut(name, config)`` shrinks each
+    recipe config in place for rehearsals on the CPU."""
+    import torch
+
+    from tts_tpu_torch.bin import train_tts
+    from tts_tpu_torch.layers.losses import forward_sum_loss
+    from tts_tpu_torch.models.vits import Vits
+    from tts_tpu_torch.ops.decode_attention import decode_attention
+    from tts_tpu_torch.ops.mas import maximum_path
+    from tts_tpu_torch.ops.quant import int8_linear
+    from tts_tpu_torch.text.tokenizer import TTSTokenizer
+    from tts_tpu_torch.utils.synthesizer import Synthesizer
+
+    t_phase = time.time()
+    cuda = torch.device(device).type == "cuda"
+
+    def stamp(what: str) -> None:
+        log(f"  (phase 24 at {time.time() - t_phase:.1f} s: {what})")
+
+    if kernel is None and cuda:  # phases 21-22 did not run: K2's card checks here
+        batch = synthetic_train_batch(Vits.init_from_config(vits_recipe_config()), device)
+        kernel = k2_checks(batch, card)
+        kernel["launches"] = 0
+        del batch
+        stamp("K2 checked")
+    decode_attention.launches = int8_linear.launches = maximum_path.launches = 0
+    expected, mas_inputs = 0, {}
+    with tempfile.TemporaryDirectory() as d:
+        lj, cache = os.path.join(d, "LJSpeech"), os.path.join(d, "cache")
+        config = aligner_recipe_config("fast_pitch", lj, cache)
+        if cut is not None:
+            cut("fast_pitch", config)
+        tokenizer, _ = TTSTokenizer.init_from_config(copy.deepcopy(config))
+        names, seconds, n_ids = write_train_corpus(lj, tokenizer, config.audio,
+                                                   frames_per_id=ALIGN_FRAMES_PER_ID)
+        order = np.argsort(seconds)
+        with open(os.path.join(lj, "metadata.csv"), encoding="utf-8") as f:
+            rows = f.read().splitlines()
+        with open(os.path.join(lj, "metadata_tiny.csv"), "w", encoding="utf-8") as f:
+            f.write("\n".join(rows[i] for i in order[:ALIGN_TINY_CLIPS]) + "\n")
+        frames = (seconds * config.audio.sample_rate / config.audio.hop_length).astype(int)
+        log(f"aligner corpus: {len(names)} clips of synthetic 22.05 kHz 16-bit audio from seed 0, "
+            f"{seconds.min():.1f}-{seconds.max():.1f} s ({frames.min()}-{frames.max()} frames), "
+            f"{n_ids.min()}-{n_ids.max()} phonemes, {frames.sum() / n_ids.sum():.2f} frames a "
+            f"phoneme")
+        stamp("corpus written")
+
+        # 1. FastPitch through train_tts, then resumed
+        cfg_path = os.path.join(d, "fast_pitch.json")
+        config.save_json(cfg_path)
+        run = os.path.join(d, "run")
+        watch = LoopWatch(device, profile_step=2, what="FastPitch train_tts step")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with first_mas_input(mas_inputs, "fast_pitch"):
+            t = train_tts.main(["--config_path", cfg_path, "--output_path", run, "--device",
+                                str(device)], callbacks=watch.callbacks(card))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        expected += watch.steps + watch.eval_batches
+        files = sorted(os.listdir(run))
+        want = ["best_model.pth", f"checkpoint_{t.global_step}.pth", "config.json"]
+        if files != want or not np.isfinite(t.best_loss):
+            raise AssertionError(f"train_tts wrote {files}, best loss {t.best_loss}")
+        mean, std, f0_s = t.feature_stats["f0"]
+        m = watch.marks
+        n_params = sum(p.numel() for p in t.model.module.parameters())
+        n_aligner = sum(p.numel() for p in t.model.module.aligner.parameters())
+        log(f"train_tts, LJSpeech FastPitch recipe ({n_params / 1e6:.2f} M parameters, the "
+            f"aligner's {n_aligner / 1e6:.2f} M), B={config.batch_size}, {ALIGN_WORKERS} loader "
+            f"threads: {watch.steps} steps " + ", ".join(f"{v:.1f}" for v in watch.step_ms)
+            + " ms on the trainer's clock (synchronized; the first warms up); the loop waited "
+            "on the loader " + ", ".join(f"{v:.1f}" for v in watch.wait_ms) + " ms before "
+            "them; busy " + (f"{100 * watch.busy:.1f} % (kernel time summed), the device "
+                             f"active {100 * watch.union_busy:.1f} % of the wall time"
+                             if watch.busy is not None else "not measured")
+            + f" over step 2; the f0 pass (cache fill of {len(t.train_samples)} clips and F60's "
+            f"statistics: mean {mean:.1f} Hz, std {std:.1f} Hz) {f0_s:.2f} s; eval loss "
+            f"{t.best_loss:.4g}; peak memory {peak:.2f} GB; {wall:.1f} s in all (built "
+            f"{m['built'] - m['made']:.1f} s, to the first step {m['first_step'] - m['built']:.1f}"
+            f" s) | {card}")
+        first_step, first_best = t.global_step, t.best_loss
+        del t
+        stamp("FastPitch trained")
+        watch = LoopWatch(device)
+        r = train_tts.main(["--continue_path", run, "--device", str(device), "--coqpit.epochs",
+                            "2"], callbacks=watch.callbacks(card))
+        expected += watch.steps + watch.eval_batches
+        count = r.state.opt_states["model"].count
+        if r.global_step != 2 * first_step or r.epochs_done != 2 or count != r.global_step:
+            raise AssertionError(f"--continue_path: step {r.global_step}, epochs "
+                                 f"{r.epochs_done}, updates {count}")
+        log(f"--continue_path: resumed at step {first_step} (eval loss {first_best:.4g}), ran "
+            f"to step {r.global_step} (updates {count}, best loss {r.best_loss:.4g}, binary "
+            f"alignment weight {r.model.binary_loss_weight:.4f} = epochs done 1 / "
+            f"{r.config.binary_loss_warmup_epochs}, F61); steps "
+            + ", ".join(f"{v:.1f}" for v in watch.step_ms) + f" ms | {card}")
+
+        # the forward-sum loss's share of a step, on a training batch's outputs
+        ds = r.get_dataset(r.train_samples)
+        batch = r._format_batch(next(ds.batches(config.batch_size, seed=0)))
+        with torch.no_grad():
+            outputs = r.model.train_step(batch, r.generator, train=False)[1]["outputs"]
+        step_ms, _, _ = median_ms(lambda: r.train_step_fn(r.state, batch), device, reps=3)
+        expected += 4
+        fs_ms, share = loss_share(forward_sum_loss, (outputs["alignment_logprob"],
+                                                     batch["text_lengths"], batch["mel_lengths"]),
+                                  step_ms, device)
+        log(f"forward-sum loss (F.ctc_loss over {tuple(outputs['alignment_logprob'].shape)}) "
+            f"forward and backward {fs_ms:.2f} ms, {100 * share:.1f} % of the FastPitch step "
+            f"({step_ms:.1f} ms, median of 3 on the same batch) | {card}")
+        del r, ds, batch, outputs
+        stamp("resumed, the forward-sum loss timed")
+
+        # 2. the checkpoint: the aligner kept, spoken through the Synthesizer
+        best = os.path.join(run, "best_model.pth")
+        payload = torch.load(best, map_location="cpu", weights_only=True)
+        if not any(k.startswith("aligner.") for k in payload["model"]):
+            raise AssertionError("the FastPitch checkpoint holds no aligner")
+        synth = Synthesizer(tts_checkpoint=best, tts_config_path=os.path.join(run, "config.json"),
+                            device=device)
+        for k, v in synth.tts_model.module.state_dict().items():
+            if not torch.equal(v.cpu(), payload["model"][k]):
+                raise AssertionError(f"Synthesizer's FastPitch differs from its checkpoint at {k}")
+        t0 = time.perf_counter()
+        wav = np.asarray(synth.tts("It took me quite a long time to develop a voice."))
+        if not (wav.size and np.isfinite(wav).all()):
+            raise AssertionError(f"Synthesizer on best_model.pth: {wav.size} samples")
+        log(f"Synthesizer(best_model.pth): {len(payload['model'])} tensors (the aligner's "
+            f"{sum(k.startswith('aligner.') for k in payload['model'])}) as in the checkpoint; "
+            f"a sentence spoken, {len(wav) / synth.output_sample_rate:.2f} s of audio through "
+            f"Griffin-Lim in {time.perf_counter() - t0:.2f} s, finite | {card}")
+        del synth, payload
+        stamp("spoken")
+
+        # 3. one recipe step each of GlowTTS, AlignTTS and FastSpeech2
+        for name in ("glow_tts", "align_tts", "fastspeech2"):
+            expected += aligner_recipe_step(name, lj, cache, device, card, mas_inputs,
+                                            cut)["steps"]
+            stamp(f"{name} step")
+
+        # 4. K2 on each family's MAS input, against its plain version
+        if cuda:
+            before = maximum_path.launches
+            k2_on_mas_inputs(mas_inputs, card)
+            maximum_path.launches = before
+        # 5. the tiny fits, card against CPU
+        if cuda:
+            expected += aligner_fits_card_against_cpu(lj, cache, device, card)
+            stamp("tiny fits")
+    launches = {"K1": decode_attention.launches, "K4": int8_linear.launches,
+                "K2": maximum_path.launches}
+    if cuda and (launches["K2"] != expected or launches["K1"] or launches["K4"]):
+        raise AssertionError(f"phase 24: launches {launches}, the train steps and eval batches "
+                             f"were {expected}")
+    if kernel is not None:
+        kernel["launches"] += launches["K2"]
+    log(f"phase 24 (aligner families' training) took {time.time() - t_phase:.1f} s; launches "
+        f"on its path: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" (K2 = {expected} train steps and eval batches) | {card}")
+    return kernel
+
+
 def selected_phases(args) -> set:
-    """The phases a run does: all 23 without arguments, else phases 1 and 2
+    """The phases a run does: all 24 without arguments, else phases 1 and 2
     (environment, build) and the numbers given (5 brings 4, whose model it
     serves). Raises ``ValueError`` on anything else."""
     if not args:
-        return set(range(1, 24))
+        return set(range(1, 25))
     chosen = {int(a) for a in args}  # ValueError on a word
-    if not chosen <= set(range(1, 24)):
-        raise ValueError(f"phases are 1-23, got {sorted(chosen)}")
+    if not chosen <= set(range(1, 25)):
+        raise ValueError(f"phases are 1-24, got {sorted(chosen)}")
     return chosen | {1, 2} | ({4} if 5 in chosen else set())
 
 
@@ -8979,16 +9597,18 @@ def main(argv=None) -> int:
     k2 = phase_vits_train(card) if 21 in phases else None
     if 22 in phases:
         k2 = phase_train_loop(card, k2)
-    if k2 is not None:
-        kernels.append(k2)
     if 23 in phases:
         phase_vocoder_train(card)
+    if 24 in phases:
+        k2 = phase_aligner_train(card, k2)
+    if k2 is not None:
+        kernels.append(k2)
     leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "tokenizers", "transformers",
                                                    "tts_tpu")
                     or m.startswith("tts_tpu."))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    ran = "1-23" if len(phases) == 23 else ", ".join(map(str, sorted(phases)))
+    ran = "1-24" if len(phases) == 24 else ", ".join(map(str, sorted(phases)))
     log(f"chip_smoke.py: phases {ran} took {time.time() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

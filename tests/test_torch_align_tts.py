@@ -6,7 +6,7 @@ The same weights go into both packages: flax parameters drawn from a seed
 (``test_torch_glow_tts.drawn_params``: every leaf N(0, 0.05²), norm scales
 1 + N(0, 0.05²), the MDN head included), the duration predictor's output
 bias at GlowTTS's ``DURATION_BIAS`` (about 6 frames a token), carried into
-the port without the training-only MDN head, at small widths (hidden 32, 2
+the port with the MDN head (which training runs), at small widths (hidden 32, 2
 heads, 2 layers or 3 dilations, 16 mels). ``inference`` with each block type
 at B = 2 has equal durations and ``y_lengths`` and mels within 1e-5; the
 durations are rounded at .5, so each test prints the smallest distance of a
@@ -131,12 +131,14 @@ def test_synthesis_matches_jax():
 
 
 def test_weights_carry_over_strictly(tmp_path):
-    """Every inference leaf of the JAX params lands in the port's
-    state_dict and nothing else does; the MDN head is dropped."""
+    """Every leaf of the JAX params lands in the port's state_dict, the MDN
+    head's (which training runs) among them, and nothing else does."""
     jm, params, port = jax_pair()
     assert {"mdn_conv1", "mdn_norm", "mdn_conv2"} <= set(params["params"])
     state = align_tts_from_jax_params(params)
-    assert not any(k.startswith("mdn_") for k in state)
+    assert {k for k in state if k.startswith("mdn_")} == {
+        "mdn_conv1.weight", "mdn_conv1.bias", "mdn_norm.weight", "mdn_norm.bias",
+        "mdn_conv2.weight", "mdn_conv2.bias"}
     assert sorted(state) == sorted(port.module.state_dict())
     missing = dict(state)
     missing.pop("proj.bias")

@@ -293,6 +293,19 @@ def test_batches_match_jax_bit_for_bit(samples, case, tmp_path):
         assert_batches_equal(got, want)
     if case == "f0_energy":  # the second epoch read the caches both wrote
         assert len(os.listdir(tmp_path / "f0_port")) == len(train)
+        # F60: the port's trainer normalises the voiced frames by the training
+        # set's statistics, where the JAX pipeline feeds the raw features above
+        stats = {"pitch": port_ds.feature_stats("f0"),
+                 "energy": port_ds.feature_stats("energy")}
+        port_ds.pitch_stats, port_ds.energy_stats = stats["pitch"], stats["energy"]
+        normed = list(port_ds.batches(4, shuffle=True, seed=3))
+        for g, w in zip(normed, want):
+            for key, (mean, std) in stats.items():
+                raw = w[key]
+                expect = np.where(raw != 0, (raw - np.float32(mean)) / np.float32(std), 0)
+                np.testing.assert_array_equal(g[key], expect.astype(np.float32), err_msg=key)
+                assert not g[key][raw == 0].any() and g[key].std() < raw.std()
+        port_ds.pitch_stats = port_ds.energy_stats = None
     got = list(port_ds.batches(5, shuffle=False, drop_last=True))
     assert_batches_equal(got, list(jax_ds.batches(5, shuffle=False, drop_last=True)))
 

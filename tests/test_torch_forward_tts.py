@@ -22,8 +22,9 @@ Divergences from the JAX package, each named in its test:
 * F27: a ``d_vector_dim`` other than ``hidden_channels`` raises in the
   port, where the JAX module would add a vector of the wrong width
   (``test_f27_d_vector_width_raises``);
-* the port builds no aligner (training only) and its weight carriers drop
-  the JAX package's (``test_weights_carry_over_strictly``).
+and the aligner, which training runs, comes across with the rest
+(``test_weights_carry_over_strictly``; its training:
+``test_torch_forward_tts_train.py``).
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -321,16 +322,16 @@ def test_fidelity_replay_through_the_ports_converter(tmp_path):
 
 def test_reference_layout_round_trip():
     """``reference_forward_tts_state`` writes the names and shapes of
-    ``fastpitch.npz`` (the aligner aside; the positional table as the
-    reference's ``[1, C, 5000]`` buffer), and ``load_reference_forward_tts``
-    reads them back to the same tensors."""
+    ``fastpitch.npz`` (the aligner's ``key_layer``/``query_layer`` among
+    them; the positional table as the reference's ``[1, C, 5000]`` buffer),
+    and ``load_reference_forward_tts`` reads them back to the same
+    tensors."""
     jm, params = jax_pair("fast_pitch", seed=11)
     port = port_of(jm, params)
     state = port.module.state_dict()
     ref = reference_forward_tts_state(state, port.module.pos_encoder.pe)
     fixture, _, _, _ = _load("fastpitch")
-    fixture_keys = {k for k in fixture if not k.startswith("aligner.")}
-    assert set(ref) == fixture_keys
+    assert set(ref) == set(fixture)
     for k in ref:
         assert ref[k].ndim == fixture[k].ndim, k
     assert ref["pos_encoder.pe"].shape == (1, 32, 5000)
@@ -344,18 +345,20 @@ def test_reference_layout_round_trip():
 
 
 def test_weights_carry_over_strictly():
-    """The port's state_dict takes every JAX leaf but the aligner's, which
-    ``forward_tts_from_jax_params`` drops (training only, ROADMAP.md item
-    17); the attention's flax Denses pack into ``in_proj_weight``."""
+    """The port's state_dict takes every JAX leaf, the aligner's (which
+    training runs) among them, and nothing else; the attention's flax
+    Denses pack into ``in_proj_weight``."""
     jm, params = jax_pair("fastspeech2", seed=12)
     assert "aligner" in params["params"]
     port = port_of(jm, params)
     carried = forward_tts_from_jax_params(params)
     assert set(port.module.state_dict()) == set(carried)
-    assert not any(k.startswith("aligner") for k in carried)
+    assert {k for k in carried if k.startswith("aligner")} == {
+        f"aligner.{c}.{leaf}" for c in ("key_conv1", "key_conv2", "query_conv1", "query_conv2",
+                                        "query_conv3") for leaf in ("weight", "bias")}
     assert carried["encoder.fft_0.self_attn.in_proj_weight"].shape == (96, 32)
     flat = flax_to_state_dict({k: v for k, v in params["params"].items()
-                               if k not in ("aligner", "encoder", "decoder")})
+                               if k not in ("encoder", "decoder")})
     for k, v in flat.items():
         assert torch.equal(carried[k], v), k
 

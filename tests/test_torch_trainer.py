@@ -522,9 +522,10 @@ def test_train_tts_needs_cuda_unless_asked_for_the_cpu(corpus, tmp_path):
 
 
 def test_generic_step_waits_for_17c_and_17d(tmp_path):
-    """The generic step came with 17c (the vocoders' training): a model
-    with neither its own step nor a ``train_step`` loss still raises,
-    naming 17d alone."""
+    """The generic step came with 17c (the vocoders' training) and serves
+    17d-i's families: a model with neither its own step nor a
+    ``train_step`` loss still raises, naming what is left of 17d (17d-ii,
+    17d-iii)."""
     class NoStep:
         pass
 
@@ -532,6 +533,7 @@ def test_generic_step_waits_for_17c_and_17d(tmp_path):
         Trainer(TrainerArgs(), VitsConfig(), str(tmp_path), NoStep(), [], device="cpu")
     assert str(err.value) == port_trainer_mod.NO_STEP_REASON
     assert "17c" not in str(err.value)
+    assert "17d-ii" in str(err.value) and "17d-iii" in str(err.value)
 
 
 def test_f54_posterior_reads_the_linear_spectrogram(parity, corpus):

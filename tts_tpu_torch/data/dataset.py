@@ -17,12 +17,23 @@ without changing them or their order.
 Feature caches (token ids, f0, energy) mirror the reference's
 ``PhonemeDataset``/``F0Dataset``/``EnergyDataset`` (``dataset.py:577-973``)
 as simple on-disk ``.npy`` caches.
+
+F60, settled in the port: the JAX pipeline feeds the models raw f0 in Hz
+and raw energy. The reference normalises both by the training set's
+statistics, and the port does too: :meth:`TTSDataset.feature_stats` fills a
+feature's cache over the samples and takes the mean and standard deviation
+of the voiced (non-zero) frames, written to ``pitch_stats.npy`` /
+``energy_stats.npy`` in the cache directory (the reference's ``{"mean",
+"std"}`` file) and read back when that file exists; with ``pitch_stats`` /
+``energy_stats`` set, each item's voiced frames become ``(x - mean) / std``
+and its unvoiced frames stay 0. The raw cached features, and every batch
+of a dataset without statistics, are the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -92,6 +103,16 @@ def audio_length_samples(path: str, target_sr: Optional[int] = None) -> float:
 _FORKED_DATASET = None
 
 
+def normalize_voiced(feat: np.ndarray, stats: Optional[Tuple[float, float]]) -> np.ndarray:
+    """``(feat - mean) / std`` on the non-zero frames, 0 on the others
+    (reference ``F0Dataset.normalize``), in float32; ``feat`` as it is
+    without ``stats``."""
+    if stats is None:
+        return feat
+    mean, std = np.float32(stats[0]), np.float32(stats[1])
+    return np.where(feat != 0.0, (feat - mean) / std, np.float32(0.0)).astype(np.float32)
+
+
 def _init_worker(dataset):
     """Pool initializer for the ``spawn`` start method: the pickled dataset
     arrives once per worker instead of being inherited by fork."""
@@ -141,6 +162,8 @@ class TTSDataset:
         pad_to_multiple_mel: int = 32,
         use_noise_augment: bool = False,
         verbose: bool = False,
+        pitch_stats: Optional[Tuple[float, float]] = None,
+        energy_stats: Optional[Tuple[float, float]] = None,
     ):
         self.samples = samples
         self.ap = ap
@@ -166,6 +189,8 @@ class TTSDataset:
         self.pad_to_multiple_mel = pad_to_multiple_mel
         self.use_noise_augment = use_noise_augment
         self.verbose = verbose
+        self.pitch_stats = pitch_stats
+        self.energy_stats = energy_stats
         self._token_cache: Dict[str, np.ndarray] = {}
         if phoneme_cache_path:
             os.makedirs(phoneme_cache_path, exist_ok=True)
@@ -234,10 +259,35 @@ class TTSDataset:
         if self.compute_linear_spec:
             item["linear"] = self.ap.spectrogram(wav).astype(np.float32).T
         if self.compute_f0:
-            item["pitch"] = self._cached_feature("f0", s, wav)
+            item["pitch"] = normalize_voiced(self._cached_feature("f0", s, wav),
+                                             self.pitch_stats)
         if self.compute_energy:
-            item["energy"] = self._cached_feature("energy", s, wav)
+            item["energy"] = normalize_voiced(self._cached_feature("energy", s, wav),
+                                              self.energy_stats)
         return item
+
+    def feature_stats(self, kind: str) -> Tuple[float, float]:
+        """F60: the mean and standard deviation of ``kind``'s (``"f0"`` or
+        ``"energy"``) voiced frames over every sample, the cache filled on
+        the way; read from, or written to, ``pitch_stats.npy`` /
+        ``energy_stats.npy`` in the feature's cache directory (reference
+        ``F0Dataset.compute_pitch_stats``)."""
+        cache_dir = self.f0_cache_path if kind == "f0" else self.energy_cache_path
+        name = "pitch_stats.npy" if kind == "f0" else "energy_stats.npy"
+        path = os.path.join(cache_dir, name) if cache_dir else None
+        if path and os.path.exists(path):
+            stats = np.load(path, allow_pickle=True).item()
+            return float(stats["mean"]), float(stats["std"])
+        voiced = []
+        for s in self.samples:
+            feat = self._cached_feature(kind, s, None)
+            voiced.append(feat[feat != 0.0])
+        voiced = np.concatenate(voiced).astype(np.float64)
+        mean, std = float(np.mean(voiced)), float(np.std(voiced))
+        if path:
+            os.makedirs(cache_dir, exist_ok=True)
+            np.save(path, {"mean": np.float64(mean), "std": np.float64(std)})
+        return mean, std
 
     def _n_frames(self, n_samples: int) -> int:
         """The spectrograms' frame count for ``n_samples`` (``stft``'s centred
@@ -253,6 +303,8 @@ class TTSDataset:
             cache_file = os.path.join(cache_dir, f"{key}_{kind}.npy")
             if os.path.exists(cache_file):
                 return np.load(cache_file)
+        if wav is None:
+            wav = self.ap.load_wav(sample["audio_file"])
         if kind == "f0":
             feat = self.ap.compute_f0(wav).astype(np.float32)
         else:

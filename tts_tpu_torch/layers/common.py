@@ -86,15 +86,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 class ConvLayerNormBlock(nn.Module):
-    """``num_layers`` × (conv → layer norm → ReLU) with a residual 1x1
-    projection ``proj`` (reference ``glow_tts/glow.py:11``
+    """``num_layers`` × (conv → layer norm → ReLU → dropout) with a residual
+    1x1 projection ``proj`` (reference ``glow_tts/glow.py:11``
     ResidualConv1dLayerNormBlock; the JAX package zero-initialises ``proj``,
     so a fresh block is the identity). ``[B, T, C]`` in and out."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int,
-                 kernel_size: int, num_layers: int):
+                 kernel_size: int, num_layers: int, dropout_p: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = Dropout(dropout_p)
         for i in range(num_layers):
             self.add_module(f"conv_{i}", Conv1d(in_channels if i == 0 else hidden_channels,
                                                 hidden_channels, kernel_size))
@@ -108,7 +109,7 @@ class ConvLayerNormBlock(nn.Module):
         for i in range(self.num_layers):
             h = getattr(self, f"conv_{i}")(h * mask)
             h = getattr(self, f"norm_{i}")((h * mask).transpose(1, 2)).transpose(1, 2)
-            h = F.relu(h)
+            h = self.dropout(F.relu(h).transpose(1, 2)).transpose(1, 2)
         return (x_res + self.proj(h).transpose(1, 2)) * x_mask
 
 

@@ -1,7 +1,9 @@
 """Feed-forward (non-autoregressive) encoder and decoder blocks of the
 ForwardTTS family (port of ``tts_tpu/layers/feed_forward.py``, reference
-``TTS/tts/layers/generic/{transformer,res_conv_bn,pos_encoding}.py``),
-inference only (no dropout). Every block takes and returns a time-major
+``TTS/tts/layers/generic/{transformer,res_conv_bn,pos_encoding}.py``). The
+FFT layers carry the JAX package's dropouts (on the attention weights, on
+the attention output's first copy, on the feed-forward's output), which act
+in training mode only (``layers.common.Dropout``). Every block takes and returns a time-major
 ``[B, T, C]`` tensor, the JAX package's layout, with a ``[B, T, 1]`` mask of
 ones on valid frames.
 
@@ -38,7 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Conv1d
+from .common import Conv1d, Dropout
 
 FLAX_LAYER_NORM_EPS = 1e-6
 
@@ -47,12 +49,13 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention over ``[B, T, C]`` with ``key_padding_mask``
     ``[B, T]`` (True on padded keys)."""
 
-    def __init__(self, channels: int, num_heads: int):
+    def __init__(self, channels: int, num_heads: int, dropout_p: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * channels, channels))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * channels))
         self.out_proj = nn.Linear(channels, channels)
+        self.dropout = Dropout(dropout_p)  # on the attention weights, as flax's
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
         B, T, C = x.shape
@@ -66,7 +69,7 @@ class SelfAttention(nn.Module):
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(scores.dtype).min)
-        out = torch.softmax(scores, dim=-1) @ heads(v)
+        out = self.dropout(torch.softmax(scores, dim=-1)) @ heads(v)
         return self.out_proj(out.transpose(1, 2).reshape(B, T, C))
 
 
@@ -75,9 +78,10 @@ class FFTransformerLayer(nn.Module):
     residual LayerNorm (reference ``generic/transformer.py:6``)."""
 
     def __init__(self, channels: int, num_heads: int, hidden_channels_ffn: int = 1024,
-                 kernel_size_fft: int = 3):
+                 kernel_size_fft: int = 3, dropout_p: float = 0.0):
         super().__init__()
-        self.self_attn = SelfAttention(channels, num_heads)
+        self.self_attn = SelfAttention(channels, num_heads, dropout_p)
+        self.dropout = Dropout(dropout_p)
         self.norm1 = nn.LayerNorm(channels, eps=FLAX_LAYER_NORM_EPS)
         self.conv1 = Conv1d(channels, hidden_channels_ffn, kernel_size_fft)
         self.conv2 = Conv1d(hidden_channels_ffn, channels, kernel_size_fft)
@@ -85,14 +89,15 @@ class FFTransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
         y = self.self_attn(x, key_padding_mask)
-        x = self.norm1(x + y + y)  # the attention output twice, as the JAX package adds it
+        # the attention output twice, once through dropout, as the JAX package adds it
+        x = self.norm1(x + self.dropout(y) + y)
         pad = None if key_padding_mask is None else key_padding_mask[:, :, None]
         if pad is not None:
             x = x.masked_fill(pad, 0.0)
         y = F.relu(self.conv1(x.transpose(1, 2))).transpose(1, 2)
         if pad is not None:
             y = y.masked_fill(pad, 0.0)
-        y = self.conv2(y.transpose(1, 2)).transpose(1, 2)
+        y = self.dropout(self.conv2(y.transpose(1, 2)).transpose(1, 2))
         return self.norm2(x + y)
 
 
@@ -101,12 +106,13 @@ class FFTransformerBlock(nn.Module):
     (reference ``generic/transformer.py:38``)."""
 
     def __init__(self, channels: int, num_heads: int, hidden_channels_ffn: int,
-                 num_layers: int):
+                 num_layers: int, dropout_p: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"fft_{i}", FFTransformerLayer(channels, num_heads,
-                                                           hidden_channels_ffn))
+                                                           hidden_channels_ffn,
+                                                           dropout_p=dropout_p))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         key_padding_mask = None if mask is None else mask[..., 0] < 0.5

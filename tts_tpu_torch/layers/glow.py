@@ -4,8 +4,11 @@ and ``decoder.py``): ``squeeze``/``unsqueeze``, ``ActNorm``, ``InvConvNear``,
 ``CouplingBlock`` and ``GlowDecoder``, in both directions.
 
 Every flow takes ``reverse``: the forward direction returns ``(z, logdet)``,
-the reverse ``(x, None)``. Inference runs the reverse; the forward serves
-the invertibility check and, later, training. Tensors are time-major
+the reverse ``(x, None)``. Inference runs the reverse; training (GlowTTS's
+maximum likelihood, Overflow's post-flow) the forward, whose log-determinant
+carries gradients (``InvConvNear``'s through ``torch.linalg.slogdet``).
+Each coupling's WaveNet has the JAX package's dropout (``dropout_p``,
+training mode only). Tensors are time-major
 ``[B, T, C]`` as in the JAX package; squeezing is a plain reshape there.
 ``InvConvNear`` keeps the JAX package's interleaved channel grouping and
 inverts its ``[s, s]`` weight on each reverse call (``torch.linalg.inv_ex``,
@@ -101,11 +104,12 @@ class CouplingBlock(nn.Module):
 
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, num_layers: int, c_in_channels: int = 0,
-                 sigmoid_scale: bool = False):
+                 sigmoid_scale: bool = False, dropout_p: float = 0.0):
         super().__init__()
         self.sigmoid_scale = sigmoid_scale
         self.start = nn.Linear(in_channels // 2, hidden_channels)
-        self.wn = WN(hidden_channels, kernel_size, dilation_rate, num_layers, c_in_channels)
+        self.wn = WN(hidden_channels, kernel_size, dilation_rate, num_layers, c_in_channels,
+                     dropout_p)
         self.end = nn.Linear(hidden_channels, in_channels)
 
     def forward(self, x, x_mask=None, g=None, reverse: bool = False):
@@ -131,7 +135,7 @@ class GlowDecoder(nn.Module):
     def __init__(self, in_channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, num_flow_blocks: int, num_coupling_layers: int,
                  num_splits: int = 4, num_squeeze: int = 2, sigmoid_scale: bool = False,
-                 c_in_channels: int = 0):
+                 c_in_channels: int = 0, dropout_p: float = 0.0):
         super().__init__()
         self.num_squeeze = num_squeeze
         self.num_flow_blocks = num_flow_blocks
@@ -141,7 +145,7 @@ class GlowDecoder(nn.Module):
             self.add_module(f"invconv_{k}", InvConvNear(ch, num_splits))
             self.add_module(f"coupling_{k}", CouplingBlock(
                 ch, hidden_channels, kernel_size, dilation_rate, num_coupling_layers,
-                c_in_channels, sigmoid_scale))
+                c_in_channels, sigmoid_scale, dropout_p))
 
     def flows(self):
         return [getattr(self, f"{kind}_{k}") for k in range(self.num_flow_blocks)

@@ -20,8 +20,22 @@ mean (ROADMAP.md F18). At scale 0, the default, the two agree.
 
 The decode runs at a frame budget (``max_frames``, a multiple of
 ``num_squeeze``): the predicted length is cut there, as in the JAX package
-(``tts_tpu/models/glow_tts/model.py:234-236``). Training (the forward
-direction with MAS, the loss) waits for its own slice (ROADMAP.md item 17).
+(``tts_tpu/models/glow_tts/model.py:234-236``).
+
+Training (``tts_tpu/models/glow_tts/model.py:175-213,259-273,357-360``):
+``GlowTTSModule.forward`` crops the mel to a multiple of ``num_squeeze``,
+runs the flow decoder in the forward direction with its log-determinant,
+scores every (token, frame) pair under the encoder's Gaussians
+(``_mas_logp``, two ``torch.matmul`` products, without gradient) and takes
+the best monotonic path through them (``ops.mas.maximum_path``, K2 on
+CUDA); ``glow_tts_loss`` is the flow's negative log-likelihood plus the
+duration MSE; ``GlowTTS.train_step`` is the trainer's generic step's loss.
+The encoder's dropouts (the prenet's 0.5, the transformer's, the duration
+predictor's ``dropout_p_dp``) and the couplings' (``dropout_p_dec``) act
+in training mode. F63, kept as the JAX package has it:
+``data_dep_init_steps`` is read by neither package, and ``ActNorm``
+starts at the identity; the trainer's weights keep the JAX package's zero
+leaves at zero (``init_params`` with ``discriminator``).
 """
 
 from __future__ import annotations
@@ -34,11 +48,16 @@ import torch
 import torch.nn as nn
 
 from tts_tpu_torch import resolve_device
-from tts_tpu_torch.layers.common import ConvLayerNormBlock, DurationPredictor
+from tts_tpu_torch.layers.common import (
+    ConvLayerNormBlock,
+    DurationPredictor,
+    use_dropout_generator,
+)
 from tts_tpu_torch.layers.glow import ActNorm, GlowDecoder, InvConvNear
 from tts_tpu_torch.layers.transformer import RelativePositionTransformer
 from tts_tpu_torch.models.base import init_tokenizer
 from tts_tpu_torch.ops.helpers import generate_path, sequence_mask
+from tts_tpu_torch.ops.mas import maximum_path
 from tts_tpu_torch.text.tokenizer import TTSTokenizer
 
 from .config import GlowTTSConfig
@@ -62,8 +81,8 @@ def cond_channels(config: GlowTTSConfig) -> int:
 
 class GlowTTSEncoder(nn.Module):
     """Token ids → ``(mean, log_scale, log_durations, x_mask)``, all
-    time-major; the duration predictor sees the encoder's output with the
-    speaker vector appended to every frame."""
+    time-major; the duration predictor sees the encoder's output, detached,
+    with the speaker vector appended to every frame."""
 
     def __init__(self, config: GlowTTSConfig, num_chars: int, g_channels: int = 0):
         super().__init__()
@@ -73,15 +92,18 @@ class GlowTTSEncoder(nn.Module):
         self.mean_only = config.mean_only
         self.emb = nn.Embedding(num_chars, hidden)
         if config.use_encoder_prenet:
-            self.prenet = ConvLayerNormBlock(hidden, hidden, hidden, kernel_size=5, num_layers=3)
+            self.prenet = ConvLayerNormBlock(hidden, hidden, hidden, kernel_size=5, num_layers=3,
+                                             dropout_p=0.5)
         self.encoder = RelativePositionTransformer(
             hidden, p.get("hidden_channels_ffn", 768), p.get("num_heads", 2),
-            p.get("num_layers", 6), p.get("kernel_size", 3), p.get("rel_attn_window_size", 4))
+            p.get("num_layers", 6), p.get("kernel_size", 3), p.get("rel_attn_window_size", 4),
+            p.get("dropout_p", 0.1))
         self.proj_m = nn.Linear(hidden, config.out_channels)
         if not config.mean_only:
             self.proj_s = nn.Linear(hidden, config.out_channels)
         self.duration_predictor = DurationPredictor(hidden + g_channels,
-                                                    config.hidden_channels_dp, 3)
+                                                    config.hidden_channels_dp, 3,
+                                                    dropout_p=config.dropout_p_dp)
 
     def forward(self, x, x_lengths, g: Optional[torch.Tensor] = None):
         h = self.emb(x) * math.sqrt(self.hidden_channels)
@@ -89,9 +111,9 @@ class GlowTTSEncoder(nn.Module):
         if hasattr(self, "prenet"):
             h = self.prenet(h, x_mask)
         h = self.encoder(h, x_mask)
-        h_dp = h
+        h_dp = h.detach()
         if g is not None:
-            h_dp = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)
+            h_dp = torch.cat([h_dp, g[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)
         o_mean = self.proj_m(h) * x_mask
         o_log_scale = torch.zeros_like(o_mean) if self.mean_only else self.proj_s(h) * x_mask
         o_dur_log = self.duration_predictor(h_dp, x_mask)
@@ -113,7 +135,8 @@ class GlowTTSModule(nn.Module):
         self.dec = GlowDecoder(
             config.out_channels, config.hidden_channels_dec, config.kernel_size_dec,
             config.dilation_rate, config.num_flow_blocks_dec, config.num_block_layers,
-            config.num_splits, config.num_squeeze, config.sigmoid_scale, g_channels)
+            config.num_splits, config.num_squeeze, config.sigmoid_scale, g_channels,
+            config.dropout_p_dec)
         if config.use_speaker_embedding and config.num_speakers > 1:
             self.emb_g = nn.Embedding(config.num_speakers, config.hidden_channels_enc)
 
@@ -139,6 +162,38 @@ class GlowTTSModule(nn.Module):
         y_log_scale = torch.einsum("bxy,bxd->byd", attn, o_log_scale)
         o_attn_dur = torch.log1p(torch.sum(attn, dim=-1))[:, :, None] * x_mask
         return y_mean, y_log_scale, o_attn_dur
+
+    @staticmethod
+    @torch.no_grad()
+    def _mas_logp(z, o_mean, o_log_scale):
+        """The log-likelihood of every frame of ``z`` under every token's
+        Gaussian, ``[B, T_en, T_de]``, without gradient (reference
+        ``glow_tts.py:237-243``): two products and two row terms."""
+        o_scale = torch.exp(-2.0 * o_log_scale)
+        logp1 = torch.sum(-0.5 * math.log(2 * math.pi) - o_log_scale, dim=-1)[:, :, None]
+        logp2 = torch.matmul(o_scale, (-0.5 * z**2).transpose(1, 2))
+        logp3 = torch.matmul(o_mean * o_scale, z.transpose(1, 2))
+        logp4 = torch.sum(-0.5 * (o_mean**2) * o_scale, dim=-1)[:, :, None]
+        return logp1 + logp2 + logp3 + logp4
+
+    def forward(self, x, x_lengths, y, y_lengths, aux_input=None) -> Dict[str, Any]:
+        """The training pass (reference ``glow_tts.py:192``): token ids ``[B,
+        T_en]`` and the mel ``y [B, T_de, C]`` → the flow's latents, its
+        log-determinant, the aligned prior and the durations."""
+        g = self._speaker_vec(aux_input)
+        o_mean, o_log_scale, o_dur_log, x_mask = self.enc(x, x_lengths, g=g)
+        y_max = (y.shape[1] // self.num_squeeze) * self.num_squeeze
+        y = y[:, :y_max]
+        y_lengths = (y_lengths // self.num_squeeze) * self.num_squeeze
+        y_mask = sequence_mask(y_lengths, y_max)[:, :, None].to(x_mask.dtype)
+        z, logdet, y_mask = self.dec(y * y_mask, y_mask, g=g, reverse=False)
+        attn_mask = x_mask * y_mask.transpose(1, 2)
+        attn = maximum_path(self._mas_logp(z, o_mean, o_log_scale), attn_mask)
+        y_mean, y_log_scale, o_attn_dur = self.compute_outputs(attn, o_mean, o_log_scale, x_mask)
+        return {"z": z, "logdet": logdet, "y_mean": y_mean, "y_log_scale": y_log_scale,
+                "alignments": attn.transpose(1, 2), "durations_log": o_dur_log,
+                "total_durations_log": o_attn_dur, "y_lengths": y_lengths, "y_mask": y_mask,
+                "x_mask": x_mask}
 
     def encode(self, x, x_lengths, aux_input=None, max_frames: int = 1000):
         """Encoder, durations and path: everything before the prior sample."""
@@ -183,6 +238,19 @@ class GlowTTSModule(nn.Module):
         }
 
 
+def glow_tts_loss(outputs: Dict[str, torch.Tensor], x_lengths,
+                  y_lengths) -> Dict[str, torch.Tensor]:
+    """The flow's negative log-likelihood a frame and channel plus the
+    duration MSE a token (reference ``losses.py:508``)."""
+    z, means, scales = outputs["z"], outputs["y_mean"], outputs["y_log_scale"]
+    pz = torch.sum(scales) + 0.5 * torch.sum(torch.exp(-2 * scales) * (z - means) ** 2)
+    log_mle = 0.5 * math.log(2 * math.pi) + (pz - torch.sum(outputs["logdet"])) / (
+        torch.sum(y_lengths) * z.shape[2])
+    loss_dur = torch.sum((outputs["durations_log"] - outputs["total_durations_log"]) ** 2
+                         ) / torch.sum(x_lengths)
+    return {"loss": log_mle + loss_dur, "log_mle": log_mle, "loss_dur": loss_dur}
+
+
 class GlowTTS:
     """Host wrapper: tokenizer, weights and noise around :class:`GlowTTSModule`."""
 
@@ -191,8 +259,9 @@ class GlowTTS:
 
     def __init__(self, config: GlowTTSConfig):
         self.config = config
-        self.module = GlowTTSModule(config, config.num_chars)
+        self.module = GlowTTSModule(config, config.num_chars).eval()  # dropouts: training alone
         self.tokenizer: Optional[TTSTokenizer] = None
+        self.initialized = False  # the trainer draws weights from config.seed until loaded
 
     @classmethod
     def init_from_config(cls, config: GlowTTSConfig) -> "GlowTTS":
@@ -214,7 +283,8 @@ class GlowTTS:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def init_params(self, seed: int = 0, device="cuda") -> "GlowTTS":
+    def init_params(self, seed: int = 0, device="cuda",
+                    discriminator: bool = False) -> "GlowTTS":
         """Random fp32 weights from ``seed``, drawn on the CPU (the same on
         every machine), then moved to ``device``. Norm scales are 1 and
         biases 0; linear and conv weights N(0, 1/fan_in); the token
@@ -224,7 +294,11 @@ class GlowTTS:
         coupling's ``end``, ``ActNorm``'s ``logs`` and ``bias``) are drawn
         at a tenth of those scales, so that the flows and WaveNets do work.
         The duration predictor's output is a tenth of its scale with bias
-        :data:`DURATION_BIAS`, so that a token lasts about 6 frames."""
+        :data:`DURATION_BIAS`, so that a token lasts about 6 frames.
+        ``discriminator`` is the trainer's call (weights to train; there is
+        no discriminator): the zero leaves then stay zero, as the JAX
+        trainer's ``init`` gives them, so that every flow starts as the
+        identity (F63)."""
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         module = self.module.to_empty(device="cpu")
@@ -245,7 +319,7 @@ class GlowTTS:
                 p.copy_(normal(p.shape, 0.1 / fan_in**0.5) if leaf == "weight"
                         else torch.full(p.shape, DURATION_BIAS))
             elif zero_init:
-                p.copy_(normal(p.shape, 0.1 / fan_in**0.5))
+                p.copy_(normal(p.shape, 0.1 / fan_in**0.5) * (not discriminator))
             elif leaf == "bias":
                 p.zero_()
             elif isinstance(owner, nn.Embedding):
@@ -255,12 +329,14 @@ class GlowTTS:
             else:
                 p.copy_(normal(p.shape, fan_in**-0.5))
         self.module.to(device).requires_grad_(False)
+        self.initialized = True
         return self
 
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
         """Take the tensors as they are (strict: no key missing or extra)."""
         self.module.load_state_dict(state, strict=True, assign=True)
         self.module.requires_grad_(False)
+        self.initialized = True
 
     def load_checkpoint(self, config: GlowTTSConfig, checkpoint_dir: Optional[str] = None,
                         checkpoint_path: Optional[str] = None, device="cuda") -> "GlowTTS":
@@ -302,3 +378,23 @@ class GlowTTS:
                                 generator=generator, device=self.device)
         return self.module.inference(x, x_lengths, aux_input=aux_input, max_frames=max_frames,
                                      noise=noise)
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator,
+                   train: bool = True):
+        """``(loss, metrics)`` of the training pass on ``batch``: the loss,
+        ``log_mle`` and ``loss_dur`` of :func:`glow_tts_loss` and the outputs
+        under ``"outputs"``. With ``train`` the dropouts draw from
+        ``generator``; without it the module runs in eval mode."""
+        module = self.module
+        module.train(train)
+        use_dropout_generator(module, generator if train else None)
+        try:
+            outputs = module(batch["text_input"], batch["text_lengths"], batch["mel_input"],
+                             batch["mel_lengths"],
+                             aux_input={"d_vectors": batch.get("d_vectors"),
+                                        "speaker_ids": batch.get("speaker_ids")})
+        finally:
+            use_dropout_generator(module, None)
+        losses = glow_tts_loss(outputs, batch["text_lengths"], outputs["y_lengths"])
+        return losses["loss"], {**losses, "outputs": outputs}

@@ -6,9 +6,9 @@ A model brings its own step through the ``make_train_step`` and
 ``make_eval_step`` hooks (VITS: the fused GAN step of
 ``models/vits/train.py``; the GAN vocoders: ``vocoder/models/gan.py``), or
 gives its loss through ``train_step`` and takes the trainer's generic
-single-optimizer step (WaveGrad, WaveRNN; port of the JAX trainer's
-``_build_generic_step`` and ``_build_eval_step``). What the JAX trainer
-does, the port does:
+single-optimizer step (WaveGrad, WaveRNN, GlowTTS, the ForwardTTS family,
+AlignTTS; port of the JAX trainer's ``_build_generic_step`` and
+``_build_eval_step``). What the JAX trainer does, the port does:
 
 - a model that holds no weights yet is drawn from ``config.seed`` through
   its ``init_params``;
@@ -17,7 +17,9 @@ does, the port does:
   config's balancer switches, built ahead by ``num_loader_workers``
   threads or processes; each batch goes from pinned host memory to the
   device without blocking;
-- the loop: epochs of steps with the ``on_epoch_start`` hook, the
+- the loop: epochs of steps with the model's ``on_epoch_start`` and
+  ``on_train_step_start`` hooks (AlignTTS's phase, F62; ForwardTTS's
+  binary-loss weight, F61), the
   metrics brought to the host only every ``print_step`` steps, a
   checkpoint every ``save_step`` steps, a KeyboardInterrupt saving
   ``checkpoint_<step>_interrupted.pth``;
@@ -30,12 +32,22 @@ does, the port does:
   ``--continue_path`` resumes the weights, the optimizer states (moments,
   the schedule's count, the accumulation buffer), the step, the best loss
   and the epochs done; ``--restore_path`` copies every tensor whose name
-  and shape match and keeps the fresh one elsewhere.
+  and shape match and keeps the fresh one elsewhere (a model with
+  ``port_state`` first maps a reference-layout checkpoint to its names:
+  ForwardTTS, the aligner included).
 
 Exact resume: a step's draws (noise, segments, dropout) come from one
 ``torch.Generator`` that the trainer reseeds before each step from
 ``(config.seed, step)``, as the JAX step draws from ``fold_in(rng,
-step)``, so a resumed run draws what an uninterrupted one would.
+step)``, and the hooks read only ``epochs_done`` and the step count, which
+the checkpoint restores, so a resumed run computes what an uninterrupted
+one would.
+
+F60: with ``compute_f0`` or ``compute_energy`` the training set's
+statistics of the voiced frames (``TTSDataset.feature_stats``, cached in
+``f0_cache_path`` / ``energy_cache_path``) normalise the pitch and energy
+of the training and the evaluation sets alike; ``feature_stats`` keeps
+them with the seconds their pass took.
 
 The generic step: one optimizer (``config.optimizer``, ``lr``,
 ``lr_scheduler``, ``grad_clip``, ``grad_accum_steps``,
@@ -52,7 +64,8 @@ The JAX trainer's mesh calls (``get_mesh``, ``replicate``,
 ``with_data_parallel``) and its ``rank`` and ``use_ddp`` arguments have no
 counterpart on one device; they wait for data parallelism (ROADMAP.md
 item 18). A model with neither ``make_train_step`` nor ``train_step``
-raises: the acoustic models' training is ROADMAP.md item 17d.
+raises: the autoregressive families' training is ROADMAP.md item 17d-ii,
+DelightfulTTS's item 17d-iii.
 """
 
 from __future__ import annotations
@@ -78,8 +91,9 @@ CHECKPOINT_EXT = ".pth"
 
 NO_STEP_REASON = (
     "the trainer runs models that bring their own step (make_train_step: VITS, the GAN "
-    "vocoders) or their loss (train_step: WaveGrad, WaveRNN); this model has neither, and the "
-    "acoustic models' training is ROADMAP.md item 17d")
+    "vocoders) or their loss (train_step: WaveGrad, WaveRNN, GlowTTS, ForwardTTS, AlignTTS); "
+    "this model has neither: the autoregressive families' training (Tacotron2, Tacotron v1, "
+    "Overflow, NeuralHMM) is ROADMAP.md item 17d-ii and DelightfulTTS's item 17d-iii")
 
 
 @dataclass
@@ -164,6 +178,7 @@ class Trainer:
         self.best_loss = float("inf")
         self.epochs_done = 0
         self.loader_time = 0.0  # seconds the last step waited on the loader
+        self.feature_stats: Dict[str, tuple] = {}  # F60: kind -> (mean, std, seconds)
         self.partial_restore: Optional[tuple] = None  # (copied, kept) of --restore_path
         self.last_test_audios: Dict[str, np.ndarray] = {}
         self.dashboard = logger_factory(config, output_path)
@@ -260,6 +275,8 @@ class Trainer:
             else:
                 return
         payload = load_checkpoint_full(ckpt)
+        if hasattr(self.model, "port_state"):  # a reference-layout checkpoint (FastPitch)
+            payload["model"] = self.model.port_state(payload["model"])
         meta = payload.get("meta", {})
         targets = {"model": self.model.module}
         disc = getattr(self.model, "discriminator", None)
@@ -345,9 +362,30 @@ class Trainer:
             # coarser boundaries give fewer distinct shapes
             pad_to_multiple_text=getattr(self.config, "pad_to_multiple_text", 16),
             pad_to_multiple_mel=getattr(self.config, "pad_to_multiple_mel", 32),
+            f0_cache_path=getattr(self.config, "f0_cache_path", None),
+            energy_cache_path=getattr(self.config, "energy_cache_path", None),
         )
         ds.preprocess_samples()
+        for kind, on, attr in (("f0", ds.compute_f0, "pitch_stats"),
+                               ("energy", ds.compute_energy, "energy_stats")):
+            if on:
+                setattr(ds, attr, self._feature_stats(kind, None if is_eval else ds)[:2])
         return ds
+
+    def _feature_stats(self, kind: str, train_ds=None) -> tuple:
+        """F60: ``(mean, std, seconds)`` of the training set's voiced
+        ``kind`` frames, taken once (from ``train_ds``, else from a dataset
+        of ``train_samples``) and kept for the evaluation set."""
+        if kind not in self.feature_stats:
+            if train_ds is None:  # the evaluation set came first: the training set's pass
+                self.get_dataset(self.train_samples)
+                return self.feature_stats[kind]
+            t0 = time.time()
+            mean, std = train_ds.feature_stats(kind)
+            self.feature_stats[kind] = (mean, std, time.time() - t0)
+            print(f" > {kind} statistics of the training set's voiced frames: mean {mean:.4f}, "
+                  f"std {std:.4f} ({self.feature_stats[kind][2]:.1f} s)", flush=True)
+        return self.feature_stats[kind]
 
     def _sample_weights(self, samples) -> Optional[np.ndarray]:
         """Weighted-sampler weights from the config switches (reference

@@ -27,9 +27,13 @@ cells, eight Denses each, are packed into torch's LSTM weights;
 and so does ``speaker_encoder_from_jax_params`` the LSTM speaker encoder's;
 ``forward_tts_from_jax_params`` packs flax's attention Denses
 (``query``/``key``/``value`` ``[C, H, dh]``, ``out`` ``[H, dh, C]``) into
-``in_proj_weight`` ``[3C, C]`` and ``out_proj``, and drops the
-training-only aligner, and ``align_tts_from_jax_params`` does the same for
-AlignTTS, dropping its MDN head; ``delightful_tts_from_jax_params`` carries
+``in_proj_weight`` ``[3C, C]`` and ``out_proj``, the aligner with the
+rest, and ``align_tts_from_jax_params`` does the same for AlignTTS, its
+MDN head included; ``glow_tts_train_state_from_jax_params``,
+``forward_tts_train_state_from_jax_params`` and
+``align_tts_train_state_from_jax_params`` carry a JAX train state
+(``{"model": params}``) into the group of the port's trainer checkpoints;
+``delightful_tts_from_jax_params`` carries
 DelightfulTTS's acoustic and joint vocoder trees without the training-only
 aligner and prosody encoders. ``parallel_wavegan_from_jax_params``,
 ``univnet_from_jax_params`` and ``wavegrad_from_jax_params`` are the generic
@@ -1575,23 +1579,47 @@ def _carry_attention(params: Mapping, drop: Tuple[str, ...] = ()) -> Dict[str, t
 def forward_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's ``ForwardTTSModule`` params (or those of one of its
     blocks) → the state_dict of the port's module: the generic rules, each
-    ``self_attn`` packed (:func:`_pack_attention`); the ``aligner``, which
-    only training runs, is dropped."""
-    return _carry_attention(params, drop=("aligner",))
+    ``self_attn`` packed (:func:`_pack_attention`), the ``aligner``'s
+    convolutions with the rest."""
+    return _carry_attention(params)
 
 
 def align_tts_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's ``AlignTTSModule`` params → the state_dict of the
     port's module, as :func:`forward_tts_from_jax_params` carries
-    ForwardTTS's; the MDN head (``mdn_conv1``, ``mdn_norm``, ``mdn_conv2``),
-    which only training runs, is dropped."""
-    return _carry_attention(params, drop=("mdn_conv1", "mdn_norm", "mdn_conv2"))
+    ForwardTTS's, the MDN head (``mdn_conv1``, ``mdn_norm``, ``mdn_conv2``)
+    included."""
+    return _carry_attention(params)
+
+
+def _train_state_model(params: Mapping) -> Mapping:
+    """The model's params of a JAX train state (``{"model": params}``, as
+    the JAX trainer's generic step keeps them) or the params themselves."""
+    return params["model"] if "model" in params else params
+
+
+def glow_tts_train_state_from_jax_params(params: Mapping) -> Dict[str, Dict]:
+    """A JAX GlowTTS train state → ``{"model": state_dict}``, the group of
+    the port's trainer checkpoints."""
+    return {"model": glow_tts_from_jax_params(_train_state_model(params))}
+
+
+def forward_tts_train_state_from_jax_params(params: Mapping) -> Dict[str, Dict]:
+    """A JAX ForwardTTS train state → ``{"model": state_dict}``, the group
+    of the port's trainer checkpoints."""
+    return {"model": forward_tts_from_jax_params(_train_state_model(params))}
+
+
+def align_tts_train_state_from_jax_params(params: Mapping) -> Dict[str, Dict]:
+    """A JAX AlignTTS train state → ``{"model": state_dict}``."""
+    return {"model": align_tts_from_jax_params(_train_state_model(params))}
 
 
 def load_reference_forward_tts(state: Mapping, args) -> Dict[str, torch.Tensor]:
     """A reference-layout ForwardTTS state dict (tensors or arrays) → the
     state_dict of ``ForwardTTSModule``; ``args`` is the model's
-    ``ForwardTTSArgs``. The aligner and the positional table are not kept.
+    ``ForwardTTSArgs``. The aligner is kept (``--restore_path`` fine-tunes
+    such a checkpoint), the positional table is not.
     FFTransformer encoders and decoders only: the JAX package maps no
     SpeedySpeech checkpoint (its conv blocks have LayerNorm where the
     reference's have BatchNorm), so neither does the port."""
@@ -1607,6 +1635,9 @@ _FORWARD_TTS_RULES = (
     (r"^decoder\.fft_(\d+)\.", r"decoder.decoder.transformer_block.fft_layers.\1."),
     (r"^proj\.", "decoder.decoder.postnet."),
     (r"^pos_encoder\.weight$", "pos_encoder.scale"),
+    (r"^aligner\.key_conv([12])\.", lambda m: f"aligner.key_layer.{2 * int(m.group(1)) - 2}."),
+    (r"^aligner\.query_conv([123])\.",
+     lambda m: f"aligner.query_layer.{2 * int(m.group(1)) - 2}."),
 )
 
 
